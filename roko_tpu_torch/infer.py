@@ -1,0 +1,270 @@
+"""Inference and consensus stitching: the port's main path.
+
+Counterpart of ``roko_tpu/infer.py`` (``VoteBoard`` :163,
+``run_inference`` :401, ``polish_to_fasta`` :599). Window batches run the
+model forward and an argmax on the device; the class ids come back to
+the host and vote per (contig, position, insertion slot); each contig is
+stitched from its votes:
+
+- positions sorted by (pos, ins);
+- leading insertion-slot predictions dropped;
+- majority class per slot, ties to the lowest class; GAP skipped;
+- draft prefix and suffix outside the voted span kept;
+- draft positions with no votes inside the span omitted.
+
+Eager PyTorch has no fixed-shape executables, so the JAX package's
+batch padding to a ladder of shapes is not needed here.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Iterable, List
+
+import numpy as np
+import torch
+
+from roko_tpu_torch import constants as C
+from roko_tpu_torch.data.hdf5 import Batch, iter_inference_windows, load_contigs
+from roko_tpu_torch.io.fasta import write_fasta
+from roko_tpu_torch.models.model import RokoModel
+
+_SLOTS = C.MAX_INS + 1  # ins 0..3
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises instead of falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA device was requested but torch.cuda.is_available() is "
+            "false; ask for the CPU explicitly (device='cpu', --device cpu)"
+        )
+    return dev
+
+
+class VoteBoard:
+    """Per-contig vote accumulator, on the host.
+
+    Below ``sparse_threshold`` draft bases a contig votes into a dense
+    ``uint16[len * 4 slots, 5]`` board. At or above it, the ins=0 slots
+    keep a dense ``uint16[len, 5]`` board and the rare insertion slots a
+    dict, about a quarter of the memory. Both give identical stitches.
+    Counts are uint16 and every scatter is checked so that a count can
+    never wrap."""
+
+    #: a slot at this count aborts the run (uint16 wraps at 65536)
+    SAT_LIMIT = 65_000
+    #: the most one scatter may add to one slot without risking a wrap
+    _WRAP_HEADROOM = 2**16 - SAT_LIMIT
+    #: wider flat-slot spans scatter with np.add.at instead of a bincount
+    _BINCOUNT_SPAN_CAP = 2_000_000
+
+    def __init__(self, contigs: Dict[str, str], sparse_threshold: int = 2**25):
+        self.contigs = contigs
+        self.sparse_threshold = sparse_threshold
+        self._votes: Dict[str, np.ndarray] = {}
+        self._ins: Dict[str, Dict[int, np.ndarray]] = {}
+
+    def _is_sparse(self, contig: str) -> bool:
+        return len(self.contigs[contig]) >= self.sparse_threshold
+
+    def _board(self, contig: str) -> np.ndarray:
+        b = self._votes.get(contig)
+        if b is None:
+            n = len(self.contigs[contig])
+            if self._is_sparse(contig):
+                b = np.zeros((n, C.NUM_CLASSES), np.uint16)
+                self._ins[contig] = {}
+            else:
+                b = np.zeros((n * _SLOTS, C.NUM_CLASSES), np.uint16)
+            self._votes[contig] = b
+        return b
+
+    def _check_increment(self, inc_max: int, contig: str) -> None:
+        if inc_max > self._WRAP_HEADROOM:
+            raise RuntimeError(
+                f"vote scatter on contig {contig!r} would add {inc_max} "
+                f"votes to one slot in a single call (> headroom "
+                f"{self._WRAP_HEADROOM}); the feed duplicates positions "
+                "within window rows — refusing to risk a uint16 wrap."
+            )
+
+    def _check_saturation(self, touched_max: int, contig: str) -> None:
+        if touched_max >= self.SAT_LIMIT:
+            raise RuntimeError(
+                f"vote board saturation on contig {contig!r}: a slot "
+                f"reached {touched_max} of {2**16 - 1} possible uint16 "
+                "votes. The window stride/overlap configuration packs "
+                "too many windows per draft base; widen --window-stride "
+                "or reduce region overlap."
+            )
+
+    def _scatter(self, board: np.ndarray, flat: np.ndarray,
+                 preds: np.ndarray, contig: str) -> None:
+        """``board[flat, preds] += 1`` with the wrap checks."""
+        lo, hi = int(flat.min()), int(flat.max()) + 1
+        if hi - lo > self._BINCOUNT_SPAN_CAP:
+            comb = flat.astype(np.int64) * C.NUM_CLASSES + preds
+            _, mult = np.unique(comb.ravel(), return_counts=True)
+            self._check_increment(int(mult.max()), contig)
+            np.add.at(board, (flat, preds), 1)
+            self._check_saturation(int(board[flat, preds].max()), contig)
+            return
+        comb = (flat.astype(np.int64) - lo) * C.NUM_CLASSES + preds
+        counts = np.bincount(
+            comb.ravel(), minlength=(hi - lo) * C.NUM_CLASSES
+        ).reshape(-1, C.NUM_CLASSES)
+        self._check_increment(int(counts.max()), contig)
+        region = board[lo:hi]
+        region += counts.astype(np.uint16)
+        self._check_saturation(int(region.max()), contig)
+
+    def add(
+        self, contigs: List[str], positions: np.ndarray, preds: np.ndarray
+    ) -> None:
+        """positions int64[B,90,2] (pos, ins); preds int[B,90]. Rows are
+        grouped by contig and scattered at most 512 at a time, so one
+        scatter adds at most 512 votes to a slot, inside the headroom."""
+        groups: Dict[str, List[int]] = {}
+        for i, name in enumerate(contigs):
+            groups.setdefault(name, []).append(i)
+        for name, rows in groups.items():
+            for chunk in range(0, len(rows), 512):
+                self._add_rows(name, positions, preds, rows[chunk : chunk + 512])
+
+    def _add_rows(self, name: str, positions: np.ndarray,
+                  preds: np.ndarray, rows: List[int]) -> None:
+        board = self._board(name)
+        idx = np.asarray(rows)
+        pos = positions[idx]
+        prd = np.asarray(preds)[idx]
+        if not self._is_sparse(name):
+            flat = pos[:, :, 0] * _SLOTS + pos[:, :, 1]
+            self._scatter(board, flat.ravel(), prd.ravel(), name)
+            return
+        ins_mask = pos[:, :, 1] != 0
+        base = ~ins_mask
+        if base.any():
+            self._scatter(board, pos[:, :, 0][base], prd[base], name)
+        flat = pos[:, :, 0][ins_mask] * _SLOTS + pos[:, :, 1][ins_mask]
+        if flat.size:
+            ins_map = self._ins[name]
+            comb = flat * C.NUM_CLASSES + prd[ins_mask]
+            uniq, cnt = np.unique(comb, return_counts=True)
+            for u, votes in zip(uniq.tolist(), cnt.tolist()):
+                slot, p = divmod(u, C.NUM_CLASSES)
+                counts = ins_map.get(slot)
+                if counts is None:
+                    counts = ins_map[slot] = np.zeros(C.NUM_CLASSES, np.uint16)
+                total = int(counts[p]) + votes
+                self._check_saturation(total, name)
+                counts[p] = total
+
+    def _covered_and_counts(self, contig: str):
+        """(covered flat slot ids sorted by (pos, ins), vote counts [n,5])."""
+        board = self._votes[contig]
+        if not self._is_sparse(contig):
+            covered = np.flatnonzero(board.sum(axis=1))
+            return covered, board[covered]
+        base_pos = np.flatnonzero(board.sum(axis=1))
+        base_slots = base_pos * _SLOTS
+        ins_map = self._ins[contig]
+        if not ins_map:
+            return base_slots, board[base_pos]
+        ins_slots = np.fromiter(ins_map.keys(), np.int64, len(ins_map))
+        ins_counts = np.stack([ins_map[s] for s in ins_slots.tolist()])
+        covered = np.concatenate([base_slots, ins_slots])
+        counts = np.concatenate([board[base_pos], ins_counts])
+        order = np.argsort(covered, kind="stable")
+        return covered[order], counts[order]
+
+    def stitch(self, contig: str) -> str:
+        """Consensus for one contig; the draft unchanged when it has no
+        votes, or only insertion-slot votes."""
+        draft = self.contigs[contig]
+        if contig not in self._votes:
+            return draft
+        covered, counts = self._covered_and_counts(contig)
+        is_base_slot = covered % _SLOTS == 0
+        if not is_base_slot.any():
+            return draft
+        start = int(np.argmax(is_base_slot))  # first (pos, ins=0) entry
+        covered, counts = covered[start:], counts[start:]
+        pos_of = covered // _SLOTS
+        bases = np.argmax(counts, axis=1)  # ties -> lowest class
+        keep = bases != C.ENCODED_GAP
+        alphabet = np.frombuffer(C.ALPHABET[: C.NUM_CLASSES].encode(), np.uint8)
+        body = alphabet[bases[keep]].tobytes().decode()
+        return draft[: int(pos_of[0])] + body + draft[int(pos_of[-1]) + 1 :]
+
+    def stitch_all(self) -> Dict[str, str]:
+        return {name: self.stitch(name) for name in self.contigs}
+
+
+def predict(model: RokoModel, x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Forward + argmax, enqueued on ``device``: uint8[B,200,90] ->
+    int32[B,90] class ids, still on the device."""
+    xt = torch.from_numpy(np.ascontiguousarray(x)).to(device, non_blocking=True)
+    with torch.inference_mode():
+        return model(xt).argmax(dim=-1).to(torch.int32)
+
+
+def run_inference(
+    batches: Iterable[Batch],
+    contigs: Dict[str, str],
+    model: RokoModel,
+    *,
+    device: str | torch.device = "cuda",
+    log: Callable[[str], None] = print,
+) -> Dict[str, str]:
+    """Predict every window of ``batches`` (``(names, positions, examples)``
+    tuples), vote, and stitch each contig: ``{contig: polished}``.
+
+    One-deep pipeline: batch k+1's forward is enqueued on the device
+    before the host blocks on batch k's class ids and votes them, so
+    voting overlaps the device's work."""
+    dev = resolve_device(device)
+    # the reference is float32; TF32 keeps about three digits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model.to(dev).eval()
+    board = VoteBoard(contigs)
+    n_windows = 0
+    t0 = time.perf_counter()
+    pending = None
+    for names, positions, x in batches:
+        preds = predict(model, x, dev)
+        if pending is not None:
+            board.add(pending[0], pending[1], pending[2].cpu().numpy())
+            n_windows += len(pending[0])
+        pending = (names, positions, preds)
+    if pending is not None:
+        board.add(pending[0], pending[1], pending[2].cpu().numpy())
+        n_windows += len(pending[0])
+    dt = max(time.perf_counter() - t0, 1e-9)
+    log(
+        f"inference: {n_windows} windows in {dt:.1f}s on {dev} "
+        f"({n_windows / dt:.0f} windows/s, "
+        f"{n_windows * C.WINDOW_STRIDE / dt:.0f} bases/s)"
+    )
+    return board.stitch_all()
+
+
+def polish_to_fasta(
+    data_path: str,
+    model: RokoModel,
+    out_path: str,
+    *,
+    device: str | torch.device = "cuda",
+    batch_size: int = 128,
+    log: Callable[[str], None] = print,
+) -> None:
+    """Polish every contig of a feature HDF5 and write the FASTA."""
+    contigs = load_contigs(data_path)
+    polished = run_inference(
+        iter_inference_windows(data_path, batch_size), contigs, model,
+        device=device, log=log,
+    )
+    write_fasta(out_path, list(polished.items()))

@@ -35,6 +35,11 @@ KERNELS = {
         "roko_gru_fwd",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     ),
+    "gru_bwd": (
+        "csrc/gru_bwd.cu",
+        "roko_gru_bwd",
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    ),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

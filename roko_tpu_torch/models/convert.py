@@ -4,8 +4,9 @@
 reverse: the JAX tree stores ``[in, out]`` dense kernels and ``[in, 3H]``
 GRU weights, the reference torch layout the transposes, with the same
 (r, z, n) gate order, so the bridge transposes and renames and nothing
-else. Reading an Orbax checkpoint directory needs JAX and is not part of
-the port.
+else; ``jax_from_state_dict`` is the way back, so tests can hold trained
+parameters and gradients against the JAX package's. Reading an Orbax
+checkpoint directory needs JAX and is not part of the port.
 """
 
 from __future__ import annotations
@@ -37,6 +38,34 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             sd[f"gru.bias_ih_l{k}{suffix}"] = _t(p["b_ih"])
             sd[f"gru.bias_hh_l{k}{suffix}"] = _t(p["b_hh"])
     return sd
+
+
+def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Reference-layout state_dict -> JAX param tree of float32 numpy
+    arrays, the inverse of :func:`state_dict_from_jax`."""
+
+    def a(name: str, transpose: bool = False) -> np.ndarray:
+        t = sd[name].detach().cpu().float()
+        return (t.t() if transpose else t).contiguous().numpy()
+
+    tree: Dict[str, Any] = {"embedding": a("embedding.weight")}
+    for name, key in (("fc1", "fc1"), ("fc2", "fc2"), ("fc4", "head")):
+        tree[key] = {"kernel": a(f"{name}.weight", True), "bias": a(f"{name}.bias")}
+    layers = []
+    k = 0
+    while f"gru.weight_ih_l{k}" in sd:
+        layers.append({
+            direction: {
+                "w_ih": a(f"gru.weight_ih_l{k}{suffix}", True),
+                "w_hh": a(f"gru.weight_hh_l{k}{suffix}", True),
+                "b_ih": a(f"gru.bias_ih_l{k}{suffix}"),
+                "b_hh": a(f"gru.bias_hh_l{k}{suffix}"),
+            }
+            for direction, suffix in (("fwd", ""), ("bwd", "_reverse"))
+        })
+        k += 1
+    tree["gru"] = tuple(layers)
+    return tree
 
 
 def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:

@@ -1,18 +1,22 @@
-"""Bidirectional GRU layers on the hand-written CUDA recurrence kernel.
+"""Bidirectional GRU layers on the hand-written CUDA recurrence kernels.
 
-Counterpart of the forward half of ``roko_tpu/models/pallas_gru.py``:
-``fused_bidir_layer`` and ``bidir_gru_stack`` here match its
-``fused_bidir_layer`` (:697) and ``bidir_gru_stack_pallas`` (:711), and
-``gru_recurrence`` stands where its forward Pallas kernels
-``_fwd_kernel_v3`` / ``_fwd_kernel`` stood (``csrc/gru_fwd.cu``).
+Counterpart of ``roko_tpu/models/pallas_gru.py``: ``fused_bidir_layer``
+and ``bidir_gru_stack`` here match its ``fused_bidir_layer`` (:697) and
+``bidir_gru_stack_pallas`` (:711), and :class:`GRURecurrence` stands where
+its ``custom_vjp`` ``_gru_multi`` (:417) stood. Its forward launches
+``csrc/gru_fwd.cu`` (for the Pallas ``_fwd_kernel_v3`` / ``_fwd_kernel``)
+and its backward ``csrc/gru_bwd.cu`` (for ``_bwd_kernel_v3`` /
+``_bwd_kernel``).
 
 The input projection ``x @ W_ih + b_ih`` for every step and both
-directions stays one plain matrix product outside the kernel, as
-``_xproj_stacked`` left it to XLA. The TPU's time-major stacked layout,
-batch padding and VMEM block choice are not carried over: the kernel
-takes the projection in its natural [B, T, S*3H] layout, walks the
-backward direction by index and writes [B, T, S*H], which is already the
-layer output ``fwd ++ bwd``.
+directions stays one plain matrix product outside the kernels, as
+``_xproj_stacked`` left it to XLA, so autograd derives ``dx``, ``dW_ih``
+and ``db_ih`` from the recurrence's ``dxp`` as ``_finish_bwd`` did. The
+TPU's time-major stacked layout, batch padding, VMEM block choice and
+boundary rows are not carried over: the kernels take the projection in
+its natural [B, T, S*3H] layout, walk the backward direction by index and
+read and write [B, T, S*H], which is already the layer output
+``fwd ++ bwd``.
 
 Parameters come in the JAX package's layout, so the tests hand both
 sides the same arrays: per direction ``w_ih`` [in, 3H], ``w_hh`` [H, 3H],
@@ -21,17 +25,23 @@ sides the same arrays: per direction ``w_ih`` [in, 3H], ``w_hh`` [H, 3H],
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from roko_tpu_torch import kernels
+from roko_tpu_torch.models.layers import dropout as _dropout
 
 Layer = Dict[str, Dict[str, torch.Tensor]]
 Recurrence = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
-#: the kernel's widest hidden size (MAX_THREADS in csrc/gru_fwd.cu)
+#: the kernels' widest hidden size (MAX_THREADS in csrc/gru_fwd.cu, gru_bwd.cu)
 MAX_HIDDEN = 512
+#: blocks the weight-gradient pass of gru_bwd aims for: two per SM of an H100
+_BWD_TARGET_BLOCKS = 2 * 132
+#: the weight-gradient pass's output tile (TK x TC in csrc/gru_bwd.cu)
+_BWD_TILE = 64
 
 
 def _shapes(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
@@ -46,6 +56,43 @@ def _shapes(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
         raise ValueError(f"xp must be [B, T, {S * H3}], got {tuple(xp.shape)}")
     B, T, _ = xp.shape
     return B, T, S, H
+
+
+def _check_cuda(name: str, H: int, **tensors: torch.Tensor) -> None:
+    """What the kernels take: float32, contiguous, on one CUDA device,
+    H a multiple of 4 and at most MAX_HIDDEN."""
+    device = next(iter(tensors.values())).device
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{arg} is on {t.device}, {name}'s first input on {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} takes float32; {arg} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors; {arg} is not")
+    if H % 4 or H > MAX_HIDDEN:
+        raise ValueError(
+            f"{name} takes a hidden size that is a multiple of 4 and at "
+            f"most {MAX_HIDDEN}; got {H}"
+        )
+
+
+def _device_kind(xp: torch.Tensor, name: str) -> str:
+    if xp.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {xp.device}")
+    return xp.device.type
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _prev_steps(T: int, S: int, step: int):
+    """Time index of each direction at reverse sweep ``step`` and the
+    index of its previous state (None at the sequence start)."""
+    ts = [T - 1 - step, step][:S]
+    prev = [t - 1 if t > 0 else None for t in ts[:1]]
+    prev += [t + 1 if t < T - 1 else None for t in ts[1:]]
+    return ts, prev
 
 
 def gru_recurrence_plain(
@@ -72,42 +119,157 @@ def gru_recurrence_plain(
     return out.reshape(B, T, S * H)
 
 
-def gru_recurrence(
-    xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
-) -> torch.Tensor:
-    """The recurrence of :func:`gru_recurrence_plain` in the CUDA kernel
-    ``gru_fwd`` for a CUDA tensor (launch or raise), the plain loop for a
-    CPU tensor. ``gru_recurrence.launches`` counts kernel launches."""
+def gru_recurrence_backward_plain(
+    xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+    out: torch.Tensor, dy: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of :func:`gru_recurrence_plain` as a reverse-time Python
+    loop with the formulas of ``pallas_gru.py::_bwd_kernel_v3`` (:252-285).
+    ``out`` is the forward's output and ``dy`` the gradient arriving at
+    it, both [B, T, S*H]. Each step recomputes the gates from the stored
+    previous state, then::
+
+        dh += dy;  dz = dh (h_prev - n) z (1 - z);  dn = dh (1 - z)(1 - n^2)
+        dr = dn hp_n r (1 - r)           (hp_n with its bias b_hn)
+        dxp = [dr, dz, dn];  dhp = [dr, dz, dn r]
+        dh <- dh z + dhp W_hh^T;  dW_hh += h_prev^T dhp;  db_hh += sum dhp
+
+    Returns dxp [B, T, S*3H], dW_hh [S, H, 3H] and db_hh [S, 3H]."""
     B, T, S, H = _shapes(xp, w_hh, b_hh)
-    if xp.device.type == "cpu":
-        return gru_recurrence_plain(xp, w_hh, b_hh)
-    if xp.device.type != "cuda":
-        raise ValueError(f"gru_recurrence runs on cuda or cpu, not {xp.device}")
-    for name, t in (("xp", xp), ("w_hh", w_hh), ("b_hh", b_hh)):
-        if t.device != xp.device:
-            raise ValueError(f"{name} is on {t.device}, xp on {xp.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"gru_fwd takes float32; {name} is {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"gru_fwd takes contiguous tensors; {name} is not")
-    if H % 4 or H > MAX_HIDDEN:
-        raise ValueError(
-            f"gru_fwd takes a hidden size that is a multiple of 4 and at "
-            f"most {MAX_HIDDEN}; got {H}"
+    x = xp.reshape(B, T, S, 3 * H)
+    hs = out.reshape(B, T, S, H)
+    g = dy.reshape(B, T, S, H)
+    dxp = xp.new_empty(B, T, S, 3 * H)
+    dw = w_hh.new_zeros(S, H, 3 * H)
+    db = b_hh.new_zeros(S, 3 * H)
+    dh = xp.new_zeros(S, B, H)
+    zero = xp.new_zeros(B, H)
+    for step in range(T):
+        ts, prev = _prev_steps(T, S, step)
+        xt = torch.stack([x[:, t, s] for s, t in enumerate(ts)])  # [S, B, 3H]
+        h_prev = torch.stack(
+            [zero if p is None else hs[:, p, s] for s, p in enumerate(prev)]
         )
+        hp = torch.bmm(h_prev, w_hh) + b_hh[:, None]
+        r = torch.sigmoid(xt[..., :H] + hp[..., :H])
+        z = torch.sigmoid(xt[..., H : 2 * H] + hp[..., H : 2 * H])
+        hpn = hp[..., 2 * H :]
+        n = torch.tanh(xt[..., 2 * H :] + r * hpn)
+        dh = dh + torch.stack([g[:, t, s] for s, t in enumerate(ts)])
+        dz = dh * (h_prev - n) * z * (1.0 - z)
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dr = dn * hpn * r * (1.0 - r)
+        dhp = torch.cat([dr, dz, dn * r], dim=-1)  # [S, B, 3H]
+        da = torch.cat([dr, dz, dn], dim=-1)
+        for s, t in enumerate(ts):
+            dxp[:, t, s] = da[s]
+        dh = dh * z + torch.bmm(dhp, w_hh.transpose(1, 2))
+        dw = dw + torch.bmm(h_prev.transpose(1, 2), dhp)
+        db = db + dhp.sum(dim=1)
+    return dxp.reshape(B, T, S * 3 * H), dw, db
+
+
+def _gru_fwd_kernel(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """Launch ``gru_fwd`` (or raise); counts on ``gru_recurrence.launches``."""
+    B, T, S, H = _shapes(xp, w_hh, b_hh)
+    _check_cuda("gru_fwd", H, xp=xp, w_hh=w_hh, b_hh=b_hh)
     out = torch.empty(B, T, S * H, device=xp.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return out
     lib = kernels.library("gru_fwd")
     with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
         code = lib.roko_gru_fwd(
             xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
-            B, T, H, S, stream,
+            B, T, H, S, _stream(xp),
         )
     kernels.check(lib, "gru_fwd", code)
     gru_recurrence.launches += 1
     return out
+
+
+def bwd_splits(B: int, T: int, H: int, S: int) -> int:
+    """Row splits of gru_bwd's weight-gradient pass: enough blocks to fill
+    the card, each split summing a fixed contiguous range of the B*T rows.
+    A function of the shapes only, so two runs sum in the same order."""
+    tiles = S * -(-H // _BWD_TILE) * -(-3 * H // _BWD_TILE)
+    rows = max(B * T, 1)
+    return max(1, min(-(-_BWD_TARGET_BLOCKS // tiles), -(-rows // 256)))
+
+
+def gru_recurrence_backward(
+    xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+    out: torch.Tensor, dy: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`gru_recurrence_backward_plain` in the CUDA
+    kernel ``gru_bwd`` for CUDA tensors (launch or raise), the plain loop
+    for CPU tensors. ``gru_recurrence_backward.launches`` counts kernel
+    launches."""
+    B, T, S, H = _shapes(xp, w_hh, b_hh)
+    if _device_kind(xp, "gru_recurrence_backward") == "cpu":
+        return gru_recurrence_backward_plain(xp, w_hh, b_hh, out, dy)
+    dy = dy.contiguous()  # slices and cats upstream hand it strided
+    _check_cuda("gru_bwd", H, xp=xp, w_hh=w_hh, b_hh=b_hh, out=out, dy=dy)
+    for name, t in (("out", out), ("dy", dy)):
+        if tuple(t.shape) != (B, T, S * H):
+            raise ValueError(f"{name} must be [{B}, {T}, {S * H}], got {tuple(t.shape)}")
+    f32 = dict(device=xp.device, dtype=torch.float32)
+    dxp = torch.empty_like(xp)
+    dw = torch.zeros(S, H, 3 * H, **f32)
+    db = torch.zeros(S, 3 * H, **f32)
+    if B == 0 or T == 0:
+        return dxp, dw, db
+    nsplit = bwd_splits(B, T, H, S)
+    w_t = w_hh.transpose(1, 2).contiguous()  # [S, 3H, H]: coalesced W^T rows
+    dhp = torch.empty_like(xp)
+    part_w = torch.empty(nsplit, S, H, 3 * H, **f32)
+    part_b = torch.empty(nsplit, S, 3 * H, **f32)
+    lib = kernels.library("gru_bwd")
+    with torch.cuda.device(xp.device):
+        code = lib.roko_gru_bwd(
+            xp.data_ptr(), out.data_ptr(), dy.data_ptr(), w_hh.data_ptr(),
+            w_t.data_ptr(), b_hh.data_ptr(), dxp.data_ptr(), dhp.data_ptr(),
+            part_w.data_ptr(), part_b.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            B, T, H, S, nsplit, _stream(xp),
+        )
+    kernels.check(lib, "gru_bwd", code)
+    gru_recurrence_backward.launches += 1
+    return dxp, dw, db
+
+
+gru_recurrence_backward.launches = 0
+
+
+class GRURecurrence(torch.autograd.Function):
+    """The recurrence with its gradient: forward ``gru_fwd`` and backward
+    ``gru_bwd`` on CUDA tensors, the plain loops on CPU tensors.
+    ``apply(xp, w_hh, b_hh) -> out``; the backward returns
+    ``(dxp, dW_hh, db_hh)``."""
+
+    @staticmethod
+    def forward(ctx, xp, w_hh, b_hh):
+        if _device_kind(xp, "gru_recurrence") == "cpu":
+            out = gru_recurrence_plain(xp, w_hh, b_hh)
+        else:
+            out = _gru_fwd_kernel(xp, w_hh, b_hh)
+        ctx.save_for_backward(xp, w_hh, b_hh, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        xp, w_hh, b_hh, out = ctx.saved_tensors
+        return gru_recurrence_backward(xp, w_hh, b_hh, out, dy)
+
+
+def gru_recurrence(
+    xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor
+) -> torch.Tensor:
+    """The recurrence of :func:`gru_recurrence_plain`, differentiable
+    through :class:`GRURecurrence`: the CUDA kernels for CUDA tensors
+    (launch or raise), the plain loops for CPU tensors.
+    ``gru_recurrence.launches`` counts forward kernel launches."""
+    _shapes(xp, w_hh, b_hh)
+    return GRURecurrence.apply(xp, w_hh, b_hh)
 
 
 gru_recurrence.launches = 0
@@ -132,9 +294,14 @@ def fused_bidir_layer(
 def bidir_gru_stack(
     layers: Sequence[Layer], x: torch.Tensor, *,
     recurrence: Recurrence = gru_recurrence,
+    dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Stacked bidirectional GRU in inference mode, [B, T, in] ->
-    [B, T, 2H]."""
-    for layer in layers:
+    """Stacked bidirectional GRU, [B, T, in] -> [B, T, 2H]. ``dropout``
+    (training only) applies to every layer's output but the last, the
+    ``torch.nn.GRU`` placement (``roko_tpu/models/gru.py:164-170``)."""
+    for i, layer in enumerate(layers):
         x = fused_bidir_layer(layer, x, recurrence=recurrence)
+        if i < len(layers) - 1:
+            x = _dropout(x, dropout, generator)
     return x

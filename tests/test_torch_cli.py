@@ -16,6 +16,7 @@ from roko_tpu.models.convert import load_torch_checkpoint
 from roko_tpu.sim import build_synthetic_project
 from roko_tpu_torch import cli
 from roko_tpu_torch.models.convert import state_dict_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # default front-end widths, so both CLIs reach it with
 # --hidden-size 16 --num-layers 2

@@ -1,6 +1,7 @@
-"""Tests that need a CUDA card: the ``gru_fwd`` kernel against its plain
-version, launch counting, input checks and the model on the card. They
-skip without a card; run them on one with
+"""Tests that need a CUDA card: the ``gru_fwd`` and ``gru_bwd`` kernels
+against their plain versions, launch counting, input checks, determinism,
+and the model's forward and gradients on the card. They skip without a
+card; run them on one with
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
@@ -13,6 +14,7 @@ import torch
 from roko_tpu_torch.config import ModelConfig
 from roko_tpu_torch.models import fused_gru as fg
 from roko_tpu_torch.models.model import RokoModel
+from roko_tpu_torch.training.loop import loss_and_stats
 
 pytestmark = pytest.mark.gpu
 
@@ -83,3 +85,80 @@ def test_model_on_card_matches_plain_and_cpu(cuda):
         plain = model(x.to(cuda), fg.gru_recurrence_plain)
     torch.testing.assert_close(got, plain, atol=ATOL, rtol=RTOL)
     torch.testing.assert_close(got.cpu(), cpu, atol=ATOL, rtol=RTOL)
+
+
+def _bwd_inputs(rng, B, T, H, S, device):
+    xp, w, b = _inputs(rng, B, T, H, S, device)
+    out = fg.gru_recurrence_plain(xp, w, b)
+    dy = torch.from_numpy(rng.standard_normal((B, T, S * H)).astype(np.float32)).to(device)
+    return xp, w, b, out, dy
+
+
+@pytest.mark.parametrize(
+    "B,T,H,S",
+    [(128, 90, 128, 2), (512, 90, 128, 2), (5, 90, 16, 2), (13, 7, 128, 1), (9, 33, 512, 2)],
+)
+def test_bwd_kernel_matches_plain(cuda, B, T, H, S):
+    args = _bwd_inputs(np.random.default_rng(B * 7 + H), B, T, H, S, cuda)
+    got = fg.gru_recurrence_backward(*args)
+    want = fg.gru_recurrence_backward_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dxp", "dw_hh", "db_hh"), got, want):
+        assert g.shape == w.shape, name
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=RTOL, msg=name)
+
+
+def test_bwd_kernel_is_deterministic(cuda):
+    args = _bwd_inputs(np.random.default_rng(4), 128, 90, 128, 2, cuda)
+    a = fg.gru_recurrence_backward(*args)
+    b = fg.gru_recurrence_backward(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_bwd_kernel_counts_launches_and_takes_strided_dy(cuda, monkeypatch):
+    monkeypatch.setattr(fg.gru_recurrence_backward, "launches", 0)
+    xp, w, b, out, dy = _bwd_inputs(np.random.default_rng(5), 6, 9, 8, 2, cuda)
+    strided = torch.cat([dy, dy], dim=-1)[..., : dy.shape[-1]]
+    assert not strided.is_contiguous()
+    got = fg.gru_recurrence_backward(xp, w, b, out, strided)
+    want = fg.gru_recurrence_backward(xp, w, b, out, dy)
+    assert fg.gru_recurrence_backward.launches == 2
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    xp, w, b, out, dy = _bwd_inputs(np.random.default_rng(6), 3, 5, 8, 2, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fg.gru_recurrence_backward(xp.double(), w.double(), b.double(), out.double(), dy.double())
+    with pytest.raises(ValueError, match="must be"):
+        fg.gru_recurrence_backward(xp, w, b, out[:, :4].contiguous(), dy)
+    with pytest.raises(ValueError, match="is on"):
+        fg.gru_recurrence_backward(xp, w, b, out.cpu(), dy)
+
+
+def test_model_gradients_on_card_match_plain(cuda, monkeypatch):
+    """F1: on the card every parameter gets a gradient through the
+    kernels, equal to the gradient through the plain recurrence."""
+    monkeypatch.setattr(fg.gru_recurrence_backward, "launches", 0)
+    cfg = ModelConfig(hidden_size=32, num_layers=2, dropout=0.0)
+    model = RokoModel(cfg).to(cuda).train()
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.integers(0, 12, (6, 200, 90), dtype=np.uint8)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 5, (6, 90)).astype(np.int32)).to(cuda)
+    w = torch.tensor([1, 1, 1, 1, 0, 0], dtype=torch.float32, device=cuda)
+
+    def grads(recurrence):
+        model.zero_grad(set_to_none=True)
+        loss, _, _ = loss_and_stats(model(x, recurrence), y, w)
+        loss.backward()
+        return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+    loss_k, got = grads(fg.gru_recurrence)
+    loss_p, want = grads(fg.gru_recurrence_plain)
+    assert fg.gru_recurrence_backward.launches == cfg.num_layers
+    torch.testing.assert_close(loss_k, loss_p, atol=ATOL, rtol=RTOL)
+    for name, g in got.items():
+        assert g is not None and bool(g.abs().sum() > 0), name
+        torch.testing.assert_close(g, want[name], atol=ATOL, rtol=RTOL, msg=name)

@@ -12,6 +12,7 @@ import torch
 import roko_tpu.models.pallas_gru as pg
 from roko_tpu.models import gru as jgru
 from roko_tpu_torch.models import fused_gru as fg
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = ATOL = 1e-5  # f32 on both sides; only the summation order differs
 

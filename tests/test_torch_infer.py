@@ -16,6 +16,7 @@ from roko_tpu_torch import constants as C
 from roko_tpu_torch.data.hdf5 import iter_inference_windows, load_contigs
 from roko_tpu_torch.infer import VoteBoard, resolve_device
 from roko_tpu_torch.io.fasta import read_fasta, write_fasta
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 A, Cc, G, T, GAP = range(5)
 BOARDS = {"dense": 10**9, "sparse": 0}

@@ -15,6 +15,7 @@ from roko_tpu_torch import constants as C
 from roko_tpu_torch.config import ModelConfig
 from roko_tpu_torch.models.convert import load_reference_pth, state_dict_from_jax
 from roko_tpu_torch.models.model import RokoModel
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TINY_GRU = JaxModelConfig(embed_dim=8, read_mlp=(8, 4), hidden_size=16, num_layers=2)
 CONFIGS = {"default": JaxModelConfig(), "tiny_gru": TINY_GRU}

@@ -1,8 +1,10 @@
 """Prints the CPU parity numbers of the PyTorch port against the JAX
 package as JSON: max |delta| per tensor for the GRU layer and stack cases
-of ``test_torch_gru.py``, for the logits of ``test_torch_model.py``, and
+of ``test_torch_gru.py``, for the logits of ``test_torch_model.py``,
 whether the polished FASTA of ``test_torch_cli.py``'s flow is
-byte-identical. Run from the repo root:
+byte-identical, the layer gradients of ``test_torch_gru_bwd.py``, the
+full-model train step and Adam step of ``test_torch_train.py``, and the
+short run of ``test_torch_train_loop.py``. Run from the repo root:
 
     JAX_PLATFORMS=cpu python -m tests.torch_parity_report
 """
@@ -25,7 +27,14 @@ import torch  # noqa: E402
 import roko_tpu.models.pallas_gru as pg  # noqa: E402
 from roko_tpu.models import gru as jgru  # noqa: E402
 from roko_tpu_torch.models import fused_gru as fg  # noqa: E402
-from tests import test_torch_cli, test_torch_gru, test_torch_model  # noqa: E402
+from tests import (  # noqa: E402
+    test_torch_cli,
+    test_torch_gru,
+    test_torch_gru_bwd,
+    test_torch_model,
+    test_torch_train,
+    test_torch_train_loop,
+)
 
 
 def _gru_rows():
@@ -76,8 +85,59 @@ def _fasta_row():
         return {"windows": project["windows"], "fasta_bytes": len(a), "byte_identical": a == b}
 
 
+def _grad_rows():
+    """Layer gradients against jax.grad through the Pallas backward."""
+    rows = {}
+    for case, (B, in_size, H, patch) in test_torch_gru_bwd.CASES.items():
+        with pytest.MonkeyPatch.context() as mp:
+            test_torch_gru_bwd._patch(mp, patch)
+            rng = np.random.default_rng(20)
+            layer = test_torch_gru_bwd._layer(rng, in_size, H)
+            x = rng.standard_normal((B, 90, in_size)).astype(np.float32)
+            g = rng.standard_normal((B, 90, 2 * H)).astype(np.float32)
+            want_layer, want_x = jax.grad(
+                lambda lyr, xx: (pg.fused_bidir_layer(lyr, xx, interpret=True) * g).sum(),
+                argnums=(0, 1))(jax.tree.map(jnp.asarray, layer), jnp.asarray(x))
+        got_layer, got_x = test_torch_gru_bwd._port_grads(layer, x, g)
+        row = {f"{d}.{k}": float(np.abs(got_layer[d][k] - np.asarray(want_layer[d][k])).max())
+               for d in got_layer for k in got_layer[d]}
+        row["x"] = float(np.abs(got_x - np.asarray(want_x)).max())
+        rows[case] = row
+    return rows
+
+
+def _step_rows():
+    """Full-model train step (dropout 0) and one Adam step."""
+    import dataclasses
+
+    rows = {}
+    for name, cfg, n, n_real in (
+        ("tiny_gru", test_torch_train.TINY_GRU, 6, 4),
+        ("default", dataclasses.replace(test_torch_train.JaxModelConfig(), dropout=0.0), 3, 2),
+    ):
+        r = test_torch_train.step_against_reference(cfg, n, n_real)
+        row = {"loss": abs(r["loss"][0] - r["loss"][1]),
+               "counts_equal": r["counts"][0] == r["counts"][1],
+               "grads": {p: float(np.abs(a - b).max()) for p, (a, b) in r["grads"].items()}}
+        got, want = test_torch_train.adam_step_against_reference(r["params"], r["jgrads"],
+                                                                 r["model"])
+        row["adam_params_max_abs"] = max(float(np.abs(a - b).max())
+                                         for (_, a), (_, b) in zip(got, want))
+        rows[name] = row
+    return rows
+
+
+def _short_run_row():
+    with tempfile.TemporaryDirectory() as d:
+        history, want = test_torch_train_loop.short_run_against_reference(Path(d))
+    return {"port_val_acc": [h["val_acc"] for h in history], "jax_val_acc": want,
+            "port_train_loss": [h["train_loss"] for h in history]}
+
+
 def main():
     print(json.dumps({"gru": _gru_rows(), "model": _logit_rows(), "cli": _fasta_row(),
+                      "gru_grads": _grad_rows(), "train_step": _step_rows(),
+                      "short_run": _short_run_row(),
                       "torch": torch.__version__, "jax": jax.__version__}, indent=1))
 
 

@@ -6,7 +6,8 @@
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
 nvcc per source, started together), holds each kernel against its plain
 PyTorch version at the shapes its path gives it and times both, then
-drives the port's two main paths with the default model at full width:
+drives the port's main paths with the default model at full width, once
+for ``kind="gru"`` and once for ``kind="lingru"``:
 
 - inference: polishes a synthetic contig through
   ``roko_tpu_torch.infer.run_inference`` (random weights from a numpy
@@ -16,11 +17,12 @@ drives the port's two main paths with the default model at full width:
   over an in-memory labelled corpus with a held-out val set and the guard
   on, its checkpoints verified, and the best one polishing the contig.
 
-Each path runs with the launch counts set to 0 just before it and read
-just after, and fails unless every kernel of the path launched. Prints
-JSON lines; the last line is ``{"ok": true, "device": {...}}``. Any failed
-phase exits non-zero without that line. Needs one CUDA card, nvcc and
-nvidia-smi; imports nothing of JAX.
+Each path runs with every launch count set to 0 just before it and read
+just after, and fails unless each kernel of the path launched as often as
+the path should launch it, and no other kernel did. Prints JSON lines;
+the last line is ``{"ok": true, "device": {...}}``. Any failed phase exits
+non-zero without that line. Needs one CUDA card, nvcc and nvidia-smi;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -68,6 +71,25 @@ TRAINED_POLISH_BATCHES = 4
 # gradient's own size; the gate is relative to its largest entry
 STEP_RTOL = 1e-4
 STEP_ATOL_OF_MAX = 1e-4
+# lingru kernel check shapes (B, T, H): lingru_fwd timed at the inference
+# batch, lingru_bwd at the train batch, then the other batch and ragged ones
+LIN_INFER_SHAPE = dict(B=512, T=90, H=128)
+LIN_TRAIN_SHAPE = dict(B=128, T=90, H=128)
+LIN_EXTRA_SHAPES = (
+    dict(B=5, T=90, H=16),
+    dict(B=11, T=40, H=12),
+    dict(B=1, T=1, H=4),
+    dict(B=9, T=33, H=512),
+)
+# operations per (row, step, direction, channel), f32, as the kernels do
+# them: sigmoid 4 (negate, exp, add, divide), tanh 1, the update 3; the
+# backward adds g, da, dz, dc, both gate derivatives and e
+LIN_FWD_OPS = 8
+LIN_BWD_OPS = 20
+LIN_NO_LIBRARY = "no single PyTorch call computes a gated affine scan"
+# device-time kinds of the port's kernels, by name; "lingru_fwd" holds
+# "gru_fwd", so the lingru names come first
+KERNEL_KINDS = ("lingru_fwd", "lingru_bwd", "gru_fwd", "gru_bwd")
 
 
 def emit(obj) -> None:
@@ -119,22 +141,34 @@ def jax_layout_gru_layer(rng, in_size: int, hidden: int):
     }
 
 
+def jax_layout_lingru_layer(rng, in_size: int, hidden: int):
+    b = 1.0 / math.sqrt(in_size)
+    return {
+        d: {
+            "w_zx": uniform(rng, b, (in_size, hidden)),
+            "w_cx": uniform(rng, b, (in_size, hidden)),
+            "b_z": rng.standard_normal(hidden).astype(np.float32),
+            "b_c": rng.standard_normal(hidden).astype(np.float32),
+        }
+        for d in ("fwd", "bwd")
+    }
+
+
 def jax_layout_params(rng, cfg):
-    """Random params in the JAX package's tree layout."""
+    """Random params of ``cfg.kind`` in the JAX package's tree layout."""
 
     def dense(i, o):
         b = 1.0 / math.sqrt(i)
         return {"kernel": uniform(rng, b, (i, o)), "bias": uniform(rng, b, (o,))}
 
+    layer = jax_layout_gru_layer if cfg.kind == "gru" else jax_layout_lingru_layer
     return {
         "embedding": rng.standard_normal((cfg.embed_vocab, cfg.embed_dim)).astype(np.float32),
         "fc1": dense(cfg.window_rows, cfg.read_mlp[0]),
         "fc2": dense(cfg.read_mlp[0], cfg.read_mlp[1]),
         "head": dense(2 * cfg.hidden_size, cfg.num_classes),
-        "gru": tuple(
-            jax_layout_gru_layer(
-                rng, cfg.gru_in_size if k == 0 else 2 * cfg.hidden_size, cfg.hidden_size
-            )
+        cfg.kind: tuple(
+            layer(rng, cfg.gru_in_size if k == 0 else 2 * cfg.hidden_size, cfg.hidden_size)
             for k in range(cfg.num_layers)
         ),
     }
@@ -274,6 +308,56 @@ def check_bwd_kernel(torch, fg, shape, dev, rng, *, timed: bool):
     return row
 
 
+def check_lingru_fwd(torch, fl, shape, dev, rng, *, timed: bool):
+    """lingru_fwd vs lingru_scan_plain at ``shape`` on the card; with
+    ``timed``, also the kernel's and the plain loop's times."""
+    B, T, H = (shape[k] for k in ("B", "T", "H"))
+    p = torch.from_numpy(rng.standard_normal((B, T, 4 * H), dtype=np.float32)).to(dev)
+    got = fl.lingru_scan(p)
+    want = fl.lingru_scan_plain(p)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
+        fail(f"lingru_fwd disagrees with the plain loop at {shape}: max |d| {err}")
+    row = {"shape": shape, "max_abs_err": err}
+    if not timed:
+        return row
+    row["ms"] = cuda_ms(torch, lambda: fl.lingru_scan(p), iters=50)
+    row["plain_ms"] = cuda_ms(torch, lambda: fl.lingru_scan_plain(p), iters=3, warmup=1)
+    row["library_ms"], row["library_note"] = None, LIN_NO_LIBRARY
+    row.update(bound(torch, LIN_FWD_OPS * B * T * 2 * H, 4.0 * (p.numel() + got.numel())))
+    return row
+
+
+def check_lingru_bwd(torch, fl, shape, dev, rng, *, timed: bool):
+    """lingru_bwd vs lingru_scan_backward_plain at ``shape`` on the card,
+    and two launches bitwise equal; with ``timed``, also the kernel's and
+    the plain loop's times."""
+    B, T, H = (shape[k] for k in ("B", "T", "H"))
+    p = torch.from_numpy(rng.standard_normal((B, T, 4 * H), dtype=np.float32)).to(dev)
+    h = fl.lingru_scan_plain(p)
+    dy = torch.from_numpy(rng.standard_normal((B, T, 2 * H), dtype=np.float32)).to(dev)
+    got = fl.lingru_scan_backward(p, h, dy)
+    want = fl.lingru_scan_backward_plain(p, h, dy)
+    again = fl.lingru_scan_backward(p, h, dy)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
+        fail(f"lingru_bwd disagrees with the plain loop at {shape}: max |d| {err}")
+    if not torch.equal(got, again):
+        fail(f"lingru_bwd differs between two launches at {shape}")
+    row = {"shape": shape, "max_abs_err": err, "bitwise_repeatable": True}
+    if not timed:
+        return row
+    row["ms"] = cuda_ms(torch, lambda: fl.lingru_scan_backward(p, h, dy), iters=50)
+    row["plain_ms"] = cuda_ms(
+        torch, lambda: fl.lingru_scan_backward_plain(p, h, dy), iters=3, warmup=1)
+    row["library_ms"], row["library_note"] = None, LIN_NO_LIBRARY
+    nbytes = 4.0 * (p.numel() + h.numel() + dy.numel() + got.numel())
+    row.update(bound(torch, LIN_BWD_OPS * B * T * 2 * H, nbytes))
+    return row
+
+
 def device_breakdown(torch, run):
     """Run ``run()`` under torch.profiler and sum the card's kernel time by
     kernel name and by kind; the busy share is the union of kernel
@@ -300,9 +384,10 @@ def device_breakdown(torch, run):
             total, n = by_name.get(key, (0.0, 0))
             by_name[key] = (total + ms, n + 1)
             low = e.name.lower()
-            kind = ("gru_fwd" if "gru_fwd" in low else "gru_bwd" if "gru_bwd" in low
-                    else "gemm" if "gemm" in low
-                    else "memcpy" if low.startswith("memcpy") else "other")
+            kind = next((k for k in KERNEL_KINDS if k in low), None)
+            if kind is None:
+                kind = ("gemm" if "gemm" in low
+                        else "memcpy" if low.startswith("memcpy") else "other")
             total, n = by_kind.get(kind, (0.0, 0))
             by_kind[kind] = (total + ms, n + 1)
     if not spans:
@@ -326,24 +411,25 @@ def device_breakdown(torch, run):
     }
 
 
-def step_parity(torch, dev, ds, fg, RokoModel, ModelConfig, loop):
-    """One full-width train step (dropout off) through the kernels and
-    through the plain recurrence: loss and every gradient."""
-    model = RokoModel(ModelConfig(dropout=0.0), torch.Generator().manual_seed(SEED))
+def step_parity(torch, port, dev, ds, cfg, kernel, plain):
+    """One full-width train step of ``cfg`` (dropout off) through the
+    kernels (``kernel``) and through the plain recurrence (``plain``):
+    loss and every gradient."""
+    model = port.RokoModel(cfg, torch.Generator().manual_seed(SEED))
     model.to(dev).train()
     batch = next(ds.batches(TRAIN_BATCH, rng=np.random.default_rng(SEED)))
-    x, y, w = loop.to_device(batch, dev)
+    x, y, w = port.loop.to_device(batch, dev)
 
     def grads(recurrence):
         model.zero_grad(set_to_none=True)
-        loss, _, _ = loop.loss_and_stats(model(x, recurrence), y, w)
+        loss, _, _ = port.loop.loss_and_stats(model(x, recurrence), y, w)
         loss.backward()
         return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
 
-    loss_k, got = grads(fg.gru_recurrence)
-    loss_p, want = grads(fg.gru_recurrence_plain)
+    loss_k, got = grads(kernel)
+    loss_p, want = grads(plain)
     if not math.isfinite(loss_k) or abs(loss_k - loss_p) > STEP_RTOL * abs(loss_p) + 1e-6:
-        fail(f"train step loss: kernels {loss_k}, plain recurrence {loss_p}")
+        fail(f"{cfg.kind} train step loss: kernels {loss_k}, plain recurrence {loss_p}")
     worst = {}
     for name, g in got.items():
         ref = want[name]
@@ -351,12 +437,198 @@ def step_parity(torch, dev, ds, fg, RokoModel, ModelConfig, loop):
         d = (g - ref).abs().max().item()
         worst[name] = [d, scale]
         if not torch.allclose(g, ref, rtol=STEP_RTOL, atol=STEP_ATOL_OF_MAX * scale):
-            fail(f"train step gradient {name}: max |d| {d} against max |g| {scale}")
+            fail(f"{cfg.kind} train step gradient {name}: max |d| {d} against max |g| {scale}")
     top = max(worst, key=lambda n: worst[n][0] / max(worst[n][1], 1e-30))
     return {"loss_kernels": loss_k, "loss_plain": loss_p, "params": len(got),
             "worst_relative": {"param": top, "max_abs_err": worst[top][0],
                                "max_abs_grad": worst[top][1]},
-            "max_abs_err": max(v[0] for v in worst.values())}
+            "max_abs_err": max(v[0] for v in worst.values()),
+            "rtol": STEP_RTOL, "atol_of_max_grad": STEP_ATOL_OF_MAX, "batch": TRAIN_BATCH}
+
+
+class Counts:
+    """The launch counts of the port's kernels, by kernel name."""
+
+    def __init__(self, fg, fl):
+        self.wrappers = {"gru_fwd": fg.gru_recurrence, "gru_bwd": fg.gru_recurrence_backward,
+                         "lingru_fwd": fl.lingru_scan, "lingru_bwd": fl.lingru_scan_backward}
+
+    def zero(self) -> None:
+        for wrapper in self.wrappers.values():
+            wrapper.launches = 0
+
+    def expect(self, what: str, want: dict) -> dict:
+        """The counts; fails unless they are ``want``, and 0 for every
+        kernel ``want`` does not name."""
+        got = {name: w.launches for name, w in self.wrappers.items()}
+        want = {name: want.get(name, 0) for name in got}
+        if got != want:
+            fail(f"{what}: kernel launches {got}, expected {want}")
+        return got
+
+
+def drive_inference(torch, port, model, plain, batches, contig, draft, dev, counts, fwd):
+    """Polish the synthetic contig with ``model`` through ``run_inference``,
+    counted: ``fwd`` launches once per layer and batch, no other kernel
+    does. Then the same batches' logits through the kernels against the
+    plain recurrence ``plain``, and the stitch against both."""
+    cfg = model.cfg
+    port.predict(model, batches[0][2], dev)  # warm-up: library handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    logs = []
+    counts.zero()
+    t0 = time.perf_counter()
+    polished = port.run_inference(iter(batches), {contig: draft}, model, device=dev,
+                                  log=logs.append)
+    seconds = time.perf_counter() - t0
+    launches = counts.expect(f"the {cfg.kind} inference path",
+                             {fwd: cfg.num_layers * len(batches)})
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    # the same batches through the plain recurrence on the card
+    kernel_board = port.VoteBoard({contig: draft})
+    plain_board = port.VoteBoard({contig: draft})
+    logit_err, near_ties, mismatches = 0.0, 0, 0
+    with torch.inference_mode():
+        for names, pos, x in batches:
+            xt = torch.from_numpy(x).to(dev)
+            lk = model(xt)
+            lp = model(xt, plain)
+            if lk.shape != (len(x), cfg.window_cols, cfg.num_classes):
+                fail(f"logits shape {tuple(lk.shape)}")
+            if not bool(torch.isfinite(lk).all()):
+                fail(f"non-finite logits on the {cfg.kind} inference path")
+            logit_err = max(logit_err, (lk - lp).abs().max().item())
+            if not torch.allclose(lk, lp, atol=ATOL, rtol=RTOL):
+                fail(f"{cfg.kind} logits of kernel and plain recurrence differ: "
+                     f"max |d| {logit_err}")
+            top2 = lp.topk(2, dim=-1).values
+            close = (top2[..., 0] - top2[..., 1]) < ATOL
+            differ = lk.argmax(-1) != lp.argmax(-1)
+            near_ties += int(close.sum())
+            mismatches += int((differ & ~close).sum())
+            kernel_board.add(names, pos, lk.argmax(-1).cpu().numpy())
+            plain_board.add(names, pos, lp.argmax(-1).cpu().numpy())
+    if mismatches:
+        fail(f"{cfg.kind}: {mismatches} argmax differences away from near-ties")
+    if kernel_board.stitch(contig) != polished[contig]:
+        fail(f"{cfg.kind}: run_inference's stitch differs from the kernel logits' stitch")
+    plain_same = plain_board.stitch(contig) == polished[contig]
+    if not plain_same and near_ties == 0:
+        fail(f"{cfg.kind}: the plain recurrence's stitch differs with no near-ties")
+    if not polished[contig] or set(polished[contig]) - set("ACGT"):
+        fail(f"{cfg.kind}: the polished contig is empty or holds letters other than ACGT")
+
+    n_windows = sum(len(b[0]) for b in batches)
+    return {
+        "config": f"ModelConfig(kind={cfg.kind!r}) ({cfg.num_layers} layers, hidden "
+                  f"{cfg.hidden_size}, full width)",
+        "batches": len(batches), "batch_size": len(batches[0][0]), "windows": n_windows,
+        "draft_len": len(draft), "polished_len": len(polished[contig]),
+        "seconds": seconds, "windows_per_s": n_windows / seconds,
+        "bases_per_s": n_windows * port.C.WINDOW_STRIDE / seconds,
+        f"{fwd}_launches": launches[fwd], "peak_device_bytes": peak_bytes,
+        "logits_max_abs_err_vs_plain": logit_err, "near_ties": near_ties,
+        "plain_stitch_identical": plain_same, "log": logs,
+    }
+
+
+def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, fwd, bwd,
+                out_name):
+    """``loop.train`` of ``cfg`` on the in-memory corpus, counted (``bwd``
+    once per layer and step, ``fwd`` once per layer and step or eval
+    batch), its checkpoints verified under ``build/out_name``, and the best
+    one polishing the synthetic contig through ``fwd``. Returns the
+    record, the result and the train config."""
+    out_dir = os.path.join(ROOT, "build", out_name)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    tcfg = port.TrainConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, seed=SEED,
+                            val_fraction=TRAIN_VAL_FRACTION)
+    train_logs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.zero()
+    t0 = time.perf_counter()
+    result = port.loop.train(corpus, out_dir, model_cfg=cfg, train_cfg=tcfg, device=dev,
+                             resume=False, log=train_logs.append)
+    train_seconds = time.perf_counter() - t0
+    n_val = round(TRAIN_VAL_FRACTION * TRAIN_WINDOWS)
+    eval_batches = -(-n_val // TRAIN_BATCH)
+    launches = counts.expect(
+        f"{cfg.kind} training ({cfg.num_layers} layers, {result.step} steps, "
+        f"{TRAIN_EPOCHS} x {eval_batches} eval batches)",
+        {fwd: cfg.num_layers * (result.step + TRAIN_EPOCHS * eval_batches),
+         bwd: cfg.num_layers * result.step})
+    train_peak = torch.cuda.max_memory_allocated()
+    if len(result.history) != TRAIN_EPOCHS:
+        fail(f"{cfg.kind} train ran {len(result.history)} epochs, expected {TRAIN_EPOCHS}")
+    losses = [h["train_loss"] for h in result.history]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"{cfg.kind} train losses not finite and falling: {losses}")
+    manifests = {}
+    for ckpt in sorted(os.listdir(out_dir)):
+        status, detail = port.verify_manifest(os.path.join(out_dir, ckpt))
+        manifests[ckpt] = status
+        if status != "ok":
+            fail(f"checkpoint {ckpt} fails verification: {detail}")
+    if "latest" not in manifests or len(manifests) < 2:
+        fail(f"expected latest and numbered checkpoints, found {sorted(manifests)}")
+    train_secs = sum(h["seconds"] for h in result.history)
+
+    # the best checkpoint polishes the synthetic contig; a model trained on
+    # random labels may vote GAP everywhere, so the polish may be empty,
+    # but it must be the stitch of that model's own votes
+    trained = port.RokoModel(cfg)
+    trained.load_state_dict(port.load_params(out_dir), strict=True)
+    polish_batches = batches[:TRAINED_POLISH_BATCHES]
+    counts.zero()
+    polished_t = port.run_inference(iter(polish_batches), {contig: draft},
+                                    trained, device=dev, log=lambda s: None)[contig]
+    counts.expect(f"polishing with the trained {cfg.kind} checkpoint",
+                  {fwd: cfg.num_layers * len(polish_batches)})
+    board = port.VoteBoard({contig: draft})
+    for names, pos, x in polish_batches:
+        board.add(names, pos, port.predict(trained, x, dev).cpu().numpy())
+    if set(polished_t) - set("ACGT") or polished_t != board.stitch(contig):
+        fail(f"the trained {cfg.kind} checkpoint's polish holds letters other than ACGT "
+             "or is not the stitch of its votes")
+    record = {
+        "config": f"ModelConfig(kind={cfg.kind!r}) ({cfg.num_layers} layers, hidden "
+                  f"{cfg.hidden_size}, dropout {cfg.dropout}, full width)",
+        "windows": TRAIN_WINDOWS, "val_fraction": TRAIN_VAL_FRACTION, "batch": TRAIN_BATCH,
+        "epochs": TRAIN_EPOCHS, "steps": result.step, "seconds": train_seconds,
+        "train_loop_seconds": train_secs, "steps_per_s": result.step / train_secs,
+        "windows_per_s": result.step * TRAIN_BATCH / train_secs,
+        "history": result.history, "guard": result.guard_counters,
+        f"{fwd}_launches": launches[fwd], f"{bwd}_launches": launches[bwd],
+        "eval_batches_per_epoch": eval_batches, "peak_device_bytes": train_peak,
+        "checkpoints": manifests, "trained_polish_len": len(polished_t),
+        "log": train_logs,
+    }
+    return record, result, tcfg
+
+
+def train_breakdown(torch, port, result, corpus, tcfg, dev):
+    """Where the device time of train steps goes (traced, not counted):
+    five steps of the trained model after one warm-up step."""
+    loop = port.loop
+    step_model = result.model.train()
+    optimizer = loop.make_optimizer(step_model, tcfg.lr)
+    step_batches = [loop.to_device(b, dev) for _, b in zip(
+        range(6), corpus.batches(TRAIN_BATCH, rng=np.random.default_rng(1)))]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def train_steps(bs):
+        for x, y, w in bs:
+            loss, finite = loop.grad_step(step_model, x, y, w, gen)
+            if bool(finite):
+                optimizer.step()
+
+    train_steps(step_batches[:1])  # warm-up
+    return {**device_breakdown(torch, lambda: train_steps(step_batches[1:])),
+            "steps": len(step_batches) - 1}
 
 
 def main() -> None:
@@ -368,17 +640,23 @@ def main() -> None:
     try:
         from roko_tpu_torch import constants as C
         from roko_tpu_torch import kernels
-        from roko_tpu_torch.config import ModelConfig
+        from roko_tpu_torch.config import ModelConfig, TrainConfig
         from roko_tpu_torch.infer import VoteBoard, predict, run_inference
         from roko_tpu_torch.models import fused_gru as fg
+        from roko_tpu_torch.models import fused_lingru as fl
         from roko_tpu_torch.models.convert import state_dict_from_jax
         from roko_tpu_torch.models.model import RokoModel
-        from roko_tpu_torch.config import TrainConfig
         from roko_tpu_torch.training import loop
         from roko_tpu_torch.training.checkpoint import load_params, verify_manifest
         from roko_tpu_torch.training.data import InMemoryDataset
     except ImportError as e:
         fail(f"the port package roko_tpu_torch is not importable beside this script: {e}")
+    port = types.SimpleNamespace(
+        C=C, TrainConfig=TrainConfig, VoteBoard=VoteBoard, predict=predict,
+        run_inference=run_inference, RokoModel=RokoModel, loop=loop,
+        load_params=load_params, verify_manifest=verify_manifest,
+    )
+    counts = Counts(fg, fl)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -406,10 +684,21 @@ def main() -> None:
     extra = [check_kernel(torch, fg, s, dev, rng, timed=False) for s in EXTRA_SHAPES]
     bwd_row = check_bwd_kernel(torch, fg, TRAIN_SHAPE, dev, rng, timed=True)
     bwd_extra = [check_bwd_kernel(torch, fg, s, dev, rng, timed=False) for s in BWD_EXTRA_SHAPES]
+    # the lingru phases draw from a stream of their own, so the gru phases
+    # see the same inputs as before lingru was ported
+    lin_rng = np.random.default_rng(SEED + 1)
+    lin_fwd_row = check_lingru_fwd(torch, fl, LIN_INFER_SHAPE, dev, lin_rng, timed=True)
+    lin_fwd_extra = [check_lingru_fwd(torch, fl, s, dev, lin_rng, timed=False)
+                     for s in (LIN_TRAIN_SHAPE, *LIN_EXTRA_SHAPES)]
+    lin_bwd_row = check_lingru_bwd(torch, fl, LIN_TRAIN_SHAPE, dev, lin_rng, timed=True)
+    lin_bwd_extra = [check_lingru_bwd(torch, fl, s, dev, lin_rng, timed=False)
+                     for s in (LIN_INFER_SHAPE, *LIN_EXTRA_SHAPES)]
     emit({"kernel_check": {"gru_fwd": [main_row, *extra], "gru_bwd": [bwd_row, *bwd_extra],
+                           "lingru_fwd": [lin_fwd_row, *lin_fwd_extra],
+                           "lingru_bwd": [lin_bwd_row, *lin_bwd_extra],
                            "atol": ATOL, "rtol": RTOL, "card": card}})
 
-    # -- the main path at full width ----------------------------------------
+    # -- the inference paths at full width ----------------------------------
     cfg = ModelConfig()
     model = RokoModel(cfg)
     model.load_state_dict(state_dict_from_jax(jax_layout_params(rng, cfg)), strict=True)
@@ -422,156 +711,50 @@ def main() -> None:
          examples[i : i + PATH_BATCH_SIZE])
         for i in range(0, n_windows, PATH_BATCH_SIZE)
     ]
-    predict(model, batches[0][2], dev)  # warm-up: library handles, allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    logs = []
-    fg.gru_recurrence.launches = fg.gru_recurrence_backward.launches = 0
-    t0 = time.perf_counter()
-    polished = run_inference(iter(batches), {contig: draft}, model, device=dev,
-                             log=logs.append)
-    seconds = time.perf_counter() - t0
-    launches = fg.gru_recurrence.launches
-    if fg.gru_recurrence_backward.launches:
-        fail("the inference path launched gru_bwd")
-    peak_bytes = torch.cuda.max_memory_allocated()
-    if launches != cfg.num_layers * len(batches):
-        fail(f"gru_fwd launched {launches} times on the main path, expected "
-             f"{cfg.num_layers} layers x {len(batches)} batches")
-
-    # the same batches through the plain recurrence on the card
-    kernel_board, plain_board = VoteBoard({contig: draft}), VoteBoard({contig: draft})
-    logit_err, near_ties, mismatches = 0.0, 0, 0
-    with torch.inference_mode():
-        for names, pos, x in batches:
-            xt = torch.from_numpy(x).to(dev)
-            lk = model(xt)
-            lp = model(xt, fg.gru_recurrence_plain)
-            if lk.shape != (len(x), cfg.window_cols, cfg.num_classes):
-                fail(f"logits shape {tuple(lk.shape)}")
-            if not bool(torch.isfinite(lk).all()):
-                fail("non-finite logits on the main path")
-            logit_err = max(logit_err, (lk - lp).abs().max().item())
-            if not torch.allclose(lk, lp, atol=ATOL, rtol=RTOL):
-                fail(f"logits of kernel and plain recurrence differ: max |d| {logit_err}")
-            top2 = lp.topk(2, dim=-1).values
-            close = (top2[..., 0] - top2[..., 1]) < ATOL
-            differ = lk.argmax(-1) != lp.argmax(-1)
-            near_ties += int(close.sum())
-            mismatches += int((differ & ~close).sum())
-            kernel_board.add(names, pos, lk.argmax(-1).cpu().numpy())
-            plain_board.add(names, pos, lp.argmax(-1).cpu().numpy())
-    if mismatches:
-        fail(f"{mismatches} argmax differences away from near-ties")
-    if kernel_board.stitch(contig) != polished[contig]:
-        fail("run_inference's stitch differs from the kernel logits' stitch")
-    plain_same = plain_board.stitch(contig) == polished[contig]
-    if not plain_same and near_ties == 0:
-        fail("the plain recurrence's stitch differs with no near-ties")
-    if not polished[contig] or set(polished[contig]) - set("ACGT"):
-        fail("the polished contig is empty or holds letters other than ACGT")
-
-    emit({"path": {
-        "config": "ModelConfig() (kind=gru, 3 layers, hidden 128, full width)",
-        "batches": len(batches), "batch_size": PATH_BATCH_SIZE, "windows": n_windows,
-        "draft_len": len(draft), "polished_len": len(polished[contig]),
-        "seconds": seconds, "windows_per_s": n_windows / seconds,
-        "bases_per_s": n_windows * C.WINDOW_STRIDE / seconds,
-        "gru_fwd_launches": launches, "peak_device_bytes": peak_bytes,
-        "logits_max_abs_err_vs_plain": logit_err, "near_ties": near_ties,
-        "plain_stitch_identical": plain_same, "log": logs, "card": card,
-    }})
+    path = drive_inference(torch, port, model, fg.gru_recurrence_plain, batches, contig,
+                           draft, dev, counts, "gru_fwd")
+    launches = path["gru_fwd_launches"]
+    emit({"path": {**path, "card": card}})
     # where the device time of the main path goes (a second, traced run)
     emit({"breakdown": {**device_breakdown(
         torch, lambda: run_inference(iter(batches), {contig: draft}, model, device=dev,
                                      log=lambda s: None)), "card": card}})
 
-    # -- the train path at full width ----------------------------------------
+    lin_cfg = ModelConfig(kind="lingru")
+    lin_model = RokoModel(lin_cfg)
+    lin_model.load_state_dict(state_dict_from_jax(jax_layout_params(lin_rng, lin_cfg)),
+                              strict=True)
+    lin_model.to(dev).eval()
+    lin_path = drive_inference(torch, port, lin_model, fl.lingru_scan_plain, batches, contig,
+                               draft, dev, counts, "lingru_fwd")
+    emit({"lingru_path": {**lin_path, "card": card}})
+    emit({"lingru_breakdown": {**device_breakdown(
+        torch, lambda: run_inference(iter(batches), {contig: draft}, lin_model, device=dev,
+                                     log=lambda s: None)), "card": card}})
+
+    # -- the train paths at full width ----------------------------------------
     X = rng.integers(0, C.FEATURE_VOCAB, (TRAIN_WINDOWS, C.WINDOW_ROWS, C.WINDOW_COLS),
                      dtype=np.uint8)
     corpus = InMemoryDataset(X, (X.sum(axis=1) % C.NUM_CLASSES).astype(np.int32))
-    emit({"train_step_check": {**step_parity(torch, dev, corpus, fg, RokoModel, ModelConfig,
-                                             loop),
-                               "rtol": STEP_RTOL, "atol_of_max_grad": STEP_ATOL_OF_MAX,
-                               "batch": TRAIN_BATCH, "card": card}})
+    emit({"train_step_check": {**step_parity(
+        torch, port, dev, corpus, ModelConfig(dropout=0.0), fg.gru_recurrence,
+        fg.gru_recurrence_plain), "card": card}})
+    train, result, tcfg = drive_train(torch, port, cfg, corpus, batches, contig, draft, dev,
+                                      counts, "gru_fwd", "gru_bwd", "chip_smoke_train")
+    train_fwd, train_bwd = train["gru_fwd_launches"], train["gru_bwd_launches"]
+    emit({"train": {**train, "card": card}})
+    emit({"train_breakdown": {**train_breakdown(torch, port, result, corpus, tcfg, dev),
+                              "card": card}})
 
-    out_dir = os.path.join(ROOT, "build", "chip_smoke_train")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    tcfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, seed=SEED,
-                       val_fraction=TRAIN_VAL_FRACTION)
-    train_logs = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fg.gru_recurrence.launches = fg.gru_recurrence_backward.launches = 0
-    t0 = time.perf_counter()
-    result = loop.train(corpus, out_dir, model_cfg=cfg, train_cfg=tcfg, device=dev,
-                        resume=False, log=train_logs.append)
-    train_seconds = time.perf_counter() - t0
-    train_fwd, train_bwd = fg.gru_recurrence.launches, fg.gru_recurrence_backward.launches
-    train_peak = torch.cuda.max_memory_allocated()
-    n_val = round(TRAIN_VAL_FRACTION * TRAIN_WINDOWS)
-    eval_batches = -(-n_val // TRAIN_BATCH)
-    if len(result.history) != TRAIN_EPOCHS:
-        fail(f"train ran {len(result.history)} epochs, expected {TRAIN_EPOCHS}")
-    if train_bwd != cfg.num_layers * result.step:
-        fail(f"gru_bwd launched {train_bwd} times in training, expected "
-             f"{cfg.num_layers} layers x {result.step} steps")
-    if train_fwd != cfg.num_layers * (result.step + TRAIN_EPOCHS * eval_batches):
-        fail(f"gru_fwd launched {train_fwd} times in training, expected {cfg.num_layers} "
-             f"layers x ({result.step} steps + {TRAIN_EPOCHS} x {eval_batches} eval batches)")
-    losses = [h["train_loss"] for h in result.history]
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        fail(f"train losses not finite and falling: {losses}")
-    manifests = {}
-    for ckpt in sorted(os.listdir(out_dir)):
-        status, detail = verify_manifest(os.path.join(out_dir, ckpt))
-        manifests[ckpt] = status
-        if status != "ok":
-            fail(f"checkpoint {ckpt} fails verification: {detail}")
-    if "latest" not in manifests or len(manifests) < 2:
-        fail(f"expected latest and numbered checkpoints, found {sorted(manifests)}")
-    train_secs = sum(h["seconds"] for h in result.history)
-
-    # the best checkpoint polishes the synthetic contig
-    trained = RokoModel(cfg)
-    trained.load_state_dict(load_params(out_dir), strict=True)
-    fg.gru_recurrence.launches = 0
-    polished_t = run_inference(iter(batches[:TRAINED_POLISH_BATCHES]), {contig: draft},
-                               trained, device=dev, log=lambda s: None)[contig]
-    if not polished_t or set(polished_t) - set("ACGT"):
-        fail("the trained checkpoint's polish is empty or holds letters other than ACGT")
-    if fg.gru_recurrence.launches != cfg.num_layers * TRAINED_POLISH_BATCHES:
-        fail("polishing with the trained checkpoint did not run through gru_fwd")
-    emit({"train": {
-        "config": "ModelConfig() (kind=gru, 3 layers, hidden 128, dropout 0.2, full width)",
-        "windows": TRAIN_WINDOWS, "val_fraction": TRAIN_VAL_FRACTION, "batch": TRAIN_BATCH,
-        "epochs": TRAIN_EPOCHS, "steps": result.step, "seconds": train_seconds,
-        "train_loop_seconds": train_secs, "steps_per_s": result.step / train_secs,
-        "windows_per_s": result.step * TRAIN_BATCH / train_secs,
-        "history": result.history, "guard": result.guard_counters,
-        "gru_fwd_launches": train_fwd, "gru_bwd_launches": train_bwd,
-        "eval_batches_per_epoch": eval_batches, "peak_device_bytes": train_peak,
-        "checkpoints": manifests, "trained_polish_len": len(polished_t),
-        "log": train_logs, "card": card,
-    }})
-
-    # where the device time of train steps goes (traced, not counted)
-    step_model = result.model.train()
-    optimizer = loop.make_optimizer(step_model, tcfg.lr)
-    step_batches = [loop.to_device(b, dev) for _, b in zip(
-        range(6), corpus.batches(TRAIN_BATCH, rng=np.random.default_rng(1)))]
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def train_steps(bs):
-        for x, y, w in bs:
-            loss, finite = loop.grad_step(step_model, x, y, w, gen)
-            if bool(finite):
-                optimizer.step()
-
-    train_steps(step_batches[:1])  # warm-up
-    emit({"train_breakdown": {**device_breakdown(torch, lambda: train_steps(step_batches[1:])),
-                              "steps": len(step_batches) - 1, "card": card}})
+    emit({"lingru_train_step_check": {**step_parity(
+        torch, port, dev, corpus, ModelConfig(kind="lingru", dropout=0.0), fl.lingru_scan,
+        fl.lingru_scan_plain), "card": card}})
+    lin_train, lin_result, _ = drive_train(
+        torch, port, lin_cfg, corpus, batches, contig, draft, dev, counts, "lingru_fwd",
+        "lingru_bwd", "chip_smoke_train_lingru")
+    emit({"lingru_train": {**lin_train, "card": card}})
+    emit({"lingru_train_breakdown": {
+        **train_breakdown(torch, port, lin_result, corpus, tcfg, dev), "card": card}})
 
     def kernel_row(name, source, replaces, replaces_also, row, by_path):
         return {
@@ -581,6 +764,7 @@ def main() -> None:
             "shape": row["shape"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({"library_note": row["library_note"]} if "library_note" in row else {}),
         }
 
     emit({"kernels": [
@@ -590,6 +774,13 @@ def main() -> None:
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",
                    bwd_row, {"inference": 0, "train": train_bwd}),
+        kernel_row("lingru_fwd", "roko_tpu_torch/csrc/lingru_fwd.cu",
+                   "roko_tpu/models/pallas_lingru.py:90", None, lin_fwd_row,
+                   {"inference": lin_path["lingru_fwd_launches"],
+                    "train": lin_train["lingru_fwd_launches"]}),
+        kernel_row("lingru_bwd", "roko_tpu_torch/csrc/lingru_bwd.cu",
+                   "roko_tpu/models/pallas_lingru.py:121", None, lin_bwd_row,
+                   {"inference": 0, "train": lin_train["lingru_bwd_launches"]}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -3,7 +3,8 @@
 
 Mirrors ``roko-tpu train`` and ``roko-tpu inference``
 (``roko_tpu/cli.py:507-574``, flags :1332-1370) with the flags of the
-same names, plus ``--device``. ``inference`` takes a reference-layout
+same names (``--model-kind`` takes the kinds the port runs), plus
+``--device``. ``inference`` takes a reference-layout
 ``.pth`` state_dict or a checkpoint directory that ``train`` wrote.
 Reading the HDF5 needs ``h5py``.
 """
@@ -13,11 +14,11 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
-from roko_tpu_torch.config import ModelConfig
+from roko_tpu_torch.config import PORTED_KINDS, ModelConfig
 
 
 def _model_config(args: argparse.Namespace) -> ModelConfig:
-    return ModelConfig(**{
+    return ModelConfig(kind=args.model_kind, **{
         k: v
         for k, v in (("hidden_size", args.hidden_size), ("num_layers", args.num_layers))
         if v is not None
@@ -75,6 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
 
     def common(p: argparse.ArgumentParser) -> None:
+        p.add_argument(
+            "--model-kind", choices=PORTED_KINDS, default="gru",
+            help="recurrence family: gru (torch-exact reference, default) or "
+            "lingru (gated linear recurrence)",
+        )
         p.add_argument("--hidden-size", type=int, default=None)
         p.add_argument("--num-layers", type=int, default=None)
         p.add_argument(

@@ -1,6 +1,7 @@
 """Configuration of the port: the fields of ``roko_tpu.config`` that the
-``kind="gru"`` inference and training paths read, with the same names and
-defaults (``ModelConfig``, ``TrainConfig`` and ``GuardConfig``)."""
+inference and training paths of ``kind="gru"`` and ``kind="lingru"``
+read, with the same names and defaults (``ModelConfig``, ``TrainConfig``
+and ``GuardConfig``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,9 @@ from dataclasses import dataclass
 from typing import Tuple
 
 from roko_tpu_torch import constants as C
+
+#: the values of ``ModelConfig.kind`` the port runs
+PORTED_KINDS = ("gru", "lingru")
 
 
 @dataclass(frozen=True)
@@ -20,16 +24,16 @@ class ModelConfig:
     read_mlp: Tuple[int, ...] = (100, 10)
     hidden_size: int = 128
     num_layers: int = 3
-    #: inverted dropout after the embedding, fc1 and fc2 and between GRU
-    #: layers, in training only
+    #: inverted dropout after the embedding, fc1 and fc2 and between
+    #: recurrent layers, in training only
     dropout: float = 0.2
     num_classes: int = C.NUM_CLASSES
 
     def __post_init__(self) -> None:
-        if self.kind != "gru":
+        if self.kind not in PORTED_KINDS:
             raise ValueError(
                 f"model kind {self.kind!r} is not ported yet; the PyTorch "
-                "port runs kind='gru'"
+                f"port runs kind {' and '.join(map(repr, PORTED_KINDS))}"
             )
         if not 0.0 <= self.dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got {self.dropout}")

@@ -5,7 +5,8 @@ compiled for ``sm_90a`` into ``build/roko_tpu_torch/`` beside the package
 on first use, under a name that carries a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is loaded as
 it is. Nothing here runs at import time: the CPU tests import every
-module of the package on a machine without nvcc.
+module of the package on a machine without nvcc. Beside the build, the
+checks every kernel wrapper makes before a launch.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "roko_tpu_torch"
@@ -39,6 +42,16 @@ KERNELS = {
         "csrc/gru_bwd.cu",
         "roko_gru_bwd",
         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    ),
+    "lingru_fwd": (
+        "csrc/lingru_fwd.cu",
+        "roko_lingru_fwd",
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    ),
+    "lingru_bwd": (
+        "csrc/lingru_bwd.cu",
+        "roko_lingru_bwd",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     ),
 }
 
@@ -130,6 +143,31 @@ def library(name: str) -> ctypes.CDLL:
         lib.roko_cuda_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
+
+
+def device_kind(t: torch.Tensor, name: str) -> str:
+    """``"cuda"`` or ``"cpu"``: where a wrapper runs ``name`` for ``t``
+    (its kernel, or its plain version); raises for any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
+    return t.device.type
+
+
+def check_inputs(name: str, **tensors: torch.Tensor) -> None:
+    """What every kernel takes: float32, contiguous, on one CUDA device."""
+    device = next(iter(tensors.values())).device
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{arg} is on {t.device}, {name}'s first input on {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} takes float32; {arg} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors; {arg} is not")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:

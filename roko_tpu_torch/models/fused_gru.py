@@ -59,31 +59,14 @@ def _shapes(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
 
 
 def _check_cuda(name: str, H: int, **tensors: torch.Tensor) -> None:
-    """What the kernels take: float32, contiguous, on one CUDA device,
-    H a multiple of 4 and at most MAX_HIDDEN."""
-    device = next(iter(tensors.values())).device
-    for arg, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{arg} is on {t.device}, {name}'s first input on {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} takes float32; {arg} is {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} takes contiguous tensors; {arg} is not")
+    """What the kernels take: :func:`kernels.check_inputs`, and H a
+    multiple of 4 and at most MAX_HIDDEN."""
+    kernels.check_inputs(name, **tensors)
     if H % 4 or H > MAX_HIDDEN:
         raise ValueError(
             f"{name} takes a hidden size that is a multiple of 4 and at "
             f"most {MAX_HIDDEN}; got {H}"
         )
-
-
-def _device_kind(xp: torch.Tensor, name: str) -> str:
-    if xp.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {xp.device}")
-    return xp.device.type
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _prev_steps(T: int, S: int, step: int):
@@ -180,7 +163,7 @@ def _gru_fwd_kernel(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) ->
     with torch.cuda.device(xp.device):
         code = lib.roko_gru_fwd(
             xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
-            B, T, H, S, _stream(xp),
+            B, T, H, S, kernels.stream(xp),
         )
     kernels.check(lib, "gru_fwd", code)
     gru_recurrence.launches += 1
@@ -205,7 +188,7 @@ def gru_recurrence_backward(
     for CPU tensors. ``gru_recurrence_backward.launches`` counts kernel
     launches."""
     B, T, S, H = _shapes(xp, w_hh, b_hh)
-    if _device_kind(xp, "gru_recurrence_backward") == "cpu":
+    if kernels.device_kind(xp, "gru_recurrence_backward") == "cpu":
         return gru_recurrence_backward_plain(xp, w_hh, b_hh, out, dy)
     dy = dy.contiguous()  # slices and cats upstream hand it strided
     _check_cuda("gru_bwd", H, xp=xp, w_hh=w_hh, b_hh=b_hh, out=out, dy=dy)
@@ -229,7 +212,7 @@ def gru_recurrence_backward(
             xp.data_ptr(), out.data_ptr(), dy.data_ptr(), w_hh.data_ptr(),
             w_t.data_ptr(), b_hh.data_ptr(), dxp.data_ptr(), dhp.data_ptr(),
             part_w.data_ptr(), part_b.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            B, T, H, S, nsplit, _stream(xp),
+            B, T, H, S, nsplit, kernels.stream(xp),
         )
     kernels.check(lib, "gru_bwd", code)
     gru_recurrence_backward.launches += 1
@@ -247,7 +230,7 @@ class GRURecurrence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xp, w_hh, b_hh):
-        if _device_kind(xp, "gru_recurrence") == "cpu":
+        if kernels.device_kind(xp, "gru_recurrence") == "cpu":
             out = gru_recurrence_plain(xp, w_hh, b_hh)
         else:
             out = _gru_fwd_kernel(xp, w_hh, b_hh)

@@ -82,12 +82,13 @@ class RokoGRU(nn.Module):
         return tuple(out)
 
     def forward(
-        self, x: torch.Tensor, recurrence: Recurrence = gru_recurrence,
+        self, x: torch.Tensor, recurrence: Optional[Recurrence] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """[B, T, in] -> [B, T, 2H]. In training, dropout between layers
-        draws its masks from ``generator``."""
+        """[B, T, in] -> [B, T, 2H] through ``recurrence`` (default
+        :func:`gru_recurrence`). In training, dropout between layers draws
+        its masks from ``generator``."""
         return bidir_gru_stack(
-            self.layers(), x, recurrence=recurrence,
+            self.layers(), x, recurrence=recurrence or gru_recurrence,
             dropout=self.dropout if self.training else 0.0, generator=generator,
         )

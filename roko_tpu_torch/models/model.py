@@ -1,4 +1,4 @@
-"""The roko consensus network, ``kind="gru"``.
+"""The roko consensus network, ``kind="gru"`` and ``kind="lingru"``.
 
 Counterpart of ``roko_tpu/models/model.py``. Inference (``eval()``)
 follows its inference branch (:179-231)::
@@ -7,8 +7,12 @@ follows its inference branch (:179-231)::
     one-hot(12) contracted with fc1 over the read axis  -> [B,90,12,100]
     embedding einsum, + fc1 bias, relu                  -> [B,90,50,100]
     fc2 100->10, relu, reshape                          -> [B,90,500]
-    bidirectional GRU x3, h=128                         -> [B,90,256]
+    bidirectional GRU or lingru x3, h=128               -> [B,90,256]
     fc4 256->5                                          -> logits [B,90,5]
+
+``ModelConfig.kind`` picks the recurrence (:204-217); only that kind's
+module is built (``gru`` or ``lingru``), so a state_dict holds one kind's
+keys and a checkpoint of the other kind refuses to load.
 
 The front end keeps the reference's reassociation: with a 12-word vocab,
 ``relu(E[x]^T @ W1 + b1)`` equals ``relu(E^T @ (onehot(x)^T @ W1) + b1)``,
@@ -16,29 +20,31 @@ two plain matrix products instead of a gather and a relayout.
 
 Training (``train()``) follows the train branch (:144-178): the gather
 ``E[x]`` -> [B,200,90,50], dropout, fc1 over the read axis + bias, relu,
-dropout, fc2, relu, dropout; then the GRU with dropout between layers.
+dropout, fc2, relu, dropout; then the recurrence with dropout between
+layers.
 The per-element dropout after the embedding is what rules the
 reassociation out there. Dropout masks come from the ``generator`` the
 caller passes, on the input's device.
 
 A fresh model is drawn as ``RokoModel.init`` draws it (:91-106), from one
-``torch.Generator``: embedding N(0, 1), dense layers U(+-1/sqrt(in)), GRU
-orthogonal matrices and N(0, 1) biases. Module names (``embedding``,
-``fc1``, ``fc2``, ``gru``, ``fc4``) are those of the reference ``.pth``.
+``torch.Generator``: embedding N(0, 1), dense layers U(+-1/sqrt(in)),
+recurrent orthogonal matrices and N(0, 1) biases. Module names
+(``embedding``, ``fc1``, ``fc2``, ``gru``, ``fc4``) are those of the
+reference ``.pth``; ``kind="lingru"`` has ``lingru`` in place of ``gru``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 from torch.nn.utils import skip_init
 
 from roko_tpu_torch.config import ModelConfig
-from roko_tpu_torch.models.fused_gru import Recurrence, gru_recurrence
 from roko_tpu_torch.models.gru import RokoGRU
 from roko_tpu_torch.models.layers import dense, dropout, init_dense
+from roko_tpu_torch.models.lingru import RokoLinGRU
 
 
 class RokoModel(nn.Module):
@@ -63,21 +69,27 @@ class RokoModel(nn.Module):
             self.embedding.weight.normal_(generator=generator)
             for layer in (self.fc1, self.fc2, self.fc4):
                 init_dense(layer.weight, layer.bias, generator)
-        self.gru = RokoGRU(
-            cfg.gru_in_size, cfg.hidden_size, cfg.num_layers, cfg.dropout, generator
-        )
+        args = (cfg.gru_in_size, cfg.hidden_size, cfg.num_layers, cfg.dropout, generator)
+        if cfg.kind == "gru":
+            self.gru = RokoGRU(*args)
+        else:
+            self.lingru = RokoLinGRU(*args)
         self.eval()
 
     def forward(
-        self, x: torch.Tensor, recurrence: Recurrence = gru_recurrence,
+        self, x: torch.Tensor,
+        recurrence: Optional[Callable[..., torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """int[B, rows, cols] feature windows -> float32 logits
-        [B, cols, num_classes]. In training, dropout draws from
-        ``generator``."""
+        [B, cols, num_classes]. ``recurrence`` replaces the kind's
+        kernel-backed one (``fused_gru.gru_recurrence_plain`` for gru,
+        ``fused_lingru.lingru_scan_plain`` for lingru); None keeps it. In
+        training, dropout draws from ``generator``."""
         h = self._front_train(x, generator) if self.training else self._front_eval(x)
         h = h.reshape(x.shape[0], self.cfg.window_cols, self.cfg.gru_in_size)
-        h = self.gru(h, recurrence, generator)
+        rnn = self.gru if self.cfg.kind == "gru" else self.lingru
+        h = rnn(h, recurrence, generator)
         return dense(h, self.fc4.weight, self.fc4.bias)
 
     def _front_train(self, x: torch.Tensor, generator) -> torch.Tensor:

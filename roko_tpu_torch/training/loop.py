@@ -10,8 +10,10 @@ gradients first, the host checks the loss and their finiteness, and only
 a good step's update is applied; repeated bad steps roll back to the last
 good checkpoint.
 
-On a CUDA device every step runs the GRU through ``gru_fwd`` and
-``gru_bwd`` (``models/fused_gru.py``). Dropout masks of step ``k`` come
+On a CUDA device every step runs the recurrence through its kernels:
+``gru_fwd`` and ``gru_bwd`` (``models/fused_gru.py``) for ``kind="gru"``,
+``lingru_fwd`` and ``lingru_bwd`` (``models/fused_lingru.py``) for
+``kind="lingru"``. Dropout masks of step ``k`` come
 from a generator seeded by (seed, rollbacks, k), so a resumed run draws
 the masks an uninterrupted one would have drawn.
 

@@ -1,6 +1,7 @@
-"""End to end on the CPU: sim features made by ``roko_tpu``, one ``.pth``,
-and the polished FASTA of ``python -m roko_tpu_torch inference --device
-cpu`` byte-identical to ``roko_tpu.infer.polish_to_fasta``."""
+"""End to end on the CPU: sim features made by ``roko_tpu``, one ``.pth``
+of each kind, and the polished FASTA of ``python -m roko_tpu_torch
+inference --device cpu`` (``--model-kind gru`` and ``lingru``)
+byte-identical to ``roko_tpu.infer.polish_to_fasta``."""
 
 import numpy as np
 import pytest
@@ -21,6 +22,8 @@ from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 # default front-end widths, so both CLIs reach it with
 # --hidden-size 16 --num-layers 2
 CFG = JaxModelConfig(hidden_size=16, num_layers=2)
+CFG_LIN = JaxModelConfig(kind="lingru", hidden_size=16, num_layers=2)
+SMALL = ["--hidden-size", "16", "--num-layers", "2", "--device", "cpu"]
 
 
 def make_project(root):
@@ -33,6 +36,14 @@ def make_project(root):
     pth = str(root / "model.pth")
     torch.save(state_dict_from_jax(params), pth)
     return {"root": root, "h5": h5, "pth": pth, "windows": n}
+
+
+def lingru_pth(root):
+    """Random ``kind="lingru"`` JAX params (numpy) and their port .pth."""
+    params = jax.tree.map(np.asarray, JaxRokoModel(CFG_LIN).init(jax.random.PRNGKey(6)))
+    pth = str(root / "lingru.pth")
+    torch.save(state_dict_from_jax(params), pth)
+    return params, pth
 
 
 @pytest.fixture(scope="module")
@@ -71,3 +82,30 @@ def test_cli_rejects_mismatched_model(project, tmp_path):
     with pytest.raises(RuntimeError, match="size mismatch"):
         cli.main(["inference", project["h5"], project["pth"], str(tmp_path / "o.fa"),
                   "--device", "cpu"])
+
+
+def test_cli_lingru_fasta_byte_identical_to_reference(project, capsys):
+    root = project["root"]
+    params, pth = lingru_pth(root)
+    want = str(root / "jax_lingru.fasta")
+    jax_polish_to_fasta(project["h5"], params, want, RokoConfig(model=CFG_LIN),
+                        batch_size=16, log=lambda *a: None)
+    got = str(root / "port_lingru.fasta")
+    assert cli.main(["inference", project["h5"], pth, got, "--b", "16",
+                     "--model-kind", "lingru", *SMALL]) == 0
+    assert "windows/s" in capsys.readouterr().out
+    with open(got, "rb") as a, open(want, "rb") as b:
+        got_bytes, want_bytes = a.read(), b.read()
+    assert len(got_bytes) > 2000
+    assert got_bytes == want_bytes
+
+
+def test_cli_refuses_a_checkpoint_of_the_other_kind(project, tmp_path):
+    """A gru .pth loaded as lingru, and a lingru one as gru, refuse loudly
+    before anything is written."""
+    _, lin = lingru_pth(tmp_path)
+    for pth, kind in ((project["pth"], "lingru"), (lin, "gru")):
+        with pytest.raises(RuntimeError, match="(?s)Missing key.*Unexpected key"):
+            cli.main(["inference", project["h5"], pth, str(tmp_path / "o.fa"),
+                      "--model-kind", kind, *SMALL])
+    assert not (tmp_path / "o.fa").exists()

@@ -39,7 +39,7 @@ names = ["roko_tpu_torch"] + [
 ]
 for name in names:
     __import__(name)
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -63,7 +63,9 @@ def test_every_port_module_imports_without_jax():
         capture_output=True, text=True, timeout=300, cwd=str(ROOT), env=env,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 14
+    names = proc.stdout.strip().splitlines()[-1].split()
+    assert len(names) >= 16
+    assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru"} <= set(names)
 
 
 def _imports(path: Path):

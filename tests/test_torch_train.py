@@ -1,8 +1,8 @@
 """The port's training model against the JAX package on the CPU: the
 init (F2), the config (F3), dropout, one full train step (loss, accuracy
 and every gradient against ``jax.value_and_grad`` of
-``roko_tpu.training.loop._loss_and_stats``) and one Adam step against
-``optax.adam``."""
+``roko_tpu.training.loop._loss_and_stats``, for ``kind="gru"`` and
+``kind="lingru"``) and one Adam step against ``optax.adam``."""
 
 import dataclasses
 
@@ -29,7 +29,8 @@ from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 RTOL, ATOL = 1e-4, 1e-5
 TINY_GRU = JaxModelConfig(embed_dim=8, read_mlp=(8, 4), hidden_size=16, num_layers=2,
                           dropout=0.0)
-_FIELDS = ("embed_vocab", "window_rows", "window_cols", "embed_dim", "read_mlp",
+TINY_LIN = dataclasses.replace(TINY_GRU, kind="lingru")
+_FIELDS = ("kind", "embed_vocab", "window_rows", "window_cols", "embed_dim", "read_mlp",
            "hidden_size", "num_layers", "dropout", "num_classes")
 
 
@@ -182,6 +183,25 @@ def test_train_step_matches_reference_tiny():
 
 def test_train_step_matches_reference_default_config():
     _step_parity(dataclasses.replace(JaxModelConfig(), dropout=0.0), 3, 2)
+
+
+def test_train_step_matches_reference_lingru_tiny():
+    got, want = adam_step_against_reference(*_step_parity(TINY_LIN, 6, 4))
+    for (path, a), (_, b) in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=jax.tree_util.keystr(path))
+
+
+def test_train_step_matches_reference_lingru_default_config():
+    _step_parity(dataclasses.replace(JaxModelConfig(kind="lingru"), dropout=0.0), 3, 2)
+
+
+def test_every_lingru_parameter_gets_a_gradient():
+    model = RokoModel(ModelConfig(kind="lingru", hidden_size=8, num_layers=2)).train()
+    x, y, w = _batch(2, 2)
+    loss, _, _ = loss_and_stats(model(torch.from_numpy(x), generator=torch.Generator()),
+                                torch.from_numpy(y), torch.from_numpy(w))
+    loss.backward()
+    assert not [n for n, p in model.named_parameters() if p.grad is None or not p.grad.any()]
 
 
 def test_every_parameter_gets_a_gradient():

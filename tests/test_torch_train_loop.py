@@ -1,7 +1,7 @@
 """The port's train loop on the CPU: the guard against
 ``roko_tpu.training.guard.TrainGuard``, the checkpoint integrity chain,
 resume, rollback, a short run against ``roko_tpu.training.loop.train``,
-and the ``train`` / ``inference`` command line."""
+and the ``train`` / ``inference`` command line for both kinds."""
 
 import dataclasses
 import math
@@ -265,6 +265,22 @@ def test_cli_trains_then_polishes_on_cpu(sim_features, capsys):
     assert cli.main(["inference", sim_features["infer"], ckpt, out, "--b", "16", *small]) == 0
     records = list(read_fasta(out))
     assert records and set(records[0][1]) <= set("ACGT") and len(records[0][1]) > 1000
+
+
+def test_cli_trains_then_polishes_lingru_on_cpu(sim_features, capsys):
+    root = sim_features["root"]
+    ckpt, out = str(root / "ckpt_lingru"), str(root / "out_lingru.fa")
+    small = ["--model-kind", "lingru", "--hidden-size", "16", "--num-layers", "2",
+             "--device", "cpu"]
+    assert cli.main(["train", sim_features["train"], ckpt, "--b", "8", "--epochs", "1",
+                     *small]) == 0
+    assert re.search(r"epoch 0: train_loss [0-9.]+ val_acc", capsys.readouterr().out)
+    assert ck.verify_manifest(os.path.join(ckpt, "latest"))[0] == "ok"
+    assert any(k.startswith("lingru.") for k in ck.load_params(ckpt))
+    assert cli.main(["inference", sim_features["infer"], ckpt, out, "--b", "16", *small]) == 0
+    # one epoch of training predicts mostly GAP: the contig may collapse
+    records = list(read_fasta(out))
+    assert records and records[0][1] and set(records[0][1]) <= set("ACGT")
 
 
 def test_cli_train_without_card_refuses_cuda(sim_features, monkeypatch, tmp_path):

@@ -30,6 +30,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -263,10 +264,59 @@ def check_kernel(torch, fg, shape, dev, rng, *, timed: bool):
     return row
 
 
+def kernel_split(torch, fn, iters: int, parts) -> dict:
+    """Device milliseconds a call of ``fn()`` spends in each of ``parts``
+    (``(key, substring of the kernel name)``), from a torch.profiler trace
+    of ``iters`` calls after one warm-up: the sum over the trace divided by
+    ``iters``, with the number and the names of the traced kernels of each
+    part."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    keys = [k for k, _ in parts]
+    ms, calls, names = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0), {k: set() for k in keys}
+    for e in prof.events():
+        if getattr(e, "is_user_annotation", False) or e.device_type != DeviceType.CUDA:
+            continue
+        key = next((k for k, sub in parts if sub in e.name), None)
+        if key is not None:
+            ms[key] += e.time_range.elapsed_us() / 1e3
+            calls[key] += 1
+            names[key].add(re.search(r"\w*gru_bwd\w*(<\d+>)?", e.name).group(0))
+    if not any(calls.values()):
+        return {"device": "not measured (no device events traced)"}
+    return {**{k: v / iters for k, v in ms.items()}, "traced_calls": iters,
+            "kernels_traced": calls, "kernel_names": {k: sorted(v) for k, v in names.items()}}
+
+
+# gru_bwd's three kernels, by a substring of their names
+BWD_PARTS = (("recurrence", "gru_bwd_rec"), ("dw", "gru_bwd_dw"), ("reduce", "gru_bwd_reduce"))
+
+
+def bwd_launch_plan(torch, fg, shape, dev) -> dict:
+    """How gru_bwd launches at ``shape`` on this card (``fg.bwd_plan``);
+    empty for a tree whose gru_bwd has no plan (one variant, 8 rows)."""
+    if not hasattr(fg, "bwd_plan"):
+        return {}
+    B, T, H, S = (shape[k] for k in ("B", "T", "H", "S"))
+    plan = fg.bwd_plan(B, T, H, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return {"variant": plan["variant"], "rows_per_block": plan["rows"],
+            "blocks": plan["blocks"], "threads_per_block": plan["threads"],
+            "smem_bytes_per_block": plan["smem_bytes"]}
+
+
 def check_bwd_kernel(torch, fg, shape, dev, rng, *, timed: bool):
     """gru_bwd vs gru_recurrence_backward_plain at ``shape`` on the card,
-    and two launches bitwise equal; with ``timed``, also the kernel's, the
-    plain loop's and cuDNN's backward times."""
+    and two launches bitwise equal; with ``timed``, also the resident
+    recurrence forced to each rows a block (bitwise equal), and the
+    kernel's (split by sub-kernel), the plain loop's and cuDNN's backward
+    times."""
     B, T, IN, H, S = (shape[k] for k in ("B", "T", "IN", "H", "S"))
     x, t, xp, w_hh, b_hh = layer_inputs(torch, shape, dev, rng)
     with torch.no_grad():
@@ -285,9 +335,19 @@ def check_bwd_kernel(torch, fg, shape, dev, rng, *, timed: bool):
         if not torch.equal(g, a):
             fail(f"gru_bwd {name} differs between two launches at {shape}")
     row = {"shape": shape, "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
-           "bitwise_repeatable": True, "splits": fg.bwd_splits(B, T, H, S)}
+           "bitwise_repeatable": True, "splits": fg.bwd_splits(B, T, H, S),
+           **bwd_launch_plan(torch, fg, shape, dev)}
     if not timed:
         return row
+
+    if row.get("variant") == "resident":
+        for rows in fg.BWD_ROWS:
+            forced = fg._gru_bwd_kernel(*args, rows=rows)
+            for name, g, f in zip(("dxp", "dw_hh", "db_hh"), got, forced):
+                if not torch.equal(g, f):
+                    fail(f"gru_bwd {name} at {rows} rows a block differs from "
+                         f"{row['rows_per_block']} rows at {shape}")
+        row["bitwise_equal_across_rows"] = list(fg.BWD_ROWS)
 
     # cuDNN's GRU backward with the same weights: a yardstick only; it
     # also runs the dx and dW_ih products that stay outside gru_bwd
@@ -298,6 +358,8 @@ def check_bwd_kernel(torch, fg, shape, dev, rng, *, timed: bool):
     row["library_ms"] = cuda_ms(
         torch, lambda: torch.autograd.grad(lib_out, lib_inputs, dy, retain_graph=True), iters=20)
     row["ms"] = cuda_ms(torch, lambda: fg.gru_recurrence_backward(*args), iters=20)
+    row["ms_by_kernel"] = kernel_split(
+        torch, lambda: fg.gru_recurrence_backward(*args), 20, BWD_PARTS)
     row["plain_ms"] = cuda_ms(
         torch, lambda: fg.gru_recurrence_backward_plain(*args), iters=3, warmup=1)
     # hp, dhp W_hh^T and h_prev^T dhp: three step products
@@ -631,11 +693,48 @@ def train_breakdown(torch, port, result, corpus, tcfg, dev):
             "steps": len(step_batches) - 1}
 
 
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def bwd_only(torch, root: str) -> None:
+    """Only gru_bwd, from the port package under ``root`` (this tree's or
+    an unpacked copy of another commit's): built, checked against its
+    plain loop and timed at the train shape, split by sub-kernel. Two
+    trees compare within one call as parent, change, change, parent."""
+    sys.path.insert(0, os.path.abspath(root))
+    try:
+        from roko_tpu_torch import kernels
+        from roko_tpu_torch.models import fused_gru as fg
+    except ImportError as e:
+        fail(f"no importable roko_tpu_torch under {root}: {e}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+    built = kernels.build(["gru_bwd"])
+    row = check_bwd_kernel(torch, fg, TRAIN_SHAPE, torch.device("cuda", 0),
+                           np.random.default_rng(SEED), timed=True)
+    emit({"bwd_only": {"root": root, "package": os.path.dirname(kernels.__file__),
+                       "ptxas": built.get("gru_bwd", {}).get("ptxas"), **row, "card": card}})
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    if sys.argv[1:2] == ["--bwd-only"] and len(sys.argv) == 3:
+        return bwd_only(torch, sys.argv[2])
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py [--bwd-only ROOT]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import constants as C
@@ -662,13 +761,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
     emit({"device": {"name": name, "count": torch.cuda.device_count(), "nvidia_smi": card,
                      "torch": torch.__version__, "cuda": torch.version.cuda}})
@@ -684,6 +777,10 @@ def main() -> None:
     extra = [check_kernel(torch, fg, s, dev, rng, timed=False) for s in EXTRA_SHAPES]
     bwd_row = check_bwd_kernel(torch, fg, TRAIN_SHAPE, dev, rng, timed=True)
     bwd_extra = [check_bwd_kernel(torch, fg, s, dev, rng, timed=False) for s in BWD_EXTRA_SHAPES]
+    traced = bwd_row["ms_by_kernel"].get("kernel_names", {}).get("recurrence", [])
+    if bwd_row["variant"] != "resident" or not all("resident" in n for n in traced):
+        fail(f"the train shape's gru_bwd ran {bwd_row['variant']} ({traced}), not the "
+             "resident recurrence")
     # the lingru phases draw from a stream of their own, so the gru phases
     # see the same inputs as before lingru was ported
     lin_rng = np.random.default_rng(SEED + 1)
@@ -764,7 +861,8 @@ def main() -> None:
             "shape": row["shape"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **({"library_note": row["library_note"]} if "library_note" in row else {}),
+            **{k: row[k] for k in ("library_note", "variant", "rows_per_block", "blocks",
+                                   "smem_bytes_per_block", "ms_by_kernel") if k in row},
         }
 
     emit({"kernels": [

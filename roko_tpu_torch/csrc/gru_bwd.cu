@@ -23,32 +23,64 @@
 // TPU's stacked time-major slabs, batch padding and time-block boundary
 // rows (hs_bound) have no counterpart: a block reads out[t -/+ 1] directly.
 //
-// Design. Two kernels, launched back to back on one stream.
+// Design. A recurrence kernel, then a weight-gradient pass, launched back
+// to back on one stream.
 //
-// (a) gru_bwd_rec_kernel: like gru_fwd, one block per (direction, tile of
-//     ROWS batch rows) runs the whole reverse time loop, thread j owning
-//     hidden unit j for all ROWS rows. dh stays in registers. Each step
-//     stages the tile's h_prev in shared memory, recomputes hp (W_hh read
-//     coalesced along j), writes dxp and dhp to global memory and dhp to
-//     shared memory, and then forms dhp W_hh^T from a transposed copy
-//     W_hh^T [S, 3H, H] that the wrapper makes, so that thread j reads
-//     W^T[c][j] coalesced too. Rows past B are masked, never stored.
+// (a) The recurrence: one block per (direction, tile of ROWS batch rows)
+//     runs the whole reverse time loop, thread j owning hidden unit j for
+//     all ROWS rows, dh in registers. Rows never interact, and each row
+//     sums over k and c in the same order whatever ROWS is, so the outputs
+//     are bitwise the same for every ROWS. Two variants, chosen by the
+//     wrapper from H alone (resident for H <= RES_MAX_H):
+//
+//     resident (gru_bwd_rec_resident_kernel<ROWS>): the block copies
+//     W_hh[s] [H, 3H] into shared memory once, rows padded to 3H + 4
+//     floats. The forward product hp = h_prev W reads column j (thread j
+//     reads W[k][j], W[k][H+j], W[k][2H+j]: neighbouring words, no bank
+//     conflict); the transposed product dhp W^T reads row j as float4
+//     (the row stride is 4 mod 32 words, so the 8 threads of a quarter
+//     warp fall on disjoint banks). One copy serves both products. The
+//     wrapper picks ROWS in {1, 2, 4, 8} so that the grid is one wave of
+//     blocks (one block fits an SM): 128 blocks at B = 128, S = 2.
+//     xp[t], dy[t] and h_prev = out[t -/+ 1] do not depend on the carried
+//     dh, so the next step's are loaded into registers while this step
+//     computes. h_prev and dhp live in double-buffered shared memory,
+//     which leaves ONE barrier a step: it publishes this step's dhp (read
+//     by every thread's transposed product) and the next step's h_prev
+//     (read by every thread's hp product). A buffer is rewritten only two
+//     steps after it was read, and every reader has passed the barrier
+//     between.
+//
+//     streaming (gru_bwd_rec_kernel): for H > RES_MAX_H, where W_hh[s]
+//     does not fit in shared memory, ROWS = 8 and each step streams W_hh
+//     from L2 through __ldg for both products (row j of W as float4 for
+//     the transposed one), with h_prev and dhp staged in shared memory and
+//     three barriers a step.
 //
 // (b) gru_bwd_dw_kernel + gru_bwd_reduce_kernel: the TPU accumulates
 //     dW_hh and db_hh in output blocks that stay resident across its
 //     *serial* grid. CUDA blocks run at the same time, so (b) reduces
 //     without float atomics, in a fixed order: the B*T rows are cut into
 //     NSPLIT contiguous ranges; each block owns one (direction, range,
-//     64 x 64 tile of dW) and sums its rows in order into a partial; the
-//     reduce kernel then adds the NSPLIT partials in split order. NSPLIT
-//     is a function of the shapes alone, so two runs give the same bits.
+//     64 x 64 tile of dW) and sums its rows in order, 16 at a time, into a
+//     partial; the reduce kernel then adds the NSPLIT partials in split
+//     order. NSPLIT is a function of the shapes alone, so two runs give
+//     the same bits.
 //
 // Bound on an H100 SXM (67 TFLOP/s f32 without tensor cores, 3.35 TB/s):
 // at the train shape B = 128, T = 90, H = 128, S = 2 the three step
 // products (hp, dhp W^T, h_prev^T dhp) are 3 * 2*T*S*B*H*3H = 6.79 GFLOP
 // (0.101 ms), against about 100 MB of xp, out, dy and dxp (0.03 ms), so
 // operations bound it, before the serial dependence over 90 steps is
-// counted. No tensor cores, TMA or shared-memory-resident weights yet.
+// counted. In (a) that dependence rules: only S * ceil(B/ROWS) blocks can
+// work, one per SM, and each step's products wait on the previous step's
+// dh. With W resident, a step of the resident variant is set by the SM's
+// shared-memory bandwidth (128 B a clock): the 128 threads read all of W
+// once for each product (384 conflict-free 4-byte and 96 16-byte reads a
+// thread, 3 K clocks) plus the broadcast reads of h_prev and dhp, about
+// 4 K clocks, some 0.2 ms over 90 steps before the barrier's cost. No
+// tensor cores: TF32 would not hold the 1e-4 tolerance against the f32
+// loop.
 //
 // f32 throughout, expf/tanhf, no fast math.
 
@@ -56,8 +88,10 @@
 
 namespace {
 
-constexpr int ROWS = 8;          // batch rows per block in (a)
+constexpr int STREAM_ROWS = 8;   // batch rows per block, streaming variant
 constexpr int MAX_THREADS = 512; // hidden sizes up to 512
+constexpr int RES_MAX_H = 128;   // widest hidden size of the resident variant
+constexpr int W_PAD = 4;         // floats of padding after each resident W row
 constexpr int TK = 64;           // dW tile rows (hidden unit k) in (b)
 constexpr int TC = 64;           // dW tile columns (gate column c) in (b)
 constexpr int TN = 16;           // rows of B*T staged per pass in (b)
@@ -67,16 +101,222 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// dh <- dh z + dhp W^T, rounded after the product and after the sum as the
+// plain loop rounds it (no fused multiply-add)
+__device__ __forceinline__ float carry(float dhr, float zg, float dhp_wt) {
+  return __fadd_rn(__fmul_rn(dhr, zg), dhp_wt);
+}
+
+// Bytes of dynamic shared memory of the resident variant: W_hh[s] with
+// padded rows, and double-buffered h_prev [ROWS][H] and dhp [ROWS][3H].
+// fused_gru.py::bwd_smem_bytes mirrors this formula.
+constexpr size_t resident_smem_bytes(int H, int rows) {
+  return sizeof(float) * ((size_t)H * (3 * H + W_PAD) + 2 * (size_t)rows * 4 * H);
+}
+
+// The per-row gate arithmetic of one step, shared by both variants. In:
+// x_r, x_z, x_n, the products a_r, a_z, a_n of h_prev with W's three
+// column blocks (biases not yet added), h_prev, and dhr = dh + dy. Out:
+// dr, dz, dn (dxp), dnr = dn r (dhp's third block) and z.
+__device__ __forceinline__ void gate_grads(float xr, float xz, float xn, float ar,
+                                           float az, float an, float br, float bz,
+                                           float bn, float hprev, float dhr,
+                                           float& dr, float& dz, float& dn,
+                                           float& dnr, float& zg) {
+  const float rg = sigmoid_f32(xr + (ar + br));
+  zg = sigmoid_f32(xz + (az + bz));
+  const float hpn = an + bn;
+  const float ng = tanhf(xn + rg * hpn);
+  dz = dhr * (hprev - ng) * zg * (1.f - zg);
+  dn = dhr * (1.f - zg) * (1.f - ng * ng);
+  dr = dn * hpn * rg * (1.f - rg);
+  dnr = dn * rg;
+}
+
+template <int ROWS>
+__global__ void __launch_bounds__(RES_MAX_H, 1)
+gru_bwd_rec_resident_kernel(const float* __restrict__ xp,    // [B, T, S*3H]
+                            const float* __restrict__ out,   // [B, T, S*H]
+                            const float* __restrict__ dy,    // [B, T, S*H]
+                            const float* __restrict__ w_hh,  // [S, H, 3H]
+                            const float* __restrict__ b_hh,  // [S, 3H]
+                            float* __restrict__ dxp,         // [B, T, S*3H]
+                            float* __restrict__ dhp,         // [B, T, S*3H]
+                            int B, int T, int H, int S) {
+  extern __shared__ float4 smem[];
+  const int H3 = 3 * H;
+  const int WS = H3 + W_PAD;                     // row stride of w_s
+  float* w_s = reinterpret_cast<float*>(smem);   // [H][WS] W_hh[s]
+  float* h_s = w_s + (size_t)H * WS;             // [2][ROWS][H] h_prev
+  float* d_s = h_s + 2 * ROWS * H;               // [2][ROWS][3H] dhp
+
+  const int s = blockIdx.y;
+  const int row0 = blockIdx.x * ROWS;
+  const int j = threadIdx.x;
+  const bool active = j < H;
+  const bool walks_up = (s == 1);  // direction 1 walks t upwards
+  const size_t x_row = (size_t)T * S * H3;  // xp / dxp / dhp stride of a row
+  const size_t o_row = (size_t)T * S * H;   // out / dy stride of a row
+
+  // W_hh[s] into shared memory, once per launch
+  {
+    const float4* wg = reinterpret_cast<const float4*>(w_hh + (size_t)s * H * H3);
+    const int q3 = H3 / 4;
+    for (int e = threadIdx.x; e < H * q3; e += blockDim.x) {
+      const int k = e / q3;
+      *reinterpret_cast<float4*>(w_s + (size_t)k * WS + 4 * (e - k * q3)) = __ldg(wg + e);
+    }
+  }
+
+  float br = 0.f, bz = 0.f, bn = 0.f;
+  if (active) {
+    br = b_hh[s * H3 + j];
+    bz = b_hh[s * H3 + H + j];
+    bn = b_hh[s * H3 + 2 * H + j];
+  }
+
+  // a step's inputs for this thread's unit: x_r, x_z, x_n, dy, h_prev
+  auto load = [&](int step, float (&xr)[ROWS], float (&xz)[ROWS], float (&xn)[ROWS],
+                  float (&g)[ROWS], float (&hv)[ROWS]) {
+    const int t = walks_up ? step : T - 1 - step;
+    const int tp = walks_up ? t + 1 : t - 1;
+    const bool has_prev = tp >= 0 && tp < T;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      xr[r] = xz[r] = xn[r] = g[r] = hv[r] = 0.f;
+      if (active && row0 + r < B) {
+        const float* x = xp + (row0 + r) * x_row + (size_t)t * S * H3 + s * H3;
+        xr[r] = x[j];
+        xz[r] = x[H + j];
+        xn[r] = x[2 * H + j];
+        const size_t o = (row0 + r) * o_row + s * H + j;
+        g[r] = dy[o + (size_t)t * S * H];
+        if (has_prev) hv[r] = out[o + (size_t)tp * S * H];
+      }
+    }
+  };
+
+  float dh[ROWS];
+  float cxr[ROWS], cxz[ROWS], cxn[ROWS], cg[ROWS], ch[ROWS];  // this step's
+  float nxr[ROWS], nxz[ROWS], nxn[ROWS], ng[ROWS], nh[ROWS];  // the next step's
+  load(0, cxr, cxz, cxn, cg, ch);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    dh[r] = 0.f;
+    if (active) h_s[r * H + j] = ch[r];
+  }
+  __syncthreads();  // w_s and the first h_prev
+
+  for (int step = 0; step < T; ++step) {
+    const int cur = step & 1;
+    const float* hc = h_s + cur * ROWS * H;
+    float* dc = d_s + cur * ROWS * H3;
+    const int t = walks_up ? step : T - 1 - step;
+    // the next step's inputs are in flight while this step computes
+    if (step + 1 < T) load(step + 1, nxr, nxz, nxn, ng, nh);
+
+    float dhr[ROWS], zg[ROWS];
+    if (active) {
+      float ar[ROWS], az[ROWS], an[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) ar[r] = az[r] = an[r] = 0.f;
+#pragma unroll 2
+      for (int k = 0; k < H; k += 4) {
+        float wr[4], wz[4], wn[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float* wk = w_s + (k + q) * WS;
+          wr[q] = wk[j];
+          wz[q] = wk[H + j];
+          wn[q] = wk[2 * H + j];
+        }
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float4 h4 = *reinterpret_cast<const float4*>(hc + r * H + k);
+          ar[r] = fmaf(h4.x, wr[0], ar[r]);
+          az[r] = fmaf(h4.x, wz[0], az[r]);
+          an[r] = fmaf(h4.x, wn[0], an[r]);
+          ar[r] = fmaf(h4.y, wr[1], ar[r]);
+          az[r] = fmaf(h4.y, wz[1], az[r]);
+          an[r] = fmaf(h4.y, wn[1], an[r]);
+          ar[r] = fmaf(h4.z, wr[2], ar[r]);
+          az[r] = fmaf(h4.z, wz[2], az[r]);
+          an[r] = fmaf(h4.z, wn[2], an[r]);
+          ar[r] = fmaf(h4.w, wr[3], ar[r]);
+          az[r] = fmaf(h4.w, wz[3], az[r]);
+          an[r] = fmaf(h4.w, wn[3], an[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        float dr, dz, dn, dnr;
+        dhr[r] = dh[r] + cg[r];
+        gate_grads(cxr[r], cxz[r], cxn[r], ar[r], az[r], an[r], br, bz, bn, ch[r], dhr[r],
+                   dr, dz, dn, dnr, zg[r]);
+        dc[r * H3 + j] = dr;
+        dc[r * H3 + H + j] = dz;
+        dc[r * H3 + 2 * H + j] = dnr;
+        if (row0 + r < B) {
+          const size_t o = (row0 + r) * x_row + (size_t)t * S * H3 + s * H3;
+          dxp[o + j] = dr;
+          dxp[o + H + j] = dz;
+          dxp[o + 2 * H + j] = dn;
+          dhp[o + j] = dr;
+          dhp[o + H + j] = dz;
+          dhp[o + 2 * H + j] = dnr;
+        }
+      }
+      if (step + 1 < T) {
+        float* hn = h_s + (cur ^ 1) * ROWS * H;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) hn[r * H + j] = nh[r];
+      }
+    }
+    // the step's one barrier: dhp of this step and h_prev of the next are
+    // complete. The buffers written before it were last read two steps
+    // ago, before the previous barrier.
+    __syncthreads();
+
+    if (active) {
+      float acc[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+      const float* wj = w_s + j * WS;  // row j of W: W^T's column j
+#pragma unroll 4
+      for (int c = 0; c < H3; c += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(wj + c);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float4 d4 = *reinterpret_cast<const float4*>(dc + r * H3 + c);
+          acc[r] = fmaf(d4.x, w4.x, acc[r]);
+          acc[r] = fmaf(d4.y, w4.y, acc[r]);
+          acc[r] = fmaf(d4.z, w4.z, acc[r]);
+          acc[r] = fmaf(d4.w, w4.w, acc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        dh[r] = carry(dhr[r], zg[r], acc[r]);
+        cxr[r] = nxr[r];
+        cxz[r] = nxz[r];
+        cxn[r] = nxn[r];
+        cg[r] = ng[r];
+        ch[r] = nh[r];
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(MAX_THREADS)
 gru_bwd_rec_kernel(const float* __restrict__ xp,    // [B, T, S*3H]
                    const float* __restrict__ out,   // [B, T, S*H]
                    const float* __restrict__ dy,    // [B, T, S*H]
                    const float* __restrict__ w_hh,  // [S, H, 3H]
-                   const float* __restrict__ w_t,   // [S, 3H, H]
                    const float* __restrict__ b_hh,  // [S, 3H]
                    float* __restrict__ dxp,         // [B, T, S*3H]
                    float* __restrict__ dhp,         // [B, T, S*3H]
                    int B, int T, int H, int S) {
+  constexpr int ROWS = STREAM_ROWS;
   extern __shared__ float4 smem[];
   const int H3 = 3 * H;
   float* h_s = reinterpret_cast<float*>(smem);  // [ROWS][H] h_prev
@@ -86,9 +326,8 @@ gru_bwd_rec_kernel(const float* __restrict__ xp,    // [B, T, S*3H]
   const int row0 = blockIdx.x * ROWS;
   const int j = threadIdx.x;
   const bool active = j < H;
-  const bool reverse_sweep_up = (s == 1);  // direction 1 walks t upwards
+  const bool walks_up = (s == 1);  // direction 1 walks t upwards
   const float* W = w_hh + (size_t)s * H * H3;
-  const float* WT = w_t + (size_t)s * H3 * H;
   const size_t x_row = (size_t)T * S * H3;  // xp / dxp / dhp stride of a row
   const size_t o_row = (size_t)T * S * H;   // out / dy stride of a row
 
@@ -103,8 +342,8 @@ gru_bwd_rec_kernel(const float* __restrict__ xp,    // [B, T, S*3H]
   for (int r = 0; r < ROWS; ++r) dh[r] = 0.f;
 
   for (int step = 0; step < T; ++step) {
-    const int t = reverse_sweep_up ? step : T - 1 - step;
-    const int tp = reverse_sweep_up ? t + 1 : t - 1;
+    const int t = walks_up ? step : T - 1 - step;
+    const int tp = walks_up ? t + 1 : t - 1;
     const bool has_prev = tp >= 0 && tp < T;
 
     // stage h_prev of the tile
@@ -120,6 +359,7 @@ gru_bwd_rec_kernel(const float* __restrict__ xp,    // [B, T, S*3H]
     }
     __syncthreads();
 
+    float dhr[ROWS], zg[ROWS];
     if (active) {
       float xr[ROWS], xz[ROWS], xn[ROWS], g[ROWS];
 #pragma unroll
@@ -164,16 +404,10 @@ gru_bwd_rec_kernel(const float* __restrict__ xp,    // [B, T, S*3H]
       }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
-        const float rg = sigmoid_f32(xr[r] + (ar[r] + br));
-        const float zg = sigmoid_f32(xz[r] + (az[r] + bz));
-        const float hpn = an[r] + bn;
-        const float ng = tanhf(xn[r] + rg * hpn);
-        const float hprev = h_s[r * H + j];
-        const float dhr = dh[r] + g[r];
-        const float dz = dhr * (hprev - ng) * zg * (1.f - zg);
-        const float dn = dhr * (1.f - zg) * (1.f - ng * ng);
-        const float dr = dn * hpn * rg * (1.f - rg);
-        const float dnr = dn * rg;
+        float dr, dz, dn, dnr;
+        dhr[r] = dh[r] + g[r];
+        gate_grads(xr[r], xz[r], xn[r], ar[r], az[r], an[r], br, bz, bn, h_s[r * H + j],
+                   dhr[r], dr, dz, dn, dnr, zg[r]);
         d_s[r * H3 + j] = dr;
         d_s[r * H3 + H + j] = dz;
         d_s[r * H3 + 2 * H + j] = dnr;
@@ -186,7 +420,6 @@ gru_bwd_rec_kernel(const float* __restrict__ xp,    // [B, T, S*3H]
           dhp[o + H + j] = dz;
           dhp[o + 2 * H + j] = dnr;
         }
-        dh[r] = dhr * zg;
       }
     }
     __syncthreads();  // d_s complete
@@ -195,21 +428,20 @@ gru_bwd_rec_kernel(const float* __restrict__ xp,    // [B, T, S*3H]
       float acc[ROWS];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+      const float* wj = W + (size_t)j * H3;  // row j of W: W^T's column j
       for (int c = 0; c < H3; c += 4) {
-        float w[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) w[q] = __ldg(WT + (size_t)(c + q) * H + j);
+        const float4 w4 = __ldg(reinterpret_cast<const float4*>(wj + c));
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const float4 d4 = *reinterpret_cast<const float4*>(d_s + r * H3 + c);
-          acc[r] = fmaf(d4.x, w[0], acc[r]);
-          acc[r] = fmaf(d4.y, w[1], acc[r]);
-          acc[r] = fmaf(d4.z, w[2], acc[r]);
-          acc[r] = fmaf(d4.w, w[3], acc[r]);
+          acc[r] = fmaf(d4.x, w4.x, acc[r]);
+          acc[r] = fmaf(d4.y, w4.y, acc[r]);
+          acc[r] = fmaf(d4.z, w4.z, acc[r]);
+          acc[r] = fmaf(d4.w, w4.w, acc[r]);
         }
       }
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) dh[r] += acc[r];
+      for (int r = 0; r < ROWS; ++r) dh[r] = carry(dhr[r], zg[r], acc[r]);
     }
     __syncthreads();  // every read of h_s and d_s is done before the next step
   }
@@ -234,8 +466,8 @@ gru_bwd_dw_kernel(const float* __restrict__ out,  // [B, T, S*H]
                   float* __restrict__ part_w,     // [NSPLIT, S, H, 3H]
                   float* __restrict__ part_b,     // [NSPLIT, S, 3H]
                   int B, int T, int H, int S, int nsplit) {
-  __shared__ float hs[TN][TK];
-  __shared__ float ds[TN][TC];
+  __shared__ __align__(16) float hs[TN][TK];
+  __shared__ __align__(16) float ds[TN][TC];
   const int H3 = 3 * H;
   const int s = blockIdx.z % S;
   const int p = blockIdx.z / S;
@@ -269,20 +501,33 @@ gru_bwd_dw_kernel(const float* __restrict__ out,  // [B, T, S*H]
       ds[nn][cc] = (n < n1 && c < H3) ? dhp[(size_t)n * S * H3 + s * H3 + c] : 0.f;
     }
     __syncthreads();
+    // the pass's TN rows are summed on their own, then added to the running
+    // sums: a blocked sum, whose rounding error grows with TN + rows / TN
+    // instead of with the rows of the split
+    float pass[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) pass[i][q] = 0.f;
 #pragma unroll
     for (int nn = 0; nn < TN; ++nn) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = hs[nn][ty * 4 + i];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) b[q] = ds[nn][tx * 4 + q];
+      const float4 a4 = *reinterpret_cast<const float4*>(&hs[nn][ty * 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&ds[nn][tx * 4]);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], b[q], acc[i][q]);
+        for (int q = 0; q < 4; ++q) pass[i][q] = fmaf(a[i], b[q], pass[i][q]);
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] += pass[i][q];
     if (bias_block && tid < TC) {
-      for (int nn = 0; nn < TN; ++nn) bsum += ds[nn][tid];
+      float pb = 0.f;
+      for (int nn = 0; nn < TN; ++nn) pb += ds[nn][tid];
+      bsum += pb;
     }
     __syncthreads();
   }
@@ -322,31 +567,64 @@ __global__ void gru_bwd_reduce_kernel(const float* __restrict__ part_w,
   }
 }
 
+// Sets the kernel's dynamic shared-memory limit when it needs more than
+// the default 48 KB, then launches it; returns the first CUDA error.
+template <typename Kernel>
+cudaError_t launch_rec(Kernel kernel, dim3 grid, int threads, size_t smem,
+                       cudaStream_t st, const float* xp, const float* out,
+                       const float* dy, const float* w_hh, const float* b_hh,
+                       float* dxp, float* dhp, int B, int T, int H, int S) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, threads, smem, st>>>(xp, out, dy, w_hh, b_hh, dxp, dhp, B, T, H, S);
+  return cudaGetLastError();
+}
+
+template <int ROWS>
+cudaError_t launch_resident(cudaStream_t st, const float* xp, const float* out,
+                            const float* dy, const float* w_hh, const float* b_hh,
+                            float* dxp, float* dhp, int B, int T, int H, int S) {
+  return launch_rec(gru_bwd_rec_resident_kernel<ROWS>, dim3((B + ROWS - 1) / ROWS, S),
+                    ((H + 31) / 32) * 32, resident_smem_bytes(H, ROWS), st, xp, out, dy,
+                    w_hh, b_hh, dxp, dhp, B, T, H, S);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the three kernels on `stream`; returns the first CUDA error as
-// an int (0 = launched). Shapes are checked by the Python wrapper: S in
-// {1, 2}, H a multiple of 4 and at most MAX_THREADS, B and T positive,
-// nsplit >= 1, every tensor contiguous float32.
+// Launches the recurrence (the resident variant when `resident` is
+// non-zero, with `rows` in {1, 2, 4, 8} batch rows a block; else the
+// streaming one, which takes rows == 8), then the weight-gradient pass,
+// on `stream`; returns the first CUDA error as an int (0 = launched).
+// Shapes are checked by the Python wrapper: S in {1, 2}, H a multiple of
+// 4 and at most MAX_THREADS (RES_MAX_H for the resident variant), B and T
+// positive, nsplit >= 1, every tensor contiguous float32, w_hh 16-byte
+// aligned.
 int roko_gru_bwd(const float* xp, const float* out, const float* dy,
-                 const float* w_hh, const float* w_t, const float* b_hh,
+                 const float* w_hh, const float* b_hh,
                  float* dxp, float* dhp, float* part_w, float* part_b,
                  float* dw, float* db, int B, int T, int H, int S, int nsplit,
-                 void* stream) {
+                 int rows, int resident, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = ((H + 31) / 32) * 32;
-  const size_t smem = (size_t)ROWS * 4 * H * sizeof(float);  // h_prev + dhp
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gru_bwd_rec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (resident) {
+    if (H > RES_MAX_H) return static_cast<int>(cudaErrorInvalidValue);
+    switch (rows) {
+      case 1: e = launch_resident<1>(st, xp, out, dy, w_hh, b_hh, dxp, dhp, B, T, H, S); break;
+      case 2: e = launch_resident<2>(st, xp, out, dy, w_hh, b_hh, dxp, dhp, B, T, H, S); break;
+      case 4: e = launch_resident<4>(st, xp, out, dy, w_hh, b_hh, dxp, dhp, B, T, H, S); break;
+      case 8: e = launch_resident<8>(st, xp, out, dy, w_hh, b_hh, dxp, dhp, B, T, H, S); break;
+      default: break;
+    }
+  } else if (rows == STREAM_ROWS) {
+    e = launch_rec(gru_bwd_rec_kernel, dim3((B + STREAM_ROWS - 1) / STREAM_ROWS, S),
+                   ((H + 31) / 32) * 32, (size_t)STREAM_ROWS * 4 * H * sizeof(float), st,
+                   xp, out, dy, w_hh, b_hh, dxp, dhp, B, T, H, S);
   }
-  gru_bwd_rec_kernel<<<dim3((B + ROWS - 1) / ROWS, S), threads, smem, st>>>(
-      xp, out, dy, w_hh, w_t, b_hh, dxp, dhp, B, T, H, S);
-  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
   const dim3 grid((3 * H + TC - 1) / TC, (H + TK - 1) / TK, S * nsplit);

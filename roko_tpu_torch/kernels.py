@@ -41,7 +41,7 @@ KERNELS = {
     "gru_bwd": (
         "csrc/gru_bwd.cu",
         "roko_gru_bwd",
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     ),
     "lingru_fwd": (
         "csrc/lingru_fwd.cu",

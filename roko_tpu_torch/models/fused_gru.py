@@ -42,6 +42,13 @@ MAX_HIDDEN = 512
 _BWD_TARGET_BLOCKS = 2 * 132
 #: the weight-gradient pass's output tile (TK x TC in csrc/gru_bwd.cu)
 _BWD_TILE = 64
+#: gru_bwd's resident recurrence: widest H (RES_MAX_H), the padding of each
+#: W_hh row in shared memory (W_PAD), the batch rows a block may take
+RESIDENT_MAX_HIDDEN = 128
+_W_PAD = 4
+BWD_ROWS = (1, 2, 4, 8)
+#: batch rows a block of gru_bwd's streaming recurrence takes (STREAM_ROWS)
+_STREAM_ROWS = 8
 
 
 def _shapes(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
@@ -179,6 +186,90 @@ def bwd_splits(B: int, T: int, H: int, S: int) -> int:
     return max(1, min(-(-_BWD_TARGET_BLOCKS // tiles), -(-rows // 256)))
 
 
+def bwd_rows(B: int, S: int, n_sm: int) -> int:
+    """Batch rows a block of gru_bwd's resident recurrence takes: the
+    fewest of :data:`BWD_ROWS` that keep the S * ceil(B / rows) blocks
+    within one wave of the card's ``n_sm`` SMs (one block fits an SM), and
+    the most when none does."""
+    return next((r for r in BWD_ROWS if S * -(-B // r) <= n_sm), BWD_ROWS[-1])
+
+
+def bwd_variant(H: int) -> str:
+    """gru_bwd's recurrence for hidden size ``H``: ``"resident"`` (W_hh in
+    shared memory) up to :data:`RESIDENT_MAX_HIDDEN`, ``"streaming"`` (W_hh
+    from L2 every step) above. A function of the shape, not a fallback."""
+    return "resident" if H <= RESIDENT_MAX_HIDDEN else "streaming"
+
+
+def bwd_smem_bytes(H: int, rows: int, variant: str) -> int:
+    """Dynamic shared memory of one block of gru_bwd's recurrence: for the
+    resident variant W_hh[s] with rows of 3H + 4 floats and double-buffered
+    h_prev and dhp (resident_smem_bytes in csrc/gru_bwd.cu), for the
+    streaming one h_prev and dhp once."""
+    if variant == "resident":
+        return 4 * (H * (3 * H + _W_PAD) + 2 * rows * 4 * H)
+    return 4 * rows * 4 * H
+
+
+def bwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = None) -> dict:
+    """How gru_bwd launches at these shapes on a card with ``n_sm`` SMs:
+    the recurrence's variant, batch rows a block (``rows`` forces one of
+    :data:`BWD_ROWS` on the resident variant), blocks, threads a block and
+    shared-memory bytes a block, and the weight-gradient pass's splits."""
+    variant = bwd_variant(H)
+    if variant == "streaming":
+        if rows not in (None, _STREAM_ROWS):
+            raise ValueError(f"the streaming gru_bwd takes {_STREAM_ROWS} rows a block, not {rows}")
+        rows = _STREAM_ROWS
+    elif rows is None:
+        rows = bwd_rows(B, S, n_sm)
+    elif rows not in BWD_ROWS:
+        raise ValueError(f"gru_bwd takes {BWD_ROWS} rows a block, not {rows}")
+    return dict(variant=variant, rows=rows, blocks=S * -(-B // rows),
+                threads=-(-H // 32) * 32, smem_bytes=bwd_smem_bytes(H, rows, variant),
+                splits=bwd_splits(B, T, H, S))
+
+
+def _gru_bwd_kernel(
+    xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+    out: torch.Tensor, dy: torch.Tensor, rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``gru_bwd`` (or raise) as :func:`bwd_plan` lays it out;
+    ``rows`` forces the resident recurrence's rows a block. Counts on
+    ``gru_recurrence_backward.launches``."""
+    B, T, S, H = _shapes(xp, w_hh, b_hh)
+    _check_cuda("gru_bwd", H, xp=xp, w_hh=w_hh, b_hh=b_hh, out=out, dy=dy)
+    for name, t in (("out", out), ("dy", dy)):
+        if tuple(t.shape) != (B, T, S * H):
+            raise ValueError(f"{name} must be [{B}, {T}, {S * H}], got {tuple(t.shape)}")
+    if w_hh.data_ptr() % 16:
+        raise ValueError("gru_bwd reads w_hh in 16-byte vectors; its storage is not 16-byte aligned")
+    f32 = dict(device=xp.device, dtype=torch.float32)
+    dxp = torch.empty_like(xp)
+    dw = torch.zeros(S, H, 3 * H, **f32)
+    db = torch.zeros(S, 3 * H, **f32)
+    if B == 0 or T == 0:
+        return dxp, dw, db
+    plan = bwd_plan(B, T, H, S, torch.cuda.get_device_properties(xp.device).multi_processor_count,
+                    rows)
+    nsplit = plan["splits"]
+    dhp = torch.empty_like(xp)
+    part_w = torch.empty(nsplit, S, H, 3 * H, **f32)
+    part_b = torch.empty(nsplit, S, 3 * H, **f32)
+    lib = kernels.library("gru_bwd")
+    with torch.cuda.device(xp.device):
+        code = lib.roko_gru_bwd(
+            xp.data_ptr(), out.data_ptr(), dy.data_ptr(), w_hh.data_ptr(),
+            b_hh.data_ptr(), dxp.data_ptr(), dhp.data_ptr(),
+            part_w.data_ptr(), part_b.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            B, T, H, S, nsplit, plan["rows"], int(plan["variant"] == "resident"),
+            kernels.stream(xp),
+        )
+    kernels.check(lib, "gru_bwd", code)
+    gru_recurrence_backward.launches += 1
+    return dxp, dw, db
+
+
 def gru_recurrence_backward(
     xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     out: torch.Tensor, dy: torch.Tensor,
@@ -187,36 +278,11 @@ def gru_recurrence_backward(
     kernel ``gru_bwd`` for CUDA tensors (launch or raise), the plain loop
     for CPU tensors. ``gru_recurrence_backward.launches`` counts kernel
     launches."""
-    B, T, S, H = _shapes(xp, w_hh, b_hh)
+    _shapes(xp, w_hh, b_hh)
     if kernels.device_kind(xp, "gru_recurrence_backward") == "cpu":
         return gru_recurrence_backward_plain(xp, w_hh, b_hh, out, dy)
-    dy = dy.contiguous()  # slices and cats upstream hand it strided
-    _check_cuda("gru_bwd", H, xp=xp, w_hh=w_hh, b_hh=b_hh, out=out, dy=dy)
-    for name, t in (("out", out), ("dy", dy)):
-        if tuple(t.shape) != (B, T, S * H):
-            raise ValueError(f"{name} must be [{B}, {T}, {S * H}], got {tuple(t.shape)}")
-    f32 = dict(device=xp.device, dtype=torch.float32)
-    dxp = torch.empty_like(xp)
-    dw = torch.zeros(S, H, 3 * H, **f32)
-    db = torch.zeros(S, 3 * H, **f32)
-    if B == 0 or T == 0:
-        return dxp, dw, db
-    nsplit = bwd_splits(B, T, H, S)
-    w_t = w_hh.transpose(1, 2).contiguous()  # [S, 3H, H]: coalesced W^T rows
-    dhp = torch.empty_like(xp)
-    part_w = torch.empty(nsplit, S, H, 3 * H, **f32)
-    part_b = torch.empty(nsplit, S, 3 * H, **f32)
-    lib = kernels.library("gru_bwd")
-    with torch.cuda.device(xp.device):
-        code = lib.roko_gru_bwd(
-            xp.data_ptr(), out.data_ptr(), dy.data_ptr(), w_hh.data_ptr(),
-            w_t.data_ptr(), b_hh.data_ptr(), dxp.data_ptr(), dhp.data_ptr(),
-            part_w.data_ptr(), part_b.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            B, T, H, S, nsplit, kernels.stream(xp),
-        )
-    kernels.check(lib, "gru_bwd", code)
-    gru_recurrence_backward.launches += 1
-    return dxp, dw, db
+    # slices and cats upstream hand dy strided
+    return _gru_bwd_kernel(xp, w_hh, b_hh, out, dy.contiguous())
 
 
 gru_recurrence_backward.launches = 0

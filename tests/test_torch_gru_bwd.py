@@ -146,3 +146,61 @@ def test_bwd_splits_depend_on_shapes_only():
     for B, T, H, S in [(128, 90, 128, 2), (5, 90, 16, 2), (13, 7, 128, 1)]:
         n = fg.bwd_splits(B, T, H, S)
         assert 1 <= n and (n - 1) * -(-(B * T) // n) < B * T  # no empty split
+
+
+H100_SMS = 132
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may ask for on an H100
+
+
+@pytest.mark.parametrize("B,S,rows", [
+    (128, 2, 2),   # the train batch: 128 blocks, one wave
+    (512, 2, 8),   # the inference batch: 128 blocks
+    (5, 2, 1), (1, 1, 1), (66, 2, 1), (67, 2, 2), (132, 1, 1), (133, 1, 2),
+    (264, 2, 4), (265, 2, 8),
+    (4096, 2, 8),  # no rows give one wave: the most
+])
+def test_bwd_rows_fill_one_wave(B, S, rows):
+    assert fg.bwd_rows(B, S, H100_SMS) == rows
+    assert rows in fg.BWD_ROWS and rows <= 8
+    smaller = [r for r in fg.BWD_ROWS if r < rows]
+    assert all(S * -(-B // r) > H100_SMS for r in smaller)  # the fewest that fit
+    if rows < fg.BWD_ROWS[-1]:
+        assert S * -(-B // rows) <= H100_SMS
+
+
+@pytest.mark.parametrize("H", [4, 8, 16, 64, 124, 128, 132, 256, 512])
+def test_bwd_variant_is_resident_up_to_128(H):
+    want = "resident" if H <= 128 else "streaming"
+    assert fg.bwd_variant(H) == want
+    assert fg.bwd_plan(9, 5, H, 2, H100_SMS)["variant"] == want
+
+
+@pytest.mark.parametrize("rows", fg.BWD_ROWS)
+def test_resident_smem_fits_a_block_at_every_width(rows):
+    for H in range(4, fg.RESIDENT_MAX_HIDDEN + 1, 4):
+        assert fg.bwd_variant(H) == "resident"
+        need = fg.bwd_smem_bytes(H, rows, "resident")
+        assert need == 4 * (H * (3 * H + 4) + 8 * rows * H)
+        assert need <= SMEM_LIMIT, (H, rows, need)
+    # the widest: W_hh[s] alone is 128 x 388 floats
+    assert fg.bwd_smem_bytes(128, 2, "resident") == 198_656 + 2 * 2 * 2048
+
+
+def test_bwd_plan_at_the_train_shape_is_one_wave():
+    plan = fg.bwd_plan(128, 90, 128, 2, H100_SMS)
+    assert plan == dict(variant="resident", rows=2, blocks=128, threads=128,
+                        smem_bytes=206_848, splits=fg.bwd_splits(128, 90, 128, 2))
+    assert fg.bwd_plan(512, 90, 128, 2, H100_SMS)["blocks"] == 128
+
+
+def test_bwd_plan_streaming_and_forced_rows():
+    plan = fg.bwd_plan(9, 33, 512, 2, H100_SMS)
+    assert (plan["variant"], plan["rows"], plan["blocks"]) == ("streaming", 8, 4)
+    assert plan["smem_bytes"] == 4 * 8 * 4 * 512
+    for rows in fg.BWD_ROWS:
+        forced = fg.bwd_plan(128, 90, 128, 2, H100_SMS, rows=rows)
+        assert (forced["rows"], forced["blocks"]) == (rows, 2 * -(-128 // rows))
+    with pytest.raises(ValueError, match="rows a block"):
+        fg.bwd_plan(128, 90, 128, 2, H100_SMS, rows=3)
+    with pytest.raises(ValueError, match="streaming"):
+        fg.bwd_plan(9, 33, 512, 2, H100_SMS, rows=2)

@@ -266,33 +266,23 @@ def check_kernel(torch, fg, shape, dev, rng, *, timed: bool):
 
 def kernel_split(torch, fn, iters: int, parts) -> dict:
     """Device milliseconds a call of ``fn()`` spends in each of ``parts``
-    (``(key, substring of the kernel name)``), from a torch.profiler trace
-    of ``iters`` calls after one warm-up: the sum over the trace divided by
-    ``iters``, with the number and the names of the traced kernels of each
-    part."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    (``(key, substring of the kernel name)``): ``device_breakdown`` of
+    ``iters`` calls after one warm-up, each part's kernel time summed and
+    divided by ``iters``, with the number and names of the traced kernels
+    of each part."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    keys = [k for k, _ in parts]
-    ms, calls, names = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0), {k: set() for k in keys}
-    for e in prof.events():
-        if getattr(e, "is_user_annotation", False) or e.device_type != DeviceType.CUDA:
-            continue
-        key = next((k for k, sub in parts if sub in e.name), None)
-        if key is not None:
-            ms[key] += e.time_range.elapsed_us() / 1e3
-            calls[key] += 1
-            names[key].add(re.search(r"\w*gru_bwd\w*(<\d+>)?", e.name).group(0))
-    if not any(calls.values()):
-        return {"device": "not measured (no device events traced)"}
-    return {**{k: v / iters for k, v in ms.items()}, "traced_calls": iters,
-            "kernels_traced": calls, "kernel_names": {k: sorted(v) for k, v in names.items()}}
+    traced = device_breakdown(torch, lambda: [fn() for _ in range(iters)])
+    if "kernels_ms_calls" not in traced:
+        return {"device": traced["device"]}
+    split = {"traced_calls": iters, "kernels_traced": {}, "kernel_names": {}}
+    for key, sub in parts:
+        hits = {n: v for n, v in traced["kernels_ms_calls"].items() if sub in n}
+        split[key] = sum(ms for ms, _ in hits.values()) / iters
+        split["kernels_traced"][key] = sum(n for _, n in hits.values())
+        split["kernel_names"][key] = sorted(re.search(r"\w*gru_bwd\w*(<\d+>)?", n).group(0)
+                                            for n in hits)
+    return split
 
 
 # gru_bwd's three kernels, by a substring of their names

@@ -63,9 +63,9 @@
 //     without float atomics, in a fixed order: the B*T rows are cut into
 //     NSPLIT contiguous ranges; each block owns one (direction, range,
 //     64 x 64 tile of dW) and sums its rows in order, 16 at a time, into a
-//     partial; the reduce kernel then adds the NSPLIT partials in split
-//     order. NSPLIT is a function of the shapes alone, so two runs give
-//     the same bits.
+//     partial, loading the next 16 rows while it sums these; the reduce
+//     kernel then adds the NSPLIT partials in split order. NSPLIT is a
+//     function of the shapes alone, so two runs give the same bits.
 //
 // Bound on an H100 SXM (67 TFLOP/s f32 without tensor cores, 3.35 TB/s):
 // at the train shape B = 128, T = 90, H = 128, S = 2 the three step
@@ -78,9 +78,12 @@
 // shared-memory bandwidth (128 B a clock): the 128 threads read all of W
 // once for each product (384 conflict-free 4-byte and 96 16-byte reads a
 // thread, 3 K clocks) plus the broadcast reads of h_prev and dhp, about
-// 4 K clocks, some 0.2 ms over 90 steps before the barrier's cost. No
-// tensor cores: TF32 would not hold the 1e-4 tolerance against the f32
-// loop.
+// 4 K clocks, some 0.2 ms over 90 steps before the barrier's cost. On an
+// H100 SXM at 700 W (a) takes 0.42 ms there, about twice that: with one
+// warp per scheduler little of the shared-memory latency is hidden (four
+// partial sums a row in the transposed product, which shorten its FMA
+// chains, were no faster). (b) takes 0.14 ms. No tensor cores: TF32 would
+// not hold the 1e-4 tolerance against the f32 loop.
 //
 // f32 throughout, expf/tanhf, no fast math.
 
@@ -109,7 +112,7 @@ __device__ __forceinline__ float carry(float dhr, float zg, float dhp_wt) {
 
 // Bytes of dynamic shared memory of the resident variant: W_hh[s] with
 // padded rows, and double-buffered h_prev [ROWS][H] and dhp [ROWS][3H].
-// fused_gru.py::bwd_smem_bytes mirrors this formula.
+// fused_gru.py::bwd_plan mirrors this formula.
 constexpr size_t resident_smem_bytes(int H, int rows) {
   return sizeof(float) * ((size_t)H * (3 * H + W_PAD) + 2 * (size_t)rows * 4 * H);
 }
@@ -489,18 +492,32 @@ gru_bwd_dw_kernel(const float* __restrict__ out,  // [B, T, S*H]
     for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
   float bsum = 0.f;
 
-  for (int nb = n0; nb < n1; nb += TN) {
-    for (int e = tid; e < TN * TK; e += DW_THREADS) {
+  // a pass stages TN rows of h_prev (TK columns) and of dhp (TC columns);
+  // each thread loads PER values of each into registers, the next pass's
+  // while this one computes
+  static_assert(TK == TC, "one index serves both staged tiles");
+  constexpr int PER = TN * TK / DW_THREADS;
+  float hv[PER], dv[PER];
+  auto stage = [&](int nb) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + i * DW_THREADS;
       const int nn = e / TK, kk = e % TK;
-      const int n = nb + nn, k = k0 + kk;
-      hs[nn][kk] = (n < n1 && k < H) ? h_prev_at(out, n, k, s, T, H, S) : 0.f;
+      const int n = nb + nn;
+      hv[i] = (n < n1 && k0 + kk < H) ? h_prev_at(out, n, k0 + kk, s, T, H, S) : 0.f;
+      dv[i] = (n < n1 && c0 + kk < H3) ? dhp[(size_t)n * S * H3 + s * H3 + c0 + kk] : 0.f;
     }
-    for (int e = tid; e < TN * TC; e += DW_THREADS) {
-      const int nn = e / TC, cc = e % TC;
-      const int n = nb + nn, c = c0 + cc;
-      ds[nn][cc] = (n < n1 && c < H3) ? dhp[(size_t)n * S * H3 + s * H3 + c] : 0.f;
+  };
+  if (n0 < n1) stage(n0);
+  for (int nb = n0; nb < n1; nb += TN) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + i * DW_THREADS;
+      hs[e / TK][e % TK] = hv[i];
+      ds[e / TC][e % TC] = dv[i];
     }
     __syncthreads();
+    if (nb + TN < n1) stage(nb + TN);  // in flight while this pass computes
     // the pass's TN rows are summed on their own, then added to the running
     // sums: a blocked sum, whose rounding error grows with TN + rows / TN
     // instead of with the rows of the split

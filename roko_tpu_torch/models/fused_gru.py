@@ -201,33 +201,28 @@ def bwd_variant(H: int) -> str:
     return "resident" if H <= RESIDENT_MAX_HIDDEN else "streaming"
 
 
-def bwd_smem_bytes(H: int, rows: int, variant: str) -> int:
-    """Dynamic shared memory of one block of gru_bwd's recurrence: for the
-    resident variant W_hh[s] with rows of 3H + 4 floats and double-buffered
-    h_prev and dhp (resident_smem_bytes in csrc/gru_bwd.cu), for the
-    streaming one h_prev and dhp once."""
-    if variant == "resident":
-        return 4 * (H * (3 * H + _W_PAD) + 2 * rows * 4 * H)
-    return 4 * rows * 4 * H
-
-
 def bwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = None) -> dict:
     """How gru_bwd launches at these shapes on a card with ``n_sm`` SMs:
     the recurrence's variant, batch rows a block (``rows`` forces one of
-    :data:`BWD_ROWS` on the resident variant), blocks, threads a block and
-    shared-memory bytes a block, and the weight-gradient pass's splits."""
+    :data:`BWD_ROWS` on the resident variant), blocks, threads a block,
+    dynamic shared-memory bytes a block, and the weight-gradient pass's
+    splits. A resident block holds W_hh[s] with rows of 3H + 4 floats and
+    double-buffered h_prev and dhp (resident_smem_bytes in
+    csrc/gru_bwd.cu), a streaming block h_prev and dhp once."""
     variant = bwd_variant(H)
     if variant == "streaming":
         if rows not in (None, _STREAM_ROWS):
             raise ValueError(f"the streaming gru_bwd takes {_STREAM_ROWS} rows a block, not {rows}")
         rows = _STREAM_ROWS
-    elif rows is None:
-        rows = bwd_rows(B, S, n_sm)
-    elif rows not in BWD_ROWS:
-        raise ValueError(f"gru_bwd takes {BWD_ROWS} rows a block, not {rows}")
+        smem = 4 * rows * 4 * H
+    else:
+        if rows is None:
+            rows = bwd_rows(B, S, n_sm)
+        elif rows not in BWD_ROWS:
+            raise ValueError(f"gru_bwd takes {BWD_ROWS} rows a block, not {rows}")
+        smem = 4 * (H * (3 * H + _W_PAD) + 2 * rows * 4 * H)
     return dict(variant=variant, rows=rows, blocks=S * -(-B // rows),
-                threads=-(-H // 32) * 32, smem_bytes=bwd_smem_bytes(H, rows, variant),
-                splits=bwd_splits(B, T, H, S))
+                threads=-(-H // 32) * 32, smem_bytes=smem, splits=bwd_splits(B, T, H, S))
 
 
 def _gru_bwd_kernel(

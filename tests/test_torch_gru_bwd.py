@@ -178,12 +178,13 @@ def test_bwd_variant_is_resident_up_to_128(H):
 @pytest.mark.parametrize("rows", fg.BWD_ROWS)
 def test_resident_smem_fits_a_block_at_every_width(rows):
     for H in range(4, fg.RESIDENT_MAX_HIDDEN + 1, 4):
-        assert fg.bwd_variant(H) == "resident"
-        need = fg.bwd_smem_bytes(H, rows, "resident")
-        assert need == 4 * (H * (3 * H + 4) + 8 * rows * H)
-        assert need <= SMEM_LIMIT, (H, rows, need)
-    # the widest: W_hh[s] alone is 128 x 388 floats
-    assert fg.bwd_smem_bytes(128, 2, "resident") == 198_656 + 2 * 2 * 2048
+        plan = fg.bwd_plan(128, 90, H, 2, H100_SMS, rows=rows)
+        assert plan["variant"] == "resident"
+        assert plan["smem_bytes"] == 4 * (H * (3 * H + 4) + 8 * rows * H)
+        assert plan["smem_bytes"] <= SMEM_LIMIT, (H, rows, plan["smem_bytes"])
+    # the widest: W_hh[s] alone is 128 x 388 floats, h_prev and dhp 2 KiB a row
+    widest = fg.bwd_plan(128, 90, 128, 2, H100_SMS, rows=rows)["smem_bytes"]
+    assert widest == 198_656 + 2 * rows * 2048
 
 
 def test_bwd_plan_at_the_train_shape_is_one_wave():

@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``roko_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --fwd-only ROOT   # gru_fwd alone, from ROOT's port
+    python3 chip_smoke.py --bwd-only ROOT   # gru_bwd alone, from ROOT's port
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
 nvcc per source, started together), holds each kernel against its plain
@@ -27,6 +29,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -48,6 +51,8 @@ EXTRA_SHAPES = (
     dict(B=5, T=90, IN=24, H=16, S=2),
     dict(B=13, T=7, IN=256, H=128, S=1),
 )
+# gru_fwd beyond those: the widest hidden size, which streams W_hh from L2
+FWD_STREAMING_SHAPE = dict(B=9, T=33, IN=64, H=512, S=2)
 ATOL = RTOL = 1e-4  # f32 kernel vs f32 loop: summation order only
 PATH_BATCHES = 8
 PATH_BATCH_SIZE = 512
@@ -232,20 +237,35 @@ def bound(torch, flops: float, nbytes: float) -> dict:
 
 
 def check_kernel(torch, fg, shape, dev, rng, *, timed: bool):
-    """gru_fwd vs gru_recurrence_plain at ``shape`` on the card; with
-    ``timed``, also the kernel's, the plain loop's and cuDNN's times."""
+    """gru_fwd vs gru_recurrence_plain at ``shape`` on the card, and two
+    launches bitwise equal; with ``timed``, also the resident variant
+    forced to each rows a block (bitwise equal), a digest of the output
+    (equal digests of two trees on the same inputs mean equal bits), and
+    the kernel's, the plain loop's and cuDNN's times."""
     B, T, IN, H, S = (shape[k] for k in ("B", "T", "IN", "H", "S"))
     x, t, xp, w_hh, b_hh = layer_inputs(torch, shape, dev, rng)
 
     got = fg.gru_recurrence(xp, w_hh, b_hh)
     want = fg.gru_recurrence_plain(xp, w_hh, b_hh)
+    again = fg.gru_recurrence(xp, w_hh, b_hh)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
         fail(f"gru_fwd disagrees with the plain loop at {shape}: max |d| {err}")
-    row = {"shape": shape, "max_abs_err": err}
+    if not torch.equal(got, again):
+        fail(f"gru_fwd differs between two launches at {shape}")
+    row = {"shape": shape, "max_abs_err": err, "bitwise_repeatable": True,
+           **launch_plan(torch, fg, "fwd", shape, dev)}
     if not timed:
         return row
+
+    if row.get("variant") == "resident":
+        for rows in fg.RESIDENT_ROWS:
+            if not torch.equal(got, fg._gru_fwd_kernel(xp, w_hh, b_hh, rows=rows)):
+                fail(f"gru_fwd at {rows} rows a block differs from "
+                     f"{row['rows_per_block']} rows at {shape}")
+        row["bitwise_equal_across_rows"] = list(fg.RESIDENT_ROWS)
+    row["output_sha256"] = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
 
     # cuDNN's GRU with the same weights: a yardstick only, and it also
     # runs the input product that gru_fwd leaves outside
@@ -255,6 +275,8 @@ def check_kernel(torch, fg, shape, dev, rng, *, timed: bool):
         row["library_max_abs_err"] = (lib_out - got).abs().max().item()
         row["library_ms"] = cuda_ms(torch, lambda: ref(x), iters=20)
     row["ms"] = cuda_ms(torch, lambda: fg.gru_recurrence(xp, w_hh, b_hh), iters=20)
+    row["ms_by_kernel"] = kernel_split(
+        torch, lambda: fg.gru_recurrence(xp, w_hh, b_hh), 20, FWD_PARTS)
     row["plain_ms"] = cuda_ms(
         torch, lambda: fg.gru_recurrence_plain(xp, w_hh, b_hh), iters=3, warmup=1
     )
@@ -280,22 +302,25 @@ def kernel_split(torch, fn, iters: int, parts) -> dict:
         hits = {n: v for n, v in traced["kernels_ms_calls"].items() if sub in n}
         split[key] = sum(ms for ms, _ in hits.values()) / iters
         split["kernels_traced"][key] = sum(n for _, n in hits.values())
-        split["kernel_names"][key] = sorted(re.search(r"\w*gru_bwd\w*(<\d+>)?", n).group(0)
-                                            for n in hits)
+        split["kernel_names"][key] = sorted(
+            re.search(r"\w*gru_(fwd|bwd)\w*(<[\d, ]+>)?", n).group(0) for n in hits)
     return split
 
 
-# gru_bwd's three kernels, by a substring of their names
+# gru_bwd's three kernels and gru_fwd's one, by a substring of their names
 BWD_PARTS = (("recurrence", "gru_bwd_rec"), ("dw", "gru_bwd_dw"), ("reduce", "gru_bwd_reduce"))
+FWD_PARTS = (("recurrence", "gru_fwd"),)
 
 
-def bwd_launch_plan(torch, fg, shape, dev) -> dict:
-    """How gru_bwd launches at ``shape`` on this card (``fg.bwd_plan``);
-    empty for a tree whose gru_bwd has no plan (one variant, 8 rows)."""
-    if not hasattr(fg, "bwd_plan"):
+def launch_plan(torch, fg, kernel: str, shape, dev) -> dict:
+    """How gru_``kernel`` (``"fwd"`` or ``"bwd"``) launches at ``shape``
+    on this card (``fg.fwd_plan``, ``fg.bwd_plan``); empty for a tree
+    whose kernel has no plan (one variant, 8 rows)."""
+    plan_of = getattr(fg, f"{kernel}_plan", None)
+    if plan_of is None:
         return {}
     B, T, H, S = (shape[k] for k in ("B", "T", "H", "S"))
-    plan = fg.bwd_plan(B, T, H, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan = plan_of(B, T, H, S, torch.cuda.get_device_properties(dev).multi_processor_count)
     return {"variant": plan["variant"], "rows_per_block": plan["rows"],
             "blocks": plan["blocks"], "threads_per_block": plan["threads"],
             "smem_bytes_per_block": plan["smem_bytes"]}
@@ -326,7 +351,7 @@ def check_bwd_kernel(torch, fg, shape, dev, rng, *, timed: bool):
             fail(f"gru_bwd {name} differs between two launches at {shape}")
     row = {"shape": shape, "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
            "bitwise_repeatable": True, "splits": fg.bwd_splits(B, T, H, S),
-           **bwd_launch_plan(torch, fg, shape, dev)}
+           **launch_plan(torch, fg, "bwd", shape, dev)}
     if not timed:
         return row
 
@@ -694,11 +719,13 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def bwd_only(torch, root: str) -> None:
-    """Only gru_bwd, from the port package under ``root`` (this tree's or
-    an unpacked copy of another commit's): built, checked against its
-    plain loop and timed at the train shape, split by sub-kernel. Two
-    trees compare within one call as parent, change, change, parent."""
+def one_kernel(torch, flag: str, root: str) -> None:
+    """Only gru_bwd (``--bwd-only``) or only gru_fwd (``--fwd-only``), from
+    the port package under ``root`` (this tree's or an unpacked copy of
+    another commit's): built, checked against its plain loop and timed,
+    gru_bwd at the train shape split by sub-kernel, gru_fwd at the
+    inference and the train batch. Two trees compare within one call as
+    parent, change, change, parent."""
     sys.path.insert(0, os.path.abspath(root))
     try:
         from roko_tpu_torch import kernels
@@ -709,11 +736,17 @@ def bwd_only(torch, root: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    built = kernels.build(["gru_bwd"])
-    row = check_bwd_kernel(torch, fg, TRAIN_SHAPE, torch.device("cuda", 0),
-                           np.random.default_rng(SEED), timed=True)
-    emit({"bwd_only": {"root": root, "package": os.path.dirname(kernels.__file__),
-                       "ptxas": built.get("gru_bwd", {}).get("ptxas"), **row, "card": card}})
+    name = flag[2:5]
+    built = kernels.build([f"gru_{name}"])
+    dev, rng = torch.device("cuda", 0), np.random.default_rng(SEED)
+    if name == "bwd":
+        result = check_bwd_kernel(torch, fg, TRAIN_SHAPE, dev, rng, timed=True)
+    else:
+        result = {"rows": [check_kernel(torch, fg, s, dev, rng, timed=True)
+                           for s in (MAIN_SHAPE, TRAIN_SHAPE)]}
+    emit({f"{name}_only": {"root": root, "package": os.path.dirname(kernels.__file__),
+                           "ptxas": built.get(f"gru_{name}", {}).get("ptxas"), **result,
+                           "card": card}})
 
 
 def main() -> None:
@@ -721,10 +754,11 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    if sys.argv[1:2] == ["--bwd-only"] and len(sys.argv) == 3:
-        return bwd_only(torch, sys.argv[2])
+    if sys.argv[1:2] in (["--bwd-only"], ["--fwd-only"]) and len(sys.argv) == 3:
+        return one_kernel(torch, sys.argv[1], sys.argv[2])
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py [--bwd-only ROOT]")
+        fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
+             "[--bwd-only ROOT | --fwd-only ROOT]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import constants as C
@@ -765,6 +799,18 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     main_row = check_kernel(torch, fg, MAIN_SHAPE, dev, rng, timed=True)
     extra = [check_kernel(torch, fg, s, dev, rng, timed=False) for s in EXTRA_SHAPES]
+    # gru_fwd at the train batch and the streaming width draw from a stream
+    # of their own, so the later phases see the inputs they saw before
+    fwd_rng = np.random.default_rng(SEED + 2)
+    fwd_train_row = check_kernel(torch, fg, TRAIN_SHAPE, dev, fwd_rng, timed=True)
+    extra.append(check_kernel(torch, fg, FWD_STREAMING_SHAPE, dev, fwd_rng, timed=False))
+    for row in (main_row, fwd_train_row):
+        traced = row["ms_by_kernel"].get("kernel_names", {}).get("recurrence", [])
+        if row["variant"] != "resident" or not all("resident" in n for n in traced):
+            fail(f"gru_fwd at {row['shape']} ran {row['variant']} ({traced}), not the "
+                 "resident kernel")
+    if extra[-1]["variant"] != "streaming":
+        fail(f"gru_fwd at {FWD_STREAMING_SHAPE} ran {extra[-1]['variant']}, not streaming")
     bwd_row = check_bwd_kernel(torch, fg, TRAIN_SHAPE, dev, rng, timed=True)
     bwd_extra = [check_bwd_kernel(torch, fg, s, dev, rng, timed=False) for s in BWD_EXTRA_SHAPES]
     traced = bwd_row["ms_by_kernel"].get("kernel_names", {}).get("recurrence", [])
@@ -780,7 +826,8 @@ def main() -> None:
     lin_bwd_row = check_lingru_bwd(torch, fl, LIN_TRAIN_SHAPE, dev, lin_rng, timed=True)
     lin_bwd_extra = [check_lingru_bwd(torch, fl, s, dev, lin_rng, timed=False)
                      for s in (LIN_INFER_SHAPE, *LIN_EXTRA_SHAPES)]
-    emit({"kernel_check": {"gru_fwd": [main_row, *extra], "gru_bwd": [bwd_row, *bwd_extra],
+    emit({"kernel_check": {"gru_fwd": [main_row, fwd_train_row, *extra],
+                           "gru_bwd": [bwd_row, *bwd_extra],
                            "lingru_fwd": [lin_fwd_row, *lin_fwd_extra],
                            "lingru_bwd": [lin_bwd_row, *lin_bwd_extra],
                            "atol": ATOL, "rtol": RTOL, "card": card}})
@@ -843,11 +890,8 @@ def main() -> None:
     emit({"lingru_train_breakdown": {
         **train_breakdown(torch, port, lin_result, corpus, tcfg, dev), "card": card}})
 
-    def kernel_row(name, source, replaces, replaces_also, row, by_path):
+    def timing(row):
         return {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "replaces_also": replaces_also,
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "shape": row["shape"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -855,10 +899,19 @@ def main() -> None:
                                    "smem_bytes_per_block", "ms_by_kernel") if k in row},
         }
 
+    def kernel_row(name, source, replaces, replaces_also, row, by_path, **also):
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "replaces_also": replaces_also,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **timing(row), **{k: timing(r) for k, r in also.items()},
+        }
+
     emit({"kernels": [
         kernel_row("gru_fwd", "roko_tpu_torch/csrc/gru_fwd.cu",
                    "roko_tpu/models/pallas_gru.py:126", "roko_tpu/models/pallas_gru.py:171",
-                   main_row, {"inference": launches, "train": train_fwd}),
+                   main_row, {"inference": launches, "train": train_fwd},
+                   at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",
                    bwd_row, {"inference": 0, "train": train_bwd}),

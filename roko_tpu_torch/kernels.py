@@ -36,7 +36,7 @@ KERNELS = {
     "gru_fwd": (
         "csrc/gru_fwd.cu",
         "roko_gru_fwd",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     ),
     "gru_bwd": (
         "csrc/gru_bwd.cu",

@@ -42,12 +42,14 @@ MAX_HIDDEN = 512
 _BWD_TARGET_BLOCKS = 2 * 132
 #: the weight-gradient pass's output tile (TK x TC in csrc/gru_bwd.cu)
 _BWD_TILE = 64
-#: gru_bwd's resident recurrence: widest H (RES_MAX_H), the padding of each
-#: W_hh row in shared memory (W_PAD), the batch rows a block may take
+#: the resident recurrences of gru_fwd and gru_bwd: widest H (RES_MAX_H),
+#: the padding of each W_hh row in shared memory (W_PAD), the batch rows a
+#: block may take
 RESIDENT_MAX_HIDDEN = 128
 _W_PAD = 4
-BWD_ROWS = (1, 2, 4, 8)
-#: batch rows a block of gru_bwd's streaming recurrence takes (STREAM_ROWS)
+RESIDENT_ROWS = (1, 2, 4, 8)
+BWD_ROWS = RESIDENT_ROWS
+#: batch rows a block of the streaming recurrences takes (STREAM_ROWS)
 _STREAM_ROWS = 8
 
 
@@ -159,18 +161,46 @@ def gru_recurrence_backward_plain(
     return dxp.reshape(B, T, S * 3 * H), dw, db
 
 
-def _gru_fwd_kernel(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
-    """Launch ``gru_fwd`` (or raise); counts on ``gru_recurrence.launches``."""
+def fwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = None) -> dict:
+    """How gru_fwd launches at these shapes on a card with ``n_sm`` SMs: the
+    variant, batch rows a block (``rows`` forces one of
+    :data:`RESIDENT_ROWS` on the resident variant), blocks, threads a block
+    and dynamic shared-memory bytes a block. A resident block holds W_hh[s]
+    with rows of 3H + 4 floats and the double-buffered h
+    (resident_smem_bytes in csrc/gru_fwd.cu), and from 4 rows up runs two
+    thread groups of half the rows each (resident_groups); a streaming
+    block holds the double-buffered h alone."""
+    variant, rows = _variant_rows("gru_fwd", B, H, S, n_sm, rows)
+    smem = 4 * 2 * rows * H
+    threads = -(-H // 32) * 32
+    if variant == "resident":
+        smem += 4 * H * (3 * H + _W_PAD)
+        threads *= 2 if rows >= 4 else 1
+    return dict(variant=variant, rows=rows, blocks=S * -(-B // rows),
+                threads=threads, smem_bytes=smem)
+
+
+def _gru_fwd_kernel(
+    xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, rows: Optional[int] = None
+) -> torch.Tensor:
+    """Launch ``gru_fwd`` (or raise) as :func:`fwd_plan` lays it out;
+    ``rows`` forces the resident variant's rows a block. Counts on
+    ``gru_recurrence.launches``."""
     B, T, S, H = _shapes(xp, w_hh, b_hh)
     _check_cuda("gru_fwd", H, xp=xp, w_hh=w_hh, b_hh=b_hh)
+    if w_hh.data_ptr() % 16:
+        raise ValueError("gru_fwd reads w_hh in 16-byte vectors; its storage is not 16-byte aligned")
     out = torch.empty(B, T, S * H, device=xp.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return out
+    plan = fwd_plan(B, T, H, S, torch.cuda.get_device_properties(xp.device).multi_processor_count,
+                    rows)
     lib = kernels.library("gru_fwd")
     with torch.cuda.device(xp.device):
         code = lib.roko_gru_fwd(
             xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
-            B, T, H, S, kernels.stream(xp),
+            B, T, H, S, plan["rows"], int(plan["variant"] == "resident"),
+            kernels.stream(xp),
         )
     kernels.check(lib, "gru_fwd", code)
     gru_recurrence.launches += 1
@@ -186,40 +216,55 @@ def bwd_splits(B: int, T: int, H: int, S: int) -> int:
     return max(1, min(-(-_BWD_TARGET_BLOCKS // tiles), -(-rows // 256)))
 
 
-def bwd_rows(B: int, S: int, n_sm: int) -> int:
-    """Batch rows a block of gru_bwd's resident recurrence takes: the
-    fewest of :data:`BWD_ROWS` that keep the S * ceil(B / rows) blocks
-    within one wave of the card's ``n_sm`` SMs (one block fits an SM), and
-    the most when none does."""
-    return next((r for r in BWD_ROWS if S * -(-B // r) <= n_sm), BWD_ROWS[-1])
+def resident_rows(B: int, S: int, n_sm: int) -> int:
+    """Batch rows a block of a resident recurrence (gru_fwd's or gru_bwd's)
+    takes: the fewest of :data:`RESIDENT_ROWS` that keep the
+    S * ceil(B / rows) blocks within one wave of the card's ``n_sm`` SMs
+    (one block fits an SM), and the most when none does."""
+    return next((r for r in RESIDENT_ROWS if S * -(-B // r) <= n_sm), RESIDENT_ROWS[-1])
 
 
-def bwd_variant(H: int) -> str:
-    """gru_bwd's recurrence for hidden size ``H``: ``"resident"`` (W_hh in
-    shared memory) up to :data:`RESIDENT_MAX_HIDDEN`, ``"streaming"`` (W_hh
-    from L2 every step) above. A function of the shape, not a fallback."""
+bwd_rows = resident_rows
+
+
+def recurrence_variant(H: int) -> str:
+    """The recurrence kernels' variant for hidden size ``H``, gru_fwd's and
+    gru_bwd's alike: ``"resident"`` (W_hh in shared memory) up to
+    :data:`RESIDENT_MAX_HIDDEN`, ``"streaming"`` (W_hh from L2 every step)
+    above. A function of the shape, not a fallback."""
     return "resident" if H <= RESIDENT_MAX_HIDDEN else "streaming"
+
+
+fwd_variant = bwd_variant = recurrence_variant
+
+
+def _variant_rows(name: str, B: int, H: int, S: int, n_sm: int, rows: Optional[int]):
+    """The variant of kernel ``name`` at hidden size ``H`` and its batch
+    rows a block: ``rows`` when given and allowed, else one wave's."""
+    variant = recurrence_variant(H)
+    if variant == "streaming":
+        if rows not in (None, _STREAM_ROWS):
+            raise ValueError(f"the streaming {name} takes {_STREAM_ROWS} rows a block, not {rows}")
+        return variant, _STREAM_ROWS
+    if rows is None:
+        return variant, resident_rows(B, S, n_sm)
+    if rows not in RESIDENT_ROWS:
+        raise ValueError(f"{name} takes {RESIDENT_ROWS} rows a block, not {rows}")
+    return variant, rows
 
 
 def bwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = None) -> dict:
     """How gru_bwd launches at these shapes on a card with ``n_sm`` SMs:
     the recurrence's variant, batch rows a block (``rows`` forces one of
-    :data:`BWD_ROWS` on the resident variant), blocks, threads a block,
+    :data:`RESIDENT_ROWS` on the resident variant), blocks, threads a block,
     dynamic shared-memory bytes a block, and the weight-gradient pass's
     splits. A resident block holds W_hh[s] with rows of 3H + 4 floats and
     double-buffered h_prev and dhp (resident_smem_bytes in
     csrc/gru_bwd.cu), a streaming block h_prev and dhp once."""
-    variant = bwd_variant(H)
+    variant, rows = _variant_rows("gru_bwd", B, H, S, n_sm, rows)
     if variant == "streaming":
-        if rows not in (None, _STREAM_ROWS):
-            raise ValueError(f"the streaming gru_bwd takes {_STREAM_ROWS} rows a block, not {rows}")
-        rows = _STREAM_ROWS
         smem = 4 * rows * 4 * H
     else:
-        if rows is None:
-            rows = bwd_rows(B, S, n_sm)
-        elif rows not in BWD_ROWS:
-            raise ValueError(f"gru_bwd takes {BWD_ROWS} rows a block, not {rows}")
         smem = 4 * (H * (3 * H + _W_PAD) + 2 * rows * 4 * H)
     return dict(variant=variant, rows=rows, blocks=S * -(-B // rows),
                 threads=-(-H // 32) * 32, smem_bytes=smem, splits=bwd_splits(B, T, H, S))

@@ -39,9 +39,16 @@ def _inputs(rng, B, T, H, S, device):
     return [torch.from_numpy(a.astype(np.float32)).to(device) for a in (xp, w, b)]
 
 
+def _n_sm(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# on a 132-SM H100 the resident kernel takes rows 8, 2, 1, 1, 1 a block at
+# the first five shapes; H=512 runs the streaming one
 @pytest.mark.parametrize(
     "B,T,H,S",
-    [(512, 90, 128, 2), (5, 90, 16, 2), (13, 7, 128, 1), (1, 1, 4, 2), (9, 33, 512, 2)],
+    [(512, 90, 128, 2), (128, 90, 128, 2), (5, 90, 16, 2), (13, 7, 128, 1), (1, 1, 4, 2),
+     (9, 33, 512, 2)],
 )
 def test_kernel_matches_plain(cuda, B, T, H, S):
     xp, w, b = _inputs(np.random.default_rng(B + H), B, T, H, S, cuda)
@@ -50,6 +57,23 @@ def test_kernel_matches_plain(cuda, B, T, H, S):
     torch.cuda.synchronize()
     assert got.shape == (B, T, S * H)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("B,T,H,S", [(37, 25, 128, 2), (13, 11, 40, 1)])
+def test_kernel_is_bitwise_equal_for_every_rows(cuda, B, T, H, S):
+    """Rows of a block never interact and each sums in one order, so the
+    resident kernel's output does not depend on its rows a block."""
+    xp, w, b = _inputs(np.random.default_rng(B * 5 + T), B, T, H, S, cuda)
+    assert fg.fwd_plan(B, T, H, S, _n_sm(cuda))["variant"] == "resident"
+    want = fg._gru_fwd_kernel(xp, w, b, rows=1)
+    for rows in fg.RESIDENT_ROWS[1:]:
+        assert torch.equal(fg._gru_fwd_kernel(xp, w, b, rows=rows), want), rows
+    torch.testing.assert_close(want, fg.gru_recurrence_plain(xp, w, b), atol=ATOL, rtol=RTOL)
+
+
+def test_kernel_is_deterministic(cuda):
+    xp, w, b = _inputs(np.random.default_rng(7), 128, 90, 128, 2, cuda)
+    assert torch.equal(fg.gru_recurrence(xp, w, b), fg.gru_recurrence(xp, w, b))
 
 
 def test_kernel_counts_launches(cuda, monkeypatch):
@@ -94,10 +118,6 @@ def _bwd_inputs(rng, B, T, H, S, device):
     out = fg.gru_recurrence_plain(xp, w, b)
     dy = torch.from_numpy(rng.standard_normal((B, T, S * H)).astype(np.float32)).to(device)
     return xp, w, b, out, dy
-
-
-def _n_sm(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # on a 132-SM H100 the resident recurrence takes rows 2, 8, 1, 1, 4, 2 a

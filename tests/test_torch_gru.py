@@ -125,3 +125,60 @@ def test_wrapper_on_cpu_takes_plain_path_and_counts_no_launch(monkeypatch):
 def test_wrapper_rejects_bad_shapes(xp_shape, w_shape, b_shape):
     with pytest.raises(ValueError):
         fg.gru_recurrence(torch.zeros(xp_shape), torch.zeros(w_shape), torch.zeros(b_shape))
+
+
+H100_SMS = 132
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may ask for on an H100
+
+
+@pytest.mark.parametrize("B,S,rows,blocks", [
+    (512, 2, 8, 128),  # the inference batch: one wave
+    (128, 2, 2, 128),  # the train batch: one wave, where 8 rows gave 32 blocks
+    (5, 2, 1, 10), (66, 2, 1, 132), (67, 2, 2, 68), (265, 2, 8, 68),
+    (4096, 2, 8, 1024),  # no rows give one wave: the most
+])
+def test_fwd_plan_fills_one_wave(B, S, rows, blocks):
+    plan = fg.fwd_plan(B, 90, 128, S, H100_SMS)
+    assert (plan["variant"], plan["rows"], plan["blocks"]) == ("resident", rows, blocks)
+    assert plan["rows"] == fg.resident_rows(B, S, H100_SMS) == fg.bwd_rows(B, S, H100_SMS)
+
+
+def test_fwd_plan_at_the_full_width_shapes():
+    assert fg.fwd_plan(512, 90, 128, 2, H100_SMS) == dict(
+        variant="resident", rows=8, blocks=128, threads=256, smem_bytes=206_848)
+    assert fg.fwd_plan(128, 90, 128, 2, H100_SMS) == dict(
+        variant="resident", rows=2, blocks=128, threads=128, smem_bytes=200_704)
+
+
+@pytest.mark.parametrize("H", [4, 8, 16, 64, 124, 128, 132, 256, 512])
+def test_fwd_variant_is_resident_up_to_128(H):
+    want = "resident" if H <= 128 else "streaming"
+    assert fg.fwd_variant(H) == want == fg.bwd_variant(H)
+    assert fg.fwd_plan(9, 5, H, 2, H100_SMS)["variant"] == want
+
+
+@pytest.mark.parametrize("rows", fg.RESIDENT_ROWS)
+def test_fwd_resident_smem_fits_a_block_at_every_width(rows):
+    for H in range(4, fg.RESIDENT_MAX_HIDDEN + 1, 4):
+        plan = fg.fwd_plan(128, 90, H, 2, H100_SMS, rows=rows)
+        assert plan["variant"] == "resident"
+        assert plan["smem_bytes"] == 4 * (H * (3 * H + 4) + 2 * rows * H)
+        assert plan["smem_bytes"] <= SMEM_LIMIT, (H, rows, plan["smem_bytes"])
+    # the widest: W_hh[s] alone is 128 x 388 floats, the h buffers 1 KiB a row
+    widest = fg.fwd_plan(128, 90, 128, 2, H100_SMS, rows=rows)["smem_bytes"]
+    assert widest == 198_656 + rows * 1024
+
+
+def test_fwd_plan_streaming_and_forced_rows():
+    plan = fg.fwd_plan(9, 33, 512, 2, H100_SMS)
+    assert (plan["variant"], plan["rows"], plan["blocks"]) == ("streaming", 8, 4)
+    assert plan["smem_bytes"] == 4 * 2 * 8 * 512
+    for rows, threads in zip(fg.RESIDENT_ROWS, (128, 128, 256, 256)):  # two groups from 4 up
+        forced = fg.fwd_plan(512, 90, 128, 2, H100_SMS, rows=rows)
+        assert (forced["rows"], forced["blocks"]) == (rows, 2 * -(-512 // rows))
+        assert forced["threads"] == threads
+        assert fg.fwd_plan(512, 90, 40, 2, H100_SMS, rows=rows)["threads"] == threads // 2
+    with pytest.raises(ValueError, match="rows a block"):
+        fg.fwd_plan(128, 90, 128, 2, H100_SMS, rows=3)
+    with pytest.raises(ValueError, match="streaming gru_fwd"):
+        fg.fwd_plan(9, 33, 512, 2, H100_SMS, rows=2)

@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --fwd-only ROOT   # gru_fwd alone, from ROOT's port
     python3 chip_smoke.py --bwd-only ROOT   # gru_bwd alone, from ROOT's port
+    python3 chip_smoke.py --lingru-only ROOT   # both lingru scans, from ROOT's port
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
 nvcc per source, started together), holds each kernel against its plain
@@ -385,53 +386,90 @@ def check_bwd_kernel(torch, fg, shape, dev, rng, *, timed: bool):
     return row
 
 
-def check_lingru_fwd(torch, fl, shape, dev, rng, *, timed: bool):
-    """lingru_fwd vs lingru_scan_plain at ``shape`` on the card; with
-    ``timed``, also the kernel's and the plain loop's times."""
+def lingru_plan(torch, fl, kernel: str, shape, dev) -> dict:
+    """How lingru_``kernel`` (``"fwd"`` or ``"bwd"``) launches at ``shape``
+    on this card (``fl.scan_plan``); empty for a tree whose kernel has no
+    plan (one streaming variant)."""
+    if kernel not in getattr(fl, "SCAN_DEFAULT", {}):
+        return {}
     B, T, H = (shape[k] for k in ("B", "T", "H"))
-    p = torch.from_numpy(rng.standard_normal((B, T, 4 * H), dtype=np.float32)).to(dev)
-    got = fl.lingru_scan(p)
-    want = fl.lingru_scan_plain(p)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
-        fail(f"lingru_fwd disagrees with the plain loop at {shape}: max |d| {err}")
-    row = {"shape": shape, "max_abs_err": err}
-    if not timed:
-        return row
-    row["ms"] = cuda_ms(torch, lambda: fl.lingru_scan(p), iters=50)
-    row["plain_ms"] = cuda_ms(torch, lambda: fl.lingru_scan_plain(p), iters=3, warmup=1)
-    row["library_ms"], row["library_note"] = None, LIN_NO_LIBRARY
-    row.update(bound(torch, LIN_FWD_OPS * B * T * 2 * H, 4.0 * (p.numel() + got.numel())))
-    return row
+    plan = fl.scan_plan(B, T, H, torch.cuda.get_device_properties(dev).multi_processor_count,
+                        kernel)
+    return {"variant": plan["variant"], "steps_per_stage": plan["steps"],
+            "stages": plan["stages"], "blocks": plan["blocks"],
+            "threads_per_block": plan["threads"], "smem_bytes_per_block": plan["smem_bytes"],
+            "waves": plan["waves"]}
 
 
-def check_lingru_bwd(torch, fl, shape, dev, rng, *, timed: bool):
-    """lingru_bwd vs lingru_scan_backward_plain at ``shape`` on the card,
-    and two launches bitwise equal; with ``timed``, also the kernel's and
-    the plain loop's times."""
+def lingru_inputs(torch, kernel: str, fl, shape, dev, rng):
+    """The arguments of lingru_``kernel`` at ``shape``: p, and for the
+    backward the plain forward's h and a gradient dy."""
     B, T, H = (shape[k] for k in ("B", "T", "H"))
     p = torch.from_numpy(rng.standard_normal((B, T, 4 * H), dtype=np.float32)).to(dev)
-    h = fl.lingru_scan_plain(p)
+    if kernel == "fwd":
+        return (p,)
     dy = torch.from_numpy(rng.standard_normal((B, T, 2 * H), dtype=np.float32)).to(dev)
-    got = fl.lingru_scan_backward(p, h, dy)
-    want = fl.lingru_scan_backward_plain(p, h, dy)
-    again = fl.lingru_scan_backward(p, h, dy)
+    return p, fl.lingru_scan_plain(p), dy
+
+
+def check_lingru(torch, fl, kernel: str, shape, dev, rng, *, timed: bool, sweep: bool = False):
+    """lingru_``kernel`` vs its plain loop at ``shape`` on the card, two
+    launches bitwise equal, and a staged launch bitwise equal at every
+    (steps, stages) of ``fl.scan_choices`` and to the streaming variant; with ``timed``, also a digest of the output (equal
+    digests of two trees on the same inputs mean equal bits), the kernel's
+    time (split by kernel name from a trace) and the plain loop's; with
+    ``sweep``, the time of every (steps, stages) and of the streaming
+    variant."""
+    B, T, H = (shape[k] for k in ("B", "T", "H"))
+    args = lingru_inputs(torch, kernel, fl, shape, dev, rng)
+    if kernel == "fwd":
+        run, plain = fl.lingru_scan, fl.lingru_scan_plain
+    else:
+        run, plain = fl.lingru_scan_backward, fl.lingru_scan_backward_plain
+    got = run(*args)
+    want = plain(*args)
+    again = run(*args)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
-        fail(f"lingru_bwd disagrees with the plain loop at {shape}: max |d| {err}")
+        fail(f"lingru_{kernel} disagrees with the plain loop at {shape}: max |d| {err}")
     if not torch.equal(got, again):
-        fail(f"lingru_bwd differs between two launches at {shape}")
-    row = {"shape": shape, "max_abs_err": err, "bitwise_repeatable": True}
+        fail(f"lingru_{kernel} differs between two launches at {shape}")
+    row = {"shape": shape, "max_abs_err": err, "bitwise_repeatable": True,
+           **lingru_plan(torch, fl, kernel, shape, dev)}
+    forced = getattr(fl, f"_lingru_{kernel}_kernel", None)
+    plans = fl.scan_choices(kernel, H) if row.get("variant") == "staged" else []
+    for n, m in plans:
+        if not torch.equal(got, forced(*args, steps=n, stages=m)):
+            fail(f"lingru_{kernel} at {n} steps x {m} stages differs from "
+                 f"{row['steps_per_stage']} x {row['stages']} at {shape}")
+    if plans:
+        if not torch.equal(got, forced(*args, variant="streaming")):
+            fail(f"lingru_{kernel}'s staged and streaming variants differ at {shape}")
+        row["bitwise_equal_across_plans"] = plans
+        row["bitwise_equal_to_streaming"] = True
     if not timed:
         return row
-    row["ms"] = cuda_ms(torch, lambda: fl.lingru_scan_backward(p, h, dy), iters=50)
-    row["plain_ms"] = cuda_ms(
-        torch, lambda: fl.lingru_scan_backward_plain(p, h, dy), iters=3, warmup=1)
+    row["output_sha256"] = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+    parts = (("scan", f"lingru_{kernel}"),)
+    # a launch takes less device time than the wrapper's host time, so CUDA
+    # events around back-to-back calls time the host; the kernel's own time
+    # is its device time in a trace
+    row["ms_events"] = cuda_ms(torch, lambda: run(*args), iters=50)
+    row["ms_by_kernel"] = kernel_split(torch, lambda: run(*args), 20, parts)
+    row["ms"] = row["ms_by_kernel"].get("scan", row["ms_events"])
+    row["ms_from"] = "trace" if "scan" in row["ms_by_kernel"] else "events"
+    row["plain_ms"] = cuda_ms(torch, lambda: plain(*args), iters=3, warmup=1)
     row["library_ms"], row["library_note"] = None, LIN_NO_LIBRARY
-    nbytes = 4.0 * (p.numel() + h.numel() + dy.numel() + got.numel())
-    row.update(bound(torch, LIN_BWD_OPS * B * T * 2 * H, nbytes))
+    if sweep and plans:
+        row["ms_by_plan"] = {f"{n}x{m}": kernel_split(
+            torch, lambda: forced(*args, steps=n, stages=m), 20, parts).get("scan")
+            for n, m in plans}
+        row["ms_streaming"] = kernel_split(
+            torch, lambda: forced(*args, variant="streaming"), 20, parts).get("scan")
+    ops = LIN_FWD_OPS if kernel == "fwd" else LIN_BWD_OPS
+    row.update(bound(torch, ops * B * T * 2 * H,
+                     4.0 * (sum(a.numel() for a in args) + got.numel())))
     return row
 
 
@@ -720,33 +758,41 @@ def card_line() -> str:
 
 
 def one_kernel(torch, flag: str, root: str) -> None:
-    """Only gru_bwd (``--bwd-only``) or only gru_fwd (``--fwd-only``), from
-    the port package under ``root`` (this tree's or an unpacked copy of
-    another commit's): built, checked against its plain loop and timed,
-    gru_bwd at the train shape split by sub-kernel, gru_fwd at the
-    inference and the train batch. Two trees compare within one call as
-    parent, change, change, parent."""
+    """Only gru_bwd (``--bwd-only``), only gru_fwd (``--fwd-only``) or only
+    the lingru scans (``--lingru-only``), from the port package under
+    ``root`` (this tree's or an unpacked copy of another commit's): built,
+    checked against the plain loops and timed, gru_bwd at the train shape
+    split by sub-kernel, gru_fwd and both lingru scans at the inference
+    and the train batch (the scans also at every steps and stages of their
+    plan). Two trees compare within one call as parent, change, change,
+    parent."""
     sys.path.insert(0, os.path.abspath(root))
     try:
         from roko_tpu_torch import kernels
         from roko_tpu_torch.models import fused_gru as fg
+        from roko_tpu_torch.models import fused_lingru as fl
     except ImportError as e:
         fail(f"no importable roko_tpu_torch under {root}: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    name = flag[2:5]
-    built = kernels.build([f"gru_{name}"])
+    name = flag[2:-5]
+    names = ["lingru_fwd", "lingru_bwd"] if name == "lingru" else [f"gru_{name}"]
+    built = kernels.build(names)
     dev, rng = torch.device("cuda", 0), np.random.default_rng(SEED)
     if name == "bwd":
         result = check_bwd_kernel(torch, fg, TRAIN_SHAPE, dev, rng, timed=True)
-    else:
+    elif name == "fwd":
         result = {"rows": [check_kernel(torch, fg, s, dev, rng, timed=True)
                            for s in (MAIN_SHAPE, TRAIN_SHAPE)]}
+    else:
+        result = {f"lingru_{k}": [check_lingru(torch, fl, k, s, dev, rng, timed=True, sweep=True)
+                                  for s in (LIN_INFER_SHAPE, LIN_TRAIN_SHAPE)]
+                  for k in ("fwd", "bwd")}
     emit({f"{name}_only": {"root": root, "package": os.path.dirname(kernels.__file__),
-                           "ptxas": built.get(f"gru_{name}", {}).get("ptxas"), **result,
-                           "card": card}})
+                           "ptxas": {n: built.get(n, {}).get("ptxas") for n in names},
+                           **result, "card": card}})
 
 
 def main() -> None:
@@ -754,11 +800,11 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    if sys.argv[1:2] in (["--bwd-only"], ["--fwd-only"]) and len(sys.argv) == 3:
+    if sys.argv[1:2] in (["--bwd-only"], ["--fwd-only"], ["--lingru-only"]) and len(sys.argv) == 3:
         return one_kernel(torch, sys.argv[1], sys.argv[2])
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
-             "[--bwd-only ROOT | --fwd-only ROOT]")
+             "[--bwd-only ROOT | --fwd-only ROOT | --lingru-only ROOT]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import constants as C
@@ -820,15 +866,23 @@ def main() -> None:
     # the lingru phases draw from a stream of their own, so the gru phases
     # see the same inputs as before lingru was ported
     lin_rng = np.random.default_rng(SEED + 1)
-    lin_fwd_row = check_lingru_fwd(torch, fl, LIN_INFER_SHAPE, dev, lin_rng, timed=True)
-    lin_fwd_extra = [check_lingru_fwd(torch, fl, s, dev, lin_rng, timed=False)
-                     for s in (LIN_TRAIN_SHAPE, *LIN_EXTRA_SHAPES)]
-    lin_bwd_row = check_lingru_bwd(torch, fl, LIN_TRAIN_SHAPE, dev, lin_rng, timed=True)
-    lin_bwd_extra = [check_lingru_bwd(torch, fl, s, dev, lin_rng, timed=False)
+    lin_fwd_row = check_lingru(torch, fl, "fwd", LIN_INFER_SHAPE, dev, lin_rng, timed=True)
+    lin_fwd_train_row = check_lingru(torch, fl, "fwd", LIN_TRAIN_SHAPE, dev, lin_rng, timed=True)
+    lin_fwd_extra = [check_lingru(torch, fl, "fwd", s, dev, lin_rng, timed=False)
+                     for s in LIN_EXTRA_SHAPES]
+    lin_bwd_row = check_lingru(torch, fl, "bwd", LIN_TRAIN_SHAPE, dev, lin_rng, timed=True)
+    lin_bwd_extra = [check_lingru(torch, fl, "bwd", s, dev, lin_rng, timed=False)
                      for s in (LIN_INFER_SHAPE, *LIN_EXTRA_SHAPES)]
+    # the full-width shapes run the staged scans
+    for kernel, rows in (("lingru_bwd", (lin_bwd_row, lin_bwd_extra[0])),):
+        for row in rows:
+            traced = row.get("ms_by_kernel", {}).get("kernel_names", {}).get("scan", [])
+            if row.get("variant") != "staged" or not all("staged" in n for n in traced):
+                fail(f"{kernel} at {row['shape']} ran {row.get('variant')} ({traced}), not the "
+                     "staged kernel")
     emit({"kernel_check": {"gru_fwd": [main_row, fwd_train_row, *extra],
                            "gru_bwd": [bwd_row, *bwd_extra],
-                           "lingru_fwd": [lin_fwd_row, *lin_fwd_extra],
+                           "lingru_fwd": [lin_fwd_row, lin_fwd_train_row, *lin_fwd_extra],
                            "lingru_bwd": [lin_bwd_row, *lin_bwd_extra],
                            "atol": ATOL, "rtol": RTOL, "card": card}})
 
@@ -895,7 +949,8 @@ def main() -> None:
             "shape": row["shape"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **{k: row[k] for k in ("library_note", "variant", "rows_per_block", "blocks",
+            **{k: row[k] for k in ("ms_from", "library_note", "variant", "rows_per_block",
+                                   "steps_per_stage", "stages", "blocks", "waves",
                                    "smem_bytes_per_block", "ms_by_kernel") if k in row},
         }
 
@@ -918,7 +973,8 @@ def main() -> None:
         kernel_row("lingru_fwd", "roko_tpu_torch/csrc/lingru_fwd.cu",
                    "roko_tpu/models/pallas_lingru.py:90", None, lin_fwd_row,
                    {"inference": lin_path["lingru_fwd_launches"],
-                    "train": lin_train["lingru_fwd_launches"]}),
+                    "train": lin_train["lingru_fwd_launches"]},
+                   at_train_batch=lin_fwd_train_row),
         kernel_row("lingru_bwd", "roko_tpu_torch/csrc/lingru_bwd.cu",
                    "roko_tpu/models/pallas_lingru.py:121", None, lin_bwd_row,
                    {"inference": 0, "train": lin_train["lingru_bwd_launches"]}),

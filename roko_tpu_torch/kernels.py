@@ -1,7 +1,7 @@
 """Builds the port's CUDA kernels with nvcc and loads them with ctypes.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface. It is
-compiled for ``sm_90a`` into ``build/roko_tpu_torch/`` beside the package
+Each kernel is one ``csrc/*.cu`` file with a plain C interface (it may
+include the shared headers ``csrc/*.cuh``). It is compiled for ``sm_90a`` into ``build/roko_tpu_torch/`` beside the package
 on first use, under a name that carries a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is loaded as
 it is. Nothing here runs at import time: the CPU tests import every
@@ -51,7 +51,7 @@ KERNELS = {
     "lingru_bwd": (
         "csrc/lingru_bwd.cu",
         "roko_lingru_bwd",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     ),
 }
 
@@ -82,7 +82,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of kernel ``name``, named by a hash of its source, the
+    shared headers of ``csrc/`` and the flags."""
     src = (_PKG / KERNELS[name][0]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted((_PKG / "csrc").glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

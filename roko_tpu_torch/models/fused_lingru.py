@@ -29,6 +29,7 @@ sides the same arrays: per direction ``w_zx`` and ``w_cx`` [in, H],
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -125,6 +126,129 @@ def _lingru_fwd_kernel(p: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: channels a block of the staged scan kernels (TILE in csrc/lingru_*.cu)
+SCAN_TILE = 128
+#: steps a time tile and slots of the ring the staged kernels take
+SCAN_STEPS = (4, 8, 16)
+SCAN_STAGES = (2, 3, 4, 6)
+#: (steps, stages) of each staged kernel unless told otherwise
+SCAN_DEFAULT = {"bwd": (8, 3)}
+#: rows of the tile's width a step takes in the ring (p_z, p_c, h_{t-1},
+#: dy) and in each of the two gate buffers (z, c, h_{t-1}, dy)
+_SCAN_ROWS = {"bwd": (4, 4)}
+_GATE_GROUPS = 3  # gate threads per chain thread (GATE_GROUPS in csrc/)
+_STREAM_THREADS = 128  # threads a block of the streaming kernels
+_BLOCK_SMEM = 232448  # shared memory one block may take on an H100, bytes
+_SM_SMEM = 233472  # shared memory of an H100 SM, bytes
+_BLOCK_RESERVED = 1024  # shared memory the card keeps for each block
+_MAX_REGS = 64  # registers a thread of the staged kernels (launch bounds)
+
+
+def scan_plan(
+    B: int, T: int, H: int, n_sm: int, kernel: str, *,
+    aligned: bool = True, variant: Optional[str] = None,
+    steps: Optional[int] = None, stages: Optional[int] = None,
+) -> dict:
+    """How ``lingru_{kernel}`` launches at these shapes on a card with
+    ``n_sm`` SMs: the variant, steps a time tile and slots of the ring
+    (0 and 0 when streaming), blocks, threads a block, dynamic
+    shared-memory bytes a block, and the waves of blocks the card runs
+    them in (blocks resident on an SM by threads, registers and shared
+    memory).
+
+    ``"staged"`` (time tiles copied into a ring in shared memory, a chain
+    thread and three gate threads a channel) takes H a multiple of 4 and
+    16-byte-aligned tensors (``aligned``), which the bulk copies need, and
+    at least one tile's steps; ``"streaming"`` takes the rest.
+    ``variant``, ``steps`` and ``stages`` force a choice, as the bitwise
+    checks across choices do; :func:`scan_choices` lists them."""
+    if kernel not in _SCAN_ROWS:
+        raise ValueError(f"no staged lingru_{kernel} kernel")
+    stageable = H % 4 == 0 and aligned
+    if variant is None:
+        variant = ("staged" if stageable and T >= (steps or SCAN_DEFAULT[kernel][0])
+                   else "streaming")
+    if variant == "streaming":
+        if steps or stages:
+            raise ValueError("the streaming lingru kernels take no steps or stages")
+        blocks = -(-B * 2 * H // _STREAM_THREADS)
+        return dict(variant=variant, steps=0, stages=0, blocks=blocks,
+                    threads=_STREAM_THREADS, smem_bytes=0,
+                    waves=-(-blocks // (n_sm * (2048 // _STREAM_THREADS))))
+    if variant != "staged":
+        raise ValueError(f"lingru variants are staged and streaming, not {variant!r}")
+    if not stageable:
+        raise ValueError("the staged lingru kernels take H % 4 == 0 and 16-byte-aligned "
+                         f"tensors (H = {H}, aligned = {aligned})")
+    steps = steps or SCAN_DEFAULT[kernel][0]
+    stages = stages or SCAN_DEFAULT[kernel][1]
+    if steps not in SCAN_STEPS or stages not in SCAN_STAGES:
+        raise ValueError(f"the staged lingru kernels take steps in {SCAN_STEPS} and stages "
+                         f"in {SCAN_STAGES}, not {steps} and {stages}")
+    tile = min(H, SCAN_TILE)
+    threads = (1 + _GATE_GROUPS) * -(-tile // 32) * 32
+    ring_rows, gate_rows = _SCAN_ROWS[kernel]
+    smem = 4 * steps * tile * (stages * ring_rows + 2 * gate_rows)
+    if smem > _BLOCK_SMEM:
+        raise ValueError(f"{steps} steps x {stages} stages of lingru_{kernel} take {smem} bytes "
+                         f"of shared memory a block, more than {_BLOCK_SMEM}")
+    blocks = B * 2 * -(-H // SCAN_TILE)
+    per_sm = min(2048 // threads, 32, 65536 // (threads * _MAX_REGS),
+                 _SM_SMEM // (smem + _BLOCK_RESERVED))
+    return dict(variant=variant, steps=steps, stages=stages, blocks=blocks, threads=threads,
+                smem_bytes=smem, waves=-(-blocks // (n_sm * per_sm)))
+
+
+def scan_choices(kernel: str, H: int) -> list:
+    """Every (steps, stages) the staged ``lingru_{kernel}`` takes at hidden
+    size ``H`` (those whose block fits in shared memory)."""
+    rows = _SCAN_ROWS[kernel]
+    return [(n, m) for n in SCAN_STEPS for m in SCAN_STAGES
+            if 4 * n * min(H, SCAN_TILE) * (m * rows[0] + 2 * rows[1]) <= _BLOCK_SMEM]
+
+
+def aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's storage starts on a 16-byte boundary, as the
+    staged kernels' bulk copies need."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _n_sm(t: torch.Tensor) -> int:
+    return _sm_count(t.device)
+
+
+def _lingru_bwd_kernel(
+    p: torch.Tensor, h: torch.Tensor, dy: torch.Tensor, *,
+    variant: Optional[str] = None, steps: Optional[int] = None, stages: Optional[int] = None,
+) -> torch.Tensor:
+    """Launch ``lingru_bwd`` (or raise) as :func:`scan_plan` lays it out;
+    ``variant``, ``steps`` and ``stages`` force its choice. Counts on
+    ``lingru_scan_backward.launches``."""
+    H = _hidden(p)
+    B, T = p.shape[:2]
+    kernels.check_inputs("lingru_bwd", p=p, h=h, dy=dy)
+    dp = torch.empty_like(p)
+    if B == 0 or T == 0:
+        return dp
+    plan = scan_plan(B, T, H, _n_sm(p), "bwd", aligned=aligned(p, h, dy, dp),
+                     variant=variant, steps=steps, stages=stages)
+    lib = kernels.library("lingru_bwd")
+    with torch.cuda.device(p.device):
+        code = lib.roko_lingru_bwd(
+            p.data_ptr(), h.data_ptr(), dy.data_ptr(), dp.data_ptr(), B, T, H,
+            plan["steps"], plan["stages"], kernels.stream(p),
+        )
+    kernels.check(lib, "lingru_bwd ({variant}, {steps} steps x {stages} stages)".format(**plan),
+                  code)
+    lingru_scan_backward.launches += 1
+    return dp
+
+
 def lingru_scan_backward(
     p: torch.Tensor, h: torch.Tensor, dy: torch.Tensor
 ) -> torch.Tensor:
@@ -139,19 +263,7 @@ def lingru_scan_backward(
             raise ValueError(f"{name} must be [{B}, {T}, {2 * H}], got {tuple(t.shape)}")
     if kernels.device_kind(p, "lingru_scan_backward") == "cpu":
         return lingru_scan_backward_plain(p, h, dy)
-    dy = dy.contiguous()  # slices and cats upstream hand it strided
-    kernels.check_inputs("lingru_bwd", p=p, h=h, dy=dy)
-    dp = torch.empty_like(p)
-    if B == 0 or T == 0:
-        return dp
-    lib = kernels.library("lingru_bwd")
-    with torch.cuda.device(p.device):
-        code = lib.roko_lingru_bwd(
-            p.data_ptr(), h.data_ptr(), dy.data_ptr(), dp.data_ptr(), B, T, H, kernels.stream(p)
-        )
-    kernels.check(lib, "lingru_bwd", code)
-    lingru_scan_backward.launches += 1
-    return dp
+    return _lingru_bwd_kernel(p, h, dy.contiguous())  # slices and cats hand dy strided
 
 
 lingru_scan_backward.launches = 0

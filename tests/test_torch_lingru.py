@@ -251,6 +251,87 @@ def test_scan_backward_rejects_mismatched_shapes():
         fl.lingru_scan_backward(p, torch.zeros(2, 6, 16), torch.zeros(2, 6, 8))
 
 
+# -- the launch plan of the CUDA scans ------------------------------------------
+
+H100_SMS = 132
+SCAN_KERNELS = ("bwd",)
+# shared memory one block may take on an H100: 227 KB
+MAX_BLOCK_SMEM = 232448
+
+
+@pytest.mark.parametrize("kernel", SCAN_KERNELS)
+@pytest.mark.parametrize("B,blocks,waves", [(512, 1024, 4), (128, 256, 1)])
+def test_scan_plan_stages_the_full_width_shapes(kernel, B, blocks, waves):
+    """The main paths' shapes (T=90, H=128, at the inference and the train
+    batch) run the staged kernel: one block per (row, direction), a
+    chain thread and three gate threads a channel."""
+    plan = fl.scan_plan(B, 90, 128, H100_SMS, kernel)
+    steps, stages = fl.SCAN_DEFAULT[kernel]
+    assert plan["variant"] == "staged"
+    assert (plan["steps"], plan["stages"]) == (steps, stages)
+    assert (plan["blocks"], plan["threads"], plan["waves"]) == (blocks, 512, waves)
+    ring, gates = {"fwd": (2, 2), "bwd": (4, 4)}[kernel]
+    assert plan["smem_bytes"] == 4 * steps * 128 * (stages * ring + 2 * gates)
+
+
+@pytest.mark.parametrize("kernel", SCAN_KERNELS)
+@pytest.mark.parametrize(
+    "B,T,H,aligned",
+    [(5, 90, 18, True), (5, 90, 6, True), (128, 90, 128, False), (1, 1, 4, True),
+     (3, 7, 16, True)],
+)
+def test_scan_plan_streams_what_the_copies_cannot_take(kernel, B, T, H, aligned):
+    """H not a multiple of 4 or a misaligned tensor breaks the bulk
+    copies' 16-byte rule; fewer steps than one time tile leave nothing to
+    stage."""
+    plan = fl.scan_plan(B, T, H, H100_SMS, kernel, aligned=aligned)
+    assert plan["variant"] == "streaming"
+    assert (plan["steps"], plan["stages"], plan["smem_bytes"]) == (0, 0, 0)
+    assert plan["blocks"] == -(-B * 2 * H // 128) and plan["threads"] == 128
+
+
+@pytest.mark.parametrize("kernel", SCAN_KERNELS)
+@pytest.mark.parametrize("H", [4, 12, 16, 128, 200, 512])
+def test_scan_plan_fits_shared_memory_at_every_choice(kernel, H):
+    """Every choice scan_choices offers fits one block's 227 KB; every other
+    (steps, stages) is refused, and the default is among the choices."""
+    choices = fl.scan_choices(kernel, H)
+    assert fl.SCAN_DEFAULT[kernel] in choices
+    for steps in fl.SCAN_STEPS:
+        for stages in fl.SCAN_STAGES:
+            if (steps, stages) not in choices:
+                with pytest.raises(ValueError, match="more than"):
+                    fl.scan_plan(7, 90, H, H100_SMS, kernel, steps=steps, stages=stages)
+                continue
+            plan = fl.scan_plan(7, 90, H, H100_SMS, kernel, steps=steps, stages=stages)
+            assert plan["variant"] == "staged"
+            assert 0 < plan["smem_bytes"] <= MAX_BLOCK_SMEM
+            assert plan["blocks"] == 7 * 2 * -(-H // fl.SCAN_TILE)
+            chain = -(-min(H, fl.SCAN_TILE) // 32) * 32
+            assert plan["threads"] == 4 * chain
+
+
+@pytest.mark.parametrize("kernel", SCAN_KERNELS)
+def test_scan_plan_rejects_choices_it_cannot_run(kernel):
+    with pytest.raises(ValueError, match="H % 4"):
+        fl.scan_plan(4, 90, 18, H100_SMS, kernel, variant="staged")
+    with pytest.raises(ValueError, match="aligned"):
+        fl.scan_plan(4, 90, 16, H100_SMS, kernel, variant="staged", aligned=False)
+    with pytest.raises(ValueError, match="steps in"):
+        fl.scan_plan(4, 90, 16, H100_SMS, kernel, steps=5)
+    with pytest.raises(ValueError, match="stages"):
+        fl.scan_plan(4, 90, 16, H100_SMS, kernel, stages=9)
+    with pytest.raises(ValueError, match="no steps"):
+        fl.scan_plan(4, 90, 16, H100_SMS, kernel, variant="streaming", steps=8)
+    with pytest.raises(ValueError, match="staged and streaming"):
+        fl.scan_plan(4, 90, 16, H100_SMS, kernel, variant="resident")
+
+
+def test_alignment_of_the_scans_inputs():
+    t = torch.zeros(64)
+    assert fl.aligned(t, t[4:]) and not fl.aligned(t, t[1:])
+
+
 # -- the model -------------------------------------------------------------------
 
 

@@ -295,8 +295,12 @@ def kernel_split(torch, fn, iters: int, parts) -> dict:
     of each part."""
     fn()
     torch.cuda.synchronize()
-    traced = device_breakdown(torch, lambda: [fn() for _ in range(iters)])
-    if "kernels_ms_calls" not in traced:
+    # a trace now and then holds no device events at all: trace again
+    for _ in range(3):
+        traced = device_breakdown(torch, lambda: [fn() for _ in range(iters)])
+        if "kernels_ms_calls" in traced:
+            break
+    else:
         return {"device": traced["device"]}
     split = {"traced_calls": iters, "kernels_traced": {}, "kernel_names": {}}
     for key, sub in parts:
@@ -874,7 +878,8 @@ def main() -> None:
     lin_bwd_extra = [check_lingru(torch, fl, "bwd", s, dev, lin_rng, timed=False)
                      for s in (LIN_INFER_SHAPE, *LIN_EXTRA_SHAPES)]
     # the full-width shapes run the staged scans
-    for kernel, rows in (("lingru_bwd", (lin_bwd_row, lin_bwd_extra[0])),):
+    for kernel, rows in (("lingru_fwd", (lin_fwd_row, lin_fwd_train_row)),
+                         ("lingru_bwd", (lin_bwd_row, lin_bwd_extra[0]))):
         for row in rows:
             traced = row.get("ms_by_kernel", {}).get("kernel_names", {}).get("scan", [])
             if row.get("variant") != "staged" or not all("staged" in n for n in traced):

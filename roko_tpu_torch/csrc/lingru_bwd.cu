@@ -82,7 +82,7 @@ constexpr int GATES = 4;             // gate buffer rows a step: z, c, h_{t-1}, 
 constexpr int MAX_DEVICES = 64;      // devices whose shared-memory opt-in is remembered
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+  return __frcp_rn(__fadd_rn(1.0f, expf(-x)));  // = 1 / (1 + e^-x), correctly rounded
 }
 
 // The part of a reverse step that needs the carry: from the gates z and c,

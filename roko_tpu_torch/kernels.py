@@ -46,7 +46,7 @@ KERNELS = {
     "lingru_fwd": (
         "csrc/lingru_fwd.cu",
         "roko_lingru_fwd",
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     ),
     "lingru_bwd": (
         "csrc/lingru_bwd.cu",

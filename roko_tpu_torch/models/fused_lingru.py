@@ -110,32 +110,17 @@ def lingru_scan_backward_plain(
     return _kernel_time(dp).reshape(B, T, 4 * H)
 
 
-def _lingru_fwd_kernel(p: torch.Tensor) -> torch.Tensor:
-    """Launch ``lingru_fwd`` (or raise); counts on ``lingru_scan.launches``."""
-    H = _hidden(p)
-    kernels.check_inputs("lingru_fwd", p=p)
-    B, T = p.shape[:2]
-    out = torch.empty(B, T, 2 * H, device=p.device, dtype=torch.float32)
-    if B == 0 or T == 0:
-        return out
-    lib = kernels.library("lingru_fwd")
-    with torch.cuda.device(p.device):
-        code = lib.roko_lingru_fwd(p.data_ptr(), out.data_ptr(), B, T, H, kernels.stream(p))
-    kernels.check(lib, "lingru_fwd", code)
-    lingru_scan.launches += 1
-    return out
-
-
 #: channels a block of the staged scan kernels (TILE in csrc/lingru_*.cu)
 SCAN_TILE = 128
 #: steps a time tile and slots of the ring the staged kernels take
 SCAN_STEPS = (4, 8, 16)
 SCAN_STAGES = (2, 3, 4, 6)
 #: (steps, stages) of each staged kernel unless told otherwise
-SCAN_DEFAULT = {"bwd": (8, 3)}
-#: rows of the tile's width a step takes in the ring (p_z, p_c, h_{t-1},
-#: dy) and in each of the two gate buffers (z, c, h_{t-1}, dy)
-_SCAN_ROWS = {"bwd": (4, 4)}
+SCAN_DEFAULT = {"fwd": (16, 3), "bwd": (8, 3)}
+#: rows of the tile's width a step takes in the ring and in each of the
+#: two gate buffers: forward p_z, p_c and (1 - z, z c); backward p_z, p_c,
+#: h_{t-1}, dy and (z, c, h_{t-1}, dy)
+_SCAN_ROWS = {"fwd": (2, 2), "bwd": (4, 4)}
 _GATE_GROUPS = 3  # gate threads per chain thread (GATE_GROUPS in csrc/)
 _STREAM_THREADS = 128  # threads a block of the streaming kernels
 _BLOCK_SMEM = 232448  # shared memory one block may take on an H100, bytes
@@ -220,6 +205,31 @@ def _sm_count(device: torch.device) -> int:
 
 def _n_sm(t: torch.Tensor) -> int:
     return _sm_count(t.device)
+
+
+def _lingru_fwd_kernel(
+    p: torch.Tensor, *,
+    variant: Optional[str] = None, steps: Optional[int] = None, stages: Optional[int] = None,
+) -> torch.Tensor:
+    """Launch ``lingru_fwd`` (or raise) as :func:`scan_plan` lays it out;
+    ``variant``, ``steps`` and ``stages`` force its choice. Counts on
+    ``lingru_scan.launches``."""
+    H = _hidden(p)
+    kernels.check_inputs("lingru_fwd", p=p)
+    B, T = p.shape[:2]
+    out = torch.empty(B, T, 2 * H, device=p.device, dtype=torch.float32)
+    if B == 0 or T == 0:
+        return out
+    plan = scan_plan(B, T, H, _n_sm(p), "fwd", aligned=aligned(p, out),
+                     variant=variant, steps=steps, stages=stages)
+    lib = kernels.library("lingru_fwd")
+    with torch.cuda.device(p.device):
+        code = lib.roko_lingru_fwd(p.data_ptr(), out.data_ptr(), B, T, H,
+                                   plan["steps"], plan["stages"], kernels.stream(p))
+    kernels.check(lib, "lingru_fwd ({variant}, {steps} steps x {stages} stages)".format(**plan),
+                  code)
+    lingru_scan.launches += 1
+    return out
 
 
 def _lingru_bwd_kernel(

@@ -245,30 +245,37 @@ def test_lingru_fwd_is_bitwise_repeatable(cuda):
 
 # the full-width shapes, a ragged time tile (T=33, T=40), channel tiles
 # (H=512) and a narrow ring row (H=12)
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
 @pytest.mark.parametrize("B,T,H", [(512, 90, 128), (128, 90, 128), (9, 33, 512), (11, 40, 12)])
-def test_lingru_bwd_is_bitwise_equal_across_plans_and_to_streaming(cuda, B, T, H):
+def test_lingru_kernels_are_bitwise_equal_across_plans_and_to_streaming(cuda, kernel, B, T, H):
     """Each channel's walk is one fixed sequence of f32 operations whatever
-    the ring's steps and stages, so the staged kernel gives the same bits
-    at every choice and as the streaming kernel."""
+    the ring's steps and stages, so a staged kernel gives the same bits at
+    every choice and as its streaming kernel."""
     p, h, dy = _lin_inputs(np.random.default_rng(B + T + H), B, T, H, cuda)
-    assert fl.scan_plan(B, T, H, _n_sm(cuda), "bwd")["variant"] == "staged"
-    want = fl._lingru_bwd_kernel(p, h, dy, variant="streaming")
-    for steps, stages in fl.scan_choices("bwd", H):
-        got = fl._lingru_bwd_kernel(p, h, dy, steps=steps, stages=stages)
-        assert torch.equal(got, want), (steps, stages)
-    torch.testing.assert_close(
-        fl.lingru_scan_backward(p, h, dy), fl.lingru_scan_backward_plain(p, h, dy),
-        atol=ATOL, rtol=RTOL)
+    args = (p,) if kernel == "fwd" else (p, h, dy)
+    launch = fl._lingru_fwd_kernel if kernel == "fwd" else fl._lingru_bwd_kernel
+    assert fl.scan_plan(B, T, H, _n_sm(cuda), kernel)["variant"] == "staged"
+    want = launch(*args, variant="streaming")
+    for steps, stages in fl.scan_choices(kernel, H):
+        assert torch.equal(launch(*args, steps=steps, stages=stages), want), (steps, stages)
+    plain = fl.lingru_scan_plain(p) if kernel == "fwd" else fl.lingru_scan_backward_plain(*args)
+    torch.testing.assert_close(want, plain, atol=ATOL, rtol=RTOL)
 
 
-def test_lingru_bwd_streams_a_misaligned_input(cuda):
+def test_lingru_kernels_stream_a_misaligned_input(cuda):
     p, h, dy = _lin_inputs(np.random.default_rng(46), 4, 20, 16, cuda)
-    shifted = torch.empty(dy.numel() + 1, device=cuda)[1:].view_as(dy).copy_(dy)
-    assert not fl.aligned(shifted)
-    got = fl.lingru_scan_backward(p, h, shifted)
-    assert torch.equal(got, fl.lingru_scan_backward(p, h, dy))
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda)[1:].view_as(t).copy_(t)
+
+    assert not fl.aligned(shifted(dy))
+    assert torch.equal(fl.lingru_scan(shifted(p)), fl.lingru_scan(p))
+    assert torch.equal(fl.lingru_scan_backward(p, h, shifted(dy)),
+                       fl.lingru_scan_backward(p, h, dy))
     with pytest.raises(ValueError, match="aligned"):
-        fl._lingru_bwd_kernel(p, h, shifted, variant="staged")
+        fl._lingru_fwd_kernel(shifted(p), variant="staged")
+    with pytest.raises(ValueError, match="aligned"):
+        fl._lingru_bwd_kernel(p, h, shifted(dy), variant="staged")
 
 
 def test_lingru_kernels_count_launches_and_take_strided_dy(cuda, monkeypatch):

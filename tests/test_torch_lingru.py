@@ -254,7 +254,7 @@ def test_scan_backward_rejects_mismatched_shapes():
 # -- the launch plan of the CUDA scans ------------------------------------------
 
 H100_SMS = 132
-SCAN_KERNELS = ("bwd",)
+SCAN_KERNELS = ("fwd", "bwd")
 # shared memory one block may take on an H100: 227 KB
 MAX_BLOCK_SMEM = 232448
 

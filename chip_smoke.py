@@ -419,11 +419,11 @@ def lingru_inputs(torch, kernel: str, fl, shape, dev, rng):
 def check_lingru(torch, fl, kernel: str, shape, dev, rng, *, timed: bool, sweep: bool = False):
     """lingru_``kernel`` vs its plain loop at ``shape`` on the card, two
     launches bitwise equal, and a staged launch bitwise equal at every
-    (steps, stages) of ``fl.scan_choices`` and to the streaming variant; with ``timed``, also a digest of the output (equal
-    digests of two trees on the same inputs mean equal bits), the kernel's
-    time (split by kernel name from a trace) and the plain loop's; with
-    ``sweep``, the time of every (steps, stages) and of the streaming
-    variant."""
+    (steps, stages) of ``fl.scan_choices`` and to the streaming variant;
+    with ``timed``, also a digest of the output (equal digests of two
+    trees on the same inputs mean equal bits), the kernel's device time
+    from a trace and the plain loop's time; with ``sweep``, the device
+    time of every (steps, stages) and of the streaming variant."""
     B, T, H = (shape[k] for k in ("B", "T", "H"))
     args = lingru_inputs(torch, kernel, fl, shape, dev, rng)
     if kernel == "fwd":

@@ -4,7 +4,7 @@
 //
 // A ring slot has one mbarrier, initialised with one arrival. To fill a
 // slot, lane 0 of the filling warp arrives on it with the bytes the slot
-// will receive (expect_tx), then the warp's lanes issue the slot's copies,
+// will receive (expect_tx), then the warp's lanes start the slot's copies,
 // each of which counts its bytes off the barrier when it lands. The phase
 // completes when all of them have landed; a consumer waits for the n-th
 // filling of a slot with parity n & 1.

@@ -28,7 +28,7 @@
 //   up to TILE channels). A step of the tile is four contiguous runs of the
 //   tile's width (p_z, p_c, h_{t-1}, dy), so a ring of `stages` slots of K
 //   steps in shared memory is filled by asynchronous bulk copies
-//   (bulk_ring.cuh), issued by the lanes of warp 0 and counted off one
+//   (bulk_ring.cuh), started by the lanes of warp 0 and counted off one
 //   mbarrier a slot: stages - 1 time tiles are in flight while the block
 //   works on one. h_{t-1} is staged one step ahead of the other runs (slot
 //   row i of tile g holds the h of walk step gK + i + 1), where the TPU

@@ -27,7 +27,7 @@
 //   up to TILE channels). A step of the tile is two contiguous runs of the
 //   tile's width (p_z, p_c), so a ring of `stages` slots of K steps in
 //   shared memory is filled by asynchronous bulk copies (bulk_ring.cuh),
-//   issued by the lanes of warp 0 and counted off one mbarrier a slot:
+//   started by the lanes of warp 0 and counted off one mbarrier a slot:
 //   stages - 1 time tiles are in flight while the block works on one.
 //   Three gate threads a channel turn a tile's p_z, p_c into 1 - z and z c
 //   (the transcendental part, parallel over steps) in one of two gate

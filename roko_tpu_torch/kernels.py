@@ -1,12 +1,13 @@
 """Builds the port's CUDA kernels with nvcc and loads them with ctypes.
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface (it may
-include the shared headers ``csrc/*.cuh``). It is compiled for ``sm_90a`` into ``build/roko_tpu_torch/`` beside the package
-on first use, under a name that carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is loaded as
-it is. Nothing here runs at import time: the CPU tests import every
-module of the package on a machine without nvcc. Beside the build, the
-checks every kernel wrapper makes before a launch.
+include the shared headers ``csrc/*.cuh``). It is compiled for
+``sm_90a`` into ``build/roko_tpu_torch/`` beside the package on first
+use, under a name that carries a hash of the sources and the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+Nothing here runs at import time: the CPU tests import every module of
+the package on a machine without nvcc. Beside the build, the checks
+every kernel wrapper makes before a launch.
 """
 
 from __future__ import annotations

@@ -203,10 +203,6 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _n_sm(t: torch.Tensor) -> int:
-    return _sm_count(t.device)
-
-
 def _lingru_fwd_kernel(
     p: torch.Tensor, *,
     variant: Optional[str] = None, steps: Optional[int] = None, stages: Optional[int] = None,
@@ -220,7 +216,7 @@ def _lingru_fwd_kernel(
     out = torch.empty(B, T, 2 * H, device=p.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return out
-    plan = scan_plan(B, T, H, _n_sm(p), "fwd", aligned=aligned(p, out),
+    plan = scan_plan(B, T, H, _sm_count(p.device), "fwd", aligned=aligned(p, out),
                      variant=variant, steps=steps, stages=stages)
     lib = kernels.library("lingru_fwd")
     with torch.cuda.device(p.device):
@@ -245,7 +241,7 @@ def _lingru_bwd_kernel(
     dp = torch.empty_like(p)
     if B == 0 or T == 0:
         return dp
-    plan = scan_plan(B, T, H, _n_sm(p), "bwd", aligned=aligned(p, h, dy, dp),
+    plan = scan_plan(B, T, H, _sm_count(p.device), "bwd", aligned=aligned(p, h, dy, dp),
                      variant=variant, steps=steps, stages=stages)
     lib = kernels.library("lingru_bwd")
     with torch.cuda.device(p.device):

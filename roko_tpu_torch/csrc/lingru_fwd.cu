@@ -84,7 +84,9 @@ __device__ __forceinline__ float2 fwd_gates(float pz, float pc) {
   return make_float2(__fsub_rn(1.f, z), __fmul_rn(z, tanhf(pc)));
 }
 
-__global__ void __launch_bounds__(STREAM_THREADS)
+// No __launch_bounds__: with them ptxas spilled 4 bytes around the
+// reciprocal's slow-path call; without, it neither spills nor runs slower.
+__global__ void
 lingru_fwd_kernel(const float* __restrict__ p,  // [B, T, 4H]
                   float* __restrict__ h,        // [B, T, 2H]
                   int B, int T, int H) {

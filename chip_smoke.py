@@ -15,6 +15,12 @@ for ``kind="gru"`` and once for ``kind="lingru"``:
 - inference: polishes a synthetic contig through
   ``roko_tpu_torch.infer.run_inference`` (random weights from a numpy
   seed, carried in through the JAX weights bridge);
+- polish (gru only): a 500 kb simulated project (draft FASTA + reads
+  BAM), the native extractor built with g++ and held bitwise against the
+  Python one on a 20 kb sub-region, the region fan-out over 4 threads,
+  and the windows through the same inference path; with h5py on the
+  machine, also ``python -m roko_tpu_torch polish --staged`` in a
+  subprocess, its FASTA byte-equal to the in-memory polish;
 - training: one train step through the kernels against the plain
   recurrence, then ``roko_tpu_torch.training.loop.train`` for two epochs
   over an in-memory labelled corpus with a held-out val set and the guard
@@ -31,6 +37,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -94,6 +101,16 @@ LIN_EXTRA_SHAPES = (
 LIN_FWD_OPS = 8
 LIN_BWD_OPS = 20
 LIN_NO_LIBRARY = "no single PyTorch call computes a gated affine scan"
+# the polish phase: a 500 kb sim project (5 regions of 100 kb), cut from a
+# bacterial draft of about 5 Mb only to bound the pure-Python simulator's
+# time; 4 extraction workers; a 20 kb sub-region for the native-vs-Python
+# check
+POLISH_GENOME_LEN = 500_000
+POLISH_SIM_SEED = 7
+POLISH_WORKERS = 4
+# the fan-out timed again at these worker counts (windows counted, not kept)
+POLISH_WORKER_SWEEP = (1, 2, 8)
+POLISH_CHECK_REGION = (200_000, 220_000)
 # device-time kinds of the port's kernels, by name; "lingru_fwd" holds
 # "gru_fwd", so the lingru names come first
 KERNEL_KINDS = ("lingru_fwd", "lingru_bwd", "gru_fwd", "gru_bwd")
@@ -654,6 +671,128 @@ def drive_inference(torch, port, model, plain, batches, contig, draft, dev, coun
     }
 
 
+def drive_polish(torch, port, model, dev, counts, card):
+    """The draft-to-FASTA path: a simulated project, the native extractor
+    built and held bitwise against the Python one, the region fan-out,
+    and the windows through ``drive_inference`` in batches of 512
+    (``gru_fwd`` launches 3 times a batch). With h5py, also the CLI's
+    ``polish --staged`` in a subprocess."""
+    work = os.path.join(ROOT, "build", "chip_smoke_polish")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = port.build_synthetic_project(work, genome_len=POLISH_GENOME_LEN,
+                                         seed=POLISH_SIM_SEED)
+    sim_s = time.perf_counter() - t0
+    contig = paths["contig"]
+    draft = port.read_fasta(paths["draft_fasta"])[0][1]
+
+    # the toolchain first, then the build: a failure prints g++'s stderr
+    toolchain = port.native_build.toolchain()
+    print(json.dumps({"polish_toolchain": toolchain}), flush=True)
+    t0 = time.perf_counter()
+    try:
+        library = str(port.native_build.build())
+        port.native_binding.load()
+    except Exception as e:  # the build's or the loader's message is the finding
+        fail(f"the native extractor did not build or load: {e}")
+    build_s = time.perf_counter() - t0
+    if port.backend.selected() != "native":
+        fail("the region jobs would not run the native extractor")
+
+    # the native extractor against the Python one on a sub-region
+    start, end = POLISH_CHECK_REGION
+    seed = port.derive_region_seed(0, contig, start)
+    t0 = time.perf_counter()
+    n_pos, n_mat = port.native_binding.extract_windows_arrays(paths["reads_bam"], contig, start,
+                                                              end, seed)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with port.BamReader(paths["reads_bam"]) as reader:
+        py = list(port.extract_windows(reader, contig, start, end, seed))
+    python_s = time.perf_counter() - t0
+    if not (len(py) == len(n_pos) > 0
+            and np.array_equal(np.stack([w.positions for w in py]), n_pos)
+            and np.array_equal(np.stack([w.matrix for w in py]), n_mat)):
+        fail(f"the native and Python extractors differ on {contig}:{start}-{end}")
+
+    # the fan-out, then the windows in batches of 512
+    logs = []
+    t0 = time.perf_counter()
+    with port.open_region_stream(paths["draft_fasta"], paths["reads_bam"],
+                                 workers=POLISH_WORKERS, seed=0, log=logs.append) as stream:
+        jobs = len(stream.jobs)
+        blocks = [r for r in stream.results if r is not None]
+    extract_s = time.perf_counter() - t0
+    sweep = {}
+    for workers in POLISH_WORKER_SWEEP:
+        t0 = time.perf_counter()
+        with port.open_region_stream(paths["draft_fasta"], paths["reads_bam"], workers=workers,
+                                     seed=0, log=lambda s: None) as stream:
+            n = sum(len(r[1]) for r in stream.results if r is not None)
+        sweep[workers] = n / (time.perf_counter() - t0)
+    positions = np.concatenate([b[1] for b in blocks])
+    examples = np.concatenate([b[2] for b in blocks])
+    n_windows = len(positions)
+    batches = [([contig] * len(positions[i : i + PATH_BATCH_SIZE]),
+                positions[i : i + PATH_BATCH_SIZE], examples[i : i + PATH_BATCH_SIZE])
+               for i in range(0, n_windows, PATH_BATCH_SIZE)]
+    path = drive_inference(torch, port, model, port.gru_recurrence_plain, batches, contig, draft,
+                           dev, counts, "gru_fwd")
+    for _ in range(3):  # a trace now and then holds no device events: trace again
+        traced = device_breakdown(torch, lambda: port.run_inference(
+            iter(batches), {contig: draft}, model, device=dev, log=lambda s: None))
+        if "device_busy_ms" in traced:
+            break
+    else:
+        fail(f"the polish phase's inference traces hold no device time: {traced}")
+    busy_ms = traced["device_busy_ms"]
+
+    cli = "not run: no h5py on this machine"
+    if importlib.util.find_spec("h5py") is not None:
+        polished = port.run_inference(iter(batches), {contig: draft}, model, device=dev,
+                                      log=lambda s: None)[contig]
+        pth, out = os.path.join(work, "model.pth"), os.path.join(work, "polished.fasta")
+        torch.save(model.state_dict(), pth)
+        proc = subprocess.run(
+            [sys.executable, "-m", "roko_tpu_torch", "polish", paths["draft_fasta"],
+             paths["reads_bam"], pth, out, "--staged", "--t", str(POLISH_WORKERS),
+             "--b", str(PATH_BATCH_SIZE), "--hidden-size", str(model.cfg.hidden_size),
+             "--num-layers", str(model.cfg.num_layers), "--device", dev.type],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if proc.returncode != 0:
+            fail(f"polish --staged failed (rc {proc.returncode}): {proc.stderr[-2000:]}")
+        if port.read_fasta(out) != [(contig, polished)]:
+            fail("polish --staged's FASTA differs from the in-memory polish's stitch")
+        cli = "FASTA byte-equal to the in-memory polish"
+
+    return {
+        "project": {"genome_len": POLISH_GENOME_LEN, "seed": POLISH_SIM_SEED, "coverage": 30,
+                    "read_len": 400, "draft_len": len(draft), "regions": jobs,
+                    "reduced": "500 kb draft instead of a ~5 Mb bacterial one, to bound the "
+                               "pure-Python simulator's time"},
+        "extractor": "native", "library": os.path.relpath(library, ROOT), "toolchain": toolchain,
+        "build_seconds": build_s,
+        "check_region": {"region": [start, end], "windows": len(py), "bitwise_equal": True,
+                         "native_seconds": native_s, "python_seconds": python_s,
+                         "native_windows_per_s": len(py) / native_s,
+                         "python_windows_per_s": len(py) / python_s},
+        "windows": n_windows, "workers": POLISH_WORKERS, "sim_seconds": sim_s,
+        "extract_seconds": extract_s, "extract_windows_per_s": n_windows / extract_s,
+        "extract_windows_per_s_by_workers": {POLISH_WORKERS: n_windows / extract_s, **sweep},
+        "host_cpus": {"cpu_count": os.cpu_count(), "affinity": len(os.sched_getaffinity(0))},
+        "inference_seconds": path["seconds"], "inference_windows_per_s": path["windows_per_s"],
+        "phase_seconds": sim_s + extract_s + path["seconds"],
+        "phase_is": "sim + extraction + inference (build and checks left out)",
+        "device_busy_ms_in_inference": busy_ms,
+        "busy_share_of_phase": busy_ms / 1e3 / (sim_s + extract_s + path["seconds"]),
+        "busy_share_of_extraction_and_inference": busy_ms / 1e3 / (extract_s + path["seconds"]),
+        "busy_from": "a traced second run of the same batches",
+        "gru_fwd_launches": path["gru_fwd_launches"], "batches": path["batches"],
+        "path": {k: v for k, v in path.items() if k != "log"},
+        "fanout_log": logs, "cli": cli, "card": card,
+    }
+
+
 def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, fwd, bwd,
                 out_name):
     """``loop.train`` of ``cfg`` on the in-memory corpus, counted (``bwd``
@@ -814,20 +953,34 @@ def main() -> None:
         from roko_tpu_torch import constants as C
         from roko_tpu_torch import kernels
         from roko_tpu_torch.config import ModelConfig, TrainConfig
+        from roko_tpu_torch.features import backend
+        from roko_tpu_torch.features.extract import extract_windows
+        from roko_tpu_torch.features.pipeline import open_region_stream
         from roko_tpu_torch.infer import VoteBoard, predict, run_inference
+        from roko_tpu_torch.io.bam import BamReader
+        from roko_tpu_torch.io.fasta import read_fasta
         from roko_tpu_torch.models import fused_gru as fg
         from roko_tpu_torch.models import fused_lingru as fl
         from roko_tpu_torch.models.convert import state_dict_from_jax
         from roko_tpu_torch.models.model import RokoModel
+        from roko_tpu_torch.native import binding as native_binding
+        from roko_tpu_torch.native import build as native_build
+        from roko_tpu_torch.sim import build_synthetic_project
         from roko_tpu_torch.training import loop
         from roko_tpu_torch.training.checkpoint import load_params, verify_manifest
         from roko_tpu_torch.training.data import InMemoryDataset
+        from roko_tpu_torch.utils.rng import derive_region_seed
     except ImportError as e:
         fail(f"the port package roko_tpu_torch is not importable beside this script: {e}")
     port = types.SimpleNamespace(
         C=C, TrainConfig=TrainConfig, VoteBoard=VoteBoard, predict=predict,
         run_inference=run_inference, RokoModel=RokoModel, loop=loop,
         load_params=load_params, verify_manifest=verify_manifest,
+        build_synthetic_project=build_synthetic_project, read_fasta=read_fasta,
+        native_build=native_build, native_binding=native_binding, backend=backend,
+        derive_region_seed=derive_region_seed, BamReader=BamReader,
+        extract_windows=extract_windows, open_region_stream=open_region_stream,
+        gru_recurrence_plain=fg.gru_recurrence_plain,
     )
     counts = Counts(fg, fl)
 
@@ -913,6 +1066,10 @@ def main() -> None:
         torch, lambda: run_inference(iter(batches), {contig: draft}, model, device=dev,
                                      log=lambda s: None)), "card": card}})
 
+    # -- the polish path: FASTA + BAM -> features -> the gru model ----------
+    polish = drive_polish(torch, port, model, dev, counts, card)
+    emit({"polish": polish})
+
     lin_cfg = ModelConfig(kind="lingru")
     lin_model = RokoModel(lin_cfg)
     lin_model.load_state_dict(state_dict_from_jax(jax_layout_params(lin_rng, lin_cfg)),
@@ -970,7 +1127,8 @@ def main() -> None:
     emit({"kernels": [
         kernel_row("gru_fwd", "roko_tpu_torch/csrc/gru_fwd.cu",
                    "roko_tpu/models/pallas_gru.py:126", "roko_tpu/models/pallas_gru.py:171",
-                   main_row, {"inference": launches, "train": train_fwd},
+                   main_row, {"inference": launches, "polish": polish["gru_fwd_launches"],
+                              "train": train_fwd},
                    at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",

@@ -1,14 +1,57 @@
 """Configuration of the port: the fields of ``roko_tpu.config`` that the
-inference and training paths of ``kind="gru"`` and ``kind="lingru"``
-read, with the same names and defaults (``ModelConfig``, ``TrainConfig``
-and ``GuardConfig``)."""
+feature extractor and the inference and training paths of ``kind="gru"``
+and ``kind="lingru"`` read, with the same names and defaults
+(``WindowConfig``, ``ReadFilterConfig``, ``RegionConfig``, ``ModelConfig``,
+``TrainConfig`` and ``GuardConfig``). ``FeaturesConfig`` holds the three
+sections of ``roko_tpu.config.RokoConfig`` that feature extraction reads."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 from roko_tpu_torch import constants as C
+
+
+@dataclass(frozen=True)
+class WindowConfig:
+    """Pileup window geometry (``roko_tpu/config.py:24-36``)."""
+
+    rows: int = C.WINDOW_ROWS
+    cols: int = C.WINDOW_COLS
+    stride: int = C.WINDOW_STRIDE
+    max_ins: int = C.MAX_INS
+    #: the first ref_rows rows carry the draft base per column (GAP at
+    #: insertion slots, forward strand)
+    ref_rows: int = C.REF_ROWS
+
+
+@dataclass(frozen=True)
+class ReadFilterConfig:
+    """Which reads enter the pileup (``roko_tpu/config.py:39-46``)."""
+
+    min_mapq: int = C.MIN_MAPQ
+    filter_flag: int = C.FILTER_FLAG
+    #: paired reads must also be proper pairs
+    require_proper_pair: bool = True
+
+
+@dataclass(frozen=True)
+class RegionConfig:
+    """Contig -> region fan-out (``roko_tpu/config.py:49-53``)."""
+
+    size: int = C.REGION_SIZE
+    overlap: int = C.REGION_OVERLAP
+
+
+@dataclass(frozen=True)
+class FeaturesConfig:
+    """What feature extraction reads of ``roko_tpu.config.RokoConfig``."""
+
+    window: WindowConfig = field(default_factory=WindowConfig)
+    read_filter: ReadFilterConfig = field(default_factory=ReadFilterConfig)
+    region: RegionConfig = field(default_factory=RegionConfig)
+
 
 #: the values of ``ModelConfig.kind`` the port runs
 PORTED_KINDS = ("gru", "lingru")

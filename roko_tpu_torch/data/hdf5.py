@@ -1,8 +1,10 @@
-"""Reader of the feature HDF5 files that ``roko-tpu features`` writes
-(schema in ``roko_tpu/data/hdf5.py``): root groups ``{contig}_{start}-{end}``
-holding ``positions`` int64[N,90,2] and ``examples`` uint8[N,200,90], and a
-``contigs/{name}`` group per draft contig whose ``seq`` attribute is the
-draft. A training file's groups hold ``labels`` [N,90] as well.
+"""Writer and reader of the feature HDF5 files, in the schema of
+``roko_tpu/data/hdf5.py``: root groups ``{contig}_{start}-{end}`` holding
+``positions`` int64[N,90,2] and ``examples`` uint8[N,200,90] (chunked 64
+windows), attrs ``contig`` and ``size``, and a ``contigs/{name}`` group per
+draft contig with attrs ``name``, ``seq`` (the draft) and ``len``. A
+training file's groups hold ``labels`` int64[N,90] as well. A group name
+gets a ``.{k}`` suffix when it is taken already.
 
 ``h5py`` is imported inside the functions: the inference path itself
 takes any iterator of window batches, and a machine without ``h5py`` can
@@ -13,11 +15,109 @@ from __future__ import annotations
 
 import os
 from collections import deque
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
 Batch = Tuple[List[str], np.ndarray, np.ndarray]
+
+
+class _ContigBuffer:
+    """Stacked [N, ...] blocks of one contig; ``write`` concatenates them
+    into one group."""
+
+    def __init__(self, name: str, infer: bool):
+        self.name = name
+        self.infer = infer
+        self.pos: List[np.ndarray] = []
+        self.X: List[np.ndarray] = []
+        self.Y: List[np.ndarray] = []
+
+    def extend(self, pos, X, Y) -> None:
+        pos = np.asarray(pos, dtype=np.int64)
+        X = np.asarray(X, dtype=np.uint8)
+        if len(pos) == 0:
+            return
+        if len(pos) != len(X):
+            raise ValueError(f"{len(pos)} positions for {len(X)} windows")
+        if not self.infer:
+            if Y is None:
+                raise ValueError("a training file needs labels")
+            Y = np.asarray(Y, dtype=np.int64)
+            if len(Y) != len(pos):
+                raise ValueError(f"{len(Y)} label rows for {len(pos)} windows")
+            self.Y.append(Y)
+        self.pos.append(pos)
+        self.X.append(X)
+
+    def write(self, fd) -> None:
+        if not self.pos:
+            return
+        start = int(self.pos[0][0, 0, 0])
+        end = int(self.pos[-1][-1, -1, 0])
+        base = f"{self.name}_{start}-{end}"
+        group_name, k = base, 0
+        while group_name in fd:
+            k += 1
+            group_name = f"{base}.{k}"
+
+        group = fd.create_group(group_name)
+        positions = np.concatenate(self.pos)
+        group["positions"] = positions
+        if not self.infer:
+            group["labels"] = np.concatenate(self.Y)
+        group.attrs["contig"] = self.name
+        group.attrs["size"] = len(positions)
+        X = np.concatenate(self.X)
+        # 64-window chunks: the readers read slices, so smaller chunks
+        # only add HDF5 overhead
+        group.create_dataset("examples", data=X, chunks=(min(64, len(X)),) + X.shape[1:])
+
+        self.pos.clear()
+        self.X.clear()
+        self.Y.clear()
+
+
+class DataWriter:
+    """Buffers windows per contig; ``write()`` flushes the buffers to the
+    file, one group per contig and flush."""
+
+    def __init__(self, filename: str, infer: bool):
+        self.filename = filename
+        self.infer = infer
+        self._buffers: Dict[str, _ContigBuffer] = {}
+        self._fd = None
+
+    def __enter__(self) -> "DataWriter":
+        import h5py
+
+        self._fd = h5py.File(self.filename, "w", libver="latest")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        try:
+            self.write()
+        finally:
+            self._fd.close()
+            self._fd = None
+
+    def write_contigs(self, refs: Sequence[Tuple[str, str]]) -> None:
+        group = self._fd.create_group("contigs")
+        for name, seq in refs:
+            contig = group.create_group(name)
+            contig.attrs["name"] = name
+            contig.attrs["seq"] = seq
+            contig.attrs["len"] = len(seq)
+
+    def store(self, contig: str, positions, examples, labels) -> None:
+        buf = self._buffers.get(contig)
+        if buf is None:
+            buf = self._buffers[contig] = _ContigBuffer(contig, self.infer)
+        buf.extend(positions, examples, labels)
+
+    def write(self) -> None:
+        for buf in self._buffers.values():
+            buf.write(self._fd)
 
 
 def data_group_names(fd) -> List[str]:

@@ -1,8 +1,11 @@
-"""The port imports neither JAX nor the JAX package ``roko_tpu``.
+"""The port imports neither JAX nor the JAX package ``roko_tpu``, and its
+host-side modules (features, I/O, the native extractor, the simulator)
+do not import torch.
 
 Every module of ``roko_tpu_torch`` is imported in a subprocess in which
-``jax`` and ``roko_tpu`` (with all its submodules) are blocked, and the
-import statements of the package and of ``chip_smoke.py`` are read with
+``jax`` and ``roko_tpu`` (with all its submodules) are blocked, the
+host-side modules once more with ``torch`` blocked too, and the import
+statements of the package and of ``chip_smoke.py`` are read with
 ``ast``. A name counts as the JAX package when it is ``roko_tpu`` or
 starts with ``roko_tpu.``; ``roko_tpu_torch`` is not it."""
 
@@ -22,7 +25,8 @@ import pkgutil, sys
 from pathlib import Path
 
 root = Path(sys.argv[1])
-blocked = ["jax", "jaxlib", "roko_tpu"]
+only = sys.argv[2:]  # with names given: import those, and block torch too
+blocked = ["jax", "jaxlib", "roko_tpu"] + (["torch"] if only else [])
 for path in (root / "roko_tpu").rglob("*.py"):
     parts = path.relative_to(root).with_suffix("").parts
     if parts[-1] == "__init__":
@@ -34,7 +38,7 @@ for name in blocked:
 sys.path.insert(0, str(root))
 import roko_tpu_torch
 
-names = ["roko_tpu_torch"] + [
+names = only or ["roko_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(roko_tpu_torch.__path__, "roko_tpu_torch.")
 ]
 for name in names:
@@ -56,16 +60,37 @@ def test_jax_side_name_rule(name, expected):
     assert _is_jax_side(name) is expected
 
 
-def test_every_port_module_imports_without_jax():
+def _import_in_child(*names):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
-        [sys.executable, "-c", _CHILD, str(ROOT)],
+        [sys.executable, "-c", _CHILD, str(ROOT), *names],
         capture_output=True, text=True, timeout=300, cwd=str(ROOT), env=env,
     )
     assert proc.returncode == 0, proc.stderr
-    names = proc.stdout.strip().splitlines()[-1].split()
-    assert len(names) >= 16
-    assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru"} <= set(names)
+    return proc.stdout.strip().splitlines()[-1].split()
+
+
+#: the host side of the port: feature extraction runs in worker
+#: processes and threads, so none of it may import torch
+HOST_MODULES = [
+    "roko_tpu_torch.sim", "roko_tpu_torch.utils.rng", "roko_tpu_torch.resilience.retry",
+    "roko_tpu_torch.io.bgzf", "roko_tpu_torch.io.bam", "roko_tpu_torch.io.sam",
+    "roko_tpu_torch.io.fasta", "roko_tpu_torch.native.build", "roko_tpu_torch.native.binding",
+    "roko_tpu_torch.features.pileup", "roko_tpu_torch.features.extract",
+    "roko_tpu_torch.features.labels", "roko_tpu_torch.features.backend",
+    "roko_tpu_torch.features.pipeline", "roko_tpu_torch.data.hdf5",
+]
+
+
+def test_every_port_module_imports_without_jax():
+    names = _import_in_child()
+    assert len(names) >= 40
+    assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru",
+            *HOST_MODULES} <= set(names)
+
+
+def test_host_modules_import_without_torch():
+    assert _import_in_child(*HOST_MODULES) == HOST_MODULES
 
 
 def _imports(path: Path):

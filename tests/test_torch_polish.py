@@ -1,0 +1,139 @@
+"""The port's draft-to-FASTA path on the CPU: ``python -m roko_tpu_torch
+sim``, ``features`` and ``polish --staged --device cpu`` (``--model-kind
+gru`` and ``lingru``, hidden 16, 2 layers) against ``roko_tpu``'s sim,
+``run_features`` and staged polish (``run_features`` +
+``polish_to_fasta``) on the same inputs and the same ``.pth``: equal
+files, equal HDF5 datasets, byte-identical FASTA. ``polish`` without
+``--staged``, or with ``--truth``, exits with a usage error and writes
+nothing."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from roko_tpu.config import ModelConfig as JaxModelConfig, RegionConfig, RokoConfig
+from roko_tpu.features.pipeline import run_features as ref_run_features
+from roko_tpu.infer import polish_to_fasta as ref_polish_to_fasta
+from roko_tpu.models import RokoModel as JaxRokoModel
+from roko_tpu.models.convert import load_torch_checkpoint
+from roko_tpu.sim import build_synthetic_project as ref_project
+from roko_tpu_torch import cli
+from roko_tpu_torch.models.convert import state_dict_from_jax
+from tests.test_torch_features import _assert_same_file
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+ROOT = Path(__file__).resolve().parent.parent
+SMALL = ["--hidden-size", "16", "--num-layers", "2", "--device", "cpu"]
+KINDS = {"gru": 4, "lingru": 6}  # kind -> init seed of the random JAX params
+
+
+@pytest.fixture(scope="module")
+def project(tmp_path_factory):
+    """A 4 kb project written by the port's CLI, and random JAX params of
+    each kind with their .pth."""
+    root = tmp_path_factory.mktemp("torch_polish")
+    proc = subprocess.run(
+        [sys.executable, "-m", "roko_tpu_torch", "sim", str(root / "sim"), "--seed", "13",
+         "--genome-len", "4000"],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    paths = {k: v for k, v in (line.split(": ", 1) for line in proc.stdout.splitlines())}
+    pths, params = {}, {}
+    for kind, seed in KINDS.items():
+        cfg = JaxModelConfig(kind=kind, hidden_size=16, num_layers=2)
+        params[kind] = jax.tree.map(np.asarray, JaxRokoModel(cfg).init(jax.random.PRNGKey(seed)))
+        pths[kind] = str(root / f"{kind}.pth")
+        torch.save(state_dict_from_jax(params[kind]), pths[kind])
+    return dict(paths, root=root, pth=pths, params=params)
+
+
+def test_cli_sim_byte_identical_to_reference(project):
+    want = ref_project(str(project["root"] / "ref_sim"), seed=13, genome_len=4000)
+    for key in ("truth_fasta", "draft_fasta", "reads_bam", "truth_bam"):
+        got = Path(project[key]).read_bytes()
+        assert got == Path(want[key]).read_bytes(), key
+        if key.endswith("bam"):
+            assert Path(project[key] + ".bai").read_bytes() == Path(want[key] + ".bai").read_bytes()
+    assert project["contig"] == want["contig"] == "ctg"
+
+
+@pytest.mark.parametrize("mode", ["infer", "train"])
+def test_cli_features_match_reference(project, tmp_path, capsys, mode):
+    got, want = str(tmp_path / "port.hdf5"), str(tmp_path / "ref.hdf5")
+    y = ["--Y", project["truth_bam"]] if mode == "train" else []
+    rc = cli.main(["features", project["draft_fasta"], project["reads_bam"], got, "--seed", "5",
+                   "--t", "2", "--region-size", "1500", "--region-overlap", "200", *y])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "native extractor" in out and f"to {got}" in out
+    n = ref_run_features(project["draft_fasta"], project["reads_bam"], want,
+                         bam_y=y[1] if y else None, workers=2, seed=5,
+                         config=RokoConfig(region=RegionConfig(1500, 200)),
+                         log=lambda *a: None)
+    assert n > 100
+    _assert_same_file(got, want)
+
+
+def _reference_staged_fasta(project, kind, out, seed=0):
+    """The reference's staged polish: run_features, then polish_to_fasta
+    with the same weights (read from the .pth where the reference reads
+    one: gru)."""
+    cfg = JaxModelConfig(kind=kind, hidden_size=16, num_layers=2)
+    h5 = str(Path(out).with_suffix(".hdf5"))
+    ref_run_features(project["draft_fasta"], project["reads_bam"], h5, seed=seed,
+                     log=lambda *a: None)
+    params = (load_torch_checkpoint(project["pth"][kind], cfg) if kind == "gru"
+              else project["params"][kind])
+    ref_polish_to_fasta(h5, params, out,
+                        RokoConfig(model=cfg), batch_size=32, log=lambda *a: None)
+    return Path(out).read_bytes()
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_polish_staged_fasta_byte_identical_to_reference(project, tmp_path, kind):
+    got = tmp_path / "port.fasta"
+    keep = tmp_path / "kept.hdf5"
+    argv = ["polish", project["draft_fasta"], project["reads_bam"], project["pth"][kind],
+            str(got), "--staged", "--b", "32", "--t", "2", "--keep-hdf5", str(keep),
+            "--model-kind", kind, *SMALL]
+    if kind == "gru":  # once through the module entry point, as a user runs it
+        proc = subprocess.run([sys.executable, "-m", "roko_tpu_torch", *argv],
+                              capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+        assert proc.returncode == 0, proc.stderr
+        assert "extracted" in proc.stdout and "wrote polished contigs" in proc.stdout
+    else:
+        assert cli.main(argv) == 0
+    want = _reference_staged_fasta(project, kind, str(tmp_path / "ref.fasta"))
+    assert len(want) > 3000
+    assert got.read_bytes() == want
+    _assert_same_file(str(keep), str(tmp_path / "ref.hdf5"))
+
+
+@pytest.mark.parametrize("extra,message", [
+    ([], "streaming engine is not ported yet"),
+    (["--staged", "--truth", "TRUTH"], "assess scorer is not ported yet"),
+])
+def test_polish_refuses_what_is_not_ported(project, tmp_path, capsys, extra, message):
+    out = tmp_path / "o.fasta"
+    extra = [project["truth_fasta"] if a == "TRUTH" else a for a in extra]
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["polish", project["draft_fasta"], project["reads_bam"], project["pth"]["gru"],
+                  str(out), *extra, *SMALL])
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
+    assert os.listdir(tmp_path) == []
+
+
+def test_polish_without_card_refuses_cuda_before_extraction(project, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["polish", project["draft_fasta"], project["reads_bam"], project["pth"]["gru"],
+                  str(tmp_path / "o.fasta"), "--staged", "--keep-hdf5", str(tmp_path / "k.hdf5"),
+                  "--hidden-size", "16", "--num-layers", "2"])
+    assert os.listdir(tmp_path) == []

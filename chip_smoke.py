@@ -101,10 +101,10 @@ LIN_EXTRA_SHAPES = (
 LIN_FWD_OPS = 8
 LIN_BWD_OPS = 20
 LIN_NO_LIBRARY = "no single PyTorch call computes a gated affine scan"
-# the polish phase: a 500 kb sim project (5 regions of 100 kb), cut from a
-# bacterial draft of about 5 Mb only to bound the pure-Python simulator's
-# time; 4 extraction workers; a 20 kb sub-region for the native-vs-Python
-# check
+# the polish phase: a 500 kb sim project (its 500 694 bp draft makes 6
+# regions of 100 kb), cut from a bacterial draft of about 5 Mb only to
+# bound the pure-Python simulator's time; 4 extraction workers; a 20 kb
+# sub-region for the native-vs-Python check
 POLISH_GENOME_LEN = 500_000
 POLISH_SIM_SEED = 7
 POLISH_WORKERS = 4

@@ -21,6 +21,15 @@ for ``kind="gru"`` and once for ``kind="lingru"``:
   and the windows through the same inference path; with h5py on the
   machine, also ``python -m roko_tpu_torch polish --staged`` in a
   subprocess, its FASTA byte-equal to the in-memory polish;
+- stream_polish: the default ``polish`` engine, ``run_streaming_polish``,
+  on the same project, once with each model: 4 extraction threads
+  feeding the continuous batcher and a warm session on the card (ladder
+  32 / 128 / 512, batch 512), its FASTA byte-equal to the in-memory
+  staged stitch of the same windows with the same model; for gru also
+  ``gru_fwd`` and ``lingru_fwd`` held at every rung, a traced second run
+  for the card's busy share, the stream's wall time over the serial
+  extraction + inference (cold and warm fan-out), and the assess tool
+  (native aligner) on the sim draft against its truth;
 - training: one train step through the kernels against the plain
   recurrence, then ``roko_tpu_torch.training.loop.train`` for two epochs
   over an in-memory labelled corpus with a held-out val set and the guard
@@ -791,6 +800,139 @@ def drive_polish(torch, port, model, dev, counts, card):
         "gru_fwd_launches": path["gru_fwd_launches"], "batches": path["batches"],
         "path": {k: v for k, v in path.items() if k != "log"},
         "fanout_log": logs, "cli": cli, "card": card,
+        # for the stream_polish phase, not printed
+        "_stream_inputs": {"paths": paths, "contig": contig, "draft": draft,
+                           "batches": batches},
+    }
+
+
+def stream_and_compare(torch, port, model, dev, counts, polish, kernel):
+    """``run_streaming_polish`` on the polish phase's project with
+    ``model`` through a warm session on the card with the ladder
+    32 / 128 / 512, 4 extraction workers, batch 512, counted (``kernel``
+    3 times a dispatched step, nothing else). Its FASTA must be byte-equal
+    to the stitch of the same windows' in-memory staged inference with
+    the same model."""
+    inputs = polish["_stream_inputs"]
+    paths, contig, draft = inputs["paths"], inputs["contig"], inputs["draft"]
+    work = os.path.dirname(paths["draft_fasta"])
+    kind = model.cfg.kind
+    staged_path = os.path.join(work, f"staged_{kind}.fasta")
+    staged = port.run_inference(iter(inputs["batches"]), {contig: draft}, model, device=dev,
+                                log=lambda s: None)
+    port.write_fasta(staged_path, list(staged.items()))
+
+    cfg = port.RokoConfig(model=model.cfg)
+    ladder = port.tail_rungs(port.resolve_ladder(cfg.serve, 1), PATH_BATCH_SIZE, 1)
+    session = port.PolishSession(model, cfg, device=dev, ladder=ladder)
+    t0 = time.perf_counter()
+    session.warmup()
+    warmup_s = time.perf_counter() - t0
+    session.dispatched_shapes.clear()
+
+    out = os.path.join(work, f"stream_{kind}.fasta")
+    timer, metrics, logs = port.StageTimer(), port.ServeMetrics(), []
+    counts.zero()
+    t0 = time.perf_counter()
+    port.run_streaming_polish(paths["draft_fasta"], paths["reads_bam"], None, cfg,
+                              session=session, out_path=out, workers=POLISH_WORKERS, seed=0,
+                              batch_size=PATH_BATCH_SIZE, timer=timer, metrics=metrics,
+                              log=logs.append)
+    seconds = time.perf_counter() - t0
+    steps = metrics.counters["batches"]
+    launches = counts.expect(f"the {kind} stream_polish path",
+                             {kernel: model.cfg.num_layers * steps})[kernel]
+    shapes = sorted(session.dispatched_shapes)
+    if not set(shapes) <= set(ladder):
+        fail(f"{kind} stream_polish dispatched {shapes}, outside the ladder {ladder}")
+    with open(out, "rb") as fh, open(staged_path, "rb") as want:
+        identical = fh.read() == want.read()
+    if not identical:
+        fail(f"the {kind} streamed FASTA differs from the staged in-memory stitch of the same "
+             "windows")
+    windows, padded = metrics.fill_totals()
+    if windows != polish["windows"]:
+        fail(f"{kind} stream_polish voted {windows} windows, the polish phase extracted "
+             f"{polish['windows']}")
+    return {
+        "windows": windows, "padded_rows": padded, "padding_efficiency": windows / padded,
+        "seconds": seconds, "windows_per_s": windows / seconds,
+        "spans_s": dict(timer.totals), "span_counts": dict(timer.counts),
+        "steps": steps, f"{kernel}_launches": launches, "launches_expected": "3 x steps",
+        "ladder": list(ladder), "dispatched_shapes": shapes, "warmup_seconds": warmup_s,
+        "fasta_byte_equal_to_staged_stitch": identical,
+        "log": logs[-12:], "_run": (session, cfg, paths),
+    }
+
+
+def drive_stream_polish(torch, port, model, dev, counts, card, polish, rng):
+    """The default ``polish``: ``stream_and_compare`` with the gru model.
+    Then ``gru_fwd`` held against the plain recurrence at every rung of
+    the ladder, a traced second run for the card's busy share, and the
+    assess tool on the sim draft against its truth (random weights: the
+    polished contig is not scored)."""
+    run = stream_and_compare(torch, port, model, dev, counts, polish, "gru_fwd")
+    session, cfg, paths = run.pop("_run")
+    ladder, seconds = session.ladder, run["seconds"]
+    contig, draft = polish["_stream_inputs"]["contig"], polish["_stream_inputs"]["draft"]
+
+    # gru_fwd (and lingru_fwd) at every rung of the ladder, B=32 included,
+    # against the plain loops
+    rungs = [check_kernel(torch, port.fg, dict(MAIN_SHAPE, B=rung), dev, rng, timed=False)
+             for rung in ladder]
+    lin_rungs = [check_lingru(torch, port.fl, "fwd", dict(LIN_INFER_SHAPE, B=rung), dev, rng,
+                              timed=False) for rung in ladder]
+
+    # the card's busy share, from a traced second run on the warm session
+    for _ in range(3):
+        traced = device_breakdown(torch, lambda: port.run_streaming_polish(
+            paths["draft_fasta"], paths["reads_bam"], None, cfg, session=session,
+            workers=POLISH_WORKERS, seed=0, batch_size=PATH_BATCH_SIZE, log=lambda s: None))
+        if "device_busy_ms" in traced:
+            break
+    else:
+        fail(f"the stream_polish traces hold no device time: {traced}")
+
+    # the assess tool through the native aligner: the sim draft against its truth
+    truth = {n: q.encode() for n, q in port.read_fasta(paths["truth_fasta"])}
+    t0 = time.perf_counter()
+    res = port.assess_fastas(truth, {contig: draft.encode()})
+    assess_s = time.perf_counter() - t0
+    c = res.contigs[0]
+    if not port.native_binding.is_available() or c.errors == 0 or c.truth_len < POLISH_GENOME_LEN:
+        fail(f"assess of the sim draft: {res.summary()}")
+
+    # the stream's fan-out is the process's sixth, so its files are in
+    # the page cache: against the polish phase's first (cold) fan-out the
+    # ratio flatters the overlap; the same run's 4-worker repeat is warm
+    cold_serial_s = polish["extract_seconds"] + polish["inference_seconds"]
+    warm_extract_s = (polish["windows"]
+                      / polish["extract_windows_per_s_again_by_workers"][POLISH_WORKERS])
+    warm_serial_s = warm_extract_s + polish["inference_seconds"]
+    return {
+        **run,
+        "gru_fwd_by_rung": [{"B": r["shape"]["B"], "max_abs_err": r["max_abs_err"],
+                             "bitwise_repeatable": r["bitwise_repeatable"],
+                             **{k: r[k] for k in ("variant", "rows_per_block", "blocks")
+                                if k in r}} for r in rungs],
+        "lingru_fwd_by_rung": [{"B": r["shape"]["B"], "max_abs_err": r["max_abs_err"],
+                                **{k: r[k] for k in ("variant", "steps_per_stage", "stages")
+                                   if k in r}} for r in lin_rungs],
+        "atol": ATOL, "rtol": RTOL,
+        "traced_run": traced, "busy_share_of_wall": traced["device_busy_ms"] / traced["wall_ms"],
+        "busy_from": "a traced second run on the warm session",
+        "serial_cold_extract_plus_inference_s": cold_serial_s,
+        "serial_warm_extract_plus_inference_s": warm_serial_s,
+        "stream_over_cold_serial": seconds / cold_serial_s,
+        "stream_over_warm_serial": seconds / warm_serial_s,
+        "serial_from": "inference: the polish phase's; cold extraction: its first 4-worker "
+                       "fan-out; warm extraction: the same run's 4-worker repeat. The stream's "
+                       "fan-out is warm, so stream_over_warm_serial is the like-for-like ratio",
+        "assess_draft_vs_truth": {
+            "seconds": assess_s, "aligner": "native", "match": c.match, "sub": c.sub,
+            "ins": c.ins, "dele": c.dele, "anchors": c.anchors,
+            "band_capped_segments": c.band_capped_segments, "summary": res.summary()},
+        "card": card,
     }
 
 
@@ -953,23 +1095,28 @@ def main() -> None:
     try:
         from roko_tpu_torch import constants as C
         from roko_tpu_torch import kernels
-        from roko_tpu_torch.config import ModelConfig, TrainConfig
+        from roko_tpu_torch.config import ModelConfig, RokoConfig, TrainConfig, resolve_ladder
+        from roko_tpu_torch.eval.assess import assess_fastas
         from roko_tpu_torch.features import backend
         from roko_tpu_torch.features.extract import extract_windows
         from roko_tpu_torch.features.pipeline import open_region_stream
-        from roko_tpu_torch.infer import VoteBoard, predict, run_inference
+        from roko_tpu_torch.infer import VoteBoard, predict, run_inference, tail_rungs
         from roko_tpu_torch.io.bam import BamReader
-        from roko_tpu_torch.io.fasta import read_fasta
+        from roko_tpu_torch.io.fasta import read_fasta, write_fasta
         from roko_tpu_torch.models import fused_gru as fg
         from roko_tpu_torch.models import fused_lingru as fl
         from roko_tpu_torch.models.convert import state_dict_from_jax
         from roko_tpu_torch.models.model import RokoModel
         from roko_tpu_torch.native import binding as native_binding
         from roko_tpu_torch.native import build as native_build
+        from roko_tpu_torch.pipeline import run_streaming_polish
+        from roko_tpu_torch.serve.metrics import ServeMetrics
+        from roko_tpu_torch.serve.session import PolishSession
         from roko_tpu_torch.sim import build_synthetic_project
         from roko_tpu_torch.training import loop
         from roko_tpu_torch.training.checkpoint import load_params, verify_manifest
         from roko_tpu_torch.training.data import InMemoryDataset
+        from roko_tpu_torch.utils.profiling import StageTimer
         from roko_tpu_torch.utils.rng import derive_region_seed
     except ImportError as e:
         fail(f"the port package roko_tpu_torch is not importable beside this script: {e}")
@@ -981,7 +1128,10 @@ def main() -> None:
         native_build=native_build, native_binding=native_binding, backend=backend,
         derive_region_seed=derive_region_seed, BamReader=BamReader,
         extract_windows=extract_windows, open_region_stream=open_region_stream,
-        gru_recurrence_plain=fg.gru_recurrence_plain,
+        gru_recurrence_plain=fg.gru_recurrence_plain, fg=fg, fl=fl, RokoConfig=RokoConfig,
+        resolve_ladder=resolve_ladder, tail_rungs=tail_rungs, PolishSession=PolishSession,
+        run_streaming_polish=run_streaming_polish, ServeMetrics=ServeMetrics,
+        StageTimer=StageTimer, write_fasta=write_fasta, assess_fastas=assess_fastas,
     )
     counts = Counts(fg, fl)
 
@@ -1069,7 +1219,10 @@ def main() -> None:
 
     # -- the polish path: FASTA + BAM -> features -> the gru model ----------
     polish = drive_polish(torch, port, model, dev, counts, card)
-    emit({"polish": polish})
+    emit({"polish": {k: v for k, v in polish.items() if not k.startswith("_")}})
+    stream = drive_stream_polish(torch, port, model, dev, counts, card, polish,
+                                 np.random.default_rng(SEED + 3))
+    emit({"stream_polish": stream})
 
     lin_cfg = ModelConfig(kind="lingru")
     lin_model = RokoModel(lin_cfg)
@@ -1079,6 +1232,11 @@ def main() -> None:
     lin_path = drive_inference(torch, port, lin_model, fl.lingru_scan_plain, batches, contig,
                                draft, dev, counts, "lingru_fwd")
     emit({"lingru_path": {**lin_path, "card": card}})
+    # the default polish with the lingru model: streamed through the session
+    # and batcher, byte-equal to its staged stitch
+    lin_stream = stream_and_compare(torch, port, lin_model, dev, counts, polish, "lingru_fwd")
+    lin_stream.pop("_run")
+    emit({"stream_polish_lingru": {**lin_stream, "card": card}})
     emit({"lingru_breakdown": {**device_breakdown(
         torch, lambda: run_inference(iter(batches), {contig: draft}, lin_model, device=dev,
                                      log=lambda s: None)), "card": card}})
@@ -1129,7 +1287,7 @@ def main() -> None:
         kernel_row("gru_fwd", "roko_tpu_torch/csrc/gru_fwd.cu",
                    "roko_tpu/models/pallas_gru.py:126", "roko_tpu/models/pallas_gru.py:171",
                    main_row, {"inference": launches, "polish": polish["gru_fwd_launches"],
-                              "train": train_fwd},
+                              "stream_polish": stream["gru_fwd_launches"], "train": train_fwd},
                    at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",
@@ -1137,6 +1295,7 @@ def main() -> None:
         kernel_row("lingru_fwd", "roko_tpu_torch/csrc/lingru_fwd.cu",
                    "roko_tpu/models/pallas_lingru.py:90", None, lin_fwd_row,
                    {"inference": lin_path["lingru_fwd_launches"],
+                    "stream_polish": lin_stream["lingru_fwd_launches"],
                     "train": lin_train["lingru_fwd_launches"]},
                    at_train_batch=lin_fwd_train_row),
         kernel_row("lingru_bwd", "roko_tpu_torch/csrc/lingru_bwd.cu",

@@ -1,15 +1,19 @@
 """Command line of the port: ``python -m roko_tpu_torch sim``,
-``features``, ``train``, ``inference`` and ``polish --staged``.
+``features``, ``train``, ``inference``, ``polish`` and ``assess``.
 
-Mirrors ``roko-tpu sim``, ``features``, ``train``, ``inference`` and the
-staged branch of ``polish`` (``roko_tpu/cli.py:461-574``, :626-737,
-:1230; flags :1310-1370, :1545-1600, :1864-1873) with the flags of the
+Mirrors ``roko-tpu sim``, ``features``, ``train``, ``inference``,
+``polish`` and ``assess`` (``roko_tpu/cli.py:461-574``, :626-737, :1230,
+:1288; flags :1310-1370, :1545-1632, :1864-1887) with the flags of the
 same names (``--model-kind`` takes the kinds the port runs), plus
-``--device``. ``inference`` and ``polish`` take a reference-layout
+``--device``. ``polish`` streams by default (extraction, batching and
+inference overlapped, ``--resume`` from its journal); ``--staged`` runs
+``features`` then ``inference``; ``--truth`` prints the assess report
+after either. ``inference`` and ``polish`` take a reference-layout
 ``.pth`` state_dict or a checkpoint directory that ``train`` wrote.
-Writing and reading the HDF5 needs ``h5py``. Not ported yet: the
-streaming ``polish`` (the default there), ``--truth`` and ``assess``,
-``--config``, ``--distributed``, ``--resume`` and remote paths.
+Writing and reading the HDF5 needs ``h5py``. Not ported yet, each a
+usage error that names its queue item: ``--distributed`` and
+``--cascade`` (A10), ``--config`` and ``--trace-dir`` (A11), and remote
+paths.
 """
 
 from __future__ import annotations
@@ -113,14 +117,42 @@ def _load_model_params(model_arg: str):
     return load_reference_pth(model_arg)
 
 
+def _print_assess(polished_path: str, truth_path: str, k: int = 16,
+                  json_path: Optional[str] = None, bed_path: Optional[str] = None) -> None:
+    from roko_tpu_torch.eval.assess import assess_fastas, format_report, write_bed, write_json
+    from roko_tpu_torch.io.fasta import read_fasta
+
+    truth = {n: s.encode() for n, s in read_fasta(truth_path)}
+    polished = {n: s.encode() for n, s in read_fasta(polished_path)}
+    res = assess_fastas(truth, polished, k=k, collect_errors=bed_path is not None)
+    print(format_report(res))
+    if json_path:
+        write_json(res, json_path)
+        print(f"wrote {json_path}")
+    if bed_path:
+        write_bed(res, bed_path)
+        print(f"wrote {bed_path}")
+
+
+def cmd_assess(args: argparse.Namespace) -> int:
+    """Polished-vs-truth error rates and Q score."""
+    _print_assess(args.polished, args.truth, k=args.k, json_path=args.json, bed_path=args.bed)
+    return 0
+
+
 def cmd_polish(args: argparse.Namespace) -> int:
-    """``polish --staged``: features into an HDF5 file (a temporary one
-    unless ``--keep-hdf5``), then ``inference`` on it. The model is loaded
-    on the host first, so a bad checkpoint fails before the extraction;
-    nothing reaches the card until the features are written."""
+    """Draft -> polished FASTA. Default: the streaming engine
+    (``pipeline.stream``), which writes each contig as soon as its last
+    window is voted, behind a resume journal; ``--keep-hdf5`` tees the
+    features to an HDF5 file. ``--staged``: features into an HDF5 file (a
+    temporary one unless ``--keep-hdf5``), then ``inference`` on it. The
+    model is loaded on the host first, so a bad checkpoint fails before
+    the extraction."""
     import os
+    import sys
     import tempfile
 
+    from roko_tpu_torch.config import PipelineConfig, RokoConfig
     from roko_tpu_torch.infer import polish_to_fasta, resolve_device
     from roko_tpu_torch.models.model import RokoModel
 
@@ -129,12 +161,37 @@ def cmd_polish(args: argparse.Namespace) -> int:
     model = RokoModel(_model_config(args, window_rows=cfg.window.rows,
                                     window_cols=cfg.window.cols))
     model.load_state_dict(_load_model_params(args.model), strict=True)
-    with tempfile.TemporaryDirectory() as td:
-        hdf5 = args.keep_hdf5 or os.path.join(td, "features.hdf5")
-        n = _run_features(args, hdf5, cfg)
-        print(f"extracted {n} windows")
-        polish_to_fasta(hdf5, model, args.out, device=device, batch_size=args.b)
+    if args.staged:
+        with tempfile.TemporaryDirectory() as td:
+            hdf5 = args.keep_hdf5 or os.path.join(td, "features.hdf5")
+            n = _run_features(args, hdf5, cfg)
+            print(f"extracted {n} windows")
+            polish_to_fasta(hdf5, model, args.out, device=device, batch_size=args.b)
+    else:
+        from roko_tpu_torch.pipeline import run_streaming_polish
+        from roko_tpu_torch.resilience import JournalMismatch
+
+        pipeline = PipelineConfig(**{
+            k: v for k, v in (("queue_regions", args.queue_regions),
+                              ("max_batch_delay_ms", args.batch_delay_ms),
+                              ("prefetch", args.prefetch))
+            if v is not None
+        })
+        try:
+            run_streaming_polish(
+                args.ref, args.X, model,
+                RokoConfig(window=cfg.window, read_filter=cfg.read_filter,
+                           region=cfg.region, model=model.cfg, pipeline=pipeline),
+                out_path=args.out, workers=args.t, seed=args.seed, batch_size=args.b,
+                device=device, tee_hdf5=args.keep_hdf5, job_retries=args.job_retries,
+                job_timeout=args.job_timeout, resume=args.resume,
+            )
+        except JournalMismatch as e:
+            print(f"polish: {e}", file=sys.stderr)
+            return 1
     print(f"wrote polished contigs to {args.out}")
+    if args.truth:
+        _print_assess(args.out, args.truth)
     return 0
 
 
@@ -241,21 +298,48 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_inference)
 
     p = sub.add_parser(
-        "polish", help="draft FASTA + reads BAM + model -> polished FASTA (--staged)")
+        "polish", help="draft FASTA + reads BAM + model -> polished FASTA")
     p.add_argument("ref", help="draft assembly FASTA")
     p.add_argument("X", help="reads-to-draft BAM or SAM")
     p.add_argument("model", help="checkpoint directory of `train`, or a "
                    "reference-layout torch .pth state_dict")
     p.add_argument("out", help="output FASTA path")
     p.add_argument("--staged", action="store_true",
-                   help="features -> HDF5 -> inference, the only polish the port runs")
-    p.add_argument("--keep-hdf5", default=None, help="write the features HDF5 here")
+                   help="force the two-stage features -> HDF5 -> inference path "
+                   "instead of the default streaming engine")
+    p.add_argument("--keep-hdf5", default=None,
+                   help="also write the features HDF5 here (streaming: a tee)")
     p.add_argument("--truth", default=None,
-                   help="truth FASTA for an assess report (not ported yet)")
+                   help="truth FASTA: print an assess report after polishing")
     p.add_argument("--b", type=int, default=128, help="inference batch size (default 128)")
+    p.add_argument("--prefetch", type=int, default=None,
+                   help="streaming: submitted region blocks whose predictions may be "
+                   "outstanding (default 2)")
+    p.add_argument("--queue-regions", type=int, default=None,
+                   help="streaming: bounded region-queue depth in region blocks "
+                   "(default 8; a full queue blocks the extraction workers)")
+    p.add_argument("--batch-delay-ms", type=float, default=None,
+                   help="streaming: flush a partial device batch at most this long "
+                   "after its oldest window was queued (default 250)")
+    p.add_argument("--resume", action="store_true",
+                   help="streaming: resume a crashed run from the journal beside the "
+                   "output (<out>.resume/); committed contigs are not re-extracted")
+    for flag, item in (("--distributed", "A10"), ("--cascade", "A10")):
+        p.add_argument(flag, action="store_true", help=f"not ported yet (queue item {item})")
+    for flag, item in (("--config", "A11"), ("--trace-dir", "A11")):
+        p.add_argument(flag, default=None, help=f"not ported yet (queue item {item})")
     extraction(p)
     common(p)
     p.set_defaults(fn=cmd_polish)
+
+    p = sub.add_parser("assess", help="polished FASTA vs truth FASTA -> error rates + Qscore")
+    p.add_argument("polished", help="polished assembly FASTA")
+    p.add_argument("truth", help="truth/reference FASTA")
+    p.add_argument("--k", type=int, default=16, help="anchor k-mer size")
+    p.add_argument("--json", default=None, help="also write a JSON report here")
+    p.add_argument("--bed", default=None,
+                   help="also write truth-space error loci (contig start end kind count)")
+    p.set_defaults(fn=cmd_assess)
     return parser
 
 
@@ -263,9 +347,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.command == "polish":
-        if not args.staged:
-            parser.error("polish: the streaming engine is not ported yet; run "
-                         "`polish --staged` (features, then inference)")
-        if args.truth is not None:
-            parser.error("polish --truth: the assess scorer is not ported yet")
+        for flag, item in (("distributed", "A10"), ("cascade", "A10"),
+                           ("config", "A11"), ("trace_dir", "A11")):
+            if getattr(args, flag):
+                parser.error(f"polish --{flag.replace('_', '-')} is not ported yet "
+                             f"(queue item {item} of ROADMAP.md)")
+        if args.resume and args.staged:
+            parser.error("polish --resume is a streaming-engine feature (the journal "
+                         "rides the incremental writer); it cannot combine with --staged")
     return args.fn(args)

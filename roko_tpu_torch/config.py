@@ -1,14 +1,16 @@
 """Configuration of the port: the fields of ``roko_tpu.config`` that the
-feature extractor and the inference and training paths of ``kind="gru"``
-and ``kind="lingru"`` read, with the same names and defaults
-(``WindowConfig``, ``ReadFilterConfig``, ``RegionConfig``, ``ModelConfig``,
-``TrainConfig`` and ``GuardConfig``). ``FeaturesConfig`` holds the three
-sections of ``roko_tpu.config.RokoConfig`` that feature extraction reads."""
+feature extractor, the inference and training paths of ``kind="gru"``
+and ``kind="lingru"`` and the streaming polish read, with the same names
+and defaults (``WindowConfig``, ``ReadFilterConfig``, ``RegionConfig``,
+``ModelConfig``, ``TrainConfig``, ``GuardConfig``, ``ServeConfig``, ``PipelineConfig``, ``ResilienceConfig``,
+``resolve_ladder`` and ``validate_ladder``). ``FeaturesConfig`` holds the
+three sections of ``roko_tpu.config.RokoConfig`` that feature extraction
+reads; ``RokoConfig`` adds the sections the streaming polish reads."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Sequence, Tuple
 
 from roko_tpu_torch import constants as C
 
@@ -123,3 +125,111 @@ class GuardConfig:
     max_bad_steps: int = 3
     #: rollbacks after which the run gives up
     max_rollbacks: int = 3
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """The batching plane's fields of ``roko_tpu/config.py::ServeConfig``
+    (:325-429): the padded batch ladder and the continuous scheduler's
+    rung-upgrade hysteresis (the stream sets the age flush bound from
+    ``PipelineConfig.max_batch_delay_ms``). The HTTP server with its
+    request pool bound, age flush default, Retry-After and tenant table,
+    the deadline and ragged batchers and the trace ring are not ported
+    yet (queue items A9.2, A9.4)."""
+
+    #: padded batch-size ladder; () = auto: ``ladder_base`` scaled by dp
+    ladder: Tuple[int, ...] = ()
+    #: per-device rung sizes the auto ladder scales by the dp extent
+    ladder_base: Tuple[int, ...] = (32, 128, 512)
+    #: pending windows pad up to the next-larger rung only when they
+    #: fill at least this fraction of it
+    rung_upgrade_fill: float = 0.75
+
+    def __post_init__(self) -> None:
+        if not 0.0 < self.rung_upgrade_fill <= 1.0:
+            raise ValueError(
+                "rung_upgrade_fill must lie in (0, 1]; got "
+                f"{self.rung_upgrade_fill}"
+            )
+        if not self.ladder_base or any(r <= 0 for r in self.ladder_base):
+            raise ValueError(
+                "ladder_base must name at least one positive per-device "
+                f"rung size; got {self.ladder_base}"
+            )
+
+
+def resolve_ladder(serve: ServeConfig, dp: int) -> Tuple[int, ...]:
+    """The global rung ladder a session on a ``dp``-wide device set uses:
+    explicit ``serve.ladder`` rungs pass through (sorted, deduped), and
+    the auto default scales each ``serve.ladder_base`` rung by dp. The
+    port's session runs on one card, dp = 1."""
+    if dp < 1:
+        raise ValueError(f"mesh dp axis must be >= 1; got {dp}")
+    if serve.ladder:
+        return tuple(sorted(set(serve.ladder)))
+    return tuple(sorted({r * dp for r in serve.ladder_base}))
+
+
+def validate_ladder(rungs: Sequence[int], dp: int, *, flag: str = "--ladder") -> None:
+    """Refuse global rungs that cannot shard over the dp axis, naming the
+    nearest valid rungs."""
+    bad = [r for r in rungs if r <= 0 or r % dp]
+    if not bad:
+        return
+
+    def nearest(r: int) -> str:
+        lo = (r // dp) * dp
+        hi = lo + dp
+        opts = [v for v in (lo, hi) if v > 0] or [dp]
+        return f"{r} -> " + " or ".join(str(v) for v in dict.fromkeys(opts))
+
+    raise ValueError(
+        f"ladder rungs {bad} are not positive multiples of the mesh dp "
+        f"axis (dp={dp}): a global rung shards rung/dp windows onto "
+        f"each of the dp devices. Nearest valid: "
+        + "; ".join(nearest(r) for r in sorted(bad))
+        + f". Pick multiples of dp, or leave {flag} unset to auto-scale "
+        "the per-device base ladder by dp."
+    )
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """The streaming polish engine (``roko_tpu/config.py:645-663``)."""
+
+    #: bounded region-result queue depth, in region blocks; a full queue
+    #: blocks the extraction workers
+    queue_regions: int = 8
+    #: a partial device batch dispatches at most this long after its
+    #: oldest window was queued (the scheduler's ``max_queue_age_ms``)
+    max_batch_delay_ms: float = 250.0
+    #: submitted blocks whose predictions may be outstanding
+    prefetch: int = 2
+
+
+@dataclass(frozen=True)
+class ResilienceConfig:
+    """Failure-handling knobs (``roko_tpu/config.py:748-778``). A blown
+    deadline raises :class:`HangError`; the JAX package's
+    ``hang_fallback="cpu"`` (finish on the host CPU) is not ported, since
+    carrying on on the CPU after the card failed would hide the card."""
+
+    #: hard deadline on one device predict call; on expiry the watchdog
+    #: dumps every thread stack and raises. 0 disables the watchdog.
+    predict_deadline_s: float = 600.0
+    #: deadline of the FIRST dispatch of each padded batch shape, which
+    #: on the card also builds the kernels. 0 disables it.
+    compile_deadline_s: float = 1800.0
+
+
+@dataclass(frozen=True)
+class RokoConfig(FeaturesConfig):
+    """The sections of ``roko_tpu.config.RokoConfig`` the streaming polish
+    reads: the feature sections (it is a ``FeaturesConfig``), the model,
+    the batching plane, the pipeline and the failure handling. The
+    model's ``window_rows``/``window_cols`` must match ``window``."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)

@@ -12,14 +12,17 @@ stitched from its votes:
 - draft prefix and suffix outside the voted span kept;
 - draft positions with no votes inside the span omitted.
 
-Eager PyTorch has no fixed-shape executables, so the JAX package's
-batch padding to a ladder of shapes is not needed here.
+Eager PyTorch has no fixed-shape executables, so ``run_inference``
+needs no batch padding. The streaming polish's session still pads to a
+ladder of batch sizes (``pad_windows``, ``tail_rungs``, ``rung_for``,
+``roko_tpu/infer.py:57-92``): its batcher packs windows into steps of
+those sizes, and the kernels run at a few known shapes.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +35,34 @@ from roko_tpu_torch.models.model import RokoModel
 _SLOTS = C.MAX_INS + 1  # ins 0..3
 
 
+def pad_windows(x: np.ndarray, batch_size: int) -> np.ndarray:
+    """Zero-pad a window batch to exactly ``batch_size`` rows."""
+    n = x.shape[0]
+    if n == batch_size:
+        return x
+    if n > batch_size:
+        raise ValueError(f"batch of {n} windows exceeds pad target {batch_size}")
+    pad = batch_size - n
+    return np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+
+
+def tail_rungs(ladder: Sequence[int], batch_size: int, dp: int) -> Tuple[int, ...]:
+    """Padded batch sizes available to a short (tail or partial) batch:
+    the ladder's rungs below ``batch_size`` that divide the dp axis, plus
+    ``batch_size`` itself."""
+    rungs = {r for r in ladder if 0 < r < batch_size and r % dp == 0}
+    rungs.add(batch_size)
+    return tuple(sorted(rungs))
+
+
+def rung_for(rungs: Sequence[int], n: int) -> int:
+    """Smallest rung >= n (the top rung caps it)."""
+    for r in rungs:
+        if n <= r:
+            return r
+    return rungs[-1]
+
+
 def resolve_device(device: str | torch.device) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device without a card
     raises instead of falling back to the CPU."""
@@ -42,6 +73,16 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "false; ask for the CPU explicitly (device='cpu', --device cpu)"
         )
     return dev
+
+
+def use_float32_matmuls() -> None:
+    """Turn TF32 off for matrix products and cuDNN: the reference computes
+    in float32, and TF32 keeps about three digits. The flags are
+    process-wide: every thread of the process, and every later user of
+    it, inherits them. Inference, the streaming polish's session and the
+    trainer call this; nothing in the port turns TF32 back on."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 class VoteBoard:
@@ -226,9 +267,7 @@ def run_inference(
     before the host blocks on batch k's class ids and votes them, so
     voting overlaps the device's work."""
     dev = resolve_device(device)
-    # the reference is float32; TF32 keeps about three digits
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    use_float32_matmuls()
     model.to(dev).eval()
     board = VoteBoard(contigs)
     n_windows = 0

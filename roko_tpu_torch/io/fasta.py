@@ -35,12 +35,19 @@ def read_fasta(path: str) -> List[Tuple[str, str]]:
     return list(iter_fasta(path))
 
 
+def write_fasta_record(fh, name: str, seq: str, line_width: int = 80) -> None:
+    """One record in this module's layout: the streaming polish's
+    incremental writer calls it, so its file is byte-identical to
+    :func:`write_fasta`'s."""
+    fh.write(f">{name}\n")
+    for i in range(0, len(seq), line_width):
+        fh.write(seq[i : i + line_width])
+        fh.write("\n")
+
+
 def write_fasta(
     path: str, records: Sequence[Tuple[str, str]], line_width: int = 80
 ) -> None:
     with open(path, "w") as fh:
         for name, seq in records:
-            fh.write(f">{name}\n")
-            for i in range(0, len(seq), line_width):
-                fh.write(seq[i : i + line_width])
-                fh.write("\n")
+            write_fasta_record(fh, name, seq, line_width)

@@ -1,5 +1,5 @@
-"""ctypes binding of the native extractor (a C ABI and ctypes keep the
-build to one g++ call). A ``ctypes.CDLL`` call releases the GIL, so region
+"""ctypes binding of the native extractor and aligner (a C ABI and
+ctypes keep the build to one g++ call). A ``ctypes.CDLL`` call releases the GIL, so region
 jobs in a thread pool extract in parallel."""
 
 from __future__ import annotations
@@ -72,6 +72,16 @@ def _load_locked() -> ctypes.CDLL:
         ctypes.POINTER(_RokoResult),
     ]
     lib.roko_free_result.argtypes = [ctypes.POINTER(_RokoResult)]
+    lib.roko_align_counts.restype = ctypes.c_int
+    lib.roko_align_counts.argtypes = [
+        ctypes.c_char_p,  # a
+        ctypes.c_int64,  # len(a)
+        ctypes.c_char_p,  # b
+        ctypes.c_int64,  # len(b)
+        ctypes.c_int64,  # pad
+        ctypes.c_int64,  # max_cells
+        ctypes.POINTER(ctypes.c_int64),  # out[8]
+    ]
     if lib.roko_native_abi_version() != ABI_VERSION:
         raise RuntimeError("native extractor ABI mismatch; rebuild")
     return lib
@@ -140,6 +150,22 @@ def extract_windows_arrays(
     finally:
         lib.roko_free_result(ctypes.byref(res))
     return pos, mat
+
+
+def align_counts(a: bytes, b: bytes, pad: int, max_cells: int):
+    """Banded global alignment op counts of ``a`` against ``b`` (the
+    assess tool's segment loop): ``(match, sub, ins, del, hit_band_edge)``,
+    bitwise equal to ``eval.align.banded_align_py``. Raises MemoryError
+    when the band's working set exceeds ``max_cells``."""
+    lib = load()
+    out = (ctypes.c_int64 * 8)()
+    rc = lib.roko_align_counts(a, len(a), b, len(b), pad, max_cells, out)
+    if rc == 3:
+        raise MemoryError("alignment working set exceeds max_cells")
+    if rc != 0:
+        msg = lib.roko_last_error().decode(errors="replace")
+        raise RuntimeError(f"native aligner failed ({rc}): {msg}")
+    return out[0], out[1], out[2], out[3], bool(out[4])
 
 
 def extract_windows(

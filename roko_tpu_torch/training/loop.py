@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from roko_tpu_torch.config import GuardConfig, ModelConfig, TrainConfig
-from roko_tpu_torch.infer import resolve_device
+from roko_tpu_torch.infer import resolve_device, use_float32_matmuls
 from roko_tpu_torch.models.model import RokoModel
 from roko_tpu_torch.training.checkpoint import CheckpointManager
 from roko_tpu_torch.training.data import HDF5Dataset, epoch_rng
@@ -145,8 +145,7 @@ def train(
     with ``train_cfg.seed``; with ``resume`` it continues from the
     newest checkpoint in ``out_dir`` that verifies."""
     dev = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    use_float32_matmuls()
     tcfg, gcfg = train_cfg, guard_cfg
     seed = tcfg.seed
     bs = tcfg.batch_size

@@ -347,3 +347,59 @@ def test_lingru_model_gradients_on_card_match_plain(cuda, monkeypatch):
     for name, g in got.items():
         assert g is not None and bool(g.abs().sum() > 0), name
         torch.testing.assert_close(g, want[name], atol=ATOL, rtol=RTOL, msg=name)
+
+
+# -- the streaming polish's session and engine on the card ---------------------
+
+
+def test_session_on_card_predicts_the_unpadded_forward_at_every_rung(cuda):
+    """A batch padded to rung 32, 128 or 512 gives each window the class
+    ids of the unpadded forward of the same windows."""
+    from roko_tpu_torch.serve.session import PolishSession
+
+    model = RokoModel(ModelConfig())
+    session = PolishSession(model, device=cuda)
+    assert session.ladder == (32, 128, 512)
+    x = np.random.default_rng(45).integers(0, 12, (600, 200, 90), dtype=np.uint8)
+    for n in (20, 32, 100, 128, 300, 512, 600):
+        with torch.inference_mode():
+            want = model(torch.from_numpy(x[:n]).to(cuda)).argmax(-1).to(torch.int32).cpu()
+        np.testing.assert_array_equal(session.predict(x[:n]), want.numpy())
+    assert session.dispatched_shapes == {32, 128, 512}
+
+
+@pytest.mark.parametrize("kind", ["gru", "lingru"])
+def test_streaming_on_card_equals_staged_on_card(cuda, tmp_path, kind):
+    """The default polish engine on the card writes the stitch of the
+    staged in-memory inference of the same windows, byte for byte, for
+    both model kinds (``gru_fwd`` or ``lingru_fwd`` at the ladder's
+    rungs)."""
+    from roko_tpu_torch.features.pipeline import open_region_stream
+    from roko_tpu_torch.infer import run_inference
+    from roko_tpu_torch.io.fasta import write_fasta
+    from roko_tpu_torch.pipeline import run_streaming_polish
+    from roko_tpu_torch.sim import build_synthetic_project
+
+    paths = build_synthetic_project(str(tmp_path / "sim"), genome_len=20_000, seed=3)
+    torch.manual_seed(3)
+    model = RokoModel(ModelConfig(kind=kind, hidden_size=32, num_layers=2))
+    with open_region_stream(paths["draft_fasta"], paths["reads_bam"], workers=2, seed=0,
+                            log=lambda s: None) as stream:
+        refs = dict(stream.refs)
+        batches = [([c] * len(p[i:i + 128]), p[i:i + 128], x[i:i + 128])
+                   for c, p, x, _ in stream.results for i in range(0, len(p), 128)]
+    staged = run_inference(iter(batches), refs, model, device=cuda, log=lambda s: None)
+    write_fasta(str(tmp_path / "staged.fasta"), list(staged.items()))
+    out = tmp_path / "stream.fasta"
+    run_streaming_polish(paths["draft_fasta"], paths["reads_bam"], model, out_path=str(out),
+                         workers=2, batch_size=128, device=cuda, log=lambda s: None)
+    assert out.read_bytes() == (tmp_path / "staged.fasta").read_bytes()
+
+
+def test_session_asked_for_cuda_without_a_card_raises(monkeypatch):
+    """No silent move to the CPU (runs with or without a card)."""
+    from roko_tpu_torch.serve.session import PolishSession
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        PolishSession(RokoModel(ModelConfig(hidden_size=16, num_layers=1)), device="cuda")

@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package ``roko_tpu``, and its
-host-side modules (features, I/O, the native extractor, the simulator)
-do not import torch.
+host-side modules (features, I/O, the native extractor, the simulator,
+the assess tool, failure handling, the batching plane's scheduler) do
+not import torch.
 
 Every module of ``roko_tpu_torch`` is imported in a subprocess in which
 ``jax`` and ``roko_tpu`` (with all its submodules) are blocked, the
@@ -71,7 +72,9 @@ def _import_in_child(*names):
 
 
 #: the host side of the port: feature extraction runs in worker
-#: processes and threads, so none of it may import torch
+#: processes and threads, and the assess tool, the failure handling and
+#: the batching plane's scheduler are host code, so none of it may
+#: import torch
 HOST_MODULES = [
     "roko_tpu_torch.sim", "roko_tpu_torch.utils.rng", "roko_tpu_torch.resilience.retry",
     "roko_tpu_torch.io.bgzf", "roko_tpu_torch.io.bam", "roko_tpu_torch.io.sam",
@@ -79,13 +82,20 @@ HOST_MODULES = [
     "roko_tpu_torch.features.pileup", "roko_tpu_torch.features.extract",
     "roko_tpu_torch.features.labels", "roko_tpu_torch.features.backend",
     "roko_tpu_torch.features.pipeline", "roko_tpu_torch.data.hdf5",
+    "roko_tpu_torch.eval", "roko_tpu_torch.eval.align", "roko_tpu_torch.eval.assess",
+    "roko_tpu_torch.utils.profiling", "roko_tpu_torch.obs.events",
+    "roko_tpu_torch.resilience",
+    "roko_tpu_torch.resilience.watchdog", "roko_tpu_torch.resilience.journal",
+    "roko_tpu_torch.serve.batcher", "roko_tpu_torch.serve.metrics",
+    "roko_tpu_torch.serve.scheduler",
 ]
 
 
 def test_every_port_module_imports_without_jax():
     names = _import_in_child()
-    assert len(names) >= 40
+    assert len(names) >= 57
     assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru",
+            "roko_tpu_torch.serve.session", "roko_tpu_torch.pipeline.stream",
             *HOST_MODULES} <= set(names)
 
 

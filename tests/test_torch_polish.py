@@ -22,6 +22,7 @@ from roko_tpu.features.pipeline import run_features as ref_run_features
 from roko_tpu.infer import polish_to_fasta as ref_polish_to_fasta
 from roko_tpu.models import RokoModel as JaxRokoModel
 from roko_tpu.models.convert import load_torch_checkpoint
+from roko_tpu.pipeline import run_streaming_polish as ref_streaming_polish
 from roko_tpu.sim import build_synthetic_project as ref_project
 from roko_tpu_torch import cli
 from roko_tpu_torch.models.convert import state_dict_from_jax
@@ -116,18 +117,58 @@ def test_polish_staged_fasta_byte_identical_to_reference(project, tmp_path, kind
 
 
 @pytest.mark.parametrize("extra,message", [
-    ([], "streaming engine is not ported yet"),
-    (["--staged", "--truth", "TRUTH"], "assess scorer is not ported yet"),
+    (["--distributed"], "--distributed is not ported yet (queue item A10"),
+    (["--cascade"], "--cascade is not ported yet (queue item A10"),
+    (["--config", "c.json"], "--config is not ported yet (queue item A11"),
+    (["--trace-dir", "trace"], "--trace-dir is not ported yet (queue item A11"),
+    (["--staged", "--resume"], "cannot combine with --staged"),
 ])
 def test_polish_refuses_what_is_not_ported(project, tmp_path, capsys, extra, message):
     out = tmp_path / "o.fasta"
-    extra = [project["truth_fasta"] if a == "TRUTH" else a for a in extra]
     with pytest.raises(SystemExit) as exc:
         cli.main(["polish", project["draft_fasta"], project["reads_bam"], project["pth"]["gru"],
                   str(out), *extra, *SMALL])
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
     assert os.listdir(tmp_path) == []
+
+
+def _reference_streaming_fasta(project, kind, out):
+    """``roko-tpu polish``'s default engine on the same weights."""
+    cfg = RokoConfig(model=JaxModelConfig(kind=kind, hidden_size=16, num_layers=2))
+    ref_streaming_polish(project["draft_fasta"], project["reads_bam"], project["params"][kind],
+                         cfg, out_path=out, seed=0, batch_size=32, workers=2,
+                         log=lambda *a: None)
+    return Path(out).read_bytes()
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_polish_streams_by_default_byte_identical_to_reference(project, tmp_path, capsys, kind):
+    got = tmp_path / "port.fasta"
+    assert cli.main(["polish", project["draft_fasta"], project["reads_bam"], project["pth"][kind],
+                     str(got), "--b", "32", "--t", "2", "--model-kind", kind, *SMALL]) == 0
+    out = capsys.readouterr().out
+    assert "streaming polish:" in out and "padding_efficiency" in out
+    assert "wrote polished contigs" in out
+    assert not Path(str(got) + ".resume").exists()  # the journal is removed on success
+    want = _reference_streaming_fasta(project, kind, str(tmp_path / "ref.fasta"))
+    assert len(want) > 3000
+    assert got.read_bytes() == want
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["streaming", "staged"])
+def test_polish_truth_prints_the_reference_report(project, tmp_path, capsys, staged):
+    from roko_tpu.cli import _print_assess as ref_print_assess
+
+    out = tmp_path / "o.fasta"
+    argv = ["polish", project["draft_fasta"], project["reads_bam"], project["pth"]["gru"],
+            str(out), "--b", "32", "--truth", project["truth_fasta"], *SMALL]
+    assert cli.main(argv + (["--staged"] if staged else [])) == 0
+    got = capsys.readouterr().out
+    ref_print_assess(str(out), project["truth_fasta"])
+    want = capsys.readouterr().out
+    assert "TOTAL" in want and "Q" in want
+    assert got.endswith(want)
 
 
 def test_polish_without_card_refuses_cuda_before_extraction(project, tmp_path, monkeypatch):

@@ -30,6 +30,13 @@ for ``kind="gru"`` and once for ``kind="lingru"``:
   for the card's busy share, the stream's wall time over the serial
   extraction + inference (cold and warm fan-out), and the assess tool
   (native aligner) on the sim draft against its truth;
+- precision: the bfloat16 kernels (``gru_fwd_bf16``, ``lingru_fwd_bf16``)
+  held against their plain bf16 versions and timed beside the f32 ones
+  (and cuDNN's bf16 GRU); inference of the synthetic windows in bf16 (gru
+  and lingru) and in int8 with f32 compute (gru), each beside f32 in
+  windows/s and argmax agreement; and the polish project streamed in bf16,
+  its FASTA byte-equal to the bf16 staged stitch and compared with the
+  f32 one;
 - training: one train step through the kernels against the plain
   recurrence, then ``roko_tpu_torch.training.loop.train`` for two epochs
   over an in-memory labelled corpus with a held-out val set and the guard
@@ -121,9 +128,17 @@ POLISH_WORKERS = 4
 # kept): a process's first fan-out, the one a polish runs, is the timed one
 POLISH_WORKER_SWEEP = (1, 2, 4, 8)
 POLISH_CHECK_REGION = (200_000, 220_000)
-# device-time kinds of the port's kernels, by name; "lingru_fwd" holds
-# "gru_fwd", so the lingru names come first
-KERNEL_KINDS = ("lingru_fwd", "lingru_bwd", "gru_fwd", "gru_bwd")
+# device-time kinds of the port's kernels: a kernel's kind is the first of
+# these its name holds; "lingru_fwd_bf16" holds "lingru_fwd" and
+# "gru_fwd_bf16", "lingru_fwd" holds "gru_fwd", so the longer come first
+KERNEL_KINDS = ("lingru_fwd_bf16", "lingru_fwd", "lingru_bwd", "gru_fwd_bf16", "gru_fwd",
+                "gru_bwd")
+# the precision phase: bf16 kernel vs its plain bf16 loop (both round every
+# h to bf16 after f32 sums in another order, so a rounding may land one
+# bf16 ulp apart and carry on), at the inference rungs
+BF16_ATOL = 1e-2
+BF16_GRU_BATCHES = (32, 128, 512)
+BF16_LIN_BATCHES = (128, 512)
 
 
 def emit(obj) -> None:
@@ -135,12 +150,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card_peaks(name: str):
-    """(f32 FLOP/s without tensor cores, memory bytes/s) from NVIDIA's
-    H100 data sheet: the SXM part unless the name says PCIe."""
-    if "PCIe" in name:
-        return 51.2e12, 2.0e12
-    return 67e12, 3.35e12
+def card_peaks(name: str, ops: str = "f32"):
+    """(FLOP/s, memory bytes/s) from NVIDIA's H100 data sheet, the SXM part
+    unless the name says PCIe: ``ops`` "f32" for float32 without tensor
+    cores, "bf16" for dense bf16 on tensor cores."""
+    pcie = "PCIe" in name
+    flops = {"f32": 51.2e12 if pcie else 67e12, "bf16": 756e12 if pcie else 989e12}[ops]
+    return flops, 2.0e12 if pcie else 3.35e12
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -257,11 +273,11 @@ def cudnn_gru(torch, t, IN, H, S, dev):
     return ref
 
 
-def bound(torch, flops: float, nbytes: float) -> dict:
-    peak_flops, peak_bw = card_peaks(torch.cuda.get_device_name(0))
+def bound(torch, flops: float, nbytes: float, ops: str = "f32") -> dict:
+    peak_flops, peak_bw = card_peaks(torch.cuda.get_device_name(0), ops)
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     return dict(flop=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+                bound_by="operations" if t_ops >= t_bytes else "bytes", ops_peak=ops)
 
 
 def check_kernel(torch, fg, shape, dev, rng, *, timed: bool):
@@ -316,10 +332,11 @@ def check_kernel(torch, fg, shape, dev, rng, *, timed: bool):
 
 def kernel_split(torch, fn, iters: int, parts) -> dict:
     """Device milliseconds a call of ``fn()`` spends in each of ``parts``
-    (``(key, substring of the kernel name)``): ``device_breakdown`` of
-    ``iters`` calls after one warm-up, each part's kernel time summed and
-    divided by ``iters``, with the number and names of the traced kernels
-    of each part."""
+    (``(key, substring of the kernel name)``, each one kernel a call):
+    ``device_breakdown`` of ``iters`` calls after one warm-up, each part's
+    kernel time summed and divided by the number of its kernels in the
+    trace (a trace may miss the first calls' kernels), with that number
+    and the kernels' names; a part with no kernel traced is left out."""
     fn()
     torch.cuda.synchronize()
     # a trace now and then holds no device events at all: trace again
@@ -332,8 +349,10 @@ def kernel_split(torch, fn, iters: int, parts) -> dict:
     split = {"traced_calls": iters, "kernels_traced": {}, "kernel_names": {}}
     for key, sub in parts:
         hits = {n: v for n, v in traced["kernels_ms_calls"].items() if sub in n}
-        split[key] = sum(ms for ms, _ in hits.values()) / iters
-        split["kernels_traced"][key] = sum(n for _, n in hits.values())
+        n_traced = sum(n for _, n in hits.values())
+        split["kernels_traced"][key] = n_traced
+        if n_traced:
+            split[key] = sum(ms for ms, _ in hits.values()) / n_traced
         split["kernel_names"][key] = sorted(
             re.search(r"\w*gru_(fwd|bwd)\w*(<[\d, ]+>)?", n).group(0) for n in hits)
     return split
@@ -593,20 +612,27 @@ def step_parity(torch, port, dev, ds, cfg, kernel, plain):
 
 
 class Counts:
-    """The launch counts of the port's kernels, by kernel name."""
+    """The launch counts of the port's kernels, by kernel name: each
+    kernel's (wrapper, attribute its wrapper counts on)."""
 
     def __init__(self, fg, fl):
-        self.wrappers = {"gru_fwd": fg.gru_recurrence, "gru_bwd": fg.gru_recurrence_backward,
-                         "lingru_fwd": fl.lingru_scan, "lingru_bwd": fl.lingru_scan_backward}
+        self.wrappers = {
+            "gru_fwd": (fg.gru_recurrence, "launches"),
+            "gru_bwd": (fg.gru_recurrence_backward, "launches"),
+            "lingru_fwd": (fl.lingru_scan, "launches"),
+            "lingru_bwd": (fl.lingru_scan_backward, "launches"),
+            "gru_fwd_bf16": (fg.gru_recurrence, "launches_bf16"),
+            "lingru_fwd_bf16": (fl.lingru_scan, "launches_bf16"),
+        }
 
     def zero(self) -> None:
-        for wrapper in self.wrappers.values():
-            wrapper.launches = 0
+        for wrapper, attr in self.wrappers.values():
+            setattr(wrapper, attr, 0)
 
     def expect(self, what: str, want: dict) -> dict:
         """The counts; fails unless they are ``want``, and 0 for every
         kernel ``want`` does not name."""
-        got = {name: w.launches for name, w in self.wrappers.items()}
+        got = {name: getattr(w, attr) for name, (w, attr) in self.wrappers.items()}
         want = {name: want.get(name, 0) for name in got}
         if got != want:
             fail(f"{what}: kernel launches {got}, expected {want}")
@@ -817,7 +843,8 @@ def stream_and_compare(torch, port, model, dev, counts, polish, kernel):
     paths, contig, draft = inputs["paths"], inputs["contig"], inputs["draft"]
     work = os.path.dirname(paths["draft_fasta"])
     kind = model.cfg.kind
-    staged_path = os.path.join(work, f"staged_{kind}.fasta")
+    tag = kind if model.cfg.compute_dtype == "float32" else f"{kind}_{model.cfg.compute_dtype}"
+    staged_path = os.path.join(work, f"staged_{tag}.fasta")
     staged = port.run_inference(iter(inputs["batches"]), {contig: draft}, model, device=dev,
                                 log=lambda s: None)
     port.write_fasta(staged_path, list(staged.items()))
@@ -830,7 +857,7 @@ def stream_and_compare(torch, port, model, dev, counts, polish, kernel):
     warmup_s = time.perf_counter() - t0
     session.dispatched_shapes.clear()
 
-    out = os.path.join(work, f"stream_{kind}.fasta")
+    out = os.path.join(work, f"stream_{tag}.fasta")
     timer, metrics, logs = port.StageTimer(), port.ServeMetrics(), []
     counts.zero()
     t0 = time.perf_counter()
@@ -934,6 +961,177 @@ def drive_stream_polish(torch, port, model, dev, counts, card, polish, rng):
             "band_capped_segments": c.band_capped_segments, "summary": res.summary()},
         "card": card,
     }
+
+
+def check_bf16_kernel(torch, fg, fl, kind: str, B: int, dev, rng, *, timed: bool) -> dict:
+    """``gru_fwd_bf16`` (``kind`` "gru": T=90, H=128, both directions) or
+    ``lingru_fwd_bf16`` ("lingru": T=90, H=128) at batch ``B`` against its
+    plain bf16 loop on the same bf16 inputs: max |d|, the share of outputs
+    bit-equal to the plain loop's, two launches bitwise equal; fails above
+    BF16_ATOL. With ``timed``, the bf16 kernel's time beside the f32
+    kernel's on the same inputs before their rounding to bf16 (CUDA events,
+    and for the scans device time from a trace, as their f32 rows take
+    it), the plain loop's, cuDNN's bf16 GRU forward (gru) and the bound."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if kind == "gru":
+        shape = dict(MAIN_SHAPE, B=B)
+        x, t, xp, w_hh, b_hh = layer_inputs(torch, shape, dev, rng)
+        args32, run, plain = (xp, w_hh, b_hh), fg.gru_recurrence, fg.gru_recurrence_plain
+        plan = fg.fwd_plan(B, shape["T"], shape["H"], shape["S"], n_sm, dtype=torch.bfloat16)
+        plan = {"variant": plan["variant"], "rows_per_block": plan["rows"],
+                "blocks": plan["blocks"], "threads_per_block": plan["threads"],
+                "smem_bytes_per_block": plan["smem_bytes"]}
+    else:
+        shape = dict(LIN_INFER_SHAPE, B=B)
+        args32, run, plain = (lingru_inputs(torch, "fwd", fl, shape, dev, rng), fl.lingru_scan,
+                              fl.lingru_scan_plain)
+        # the bf16 scan has the one design, laid out as the f32 streaming one
+        plan = fl.scan_plan(B, shape["T"], shape["H"], n_sm, "fwd", variant="streaming")
+        plan = {"variant": plan["variant"], "blocks": plan["blocks"],
+                "threads_per_block": plan["threads"]}
+    args = tuple(a.to(torch.bfloat16) for a in args32)
+    got = run(*args)
+    want = plain(*args)
+    again = run(*args)
+    torch.cuda.synchronize()
+    name = f"{kind}_fwd_bf16"
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype != torch.bfloat16 or not err <= BF16_ATOL:
+        fail(f"{name} disagrees with its plain bf16 loop at {shape}: max |d| {err}, "
+             f"dtype {got.dtype}")
+    if not torch.equal(got, again):
+        fail(f"{name} differs between two launches at {shape}")
+    row = {"shape": shape, "max_abs_err": err, "atol": BF16_ATOL,
+           "bit_equal_share": (got == want).float().mean().item(), "bitwise_repeatable": True,
+           **plan}
+    if not timed:
+        return row
+    row["output_sha256"] = hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    row["ms_events"] = cuda_ms(torch, lambda: run(*args), iters=20)
+    row["f32_ms_events"] = cuda_ms(torch, lambda: run(*args32), iters=20)
+    if kind == "gru":
+        row["ms"], row["f32_ms"], row["ms_from"] = row["ms_events"], row["f32_ms_events"], "events"
+        row["ms_by_kernel"] = kernel_split(torch, lambda: run(*args), 20,
+                                           (("recurrence", "gru_fwd_bf16"),))
+        ref = cudnn_gru(torch, t, shape["IN"], shape["H"], shape["S"], dev).to(torch.bfloat16)
+        ref.flatten_parameters()  # else cuDNN compacts the weights every call
+        xb = x.to(torch.bfloat16)
+        row["library_note"] = ("cuDNN nn.GRU forward in bf16, one bidirectional layer; "
+                               "includes the input GEMM")
+        try:  # a yardstick only: a PyTorch without a bf16 GRU leaves it out
+            with torch.no_grad():
+                row["library_max_abs_err"] = (ref(xb)[0].float() - got.float()).abs().max().item()
+                row["library_ms"] = cuda_ms(torch, lambda: ref(xb), iters=20)
+        except RuntimeError as e:
+            row["library_ms"], row["library_note"] = None, f"no bf16 nn.GRU here: {e}"
+        flops = 2.0 * shape["T"] * shape["S"] * B * shape["H"] * 3 * shape["H"]
+        row.update(bound(torch, flops, 2.0 * (sum(a.numel() for a in args) + got.numel()),
+                         "bf16"))
+    else:
+        # the scans' own time is their device time in a trace, as in the f32 rows
+        split = kernel_split(torch, lambda: run(*args), 20, (("scan", "lingru_fwd_bf16"),))
+        split32 = kernel_split(torch, lambda: run(*args32), 20, (("scan", "lingru_fwd"),))
+        row["ms_by_kernel"], row["f32_ms_by_kernel"] = split, split32
+        row["ms"] = split.get("scan", row["ms_events"])
+        row["f32_ms"] = split32.get("scan", row["f32_ms_events"])
+        row["ms_from"] = "trace" if "scan" in split and "scan" in split32 else "events"
+        row["library_ms"], row["library_note"] = None, LIN_NO_LIBRARY
+        row.update(bound(torch, LIN_FWD_OPS * B * shape["T"] * 2 * shape["H"],
+                         2.0 * (args[0].numel() + got.numel())))
+    row["plain_ms"] = cuda_ms(torch, lambda: plain(*args), iters=3, warmup=1)
+    return row
+
+
+def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, dev, counts,
+                    polish, card, rng):
+    """The precision phase: the bf16 kernels against their plain loops and
+    timed beside the f32 ones; inference of ``batches`` in f32, bf16 and
+    int8 (gru) and in f32 and bf16 (lingru), each path counted and its
+    argmax held against f32's; and the polish project streamed with the
+    bf16 gru model, its FASTA byte-equal to the bf16 staged stitch and
+    compared with the f32 one. Returns (the record, the kernel rows,
+    launches by path)."""
+    import dataclasses
+
+    fg, fl = port.fg, port.fl
+    rows = {
+        "gru_fwd_bf16": [check_bf16_kernel(torch, fg, fl, "gru", B, dev, rng, timed=B >= 128)
+                         for B in BF16_GRU_BATCHES],
+        "lingru_fwd_bf16": [check_bf16_kernel(torch, fg, fl, "lingru", B, dev, rng, timed=True)
+                            for B in BF16_LIN_BATCHES],
+    }
+
+    emit({"precision_kernel_check": {**rows, "card": card}})
+
+    def variant(model, **changes):
+        m = port.RokoModel(dataclasses.replace(model.cfg, **changes))
+        m.load_state_dict(model.state_dict(), strict=True)
+        return m.to(dev).eval()
+
+    runs = (("gru_float32", gru_model, "gru_fwd"),
+            ("gru_bfloat16", variant(gru_model, compute_dtype="bfloat16"), "gru_fwd_bf16"),
+            ("gru_int8", variant(gru_model, quantize="int8"), "gru_fwd"),
+            ("lingru_float32", lin_model, "lingru_fwd"),
+            ("lingru_bfloat16", variant(lin_model, compute_dtype="bfloat16"), "lingru_fwd_bf16"))
+    paths, preds = {}, {}
+    for label, model, kernel in runs:
+        port.predict(model, batches[0][2], dev)  # warm-up: int8 quantizes here, once
+        torch.cuda.synchronize()
+        counts.zero()
+        t0 = time.perf_counter()
+        polished = port.run_inference(iter(batches), {contig: draft}, model, device=dev,
+                                      log=lambda s: None)[contig]
+        seconds = time.perf_counter() - t0
+        launches = counts.expect(f"the {label} inference path",
+                                 {kernel: model.cfg.num_layers * len(batches)})[kernel]
+        # one batch's logits through the kernels against the plain recurrence
+        plain = fg.gru_recurrence_plain if model.cfg.kind == "gru" else fl.lingru_scan_plain
+        atol, rtol = (BF16_ATOL, 0.0) if model.cfg.compute_dtype == "bfloat16" else (ATOL, RTOL)
+        with torch.inference_mode():
+            xt = torch.from_numpy(batches[0][2]).to(dev)
+            lk, lp = model(xt), model(xt, plain)
+        if lk.shape != (len(xt), 90, 5) or not bool(torch.isfinite(lk).all()):
+            fail(f"{label}: logits {tuple(lk.shape)}, finite {bool(torch.isfinite(lk).all())}")
+        logit_err = (lk - lp).abs().max().item()
+        if not torch.allclose(lk, lp, atol=atol, rtol=rtol):
+            fail(f"{label}: logits of kernel and plain recurrence differ: max |d| {logit_err}")
+        if not polished or set(polished) - set("ACGT"):
+            fail(f"{label}: the polished contig is empty or holds letters other than ACGT")
+        preds[label] = torch.cat([port.predict(model, x, dev) for _, _, x in batches]).cpu()
+        n_windows = sum(len(b[0]) for b in batches)
+        paths[label] = {"compute_dtype": model.cfg.compute_dtype, "quantize": model.cfg.quantize,
+                        "seconds": seconds, "windows_per_s": n_windows / seconds,
+                        f"{kernel}_launches": launches, "polished_len": len(polished),
+                        "logits_max_abs_err_vs_plain": logit_err, "atol": atol, "rtol": rtol}
+    for label, rec in paths.items():
+        base = preds[label.split("_")[0] + "_float32"]
+        rec["argmax_agreement_with_float32"] = (preds[label] == base).float().mean().item()
+
+    # the polish project streamed in bf16: byte-equal to its staged stitch
+    bf16_model = runs[1][1]
+    stream = stream_and_compare(torch, port, bf16_model, dev, counts, polish, "gru_fwd_bf16")
+    stream.pop("_run")
+    work = os.path.dirname(polish["_stream_inputs"]["paths"]["draft_fasta"])
+    f32_seq = port.read_fasta(os.path.join(work, "staged_gru.fasta"))[0][1]
+    bf16_seq = port.read_fasta(os.path.join(work, "stream_gru_bfloat16.fasta"))[0][1]
+    diff = port.assess_fastas({contig: f32_seq.encode()}, {contig: bf16_seq.encode()}).contigs[0]
+    stream["vs_float32_fasta"] = {
+        "float32_len": len(f32_seq), "bfloat16_len": len(bf16_seq),
+        "identical": f32_seq == bf16_seq, "sub": diff.sub, "ins": diff.ins, "dele": diff.dele,
+        "bases_differing": diff.sub + diff.ins + diff.dele,
+        "from": "assess_fastas with the f32 staged FASTA as the truth"}
+    record = {
+        "inference": paths, "windows": sum(len(b[0]) for b in batches),
+        "stream_polish_bfloat16": stream, "card": card,
+    }
+    by_path = {
+        "gru_fwd": {"inference_int8": paths["gru_int8"]["gru_fwd_launches"]},
+        "gru_fwd_bf16": {"inference_bf16": paths["gru_bfloat16"]["gru_fwd_bf16_launches"],
+                         "stream_polish_bf16": stream["gru_fwd_bf16_launches"]},
+        "lingru_fwd_bf16": {
+            "inference_bf16": paths["lingru_bfloat16"]["lingru_fwd_bf16_launches"]},
+    }
+    return record, rows, by_path
 
 
 def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, fwd, bwd,
@@ -1100,7 +1298,13 @@ def main() -> None:
         from roko_tpu_torch.features import backend
         from roko_tpu_torch.features.extract import extract_windows
         from roko_tpu_torch.features.pipeline import open_region_stream
-        from roko_tpu_torch.infer import VoteBoard, predict, run_inference, tail_rungs
+        from roko_tpu_torch.infer import (
+            VoteBoard,
+            predict,
+            run_inference,
+            tail_rungs,
+            use_float32_matmuls,
+        )
         from roko_tpu_torch.io.bam import BamReader
         from roko_tpu_torch.io.fasta import read_fasta, write_fasta
         from roko_tpu_torch.models import fused_gru as fg
@@ -1135,8 +1339,7 @@ def main() -> None:
     )
     counts = Counts(fg, fl)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    use_float32_matmuls()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -1241,6 +1444,12 @@ def main() -> None:
         torch, lambda: run_inference(iter(batches), {contig: draft}, lin_model, device=dev,
                                      log=lambda s: None)), "card": card}})
 
+    # -- the precision modes: bf16 kernels, bf16 and int8 inference, bf16 stream
+    precision, bf16_rows, precision_launches = drive_precision(
+        torch, port, model, lin_model, batches, contig, draft, dev, counts, polish, card,
+        np.random.default_rng(SEED + 4))
+    emit({"precision": precision})
+
     # -- the train paths at full width ----------------------------------------
     X = rng.integers(0, C.FEATURE_VOCAB, (TRAIN_WINDOWS, C.WINDOW_ROWS, C.WINDOW_COLS),
                      dtype=np.uint8)
@@ -1272,7 +1481,8 @@ def main() -> None:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{k: row[k] for k in ("ms_from", "library_note", "variant", "rows_per_block",
                                    "steps_per_stage", "stages", "blocks", "waves",
-                                   "smem_bytes_per_block", "ms_by_kernel") if k in row},
+                                   "smem_bytes_per_block", "ms_by_kernel", "f32_ms",
+                                   "bit_equal_share", "atol") if k in row},
         }
 
     def kernel_row(name, source, replaces, replaces_also, row, by_path, **also):
@@ -1287,7 +1497,8 @@ def main() -> None:
         kernel_row("gru_fwd", "roko_tpu_torch/csrc/gru_fwd.cu",
                    "roko_tpu/models/pallas_gru.py:126", "roko_tpu/models/pallas_gru.py:171",
                    main_row, {"inference": launches, "polish": polish["gru_fwd_launches"],
-                              "stream_polish": stream["gru_fwd_launches"], "train": train_fwd},
+                              "stream_polish": stream["gru_fwd_launches"], "train": train_fwd,
+                              **precision_launches["gru_fwd"]},
                    at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",
@@ -1301,6 +1512,14 @@ def main() -> None:
         kernel_row("lingru_bwd", "roko_tpu_torch/csrc/lingru_bwd.cu",
                    "roko_tpu/models/pallas_lingru.py:121", None, lin_bwd_row,
                    {"inference": 0, "train": lin_train["lingru_bwd_launches"]}),
+        kernel_row("gru_fwd_bf16", "roko_tpu_torch/csrc/gru_fwd_bf16.cu",
+                   "roko_tpu/models/pallas_gru.py:126", "roko_tpu/models/pallas_gru.py:171",
+                   bf16_rows["gru_fwd_bf16"][-1], {**precision_launches["gru_fwd_bf16"], "train": 0},
+                   at_batch_128=bf16_rows["gru_fwd_bf16"][1]),
+        kernel_row("lingru_fwd_bf16", "roko_tpu_torch/csrc/lingru_fwd_bf16.cu",
+                   "roko_tpu/models/pallas_lingru.py:90", None, bf16_rows["lingru_fwd_bf16"][-1],
+                   {**precision_launches["lingru_fwd_bf16"], "train": 0},
+                   at_batch_128=bf16_rows["lingru_fwd_bf16"][0]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

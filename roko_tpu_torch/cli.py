@@ -10,6 +10,9 @@ inference overlapped, ``--resume`` from its journal); ``--staged`` runs
 ``features`` then ``inference``; ``--truth`` prints the assess report
 after either. ``inference`` and ``polish`` take a reference-layout
 ``.pth`` state_dict or a checkpoint directory that ``train`` wrote.
+``train``, ``inference`` and ``polish`` take ``--compute-dtype
+{auto,float32,bfloat16}`` and ``--quantize {int8,none}``
+(``roko_tpu/cli.py:44-59``); ``train`` refuses int8 and bfloat16.
 Writing and reading the HDF5 needs ``h5py``. Not ported yet, each a
 usage error that names its queue item: ``--distributed`` and
 ``--cascade`` (A10), ``--config`` and ``--trace-dir`` (A11), and remote
@@ -22,15 +25,23 @@ import argparse
 import dataclasses
 from typing import List, Optional
 
-from roko_tpu_torch.config import PORTED_KINDS, FeaturesConfig, ModelConfig
+from roko_tpu_torch.config import (
+    COMPUTE_DTYPES,
+    PORTED_KINDS,
+    QUANTIZE_MODES,
+    FeaturesConfig,
+    ModelConfig,
+)
 
 
 def _model_config(args: argparse.Namespace, **window) -> ModelConfig:
+    """The model flags over the defaults; ``--quantize none`` is off."""
     return ModelConfig(kind=args.model_kind, **window, **{
         k: v
-        for k, v in (("hidden_size", args.hidden_size), ("num_layers", args.num_layers))
+        for k, v in (("hidden_size", args.hidden_size), ("num_layers", args.num_layers),
+                     ("compute_dtype", args.compute_dtype))
         if v is not None
-    })
+    }, quantize=None if args.quantize in (None, "none") else args.quantize)
 
 
 def _features_config(args: argparse.Namespace) -> FeaturesConfig:
@@ -223,6 +234,17 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--hidden-size", type=int, default=None)
         p.add_argument("--num-layers", type=int, default=None)
         p.add_argument(
+            "--compute-dtype", default=None, choices=COMPUTE_DTYPES,
+            help="matmul and recurrence compute dtype (params stay f32). Default "
+            "auto: float32 on cuda and cpu (bfloat16 only on a TPU, as in roko-tpu)",
+        )
+        p.add_argument(
+            "--quantize", default=None, choices=QUANTIZE_MODES + ("none",),
+            help="weight-only quantization of the dense and recurrent matrices, "
+            "applied when the checkpoint is loaded (training always runs full "
+            "precision): int8 with per-output-channel f32 scales; 'none' is off",
+        )
+        p.add_argument(
             "--device", choices=("cuda", "cpu"), default="cuda",
             help="where the model runs (default cuda; no card is an error, "
             "never a silent move to the CPU)",
@@ -346,6 +368,13 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.command == "train":
+        from roko_tpu_torch.training.loop import check_trainable
+
+        try:
+            check_trainable(_model_config(args))
+        except ValueError as e:
+            parser.error(str(e))
     if args.command == "polish":
         for flag, item in (("distributed", "A10"), ("cascade", "A10"),
                            ("config", "A11"), ("trace_dir", "A11")):

@@ -3,14 +3,16 @@ feature extractor, the inference and training paths of ``kind="gru"``
 and ``kind="lingru"`` and the streaming polish read, with the same names
 and defaults (``WindowConfig``, ``ReadFilterConfig``, ``RegionConfig``,
 ``ModelConfig``, ``TrainConfig``, ``GuardConfig``, ``ServeConfig``, ``PipelineConfig``, ``ResilienceConfig``,
-``resolve_ladder`` and ``validate_ladder``). ``FeaturesConfig`` holds the
+``resolve_ladder``, ``validate_ladder``, ``COMPUTE_DTYPES``,
+``QUANTIZE_MODES`` and ``default_compute_dtype``). ``FeaturesConfig`` holds the
 three sections of ``roko_tpu.config.RokoConfig`` that feature extraction
 reads; ``RokoConfig`` adds the sections the streaming polish reads."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 from roko_tpu_torch import constants as C
 
@@ -58,6 +60,26 @@ class FeaturesConfig:
 #: the values of ``ModelConfig.kind`` the port runs
 PORTED_KINDS = ("gru", "lingru")
 
+#: valid ``ModelConfig.compute_dtype`` values (``roko_tpu/config.py:60-66``):
+#: the width of the matrix products and of the recurrences' loads and
+#: stores; parameters are stored float32. "auto" resolves through
+#: :func:`default_compute_dtype`.
+COMPUTE_DTYPES = ("auto", "float32", "bfloat16")
+
+#: valid ``ModelConfig.quantize`` values besides None (off): "int8" is
+#: weight-only quantization of the dense and recurrent matrices with
+#: per-output-channel float32 scales, applied when a model is loaded for
+#: inference (``models/quant.py``)
+QUANTIZE_MODES = ("int8",)
+
+
+def default_compute_dtype(backend: Optional[str] = None) -> str:
+    """The dtype ``compute_dtype="auto"`` resolves to on ``backend``: the
+    JAX package's policy (``roko_tpu/config.py:78-88``), bfloat16 on a TPU
+    and float32 everywhere else. The port runs on ``"cuda"`` or ``"cpu"``
+    (None stands for either), so it resolves to float32."""
+    return "bfloat16" if backend == "tpu" else "float32"
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -73,8 +95,19 @@ class ModelConfig:
     #: recurrent layers, in training only
     dropout: float = 0.2
     num_classes: int = C.NUM_CLASSES
+    #: one of COMPUTE_DTYPES; "auto" resolves per backend (:meth:`resolve`)
+    compute_dtype: str = "auto"
+    #: one of QUANTIZE_MODES or None; conversion-time only: training
+    #: refuses it, inference quantizes the float32 weights at load
+    quantize: Optional[str] = None
 
     def __post_init__(self) -> None:
+        if self.quantize is not None and self.kind == "transformer":
+            raise ValueError(
+                "quantize covers the gru/lingru consensus models (their "
+                "dense/recurrence matmul kernels); the transformer "
+                "variant has no int8 weight path"
+            )
         if self.kind not in PORTED_KINDS:
             raise ValueError(
                 f"model kind {self.kind!r} is not ported yet; the PyTorch "
@@ -82,6 +115,24 @@ class ModelConfig:
             )
         if not 0.0 <= self.dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got {self.dropout}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"unknown compute_dtype {self.compute_dtype!r}; expected "
+                "one of " + "|".join(COMPUTE_DTYPES)
+            )
+        if self.quantize is not None and self.quantize not in QUANTIZE_MODES:
+            raise ValueError(
+                f"unknown quantize mode {self.quantize!r}; expected one "
+                "of " + "|".join(QUANTIZE_MODES) + " (or null/absent)"
+            )
+
+    def resolve(self, backend: Optional[str] = None) -> "ModelConfig":
+        """This config with ``compute_dtype="auto"`` replaced by
+        :func:`default_compute_dtype` of ``backend`` (itself when the
+        dtype is already concrete). The model resolves its config here."""
+        if self.compute_dtype != "auto":
+            return self
+        return dataclasses.replace(self, compute_dtype=default_compute_dtype(backend))
 
     @property
     def gru_in_size(self) -> int:

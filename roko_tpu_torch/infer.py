@@ -31,6 +31,7 @@ from roko_tpu_torch import constants as C
 from roko_tpu_torch.data.hdf5 import Batch, iter_inference_windows, load_contigs
 from roko_tpu_torch.io.fasta import write_fasta
 from roko_tpu_torch.models.model import RokoModel
+from roko_tpu_torch.models.quant import maybe_quantize
 
 _SLOTS = C.MAX_INS + 1  # ins 0..3
 
@@ -76,13 +77,18 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 def use_float32_matmuls() -> None:
-    """Turn TF32 off for matrix products and cuDNN: the reference computes
-    in float32, and TF32 keeps about three digits. The flags are
+    """The port's one matrix-product precision policy. TF32 off for matrix
+    products and cuDNN: the reference computes in float32, and TF32 keeps
+    about three digits. And no reduced-precision reduction in bfloat16
+    products: cuBLAS may otherwise sum a bf16 GEMM's partial products in
+    bf16, where the reference sums them in f32. The flags are
     process-wide: every thread of the process, and every later user of
-    it, inherits them. Inference, the streaming polish's session and the
-    trainer call this; nothing in the port turns TF32 back on."""
+    it, inherits them. Inference, the streaming polish's session, the
+    trainer and ``chip_smoke.py`` call this; nothing in the port turns
+    them back on."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class VoteBoard:
@@ -246,7 +252,10 @@ class VoteBoard:
 
 def predict(model: RokoModel, x: np.ndarray, device: torch.device) -> torch.Tensor:
     """Forward + argmax, enqueued on ``device``: uint8[B,200,90] ->
-    int32[B,90] class ids, still on the device."""
+    int32[B,90] class ids, still on the device. The model runs in its
+    compute dtype, quantized first when its config asks for int8 (a no-op
+    once it is)."""
+    maybe_quantize(model)
     xt = torch.from_numpy(np.ascontiguousarray(x)).to(device, non_blocking=True)
     with torch.inference_mode():
         return model(xt).argmax(dim=-1).to(torch.int32)
@@ -265,10 +274,12 @@ def run_inference(
 
     One-deep pipeline: batch k+1's forward is enqueued on the device
     before the host blocks on batch k's class ids and votes them, so
-    voting overlaps the device's work."""
+    voting overlaps the device's work. The model runs in its resolved
+    ``cfg.compute_dtype``, and is quantized here, once, when
+    ``cfg.quantize`` asks for int8 (``models/quant.py``)."""
     dev = resolve_device(device)
     use_float32_matmuls()
-    model.to(dev).eval()
+    maybe_quantize(model).to(dev).eval()
     board = VoteBoard(contigs)
     n_windows = 0
     t0 = time.perf_counter()

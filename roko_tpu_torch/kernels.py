@@ -54,7 +54,20 @@ KERNELS = {
         "roko_lingru_bwd",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     ),
+    "gru_fwd_bf16": (
+        "csrc/gru_fwd_bf16.cu",
+        "roko_gru_fwd_bf16",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    ),
+    "lingru_fwd_bf16": (
+        "csrc/lingru_fwd_bf16.cu",
+        "roko_lingru_fwd_bf16",
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    ),
 }
+
+#: kernel name -> the dtype of every tensor it takes
+DTYPES = {name: torch.bfloat16 if name.endswith("_bf16") else torch.float32 for name in KERNELS}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -158,13 +171,15 @@ def device_kind(t: torch.Tensor, name: str) -> str:
 
 
 def check_inputs(name: str, **tensors: torch.Tensor) -> None:
-    """What every kernel takes: float32, contiguous, on one CUDA device."""
+    """What every kernel takes: its dtype (``DTYPES``), contiguous, on one
+    CUDA device."""
     device = next(iter(tensors.values())).device
+    dtype = DTYPES[name]
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{arg} is on {t.device}, {name}'s first input on {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} takes float32; {arg} is {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} takes {str(dtype)[6:]}; {arg} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors; {arg} is not")
 

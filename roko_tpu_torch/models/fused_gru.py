@@ -20,7 +20,16 @@ read and write [B, T, S*H], which is already the layer output
 
 Parameters come in the JAX package's layout, so the tests hand both
 sides the same arrays: per direction ``w_ih`` [in, 3H], ``w_hh`` [H, 3H],
-``b_ih`` and ``b_hh`` [3H], gate order (r, z, n).
+``b_ih`` and ``b_hh`` [3H], gate order (r, z, n); a matrix may be an int8
+weight (``models/quant.py``), dequantized here to the input's dtype.
+
+The input's dtype is the compute dtype. In bfloat16 (the JAX package's
+``compute_dtype="bfloat16"``: ``_xproj_stacked`` :428 stores ``xp`` in
+bf16, and the kernels take ``h.astype(cdt)`` as the step product's
+operand, keep an f32 carry and store bf16) the projection runs in bf16,
+and the recurrence launches ``csrc/gru_fwd_bf16.cu`` on a card. A bf16
+tensor on a card goes to the bf16 kernel or raises; the backward kernel
+takes float32 only (bf16 training is not ported).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from torch.autograd.function import once_differentiable
 
 from roko_tpu_torch import kernels
 from roko_tpu_torch.models.layers import dropout as _dropout
+from roko_tpu_torch.models.layers import weight as _weight
 
 Layer = Dict[str, Dict[str, torch.Tensor]]
 Recurrence = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -43,10 +53,11 @@ _BWD_TARGET_BLOCKS = 2 * 132
 #: the weight-gradient pass's output tile (TK x TC in csrc/gru_bwd.cu)
 _BWD_TILE = 64
 #: the resident recurrences of gru_fwd and gru_bwd: widest H (RES_MAX_H),
-#: the padding of each W_hh row in shared memory (W_PAD), the batch rows a
-#: block may take
+#: the padding of each W_hh row in shared memory (W_PAD: 16 bytes), the
+#: batch rows a block may take
 RESIDENT_MAX_HIDDEN = 128
-_W_PAD = 4
+_W_PAD_BYTES = 16
+_W_PAD = _W_PAD_BYTES // 4
 RESIDENT_ROWS = (1, 2, 4, 8)
 BWD_ROWS = RESIDENT_ROWS
 #: batch rows a block of the streaming recurrences takes (STREAM_ROWS)
@@ -93,15 +104,20 @@ def gru_recurrence_plain(
     """The recurrence as a Python loop over T: xp [B, T, S*3H] (the input
     projection, biases included), w_hh [S, H, 3H], b_hh [S, 3H] ->
     h [B, T, S*H] from h_0 = 0. Direction 1, when present, runs from
-    t = T-1 down to 0."""
+    t = T-1 down to 0. In xp's dtype: for bfloat16 the inputs widen to
+    f32, the step product takes h rounded to bf16 (products exact in f32,
+    summed in f32), the carry stays f32 and each step's h is stored
+    rounded to bf16, as ``gru_fwd_bf16`` computes it."""
     B, T, S, H = _shapes(xp, w_hh, b_hh)
-    x = xp.reshape(B, T, S, 3 * H)
+    cdt, acc = xp.dtype, torch.promote_types(xp.dtype, torch.float32)
+    x = xp.to(acc).reshape(B, T, S, 3 * H)
+    w, b = w_hh.to(acc), b_hh.to(acc)
     out = xp.new_empty(B, T, S, H)
-    h = xp.new_zeros(S, B, H)
+    h = x.new_zeros(S, B, H)
     for step in range(T):
         ts = [step, T - 1 - step][:S]
         xt = torch.stack([x[:, t, s] for s, t in enumerate(ts)])  # [S, B, 3H]
-        hp = torch.bmm(h, w_hh) + b_hh[:, None]
+        hp = torch.bmm(h.to(cdt).to(acc), w) + b[:, None]
         r = torch.sigmoid(xt[..., :H] + hp[..., :H])
         z = torch.sigmoid(xt[..., H : 2 * H] + hp[..., H : 2 * H])
         n = torch.tanh(xt[..., 2 * H :] + r * hp[..., 2 * H :])
@@ -161,20 +177,23 @@ def gru_recurrence_backward_plain(
     return dxp.reshape(B, T, S * 3 * H), dw, db
 
 
-def fwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = None) -> dict:
-    """How gru_fwd launches at these shapes on a card with ``n_sm`` SMs: the
-    variant, batch rows a block (``rows`` forces one of
-    :data:`RESIDENT_ROWS` on the resident variant), blocks, threads a block
-    and dynamic shared-memory bytes a block. A resident block holds W_hh[s]
-    with rows of 3H + 4 floats and the double-buffered h
-    (resident_smem_bytes in csrc/gru_fwd.cu), and from 4 rows up runs two
-    thread groups of half the rows each (resident_groups); a streaming
-    block holds the double-buffered h alone."""
+def fwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = None,
+             dtype: torch.dtype = torch.float32) -> dict:
+    """How gru_fwd (``dtype`` float32) or gru_fwd_bf16 (bfloat16) launches
+    at these shapes on a card with ``n_sm`` SMs: the variant, batch rows a
+    block (``rows`` forces one of :data:`RESIDENT_ROWS` on the resident
+    variant), blocks, threads a block and dynamic shared-memory bytes a
+    block. A resident block holds W_hh[s] with rows of 3H elements and 16
+    bytes of padding and the double-buffered h (resident_smem_bytes in
+    csrc/gru_fwd.cu, smem_bytes in csrc/gru_fwd_bf16.cu), and from 4 rows
+    up runs two thread groups of half the rows each (resident_groups); a
+    streaming block holds the double-buffered h alone."""
     variant, rows = _variant_rows("gru_fwd", B, H, S, n_sm, rows)
-    smem = 4 * 2 * rows * H
+    size = torch.finfo(dtype).bits // 8
+    smem = size * 2 * rows * H
     threads = -(-H // 32) * 32
     if variant == "resident":
-        smem += 4 * H * (3 * H + _W_PAD)
+        smem += size * H * 3 * H + H * _W_PAD_BYTES
         threads *= 2 if rows >= 4 else 1
     return dict(variant=variant, rows=rows, blocks=S * -(-B // rows),
                 threads=threads, smem_bytes=smem)
@@ -183,27 +202,33 @@ def fwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = No
 def _gru_fwd_kernel(
     xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, rows: Optional[int] = None
 ) -> torch.Tensor:
-    """Launch ``gru_fwd`` (or raise) as :func:`fwd_plan` lays it out;
-    ``rows`` forces the resident variant's rows a block. Counts on
-    ``gru_recurrence.launches``."""
+    """Launch ``gru_fwd`` for a float32 ``xp`` or ``gru_fwd_bf16`` for a
+    bfloat16 one (or raise) as :func:`fwd_plan` lays it out; ``rows``
+    forces the resident variant's rows a block. Counts on
+    ``gru_recurrence.launches`` and ``gru_recurrence.launches_bf16``."""
     B, T, S, H = _shapes(xp, w_hh, b_hh)
-    _check_cuda("gru_fwd", H, xp=xp, w_hh=w_hh, b_hh=b_hh)
+    bf16 = xp.dtype == torch.bfloat16
+    name = "gru_fwd_bf16" if bf16 else "gru_fwd"
+    _check_cuda(name, H, xp=xp, w_hh=w_hh, b_hh=b_hh)
     if w_hh.data_ptr() % 16:
-        raise ValueError("gru_fwd reads w_hh in 16-byte vectors; its storage is not 16-byte aligned")
-    out = torch.empty(B, T, S * H, device=xp.device, dtype=torch.float32)
+        raise ValueError(f"{name} reads w_hh in vectors; its storage is not 16-byte aligned")
+    out = torch.empty(B, T, S * H, device=xp.device, dtype=xp.dtype)
     if B == 0 or T == 0:
         return out
     plan = fwd_plan(B, T, H, S, torch.cuda.get_device_properties(xp.device).multi_processor_count,
-                    rows)
-    lib = kernels.library("gru_fwd")
+                    rows, xp.dtype)
+    lib = kernels.library(name)
     with torch.cuda.device(xp.device):
-        code = lib.roko_gru_fwd(
+        code = getattr(lib, kernels.KERNELS[name][1])(
             xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
             B, T, H, S, plan["rows"], int(plan["variant"] == "resident"),
             kernels.stream(xp),
         )
-    kernels.check(lib, "gru_fwd", code)
-    gru_recurrence.launches += 1
+    kernels.check(lib, name, code)
+    if bf16:
+        gru_recurrence.launches_bf16 += 1
+    else:
+        gru_recurrence.launches += 1
     return out
 
 
@@ -355,27 +380,30 @@ def gru_recurrence(
 ) -> torch.Tensor:
     """The recurrence of :func:`gru_recurrence_plain`, differentiable
     through :class:`GRURecurrence`: the CUDA kernels for CUDA tensors
-    (launch or raise), the plain loops for CPU tensors.
-    ``gru_recurrence.launches`` counts forward kernel launches."""
+    (launch or raise; the kernel by xp's dtype), the plain loops for CPU
+    tensors. ``gru_recurrence.launches`` counts launches of the float32
+    forward kernel, ``gru_recurrence.launches_bf16`` of the bfloat16 one."""
     _shapes(xp, w_hh, b_hh)
     return GRURecurrence.apply(xp, w_hh, b_hh)
 
 
 gru_recurrence.launches = 0
+gru_recurrence.launches_bf16 = 0
 
 
 def fused_bidir_layer(
     layer: Layer, x: torch.Tensor, *, recurrence: Recurrence = gru_recurrence
 ) -> torch.Tensor:
     """One bidirectional layer, [B, T, in] -> [B, T, 2H] (fwd ++ bwd), with
-    one input product for both directions and one recurrence launch.
+    one input product for both directions and one recurrence launch, in
+    x's dtype (the layer's biases must have it too: ``layers.cast_tree``).
     ``recurrence`` swaps in :func:`gru_recurrence_plain` to hold the
     kernel against it on the card."""
     fwd, bwd = layer["fwd"], layer["bwd"]
-    w_ih = torch.cat([fwd["w_ih"], bwd["w_ih"]], dim=1)  # [in, 6H]
+    w_ih = torch.cat([_weight(fwd["w_ih"], x.dtype), _weight(bwd["w_ih"], x.dtype)], dim=1)
     b_ih = torch.cat([fwd["b_ih"], bwd["b_ih"]])
     xp = torch.matmul(x, w_ih) + b_ih  # [B, T, 6H]
-    w_hh = torch.stack([fwd["w_hh"], bwd["w_hh"]])  # [2, H, 3H]
+    w_hh = torch.stack([_weight(fwd["w_hh"], x.dtype), _weight(bwd["w_hh"], x.dtype)])
     b_hh = torch.stack([fwd["b_hh"], bwd["b_hh"]])  # [2, 3H]
     return recurrence(xp.contiguous(), w_hh.contiguous(), b_hh.contiguous())
 

@@ -24,7 +24,15 @@ already the layer output ``fwd ++ bwd``.
 
 Parameters come in the JAX package's layout, so the tests hand both
 sides the same arrays: per direction ``w_zx`` and ``w_cx`` [in, H],
-``b_z`` and ``b_c`` [H].
+``b_z`` and ``b_c`` [H]; a matrix may be an int8 weight
+(``models/quant.py``), dequantized here to the input's dtype.
+
+The input's dtype is the compute dtype. In bfloat16 the projection runs
+in bf16 and the scan reads bf16, computes in f32 and writes bf16, as the
+Pallas kernel does with a bf16 input (:44-45, :99); on a card it launches
+``csrc/lingru_fwd_bf16.cu``, whose one variant is the streaming one. A bf16
+tensor on a card goes to the bf16 kernel or raises; the backward kernel
+takes float32 only (bf16 training is not ported).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from torch.autograd.function import once_differentiable
 
 from roko_tpu_torch import kernels
 from roko_tpu_torch.models.layers import dropout as _dropout
+from roko_tpu_torch.models.layers import weight as _weight
 
 Layer = Dict[str, Dict[str, torch.Tensor]]
 Scan = Callable[[torch.Tensor], torch.Tensor]
@@ -63,18 +72,21 @@ def _gates(p: torch.Tensor, H: int):
 def lingru_scan_plain(p: torch.Tensor) -> torch.Tensor:
     """The scan as a Python loop over T: p [B, T, 4H] (the gate
     projections of both directions, biases included) -> h [B, T, 2H] from
-    h_0 = 0. Direction 1 runs from t = T-1 down to 0."""
+    h_0 = 0. Direction 1 runs from t = T-1 down to 0. A bfloat16 p is
+    widened to f32, scanned in f32 and each h rounded to bf16, as
+    ``lingru_fwd_bf16`` computes it."""
     H = _hidden(p)
     B, T = p.shape[:2]
-    z, c = _gates(p, H)
+    q = p.to(torch.promote_types(p.dtype, torch.float32))
+    z, c = _gates(q, H)
     a, b = 1.0 - z, z * c
-    h = p.new_zeros(B, 2, H)
+    h = q.new_zeros(B, 2, H)
     steps = []
     for t in range(T):
         h = a[:, t] * h + b[:, t]
         steps.append(h)
-    out = torch.stack(steps, dim=1) if steps else p.new_zeros(B, 0, 2, H)
-    return _kernel_time(out).reshape(B, T, 2 * H)
+    out = torch.stack(steps, dim=1) if steps else q.new_zeros(B, 0, 2, H)
+    return _kernel_time(out).reshape(B, T, 2 * H).to(p.dtype)
 
 
 def lingru_scan_backward_plain(
@@ -146,7 +158,8 @@ def scan_plan(
     16-byte-aligned tensors (``aligned``), which the bulk copies need, and
     at least one tile's steps; ``"streaming"`` takes the rest.
     ``variant``, ``steps`` and ``stages`` force a choice, as the bitwise
-    checks across choices do; :func:`scan_choices` lists them."""
+    checks across choices do; :func:`scan_choices` lists them.
+    ``lingru_fwd_bf16`` launches as the streaming variant does."""
     if kernel not in _SCAN_ROWS:
         raise ValueError(f"no staged lingru_{kernel} kernel")
     stageable = H % 4 == 0 and aligned
@@ -201,6 +214,23 @@ def aligned(*tensors: torch.Tensor) -> bool:
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _lingru_fwd_bf16_kernel(p: torch.Tensor) -> torch.Tensor:
+    """Launch ``lingru_fwd_bf16`` (or raise). Counts on
+    ``lingru_scan.launches_bf16``."""
+    H = _hidden(p)
+    kernels.check_inputs("lingru_fwd_bf16", p=p)
+    B, T = p.shape[:2]
+    out = torch.empty(B, T, 2 * H, device=p.device, dtype=torch.bfloat16)
+    if B == 0 or T == 0:
+        return out
+    lib = kernels.library("lingru_fwd_bf16")
+    with torch.cuda.device(p.device):
+        code = lib.roko_lingru_fwd_bf16(p.data_ptr(), out.data_ptr(), B, T, H, kernels.stream(p))
+    kernels.check(lib, "lingru_fwd_bf16", code)
+    lingru_scan.launches_bf16 += 1
+    return out
 
 
 def _lingru_fwd_kernel(
@@ -284,6 +314,8 @@ class LinGRUScan(torch.autograd.Function):
     def forward(ctx, p):
         if kernels.device_kind(p, "lingru_scan") == "cpu":
             h = lingru_scan_plain(p)
+        elif p.dtype == torch.bfloat16:
+            h = _lingru_fwd_bf16_kernel(p)
         else:
             h = _lingru_fwd_kernel(p)
         ctx.save_for_backward(p, h)
@@ -299,24 +331,27 @@ class LinGRUScan(torch.autograd.Function):
 def lingru_scan(p: torch.Tensor) -> torch.Tensor:
     """The scan of :func:`lingru_scan_plain`, differentiable through
     :class:`LinGRUScan`: the CUDA kernels for CUDA tensors (launch or
-    raise), the plain loops for CPU tensors. ``lingru_scan.launches``
-    counts forward kernel launches."""
+    raise; the kernel by p's dtype), the plain loops for CPU tensors.
+    ``lingru_scan.launches`` counts launches of the float32 forward
+    kernel, ``lingru_scan.launches_bf16`` of the bfloat16 one."""
     _hidden(p)
     return LinGRUScan.apply(p)
 
 
 lingru_scan.launches = 0
+lingru_scan.launches_bf16 = 0
 
 
 def bidir_lingru_layer(
     layer: Layer, x: torch.Tensor, *, scan: Scan = lingru_scan
 ) -> torch.Tensor:
     """One bidirectional layer, [B, T, in] -> [B, T, 2H] (fwd ++ bwd), with
-    one input product for both directions and one scan launch. ``scan``
+    one input product for both directions and one scan launch, in x's
+    dtype (the layer's biases must have it too: ``layers.cast_tree``). ``scan``
     swaps in :func:`lingru_scan_plain` to hold the kernel against it on
     the card."""
     fwd, bwd = layer["fwd"], layer["bwd"]
-    w4 = torch.cat([fwd["w_zx"], fwd["w_cx"], bwd["w_zx"], bwd["w_cx"]], dim=1)
+    w4 = torch.cat([_weight(d[k], x.dtype) for d in (fwd, bwd) for k in ("w_zx", "w_cx")], dim=1)
     b4 = torch.cat([fwd["b_z"], fwd["b_c"], bwd["b_z"], bwd["b_c"]])
     return scan((torch.matmul(x, w4) + b4).contiguous())  # p [B, T, 4H]
 

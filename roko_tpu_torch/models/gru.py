@@ -25,6 +25,7 @@ from roko_tpu_torch.models.fused_gru import (
     bidir_gru_stack,
     gru_recurrence,
 )
+from roko_tpu_torch.models.layers import cast_tree, jax_weight
 
 _DIRECTIONS = (("fwd", ""), ("bwd", "_reverse"))
 
@@ -67,14 +68,15 @@ class RokoGRU(nn.Module):
                 getattr(self, f"bias_hh_l{k}{suffix}").normal_(generator=generator)
 
     def layers(self) -> Tuple[Layer, ...]:
-        """The parameters in the JAX package's layout (transposed views)."""
+        """The parameters in the JAX package's layout (transposed views;
+        an int8 matrix as ``layers.jax_weight`` gives it)."""
         out = []
         for k in range(self.num_layers):
             layer = {}
             for direction, suffix in _DIRECTIONS:
                 layer[direction] = {
-                    "w_ih": getattr(self, f"weight_ih_l{k}{suffix}").t(),
-                    "w_hh": getattr(self, f"weight_hh_l{k}{suffix}").t(),
+                    "w_ih": jax_weight(self, f"weight_ih_l{k}{suffix}"),
+                    "w_hh": jax_weight(self, f"weight_hh_l{k}{suffix}"),
                     "b_ih": getattr(self, f"bias_ih_l{k}{suffix}"),
                     "b_hh": getattr(self, f"bias_hh_l{k}{suffix}"),
                 }
@@ -86,9 +88,10 @@ class RokoGRU(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """[B, T, in] -> [B, T, 2H] through ``recurrence`` (default
-        :func:`gru_recurrence`). In training, dropout between layers draws
-        its masks from ``generator``."""
+        :func:`gru_recurrence`), in x's dtype: every parameter is cast to
+        it (``cast_tree``) and int8 matrices dequantize to it. In training,
+        dropout between layers draws its masks from ``generator``."""
         return bidir_gru_stack(
-            self.layers(), x, recurrence=recurrence or gru_recurrence,
+            cast_tree(self.layers(), x.dtype), x, recurrence=recurrence or gru_recurrence,
             dropout=self.dropout if self.training else 0.0, generator=generator,
         )

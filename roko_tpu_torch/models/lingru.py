@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from roko_tpu_torch.models.fused_lingru import Layer, Scan, bidir_lingru_stack, lingru_scan
+from roko_tpu_torch.models.layers import cast_tree, jax_weight
 
 _DIRECTIONS = (("fwd", ""), ("bwd", "_reverse"))
 #: per layer direction: (JAX name, port name, matrix?) in the reference's
@@ -63,15 +64,17 @@ class RokoLinGRU(nn.Module):
                         t.normal_(generator=generator)
 
     def layers(self) -> Tuple[Layer, ...]:
-        """The parameters in the JAX package's layout (transposed views)."""
+        """The parameters in the JAX package's layout (transposed views;
+        an int8 matrix as ``layers.jax_weight`` gives it)."""
         out = []
         for k in range(self.num_layers):
             layer = {}
             for direction, suffix in _DIRECTIONS:
-                layer[direction] = {}
-                for jax_name, name, matrix in PARAMS:
-                    t = getattr(self, f"{name}_l{k}{suffix}")
-                    layer[direction][jax_name] = t.t() if matrix else t
+                layer[direction] = {
+                    jax_name: (jax_weight(self, f"{name}_l{k}{suffix}") if matrix
+                               else getattr(self, f"{name}_l{k}{suffix}"))
+                    for jax_name, name, matrix in PARAMS
+                }
             out.append(layer)
         return tuple(out)
 
@@ -80,9 +83,10 @@ class RokoLinGRU(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """[B, T, in] -> [B, T, 2H] through ``scan`` (default
-        :func:`lingru_scan`). In training, dropout between layers draws its
-        masks from ``generator``."""
+        :func:`lingru_scan`), in x's dtype: every parameter is cast to it
+        (``cast_tree``) and int8 matrices dequantize to it. In training,
+        dropout between layers draws its masks from ``generator``."""
         return bidir_lingru_stack(
-            self.layers(), x, scan=scan or lingru_scan,
+            cast_tree(self.layers(), x.dtype), x, scan=scan or lingru_scan,
             dropout=self.dropout if self.training else 0.0, generator=generator,
         )

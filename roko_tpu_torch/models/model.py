@@ -26,6 +26,14 @@ The per-element dropout after the embedding is what rules the
 reassociation out there. Dropout masks come from the ``generator`` the
 caller passes, on the input's device.
 
+Inference runs in ``cfg.compute_dtype`` (resolved at construction;
+"auto" is float32 off a TPU): in bfloat16 the one-hot, fc1, the
+embedding, fc1's bias and fc2 and the recurrence run in bf16 (:133,
+:179-217), and the head in float32 on the recurrence's output widened
+(:230). Every matrix is fetched through ``layers.weight``, so a model
+that ``models/quant.py`` quantized dequantizes each int8 matrix where it
+feeds its product. Training runs in float32 on float32 weights only.
+
 A fresh model is drawn as ``RokoModel.init`` draws it (:91-106), from one
 ``torch.Generator``: embedding N(0, 1), dense layers U(+-1/sqrt(in)),
 recurrent orthogonal matrices and N(0, 1) biases. Module names
@@ -43,7 +51,7 @@ from torch.nn.utils import skip_init
 
 from roko_tpu_torch.config import ModelConfig
 from roko_tpu_torch.models.gru import RokoGRU
-from roko_tpu_torch.models.layers import dense, dropout, init_dense
+from roko_tpu_torch.models.layers import dense, dropout, init_dense, jax_weight, weight
 from roko_tpu_torch.models.lingru import RokoLinGRU
 
 
@@ -57,7 +65,7 @@ class RokoModel(nn.Module):
         ``apply`` defaults to ``deterministic=True``; ``train()`` turns
         dropout on."""
         super().__init__()
-        self.cfg = cfg = cfg or ModelConfig()
+        self.cfg = cfg = (cfg or ModelConfig()).resolve()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         # skip_init: no draw from torch's global generator
@@ -86,11 +94,23 @@ class RokoModel(nn.Module):
         kernel-backed one (``fused_gru.gru_recurrence_plain`` for gru,
         ``fused_lingru.lingru_scan_plain`` for lingru); None keeps it. In
         training, dropout draws from ``generator``."""
-        h = self._front_train(x, generator) if self.training else self._front_eval(x)
+        if self.training:
+            if self.compute_dtype != torch.float32 or self.cfg.quantize is not None:
+                raise ValueError(
+                    f"training runs in float32 on float32 weights; this model computes in "
+                    f"{self.cfg.compute_dtype} with quantize={self.cfg.quantize!r}")
+            h = self._front_train(x, generator)
+        else:
+            h = self._front_eval(x)
         h = h.reshape(x.shape[0], self.cfg.window_cols, self.cfg.gru_in_size)
         rnn = self.gru if self.cfg.kind == "gru" else self.lingru
         h = rnn(h, recurrence, generator)
-        return dense(h, self.fc4.weight, self.fc4.bias)
+        return dense(h.float(), self.fc4)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The resolved ``cfg.compute_dtype`` as a torch dtype."""
+        return getattr(torch, self.cfg.compute_dtype)
 
     def _front_train(self, x: torch.Tensor, generator) -> torch.Tensor:
         """[B, rows, cols] -> [B, cols, D, read_mlp[-1]] with dropout."""
@@ -98,16 +118,18 @@ class RokoModel(nn.Module):
         e = dropout(self.embedding(x.long()), rate, generator)  # [B, R, T, D]
         h = torch.einsum("brtd,rj->btdj", e, self.fc1.weight.t())
         h = dropout(torch.relu(h + self.fc1.bias), rate, generator)
-        h = torch.relu(dense(h, self.fc2.weight, self.fc2.bias))
+        h = torch.relu(dense(h, self.fc2))
         return dropout(h, rate, generator)
 
     def _front_eval(self, x: torch.Tensor) -> torch.Tensor:
-        """The reassociated inference front end (no dropout)."""
+        """The reassociated inference front end (no dropout), in the
+        compute dtype."""
         cfg = self.cfg
-        dtype = self.fc1.weight.dtype
+        dtype = self.compute_dtype
         vocab = torch.arange(cfg.embed_vocab, device=x.device, dtype=x.dtype)
         onehot = (x.unsqueeze(-1) == vocab).to(dtype)  # [B, R, T, V]
-        m = torch.einsum("brtv,rj->btvj", onehot, self.fc1.weight.t())
-        h = torch.einsum("vd,btvj->btdj", self.embedding.weight, m)
-        h = torch.relu(h + self.fc1.bias)  # [B, T, D, J]
-        return torch.relu(dense(h, self.fc2.weight, self.fc2.bias))
+        w1 = weight(jax_weight(self.fc1, "weight"), dtype)  # [R, J]
+        m = torch.einsum("brtv,rj->btvj", onehot, w1)
+        h = torch.einsum("vd,btvj->btdj", self.embedding.weight.to(dtype), m)
+        h = torch.relu(h + self.fc1.bias.to(dtype))  # [B, T, D, J]
+        return torch.relu(dense(h, self.fc2))

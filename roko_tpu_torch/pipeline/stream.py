@@ -45,8 +45,12 @@ asserted against both ``roko_tpu``'s streaming polish and the port's
 ``polish --staged`` in ``tests/test_torch_stream.py``, including
 out-of-order region arrival.
 
-Left out of the port: multi-host pods and the device mesh (A8), weight
-quantization (A5), the cascade router (A10) and ``--trace-dir`` (A11).
+The model's precision modes ride along: it runs in its resolved
+``cfg.compute_dtype``, and a config that asks for int8 quantizes it once,
+before the journal's identity hash.
+
+Left out of the port: multi-host pods and the device mesh (A8), the
+cascade router (A10) and ``--trace-dir`` (A11).
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from roko_tpu_torch.features.pipeline import open_region_stream
 from roko_tpu_torch.infer import VoteBoard, tail_rungs
 from roko_tpu_torch.io.fasta import write_fasta_record
 from roko_tpu_torch.models.model import RokoModel
+from roko_tpu_torch.models.quant import maybe_quantize
 from roko_tpu_torch.resilience import PolishJournal
 from roko_tpu_torch.resilience.watchdog import thread_stack
 from roko_tpu_torch.serve.metrics import ServeMetrics
@@ -284,6 +289,10 @@ def run_streaming_polish(
         if session is None:
             raise ValueError("run_streaming_polish needs a model or a session")
         model = session.model
+    # conversion-time int8 (models/quant.py) before the journal's identity
+    # hash, which must cover the weights that predict; the session's own
+    # maybe_quantize then finds the model quantized
+    maybe_quantize(model)
     cfg = cfg or RokoConfig(model=model.cfg)
     pcfg = cfg.pipeline
     prefetch = pcfg.prefetch if prefetch is None else prefetch

@@ -21,6 +21,8 @@ or a persistent compile cache (A9.3), run a ragged step (A9.2), or fail
 over to the host CPU after a hang (not ported: carrying on on the CPU
 after the card failed would hide the card's failure).
 ``warmup`` runs each rung once through the model and does nothing else.
+The model runs in its resolved ``cfg.compute_dtype``; a config that asks
+for int8 quantizes it once, when the session is built.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from roko_tpu_torch.infer import (
     use_float32_matmuls,
 )
 from roko_tpu_torch.models.model import RokoModel
+from roko_tpu_torch.models.quant import maybe_quantize
 from roko_tpu_torch.resilience import DeadlinePolicy, call_with_deadline
 
 
@@ -71,7 +74,9 @@ class PolishSession:
         self.ladder: Tuple[int, ...] = rungs
         # process-wide, so the batcher's thread sees it too
         use_float32_matmuls()
-        self.model = model.to(self.device).eval()
+        # conversion-time int8 (models/quant.py): once, at session build;
+        # every rung then runs in the model's resolved compute dtype
+        self.model = maybe_quantize(model).to(self.device).eval()
         self._lock = threading.Lock()
         #: padded batch sizes that have reached the device — always a
         #: subset of ``ladder``

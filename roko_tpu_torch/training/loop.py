@@ -124,6 +124,24 @@ class TrainResult:
     guard_counters: Dict[str, int]
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` trains: in float32 on float32 weights. int8 is
+    a conversion at load (``roko_tpu/training/loop.py:341-349``); bfloat16
+    training needs the bfloat16 backward kernels, which are not ported."""
+    if cfg.quantize is not None:
+        raise ValueError(
+            f"quantize={cfg.quantize!r} is an inference-only "
+            "conversion: train full precision, then quantize at load "
+            "time (--quantize int8 on inference/polish)"
+        )
+    if cfg.resolve().compute_dtype != "float32":
+        raise ValueError(
+            f"compute_dtype={cfg.compute_dtype!r}: the port trains in float32 only; "
+            "bfloat16 training arrives with the bfloat16 backward kernels (gru_bwd, "
+            "lingru_bwd), which are not ported yet"
+        )
+
+
 def train(
     train_data: Union[str, Any],
     out_dir: str,
@@ -143,7 +161,9 @@ def train(
     ``train_cfg.val_fraction`` holds windows out. A fresh run starts from
     ``init_params`` (a reference-layout state_dict) or from an init drawn
     with ``train_cfg.seed``; with ``resume`` it continues from the
-    newest checkpoint in ``out_dir`` that verifies."""
+    newest checkpoint in ``out_dir`` that verifies. Refuses int8 and
+    bfloat16 configs (:func:`check_trainable`)."""
+    check_trainable(model_cfg)
     dev = resolve_device(device)
     use_float32_matmuls()
     tcfg, gcfg = train_cfg, guard_cfg

@@ -1,5 +1,6 @@
 """Tests that need a CUDA card: the ``gru_fwd``, ``gru_bwd``,
-``lingru_fwd`` and ``lingru_bwd`` kernels against their plain versions,
+``lingru_fwd`` and ``lingru_bwd`` kernels and the bfloat16
+``gru_fwd_bf16`` and ``lingru_fwd_bf16`` against their plain versions,
 launch counting, input checks, determinism, and the model's forward and
 gradients on the card for both kinds. They skip without a
 card; run them on one with
@@ -403,3 +404,132 @@ def test_session_asked_for_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         PolishSession(RokoModel(ModelConfig(hidden_size=16, num_layers=1)), device="cuda")
+
+
+# -- bfloat16: gru_fwd_bf16 and lingru_fwd_bf16 ---------------------------------
+
+#: a bf16 kernel against its bf16 plain loop: both round every h to bf16
+#: (4e-3 relative) after summing the step product in f32 in another order,
+#: so a rounding may land one bf16 ulp apart and carry into later steps
+BF16_ATOL = 1e-2
+
+
+def _bf16(*tensors):
+    return [t.to(torch.bfloat16) for t in tensors]
+
+
+# the inference rungs (rows 1, 2, 8 a block), ragged shapes, S=1, and H=512
+# (the streaming variant)
+@pytest.mark.parametrize(
+    "B,T,H,S",
+    [(32, 90, 128, 2), (128, 90, 128, 2), (512, 90, 128, 2), (5, 90, 16, 2), (13, 7, 128, 1),
+     (1, 1, 4, 2), (9, 33, 512, 2)],
+)
+def test_bf16_gru_kernel_matches_plain(cuda, B, T, H, S):
+    xp, w, b = _bf16(*_inputs(np.random.default_rng(B + 2 * H), B, T, H, S, cuda))
+    got = fg.gru_recurrence(xp, w, b)
+    want = fg.gru_recurrence_plain(xp, w, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, T, S * H)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL, rtol=0)
+    assert torch.equal(fg.gru_recurrence(xp, w, b), got)
+
+
+@pytest.mark.parametrize("B,T,H,S", [(37, 25, 128, 2), (13, 11, 40, 1)])
+def test_bf16_gru_kernel_is_bitwise_equal_for_every_rows(cuda, B, T, H, S):
+    xp, w, b = _bf16(*_inputs(np.random.default_rng(B * 7 + T), B, T, H, S, cuda))
+    assert fg.fwd_plan(B, T, H, S, _n_sm(cuda), dtype=torch.bfloat16)["variant"] == "resident"
+    want = fg._gru_fwd_kernel(xp, w, b, rows=1)
+    for rows in fg.RESIDENT_ROWS[1:]:
+        assert torch.equal(fg._gru_fwd_kernel(xp, w, b, rows=rows), want), rows
+
+
+@pytest.mark.parametrize("B,T,H", [(128, 90, 128), (512, 90, 128), (5, 90, 16), (11, 40, 12),
+                                   (1, 1, 4), (9, 33, 512)])
+def test_bf16_lingru_kernel_matches_plain(cuda, B, T, H):
+    p, _, _ = _lin_inputs(np.random.default_rng(B * 5 + H), B, T, H, cuda)
+    p = p.to(torch.bfloat16)
+    got = fl.lingru_scan(p)
+    want = fl.lingru_scan_plain(p)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, T, 2 * H)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL, rtol=0)
+    assert torch.equal(fl.lingru_scan(p), got)
+
+
+def test_bf16_kernels_count_launches_apart_from_f32(cuda, monkeypatch):
+    for wrapper in (fg.gru_recurrence, fl.lingru_scan):
+        monkeypatch.setattr(wrapper, "launches", 0)
+        monkeypatch.setattr(wrapper, "launches_bf16", 0)
+    xp, w, b = _bf16(*_inputs(np.random.default_rng(0), 3, 5, 8, 2, cuda))
+    fg.gru_recurrence(xp, w, b)
+    fl.lingru_scan(_bf16(_lin_inputs(np.random.default_rng(1), 3, 5, 8, cuda)[0])[0])
+    assert (fg.gru_recurrence.launches, fg.gru_recurrence.launches_bf16) == (0, 1)
+    assert (fl.lingru_scan.launches, fl.lingru_scan.launches_bf16) == (0, 1)
+
+
+def test_bf16_kernels_reject_what_they_do_not_take(cuda):
+    """A bf16 tensor goes to the bf16 kernel or raises: never upcast to
+    the f32 kernel."""
+    xp, w, b = _inputs(np.random.default_rng(4), 3, 5, 8, 2, cuda)
+    with pytest.raises(ValueError, match="gru_fwd_bf16 takes bfloat16; w_hh is torch.float32"):
+        fg.gru_recurrence(xp.to(torch.bfloat16), w, b.to(torch.bfloat16))
+    p = _lin_inputs(np.random.default_rng(5), 3, 5, 8, cuda)[0].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.lingru_scan(p.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="float32"):  # no bf16 backward kernel
+        fl.lingru_scan_backward(p, fl.lingru_scan(p), p[..., :16].contiguous())
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("kind", ["gru", "lingru"])
+def test_bf16_model_on_card_matches_plain_and_cpu(cuda, kind, quantize):
+    """The bf16 model (and bf16 + int8) on the card through the kernels
+    against the plain recurrence on the card and the whole model on the
+    CPU: cuBLAS and the CPU round the bf16 products' sums apart, so the
+    logits meet the bf16 bar, not the f32 one."""
+    from roko_tpu_torch.models.quant import maybe_quantize
+
+    torch.manual_seed(5)
+    cfg = ModelConfig(kind=kind, hidden_size=32, num_layers=2, compute_dtype="bfloat16",
+                      quantize=quantize)
+    model = maybe_quantize(RokoModel(cfg).eval())
+    plain = fg.gru_recurrence_plain if kind == "gru" else fl.lingru_scan_plain
+    x = torch.from_numpy(np.random.default_rng(6).integers(0, 12, (4, 200, 90), dtype=np.uint8))
+    with torch.inference_mode():
+        cpu = model(x)
+        model.to(cuda)
+        got = model(x.to(cuda))
+        ref = model(x.to(cuda), plain)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ref, atol=BF16_ATOL, rtol=0)
+    torch.testing.assert_close(got.cpu(), cpu, atol=BF16_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["gru", "lingru"])
+def test_bf16_streaming_on_card_equals_staged_on_card(cuda, tmp_path, kind):
+    """``test_streaming_on_card_equals_staged_on_card`` in bf16: the
+    ladder's padded rungs leave every window's class ids as they are."""
+    from roko_tpu_torch.features.pipeline import open_region_stream
+    from roko_tpu_torch.infer import run_inference
+    from roko_tpu_torch.io.fasta import write_fasta
+    from roko_tpu_torch.pipeline import run_streaming_polish
+    from roko_tpu_torch.sim import build_synthetic_project
+
+    paths = build_synthetic_project(str(tmp_path / "sim"), genome_len=20_000, seed=3)
+    torch.manual_seed(3)
+    model = RokoModel(ModelConfig(kind=kind, hidden_size=32, num_layers=2,
+                                  compute_dtype="bfloat16"))
+    with open_region_stream(paths["draft_fasta"], paths["reads_bam"], workers=2, seed=0,
+                            log=lambda s: None) as stream:
+        refs = dict(stream.refs)
+        batches = [([c] * len(p[i:i + 128]), p[i:i + 128], x[i:i + 128])
+                   for c, p, x, _ in stream.results for i in range(0, len(p), 128)]
+    launches = (fg.gru_recurrence if kind == "gru" else fl.lingru_scan).launches_bf16
+    staged = run_inference(iter(batches), refs, model, device=cuda, log=lambda s: None)
+    write_fasta(str(tmp_path / "staged.fasta"), list(staged.items()))
+    out = tmp_path / "stream.fasta"
+    run_streaming_polish(paths["draft_fasta"], paths["reads_bam"], model, out_path=str(out),
+                         workers=2, batch_size=128, device=cuda, log=lambda s: None)
+    assert out.read_bytes() == (tmp_path / "staged.fasta").read_bytes()
+    assert (fg.gru_recurrence if kind == "gru" else fl.lingru_scan).launches_bf16 > launches

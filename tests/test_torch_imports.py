@@ -93,8 +93,9 @@ HOST_MODULES = [
 
 def test_every_port_module_imports_without_jax():
     names = _import_in_child()
-    assert len(names) >= 57
+    assert len(names) >= 58
     assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru",
+            "roko_tpu_torch.models.quant",
             "roko_tpu_torch.serve.session", "roko_tpu_torch.pipeline.stream",
             *HOST_MODULES} <= set(names)
 

@@ -6,8 +6,9 @@ byte-identical, the layer gradients of ``test_torch_gru_bwd.py``, the
 full-model train step and Adam step of ``test_torch_train.py``, the
 short run of ``test_torch_train_loop.py``, and for ``kind="lingru"`` the
 layer, stack, gradient, scan-loop and logit cases of
-``test_torch_lingru.py``, its train steps and its FASTA. Run from the
-repo root:
+``test_torch_lingru.py``, its train steps and its FASTA, and the
+precision modes of ``test_torch_precision.py`` (bf16 logits against the
+reference's bf16 Pallas route, int8 logits). Run from the repo root:
 
     JAX_PLATFORMS=cpu python -m tests.torch_parity_report
 """
@@ -39,6 +40,7 @@ from tests import (  # noqa: E402
     test_torch_gru_bwd,
     test_torch_lingru,
     test_torch_model,
+    test_torch_precision,
     test_torch_train,
     test_torch_train_loop,
 )
@@ -232,12 +234,38 @@ def _lingru_fasta_row():
         return {"windows": project["windows"], "fasta_bytes": len(a), "byte_identical": a == b}
 
 
+def _precision_rows():
+    """The precision modes (``test_torch_precision.py``): bf16 logits
+    against the reference's bf16 Pallas route and that route's distance
+    from its f32 logits, the argmax over the clear columns; int8 logits
+    against the reference's int8 scan route."""
+    t = test_torch_precision
+    rows = {}
+    for kind in t.KINDS:
+        for mode in t.MODES:
+            with pytest.MonkeyPatch.context() as mp:
+                got, want, f32 = t.bf16_route_logits(mp, kind, mode)
+            route = _max(want, f32)
+            clear = t.clear_columns(want, route)
+            rows[f"{kind}_{mode}"] = {
+                "logits_vs_pallas_route": _max(got, want), "route_vs_f32": route,
+                "columns_excluded": int((~clear).sum()), "columns": int(clear.size),
+                "argmax_equal_on_clear": bool((got.argmax(-1) == want.argmax(-1))[clear].all())}
+        params, x = t._jax_params(kind), t._windows(3)
+        cfg = t._jax_cfg(kind, quantize="int8")
+        want = np.asarray(t.JaxRokoModel(cfg).apply(t.ref_quant.maybe_quantize(params, cfg), x))
+        got = t._port_logits(t._port_cfg(kind, quantize="int8"), t.state_dict_from_jax(params), x)
+        rows[f"{kind}_int8"] = {"logits_vs_scan": _max(got, want),
+                                "argmax_equal": bool((got.argmax(-1) == want.argmax(-1)).all())}
+    return rows
+
+
 def main():
     print(json.dumps({"gru": _gru_rows(), "model": _logit_rows(), "cli": _fasta_row(),
                       "gru_grads": _grad_rows(), "train_step": _step_rows(),
                       "short_run": _short_run_row(),
                       "lingru": _lingru_rows(), "lingru_model": _lingru_logit_rows(),
-                      "lingru_cli": _lingru_fasta_row(),
+                      "lingru_cli": _lingru_fasta_row(), "precision": _precision_rows(),
                       "torch": torch.__version__, "jax": jax.__version__}, indent=1))
 
 

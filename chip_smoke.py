@@ -30,17 +30,20 @@ for ``kind="gru"`` and once for ``kind="lingru"``:
   for the card's busy share, the stream's wall time over the serial
   extraction + inference (cold and warm fan-out), and the assess tool
   (native aligner) on the sim draft against its truth;
-- precision: the bfloat16 kernels (``gru_fwd_bf16``, ``lingru_fwd_bf16``)
-  held against their plain bf16 versions and timed beside the f32 ones
-  (and cuDNN's bf16 GRU); inference of the synthetic windows in bf16 (gru
-  and lingru) and in int8 with f32 compute (gru), each beside f32 in
-  windows/s and argmax agreement; and the polish project streamed in bf16,
-  its FASTA byte-equal to the bf16 staged stitch and compared with the
-  f32 one;
-- training: one train step through the kernels against the plain
-  recurrence, then ``roko_tpu_torch.training.loop.train`` for two epochs
-  over an in-memory labelled corpus with a held-out val set and the guard
-  on, its checkpoints verified, and the best one polishing the contig.
+- precision: the bfloat16 kernels (``gru_fwd_bf16``, ``lingru_fwd_bf16``,
+  ``gru_bwd_bf16``, ``lingru_bwd_bf16``) held against their plain bf16
+  versions and timed beside the f32 ones (and cuDNN's bf16 GRU); inference
+  of the synthetic windows in bf16 (gru and lingru) and in int8 with f32
+  compute (gru), each beside f32 in windows/s and argmax agreement; and
+  the polish project streamed in bf16, its FASTA byte-equal to the bf16
+  staged stitch and compared with the f32 one;
+- training, in f32 and then in bf16 compute for each kind: one train step
+  through the kernels against the plain recurrence, then
+  ``roko_tpu_torch.training.loop.train`` for two epochs over an in-memory
+  labelled corpus with a held-out val set and the guard on, its
+  checkpoints verified, and the best one polishing the contig; the bf16
+  run through the bf16 kernels alone, its windows/s and losses printed
+  beside the f32 run's.
 
 Each path runs with every launch count set to 0 just before it and read
 just after, and fails unless each kernel of the path launched as often as
@@ -52,6 +55,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import importlib.util
 import json
@@ -131,14 +135,35 @@ POLISH_CHECK_REGION = (200_000, 220_000)
 # device-time kinds of the port's kernels: a kernel's kind is the first of
 # these its name holds; "lingru_fwd_bf16" holds "lingru_fwd" and
 # "gru_fwd_bf16", "lingru_fwd" holds "gru_fwd", so the longer come first
-KERNEL_KINDS = ("lingru_fwd_bf16", "lingru_fwd", "lingru_bwd", "gru_fwd_bf16", "gru_fwd",
-                "gru_bwd")
+KERNEL_KINDS = ("lingru_fwd_bf16", "lingru_bwd_bf16", "lingru_fwd", "lingru_bwd",
+                "gru_fwd_bf16", "gru_bwd_bf16", "gru_fwd", "gru_bwd")
 # the precision phase: bf16 kernel vs its plain bf16 loop (both round every
 # h to bf16 after f32 sums in another order, so a rounding may land one
 # bf16 ulp apart and carry on), at the inference rungs
 BF16_ATOL = 1e-2
 BF16_GRU_BATCHES = (32, 128, 512)
 BF16_LIN_BATCHES = (128, 512)
+# the bf16 backward kernels vs their plain bf16 loops, at the train shape
+# and a ragged one. dxp and dp: each within one bf16 ulp of the larger of
+# the two values, plus 1e-4 of the largest entry (the f32 kernels' bar
+# against their loops). gru_bwd_bf16 rounds dhp to bf16 as the operand
+# that feeds the carry dh: where the f32 dhp of kernel and loop, summed in
+# other orders, straddle a rounding, the operands differ by an ulp, and dh
+# and every later step's dxp move a little; an entry that is a small
+# difference (h_prev - n) moves by many of its own ulps. dW_hh and db_hh,
+# f32 sums of those operands: within half a bf16 ulp (2e-3) of their
+# largest entry.
+BF16_BWD_OF_MAX = 1e-4
+BF16_DW_OF_MAX = 2e-3
+BF16_GRU_BWD_SHAPES = (TRAIN_SHAPE, dict(B=13, T=7, IN=256, H=128, S=1))
+BF16_LIN_BWD_SHAPES = (LIN_TRAIN_SHAPE, dict(B=11, T=40, H=12))
+# a full-width bf16 train step through the kernels vs the plain bf16
+# recurrences: the loss at the f32 check's bar, each gradient within 1e-2
+# of its largest entry. The f32 bar (1e-4) does not hold in bf16: every
+# gradient is rounded to bf16 once (2^-8 relative), f32 sums in another
+# order may straddle that rounding, and a dxp that lands one ulp apart in
+# one layer carries into the layers below
+BF16_STEP_ATOL_OF_MAX = 1e-2
 
 
 def emit(obj) -> None:
@@ -576,10 +601,12 @@ def device_breakdown(torch, run):
     }
 
 
-def step_parity(torch, port, dev, ds, cfg, kernel, plain):
+def step_parity(torch, port, dev, ds, cfg, kernel, plain, rtol=STEP_RTOL,
+                atol_of_max=STEP_ATOL_OF_MAX):
     """One full-width train step of ``cfg`` (dropout off) through the
     kernels (``kernel``) and through the plain recurrence (``plain``):
-    loss and every gradient."""
+    loss (at the f32 bar) and every gradient (at ``rtol`` and
+    ``atol_of_max`` of its largest entry)."""
     model = port.RokoModel(cfg, torch.Generator().manual_seed(SEED))
     model.to(dev).train()
     batch = next(ds.batches(TRAIN_BATCH, rng=np.random.default_rng(SEED)))
@@ -601,14 +628,17 @@ def step_parity(torch, port, dev, ds, cfg, kernel, plain):
         scale = ref.abs().max().item()
         d = (g - ref).abs().max().item()
         worst[name] = [d, scale]
-        if not torch.allclose(g, ref, rtol=STEP_RTOL, atol=STEP_ATOL_OF_MAX * scale):
-            fail(f"{cfg.kind} train step gradient {name}: max |d| {d} against max |g| {scale}")
+        if g.dtype != torch.float32 or not torch.allclose(g, ref, rtol=rtol,
+                                                          atol=atol_of_max * scale):
+            fail(f"{cfg.kind} {cfg.compute_dtype} train step gradient {name} ({g.dtype}): "
+                 f"max |d| {d} against max |g| {scale}")
     top = max(worst, key=lambda n: worst[n][0] / max(worst[n][1], 1e-30))
-    return {"loss_kernels": loss_k, "loss_plain": loss_p, "params": len(got),
+    return {"compute_dtype": cfg.compute_dtype, "loss_kernels": loss_k, "loss_plain": loss_p,
+            "params": len(got),
             "worst_relative": {"param": top, "max_abs_err": worst[top][0],
                                "max_abs_grad": worst[top][1]},
             "max_abs_err": max(v[0] for v in worst.values()),
-            "rtol": STEP_RTOL, "atol_of_max_grad": STEP_ATOL_OF_MAX, "batch": TRAIN_BATCH}
+            "rtol": rtol, "atol_of_max_grad": atol_of_max, "batch": TRAIN_BATCH}
 
 
 class Counts:
@@ -623,6 +653,8 @@ class Counts:
             "lingru_bwd": (fl.lingru_scan_backward, "launches"),
             "gru_fwd_bf16": (fg.gru_recurrence, "launches_bf16"),
             "lingru_fwd_bf16": (fl.lingru_scan, "launches_bf16"),
+            "gru_bwd_bf16": (fg.gru_recurrence_backward, "launches_bf16"),
+            "lingru_bwd_bf16": (fl.lingru_scan_backward, "launches_bf16"),
         }
 
     def zero(self) -> None:
@@ -1042,6 +1074,126 @@ def check_bf16_kernel(torch, fg, fl, kind: str, B: int, dev, rng, *, timed: bool
     return row
 
 
+def bf16_ulps(torch, got, want):
+    """Against one bf16 ulp of the larger of each pair of values: (the
+    largest |got - want| in such ulps, the largest excess over one as a
+    share of want's largest entry, the share of entries within one)."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp_min(1e-30))) - 7)
+    d = (g - w).abs()
+    excess = (d - ulp).clamp_min(0) / w.abs().max().clamp_min(1e-30)
+    return (d / ulp).max().item(), excess.max().item(), (d <= ulp).float().mean().item()
+
+
+def check_bf16_bwd_kernel(torch, fg, fl, kind: str, shape, dev, rng, *, timed: bool) -> dict:
+    """``gru_bwd_bf16`` (``kind`` "gru") or ``lingru_bwd_bf16`` ("lingru")
+    at ``shape`` against its plain bf16 loop on the same bf16 inputs (the
+    f32 inputs of the f32 kernel's check, rounded): dxp or dp within one
+    bf16 ulp plus BF16_BWD_OF_MAX of the largest entry, dW_hh and db_hh
+    within BF16_DW_OF_MAX of theirs, the share of dxp or dp bit-equal to
+    the plain loop's and within one ulp, two
+    launches bitwise equal, and (gru, resident) bitwise equal at every rows
+    a block. With ``timed``, the kernel's time beside ``gru_bwd`` or
+    ``lingru_bwd`` on the f32 inputs (CUDA events for gru, device time in a
+    trace for lingru, as their f32 rows take it), the plain loop's,
+    cuDNN's bf16 GRU backward (gru) and the bound."""
+    name = f"{kind}_bwd_bf16"
+    if kind == "gru":
+        x, t, xp, w_hh, b_hh = layer_inputs(torch, shape, dev, rng)
+        B, T, H, S = (shape[k] for k in ("B", "T", "H", "S"))
+        with torch.no_grad():
+            out = fg.gru_recurrence_plain(xp, w_hh, b_hh)
+        dy = torch.from_numpy(rng.standard_normal((B, T, S * H), dtype=np.float32)).to(dev)
+        args32 = (xp, w_hh, b_hh, out, dy)
+        run, plain = fg.gru_recurrence_backward, fg.gru_recurrence_backward_plain
+        plan = launch_plan(torch, fg, "bwd", shape, dev)
+    else:
+        B, T, H = (shape[k] for k in ("B", "T", "H"))
+        args32 = lingru_inputs(torch, "bwd", fl, shape, dev, rng)
+        run, plain = fl.lingru_scan_backward, fl.lingru_scan_backward_plain
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        # the bf16 scan has the one design, laid out as the f32 streaming one
+        plan = fl.scan_plan(B, T, H, n_sm, "bwd", variant="streaming")
+        plan = {"variant": plan["variant"], "blocks": plan["blocks"],
+                "threads_per_block": plan["threads"]}
+    args = tuple(a.to(torch.bfloat16) for a in args32)
+    got = run(*args)
+    want = plain(*args)
+    again = run(*args)
+    torch.cuda.synchronize()
+    got, want, again = ((o,) if kind == "lingru" else o for o in (got, want, again))
+    if got[0].dtype != torch.bfloat16 or any(g.dtype != torch.float32 for g in got[1:]):
+        fail(f"{name} returned {[g.dtype for g in got]} at {shape}")
+    ulps, excess, within = bf16_ulps(torch, got[0], want[0])
+    errs = {"dxp" if kind == "gru" else "dp": (got[0].float() - want[0].float()).abs().max().item()}
+    if not excess <= BF16_BWD_OF_MAX:
+        fail(f"{name} is {excess} of its largest entry beyond one bf16 ulp from its plain bf16 "
+             f"loop at {shape} ({ulps} ulps at most)")
+    for label, g, w in zip(("dw_hh", "db_hh"), got[1:], want[1:]):
+        errs[label] = (g - w).abs().max().item()
+        if not errs[label] <= BF16_DW_OF_MAX * w.abs().max().item():
+            fail(f"{name} {label} disagrees with the plain loop at {shape}: max |d| "
+                 f"{errs[label]} against max |g| {w.abs().max().item()}")
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        fail(f"{name} differs between two launches at {shape}")
+    row = {"shape": shape, "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+           "max_ulps": ulps, "beyond_one_ulp_of_max": excess,
+           "beyond_one_ulp_allowed": BF16_BWD_OF_MAX, "dw_atol_of_max": BF16_DW_OF_MAX,
+           "bit_equal_share": (got[0] == want[0]).float().mean().item(),
+           "within_one_ulp_share": within,
+           "bitwise_repeatable": True, **plan}
+    if kind == "gru" and row.get("variant") == "resident":
+        for rows in fg.BWD_ROWS:
+            forced = fg._gru_bwd_kernel(*args, rows=rows)
+            if not all(torch.equal(g, f) for g, f in zip(got, forced)):
+                fail(f"{name} at {rows} rows a block differs from {row['rows_per_block']} "
+                     f"rows at {shape}")
+        row["bitwise_equal_across_rows"] = list(fg.BWD_ROWS)
+    if not timed:
+        return row
+    row["output_sha256"] = hashlib.sha256(
+        got[0].view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    row["ms_events"] = cuda_ms(torch, lambda: run(*args), iters=20)
+    row["f32_ms_events"] = cuda_ms(torch, lambda: run(*args32), iters=20)
+    if kind == "gru":
+        row["ms"], row["f32_ms"], row["ms_from"] = row["ms_events"], row["f32_ms_events"], "events"
+        row["ms_by_kernel"] = kernel_split(
+            torch, lambda: run(*args), 20,
+            (("recurrence", "gru_bwd_bf16_rec"), ("dw", "gru_bwd_bf16_dw"),
+             ("reduce", "gru_bwd_bf16_reduce")))
+        # cuDNN's bf16 GRU backward with the same weights: a yardstick only;
+        # it also runs the dx and dW_ih products that stay outside the kernel
+        ref = cudnn_gru(torch, t, shape["IN"], H, S, dev).to(torch.bfloat16)
+        ref.flatten_parameters()
+        row["library_note"] = ("torch.autograd.grad through cuDNN nn.GRU in bf16, one "
+                               "bidirectional layer, weights flattened; with dx and dW_ih")
+        try:  # a PyTorch without a bf16 GRU leaves it out
+            xr = x.to(torch.bfloat16).requires_grad_(True)
+            lib_out, _ = ref(xr)
+            lib_inputs = [xr, *ref.parameters()]
+            dyb = args[4]
+            row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+                lib_out, lib_inputs, dyb, retain_graph=True), iters=20)
+        except RuntimeError as e:
+            row["library_ms"], row["library_note"] = None, f"no bf16 nn.GRU here: {e}"
+        flops = 3 * 2.0 * T * S * B * H * 3 * H  # hp, dhp W_hh^T, h_prev^T dhp
+        nbytes = (2.0 * (sum(a.numel() for a in args) + got[0].numel())
+                  + 4.0 * (got[1].numel() + got[2].numel()))
+        row.update(bound(torch, flops, nbytes, "bf16"))
+    else:
+        split = kernel_split(torch, lambda: run(*args), 20, (("scan", "lingru_bwd_bf16"),))
+        split32 = kernel_split(torch, lambda: run(*args32), 20, (("scan", "lingru_bwd"),))
+        row["ms_by_kernel"], row["f32_ms_by_kernel"] = split, split32
+        row["ms"] = split.get("scan", row["ms_events"])
+        row["f32_ms"] = split32.get("scan", row["f32_ms_events"])
+        row["ms_from"] = "trace" if "scan" in split and "scan" in split32 else "events"
+        row["library_ms"], row["library_note"] = None, LIN_NO_LIBRARY
+        row.update(bound(torch, LIN_BWD_OPS * B * T * 2 * H,
+                         2.0 * (sum(a.numel() for a in args) + got[0].numel())))
+    row["plain_ms"] = cuda_ms(torch, lambda: plain(*args), iters=3, warmup=1)
+    return row
+
+
 def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, dev, counts,
                     polish, card, rng):
     """The precision phase: the bf16 kernels against their plain loops and
@@ -1051,7 +1203,6 @@ def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, d
     bf16 gru model, its FASTA byte-equal to the bf16 staged stitch and
     compared with the f32 one. Returns (the record, the kernel rows,
     launches by path)."""
-    import dataclasses
 
     fg, fl = port.fg, port.fl
     rows = {
@@ -1060,6 +1211,15 @@ def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, d
         "lingru_fwd_bf16": [check_bf16_kernel(torch, fg, fl, "lingru", B, dev, rng, timed=True)
                             for B in BF16_LIN_BATCHES],
     }
+    # the backward kernels draw from a stream of their own, so the forward
+    # rows see the inputs they saw before
+    bwd_rng = np.random.default_rng(SEED + 5)
+    rows["gru_bwd_bf16"] = [
+        check_bf16_bwd_kernel(torch, fg, fl, "gru", shape, dev, bwd_rng, timed=i == 0)
+        for i, shape in enumerate(BF16_GRU_BWD_SHAPES)]
+    rows["lingru_bwd_bf16"] = [
+        check_bf16_bwd_kernel(torch, fg, fl, "lingru", shape, dev, bwd_rng, timed=i == 0)
+        for i, shape in enumerate(BF16_LIN_BWD_SHAPES)]
 
     emit({"precision_kernel_check": {**rows, "card": card}})
 
@@ -1194,8 +1354,9 @@ def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, f
         fail(f"the trained {cfg.kind} checkpoint's polish holds letters other than ACGT "
              "or is not the stitch of its votes")
     record = {
-        "config": f"ModelConfig(kind={cfg.kind!r}) ({cfg.num_layers} layers, hidden "
-                  f"{cfg.hidden_size}, dropout {cfg.dropout}, full width)",
+        "config": f"ModelConfig(kind={cfg.kind!r}, compute_dtype={cfg.compute_dtype!r}) "
+                  f"({cfg.num_layers} layers, hidden {cfg.hidden_size}, dropout {cfg.dropout}, "
+                  "full width)",
         "windows": TRAIN_WINDOWS, "val_fraction": TRAIN_VAL_FRACTION, "batch": TRAIN_BATCH,
         "epochs": TRAIN_EPOCHS, "steps": result.step, "seconds": train_seconds,
         "train_loop_seconds": train_secs, "steps_per_s": result.step / train_secs,
@@ -1228,6 +1389,15 @@ def train_breakdown(torch, port, result, corpus, tcfg, dev):
     train_steps(step_batches[:1])  # warm-up
     return {**device_breakdown(torch, lambda: train_steps(step_batches[1:])),
             "steps": len(step_batches) - 1}
+
+
+def bf16_beside(f32_train: dict) -> dict:
+    """The f32 train line's numbers that a bf16 train line prints beside its
+    own (both runs of one call)."""
+    return {k: f32_train[k] for k in ("windows_per_s", "steps_per_s", "train_loop_seconds",
+                                      "steps", "guard")} | {
+        "train_loss": [h["train_loss"] for h in f32_train["history"]],
+        "val_acc": [h["val_acc"] for h in f32_train["history"]]}
 
 
 def card_line() -> str:
@@ -1463,6 +1633,18 @@ def main() -> None:
     emit({"train": {**train, "card": card}})
     emit({"train_breakdown": {**train_breakdown(torch, port, result, corpus, tcfg, dev),
                               "card": card}})
+    # the same in bf16 compute: the bf16 kernels only, the f32 line beside it
+    gru_bf16, lin_bf16 = (dataclasses.replace(c, compute_dtype="bfloat16")
+                          for c in (cfg, lin_cfg))
+    emit({"train_step_check_bf16": {**step_parity(
+        torch, port, dev, corpus, dataclasses.replace(gru_bf16, dropout=0.0), fg.gru_recurrence,
+        fg.gru_recurrence_plain, rtol=0.0, atol_of_max=BF16_STEP_ATOL_OF_MAX), "card": card}})
+    train_bf16, result_bf16, _ = drive_train(
+        torch, port, gru_bf16, corpus, batches, contig, draft, dev, counts, "gru_fwd_bf16",
+        "gru_bwd_bf16", "chip_smoke_train_bf16")
+    emit({"train_bf16": {**train_bf16, "float32": bf16_beside(train), "card": card}})
+    emit({"train_breakdown_bf16": {
+        **train_breakdown(torch, port, result_bf16, corpus, tcfg, dev), "card": card}})
 
     emit({"lingru_train_step_check": {**step_parity(
         torch, port, dev, corpus, ModelConfig(kind="lingru", dropout=0.0), fl.lingru_scan,
@@ -1473,6 +1655,16 @@ def main() -> None:
     emit({"lingru_train": {**lin_train, "card": card}})
     emit({"lingru_train_breakdown": {
         **train_breakdown(torch, port, lin_result, corpus, tcfg, dev), "card": card}})
+    emit({"lingru_train_step_check_bf16": {**step_parity(
+        torch, port, dev, corpus, dataclasses.replace(lin_bf16, dropout=0.0), fl.lingru_scan,
+        fl.lingru_scan_plain, rtol=0.0, atol_of_max=BF16_STEP_ATOL_OF_MAX), "card": card}})
+    lin_train_bf16, lin_result_bf16, _ = drive_train(
+        torch, port, lin_bf16, corpus, batches, contig, draft, dev, counts, "lingru_fwd_bf16",
+        "lingru_bwd_bf16", "chip_smoke_train_lingru_bf16")
+    emit({"lingru_train_bf16": {**lin_train_bf16, "float32": bf16_beside(lin_train),
+                                "card": card}})
+    emit({"lingru_train_breakdown_bf16": {
+        **train_breakdown(torch, port, lin_result_bf16, corpus, tcfg, dev), "card": card}})
 
     def timing(row):
         return {
@@ -1482,7 +1674,7 @@ def main() -> None:
             **{k: row[k] for k in ("ms_from", "library_note", "variant", "rows_per_block",
                                    "steps_per_stage", "stages", "blocks", "waves",
                                    "smem_bytes_per_block", "ms_by_kernel", "f32_ms",
-                                   "bit_equal_share", "atol") if k in row},
+                                   "bit_equal_share", "atol", "max_ulps") if k in row},
         }
 
     def kernel_row(name, source, replaces, replaces_also, row, by_path, **also):
@@ -1514,12 +1706,22 @@ def main() -> None:
                    {"inference": 0, "train": lin_train["lingru_bwd_launches"]}),
         kernel_row("gru_fwd_bf16", "roko_tpu_torch/csrc/gru_fwd_bf16.cu",
                    "roko_tpu/models/pallas_gru.py:126", "roko_tpu/models/pallas_gru.py:171",
-                   bf16_rows["gru_fwd_bf16"][-1], {**precision_launches["gru_fwd_bf16"], "train": 0},
+                   bf16_rows["gru_fwd_bf16"][-1],
+                   {**precision_launches["gru_fwd_bf16"],
+                    "train": train_bf16["gru_fwd_bf16_launches"]},
                    at_batch_128=bf16_rows["gru_fwd_bf16"][1]),
         kernel_row("lingru_fwd_bf16", "roko_tpu_torch/csrc/lingru_fwd_bf16.cu",
                    "roko_tpu/models/pallas_lingru.py:90", None, bf16_rows["lingru_fwd_bf16"][-1],
-                   {**precision_launches["lingru_fwd_bf16"], "train": 0},
+                   {**precision_launches["lingru_fwd_bf16"],
+                    "train": lin_train_bf16["lingru_fwd_bf16_launches"]},
                    at_batch_128=bf16_rows["lingru_fwd_bf16"][0]),
+        kernel_row("gru_bwd_bf16", "roko_tpu_torch/csrc/gru_bwd_bf16.cu",
+                   "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",
+                   bf16_rows["gru_bwd_bf16"][0],
+                   {"inference": 0, "train": train_bf16["gru_bwd_bf16_launches"]}),
+        kernel_row("lingru_bwd_bf16", "roko_tpu_torch/csrc/lingru_bwd_bf16.cu",
+                   "roko_tpu/models/pallas_lingru.py:121", None, bf16_rows["lingru_bwd_bf16"][0],
+                   {"inference": 0, "train": lin_train_bf16["lingru_bwd_bf16_launches"]}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -12,7 +12,8 @@ after either. ``inference`` and ``polish`` take a reference-layout
 ``.pth`` state_dict or a checkpoint directory that ``train`` wrote.
 ``train``, ``inference`` and ``polish`` take ``--compute-dtype
 {auto,float32,bfloat16}`` and ``--quantize {int8,none}``
-(``roko_tpu/cli.py:44-59``); ``train`` refuses int8 and bfloat16.
+(``roko_tpu/cli.py:44-59``); ``train`` refuses int8, as the reference
+does, and trains in bfloat16 with float32 weights.
 Writing and reading the HDF5 needs ``h5py``. Not ported yet, each a
 usage error that names its queue item: ``--distributed`` and
 ``--cascade`` (A10), ``--config`` and ``--trace-dir`` (A11), and remote

@@ -64,9 +64,21 @@ KERNELS = {
         "roko_lingru_fwd_bf16",
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     ),
+    "gru_bwd_bf16": (
+        "csrc/gru_bwd_bf16.cu",
+        "roko_gru_bwd_bf16",
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    ),
+    "lingru_bwd_bf16": (
+        "csrc/lingru_bwd_bf16.cu",
+        "roko_lingru_bwd_bf16",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    ),
 }
 
-#: kernel name -> the dtype of every tensor it takes
+#: kernel name -> the dtype of every tensor it takes (the bf16 backward
+#: kernels write their f32 sums and scratch into f32 buffers the wrapper
+#: allocates; their inputs are all bf16)
 DTYPES = {name: torch.bfloat16 if name.endswith("_bf16") else torch.float32 for name in KERNELS}
 
 _loaded: Dict[str, ctypes.CDLL] = {}

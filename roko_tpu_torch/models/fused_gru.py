@@ -27,9 +27,14 @@ The input's dtype is the compute dtype. In bfloat16 (the JAX package's
 ``compute_dtype="bfloat16"``: ``_xproj_stacked`` :428 stores ``xp`` in
 bf16, and the kernels take ``h.astype(cdt)`` as the step product's
 operand, keep an f32 carry and store bf16) the projection runs in bf16,
-and the recurrence launches ``csrc/gru_fwd_bf16.cu`` on a card. A bf16
-tensor on a card goes to the bf16 kernel or raises; the backward kernel
-takes float32 only (bf16 training is not ported).
+and the recurrence launches ``csrc/gru_fwd_bf16.cu`` on a card; its
+gradient launches ``csrc/gru_bwd_bf16.cu`` (``_bwd_kernel_v3`` :200-300 with
+``cdt = dxp_dtype = bfloat16``: the gates recomputed from the stored bf16
+output, ``dh``, ``dW_hh`` and ``db_hh`` in f32, ``dhp`` rounded to bf16 only
+as the operand of its two products, ``dxp`` stored in bf16), and
+:class:`GRURecurrence` hands ``dW_hh`` and ``db_hh`` back rounded to bf16
+once, as ``_finish_bwd`` (:606-611) does. A bf16 tensor on a card goes to
+a bf16 kernel or raises: never to a float32 one.
 """
 
 from __future__ import annotations
@@ -142,23 +147,30 @@ def gru_recurrence_backward_plain(
         dxp = [dr, dz, dn];  dhp = [dr, dz, dn r]
         dh <- dh z + dhp W_hh^T;  dW_hh += h_prev^T dhp;  db_hh += sum dhp
 
-    Returns dxp [B, T, S*3H], dW_hh [S, H, 3H] and db_hh [S, 3H]."""
+    Returns dxp [B, T, S*3H] in xp's dtype, dW_hh [S, H, 3H] and db_hh
+    [S, 3H] in float32 (the kernels' sums). For bfloat16 the inputs widen
+    to f32 and every sum is f32; ``dhp`` is rounded to bf16 only as the
+    operand of ``dhp W_hh^T`` and ``h_prev^T dhp`` (``db_hh`` sums it
+    unrounded), and dxp is stored rounded to bf16, as ``gru_bwd_bf16``
+    computes it."""
     B, T, S, H = _shapes(xp, w_hh, b_hh)
-    x = xp.reshape(B, T, S, 3 * H)
-    hs = out.reshape(B, T, S, H)
-    g = dy.reshape(B, T, S, H)
+    cdt, acc = xp.dtype, torch.promote_types(xp.dtype, torch.float32)
+    x = xp.to(acc).reshape(B, T, S, 3 * H)
+    hs = out.to(acc).reshape(B, T, S, H)
+    g = dy.to(acc).reshape(B, T, S, H)
+    w, b = w_hh.to(acc), b_hh.to(acc)
     dxp = xp.new_empty(B, T, S, 3 * H)
-    dw = w_hh.new_zeros(S, H, 3 * H)
-    db = b_hh.new_zeros(S, 3 * H)
-    dh = xp.new_zeros(S, B, H)
-    zero = xp.new_zeros(B, H)
+    dw = x.new_zeros(S, H, 3 * H)
+    db = x.new_zeros(S, 3 * H)
+    dh = x.new_zeros(S, B, H)
+    zero = x.new_zeros(B, H)
     for step in range(T):
         ts, prev = _prev_steps(T, S, step)
         xt = torch.stack([x[:, t, s] for s, t in enumerate(ts)])  # [S, B, 3H]
         h_prev = torch.stack(
             [zero if p is None else hs[:, p, s] for s, p in enumerate(prev)]
         )
-        hp = torch.bmm(h_prev, w_hh) + b_hh[:, None]
+        hp = torch.bmm(h_prev, w) + b[:, None]
         r = torch.sigmoid(xt[..., :H] + hp[..., :H])
         z = torch.sigmoid(xt[..., H : 2 * H] + hp[..., H : 2 * H])
         hpn = hp[..., 2 * H :]
@@ -171,8 +183,9 @@ def gru_recurrence_backward_plain(
         da = torch.cat([dr, dz, dn], dim=-1)
         for s, t in enumerate(ts):
             dxp[:, t, s] = da[s]
-        dh = dh * z + torch.bmm(dhp, w_hh.transpose(1, 2))
-        dw = dw + torch.bmm(h_prev.transpose(1, 2), dhp)
+        operand = dhp.to(cdt).to(acc)  # the products' bf16 operand
+        dh = dh * z + torch.bmm(operand, w.transpose(1, 2))
+        dw = dw + torch.bmm(h_prev.transpose(1, 2), operand)
         db = db + dhp.sum(dim=1)
     return dxp.reshape(B, T, S * 3 * H), dw, db
 
@@ -279,13 +292,15 @@ def _variant_rows(name: str, B: int, H: int, S: int, n_sm: int, rows: Optional[i
 
 
 def bwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = None) -> dict:
-    """How gru_bwd launches at these shapes on a card with ``n_sm`` SMs:
-    the recurrence's variant, batch rows a block (``rows`` forces one of
-    :data:`RESIDENT_ROWS` on the resident variant), blocks, threads a block,
-    dynamic shared-memory bytes a block, and the weight-gradient pass's
-    splits. A resident block holds W_hh[s] with rows of 3H + 4 floats and
-    double-buffered h_prev and dhp (resident_smem_bytes in
-    csrc/gru_bwd.cu), a streaming block h_prev and dhp once."""
+    """How gru_bwd and gru_bwd_bf16 launch at these shapes on a card with
+    ``n_sm`` SMs: the recurrence's variant, batch rows a block (``rows``
+    forces one of :data:`RESIDENT_ROWS` on the resident variant), blocks,
+    threads a block, dynamic shared-memory bytes a block, and the
+    weight-gradient pass's splits. A resident block holds W_hh[s] with rows
+    of 3H + 4 floats and double-buffered h_prev and dhp
+    (resident_smem_bytes in csrc/gru_bwd.cu), a streaming block h_prev and
+    dhp once. gru_bwd_bf16 widens each bf16 value to f32 as it copies it
+    into shared memory, so both kernels lay out the same bytes."""
     variant, rows = _variant_rows("gru_bwd", B, H, S, n_sm, rows)
     if variant == "streaming":
         smem = 4 * rows * 4 * H
@@ -299,16 +314,21 @@ def _gru_bwd_kernel(
     xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     out: torch.Tensor, dy: torch.Tensor, rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``gru_bwd`` (or raise) as :func:`bwd_plan` lays it out;
-    ``rows`` forces the resident recurrence's rows a block. Counts on
-    ``gru_recurrence_backward.launches``."""
+    """Launch ``gru_bwd`` for a float32 ``xp`` or ``gru_bwd_bf16`` for a
+    bfloat16 one (or raise) as :func:`bwd_plan` lays it out; ``rows``
+    forces the resident recurrence's rows a block. dxp comes back in xp's
+    dtype, dW_hh and db_hh in float32. Counts on
+    ``gru_recurrence_backward.launches`` and
+    ``gru_recurrence_backward.launches_bf16``."""
     B, T, S, H = _shapes(xp, w_hh, b_hh)
-    _check_cuda("gru_bwd", H, xp=xp, w_hh=w_hh, b_hh=b_hh, out=out, dy=dy)
-    for name, t in (("out", out), ("dy", dy)):
+    bf16 = xp.dtype == torch.bfloat16
+    name = "gru_bwd_bf16" if bf16 else "gru_bwd"
+    _check_cuda(name, H, xp=xp, w_hh=w_hh, b_hh=b_hh, out=out, dy=dy)
+    for arg, t in (("out", out), ("dy", dy)):
         if tuple(t.shape) != (B, T, S * H):
-            raise ValueError(f"{name} must be [{B}, {T}, {S * H}], got {tuple(t.shape)}")
+            raise ValueError(f"{arg} must be [{B}, {T}, {S * H}], got {tuple(t.shape)}")
     if w_hh.data_ptr() % 16:
-        raise ValueError("gru_bwd reads w_hh in 16-byte vectors; its storage is not 16-byte aligned")
+        raise ValueError(f"{name} reads w_hh in vectors; its storage is not 16-byte aligned")
     f32 = dict(device=xp.device, dtype=torch.float32)
     dxp = torch.empty_like(xp)
     dw = torch.zeros(S, H, 3 * H, **f32)
@@ -318,20 +338,24 @@ def _gru_bwd_kernel(
     plan = bwd_plan(B, T, H, S, torch.cuda.get_device_properties(xp.device).multi_processor_count,
                     rows)
     nsplit = plan["splits"]
-    dhp = torch.empty_like(xp)
+    # dhp for the weight-gradient pass, unrounded: db_hh sums it as it is
+    dhp = torch.empty(B, T, S * 3 * H, **f32)
     part_w = torch.empty(nsplit, S, H, 3 * H, **f32)
     part_b = torch.empty(nsplit, S, 3 * H, **f32)
-    lib = kernels.library("gru_bwd")
+    lib = kernels.library(name)
     with torch.cuda.device(xp.device):
-        code = lib.roko_gru_bwd(
+        code = getattr(lib, kernels.KERNELS[name][1])(
             xp.data_ptr(), out.data_ptr(), dy.data_ptr(), w_hh.data_ptr(),
             b_hh.data_ptr(), dxp.data_ptr(), dhp.data_ptr(),
             part_w.data_ptr(), part_b.data_ptr(), dw.data_ptr(), db.data_ptr(),
             B, T, H, S, nsplit, plan["rows"], int(plan["variant"] == "resident"),
             kernels.stream(xp),
         )
-    kernels.check(lib, "gru_bwd", code)
-    gru_recurrence_backward.launches += 1
+    kernels.check(lib, name, code)
+    if bf16:
+        gru_recurrence_backward.launches_bf16 += 1
+    else:
+        gru_recurrence_backward.launches += 1
     return dxp, dw, db
 
 
@@ -339,10 +363,11 @@ def gru_recurrence_backward(
     xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     out: torch.Tensor, dy: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradients of :func:`gru_recurrence_backward_plain` in the CUDA
-    kernel ``gru_bwd`` for CUDA tensors (launch or raise), the plain loop
-    for CPU tensors. ``gru_recurrence_backward.launches`` counts kernel
-    launches."""
+    """The gradients of :func:`gru_recurrence_backward_plain` in a CUDA
+    kernel for CUDA tensors (launch or raise; ``gru_bwd`` or
+    ``gru_bwd_bf16`` by xp's dtype), the plain loop for CPU tensors.
+    ``gru_recurrence_backward.launches`` counts launches of the float32
+    kernel, ``gru_recurrence_backward.launches_bf16`` of the bfloat16 one."""
     _shapes(xp, w_hh, b_hh)
     if kernels.device_kind(xp, "gru_recurrence_backward") == "cpu":
         return gru_recurrence_backward_plain(xp, w_hh, b_hh, out, dy)
@@ -351,13 +376,16 @@ def gru_recurrence_backward(
 
 
 gru_recurrence_backward.launches = 0
+gru_recurrence_backward.launches_bf16 = 0
 
 
 class GRURecurrence(torch.autograd.Function):
     """The recurrence with its gradient: forward ``gru_fwd`` and backward
-    ``gru_bwd`` on CUDA tensors, the plain loops on CPU tensors.
+    ``gru_bwd`` on CUDA tensors (``gru_fwd_bf16`` and ``gru_bwd_bf16`` on
+    bfloat16 ones), the plain loops on CPU tensors.
     ``apply(xp, w_hh, b_hh) -> out``; the backward returns
-    ``(dxp, dW_hh, db_hh)``."""
+    ``(dxp, dW_hh, db_hh)``, each in its input's dtype: the f32 sums of
+    dW_hh and db_hh are rounded once to the dtype of w_hh and b_hh."""
 
     @staticmethod
     def forward(ctx, xp, w_hh, b_hh):
@@ -372,7 +400,8 @@ class GRURecurrence(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         xp, w_hh, b_hh, out = ctx.saved_tensors
-        return gru_recurrence_backward(xp, w_hh, b_hh, out, dy)
+        dxp, dw, db = gru_recurrence_backward(xp, w_hh, b_hh, out, dy)
+        return dxp, dw.to(w_hh.dtype), db.to(b_hh.dtype)
 
 
 def gru_recurrence(

@@ -30,9 +30,12 @@ sides the same arrays: per direction ``w_zx`` and ``w_cx`` [in, H],
 The input's dtype is the compute dtype. In bfloat16 the projection runs
 in bf16 and the scan reads bf16, computes in f32 and writes bf16, as the
 Pallas kernel does with a bf16 input (:44-45, :99); on a card it launches
-``csrc/lingru_fwd_bf16.cu``, whose one variant is the streaming one. A bf16
-tensor on a card goes to the bf16 kernel or raises; the backward kernel
-takes float32 only (bf16 training is not ported).
+``csrc/lingru_fwd_bf16.cu``, whose one variant is the streaming one. Its
+gradient reads p, h and dy in bf16, runs the gates and the e-scan in f32
+and stores dp in bf16 (``_bwd_kernel`` :121-168, ``dp_ref.dtype``); on a
+card it launches ``csrc/lingru_bwd_bf16.cu``, again the streaming design.
+A bf16 tensor on a card goes to a bf16 kernel or raises: never to a
+float32 one.
 """
 
 from __future__ import annotations
@@ -101,13 +104,16 @@ def lingru_scan_backward_plain(
         g = dy_t + e;  da = g h_{t-1};  dz = g c - da;  dc = g z
         dp_t = [dz z (1 - z), dc (1 - c^2)];  e <- a_t g
 
-    Returns dp [B, T, 4H]."""
+    Returns dp [B, T, 4H] in p's dtype. bfloat16 inputs widen to f32, the
+    gates and e are f32 and dp is rounded to bf16 at the end, as
+    ``lingru_bwd_bf16`` computes it."""
     H = _hidden(p)
     B, T = p.shape[:2]
-    z, c = _gates(p, H)
-    hk = _kernel_time(h.reshape(B, T, 2, H))
-    gk = _kernel_time(dy.reshape(B, T, 2, H))
-    e = p.new_zeros(B, 2, H)
+    acc = torch.promote_types(p.dtype, torch.float32)
+    z, c = _gates(p.to(acc), H)
+    hk = _kernel_time(h.to(acc).reshape(B, T, 2, H))
+    gk = _kernel_time(dy.to(acc).reshape(B, T, 2, H))
+    e = z.new_zeros(B, 2, H)
     steps = []
     for t in range(T - 1, -1, -1):
         g = gk[:, t] + e
@@ -118,8 +124,8 @@ def lingru_scan_backward_plain(
         dc = g * zt
         steps.append(torch.cat([dz * (zt * (1.0 - zt)), dc * (1.0 - ct * ct)], dim=-1))
         e = (1.0 - zt) * g
-    dp = torch.stack(steps[::-1], dim=1) if steps else p.new_zeros(B, 0, 2, 2 * H)
-    return _kernel_time(dp).reshape(B, T, 4 * H)
+    dp = torch.stack(steps[::-1], dim=1) if steps else z.new_zeros(B, 0, 2, 2 * H)
+    return _kernel_time(dp).reshape(B, T, 4 * H).to(p.dtype)
 
 
 #: channels a block of the staged scan kernels (TILE in csrc/lingru_*.cu)
@@ -285,13 +291,32 @@ def _lingru_bwd_kernel(
     return dp
 
 
+def _lingru_bwd_bf16_kernel(p: torch.Tensor, h: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Launch ``lingru_bwd_bf16`` (or raise). Counts on
+    ``lingru_scan_backward.launches_bf16``."""
+    H = _hidden(p)
+    B, T = p.shape[:2]
+    kernels.check_inputs("lingru_bwd_bf16", p=p, h=h, dy=dy)
+    dp = torch.empty_like(p)
+    if B == 0 or T == 0:
+        return dp
+    lib = kernels.library("lingru_bwd_bf16")
+    with torch.cuda.device(p.device):
+        code = lib.roko_lingru_bwd_bf16(p.data_ptr(), h.data_ptr(), dy.data_ptr(),
+                                        dp.data_ptr(), B, T, H, kernels.stream(p))
+    kernels.check(lib, "lingru_bwd_bf16", code)
+    lingru_scan_backward.launches_bf16 += 1
+    return dp
+
+
 def lingru_scan_backward(
     p: torch.Tensor, h: torch.Tensor, dy: torch.Tensor
 ) -> torch.Tensor:
-    """The gradient of :func:`lingru_scan_backward_plain` in the CUDA
-    kernel ``lingru_bwd`` for CUDA tensors (launch or raise), the plain
-    loop for CPU tensors. ``lingru_scan_backward.launches`` counts kernel
-    launches."""
+    """The gradient of :func:`lingru_scan_backward_plain` in a CUDA kernel
+    for CUDA tensors (launch or raise; ``lingru_bwd`` or
+    ``lingru_bwd_bf16`` by p's dtype), the plain loop for CPU tensors.
+    ``lingru_scan_backward.launches`` counts launches of the float32
+    kernel, ``lingru_scan_backward.launches_bf16`` of the bfloat16 one."""
     H = _hidden(p)
     B, T = p.shape[:2]
     for name, t in (("h", h), ("dy", dy)):
@@ -299,16 +324,21 @@ def lingru_scan_backward(
             raise ValueError(f"{name} must be [{B}, {T}, {2 * H}], got {tuple(t.shape)}")
     if kernels.device_kind(p, "lingru_scan_backward") == "cpu":
         return lingru_scan_backward_plain(p, h, dy)
-    return _lingru_bwd_kernel(p, h, dy.contiguous())  # slices and cats hand dy strided
+    dy = dy.contiguous()  # slices and cats hand dy strided
+    if p.dtype == torch.bfloat16:
+        return _lingru_bwd_bf16_kernel(p, h, dy)
+    return _lingru_bwd_kernel(p, h, dy)
 
 
 lingru_scan_backward.launches = 0
+lingru_scan_backward.launches_bf16 = 0
 
 
 class LinGRUScan(torch.autograd.Function):
     """The scan with its gradient: forward ``lingru_fwd`` and backward
-    ``lingru_bwd`` on CUDA tensors, the plain loops on CPU tensors.
-    ``apply(p) -> h``; the backward returns ``dp``."""
+    ``lingru_bwd`` on CUDA tensors (``lingru_fwd_bf16`` and
+    ``lingru_bwd_bf16`` on bfloat16 ones), the plain loops on CPU tensors.
+    ``apply(p) -> h``; the backward returns ``dp`` in p's dtype."""
 
     @staticmethod
     def forward(ctx, p):

@@ -90,7 +90,9 @@ class RokoGRU(nn.Module):
         """[B, T, in] -> [B, T, 2H] through ``recurrence`` (default
         :func:`gru_recurrence`), in x's dtype: every parameter is cast to
         it (``cast_tree``) and int8 matrices dequantize to it. In training,
-        dropout between layers draws its masks from ``generator``."""
+        dropout between layers draws its masks from ``generator`` and
+        scales in x's dtype, and the gradients reach the float32
+        parameters through the cast."""
         return bidir_gru_stack(
             cast_tree(self.layers(), x.dtype), x, recurrence=recurrence or gru_recurrence,
             dropout=self.dropout if self.training else 0.0, generator=generator,

@@ -85,7 +85,9 @@ class RokoLinGRU(nn.Module):
         """[B, T, in] -> [B, T, 2H] through ``scan`` (default
         :func:`lingru_scan`), in x's dtype: every parameter is cast to it
         (``cast_tree``) and int8 matrices dequantize to it. In training,
-        dropout between layers draws its masks from ``generator``."""
+        dropout between layers draws its masks from ``generator`` and
+        scales in x's dtype, and the gradients reach the float32
+        parameters through the cast."""
         return bidir_lingru_stack(
             cast_tree(self.layers(), x.dtype), x, scan=scan or lingru_scan,
             dropout=self.dropout if self.training else 0.0, generator=generator,

@@ -24,7 +24,14 @@ dropout, fc2, relu, dropout; then the recurrence with dropout between
 layers.
 The per-element dropout after the embedding is what rules the
 reassociation out there. Dropout masks come from the ``generator`` the
-caller passes, on the input's device.
+caller passes, on the input's device. Training runs in the compute dtype
+too: in bfloat16 the embedding rows, fc1 and fc2 (weights and biases),
+the dropouts and the recurrence run in bf16 and the head in float32, as
+the reference's train branch casts its params (:162-166). The embedding
+rows are gathered from the float32 table and then rounded, bit for bit
+the reference's one-hot contraction of its bf16 table; the table's
+gradient sums in float32 and is rounded to bf16 once, as the transpose
+of that contraction rounds it.
 
 Inference runs in ``cfg.compute_dtype`` (resolved at construction;
 "auto" is float32 off a TPU): in bfloat16 the one-hot, fc1, the
@@ -32,7 +39,9 @@ embedding, fc1's bias and fc2 and the recurrence run in bf16 (:133,
 :179-217), and the head in float32 on the recurrence's output widened
 (:230). Every matrix is fetched through ``layers.weight``, so a model
 that ``models/quant.py`` quantized dequantizes each int8 matrix where it
-feeds its product. Training runs in float32 on float32 weights only.
+feeds its product. The parameters stay float32 in every mode: each use
+casts them, so their gradients come back in float32 (rounded to bf16 once
+in a bf16 step, as the reference's are). Training refuses int8 weights.
 
 A fresh model is drawn as ``RokoModel.init`` draws it (:91-106), from one
 ``torch.Generator``: embedding N(0, 1), dense layers U(+-1/sqrt(in)),
@@ -46,6 +55,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
@@ -53,6 +63,21 @@ from roko_tpu_torch.config import ModelConfig
 from roko_tpu_torch.models.gru import RokoGRU
 from roko_tpu_torch.models.layers import dense, dropout, init_dense, jax_weight, weight
 from roko_tpu_torch.models.lingru import RokoLinGRU
+
+
+class _RoundGrad(torch.autograd.Function):
+    """The identity, whose backward rounds the gradient to ``dtype`` once
+    and widens it back: what the backward of a cast of a float32 parameter
+    to ``dtype`` does, for a parameter used before its cast."""
+
+    @staticmethod
+    def forward(ctx, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        ctx.dtype = dtype
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g.to(ctx.dtype).to(g.dtype), None
 
 
 class RokoModel(nn.Module):
@@ -95,10 +120,10 @@ class RokoModel(nn.Module):
         ``fused_lingru.lingru_scan_plain`` for lingru); None keeps it. In
         training, dropout draws from ``generator``."""
         if self.training:
-            if self.compute_dtype != torch.float32 or self.cfg.quantize is not None:
+            if self.cfg.quantize is not None:
                 raise ValueError(
-                    f"training runs in float32 on float32 weights; this model computes in "
-                    f"{self.cfg.compute_dtype} with quantize={self.cfg.quantize!r}")
+                    f"training runs on float weights; this model has quantize="
+                    f"{self.cfg.quantize!r}, an inference-only conversion")
             h = self._front_train(x, generator)
         else:
             h = self._front_eval(x)
@@ -113,11 +138,19 @@ class RokoModel(nn.Module):
         return getattr(torch, self.cfg.compute_dtype)
 
     def _front_train(self, x: torch.Tensor, generator) -> torch.Tensor:
-        """[B, rows, cols] -> [B, cols, D, read_mlp[-1]] with dropout."""
+        """[B, rows, cols] -> [B, cols, D, read_mlp[-1]] with dropout, in
+        the compute dtype."""
         rate = self.cfg.dropout
-        e = dropout(self.embedding(x.long()), rate, generator)  # [B, R, T, D]
-        h = torch.einsum("brtd,rj->btdj", e, self.fc1.weight.t())
-        h = dropout(torch.relu(h + self.fc1.bias), rate, generator)
+        dtype = self.compute_dtype
+        # the rows of the f32 table, then the cast: an embedding of a bf16
+        # table would sum the 2.3M rows of a batch into 12 with bf16 atomics
+        table = self.embedding.weight
+        if dtype != table.dtype:
+            table = _RoundGrad.apply(table, dtype)
+        e = dropout(F.embedding(x.long(), table).to(dtype), rate, generator)  # [B, R, T, D]
+        w1 = weight(jax_weight(self.fc1, "weight"), dtype)  # [R, J]
+        h = torch.einsum("brtd,rj->btdj", e, w1)
+        h = dropout(torch.relu(h + self.fc1.bias.to(dtype)), rate, generator)
         h = torch.relu(dense(h, self.fc2))
         return dropout(h, rate, generator)
 

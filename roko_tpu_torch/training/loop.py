@@ -13,7 +13,11 @@ good checkpoint.
 On a CUDA device every step runs the recurrence through its kernels:
 ``gru_fwd`` and ``gru_bwd`` (``models/fused_gru.py``) for ``kind="gru"``,
 ``lingru_fwd`` and ``lingru_bwd`` (``models/fused_lingru.py``) for
-``kind="lingru"``. Dropout masks of step ``k`` come
+``kind="lingru"``; with ``compute_dtype="bfloat16"`` their bf16 twins
+(``gru_fwd_bf16`` and ``gru_bwd_bf16``, ``lingru_fwd_bf16`` and
+``lingru_bwd_bf16``), evaluation included. The parameters, their
+gradients and Adam stay float32 in either dtype, as in the reference
+(params cast inside ``apply``). Dropout masks of step ``k`` come
 from a generator seeded by (seed, rollbacks, k), so a resumed run draws
 the masks an uninterrupted one would have drawn.
 
@@ -71,8 +75,8 @@ def grad_step(
     generator: Optional[torch.Generator],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward and backward in training mode, the gradients left on the
-    parameters. Returns (loss, finite): ``finite`` is a device bool
-    covering the loss and every gradient."""
+    parameters (float32 in every compute dtype). Returns (loss, finite):
+    ``finite`` is a device bool covering the loss and every gradient."""
     model.train()
     model.zero_grad(set_to_none=True)
     logits = model(x, generator=generator)
@@ -125,20 +129,14 @@ class TrainResult:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` trains: in float32 on float32 weights. int8 is
-    a conversion at load (``roko_tpu/training/loop.py:341-349``); bfloat16
-    training needs the bfloat16 backward kernels, which are not ported."""
+    """Raise unless ``cfg`` trains: full precision weights, computing in
+    float32 or bfloat16. int8 is a conversion at load
+    (``roko_tpu/training/loop.py:341-349``)."""
     if cfg.quantize is not None:
         raise ValueError(
             f"quantize={cfg.quantize!r} is an inference-only "
             "conversion: train full precision, then quantize at load "
             "time (--quantize int8 on inference/polish)"
-        )
-    if cfg.resolve().compute_dtype != "float32":
-        raise ValueError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port trains in float32 only; "
-            "bfloat16 training arrives with the bfloat16 backward kernels (gru_bwd, "
-            "lingru_bwd), which are not ported yet"
         )
 
 
@@ -161,8 +159,9 @@ def train(
     ``train_cfg.val_fraction`` holds windows out. A fresh run starts from
     ``init_params`` (a reference-layout state_dict) or from an init drawn
     with ``train_cfg.seed``; with ``resume`` it continues from the
-    newest checkpoint in ``out_dir`` that verifies. Refuses int8 and
-    bfloat16 configs (:func:`check_trainable`)."""
+    newest checkpoint in ``out_dir`` that verifies. Refuses int8 configs
+    (:func:`check_trainable`); a bfloat16 one trains in bf16 compute and
+    writes float32 checkpoints that load in any mode."""
     check_trainable(model_cfg)
     dev = resolve_device(device)
     use_float32_matmuls()

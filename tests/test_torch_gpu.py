@@ -1,9 +1,10 @@
 """Tests that need a CUDA card: the ``gru_fwd``, ``gru_bwd``,
 ``lingru_fwd`` and ``lingru_bwd`` kernels and the bfloat16
-``gru_fwd_bf16`` and ``lingru_fwd_bf16`` against their plain versions,
-launch counting, input checks, determinism, and the model's forward and
-gradients on the card for both kinds. They skip without a
-card; run them on one with
+``gru_fwd_bf16``, ``lingru_fwd_bf16``, ``gru_bwd_bf16`` and
+``lingru_bwd_bf16`` against their plain versions, launch counting, input
+checks, determinism, and the model's forward and gradients on the card
+for both kinds, in float32 and bfloat16. They skip without a card; run
+them on one with
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
@@ -469,16 +470,22 @@ def test_bf16_kernels_count_launches_apart_from_f32(cuda, monkeypatch):
 
 
 def test_bf16_kernels_reject_what_they_do_not_take(cuda):
-    """A bf16 tensor goes to the bf16 kernel or raises: never upcast to
-    the f32 kernel."""
+    """A bf16 tensor goes to a bf16 kernel or raises: never upcast to an
+    f32 kernel, and a mixed-dtype call raises."""
     xp, w, b = _inputs(np.random.default_rng(4), 3, 5, 8, 2, cuda)
     with pytest.raises(ValueError, match="gru_fwd_bf16 takes bfloat16; w_hh is torch.float32"):
         fg.gru_recurrence(xp.to(torch.bfloat16), w, b.to(torch.bfloat16))
     p = _lin_inputs(np.random.default_rng(5), 3, 5, 8, cuda)[0].to(torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         fl.lingru_scan(p.transpose(0, 1).contiguous().transpose(0, 1))
-    with pytest.raises(ValueError, match="float32"):  # no bf16 backward kernel
-        fl.lingru_scan_backward(p, fl.lingru_scan(p), p[..., :16].contiguous())
+    with pytest.raises(ValueError, match="lingru_bwd_bf16 takes bfloat16; dy is torch.float32"):
+        fl.lingru_scan_backward(p, fl.lingru_scan(p), p[..., :16].float())
+    xb, wb, bb = _bf16(xp, w, b)
+    out = fg.gru_recurrence(xb, wb, bb)
+    with pytest.raises(ValueError, match="gru_bwd_bf16 takes bfloat16; dy is torch.float32"):
+        fg.gru_recurrence_backward(xb, wb, bb, out, out.float())
+    with pytest.raises(ValueError, match="gru_bwd takes float32; out is torch.bfloat16"):
+        fg.gru_recurrence_backward(xp, w, b, out, out.float())
 
 
 @pytest.mark.parametrize("quantize", [None, "int8"])
@@ -533,3 +540,139 @@ def test_bf16_streaming_on_card_equals_staged_on_card(cuda, tmp_path, kind):
                          workers=2, batch_size=128, device=cuda, log=lambda s: None)
     assert out.read_bytes() == (tmp_path / "staged.fasta").read_bytes()
     assert (fg.gru_recurrence if kind == "gru" else fl.lingru_scan).launches_bf16 > launches
+
+
+# -- bfloat16: gru_bwd_bf16 and lingru_bwd_bf16 ---------------------------------
+
+
+def beyond_one_bf16_ulp(got, want):
+    """The largest excess of |got - want| over one bf16 ulp of the larger
+    of the two values, as a share of want's largest entry."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (((g - w).abs() - ulp).clamp_min(0) / w.abs().max().clamp_min(1e-30)).max().item()
+
+
+#: a bf16 backward kernel against its plain loop: dxp and dp within one
+#: bf16 ulp plus 1e-4 of their largest entry (gru_bwd_bf16 rounds dhp as
+#: the carry's operand: where kernel and loop straddle that rounding, dh
+#: and every later dxp move a little, and an entry that is a small
+#: difference moves by many of its own ulps); dW_hh and db_hh, f32 sums of
+#: those operands, within half a bf16 ulp (2e-3) of their largest entry
+BF16_BWD_OF_MAX = 1e-4
+BF16_DW_OF_MAX = 2e-3
+
+
+def _bf16_bwd_inputs(rng, B, T, H, S, device):
+    xp, w, b = _bf16(*_inputs(rng, B, T, H, S, device))
+    out = fg.gru_recurrence_plain(xp, w, b)
+    dy = torch.from_numpy(rng.standard_normal((B, T, S * H)).astype(np.float32)).to(device)
+    return xp, w, b, out, dy.to(torch.bfloat16)
+
+
+def _check_gru_bwd_bf16(got, want):
+    dxp, dw, db = got
+    assert dxp.dtype == torch.bfloat16 and dw.dtype == db.dtype == torch.float32
+    assert beyond_one_bf16_ulp(dxp, want[0]) <= BF16_BWD_OF_MAX
+    for name, g, w in (("dw_hh", dw, want[1]), ("db_hh", db, want[2])):
+        torch.testing.assert_close(g, w, rtol=0, atol=BF16_DW_OF_MAX * w.abs().max().item(),
+                                   msg=name)
+
+
+# the train shape (resident, 2 rows a block on a 132-SM H100), ragged
+# shapes, S=1, and the streaming variant at H=512 and 256
+@pytest.mark.parametrize(
+    "B,T,H,S",
+    [(128, 90, 128, 2), (5, 90, 16, 2), (13, 7, 128, 1), (140, 9, 36, 1), (9, 33, 512, 2),
+     (11, 9, 256, 1)],
+)
+def test_bf16_gru_bwd_kernel_matches_plain(cuda, B, T, H, S):
+    args = _bf16_bwd_inputs(np.random.default_rng(B * 3 + H), B, T, H, S, cuda)
+    got = fg.gru_recurrence_backward(*args)
+    want = fg.gru_recurrence_backward_plain(*args)
+    torch.cuda.synchronize()
+    _check_gru_bwd_bf16(got, want)
+    again = fg.gru_recurrence_backward(*args)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("B,T,H,S", [(37, 25, 128, 2), (13, 11, 40, 1)])
+def test_bf16_gru_bwd_kernel_is_bitwise_equal_for_every_rows(cuda, B, T, H, S):
+    args = _bf16_bwd_inputs(np.random.default_rng(B + 5 * T), B, T, H, S, cuda)
+    assert fg.bwd_plan(B, T, H, S, _n_sm(cuda))["variant"] == "resident"
+    want = fg._gru_bwd_kernel(*args, rows=1)
+    for rows in fg.BWD_ROWS[1:]:
+        got = fg._gru_bwd_kernel(*args, rows=rows)
+        for name, g, w in zip(("dxp", "dw_hh", "db_hh"), got, want):
+            assert torch.equal(g, w), (rows, name)
+    _check_gru_bwd_bf16(want, fg.gru_recurrence_backward_plain(*args))
+
+
+@pytest.mark.parametrize("B,T,H", [(128, 90, 128), (512, 90, 128), (5, 90, 16), (11, 40, 12),
+                                   (1, 1, 4), (9, 33, 512)])
+def test_bf16_lingru_bwd_kernel_matches_plain(cuda, B, T, H):
+    p, _, dy = _lin_inputs(np.random.default_rng(B * 9 + H), B, T, H, cuda)
+    p, dy = _bf16(p, dy)
+    h = fl.lingru_scan_plain(p)
+    got = fl.lingru_scan_backward(p, h, dy)
+    want = fl.lingru_scan_backward_plain(p, h, dy)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, T, 4 * H)
+    assert beyond_one_bf16_ulp(got, want) <= BF16_BWD_OF_MAX
+    assert torch.equal(fl.lingru_scan_backward(p, h, dy), got)
+
+
+def test_bf16_bwd_kernels_count_launches_apart_from_f32(cuda, monkeypatch):
+    for wrapper in (fg.gru_recurrence_backward, fl.lingru_scan_backward):
+        monkeypatch.setattr(wrapper, "launches", 0)
+        monkeypatch.setattr(wrapper, "launches_bf16", 0)
+    fg.gru_recurrence_backward(*_bf16_bwd_inputs(np.random.default_rng(0), 3, 5, 8, 2, cuda))
+    p, _, dy = _bf16(*_lin_inputs(np.random.default_rng(1), 3, 5, 8, cuda))
+    strided = torch.cat([dy, dy], dim=-1)[..., : dy.shape[-1]]
+    fl.lingru_scan_backward(p, fl.lingru_scan_plain(p), strided)
+    assert (fg.gru_recurrence_backward.launches, fg.gru_recurrence_backward.launches_bf16) == (0, 1)
+    assert (fl.lingru_scan_backward.launches, fl.lingru_scan_backward.launches_bf16) == (0, 1)
+
+
+#: a bf16 train step through the kernels against the same step through the
+#: plain recurrences (on the card) or on the CPU: every gradient is rounded
+#: to bf16 once (2^-8 relative), and a rounding of dxp that lands an ulp
+#: apart in one layer carries to the layers below, so each gradient is held
+#: to a share of its largest entry; the CPU also rounds the front end's
+#: bf16 GEMMs apart from cuBLAS
+BF16_STEP_OF_MAX = 1e-2
+BF16_STEP_CPU_OF_MAX = 2e-2
+
+
+@pytest.mark.parametrize("kind", ["gru", "lingru"])
+def test_bf16_train_step_on_card_matches_plain_and_cpu(cuda, kind, monkeypatch):
+    counted = fg.gru_recurrence_backward if kind == "gru" else fl.lingru_scan_backward
+    monkeypatch.setattr(counted, "launches_bf16", 0)
+    cfg = ModelConfig(kind=kind, hidden_size=32, num_layers=2, dropout=0.0,
+                      compute_dtype="bfloat16")
+    model = RokoModel(cfg).train()
+    plain = fg.gru_recurrence_plain if kind == "gru" else fl.lingru_scan_plain
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.integers(0, 12, (6, 200, 90), dtype=np.uint8))
+    y = torch.from_numpy(rng.integers(0, 5, (6, 90)).astype(np.int32))
+    w = torch.tensor([1, 1, 1, 1, 0, 0], dtype=torch.float32)
+
+    def grads(recurrence, device):
+        model.to(device).zero_grad(set_to_none=True)
+        loss, _, _ = loss_and_stats(model(x.to(device), recurrence), y.to(device), w.to(device))
+        loss.backward()
+        # clones: moving the model moves the gradients it holds
+        return loss.item(), {n: p.grad.cpu().clone() for n, p in model.named_parameters()}
+
+    loss_c, cpu = grads(None, "cpu")
+    loss_k, got = grads(None, cuda)
+    loss_p, want = grads(plain, cuda)
+    assert counted.launches_bf16 == cfg.num_layers
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p) and abs(loss_k - loss_c) <= 1e-3
+    for name, g in got.items():
+        assert g.dtype == torch.float32 and bool(g.abs().sum() > 0), name
+        top = want[name].abs().max().item()
+        torch.testing.assert_close(g, want[name], rtol=0, atol=BF16_STEP_OF_MAX * top, msg=name)
+        torch.testing.assert_close(g, cpu[name], rtol=0, atol=BF16_STEP_CPU_OF_MAX * top,
+                                   msg=name)

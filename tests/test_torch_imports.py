@@ -119,3 +119,25 @@ def _imports(path: Path):
 def test_no_jax_import_statements(path):
     bad = [name for name in _imports(path) if _is_jax_side(name)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_kernel_has_its_source_dtype_and_counter():
+    """The eight kernels of ``kernels.KERNELS``, each with its source in
+    ``csrc/`` and its dtype, and every wrapper's launch counters (a bf16
+    kernel counts on ``launches_bf16`` beside its f32 sibling's
+    ``launches``)."""
+    import torch
+
+    from roko_tpu_torch import kernels
+    from roko_tpu_torch.models import fused_gru as fg
+    from roko_tpu_torch.models import fused_lingru as fl
+
+    names = {f"{k}_{d}{b}" for k in ("gru", "lingru") for d in ("fwd", "bwd") for b in ("", "_bf16")}
+    assert set(kernels.KERNELS) == names
+    for name, (source, entry, _) in kernels.KERNELS.items():
+        assert (PORT / source).is_file() and entry == f"roko_{name}", name
+        want = torch.bfloat16 if name.endswith("_bf16") else torch.float32
+        assert kernels.DTYPES[name] == want, name
+    for wrapper in (fg.gru_recurrence, fg.gru_recurrence_backward, fl.lingru_scan,
+                    fl.lingru_scan_backward):
+        assert isinstance(wrapper.launches, int) and isinstance(wrapper.launches_bf16, int)

@@ -47,6 +47,7 @@ from roko_tpu_torch.config import (
     COMPUTE_DTYPES,
     QUANTIZE_MODES,
     ModelConfig,
+    TrainConfig,
     default_compute_dtype,
 )
 from roko_tpu_torch.infer import use_float32_matmuls
@@ -55,7 +56,8 @@ from roko_tpu_torch.models import fused_lingru as fl
 from roko_tpu_torch.models import quant
 from roko_tpu_torch.models.convert import jax_from_state_dict, state_dict_from_jax
 from roko_tpu_torch.models.model import RokoModel
-from roko_tpu_torch.training.loop import train
+from roko_tpu_torch.training.data import InMemoryDataset
+from roko_tpu_torch.training.loop import check_trainable, train
 from tests.test_torch_polish import SMALL, project  # noqa: F401  (module fixture)
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -178,24 +180,53 @@ def test_cli_refuses_unknown_precision(flag, capsys):
 
 @pytest.mark.parametrize("field,value,message", [
     ("quantize", "int8", "inference-only conversion"),
-    ("compute_dtype", "bfloat16", "bfloat16 backward kernels"),
+    # bf16 trains since its backward kernels were ported; the id is the
+    # one this case had while train refused bf16
+    pytest.param("compute_dtype", "bfloat16", None,
+                 id="compute_dtype-bfloat16-bfloat16 backward kernels"),
 ])
 def test_train_refuses_int8_and_bf16(tmp_path, capsys, field, value, message):
+    """``train`` refuses int8 with the reference's message, on the command
+    line (rc 2) and as a function, before it touches the output directory;
+    bf16 passes the command line's check and trains."""
     flag = ["--" + field.replace("_", "-"), value]
+    argv = ["train", str(tmp_path / "x.hdf5"), str(tmp_path / "out"), *flag, *SMALL]
+    cfg = _port_cfg("gru", **{field: value})
+    if message is None:
+        parser = cli.build_parser()
+        assert cli._model_config(parser.parse_args(argv)).compute_dtype == "bfloat16"
+        check_trainable(cfg)
+        X = _windows(8)
+        result = train(InMemoryDataset(X, (X.sum(axis=1) % 5).astype(np.int32)),
+                       str(tmp_path / "out"), model_cfg=cfg,
+                       train_cfg=TrainConfig(batch_size=4, epochs=1), device="cpu",
+                       log=lambda s: None)
+        assert result.step == 2 and np.isfinite(result.history[0]["train_loss"])
+        assert (tmp_path / "out" / "latest").is_dir()
+        return
     with pytest.raises(SystemExit) as exc:
-        cli.main(["train", str(tmp_path / "x.hdf5"), str(tmp_path / "out"), *flag, *SMALL])
+        cli.main(argv)
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
-    cfg = _port_cfg("gru", **{field: value})
     with pytest.raises(ValueError, match=message):
         train(str(tmp_path / "x.hdf5"), str(tmp_path / "out"), model_cfg=cfg, device="cpu")
     assert not (tmp_path / "out").exists()
 
 
 def test_model_in_training_mode_refuses_bf16():
+    """Training mode refuses an int8 model (an inference-only conversion)
+    and runs a bf16 one: float32 logits, and float32 gradients on every
+    parameter."""
+    x = torch.from_numpy(_windows(1))
     model = RokoModel(_port_cfg("gru", compute_dtype="bfloat16")).train()
-    with pytest.raises(ValueError, match="training runs in float32"):
-        model(torch.from_numpy(_windows(1)))
+    logits = model(x)
+    assert logits.dtype == torch.float32 and logits.shape == (1, 90, 5)
+    logits.sum().backward()
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in model.parameters())
+    int8 = quant.maybe_quantize(RokoModel(_port_cfg("gru", quantize="int8"))).train()
+    with pytest.raises(ValueError, match="inference-only conversion"):
+        int8(x)
 
 
 def test_matmul_policy_turns_off_bf16_reduced_reduction(monkeypatch):

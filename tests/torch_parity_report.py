@@ -8,7 +8,10 @@ short run of ``test_torch_train_loop.py``, and for ``kind="lingru"`` the
 layer, stack, gradient, scan-loop and logit cases of
 ``test_torch_lingru.py``, its train steps and its FASTA, and the
 precision modes of ``test_torch_precision.py`` (bf16 logits against the
-reference's bf16 Pallas route, int8 logits). Run from the repo root:
+reference's bf16 Pallas route, int8 logits) and the bf16 training of
+``test_torch_bf16_train.py`` (per tensor, each layer's and each train
+step's gradients against the reference's bf16 Pallas-route gradients,
+beside that route's distance from its f32 ones). Run from the repo root:
 
     JAX_PLATFORMS=cpu python -m tests.torch_parity_report
 """
@@ -35,6 +38,7 @@ import roko_tpu.models.pallas_lingru as pli  # noqa: E402
 from roko_tpu.models import lingru as jlin  # noqa: E402
 from roko_tpu_torch.models import fused_lingru as fl  # noqa: E402
 from tests import (  # noqa: E402
+    test_torch_bf16_train,
     test_torch_cli,
     test_torch_gru,
     test_torch_gru_bwd,
@@ -260,12 +264,39 @@ def _precision_rows():
     return rows
 
 
+def _bf16_train_rows():
+    """bf16 training (``test_torch_bf16_train.py``): for one layer and one
+    train step of each kind, each tensor's max |delta| from the
+    reference's bf16 Pallas route, that route's distance from its f32
+    gradient, and whether the reference sums it in bf16 (a bias of a
+    projection, held otherwise: see that file)."""
+    t = test_torch_bf16_train
+    rows = {}
+    for kind in t.KINDS:
+        got, want, f32 = t.layer_gradients(kind)
+        rows[f"{kind}_layer"] = {
+            path: {"vs_bf16_route": _max(got[path], want[path]),
+                   "route_vs_f32": _max(want[path], f32[path]),
+                   "summed_in_bf16_by_reference": t.summed_in_bf16(kind, path)}
+            for path in want}
+        (loss, got), (want_loss, want), (f32_loss, f32) = t.step_gradients(kind)
+        rows[f"{kind}_train_step"] = {
+            "loss": {"vs_bf16_route": abs(loss - want_loss),
+                     "route_vs_f32": abs(want_loss - f32_loss)},
+            **{path: {"vs_bf16_route": _max(got[path], want[path]),
+                      "route_vs_f32": _max(want[path], f32[path]),
+                      "summed_in_bf16_by_reference": t.summed_in_bf16(kind, path)}
+               for path in want}}
+    return rows
+
+
 def main():
     print(json.dumps({"gru": _gru_rows(), "model": _logit_rows(), "cli": _fasta_row(),
                       "gru_grads": _grad_rows(), "train_step": _step_rows(),
                       "short_run": _short_run_row(),
                       "lingru": _lingru_rows(), "lingru_model": _lingru_logit_rows(),
                       "lingru_cli": _lingru_fasta_row(), "precision": _precision_rows(),
+                      "bf16_train": _bf16_train_rows(),
                       "torch": torch.__version__, "jax": jax.__version__}, indent=1))
 
 

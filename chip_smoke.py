@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --fwd-only ROOT   # gru_fwd alone, from ROOT's port
     python3 chip_smoke.py --bwd-only ROOT   # gru_bwd alone, from ROOT's port
+    python3 chip_smoke.py --fwd-bf16-only ROOT   # gru_fwd_bf16 alone, from ROOT's port
     python3 chip_smoke.py --lingru-only ROOT   # both lingru scans, from ROOT's port
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
@@ -142,6 +143,9 @@ KERNEL_KINDS = ("lingru_fwd_bf16", "lingru_bwd_bf16", "lingru_fwd", "lingru_bwd"
 # bf16 ulp apart and carry on), at the inference rungs
 BF16_ATOL = 1e-2
 BF16_GRU_BATCHES = (32, 128, 512)
+# gru_fwd_bf16 forced to every rows a block on the first rows of its
+# inputs: a batch that no rows a block divides
+BF16_RAGGED_B = 37
 BF16_LIN_BATCHES = (128, 512)
 # the bf16 backward kernels vs their plain bf16 loops, at the train shape
 # and a ragged one. dxp and dp: each within one bf16 ulp of the larger of
@@ -999,8 +1003,9 @@ def check_bf16_kernel(torch, fg, fl, kind: str, B: int, dev, rng, *, timed: bool
     """``gru_fwd_bf16`` (``kind`` "gru": T=90, H=128, both directions) or
     ``lingru_fwd_bf16`` ("lingru": T=90, H=128) at batch ``B`` against its
     plain bf16 loop on the same bf16 inputs: max |d|, the share of outputs
-    bit-equal to the plain loop's, two launches bitwise equal; fails above
-    BF16_ATOL. With ``timed``, the bf16 kernel's time beside the f32
+    bit-equal to the plain loop's, two launches bitwise equal, and for gru
+    the kernel bitwise equal at every rows a block on the first
+    BF16_RAGGED_B rows; fails above BF16_ATOL. With ``timed``, the bf16 kernel's time beside the f32
     kernel's on the same inputs before their rounding to bf16 (CUDA events,
     and for the scans device time from a trace, as their f32 rows take
     it), the plain loop's, cuDNN's bf16 GRU forward (gru) and the bound."""
@@ -1036,6 +1041,15 @@ def check_bf16_kernel(torch, fg, fl, kind: str, B: int, dev, rng, *, timed: bool
     row = {"shape": shape, "max_abs_err": err, "atol": BF16_ATOL,
            "bit_equal_share": (got == want).float().mean().item(), "bitwise_repeatable": True,
            **plan}
+    if kind == "gru":
+        ragged = tuple(a[:BF16_RAGGED_B].contiguous() if i == 0 else a
+                       for i, a in enumerate(args))
+        first = fg._gru_fwd_kernel(*ragged, rows=fg.RESIDENT_ROWS[0])
+        for rows in fg.RESIDENT_ROWS[1:]:
+            if not torch.equal(fg._gru_fwd_kernel(*ragged, rows=rows), first):
+                fail(f"{name} at {rows} rows a block differs from {fg.RESIDENT_ROWS[0]} row "
+                     f"at B={BF16_RAGGED_B}")
+        row["bitwise_equal_across_rows"] = {"B": BF16_RAGGED_B, "rows": list(fg.RESIDENT_ROWS)}
     if not timed:
         return row
     row["output_sha256"] = hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
@@ -1266,23 +1280,33 @@ def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, d
     for label, rec in paths.items():
         base = preds[label.split("_")[0] + "_float32"]
         rec["argmax_agreement_with_float32"] = (preds[label] == base).float().mean().item()
+    # where the device time of bf16 gru inference goes (a second, traced run)
+    bf16_model = runs[1][1]
+    breakdown_bf16 = device_breakdown(
+        torch, lambda: port.run_inference(iter(batches), {contig: draft}, bf16_model, device=dev,
+                                          log=lambda s: None))
 
     # the polish project streamed in bf16: byte-equal to its staged stitch
-    bf16_model = runs[1][1]
     stream = stream_and_compare(torch, port, bf16_model, dev, counts, polish, "gru_fwd_bf16")
     stream.pop("_run")
     work = os.path.dirname(polish["_stream_inputs"]["paths"]["draft_fasta"])
     f32_seq = port.read_fasta(os.path.join(work, "staged_gru.fasta"))[0][1]
     bf16_seq = port.read_fasta(os.path.join(work, "stream_gru_bfloat16.fasta"))[0][1]
     diff = port.assess_fastas({contig: f32_seq.encode()}, {contig: bf16_seq.encode()}).contigs[0]
+    same_len = len(f32_seq) == len(bf16_seq)
     stream["vs_float32_fasta"] = {
         "float32_len": len(f32_seq), "bfloat16_len": len(bf16_seq),
         "identical": f32_seq == bf16_seq, "sub": diff.sub, "ins": diff.ins, "dele": diff.dele,
         "bases_differing": diff.sub + diff.ins + diff.dele,
-        "from": "assess_fastas with the f32 staged FASTA as the truth"}
+        "from": "assess_fastas with the f32 staged FASTA as the truth",
+        # beside the aligner: the bases that differ at the same index, when
+        # both contigs have one length
+        "positions_differing": int(np.count_nonzero(
+            np.frombuffer(f32_seq.encode(), np.uint8) != np.frombuffer(bf16_seq.encode(), np.uint8)
+        )) if same_len else None}
     record = {
         "inference": paths, "windows": sum(len(b[0]) for b in batches),
-        "stream_polish_bfloat16": stream, "card": card,
+        "breakdown_bf16": breakdown_bf16, "stream_polish_bfloat16": stream, "card": card,
     }
     by_path = {
         "gru_fwd": {"inference_int8": paths["gru_int8"]["gru_fwd_launches"]},
@@ -1412,14 +1436,17 @@ def card_line() -> str:
 
 
 def one_kernel(torch, flag: str, root: str) -> None:
-    """Only gru_bwd (``--bwd-only``), only gru_fwd (``--fwd-only``) or only
-    the lingru scans (``--lingru-only``), from the port package under
-    ``root`` (this tree's or an unpacked copy of another commit's): built,
-    checked against the plain loops and timed, gru_bwd at the train shape
-    split by sub-kernel, gru_fwd and both lingru scans at the inference
-    and the train batch (the scans also at every steps and stages of their
-    plan). Two trees compare within one call as parent, change, change,
-    parent."""
+    """Only gru_bwd (``--bwd-only``), only gru_fwd (``--fwd-only``), only
+    gru_fwd_bf16 (``--fwd-bf16-only``) or only the lingru scans
+    (``--lingru-only``), from the port package under ``root`` (this tree's
+    or an unpacked copy of another commit's): built, checked against the
+    plain loops and timed, gru_bwd at the train shape split by sub-kernel,
+    gru_fwd and both lingru scans at the inference and the train batch
+    (the scans also at every steps and stages of their plan),
+    gru_fwd_bf16 at the inference rungs (B = 32, 128, 512) as the
+    precision phase checks it; each with nvcc's ptxas report (registers and
+    spill bytes of every kernel function). Two trees compare within one call as parent, change,
+    change, parent."""
     sys.path.insert(0, os.path.abspath(root))
     try:
         from roko_tpu_torch import kernels
@@ -1431,11 +1458,16 @@ def one_kernel(torch, flag: str, root: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    name = flag[2:-5]
+    name = flag[2:-5].replace("-", "_")
     names = ["lingru_fwd", "lingru_bwd"] if name == "lingru" else [f"gru_{name}"]
     built = kernels.build(names)
     dev, rng = torch.device("cuda", 0), np.random.default_rng(SEED)
-    if name == "bwd":
+    if name == "fwd_bf16":
+        # the precision phase's stream, so the rows match its own
+        bf16_rng = np.random.default_rng(SEED + 4)
+        result = {"rows": [check_bf16_kernel(torch, fg, fl, "gru", B, dev, bf16_rng, timed=True)
+                           for B in BF16_GRU_BATCHES]}
+    elif name == "bwd":
         result = check_bwd_kernel(torch, fg, TRAIN_SHAPE, dev, rng, timed=True)
     elif name == "fwd":
         result = {"rows": [check_kernel(torch, fg, s, dev, rng, timed=True)
@@ -1454,11 +1486,12 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    if sys.argv[1:2] in (["--bwd-only"], ["--fwd-only"], ["--lingru-only"]) and len(sys.argv) == 3:
+    modes = (["--bwd-only"], ["--fwd-only"], ["--fwd-bf16-only"], ["--lingru-only"])
+    if sys.argv[1:2] in modes and len(sys.argv) == 3:
         return one_kernel(torch, sys.argv[1], sys.argv[2])
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
-             "[--bwd-only ROOT | --fwd-only ROOT | --lingru-only ROOT]")
+             "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --lingru-only ROOT]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import constants as C

@@ -67,6 +67,14 @@ RESIDENT_ROWS = (1, 2, 4, 8)
 BWD_ROWS = RESIDENT_ROWS
 #: batch rows a block of the streaming recurrences takes (STREAM_ROWS)
 _STREAM_ROWS = 8
+#: gru_fwd_bf16's resident variant (csrc/gru_fwd_bf16.cu): the batch rows
+#: of its mma tile (TILE_N, the most rows a block), the steps of xp in its
+#: shared-memory ring (XP_STAGES), and the bf16 a row of the ring and of
+#: the h buffer (XS, HS), laid out for the widest H
+_MMA_ROWS = 8
+_XP_STAGES = 8
+_BF16_XS = 3 * RESIDENT_MAX_HIDDEN + 8
+_BF16_HS = RESIDENT_MAX_HIDDEN + 8
 
 
 def _shapes(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
@@ -196,16 +204,23 @@ def fwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = No
     at these shapes on a card with ``n_sm`` SMs: the variant, batch rows a
     block (``rows`` forces one of :data:`RESIDENT_ROWS` on the resident
     variant), blocks, threads a block and dynamic shared-memory bytes a
-    block. A resident block holds W_hh[s] with rows of 3H elements and 16
-    bytes of padding and the double-buffered h (resident_smem_bytes in
-    csrc/gru_fwd.cu, smem_bytes in csrc/gru_fwd_bf16.cu), and from 4 rows
-    up runs two thread groups of half the rows each (resident_groups); a
-    streaming block holds the double-buffered h alone."""
+    block. gru_fwd's resident block holds W_hh[s] with rows of 3H floats
+    and 16 bytes of padding and the double-buffered h (resident_smem_bytes
+    in csrc/gru_fwd.cu), and from 4 rows up runs two thread groups of half
+    the rows each (resident_groups). gru_fwd_bf16's resident block holds
+    W_hh[s] in registers, a warp for each 16 units, and in shared memory
+    the xp ring [XP_STAGES][rows][3 * 128 + 8] and the double-buffered h of
+    the 8-row mma tile [2][8][128 + 8], laid out for the widest H whatever
+    H is (resident_smem_bytes in csrc/gru_fwd_bf16.cu). A streaming block
+    holds the double-buffered h alone."""
     variant, rows = _variant_rows("gru_fwd", B, H, S, n_sm, rows)
     size = torch.finfo(dtype).bits // 8
     smem = size * 2 * rows * H
     threads = -(-H // 32) * 32
-    if variant == "resident":
+    if variant == "resident" and dtype == torch.bfloat16:
+        threads = 32 * -(-H // 16)
+        smem = 2 * (_XP_STAGES * rows * _BF16_XS + 2 * _MMA_ROWS * _BF16_HS)
+    elif variant == "resident":
         smem += size * H * 3 * H + H * _W_PAD_BYTES
         threads *= 2 if rows >= 4 else 1
     return dict(variant=variant, rows=rows, blocks=S * -(-B // rows),
@@ -225,6 +240,8 @@ def _gru_fwd_kernel(
     _check_cuda(name, H, xp=xp, w_hh=w_hh, b_hh=b_hh)
     if w_hh.data_ptr() % 16:
         raise ValueError(f"{name} reads w_hh in vectors; its storage is not 16-byte aligned")
+    if bf16 and xp.data_ptr() % 8:
+        raise ValueError(f"{name} copies xp in 8-byte granules; its storage is not 8-byte aligned")
     out = torch.empty(B, T, S * H, device=xp.device, dtype=xp.dtype)
     if B == 0 or T == 0:
         return out
@@ -267,7 +284,8 @@ bwd_rows = resident_rows
 
 def recurrence_variant(H: int) -> str:
     """The recurrence kernels' variant for hidden size ``H``, gru_fwd's and
-    gru_bwd's alike: ``"resident"`` (W_hh in shared memory) up to
+    gru_bwd's alike: ``"resident"`` (W_hh held on chip, in shared memory,
+    or in registers in gru_fwd_bf16) up to
     :data:`RESIDENT_MAX_HIDDEN`, ``"streaming"`` (W_hh from L2 every step)
     above. A function of the shape, not a fallback."""
     return "resident" if H <= RESIDENT_MAX_HIDDEN else "streaming"

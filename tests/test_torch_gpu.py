@@ -420,11 +420,13 @@ def _bf16(*tensors):
 
 
 # the inference rungs (rows 1, 2, 8 a block), ragged shapes, S=1, and H=512
-# (the streaming variant)
+# (the streaming variant); H=20 masks units inside a 16-unit tile, H=48 is
+# three whole tiles, B=1 and 9 mask columns of the 8-row tile
 @pytest.mark.parametrize(
     "B,T,H,S",
     [(32, 90, 128, 2), (128, 90, 128, 2), (512, 90, 128, 2), (5, 90, 16, 2), (13, 7, 128, 1),
-     (1, 1, 4, 2), (9, 33, 512, 2)],
+     (1, 1, 4, 2), (9, 33, 512, 2), (1, 90, 20, 2), (9, 33, 20, 1), (1, 40, 48, 1),
+     (9, 90, 48, 2)],
 )
 def test_bf16_gru_kernel_matches_plain(cuda, B, T, H, S):
     xp, w, b = _bf16(*_inputs(np.random.default_rng(B + 2 * H), B, T, H, S, cuda))
@@ -436,13 +438,24 @@ def test_bf16_gru_kernel_matches_plain(cuda, B, T, H, S):
     assert torch.equal(fg.gru_recurrence(xp, w, b), got)
 
 
-@pytest.mark.parametrize("B,T,H,S", [(37, 25, 128, 2), (13, 11, 40, 1)])
+@pytest.mark.parametrize("B,T,H,S", [(37, 25, 128, 2), (13, 11, 40, 1), (9, 33, 20, 2),
+                                     (9, 25, 48, 1), (1, 40, 48, 2)])
 def test_bf16_gru_kernel_is_bitwise_equal_for_every_rows(cuda, B, T, H, S):
     xp, w, b = _bf16(*_inputs(np.random.default_rng(B * 7 + T), B, T, H, S, cuda))
     assert fg.fwd_plan(B, T, H, S, _n_sm(cuda), dtype=torch.bfloat16)["variant"] == "resident"
     want = fg._gru_fwd_kernel(xp, w, b, rows=1)
     for rows in fg.RESIDENT_ROWS[1:]:
         assert torch.equal(fg._gru_fwd_kernel(xp, w, b, rows=rows), want), rows
+
+
+def test_bf16_gru_kernel_rejects_a_misaligned_xp(cuda):
+    """gru_fwd_bf16 stages xp by 8-byte asynchronous copies: an xp whose
+    storage starts 2 bytes off raises, and is not copied to an aligned one."""
+    xp, w, b = _bf16(*_inputs(np.random.default_rng(6), 3, 5, 8, 2, cuda))
+    shifted = torch.empty(xp.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(xp.shape)
+    shifted.copy_(xp)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        fg.gru_recurrence(shifted, w, b)
 
 
 @pytest.mark.parametrize("B,T,H", [(128, 90, 128), (512, 90, 128), (5, 90, 16), (11, 40, 12),

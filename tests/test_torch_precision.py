@@ -496,12 +496,36 @@ def test_kernel_dtypes_and_bf16_plans():
         kernels.check_inputs("gru_fwd_bf16", xp=xp)
     with pytest.raises(ValueError, match="gru_fwd takes float32; xp is torch.bfloat16"):
         kernels.check_inputs("gru_fwd", xp=xp.to(torch.bfloat16))
-    # W_hh[s] as bf16 rows of 3H + 8 and the bf16 double-buffered h
+    # gru_fwd_bf16: W_hh[s] in registers, a warp for each 16 units; in shared
+    # memory the 8-step xp ring of rows of 3H + 8 and the double-buffered h
+    # of the 8-row mma tile, rows of 128 + 8
     f32 = fg.fwd_plan(512, 90, 128, 2, 132)
     bf16 = fg.fwd_plan(512, 90, 128, 2, 132, dtype=torch.bfloat16)
     assert (f32["rows"], f32["smem_bytes"]) == (8, 4 * (128 * 388 + 2 * 8 * 128))
-    assert (bf16["rows"], bf16["blocks"]) == (8, 128)
-    assert bf16["smem_bytes"] == 2 * (128 * 392 + 2 * 8 * 128)
+    assert (bf16["rows"], bf16["blocks"], bf16["threads"]) == (8, 128, 256)
+    assert bf16["smem_bytes"] == 2 * (8 * 8 * 392 + 2 * 8 * 136) == 54_528
+    at_128 = fg.fwd_plan(128, 90, 128, 2, 132, dtype=torch.bfloat16)
+    assert (at_128["rows"], at_128["blocks"], at_128["threads"]) == (2, 128, 256)
+    assert at_128["smem_bytes"] == 2 * (8 * 2 * 392 + 2 * 8 * 136)
     assert fg.fwd_plan(9, 33, 512, 2, 132, dtype=torch.bfloat16)["variant"] == "streaming"
     plan = fl.scan_plan(512, 90, 128, 132, "fwd", variant="streaming")
     assert (plan["blocks"], plan["threads"]) == (1024, 128)  # lingru_fwd_bf16's launch
+
+
+@pytest.mark.parametrize("rows", fg.RESIDENT_ROWS)
+@pytest.mark.parametrize("H", [4, 12, 16, 40, 128])
+def test_bf16_fwd_plan_at_every_rows(H, rows):
+    """gru_fwd_bf16's resident launch: a warp for each 16 units (at most 8),
+    shared memory for the xp ring and the h tile well within an H100
+    block's 227 KB, and the unforced plan one wave of blocks at the
+    inference and the train batch."""
+    plan = fg.fwd_plan(512, 90, H, 2, 132, rows=rows, dtype=torch.bfloat16)
+    assert plan["variant"] == "resident" and plan["rows"] == rows
+    assert plan["threads"] == 32 * -(-H // 16) <= 256
+    # laid out for the widest H whatever H is: ring rows of 3 x 128 + 8,
+    # h rows of 128 + 8
+    assert plan["smem_bytes"] == 2 * (8 * rows * 392 + 2 * 8 * 136) <= 232_448
+    for B in (512, 128):
+        unforced = fg.fwd_plan(B, 90, H, 2, 132, dtype=torch.bfloat16)
+        assert unforced["blocks"] <= 132
+        assert unforced["threads"] == plan["threads"]

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --bwd-only ROOT   # gru_bwd alone, from ROOT's port
     python3 chip_smoke.py --fwd-bf16-only ROOT   # gru_fwd_bf16 alone, from ROOT's port
     python3 chip_smoke.py --lingru-only ROOT   # both lingru scans, from ROOT's port
+    python3 chip_smoke.py --lingru-bf16-only ROOT   # both bf16 lingru scans, from ROOT's port
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
 nvcc per source, started together), holds each kernel against its plain
@@ -33,7 +34,8 @@ for ``kind="gru"`` and once for ``kind="lingru"``:
   (native aligner) on the sim draft against its truth;
 - precision: the bfloat16 kernels (``gru_fwd_bf16``, ``lingru_fwd_bf16``,
   ``gru_bwd_bf16``, ``lingru_bwd_bf16``) held against their plain bf16
-  versions and timed beside the f32 ones (and cuDNN's bf16 GRU); inference
+  versions and timed beside the f32 ones (and cuDNN's bf16 GRU), the bf16
+  scans staged at full width and bitwise equal at every plan; inference
   of the synthetic windows in bf16 (gru and lingru) and in int8 with f32
   compute (gru), each beside f32 in windows/s and argmax agreement; and
   the polish project streamed in bf16, its FASTA byte-equal to the bf16
@@ -59,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import importlib.util
+import inspect
 import json
 import math
 import os
@@ -465,15 +468,28 @@ def check_bwd_kernel(torch, fg, shape, dev, rng, *, timed: bool):
     return row
 
 
-def lingru_plan(torch, fl, kernel: str, shape, dev) -> dict:
-    """How lingru_``kernel`` (``"fwd"`` or ``"bwd"``) launches at ``shape``
-    on this card (``fl.scan_plan``); empty for a tree whose kernel has no
-    plan (one streaming variant)."""
+def bf16_scan_plans(fl) -> bool:
+    """Whether the tree's bf16 lingru scans have a plan (staged or
+    streaming); before, their one design launched as the f32 streaming
+    variant does."""
+    return "dtype" in inspect.signature(fl.scan_plan).parameters
+
+
+def lingru_plan(torch, fl, kernel: str, shape, dev, dtype=None) -> dict:
+    """How lingru_``kernel`` (``"fwd"`` or ``"bwd"``; its bf16 kernel for
+    ``dtype`` bfloat16) launches at ``shape`` on this card
+    (``fl.scan_plan``); empty for a tree whose kernel has no plan (one
+    streaming variant)."""
     if kernel not in getattr(fl, "SCAN_DEFAULT", {}):
         return {}
     B, T, H = (shape[k] for k in ("B", "T", "H"))
-    plan = fl.scan_plan(B, T, H, torch.cuda.get_device_properties(dev).multi_processor_count,
-                        kernel)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if dtype is None:
+        plan = fl.scan_plan(B, T, H, n_sm, kernel)
+    elif bf16_scan_plans(fl):
+        plan = fl.scan_plan(B, T, H, n_sm, kernel, dtype=dtype)
+    else:
+        plan = fl.scan_plan(B, T, H, n_sm, kernel, variant="streaming")
     return {"variant": plan["variant"], "steps_per_stage": plan["steps"],
             "stages": plan["stages"], "blocks": plan["blocks"],
             "threads_per_block": plan["threads"], "smem_bytes_per_block": plan["smem_bytes"],
@@ -552,6 +568,33 @@ def check_lingru(torch, fl, kernel: str, shape, dev, rng, *, timed: bool, sweep:
     return row
 
 
+def lingru_bf16_plans(torch, fl, kernel: str, args, got, row, shape, *, sweep: bool) -> dict:
+    """For a staged bf16 scan: ``lingru_{kernel}_bf16`` bitwise equal to
+    ``got`` at every (steps, stages) of the bf16 ``fl.scan_choices`` and
+    as its streaming variant; with ``sweep``, the device time of each of
+    those launches. Empty where the tree's bf16 scans have no plan or
+    ``row`` streams."""
+    if row.get("variant") != "staged" or not bf16_scan_plans(fl):
+        return {}
+    forced = getattr(fl, f"_lingru_{kernel}_bf16_kernel")
+    plans = fl.scan_choices(kernel, shape["H"], torch.bfloat16)
+    for n, m in plans:
+        if not torch.equal(got, forced(*args, steps=n, stages=m)):
+            fail(f"lingru_{kernel}_bf16 at {n} steps x {m} stages differs from "
+                 f"{row['steps_per_stage']} x {row['stages']} at {shape}")
+    if not torch.equal(got, forced(*args, variant="streaming")):
+        fail(f"lingru_{kernel}_bf16's staged and streaming variants differ at {shape}")
+    out = {"bitwise_equal_across_plans": plans, "bitwise_equal_to_streaming": True}
+    if sweep:
+        parts = (("scan", f"lingru_{kernel}_bf16"),)
+        out["ms_by_plan"] = {f"{n}x{m}": kernel_split(
+            torch, lambda: forced(*args, steps=n, stages=m), 20, parts).get("scan")
+            for n, m in plans}
+        out["ms_streaming"] = kernel_split(
+            torch, lambda: forced(*args, variant="streaming"), 20, parts).get("scan")
+    return out
+
+
 def device_breakdown(torch, run):
     """Run ``run()`` under torch.profiler and sum the card's kernel time by
     kernel name and by kind; the busy share is the union of kernel
@@ -565,7 +608,7 @@ def device_breakdown(torch, run):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_name, by_kind = [], {}, {}
+    spans, by_name, by_kind, port = [], {}, {}, {}
     for e in prof.events():
         # user annotations (the optimizer's step range) span kernels
         # already counted: kernels and copies only
@@ -579,7 +622,10 @@ def device_breakdown(torch, run):
             by_name[key] = (total + ms, n + 1)
             low = e.name.lower()
             kind = next((k for k in KERNEL_KINDS if k in low), None)
-            if kind is None:
+            if kind is not None:
+                total, n = port.get(key, (0.0, 0))
+                port[key] = (total + ms, n + 1)
+            else:
                 kind = ("gemm" if "gemm" in low
                         else "memcpy" if low.startswith("memcpy") else "other")
             total, n = by_kind.get(kind, (0.0, 0))
@@ -602,7 +648,18 @@ def device_breakdown(torch, run):
         "busy_share_of_span": busy / span_us,
         "kinds_ms_calls": {k: [ms, n] for k, (ms, n) in by_kind.items()},
         "kernels_ms_calls": {name: [ms, n] for name, (ms, n) in top},
+        "port_kernels_ms_calls": {name: [ms, n] for name, (ms, n) in port.items()},
     }
+
+
+def ran_staged(what: str, breakdown: dict, kinds) -> None:
+    """Fails unless the traced ``breakdown`` holds a kernel of each of
+    ``kinds`` and every one of them is a staged one."""
+    names = breakdown.get("port_kernels_ms_calls", {})
+    for kind in kinds:
+        ran = [n for n in names if next((k for k in KERNEL_KINDS if k in n.lower()), None) == kind]
+        if not ran or not all("staged" in n for n in ran):
+            fail(f"{what}: {kind} ran {ran or 'no kernel in the trace'}, not the staged kernel")
 
 
 def step_parity(torch, port, dev, ds, cfg, kernel, plain, rtol=STEP_RTOL,
@@ -999,16 +1056,21 @@ def drive_stream_polish(torch, port, model, dev, counts, card, polish, rng):
     }
 
 
-def check_bf16_kernel(torch, fg, fl, kind: str, B: int, dev, rng, *, timed: bool) -> dict:
+def check_bf16_kernel(torch, fg, fl, kind: str, B: int, dev, rng, *, timed: bool,
+                      sweep: bool = False) -> dict:
     """``gru_fwd_bf16`` (``kind`` "gru": T=90, H=128, both directions) or
     ``lingru_fwd_bf16`` ("lingru": T=90, H=128) at batch ``B`` against its
     plain bf16 loop on the same bf16 inputs: max |d|, the share of outputs
-    bit-equal to the plain loop's, two launches bitwise equal, and for gru
-    the kernel bitwise equal at every rows a block on the first
-    BF16_RAGGED_B rows; fails above BF16_ATOL. With ``timed``, the bf16 kernel's time beside the f32
-    kernel's on the same inputs before their rounding to bf16 (CUDA events,
-    and for the scans device time from a trace, as their f32 rows take
-    it), the plain loop's, cuDNN's bf16 GRU forward (gru) and the bound."""
+    bit-equal to the plain loop's, two launches bitwise equal, the launch
+    plan that ran, for gru the kernel bitwise equal at every rows a block
+    on the first BF16_RAGGED_B rows, and for a staged lingru scan the
+    kernel bitwise equal at every bf16 (steps, stages) and to its
+    streaming variant; fails above BF16_ATOL. With ``timed``, the bf16
+    kernel's time beside the f32 kernel's on the same inputs before their
+    rounding to bf16 (CUDA events, and for the scans device time from a
+    trace, as their f32 rows take it), the plain loop's, cuDNN's bf16 GRU
+    forward (gru) and the bound; with ``sweep`` (lingru), the device time
+    of every (steps, stages) and of the streaming variant."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     if kind == "gru":
         shape = dict(MAIN_SHAPE, B=B)
@@ -1022,10 +1084,7 @@ def check_bf16_kernel(torch, fg, fl, kind: str, B: int, dev, rng, *, timed: bool
         shape = dict(LIN_INFER_SHAPE, B=B)
         args32, run, plain = (lingru_inputs(torch, "fwd", fl, shape, dev, rng), fl.lingru_scan,
                               fl.lingru_scan_plain)
-        # the bf16 scan has the one design, laid out as the f32 streaming one
-        plan = fl.scan_plan(B, shape["T"], shape["H"], n_sm, "fwd", variant="streaming")
-        plan = {"variant": plan["variant"], "blocks": plan["blocks"],
-                "threads_per_block": plan["threads"]}
+        plan = lingru_plan(torch, fl, "fwd", shape, dev, torch.bfloat16)
     args = tuple(a.to(torch.bfloat16) for a in args32)
     got = run(*args)
     want = plain(*args)
@@ -1050,6 +1109,9 @@ def check_bf16_kernel(torch, fg, fl, kind: str, B: int, dev, rng, *, timed: bool
                 fail(f"{name} at {rows} rows a block differs from {fg.RESIDENT_ROWS[0]} row "
                      f"at B={BF16_RAGGED_B}")
         row["bitwise_equal_across_rows"] = {"B": BF16_RAGGED_B, "rows": list(fg.RESIDENT_ROWS)}
+    else:
+        row.update(lingru_bf16_plans(torch, fl, "fwd", args, got, row, shape,
+                                     sweep=timed and sweep))
     if not timed:
         return row
     row["output_sha256"] = hashlib.sha256(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
@@ -1099,18 +1161,22 @@ def bf16_ulps(torch, got, want):
     return (d / ulp).max().item(), excess.max().item(), (d <= ulp).float().mean().item()
 
 
-def check_bf16_bwd_kernel(torch, fg, fl, kind: str, shape, dev, rng, *, timed: bool) -> dict:
+def check_bf16_bwd_kernel(torch, fg, fl, kind: str, shape, dev, rng, *, timed: bool,
+                          sweep: bool = False) -> dict:
     """``gru_bwd_bf16`` (``kind`` "gru") or ``lingru_bwd_bf16`` ("lingru")
     at ``shape`` against its plain bf16 loop on the same bf16 inputs (the
     f32 inputs of the f32 kernel's check, rounded): dxp or dp within one
     bf16 ulp plus BF16_BWD_OF_MAX of the largest entry, dW_hh and db_hh
     within BF16_DW_OF_MAX of theirs, the share of dxp or dp bit-equal to
-    the plain loop's and within one ulp, two
-    launches bitwise equal, and (gru, resident) bitwise equal at every rows
-    a block. With ``timed``, the kernel's time beside ``gru_bwd`` or
-    ``lingru_bwd`` on the f32 inputs (CUDA events for gru, device time in a
-    trace for lingru, as their f32 rows take it), the plain loop's,
-    cuDNN's bf16 GRU backward (gru) and the bound."""
+    the plain loop's and within one ulp, two launches bitwise equal, the
+    launch plan that ran, (gru, resident) bitwise equal at every rows a
+    block, and (lingru, staged) bitwise equal at every bf16 (steps,
+    stages) and to the streaming variant. With ``timed``, the kernel's
+    time beside ``gru_bwd`` or ``lingru_bwd`` on the f32 inputs (CUDA
+    events for gru, device time in a trace for lingru, as their f32 rows
+    take it), the plain loop's, cuDNN's bf16 GRU backward (gru) and the
+    bound; with ``sweep`` (lingru), the device time of every (steps,
+    stages) and of the streaming variant."""
     name = f"{kind}_bwd_bf16"
     if kind == "gru":
         x, t, xp, w_hh, b_hh = layer_inputs(torch, shape, dev, rng)
@@ -1125,11 +1191,7 @@ def check_bf16_bwd_kernel(torch, fg, fl, kind: str, shape, dev, rng, *, timed: b
         B, T, H = (shape[k] for k in ("B", "T", "H"))
         args32 = lingru_inputs(torch, "bwd", fl, shape, dev, rng)
         run, plain = fl.lingru_scan_backward, fl.lingru_scan_backward_plain
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        # the bf16 scan has the one design, laid out as the f32 streaming one
-        plan = fl.scan_plan(B, T, H, n_sm, "bwd", variant="streaming")
-        plan = {"variant": plan["variant"], "blocks": plan["blocks"],
-                "threads_per_block": plan["threads"]}
+        plan = lingru_plan(torch, fl, "bwd", shape, dev, torch.bfloat16)
     args = tuple(a.to(torch.bfloat16) for a in args32)
     got = run(*args)
     want = plain(*args)
@@ -1163,6 +1225,9 @@ def check_bf16_bwd_kernel(torch, fg, fl, kind: str, shape, dev, rng, *, timed: b
                 fail(f"{name} at {rows} rows a block differs from {row['rows_per_block']} "
                      f"rows at {shape}")
         row["bitwise_equal_across_rows"] = list(fg.BWD_ROWS)
+    if kind == "lingru":
+        row.update(lingru_bf16_plans(torch, fl, "bwd", args, got[0], row, shape,
+                                     sweep=timed and sweep))
     if not timed:
         return row
     row["output_sha256"] = hashlib.sha256(
@@ -1235,6 +1300,14 @@ def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, d
         check_bf16_bwd_kernel(torch, fg, fl, "lingru", shape, dev, bwd_rng, timed=i == 0)
         for i, shape in enumerate(BF16_LIN_BWD_SHAPES)]
 
+    for kernel, checked in (("lingru_fwd_bf16", rows["lingru_fwd_bf16"]),
+                            ("lingru_bwd_bf16", rows["lingru_bwd_bf16"][:1])):
+        for row in checked:
+            traced = row.get("ms_by_kernel", {}).get("kernel_names", {}).get("scan", [])
+            if row.get("variant") != "staged" or not traced or not all(
+                    "staged" in n for n in traced):
+                fail(f"{kernel} at {row['shape']} ran {row.get('variant')} ({traced}), not the "
+                     "staged kernel")
     emit({"precision_kernel_check": {**rows, "card": card}})
 
     def variant(model, **changes):
@@ -1286,6 +1359,13 @@ def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, d
         torch, lambda: port.run_inference(iter(batches), {contig: draft}, bf16_model, device=dev,
                                           log=lambda s: None))
 
+    # the bf16 lingru path traced: its scans are the staged kernels
+    lin_bf16_model = runs[4][1]
+    breakdown_lingru_bf16 = device_breakdown(
+        torch, lambda: port.run_inference(iter(batches), {contig: draft}, lin_bf16_model,
+                                          device=dev, log=lambda s: None))
+    ran_staged("the lingru_bfloat16 inference path", breakdown_lingru_bf16, ("lingru_fwd_bf16",))
+
     # the polish project streamed in bf16: byte-equal to its staged stitch
     stream = stream_and_compare(torch, port, bf16_model, dev, counts, polish, "gru_fwd_bf16")
     stream.pop("_run")
@@ -1306,7 +1386,8 @@ def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, d
         )) if same_len else None}
     record = {
         "inference": paths, "windows": sum(len(b[0]) for b in batches),
-        "breakdown_bf16": breakdown_bf16, "stream_polish_bfloat16": stream, "card": card,
+        "breakdown_bf16": breakdown_bf16, "breakdown_lingru_bf16": breakdown_lingru_bf16,
+        "stream_polish_bfloat16": stream, "card": card,
     }
     by_path = {
         "gru_fwd": {"inference_int8": paths["gru_int8"]["gru_fwd_launches"]},
@@ -1437,15 +1518,19 @@ def card_line() -> str:
 
 def one_kernel(torch, flag: str, root: str) -> None:
     """Only gru_bwd (``--bwd-only``), only gru_fwd (``--fwd-only``), only
-    gru_fwd_bf16 (``--fwd-bf16-only``) or only the lingru scans
-    (``--lingru-only``), from the port package under ``root`` (this tree's
-    or an unpacked copy of another commit's): built, checked against the
-    plain loops and timed, gru_bwd at the train shape split by sub-kernel,
-    gru_fwd and both lingru scans at the inference and the train batch
-    (the scans also at every steps and stages of their plan),
+    gru_fwd_bf16 (``--fwd-bf16-only``), only the lingru scans
+    (``--lingru-only``) or only the bf16 lingru scans
+    (``--lingru-bf16-only``), from the port package under ``root`` (this
+    tree's or an unpacked copy of another commit's): built, checked against
+    the plain loops and timed, gru_bwd at the train shape split by
+    sub-kernel, gru_fwd and both lingru scans at the inference and the
+    train batch (the scans also at every steps and stages of their plan),
     gru_fwd_bf16 at the inference rungs (B = 32, 128, 512) as the
-    precision phase checks it; each with nvcc's ptxas report (registers and
-    spill bytes of every kernel function). Two trees compare within one call as parent, change,
+    precision phase checks it, the bf16 lingru scans as the precision
+    phase checks them at B = 512 and 128 (the backward at 128 first), beside
+    the f32 scans on the same inputs and at every bf16 steps and stages;
+    each with nvcc's ptxas report (registers and spill bytes of every
+    kernel function). Two trees compare within one call as parent, change,
     change, parent."""
     sys.path.insert(0, os.path.abspath(root))
     try:
@@ -1459,10 +1544,23 @@ def one_kernel(torch, flag: str, root: str) -> None:
     card = card_line()
     print(card, flush=True)
     name = flag[2:-5].replace("-", "_")
-    names = ["lingru_fwd", "lingru_bwd"] if name == "lingru" else [f"gru_{name}"]
+    names = {"lingru": ["lingru_fwd", "lingru_bwd"],
+             "lingru_bf16": ["lingru_fwd_bf16", "lingru_bwd_bf16", "lingru_fwd", "lingru_bwd"],
+             }.get(name, [f"gru_{name}"])
     built = kernels.build(names)
     dev, rng = torch.device("cuda", 0), np.random.default_rng(SEED)
-    if name == "fwd_bf16":
+    if name == "lingru_bf16":
+        # the precision phase's bars and timing, on streams of their own
+        fwd_rng, bwd_rng = np.random.default_rng(SEED + 4), np.random.default_rng(SEED + 5)
+        result = {
+            "lingru_fwd_bf16": [
+                check_bf16_kernel(torch, fg, fl, "lingru", B, dev, fwd_rng, timed=True, sweep=True)
+                for B in BF16_LIN_BATCHES[::-1]],
+            "lingru_bwd_bf16": [
+                check_bf16_bwd_kernel(torch, fg, fl, "lingru", s, dev, bwd_rng, timed=True,
+                                      sweep=True)
+                for s in (LIN_TRAIN_SHAPE, LIN_INFER_SHAPE)]}
+    elif name == "fwd_bf16":
         # the precision phase's stream, so the rows match its own
         bf16_rng = np.random.default_rng(SEED + 4)
         result = {"rows": [check_bf16_kernel(torch, fg, fl, "gru", B, dev, bf16_rng, timed=True)
@@ -1486,12 +1584,14 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    modes = (["--bwd-only"], ["--fwd-only"], ["--fwd-bf16-only"], ["--lingru-only"])
+    modes = (["--bwd-only"], ["--fwd-only"], ["--fwd-bf16-only"], ["--lingru-only"],
+             ["--lingru-bf16-only"])
     if sys.argv[1:2] in modes and len(sys.argv) == 3:
         return one_kernel(torch, sys.argv[1], sys.argv[2])
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
-             "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --lingru-only ROOT]")
+             "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --lingru-only ROOT "
+             "| --lingru-bf16-only ROOT]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import constants as C
@@ -1696,8 +1796,10 @@ def main() -> None:
         "lingru_bwd_bf16", "chip_smoke_train_lingru_bf16")
     emit({"lingru_train_bf16": {**lin_train_bf16, "float32": bf16_beside(lin_train),
                                 "card": card}})
-    emit({"lingru_train_breakdown_bf16": {
-        **train_breakdown(torch, port, lin_result_bf16, corpus, tcfg, dev), "card": card}})
+    lin_breakdown_bf16 = train_breakdown(torch, port, lin_result_bf16, corpus, tcfg, dev)
+    ran_staged("the lingru bf16 train steps", lin_breakdown_bf16,
+               ("lingru_fwd_bf16", "lingru_bwd_bf16"))
+    emit({"lingru_train_breakdown_bf16": {**lin_breakdown_bf16, "card": card}})
 
     def timing(row):
         return {

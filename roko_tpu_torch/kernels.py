@@ -62,7 +62,7 @@ KERNELS = {
     "lingru_fwd_bf16": (
         "csrc/lingru_fwd_bf16.cu",
         "roko_lingru_fwd_bf16",
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     ),
     "gru_bwd_bf16": (
         "csrc/gru_bwd_bf16.cu",
@@ -72,7 +72,7 @@ KERNELS = {
     "lingru_bwd_bf16": (
         "csrc/lingru_bwd_bf16.cu",
         "roko_lingru_bwd_bf16",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     ),
 }
 

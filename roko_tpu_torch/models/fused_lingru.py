@@ -30,12 +30,13 @@ sides the same arrays: per direction ``w_zx`` and ``w_cx`` [in, H],
 The input's dtype is the compute dtype. In bfloat16 the projection runs
 in bf16 and the scan reads bf16, computes in f32 and writes bf16, as the
 Pallas kernel does with a bf16 input (:44-45, :99); on a card it launches
-``csrc/lingru_fwd_bf16.cu``, whose one variant is the streaming one. Its
-gradient reads p, h and dy in bf16, runs the gates and the e-scan in f32
-and stores dp in bf16 (``_bwd_kernel`` :121-168, ``dp_ref.dtype``); on a
-card it launches ``csrc/lingru_bwd_bf16.cu``, again the streaming design.
+``csrc/lingru_fwd_bf16.cu``. Its gradient reads p, h and dy in bf16, runs
+the gates and the e-scan in f32 and stores dp in bf16 (``_bwd_kernel``
+:121-168, ``dp_ref.dtype``); on a card it launches
+``csrc/lingru_bwd_bf16.cu``. Both have the f32 kernels' two variants,
+staged or streaming by :func:`scan_plan` with ``dtype=torch.bfloat16``.
 A bf16 tensor on a card goes to a bf16 kernel or raises: never to a
-float32 one.
+float32 one, nor to the plain loop.
 """
 
 from __future__ import annotations
@@ -133,45 +134,72 @@ SCAN_TILE = 128
 #: steps a time tile and slots of the ring the staged kernels take
 SCAN_STEPS = (4, 8, 16)
 SCAN_STAGES = (2, 3, 4, 6)
-#: (steps, stages) of each staged kernel unless told otherwise
+#: (steps, stages) of each staged kernel unless told otherwise: the f32
+#: kernels' and the bf16 kernels'. The bf16 ones are the fastest of their
+#: sweep on an H100 at T=90, H=128, B=128 and 512 (chip_smoke.py
+#: --lingru-bf16-only): time falls with steps a tile (a tile's barrier and
+#: copies are a fixed cost) and barely moves with stages, so the shallower
+#: ring of the two best
 SCAN_DEFAULT = {"fwd": (16, 3), "bwd": (8, 3)}
+SCAN_DEFAULT_BF16 = {"fwd": (16, 2), "bwd": (16, 2)}
 #: rows of the tile's width a step takes in the ring and in each of the
 #: two gate buffers: forward p_z, p_c and (1 - z, z c); backward p_z, p_c,
 #: h_{t-1}, dy and (z, c, h_{t-1}, dy)
 _SCAN_ROWS = {"fwd": (2, 2), "bwd": (4, 4)}
-_GATE_GROUPS = 3  # gate threads per chain thread (GATE_GROUPS in csrc/)
+#: by dtype, what the staged kernels' layout takes (csrc/lingru_*.cu): bytes
+#: of a ring element (gate buffers hold f32), the multiple of H whose bf16
+#: or f32 runs are 16-byte copies, gate threads per chain thread, and the
+#: registers a thread their launch bounds allow
+_STAGED = {
+    torch.float32: dict(ring_bytes=4, h_multiple=4, gate_groups=3, max_regs=64),
+    torch.bfloat16: dict(ring_bytes=2, h_multiple=8, gate_groups=2, max_regs=56),
+}
 _STREAM_THREADS = 128  # threads a block of the streaming kernels
 _BLOCK_SMEM = 232448  # shared memory one block may take on an H100, bytes
 _SM_SMEM = 233472  # shared memory of an H100 SM, bytes
 _BLOCK_RESERVED = 1024  # shared memory the card keeps for each block
-_MAX_REGS = 64  # registers a thread of the staged kernels (launch bounds)
+
+
+def _staged_layout(dtype: torch.dtype) -> dict:
+    if dtype not in _STAGED:
+        raise ValueError(f"the lingru scan kernels take float32 or bfloat16, not {dtype}")
+    return _STAGED[dtype]
+
+
+def _smem_bytes(kernel: str, steps: int, stages: int, tile: int, dtype: torch.dtype) -> int:
+    ring_rows, gate_rows = _SCAN_ROWS[kernel]
+    ring_bytes = _staged_layout(dtype)["ring_bytes"]
+    return steps * tile * (ring_bytes * stages * ring_rows + 4 * 2 * gate_rows)
 
 
 def scan_plan(
     B: int, T: int, H: int, n_sm: int, kernel: str, *,
     aligned: bool = True, variant: Optional[str] = None,
     steps: Optional[int] = None, stages: Optional[int] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> dict:
-    """How ``lingru_{kernel}`` launches at these shapes on a card with
-    ``n_sm`` SMs: the variant, steps a time tile and slots of the ring
-    (0 and 0 when streaming), blocks, threads a block, dynamic
-    shared-memory bytes a block, and the waves of blocks the card runs
-    them in (blocks resident on an SM by threads, registers and shared
-    memory).
+    """How ``lingru_{kernel}`` (``lingru_{kernel}_bf16`` for ``dtype``
+    bfloat16) launches at these shapes on a card with ``n_sm`` SMs: the
+    variant, steps a time tile and slots of the ring (0 and 0 when
+    streaming), blocks, threads a block, dynamic shared-memory bytes a
+    block, and the waves of blocks the card runs them in (blocks resident
+    on an SM by threads, registers and shared memory).
 
     ``"staged"`` (time tiles copied into a ring in shared memory, a chain
-    thread and three gate threads a channel) takes H a multiple of 4 and
-    16-byte-aligned tensors (``aligned``), which the bulk copies need, and
-    at least one tile's steps; ``"streaming"`` takes the rest.
-    ``variant``, ``steps`` and ``stages`` force a choice, as the bitwise
-    checks across choices do; :func:`scan_choices` lists them.
-    ``lingru_fwd_bf16`` launches as the streaming variant does."""
+    thread and gate threads a channel) takes 16-byte bulk copies of a
+    step's runs: H a multiple of 4 in float32, of 8 in bfloat16, and
+    16-byte-aligned tensors (``aligned``), and at least one tile's steps;
+    ``"streaming"`` takes the rest. The ring holds the input's dtype, the
+    gate buffers f32. ``variant``, ``steps`` and ``stages`` force a
+    choice, as the bitwise checks across choices do; :func:`scan_choices`
+    lists them."""
     if kernel not in _SCAN_ROWS:
         raise ValueError(f"no staged lingru_{kernel} kernel")
-    stageable = H % 4 == 0 and aligned
+    layout = _staged_layout(dtype)
+    default = (SCAN_DEFAULT_BF16 if dtype == torch.bfloat16 else SCAN_DEFAULT)[kernel]
+    stageable = H % layout["h_multiple"] == 0 and aligned
     if variant is None:
-        variant = ("staged" if stageable and T >= (steps or SCAN_DEFAULT[kernel][0])
-                   else "streaming")
+        variant = "staged" if stageable and T >= (steps or default[0]) else "streaming"
     if variant == "streaming":
         if steps or stages:
             raise ValueError("the streaming lingru kernels take no steps or stages")
@@ -182,33 +210,32 @@ def scan_plan(
     if variant != "staged":
         raise ValueError(f"lingru variants are staged and streaming, not {variant!r}")
     if not stageable:
-        raise ValueError("the staged lingru kernels take H % 4 == 0 and 16-byte-aligned "
-                         f"tensors (H = {H}, aligned = {aligned})")
-    steps = steps or SCAN_DEFAULT[kernel][0]
-    stages = stages or SCAN_DEFAULT[kernel][1]
+        raise ValueError(f"the staged {str(dtype)[6:]} lingru kernels take "
+                         f"H % {layout['h_multiple']} == 0 and 16-byte-aligned tensors "
+                         f"(H = {H}, aligned = {aligned})")
+    steps = steps or default[0]
+    stages = stages or default[1]
     if steps not in SCAN_STEPS or stages not in SCAN_STAGES:
         raise ValueError(f"the staged lingru kernels take steps in {SCAN_STEPS} and stages "
                          f"in {SCAN_STAGES}, not {steps} and {stages}")
     tile = min(H, SCAN_TILE)
-    threads = (1 + _GATE_GROUPS) * -(-tile // 32) * 32
-    ring_rows, gate_rows = _SCAN_ROWS[kernel]
-    smem = 4 * steps * tile * (stages * ring_rows + 2 * gate_rows)
+    threads = (1 + layout["gate_groups"]) * -(-tile // 32) * 32
+    smem = _smem_bytes(kernel, steps, stages, tile, dtype)
     if smem > _BLOCK_SMEM:
         raise ValueError(f"{steps} steps x {stages} stages of lingru_{kernel} take {smem} bytes "
                          f"of shared memory a block, more than {_BLOCK_SMEM}")
     blocks = B * 2 * -(-H // SCAN_TILE)
-    per_sm = min(2048 // threads, 32, 65536 // (threads * _MAX_REGS),
+    per_sm = min(2048 // threads, 32, 65536 // (threads * layout["max_regs"]),
                  _SM_SMEM // (smem + _BLOCK_RESERVED))
     return dict(variant=variant, steps=steps, stages=stages, blocks=blocks, threads=threads,
                 smem_bytes=smem, waves=-(-blocks // (n_sm * per_sm)))
 
 
-def scan_choices(kernel: str, H: int) -> list:
-    """Every (steps, stages) the staged ``lingru_{kernel}`` takes at hidden
-    size ``H`` (those whose block fits in shared memory)."""
-    rows = _SCAN_ROWS[kernel]
+def scan_choices(kernel: str, H: int, dtype: torch.dtype = torch.float32) -> list:
+    """Every (steps, stages) the staged ``lingru_{kernel}`` (in ``dtype``)
+    takes at hidden size ``H`` (those whose block fits in shared memory)."""
     return [(n, m) for n in SCAN_STEPS for m in SCAN_STAGES
-            if 4 * n * min(H, SCAN_TILE) * (m * rows[0] + 2 * rows[1]) <= _BLOCK_SMEM]
+            if _smem_bytes(kernel, n, m, min(H, SCAN_TILE), dtype) <= _BLOCK_SMEM]
 
 
 def aligned(*tensors: torch.Tensor) -> bool:
@@ -222,21 +249,22 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _lingru_fwd_bf16_kernel(p: torch.Tensor) -> torch.Tensor:
-    """Launch ``lingru_fwd_bf16`` (or raise). Counts on
-    ``lingru_scan.launches_bf16``."""
-    H = _hidden(p)
-    kernels.check_inputs("lingru_fwd_bf16", p=p)
-    B, T = p.shape[:2]
-    out = torch.empty(B, T, 2 * H, device=p.device, dtype=torch.bfloat16)
-    if B == 0 or T == 0:
-        return out
-    lib = kernels.library("lingru_fwd_bf16")
+def _launch_scan(kernel: str, args, out: torch.Tensor, **forced) -> None:
+    """Launch ``lingru_{kernel}`` on ``args`` into ``out``, the bf16 kernel
+    for a bf16 ``out``, as :func:`scan_plan` lays it out (``forced``:
+    ``variant``, ``steps``, ``stages``), or raise."""
+    name = f"lingru_{kernel}" + ("_bf16" if out.dtype == torch.bfloat16 else "")
+    p = args[0]
+    (B, T), H = p.shape[:2], p.shape[2] // 4
+    plan = scan_plan(B, T, H, _sm_count(p.device), kernel, aligned=aligned(*args, out),
+                     dtype=out.dtype, **forced)
+    lib = kernels.library(name)
+    entry = getattr(lib, kernels.KERNELS[name][1])
     with torch.cuda.device(p.device):
-        code = lib.roko_lingru_fwd_bf16(p.data_ptr(), out.data_ptr(), B, T, H, kernels.stream(p))
-    kernels.check(lib, "lingru_fwd_bf16", code)
-    lingru_scan.launches_bf16 += 1
-    return out
+        code = entry(*(t.data_ptr() for t in (*args, out)), B, T, H, plan["steps"],
+                     plan["stages"], kernels.stream(p))
+    kernels.check(lib, "{} ({variant}, {steps} steps x {stages} stages)".format(name, **plan),
+                  code)
 
 
 def _lingru_fwd_kernel(
@@ -252,15 +280,26 @@ def _lingru_fwd_kernel(
     out = torch.empty(B, T, 2 * H, device=p.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return out
-    plan = scan_plan(B, T, H, _sm_count(p.device), "fwd", aligned=aligned(p, out),
-                     variant=variant, steps=steps, stages=stages)
-    lib = kernels.library("lingru_fwd")
-    with torch.cuda.device(p.device):
-        code = lib.roko_lingru_fwd(p.data_ptr(), out.data_ptr(), B, T, H,
-                                   plan["steps"], plan["stages"], kernels.stream(p))
-    kernels.check(lib, "lingru_fwd ({variant}, {steps} steps x {stages} stages)".format(**plan),
-                  code)
+    _launch_scan("fwd", (p,), out, variant=variant, steps=steps, stages=stages)
     lingru_scan.launches += 1
+    return out
+
+
+def _lingru_fwd_bf16_kernel(
+    p: torch.Tensor, *,
+    variant: Optional[str] = None, steps: Optional[int] = None, stages: Optional[int] = None,
+) -> torch.Tensor:
+    """Launch ``lingru_fwd_bf16`` (or raise) as :func:`scan_plan` lays it
+    out for bfloat16; ``variant``, ``steps`` and ``stages`` force its
+    choice. Counts on ``lingru_scan.launches_bf16``."""
+    H = _hidden(p)
+    kernels.check_inputs("lingru_fwd_bf16", p=p)
+    B, T = p.shape[:2]
+    out = torch.empty(B, T, 2 * H, device=p.device, dtype=torch.bfloat16)
+    if B == 0 or T == 0:
+        return out
+    _launch_scan("fwd", (p,), out, variant=variant, steps=steps, stages=stages)
+    lingru_scan.launches_bf16 += 1
     return out
 
 
@@ -271,40 +310,29 @@ def _lingru_bwd_kernel(
     """Launch ``lingru_bwd`` (or raise) as :func:`scan_plan` lays it out;
     ``variant``, ``steps`` and ``stages`` force its choice. Counts on
     ``lingru_scan_backward.launches``."""
-    H = _hidden(p)
-    B, T = p.shape[:2]
+    _hidden(p)
     kernels.check_inputs("lingru_bwd", p=p, h=h, dy=dy)
     dp = torch.empty_like(p)
-    if B == 0 or T == 0:
+    if p.shape[0] == 0 or p.shape[1] == 0:
         return dp
-    plan = scan_plan(B, T, H, _sm_count(p.device), "bwd", aligned=aligned(p, h, dy, dp),
-                     variant=variant, steps=steps, stages=stages)
-    lib = kernels.library("lingru_bwd")
-    with torch.cuda.device(p.device):
-        code = lib.roko_lingru_bwd(
-            p.data_ptr(), h.data_ptr(), dy.data_ptr(), dp.data_ptr(), B, T, H,
-            plan["steps"], plan["stages"], kernels.stream(p),
-        )
-    kernels.check(lib, "lingru_bwd ({variant}, {steps} steps x {stages} stages)".format(**plan),
-                  code)
+    _launch_scan("bwd", (p, h, dy), dp, variant=variant, steps=steps, stages=stages)
     lingru_scan_backward.launches += 1
     return dp
 
 
-def _lingru_bwd_bf16_kernel(p: torch.Tensor, h: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Launch ``lingru_bwd_bf16`` (or raise). Counts on
-    ``lingru_scan_backward.launches_bf16``."""
-    H = _hidden(p)
-    B, T = p.shape[:2]
+def _lingru_bwd_bf16_kernel(
+    p: torch.Tensor, h: torch.Tensor, dy: torch.Tensor, *,
+    variant: Optional[str] = None, steps: Optional[int] = None, stages: Optional[int] = None,
+) -> torch.Tensor:
+    """Launch ``lingru_bwd_bf16`` (or raise) as :func:`scan_plan` lays it
+    out for bfloat16; ``variant``, ``steps`` and ``stages`` force its
+    choice. Counts on ``lingru_scan_backward.launches_bf16``."""
+    _hidden(p)
     kernels.check_inputs("lingru_bwd_bf16", p=p, h=h, dy=dy)
     dp = torch.empty_like(p)
-    if B == 0 or T == 0:
+    if p.shape[0] == 0 or p.shape[1] == 0:
         return dp
-    lib = kernels.library("lingru_bwd_bf16")
-    with torch.cuda.device(p.device):
-        code = lib.roko_lingru_bwd_bf16(p.data_ptr(), h.data_ptr(), dy.data_ptr(),
-                                        dp.data_ptr(), B, T, H, kernels.stream(p))
-    kernels.check(lib, "lingru_bwd_bf16", code)
+    _launch_scan("bwd", (p, h, dy), dp, variant=variant, steps=steps, stages=stages)
     lingru_scan_backward.launches_bf16 += 1
     return dp
 

@@ -245,23 +245,41 @@ def test_lingru_fwd_is_bitwise_repeatable(cuda):
     assert torch.equal(fl.lingru_scan(p), fl.lingru_scan(p))
 
 
-# the full-width shapes, a ragged time tile (T=33, T=40), channel tiles
-# (H=512) and a narrow ring row (H=12)
+# the full-width shapes, a ragged time tile (T=33, T=40, T=37), channel
+# tiles (H=512) and narrow ring rows (H=12 in f32; H % 8 == 0 in bf16)
 @pytest.mark.parametrize("kernel", ["fwd", "bwd"])
-@pytest.mark.parametrize("B,T,H", [(512, 90, 128), (128, 90, 128), (9, 33, 512), (11, 40, 12)])
-def test_lingru_kernels_are_bitwise_equal_across_plans_and_to_streaming(cuda, kernel, B, T, H):
-    """Each channel's walk is one fixed sequence of f32 operations whatever
-    the ring's steps and stages, so a staged kernel gives the same bits at
-    every choice and as its streaming kernel."""
-    p, h, dy = _lin_inputs(np.random.default_rng(B + T + H), B, T, H, cuda)
+@pytest.mark.parametrize(
+    "dtype,B,T,H",
+    [(torch.float32, 512, 90, 128), (torch.float32, 128, 90, 128), (torch.float32, 9, 33, 512),
+     (torch.float32, 11, 40, 12), (torch.bfloat16, 512, 90, 128), (torch.bfloat16, 128, 90, 128),
+     (torch.bfloat16, 9, 33, 512), (torch.bfloat16, 11, 40, 16), (torch.bfloat16, 3, 37, 24)],
+)
+def test_lingru_kernels_are_bitwise_equal_across_plans_and_to_streaming(cuda, kernel, dtype,
+                                                                       B, T, H):
+    """Each channel's walk is one fixed sequence of f32 operations on the
+    same inputs (bf16 ones widened) whatever the ring's steps and stages,
+    so a staged kernel gives the same bits at every choice of its dtype
+    and as its streaming kernel."""
+    p, h, dy = (t.to(dtype) for t in _lin_inputs(np.random.default_rng(B + T + H), B, T, H,
+                                                  cuda))
+    if dtype == torch.bfloat16:
+        h = fl.lingru_scan_plain(p)  # the bf16 forward's output
     args = (p,) if kernel == "fwd" else (p, h, dy)
-    launch = fl._lingru_fwd_kernel if kernel == "fwd" else fl._lingru_bwd_kernel
-    assert fl.scan_plan(B, T, H, _n_sm(cuda), kernel)["variant"] == "staged"
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    launch = getattr(fl, f"_lingru_{kernel}{suffix}_kernel")
+    assert fl.scan_plan(B, T, H, _n_sm(cuda), kernel, dtype=dtype)["variant"] == "staged"
     want = launch(*args, variant="streaming")
-    for steps, stages in fl.scan_choices(kernel, H):
+    for steps, stages in fl.scan_choices(kernel, H, dtype):
         assert torch.equal(launch(*args, steps=steps, stages=stages), want), (steps, stages)
+    assert torch.equal(launch(*args), want)
     plain = fl.lingru_scan_plain(p) if kernel == "fwd" else fl.lingru_scan_backward_plain(*args)
-    torch.testing.assert_close(want, plain, atol=ATOL, rtol=RTOL)
+    assert want.dtype == plain.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(want, plain, atol=ATOL, rtol=RTOL)
+    elif kernel == "fwd":
+        torch.testing.assert_close(want.float(), plain.float(), atol=BF16_ATOL, rtol=0)
+    else:
+        assert beyond_one_bf16_ulp(want, plain) <= BF16_BWD_OF_MAX
 
 
 def test_lingru_kernels_stream_a_misaligned_input(cuda):
@@ -278,6 +296,27 @@ def test_lingru_kernels_stream_a_misaligned_input(cuda):
         fl._lingru_fwd_kernel(shifted(p), variant="staged")
     with pytest.raises(ValueError, match="aligned"):
         fl._lingru_bwd_kernel(p, h, shifted(dy), variant="staged")
+
+
+def test_bf16_lingru_kernels_stream_a_misaligned_input(cuda):
+    """A bf16 tensor whose storage starts 2 bytes off a 16-byte boundary
+    streams, with the same bits as the staged launch on aligned inputs;
+    forced to the staged variant it raises."""
+    p, _, dy = _bf16(*_lin_inputs(np.random.default_rng(47), 4, 20, 16, cuda))
+    h = fl.lingru_scan_plain(p)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)[1:].view_as(t).copy_(t)
+
+    assert not fl.aligned(shifted(dy))
+    assert fl.scan_plan(4, 20, 16, _n_sm(cuda), "fwd", dtype=torch.bfloat16)["variant"] == "staged"
+    assert torch.equal(fl.lingru_scan(shifted(p)), fl.lingru_scan(p))
+    assert torch.equal(fl.lingru_scan_backward(p, h, shifted(dy)),
+                       fl.lingru_scan_backward(p, h, dy))
+    with pytest.raises(ValueError, match="aligned"):
+        fl._lingru_fwd_bf16_kernel(shifted(p), variant="staged")
+    with pytest.raises(ValueError, match="aligned"):
+        fl._lingru_bwd_bf16_kernel(p, h, shifted(dy), variant="staged")
 
 
 def test_lingru_kernels_count_launches_and_take_strided_dy(cuda, monkeypatch):

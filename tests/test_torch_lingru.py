@@ -20,6 +20,7 @@ from roko_tpu import constants as JC
 from roko_tpu.config import ModelConfig as JaxModelConfig
 from roko_tpu.models import RokoModel as JaxRokoModel
 from roko_tpu.models import lingru as jlin
+from roko_tpu_torch import kernels
 from roko_tpu_torch.config import ModelConfig
 from roko_tpu_torch.models import fused_lingru as fl
 from roko_tpu_torch.models.convert import state_dict_from_jax
@@ -211,6 +212,45 @@ def test_scan_loops_match_run_fwd_and_run_bwd(budget, monkeypatch):
     np.testing.assert_allclose(dp, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
+def _beyond_one_bf16_ulp(got, want):
+    """The largest excess of |got - want| over one bf16 ulp of the larger
+    of each pair, as a share of want's largest entry."""
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(got), np.abs(want)).clip(1e-30))) - 7)
+    return float((np.abs(got - want) - ulp).clip(0).max() / np.abs(want).max())
+
+
+def test_bf16_scan_loops_match_run_fwd_and_run_bwd():
+    """The bf16 plain loops (the bf16 kernels' twins) against ``_run_fwd``
+    and ``_run_bwd`` in interpret mode on the same bf16 arrays, at a shape
+    the staged bf16 kernels take (H % 8 == 0) whose T is a multiple of no
+    time tile: h within the bf16 kernels' bar (1e-2), dp within one bf16
+    ulp of the larger value plus 1e-4 of its largest entry (the two scan
+    in f32 in other orders, and a rounding may land an ulp apart)."""
+    B, T, H, Bp = 3, 37, 16, 8
+    assert fl.scan_plan(B, T, H, H100_SMS, "fwd", dtype=torch.bfloat16)["variant"] == "staged"
+    assert fl.scan_plan(B, T, H, H100_SMS, "bwd", dtype=torch.bfloat16)["variant"] == "staged"
+    assert all(T % n for n in fl.SCAN_STEPS)
+    rng = np.random.default_rng(34)
+    p = torch.from_numpy(rng.standard_normal((B, T, 4 * H)).astype(np.float32)).bfloat16()
+    dy = torch.from_numpy(rng.standard_normal((B, T, 2 * H)).astype(np.float32)).bfloat16()
+    h = fl.lingru_scan_plain(p)
+    dp = fl.lingru_scan_backward_plain(p, h, dy)
+    assert h.dtype == dp.dtype == torch.bfloat16
+
+    def stacked(t, width):
+        return jnp.asarray(_tpu_stack(t.float().numpy().reshape(B, T, 2, width), Bp),
+                           jnp.bfloat16)
+
+    hs = pli._run_fwd(stacked(p, 2 * H), interpret=True)
+    assert hs.dtype == jnp.bfloat16
+    want_h = _tpu_unstack(np.asarray(hs, np.float32), B, Bp).reshape(B, T, 2 * H)
+    np.testing.assert_allclose(h.float().numpy(), want_h, atol=1e-2, rtol=0)
+    dps = pli._run_bwd(stacked(p, 2 * H), stacked(h, H), stacked(dy, H), interpret=True)
+    assert dps.dtype == jnp.bfloat16
+    want_dp = _tpu_unstack(np.asarray(dps, np.float32), B, Bp).reshape(B, T, 4 * H)
+    assert _beyond_one_bf16_ulp(dp.float().numpy(), want_dp) <= 1e-4
+
+
 def test_backward_plain_matches_autograd_of_forward_loop():
     rng = np.random.default_rng(31)
     p = torch.tensor(rng.standard_normal((3, 11, 4 * 5)), requires_grad=True)
@@ -325,6 +365,101 @@ def test_scan_plan_rejects_choices_it_cannot_run(kernel):
         fl.scan_plan(4, 90, 16, H100_SMS, kernel, variant="streaming", steps=8)
     with pytest.raises(ValueError, match="staged and streaming"):
         fl.scan_plan(4, 90, 16, H100_SMS, kernel, variant="resident")
+
+
+# the bf16 kernels: a ring of bf16 runs, gate buffers in f32, two gate
+# threads a chain thread (384 threads a block), at most 56 registers a
+# thread (3 blocks an SM)
+BF16 = torch.bfloat16
+BF16_THREADS = 3 * 128
+
+
+# blocks an SM: registers allow 3; the backward's 16-step gate buffers
+# (four f32 rows) leave shared memory for 2
+@pytest.mark.parametrize(
+    "kernel,B,blocks,waves",
+    [("fwd", 512, 1024, 3), ("fwd", 128, 256, 1), ("bwd", 512, 1024, 4), ("bwd", 128, 256, 1)],
+)
+def test_bf16_scan_plan_stages_the_full_width_shapes(kernel, B, blocks, waves):
+    """The bf16 paths' shapes (T=90, H=128, at the inference and the train
+    batch) run the staged bf16 kernels: one block per (row, direction)."""
+    plan = fl.scan_plan(B, 90, 128, H100_SMS, kernel, dtype=BF16)
+    steps, stages = fl.SCAN_DEFAULT_BF16[kernel]
+    assert plan["variant"] == "staged"
+    assert (plan["steps"], plan["stages"]) == (steps, stages)
+    assert (plan["blocks"], plan["threads"], plan["waves"]) == (blocks, BF16_THREADS, waves)
+    ring, gates = {"fwd": (2, 2), "bwd": (4, 4)}[kernel]
+    # ring slots of 2-byte elements, two gate buffers of 4-byte ones
+    assert plan["smem_bytes"] == steps * 128 * (2 * stages * ring + 4 * 2 * gates)
+
+
+@pytest.mark.parametrize("kernel", SCAN_KERNELS)
+@pytest.mark.parametrize(
+    "B,T,H,aligned",
+    [(5, 90, 12, True), (5, 90, 4, True), (5, 90, 20, True), (128, 90, 128, False),
+     (1, 1, 8, True), (3, 7, 16, True)],
+)
+def test_bf16_scan_plan_streams_what_the_copies_cannot_take(kernel, B, T, H, aligned):
+    """A bf16 run is a 16-byte copy only when H % 8 == 0 (H = 12, 4 and 20
+    stream, though H = 20 stages in f32) and the tensors are aligned;
+    fewer steps than one time tile leave nothing to stage."""
+    plan = fl.scan_plan(B, T, H, H100_SMS, kernel, aligned=aligned, dtype=BF16)
+    assert plan["variant"] == "streaming"
+    assert (plan["steps"], plan["stages"], plan["smem_bytes"]) == (0, 0, 0)
+    assert plan["blocks"] == -(-B * 2 * H // 128) and plan["threads"] == 128
+    if H == 20:
+        assert fl.scan_plan(B, T, H, H100_SMS, kernel)["variant"] == "staged"
+
+
+@pytest.mark.parametrize("kernel", SCAN_KERNELS)
+@pytest.mark.parametrize("H", [8, 16, 128, 200, 512])
+def test_bf16_scan_plan_fits_shared_memory_at_every_choice(kernel, H):
+    """Every bf16 choice fits one block's 227 KB, every other (steps,
+    stages) is refused, the default is among the choices, and a bf16 block
+    never takes more than the f32 one at the same choice."""
+    choices = fl.scan_choices(kernel, H, BF16)
+    assert fl.SCAN_DEFAULT_BF16[kernel] in choices
+    assert set(fl.scan_choices(kernel, H)) <= set(choices)
+    for steps in fl.SCAN_STEPS:
+        for stages in fl.SCAN_STAGES:
+            if (steps, stages) not in choices:
+                with pytest.raises(ValueError, match="more than"):
+                    fl.scan_plan(7, 90, H, H100_SMS, kernel, steps=steps, stages=stages,
+                                 dtype=BF16)
+                continue
+            plan = fl.scan_plan(7, 90, H, H100_SMS, kernel, steps=steps, stages=stages,
+                                dtype=BF16)
+            assert plan["variant"] == "staged"
+            assert 0 < plan["smem_bytes"] <= MAX_BLOCK_SMEM
+            assert plan["blocks"] == 7 * 2 * -(-H // fl.SCAN_TILE)
+            assert plan["threads"] == 3 * -(-min(H, fl.SCAN_TILE) // 32) * 32
+            if (steps, stages) in fl.scan_choices(kernel, H):
+                f32 = fl.scan_plan(7, 90, H, H100_SMS, kernel, steps=steps, stages=stages)
+                assert plan["smem_bytes"] < f32["smem_bytes"]
+
+
+@pytest.mark.parametrize("kernel", SCAN_KERNELS)
+def test_bf16_scan_plan_rejects_choices_it_cannot_run(kernel):
+    with pytest.raises(ValueError, match="H % 8"):
+        fl.scan_plan(4, 90, 12, H100_SMS, kernel, variant="staged", dtype=BF16)
+    with pytest.raises(ValueError, match="H % 8"):
+        fl.scan_plan(4, 90, 20, H100_SMS, kernel, variant="staged", dtype=BF16)
+    with pytest.raises(ValueError, match="aligned"):
+        fl.scan_plan(4, 90, 16, H100_SMS, kernel, variant="staged", aligned=False, dtype=BF16)
+    with pytest.raises(ValueError, match="steps in"):
+        fl.scan_plan(4, 90, 16, H100_SMS, kernel, steps=5, dtype=BF16)
+    with pytest.raises(ValueError, match="stages"):
+        fl.scan_plan(4, 90, 16, H100_SMS, kernel, stages=9, dtype=BF16)
+    with pytest.raises(ValueError, match="no steps"):
+        fl.scan_plan(4, 90, 16, H100_SMS, kernel, variant="streaming", steps=8, dtype=BF16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fl.scan_plan(4, 90, 16, H100_SMS, kernel, dtype=torch.float16)
+
+
+def test_bf16_scan_entries_take_a_plan():
+    """The bf16 scans' C entries take steps and stages as the f32 ones do."""
+    for kernel in SCAN_KERNELS:
+        assert kernels.KERNELS[f"lingru_{kernel}_bf16"][2] == kernels.KERNELS[f"lingru_{kernel}"][2]
 
 
 def test_alignment_of_the_scans_inputs():

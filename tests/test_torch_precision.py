@@ -508,8 +508,20 @@ def test_kernel_dtypes_and_bf16_plans():
     assert (at_128["rows"], at_128["blocks"], at_128["threads"]) == (2, 128, 256)
     assert at_128["smem_bytes"] == 2 * (8 * 2 * 392 + 2 * 8 * 136)
     assert fg.fwd_plan(9, 33, 512, 2, 132, dtype=torch.bfloat16)["variant"] == "streaming"
+    # lingru_fwd_bf16's streaming variant, for the shapes its staged one
+    # does not take, launches as the f32 streaming one does
     plan = fl.scan_plan(512, 90, 128, 132, "fwd", variant="streaming")
-    assert (plan["blocks"], plan["threads"]) == (1024, 128)  # lingru_fwd_bf16's launch
+    assert (plan["blocks"], plan["threads"]) == (1024, 128)
+    assert fl.scan_plan(512, 90, 128, 132, "fwd", variant="streaming",
+                        dtype=torch.bfloat16) == plan
+    # the inference shape launches lingru_fwd_bf16 staged: a ring of bf16
+    # runs, f32 gate buffers, 384 threads a block, 3 blocks an SM
+    staged = fl.scan_plan(512, 90, 128, 132, "fwd", dtype=torch.bfloat16)
+    steps, stages = fl.SCAN_DEFAULT_BF16["fwd"]
+    assert (staged["variant"], staged["steps"], staged["stages"]) == ("staged", steps, stages)
+    assert (staged["blocks"], staged["threads"], staged["waves"]) == (1024, 384, 3)
+    assert staged["smem_bytes"] == steps * 128 * (2 * stages * 2 + 4 * 2 * 2)
+    assert fl.scan_plan(5, 90, 12, 132, "fwd", dtype=torch.bfloat16)["variant"] == "streaming"
 
 
 @pytest.mark.parametrize("rows", fg.RESIDENT_ROWS)

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --fwd-only ROOT   # gru_fwd alone, from ROOT's port
     python3 chip_smoke.py --bwd-only ROOT   # gru_bwd alone, from ROOT's port
     python3 chip_smoke.py --fwd-bf16-only ROOT   # gru_fwd_bf16 alone, from ROOT's port
+    python3 chip_smoke.py --bwd-bf16-only ROOT   # gru_bwd_bf16 alone, from ROOT's port
     python3 chip_smoke.py --lingru-only ROOT   # both lingru scans, from ROOT's port
     python3 chip_smoke.py --lingru-bf16-only ROOT   # both bf16 lingru scans, from ROOT's port
 
@@ -163,6 +164,12 @@ BF16_LIN_BATCHES = (128, 512)
 BF16_BWD_OF_MAX = 1e-4
 BF16_DW_OF_MAX = 2e-3
 BF16_GRU_BWD_SHAPES = (TRAIN_SHAPE, dict(B=13, T=7, IN=256, H=128, S=1))
+# --bwd-bf16-only also times gru_bwd_bf16 at the inference batch (8 rows a
+# block, the widest mma tile), and reads over this many seeded inputs at the
+# train shape how far its dxp and the plain loop's with exactly rounded
+# products (float64 sums rounded once) each lie from the plain loop
+BF16_GRU_BWD_WIDE_SHAPE = dict(TRAIN_SHAPE, B=512)
+BF16_GRU_BWD_SPREAD_SEEDS = 20
 BF16_LIN_BWD_SHAPES = (LIN_TRAIN_SHAPE, dict(B=11, T=40, H=12))
 # a full-width bf16 train step through the kernels vs the plain bf16
 # recurrences: the loss at the f32 check's bar, each gradient within 1e-2
@@ -395,15 +402,19 @@ BWD_PARTS = (("recurrence", "gru_bwd_rec"), ("dw", "gru_bwd_dw"), ("reduce", "gr
 FWD_PARTS = (("recurrence", "gru_fwd"),)
 
 
-def launch_plan(torch, fg, kernel: str, shape, dev) -> dict:
+def launch_plan(torch, fg, kernel: str, shape, dev, dtype=None) -> dict:
     """How gru_``kernel`` (``"fwd"`` or ``"bwd"``) launches at ``shape``
-    on this card (``fg.fwd_plan``, ``fg.bwd_plan``); empty for a tree
-    whose kernel has no plan (one variant, 8 rows)."""
+    on this card (``fg.fwd_plan``, ``fg.bwd_plan``), for ``dtype`` where the
+    plan takes one; empty for a tree whose kernel has no plan (one variant,
+    8 rows)."""
     plan_of = getattr(fg, f"{kernel}_plan", None)
     if plan_of is None:
         return {}
     B, T, H, S = (shape[k] for k in ("B", "T", "H", "S"))
-    plan = plan_of(B, T, H, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    by_dtype = {} if dtype is None or "dtype" not in inspect.signature(plan_of).parameters else {
+        "dtype": dtype}
+    plan = plan_of(B, T, H, S, torch.cuda.get_device_properties(dev).multi_processor_count,
+                   **by_dtype)
     return {"variant": plan["variant"], "rows_per_block": plan["rows"],
             "blocks": plan["blocks"], "threads_per_block": plan["threads"],
             "smem_bytes_per_block": plan["smem_bytes"]}
@@ -660,6 +671,21 @@ def ran_staged(what: str, breakdown: dict, kinds) -> None:
         ran = [n for n in names if next((k for k in KERNEL_KINDS if k in n.lower()), None) == kind]
         if not ran or not all("staged" in n for n in ran):
             fail(f"{what}: {kind} ran {ran or 'no kernel in the trace'}, not the staged kernel")
+
+
+def ran_bwd_bf16_mma(what: str, breakdown: dict) -> dict:
+    """Fails unless the traced ``breakdown`` holds gru_bwd_bf16 and every
+    launch of it ran the resident mma recurrence: one such kernel for each
+    weight-gradient pass, and no other recurrence."""
+    names = breakdown.get("port_kernels_ms_calls", {})
+    calls = {part: {n: c for n, (_, c) in names.items() if f"gru_bwd_bf16_{part}" in n}
+             for part in ("rec", "dw")}
+    mma = sum(c for n, c in calls["rec"].items() if "gru_bwd_bf16_rec_resident_mma" in n)
+    if not mma or mma != sum(calls["rec"].values()) or mma != sum(calls["dw"].values()):
+        fail(f"{what}: gru_bwd_bf16 ran the recurrences {calls['rec'] or 'none in the trace'} "
+             f"beside {sum(calls['dw'].values())} weight-gradient passes, not the resident "
+             "mma recurrence for each")
+    return {"gru_bwd_bf16_rec_resident_mma_calls": mma}
 
 
 def step_parity(torch, port, dev, ds, cfg, kernel, plain, rtol=STEP_RTOL,
@@ -1186,7 +1212,7 @@ def check_bf16_bwd_kernel(torch, fg, fl, kind: str, shape, dev, rng, *, timed: b
         dy = torch.from_numpy(rng.standard_normal((B, T, S * H), dtype=np.float32)).to(dev)
         args32 = (xp, w_hh, b_hh, out, dy)
         run, plain = fg.gru_recurrence_backward, fg.gru_recurrence_backward_plain
-        plan = launch_plan(torch, fg, "bwd", shape, dev)
+        plan = launch_plan(torch, fg, "bwd", shape, dev, torch.bfloat16)
     else:
         B, T, H = (shape[k] for k in ("B", "T", "H"))
         args32 = lingru_inputs(torch, "bwd", fl, shape, dev, rng)
@@ -1273,6 +1299,46 @@ def check_bf16_bwd_kernel(torch, fg, fl, kind: str, shape, dev, rng, *, timed: b
     return row
 
 
+def bf16_bwd_spread(torch, fg, dev) -> dict:
+    """gru_bwd_bf16's dxp and the plain bf16 loop's with exactly rounded
+    products (``torch.bmm`` summing in float64, rounded once to float32),
+    each against the plain loop (cuBLAS's float32 sums), over
+    BF16_GRU_BWD_SPREAD_SEEDS seeded inputs at the train shape: the excess
+    beyond one bf16 ulp as a share of the largest entry (as
+    check_bf16_bwd_kernel reads it) and the share of bit-equal entries, by
+    seed, and how many seeds exceed BF16_BWD_OF_MAX. A sum in any order
+    other than the plain loop's moves some rounding of dhp to bf16, and the
+    carry takes it on; this is that spread."""
+    real_bmm = torch.bmm
+
+    def exact_bmm(a, b):
+        return real_bmm(a.double(), b.double()).float()
+
+    rows = []
+    for i in range(BF16_GRU_BWD_SPREAD_SEEDS):
+        rng = np.random.default_rng(SEED + 100 + i)
+        _, _, xp, w_hh, b_hh = layer_inputs(torch, TRAIN_SHAPE, dev, rng)
+        xp, w_hh, b_hh = (a.to(torch.bfloat16) for a in (xp, w_hh, b_hh))
+        out = fg.gru_recurrence_plain(xp, w_hh, b_hh)
+        dy = torch.from_numpy(rng.standard_normal(out.shape, dtype=np.float32)).to(dev)
+        args = (xp, w_hh, b_hh, out, dy.to(torch.bfloat16))
+        want = fg.gru_recurrence_backward_plain(*args)[0]
+        torch.bmm = exact_bmm
+        try:
+            exact = fg.gru_recurrence_backward_plain(*args)[0]
+        finally:
+            torch.bmm = real_bmm
+        got = fg.gru_recurrence_backward(*args)[0]
+        rows.append({name: {"beyond_one_ulp_of_max": bf16_ulps(torch, o, want)[1],
+                            "bit_equal_share": (o == want).float().mean().item()}
+                     for name, o in (("kernel", got), ("exact_sums", exact))})
+    return {"shape": TRAIN_SHAPE, "seeds": [SEED + 100 + i for i in range(len(rows))],
+            "by_seed": rows, "beyond_one_ulp_allowed": BF16_BWD_OF_MAX,
+            **{f"{name}_seeds_beyond_allowed": sum(
+                r[name]["beyond_one_ulp_of_max"] > BF16_BWD_OF_MAX for r in rows)
+               for name in ("kernel", "exact_sums")}}
+
+
 def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, dev, counts,
                     polish, card, rng):
     """The precision phase: the bf16 kernels against their plain loops and
@@ -1300,6 +1366,11 @@ def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, d
         check_bf16_bwd_kernel(torch, fg, fl, "lingru", shape, dev, bwd_rng, timed=i == 0)
         for i, shape in enumerate(BF16_LIN_BWD_SHAPES)]
 
+    traced = rows["gru_bwd_bf16"][0]["ms_by_kernel"].get("kernel_names", {}).get("recurrence")
+    if rows["gru_bwd_bf16"][0].get("variant") != "resident" or not traced or not all(
+            "rec_resident_mma" in n for n in traced):
+        fail(f"gru_bwd_bf16 at {BF16_GRU_BWD_SHAPES[0]} ran {traced}, not the resident mma "
+             "recurrence")
     for kernel, checked in (("lingru_fwd_bf16", rows["lingru_fwd_bf16"]),
                             ("lingru_bwd_bf16", rows["lingru_bwd_bf16"][:1])):
         for row in checked:
@@ -1518,7 +1589,8 @@ def card_line() -> str:
 
 def one_kernel(torch, flag: str, root: str) -> None:
     """Only gru_bwd (``--bwd-only``), only gru_fwd (``--fwd-only``), only
-    gru_fwd_bf16 (``--fwd-bf16-only``), only the lingru scans
+    gru_fwd_bf16 (``--fwd-bf16-only``), only gru_bwd_bf16
+    (``--bwd-bf16-only``), only the lingru scans
     (``--lingru-only``) or only the bf16 lingru scans
     (``--lingru-bf16-only``), from the port package under ``root`` (this
     tree's or an unpacked copy of another commit's): built, checked against
@@ -1526,11 +1598,16 @@ def one_kernel(torch, flag: str, root: str) -> None:
     sub-kernel, gru_fwd and both lingru scans at the inference and the
     train batch (the scans also at every steps and stages of their plan),
     gru_fwd_bf16 at the inference rungs (B = 32, 128, 512) as the
-    precision phase checks it, the bf16 lingru scans as the precision
+    precision phase checks it, gru_bwd_bf16 as the precision phase checks
+    it (the train shape, the ragged one) and at B = 512, each timed and
+    split by sub-kernel, with the spread of its dxp and of exactly rounded
+    sums about the plain loop over seeds (``bf16_bwd_spread``), the bf16
+    lingru scans as the precision
     phase checks them at B = 512 and 128 (the backward at 128 first), beside
     the f32 scans on the same inputs and at every bf16 steps and stages;
     each with nvcc's ptxas report (registers and spill bytes of every
-    kernel function). Two trees compare within one call as parent, change,
+    kernel function, read by ``kernels.ptxas_usage`` where the tree has
+    it). Two trees compare within one call as parent, change,
     change, parent."""
     sys.path.insert(0, os.path.abspath(root))
     try:
@@ -1546,6 +1623,7 @@ def one_kernel(torch, flag: str, root: str) -> None:
     name = flag[2:-5].replace("-", "_")
     names = {"lingru": ["lingru_fwd", "lingru_bwd"],
              "lingru_bf16": ["lingru_fwd_bf16", "lingru_bwd_bf16", "lingru_fwd", "lingru_bwd"],
+             "bwd_bf16": ["gru_bwd_bf16", "gru_bwd"],
              }.get(name, [f"gru_{name}"])
     built = kernels.build(names)
     dev, rng = torch.device("cuda", 0), np.random.default_rng(SEED)
@@ -1560,6 +1638,13 @@ def one_kernel(torch, flag: str, root: str) -> None:
                 check_bf16_bwd_kernel(torch, fg, fl, "lingru", s, dev, bwd_rng, timed=True,
                                       sweep=True)
                 for s in (LIN_TRAIN_SHAPE, LIN_INFER_SHAPE)]}
+    elif name == "bwd_bf16":
+        # the precision phase's stream, so the first two rows match its own
+        bwd_rng = np.random.default_rng(SEED + 5)
+        result = {"rows": [
+            check_bf16_bwd_kernel(torch, fg, fl, "gru", shape, dev, bwd_rng, timed=True)
+            for shape in (*BF16_GRU_BWD_SHAPES, BF16_GRU_BWD_WIDE_SHAPE)],
+            "spread": bf16_bwd_spread(torch, fg, dev)}
     elif name == "fwd_bf16":
         # the precision phase's stream, so the rows match its own
         bf16_rng = np.random.default_rng(SEED + 4)
@@ -1574,9 +1659,12 @@ def one_kernel(torch, flag: str, root: str) -> None:
         result = {f"lingru_{k}": [check_lingru(torch, fl, k, s, dev, rng, timed=True, sweep=True)
                                   for s in (LIN_INFER_SHAPE, LIN_TRAIN_SHAPE)]
                   for k in ("fwd", "bwd")}
+    ptxas = {n: built.get(n, {}).get("ptxas") for n in names}
+    usage = getattr(kernels, "ptxas_usage", None)
+    if usage is not None:
+        result["ptxas_usage"] = {n: usage(r) for n, r in ptxas.items() if r}
     emit({f"{name}_only": {"root": root, "package": os.path.dirname(kernels.__file__),
-                           "ptxas": {n: built.get(n, {}).get("ptxas") for n in names},
-                           **result, "card": card}})
+                           "ptxas": ptxas, **result, "card": card}})
 
 
 def main() -> None:
@@ -1584,14 +1672,14 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    modes = (["--bwd-only"], ["--fwd-only"], ["--fwd-bf16-only"], ["--lingru-only"],
-             ["--lingru-bf16-only"])
+    modes = (["--bwd-only"], ["--fwd-only"], ["--fwd-bf16-only"], ["--bwd-bf16-only"],
+             ["--lingru-only"], ["--lingru-bf16-only"])
     if sys.argv[1:2] in modes and len(sys.argv) == 3:
         return one_kernel(torch, sys.argv[1], sys.argv[2])
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
-             "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --lingru-only ROOT "
-             "| --lingru-bf16-only ROOT]")
+             "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --bwd-bf16-only ROOT "
+             "| --lingru-only ROOT | --lingru-bf16-only ROOT]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import constants as C
@@ -1776,8 +1864,9 @@ def main() -> None:
         torch, port, gru_bf16, corpus, batches, contig, draft, dev, counts, "gru_fwd_bf16",
         "gru_bwd_bf16", "chip_smoke_train_bf16")
     emit({"train_bf16": {**train_bf16, "float32": bf16_beside(train), "card": card}})
-    emit({"train_breakdown_bf16": {
-        **train_breakdown(torch, port, result_bf16, corpus, tcfg, dev), "card": card}})
+    breakdown_bf16 = train_breakdown(torch, port, result_bf16, corpus, tcfg, dev)
+    mma_calls = ran_bwd_bf16_mma("the gru bf16 train steps", breakdown_bf16)
+    emit({"train_breakdown_bf16": {**breakdown_bf16, **mma_calls, "card": card}})
 
     emit({"lingru_train_step_check": {**step_parity(
         torch, port, dev, corpus, ModelConfig(kind="lingru", dropout=0.0), fl.lingru_scan,

@@ -75,6 +75,11 @@ _MMA_ROWS = 8
 _XP_STAGES = 8
 _BF16_XS = 3 * RESIDENT_MAX_HIDDEN + 8
 _BF16_HS = RESIDENT_MAX_HIDDEN + 8
+#: gru_bwd_bf16's resident variant (csrc/gru_bwd_bf16.cu): a row of its
+#: dhp tile (DS: three gates laid out for the widest H and 64 bytes); a row
+#: of W_hh[s] or of a slot's xp is _BF16_XS bf16 (WS there), of dy, h_prev
+#: or the zero row _BF16_HS
+_BF16_DS = 3 * RESIDENT_MAX_HIDDEN + 32
 
 
 def _shapes(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
@@ -284,8 +289,8 @@ bwd_rows = resident_rows
 
 def recurrence_variant(H: int) -> str:
     """The recurrence kernels' variant for hidden size ``H``, gru_fwd's and
-    gru_bwd's alike: ``"resident"`` (W_hh held on chip, in shared memory,
-    or in registers in gru_fwd_bf16) up to
+    gru_bwd's alike: ``"resident"`` (W_hh held on chip: in shared memory;
+    in registers in gru_fwd_bf16; both in gru_bwd_bf16) up to
     :data:`RESIDENT_MAX_HIDDEN`, ``"streaming"`` (W_hh from L2 every step)
     above. A function of the shape, not a fallback."""
     return "resident" if H <= RESIDENT_MAX_HIDDEN else "streaming"
@@ -309,23 +314,35 @@ def _variant_rows(name: str, B: int, H: int, S: int, n_sm: int, rows: Optional[i
     return variant, rows
 
 
-def bwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = None) -> dict:
-    """How gru_bwd and gru_bwd_bf16 launch at these shapes on a card with
-    ``n_sm`` SMs: the recurrence's variant, batch rows a block (``rows``
-    forces one of :data:`RESIDENT_ROWS` on the resident variant), blocks,
-    threads a block, dynamic shared-memory bytes a block, and the
-    weight-gradient pass's splits. A resident block holds W_hh[s] with rows
-    of 3H + 4 floats and double-buffered h_prev and dhp
-    (resident_smem_bytes in csrc/gru_bwd.cu), a streaming block h_prev and
-    dhp once. gru_bwd_bf16 widens each bf16 value to f32 as it copies it
-    into shared memory, so both kernels lay out the same bytes."""
+def bwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = None,
+             dtype: torch.dtype = torch.float32) -> dict:
+    """How gru_bwd (``dtype`` float32) or gru_bwd_bf16 (bfloat16) launches
+    at these shapes on a card with ``n_sm`` SMs: the recurrence's variant,
+    batch rows a block (``rows`` forces one of :data:`RESIDENT_ROWS` on the
+    resident variant), blocks, threads a block, dynamic shared-memory bytes
+    a block, and the weight-gradient pass's splits. gru_bwd's resident block
+    holds W_hh[s] with rows of 3H + 4 floats and double-buffered h_prev and
+    dhp (resident_smem_bytes in csrc/gru_bwd.cu). gru_bwd_bf16's resident
+    block has a warp for each 16 units and holds, laid out for the widest H
+    whatever H is, W_hh[s] in bf16 [128][3 * 128 + 8], a ring of
+    (8 / rows, or 1 at one row) + 4 steps of rows slots, each a row's xp, dy and h_prev
+    (3 * 128 + 8 and twice 128 + 8), the double-buffered bf16 dhp tile
+    [2][rows][3 * 128 + 32] and a zero row [128 + 8] (resident_smem_bytes
+    in csrc/gru_bwd_bf16.cu). A streaming block of either holds h_prev and
+    dhp once, in f32."""
     variant, rows = _variant_rows("gru_bwd", B, H, S, n_sm, rows)
+    threads = -(-H // 32) * 32
     if variant == "streaming":
         smem = 4 * rows * 4 * H
+    elif dtype == torch.bfloat16:
+        threads = 32 * -(-H // 16)
+        stages = (_MMA_ROWS // rows if rows >= 2 else 1) + 4
+        smem = 2 * (RESIDENT_MAX_HIDDEN * _BF16_XS + stages * rows * (_BF16_XS + 2 * _BF16_HS)
+                    + 2 * rows * _BF16_DS + _BF16_HS)
     else:
         smem = 4 * (H * (3 * H + _W_PAD) + 2 * rows * 4 * H)
     return dict(variant=variant, rows=rows, blocks=S * -(-B // rows),
-                threads=-(-H // 32) * 32, smem_bytes=smem, splits=bwd_splits(B, T, H, S))
+                threads=threads, smem_bytes=smem, splits=bwd_splits(B, T, H, S))
 
 
 def _gru_bwd_kernel(
@@ -347,6 +364,10 @@ def _gru_bwd_kernel(
             raise ValueError(f"{arg} must be [{B}, {T}, {S * H}], got {tuple(t.shape)}")
     if w_hh.data_ptr() % 16:
         raise ValueError(f"{name} reads w_hh in vectors; its storage is not 16-byte aligned")
+    for arg, t in (("xp", xp), ("out", out), ("dy", dy)):
+        if bf16 and t.data_ptr() % 8:
+            raise ValueError(
+                f"{name} copies {arg} in 8-byte granules; its storage is not 8-byte aligned")
     f32 = dict(device=xp.device, dtype=torch.float32)
     dxp = torch.empty_like(xp)
     dw = torch.zeros(S, H, 3 * H, **f32)
@@ -354,7 +375,7 @@ def _gru_bwd_kernel(
     if B == 0 or T == 0:
         return dxp, dw, db
     plan = bwd_plan(B, T, H, S, torch.cuda.get_device_properties(xp.device).multi_processor_count,
-                    rows)
+                    rows, xp.dtype)
     nsplit = plan["splits"]
     # dhp for the weight-gradient pass, unrounded: db_hh sums it as it is
     dhp = torch.empty(B, T, S * 3 * H, **f32)

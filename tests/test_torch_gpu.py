@@ -633,11 +633,15 @@ def _check_gru_bwd_bf16(got, want):
 
 
 # the train shape (resident, 2 rows a block on a 132-SM H100), ragged
-# shapes, S=1, and the streaming variant at H=512 and 256
+# shapes, S=1, and the streaming variant at H=512 and 256; for the
+# resident mma layout H=20 masks units inside a 16-unit tile and leaves
+# two warps, H=48 is three whole tiles, B=1 and 9 mask columns of the
+# 8-row tile, T=1 has no previous state at all
 @pytest.mark.parametrize(
     "B,T,H,S",
     [(128, 90, 128, 2), (5, 90, 16, 2), (13, 7, 128, 1), (140, 9, 36, 1), (9, 33, 512, 2),
-     (11, 9, 256, 1)],
+     (11, 9, 256, 1), (1, 90, 20, 2), (9, 33, 20, 1), (9, 40, 48, 1), (1, 25, 48, 2),
+     (128, 1, 128, 2), (1, 1, 20, 1)],
 )
 def test_bf16_gru_bwd_kernel_matches_plain(cuda, B, T, H, S):
     args = _bf16_bwd_inputs(np.random.default_rng(B * 3 + H), B, T, H, S, cuda)
@@ -649,16 +653,49 @@ def test_bf16_gru_bwd_kernel_matches_plain(cuda, B, T, H, S):
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
-@pytest.mark.parametrize("B,T,H,S", [(37, 25, 128, 2), (13, 11, 40, 1)])
+@pytest.mark.parametrize("B,T,H,S", [(37, 25, 128, 2), (13, 11, 40, 1), (9, 33, 20, 2),
+                                     (9, 25, 48, 1), (1, 40, 48, 2), (37, 1, 128, 2),
+                                     (1, 1, 20, 1)])
 def test_bf16_gru_bwd_kernel_is_bitwise_equal_for_every_rows(cuda, B, T, H, S):
     args = _bf16_bwd_inputs(np.random.default_rng(B + 5 * T), B, T, H, S, cuda)
-    assert fg.bwd_plan(B, T, H, S, _n_sm(cuda))["variant"] == "resident"
+    assert fg.bwd_plan(B, T, H, S, _n_sm(cuda), dtype=torch.bfloat16)["variant"] == "resident"
     want = fg._gru_bwd_kernel(*args, rows=1)
     for rows in fg.BWD_ROWS[1:]:
         got = fg._gru_bwd_kernel(*args, rows=rows)
         for name, g, w in zip(("dxp", "dw_hh", "db_hh"), got, want):
             assert torch.equal(g, w), (rows, name)
     _check_gru_bwd_bf16(want, fg.gru_recurrence_backward_plain(*args))
+
+
+@pytest.mark.parametrize("arg", ["xp", "out", "dy"])
+def test_bf16_gru_bwd_kernel_rejects_a_misaligned_input(cuda, arg):
+    """gru_bwd_bf16 stages xp, out and dy by 8-byte asynchronous copies: a
+    tensor whose storage starts 2 bytes off raises, and is not copied to an
+    aligned one."""
+    args = dict(zip(("xp", "w_hh", "b_hh", "out", "dy"),
+                    _bf16_bwd_inputs(np.random.default_rng(7), 3, 5, 8, 2, cuda)))
+    t = args[arg]
+    shifted = torch.empty(t.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(t.shape)
+    shifted.copy_(t)
+    args[arg] = shifted
+    with pytest.raises(ValueError, match=f"copies {arg} in 8-byte granules"):
+        fg.gru_recurrence_backward(*args.values())
+
+
+def test_bf16_gru_bwd_resident_recurrence_does_not_spill(cuda, tmp_path, monkeypatch):
+    """ptxas holds the resident bf16 recurrence (W_hh's 96 fragment
+    registers a thread beside the step's working set) without spilling, at
+    every rows a block."""
+    from roko_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)  # a fresh build returns its report
+    report = kernels.build(["gru_bwd_bf16"])["gru_bwd_bf16"]["ptxas"]
+    usage = {n: u for n, u in kernels.ptxas_usage(report).items()
+             if "gru_bwd_bf16_rec_resident_mma" in n}
+    assert len(usage) == len(fg.BWD_ROWS), report
+    for name, u in usage.items():
+        assert u["spill_stores"] == u["spill_loads"] == 0, (name, u)
+        assert u["registers"] <= 255, (name, u)
 
 
 @pytest.mark.parametrize("B,T,H", [(128, 90, 128), (512, 90, 128), (5, 90, 16), (11, 40, 12),

@@ -205,3 +205,71 @@ def test_bwd_plan_streaming_and_forced_rows():
         fg.bwd_plan(128, 90, 128, 2, H100_SMS, rows=3)
     with pytest.raises(ValueError, match="streaming"):
         fg.bwd_plan(9, 33, 512, 2, H100_SMS, rows=2)
+
+
+# gru_bwd_bf16's resident block: W_hh[s] in bf16 [128][3 x 128 + 8], a
+# ring of 8 / rows (1 at one row) + 4 steps (one hp pass's steps and 4 more) of a row's xp
+# (3 x 128 + 8), dy and h_prev (128 + 8 each), the double-buffered dhp tile
+# [2][rows][3 x 128 + 32] and a zero row [128 + 8], laid out for the widest
+# H whatever H is
+def _bf16_bwd_smem(rows):
+    return 2 * (128 * 392 + ((8 // rows if rows >= 2 else 1) + 4) * rows * (392 + 2 * 136) + 2 * rows * 416
+                + 136)
+
+
+@pytest.mark.parametrize("rows", fg.BWD_ROWS)
+@pytest.mark.parametrize("H", [16, 20, 48, 128])
+def test_bf16_bwd_plan_at_every_rows(H, rows):
+    """A warp for each 16 units (at most 8), shared memory within an H100
+    block's 227 KB, and the f32 plan's rows, blocks and splits, forced and
+    unforced."""
+    plan = fg.bwd_plan(128, 90, H, 2, H100_SMS, rows=rows, dtype=torch.bfloat16)
+    f32 = fg.bwd_plan(128, 90, H, 2, H100_SMS, rows=rows)
+    assert plan["variant"] == "resident" and plan["rows"] == rows
+    assert plan["threads"] == 32 * -(-H // 16) <= 256
+    assert plan["smem_bytes"] == _bf16_bwd_smem(rows) <= SMEM_LIMIT
+    for key in ("variant", "rows", "blocks", "splits"):
+        assert plan[key] == f32[key], key
+    for B in (1, 9, 128, 512):
+        unforced = fg.bwd_plan(B, 90, H, 2, H100_SMS, dtype=torch.bfloat16)
+        same = fg.bwd_plan(B, 90, H, 2, H100_SMS)
+        assert (unforced["rows"], unforced["blocks"]) == (same["rows"], same["blocks"])
+        assert unforced["smem_bytes"] == _bf16_bwd_smem(unforced["rows"])
+
+
+def test_bf16_bwd_plan_leaves_the_f32_and_streaming_plans_as_they_were():
+    """dtype=float32 is the default and gives gru_bwd's resident layout; above
+    H=128 both dtypes stream with the same plan."""
+    for B, T, H, S in [(128, 90, 128, 2), (5, 90, 16, 2), (13, 7, 128, 1), (9, 33, 512, 2)]:
+        assert fg.bwd_plan(B, T, H, S, H100_SMS) == fg.bwd_plan(
+            B, T, H, S, H100_SMS, dtype=torch.float32)
+    assert fg.bwd_plan(128, 90, 128, 2, H100_SMS) == dict(
+        variant="resident", rows=2, blocks=128, threads=128, smem_bytes=206_848,
+        splits=fg.bwd_splits(128, 90, 128, 2))
+    assert fg.bwd_plan(128, 90, 128, 2, H100_SMS, dtype=torch.bfloat16) == dict(
+        variant="resident", rows=2, blocks=128, threads=256, smem_bytes=125_200,
+        splits=fg.bwd_splits(128, 90, 128, 2))
+    for H in (132, 256, 512):
+        assert fg.bwd_plan(9, 33, H, 2, H100_SMS, dtype=torch.bfloat16) == fg.bwd_plan(
+            9, 33, H, 2, H100_SMS)
+
+
+def test_ptxas_usage_reads_registers_and_spills_by_function():
+    from roko_tpu_torch import kernels
+
+    name = "_ZN12_GLOBAL__N_129gru_bwd_bf16_rec_resident_mmaILi8EEEvPK13__nv_bfloat16"
+    report = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 232 registers, 400 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z3dwv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z3dwv",
+        "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 12288 bytes smem, 400 bytes cmem[0]",
+    ])
+    assert kernels.ptxas_usage(report) == {
+        name: dict(registers=232, spill_stores=0, spill_loads=0),
+        "_Z3dwv": dict(registers=128, spill_stores=4, spill_loads=8),
+    }

@@ -165,11 +165,14 @@ BF16_BWD_OF_MAX = 1e-4
 BF16_DW_OF_MAX = 2e-3
 BF16_GRU_BWD_SHAPES = (TRAIN_SHAPE, dict(B=13, T=7, IN=256, H=128, S=1))
 # --bwd-bf16-only also times gru_bwd_bf16 at the inference batch (8 rows a
-# block, the widest mma tile), and reads over this many seeded inputs at the
-# train shape how far its dxp and the plain loop's with exactly rounded
-# products (float64 sums rounded once) each lie from the plain loop
+# block, the widest mma tile). gru_bwd_bf16 at the train shape: the
+# precision phase holds it to the bar on the inputs of the card test
+# test_bf16_gru_bwd_kernel_matches_plain[128-90-128-2] as well (its seed),
+# and reads on how many of this many further seeded inputs its dxp lies
+# beyond the bar
 BF16_GRU_BWD_WIDE_SHAPE = dict(TRAIN_SHAPE, B=512)
-BF16_GRU_BWD_SPREAD_SEEDS = 20
+BF16_GRU_BWD_CARD_TEST_SEED = 3 * TRAIN_SHAPE["B"] + TRAIN_SHAPE["H"]
+BF16_GRU_BWD_SEEDS = 100
 BF16_LIN_BWD_SHAPES = (LIN_TRAIN_SHAPE, dict(B=11, T=40, H=12))
 # a full-width bf16 train step through the kernels vs the plain bf16
 # recurrences: the loss at the f32 check's bar, each gradient within 1e-2
@@ -1299,44 +1302,87 @@ def check_bf16_bwd_kernel(torch, fg, fl, kind: str, shape, dev, rng, *, timed: b
     return row
 
 
-def bf16_bwd_spread(torch, fg, dev) -> dict:
-    """gru_bwd_bf16's dxp and the plain bf16 loop's with exactly rounded
-    products (``torch.bmm`` summing in float64, rounded once to float32),
-    each against the plain loop (cuBLAS's float32 sums), over
-    BF16_GRU_BWD_SPREAD_SEEDS seeded inputs at the train shape: the excess
-    beyond one bf16 ulp as a share of the largest entry (as
-    check_bf16_bwd_kernel reads it) and the share of bit-equal entries, by
-    seed, and how many seeds exceed BF16_BWD_OF_MAX. A sum in any order
-    other than the plain loop's moves some rounding of dhp to bf16, and the
-    carry takes it on; this is that spread."""
-    real_bmm = torch.bmm
+def card_test_bwd_inputs(torch, fg, shape, dev, seed):
+    """The bf16 inputs of tests/test_torch_gpu.py's gru_bwd_bf16 card tests
+    at ``shape`` from ``seed``: xp from a standard normal, W_hh and b_hh
+    uniform within 1/sqrt(H), the plain loop's forward output, dy."""
+    B, T, H, S = (shape[k] for k in ("B", "T", "H", "S"))
+    rng = np.random.default_rng(seed)
+    bound = 1.0 / np.sqrt(H)
+    xp, w, b = (torch.from_numpy(a.astype(np.float32)).to(dev).to(torch.bfloat16) for a in (
+        rng.standard_normal((B, T, S * 3 * H)), rng.uniform(-bound, bound, (S, H, 3 * H)),
+        rng.uniform(-bound, bound, (S, 3 * H))))
+    out = fg.gru_recurrence_plain(xp, w, b)
+    dy = torch.from_numpy(rng.standard_normal((B, T, S * H)).astype(np.float32)).to(dev)
+    return xp, w, b, out, dy.to(torch.bfloat16)
 
-    def exact_bmm(a, b):
-        return real_bmm(a.double(), b.double()).float()
 
-    rows = []
-    for i in range(BF16_GRU_BWD_SPREAD_SEEDS):
+def bf16_bwd_card_test(torch, fg, dev) -> dict:
+    """gru_bwd_bf16 on the inputs of the card test at the train shape,
+    against the plain loop: fails beyond the dxp or dW bar, as the test
+    does."""
+    args = card_test_bwd_inputs(torch, fg, TRAIN_SHAPE, dev, BF16_GRU_BWD_CARD_TEST_SEED)
+    got, want = fg.gru_recurrence_backward(*args), fg.gru_recurrence_backward_plain(*args)
+    ulps, excess, within = bf16_ulps(torch, got[0], want[0])
+    if not excess <= BF16_BWD_OF_MAX:
+        fail(f"gru_bwd_bf16 is {excess} of its largest entry beyond one bf16 ulp from its "
+             f"plain bf16 loop on the card test's inputs at {TRAIN_SHAPE}")
+    for label, g, w in zip(("dw_hh", "db_hh"), got[1:], want[1:]):
+        if not (g - w).abs().max().item() <= BF16_DW_OF_MAX * w.abs().max().item():
+            fail(f"gru_bwd_bf16 {label} disagrees with the plain loop on the card test's inputs")
+    return {"shape": TRAIN_SHAPE, "seed": BF16_GRU_BWD_CARD_TEST_SEED, "max_ulps": ulps,
+            "beyond_one_ulp_of_max": excess, "beyond_one_ulp_allowed": BF16_BWD_OF_MAX,
+            "bit_equal_share": (got[0] == want[0]).float().mean().item()}
+
+
+def plain_bmm_order(torch, dev) -> dict:
+    """For the plain loop's two products at the train shape (h_prev W_hh
+    and bf16(dhp) W_hh^T, bf16 values in f32): the share of ``torch.bmm``'s
+    sums bit-equal to one product added at a time in k order, in f32 (the
+    products are exact, so each add is a fused multiply-add). 1.0 says the
+    plain loop sums in k order, one product at a time."""
+    rng = np.random.default_rng(SEED + 6)
+    B, H, S = (TRAIN_SHAPE[k] for k in ("B", "H", "S"))
+
+    def draw(shape, scale):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(torch.bfloat16).float()
+
+    w = draw((S, H, 3 * H), H ** -0.5)
+    shares = {}
+    for name, a, b in (("hp", draw((S, B, H), 1.0), w),
+                       ("chain", draw((S, B, 3 * H), 1.0), w.transpose(1, 2))):
+        acc = torch.zeros(S, B, b.shape[2], device=dev)
+        for k in range(a.shape[2]):
+            acc = acc + a[:, :, k:k + 1] * b[:, k:k + 1, :]
+        shares[name] = (torch.bmm(a, b) == acc).float().mean().item()
+    return shares
+
+
+def bf16_bwd_seeds(torch, fg, dev) -> dict:
+    """gru_bwd_bf16's dxp against the plain loop over BF16_GRU_BWD_SEEDS
+    seeded inputs at the train shape (as check_bf16_bwd_kernel draws
+    them): by seed, the excess beyond one bf16 ulp as a share of the
+    largest entry and the share of bit-equal entries; and the seeds beyond
+    BF16_BWD_OF_MAX. The plain loop adds its products one at a time in k
+    order; where a sum in another order puts a dhp on the other side of a
+    bf16 rounding, the carry takes it on: this reads how often that moves
+    dxp beyond the bar."""
+    by_seed = []
+    for i in range(BF16_GRU_BWD_SEEDS):
         rng = np.random.default_rng(SEED + 100 + i)
         _, _, xp, w_hh, b_hh = layer_inputs(torch, TRAIN_SHAPE, dev, rng)
         xp, w_hh, b_hh = (a.to(torch.bfloat16) for a in (xp, w_hh, b_hh))
         out = fg.gru_recurrence_plain(xp, w_hh, b_hh)
         dy = torch.from_numpy(rng.standard_normal(out.shape, dtype=np.float32)).to(dev)
         args = (xp, w_hh, b_hh, out, dy.to(torch.bfloat16))
-        want = fg.gru_recurrence_backward_plain(*args)[0]
-        torch.bmm = exact_bmm
-        try:
-            exact = fg.gru_recurrence_backward_plain(*args)[0]
-        finally:
-            torch.bmm = real_bmm
-        got = fg.gru_recurrence_backward(*args)[0]
-        rows.append({name: {"beyond_one_ulp_of_max": bf16_ulps(torch, o, want)[1],
-                            "bit_equal_share": (o == want).float().mean().item()}
-                     for name, o in (("kernel", got), ("exact_sums", exact))})
-    return {"shape": TRAIN_SHAPE, "seeds": [SEED + 100 + i for i in range(len(rows))],
-            "by_seed": rows, "beyond_one_ulp_allowed": BF16_BWD_OF_MAX,
-            **{f"{name}_seeds_beyond_allowed": sum(
-                r[name]["beyond_one_ulp_of_max"] > BF16_BWD_OF_MAX for r in rows)
-               for name in ("kernel", "exact_sums")}}
+        got, want = fg.gru_recurrence_backward(*args)[0], fg.gru_recurrence_backward_plain(*args)[0]
+        by_seed.append({"seed": SEED + 100 + i,
+                        "beyond_one_ulp_of_max": bf16_ulps(torch, got, want)[1],
+                        "bit_equal_share": (got == want).float().mean().item()})
+    beyond = [r["seed"] for r in by_seed if r["beyond_one_ulp_of_max"] > BF16_BWD_OF_MAX]
+    return {"shape": TRAIN_SHAPE, "by_seed": by_seed, "beyond_one_ulp_allowed": BF16_BWD_OF_MAX,
+            "seeds_beyond_allowed": beyond, "n_seeds": len(by_seed)}
 
 
 def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, dev, counts,
@@ -1366,6 +1412,8 @@ def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, d
         check_bf16_bwd_kernel(torch, fg, fl, "lingru", shape, dev, bwd_rng, timed=i == 0)
         for i, shape in enumerate(BF16_LIN_BWD_SHAPES)]
 
+    rows["gru_bwd_bf16_card_test"] = bf16_bwd_card_test(torch, fg, dev)
+    rows["gru_bwd_bf16_seeds"] = bf16_bwd_seeds(torch, fg, dev)
     traced = rows["gru_bwd_bf16"][0]["ms_by_kernel"].get("kernel_names", {}).get("recurrence")
     if rows["gru_bwd_bf16"][0].get("variant") != "resident" or not traced or not all(
             "rec_resident_mma" in n for n in traced):
@@ -1587,6 +1635,27 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+def ptxas_usage(report: str) -> dict:
+    """Registers and spill bytes of each function in nvcc's ``-Xptxas -v``
+    report (``kernels.build``'s ``"ptxas"``), by mangled name:
+    ``{name: {"registers": n, "spill_stores": n, "spill_loads": n}}``."""
+    usage: dict = {}
+    name = None
+    for line in report.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if found:
+            name = found.group(1)
+            usage.setdefault(name, {})
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and name:
+            usage[name].update(spill_stores=int(spills.group(1)), spill_loads=int(spills.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            usage[name]["registers"] = int(regs.group(1))
+    return usage
+
+
 def one_kernel(torch, flag: str, root: str) -> None:
     """Only gru_bwd (``--bwd-only``), only gru_fwd (``--fwd-only``), only
     gru_fwd_bf16 (``--fwd-bf16-only``), only gru_bwd_bf16
@@ -1599,15 +1668,13 @@ def one_kernel(torch, flag: str, root: str) -> None:
     train batch (the scans also at every steps and stages of their plan),
     gru_fwd_bf16 at the inference rungs (B = 32, 128, 512) as the
     precision phase checks it, gru_bwd_bf16 as the precision phase checks
-    it (the train shape, the ragged one) and at B = 512, each timed and
-    split by sub-kernel, with the spread of its dxp and of exactly rounded
-    sums about the plain loop over seeds (``bf16_bwd_spread``), the bf16
-    lingru scans as the precision
-    phase checks them at B = 512 and 128 (the backward at 128 first), beside
-    the f32 scans on the same inputs and at every bf16 steps and stages;
-    each with nvcc's ptxas report (registers and spill bytes of every
-    kernel function, read by ``kernels.ptxas_usage`` where the tree has
-    it). Two trees compare within one call as parent, change,
+    it (the train shape, the ragged one, the card test's inputs; its dxp
+    over seeds; the order of the plain loop's sums) and at B = 512, each timed and split by sub-kernel, the
+    bf16 lingru scans as the precision phase checks them at B = 512 and
+    128 (the backward at 128 first), beside the f32 scans on the same
+    inputs and at every bf16 steps and stages; each with nvcc's ptxas
+    report (registers and spill bytes of every kernel function, read by
+    ``ptxas_usage``). Two trees compare within one call as parent, change,
     change, parent."""
     sys.path.insert(0, os.path.abspath(root))
     try:
@@ -1644,7 +1711,9 @@ def one_kernel(torch, flag: str, root: str) -> None:
         result = {"rows": [
             check_bf16_bwd_kernel(torch, fg, fl, "gru", shape, dev, bwd_rng, timed=True)
             for shape in (*BF16_GRU_BWD_SHAPES, BF16_GRU_BWD_WIDE_SHAPE)],
-            "spread": bf16_bwd_spread(torch, fg, dev)}
+            "card_test": bf16_bwd_card_test(torch, fg, dev),
+            "seeds": bf16_bwd_seeds(torch, fg, dev),
+            "plain_bmm_in_k_order": plain_bmm_order(torch, dev)}
     elif name == "fwd_bf16":
         # the precision phase's stream, so the rows match its own
         bf16_rng = np.random.default_rng(SEED + 4)
@@ -1660,9 +1729,7 @@ def one_kernel(torch, flag: str, root: str) -> None:
                                   for s in (LIN_INFER_SHAPE, LIN_TRAIN_SHAPE)]
                   for k in ("fwd", "bwd")}
     ptxas = {n: built.get(n, {}).get("ptxas") for n in names}
-    usage = getattr(kernels, "ptxas_usage", None)
-    if usage is not None:
-        result["ptxas_usage"] = {n: usage(r) for n, r in ptxas.items() if r}
+    result["ptxas_usage"] = {n: ptxas_usage(r) for n, r in ptxas.items() if r}
     emit({f"{name}_only": {"root": root, "package": os.path.dirname(kernels.__file__),
                            "ptxas": ptxas, **result, "card": card}})
 

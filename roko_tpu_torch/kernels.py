@@ -15,7 +15,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import time
@@ -158,27 +157,6 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return report
-
-
-def ptxas_usage(report: str) -> Dict[str, dict]:
-    """Registers and spill bytes of each function in nvcc's ``-Xptxas -v``
-    report (``build``'s ``"ptxas"``), by mangled name:
-    ``{name: {"registers": n, "spill_stores": n, "spill_loads": n}}``."""
-    usage: Dict[str, dict] = {}
-    name = None
-    for line in report.splitlines():
-        found = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
-        if found:
-            name = found.group(1)
-            usage.setdefault(name, {})
-            continue
-        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spills and name:
-            usage[name].update(spill_stores=int(spills.group(1)), spill_loads=int(spills.group(2)))
-        regs = re.search(r"Used (\d+) registers", line)
-        if regs and name:
-            usage[name]["registers"] = int(regs.group(1))
-    return usage
 
 
 def library(name: str) -> ctypes.CDLL:

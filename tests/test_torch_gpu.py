@@ -686,11 +686,12 @@ def test_bf16_gru_bwd_resident_recurrence_does_not_spill(cuda, tmp_path, monkeyp
     """ptxas holds the resident bf16 recurrence (W_hh's 96 fragment
     registers a thread beside the step's working set) without spilling, at
     every rows a block."""
+    from chip_smoke import ptxas_usage
     from roko_tpu_torch import kernels
 
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)  # a fresh build returns its report
     report = kernels.build(["gru_bwd_bf16"])["gru_bwd_bf16"]["ptxas"]
-    usage = {n: u for n, u in kernels.ptxas_usage(report).items()
+    usage = {n: u for n, u in ptxas_usage(report).items()
              if "gru_bwd_bf16_rec_resident_mma" in n}
     assert len(usage) == len(fg.BWD_ROWS), report
     for name, u in usage.items():

@@ -255,7 +255,7 @@ def test_bf16_bwd_plan_leaves_the_f32_and_streaming_plans_as_they_were():
 
 
 def test_ptxas_usage_reads_registers_and_spills_by_function():
-    from roko_tpu_torch import kernels
+    from chip_smoke import ptxas_usage
 
     name = "_ZN12_GLOBAL__N_129gru_bwd_bf16_rec_resident_mmaILi8EEEvPK13__nv_bfloat16"
     report = "\n".join([
@@ -269,7 +269,7 @@ def test_ptxas_usage_reads_registers_and_spills_by_function():
         "    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
         "ptxas info    : Used 128 registers, used 1 barriers, 12288 bytes smem, 400 bytes cmem[0]",
     ])
-    assert kernels.ptxas_usage(report) == {
+    assert ptxas_usage(report) == {
         name: dict(registers=232, spill_stores=0, spill_loads=0),
         "_Z3dwv": dict(registers=128, spill_stores=4, spill_loads=8),
     }

@@ -36,7 +36,9 @@ for ``kind="gru"`` and once for ``kind="lingru"``:
 - precision: the bfloat16 kernels (``gru_fwd_bf16``, ``lingru_fwd_bf16``,
   ``gru_bwd_bf16``, ``lingru_bwd_bf16``) held against their plain bf16
   versions and timed beside the f32 ones (and cuDNN's bf16 GRU), the bf16
-  scans staged at full width and bitwise equal at every plan; inference
+  scans staged at full width and bitwise equal at every plan,
+  ``gru_bwd_bf16``'s weight-gradient pass timed on its own beside
+  ``torch.bmm`` of the same operands (``dw_pass``); inference
   of the synthetic windows in bf16 (gru and lingru) and in int8 with f32
   compute (gru), each beside f32 in windows/s and argmax agreement; and
   the polish project streamed in bf16, its FASTA byte-equal to the bf16
@@ -420,7 +422,8 @@ def launch_plan(torch, fg, kernel: str, shape, dev, dtype=None) -> dict:
                    **by_dtype)
     return {"variant": plan["variant"], "rows_per_block": plan["rows"],
             "blocks": plan["blocks"], "threads_per_block": plan["threads"],
-            "smem_bytes_per_block": plan["smem_bytes"]}
+            "smem_bytes_per_block": plan["smem_bytes"],
+            **({"dw_plan": plan["dw"]} if "dw" in plan else {})}
 
 
 def check_bwd_kernel(torch, fg, shape, dev, rng, *, timed: bool):
@@ -678,17 +681,20 @@ def ran_staged(what: str, breakdown: dict, kinds) -> None:
 
 def ran_bwd_bf16_mma(what: str, breakdown: dict) -> dict:
     """Fails unless the traced ``breakdown`` holds gru_bwd_bf16 and every
-    launch of it ran the resident mma recurrence: one such kernel for each
-    weight-gradient pass, and no other recurrence."""
+    launch of it ran the resident mma recurrence and the tensor-core
+    weight-gradient pass (``gru_bwd_bf16_dw_mma``): one of each a launch,
+    and no other recurrence or weight-gradient pass."""
     names = breakdown.get("port_kernels_ms_calls", {})
     calls = {part: {n: c for n, (_, c) in names.items() if f"gru_bwd_bf16_{part}" in n}
              for part in ("rec", "dw")}
     mma = sum(c for n, c in calls["rec"].items() if "gru_bwd_bf16_rec_resident_mma" in n)
-    if not mma or mma != sum(calls["rec"].values()) or mma != sum(calls["dw"].values()):
+    dw_mma = sum(c for n, c in calls["dw"].items() if "gru_bwd_bf16_dw_mma" in n)
+    if not mma or mma != sum(calls["rec"].values()) or dw_mma != sum(
+            calls["dw"].values()) or mma != dw_mma:
         fail(f"{what}: gru_bwd_bf16 ran the recurrences {calls['rec'] or 'none in the trace'} "
-             f"beside {sum(calls['dw'].values())} weight-gradient passes, not the resident "
-             "mma recurrence for each")
-    return {"gru_bwd_bf16_rec_resident_mma_calls": mma}
+             f"and the weight-gradient passes {calls['dw'] or 'none in the trace'}, not the "
+             "resident mma recurrence and the tensor-core pass, one of each a launch")
+    return {"gru_bwd_bf16_rec_resident_mma_calls": mma, "gru_bwd_bf16_dw_mma_calls": dw_mma}
 
 
 def step_parity(torch, port, dev, ds, cfg, kernel, plain, rtol=STEP_RTOL,
@@ -1231,17 +1237,20 @@ def check_bf16_bwd_kernel(torch, fg, fl, kind: str, shape, dev, rng, *, timed: b
         fail(f"{name} returned {[g.dtype for g in got]} at {shape}")
     ulps, excess, within = bf16_ulps(torch, got[0], want[0])
     errs = {"dxp" if kind == "gru" else "dp": (got[0].float() - want[0].float()).abs().max().item()}
+    shares = {}
     if not excess <= BF16_BWD_OF_MAX:
         fail(f"{name} is {excess} of its largest entry beyond one bf16 ulp from its plain bf16 "
              f"loop at {shape} ({ulps} ulps at most)")
     for label, g, w in zip(("dw_hh", "db_hh"), got[1:], want[1:]):
         errs[label] = (g - w).abs().max().item()
+        shares[label] = errs[label] / max(w.abs().max().item(), 1e-30)
         if not errs[label] <= BF16_DW_OF_MAX * w.abs().max().item():
             fail(f"{name} {label} disagrees with the plain loop at {shape}: max |d| "
                  f"{errs[label]} against max |g| {w.abs().max().item()}")
     if not all(torch.equal(a, c) for a, c in zip(got, again)):
         fail(f"{name} differs between two launches at {shape}")
     row = {"shape": shape, "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+           **({"max_abs_err_share_of_max": shares} if shares else {}),
            "max_ulps": ulps, "beyond_one_ulp_of_max": excess,
            "beyond_one_ulp_allowed": BF16_BWD_OF_MAX, "dw_atol_of_max": BF16_DW_OF_MAX,
            "bit_equal_share": (got[0] == want[0]).float().mean().item(),
@@ -1288,6 +1297,7 @@ def check_bf16_bwd_kernel(torch, fg, fl, kind: str, shape, dev, rng, *, timed: b
         nbytes = (2.0 * (sum(a.numel() for a in args) + got[0].numel())
                   + 4.0 * (got[1].numel() + got[2].numel()))
         row.update(bound(torch, flops, nbytes, "bf16"))
+        row["dw_pass"] = dw_pass_row(torch, fg, args, got, want, row)
     else:
         split = kernel_split(torch, lambda: run(*args), 20, (("scan", "lingru_bwd_bf16"),))
         split32 = kernel_split(torch, lambda: run(*args32), 20, (("scan", "lingru_bwd"),))
@@ -1300,6 +1310,79 @@ def check_bf16_bwd_kernel(torch, fg, fl, kind: str, shape, dev, rng, *, timed: b
                          2.0 * (sum(a.numel() for a in args) + got[0].numel())))
     row["plain_ms"] = cuda_ms(torch, lambda: plain(*args), iters=3, warmup=1)
     return row
+
+
+def h_prev_rows(torch, out, S: int):
+    """h_prev of every row n = b T + t, [S, B T, H] in f32: the forward
+    output at t - 1 in direction 0 and t + 1 in direction 1, zero at the
+    direction's start."""
+    B, T, SH = out.shape
+    h = out.float().reshape(B, T, S, SH // S)
+    prev = torch.zeros_like(h)
+    prev[:, 1:, 0] = h[:, :-1, 0]
+    if S == 2:
+        prev[:, :-1, 1] = h[:, 1:, 1]
+    return prev.reshape(B * T, S, SH // S).transpose(0, 1).contiguous()
+
+
+def dw_pass_row(torch, fg, args, got, want, row) -> dict:
+    """gru_bwd_bf16's weight-gradient pass on its own: its device time from
+    the row's trace, dW's max |delta| to the plain loop as a share of its
+    largest entry, its bound (dhp in f32 and h_prev in bf16 read once, dW
+    and db written once; h_prev^T bf16(dhp) on bf16 tensor cores), the
+    bytes its splits' partial sums add beside that (a cost of the design,
+    not of the function), and, on the kernel's own dhp where the tree's wrapper hands it out,
+    dW and db against the float64 sums of the same operands and the
+    library calls that compute the same function: torch.bmm of h_prev^T
+    by bf16(dhp) on f32 tensors holding the bf16 values (TF32 off) with
+    dhp.sum for db, and bf16-in / f32-out torch.bmm(..., out_dtype=
+    torch.float32) where this PyTorch has it."""
+    xp, w_hh = args[0], args[1]
+    B, T, SH = args[3].shape
+    S, H = w_hh.shape[0], w_hh.shape[1]
+    N, splits = B * T, row.get("dw_plan", {}).get("splits", fg.bwd_splits(B, T, H, S))
+    out = {"ms": row.get("ms_by_kernel", {}).get("dw"), "ms_from": "trace",
+           "max_abs_err_share_of_max": row.get("max_abs_err_share_of_max"),
+           # check_bf16_bwd_kernel failed the row unless two launches agreed
+           "dw_bitwise_repeatable": row["bitwise_repeatable"],
+           "launches_in_trace": row.get("ms_by_kernel", {}).get("kernels_traced", {}).get("dw"),
+           "kernel_names": row.get("ms_by_kernel", {}).get("kernel_names", {}).get("dw")}
+    nbytes = 4.0 * S * N * 3 * H + 2.0 * S * N * H + 4.0 * S * (H * 3 * H + 3 * H)
+    out.update(bound(torch, 2.0 * S * N * H * 3 * H, nbytes, "bf16"))
+    # written by the pass, read back by the reduce
+    out["partial_sums_bytes"] = 4.0 * splits * S * (H * 3 * H + 3 * H)
+    if "dhp" not in inspect.signature(fg._gru_bwd_kernel).parameters:
+        out["library_ms"], out["library_note"] = None, "the tree's wrapper hands out no dhp"
+        return out
+    dhp = torch.empty(B, T, S * 3 * H, device=xp.device, dtype=torch.float32)
+    mine = fg._gru_bwd_kernel(*args, dhp=dhp)
+    if not all(torch.equal(a, b) for a, b in zip(mine, got)):
+        fail("gru_bwd_bf16 with its dhp handed out differs from the same launch without")
+    h_t = h_prev_rows(torch, args[3], S).transpose(1, 2)           # [S, H, N]
+    d_rows = dhp.reshape(N, S, 3 * H).transpose(0, 1).contiguous()  # [S, N, 3H]
+    d_op = d_rows.to(torch.bfloat16).float()
+    dw64 = torch.bmm(h_t.double(), d_op.double())
+    db64 = d_rows.double().sum(dim=1)
+    out["vs_float64_of_max"] = {
+        "dw_hh": ((got[1].double() - dw64).abs().max() / dw64.abs().max()).item(),
+        "db_hh": ((got[2].double() - db64).abs().max() / db64.abs().max()).item()}
+    lib_dw = torch.bmm(h_t, d_op)
+    out["library_max_abs_err_share_of_max"] = (
+        (lib_dw - got[1]).abs().max() / got[1].abs().max()).item()
+    out["library_ms"] = cuda_ms(torch, lambda: (torch.bmm(h_t, d_op), d_rows.sum(dim=1)),
+                                iters=20)
+    out["library_note"] = ("torch.bmm of h_prev^T by bf16(dhp), f32 tensors holding bf16 "
+                           "values, TF32 off, and dhp.sum(dim=1) for db, on the kernel's dhp")
+    h_b, d_b = h_t.to(torch.bfloat16), d_rows.to(torch.bfloat16)
+    try:
+        torch.bmm(h_b, d_b, out_dtype=torch.float32)
+        out["library_bf16_ms"] = cuda_ms(
+            torch, lambda: (torch.bmm(h_b, d_b, out_dtype=torch.float32), d_rows.sum(dim=1)),
+            iters=20)
+    except (TypeError, RuntimeError) as e:
+        out["library_bf16_ms"] = None
+        out["library_bf16_note"] = f"no bf16-in / f32-out bmm here: {e}"[:200]
+    return out
 
 
 def card_test_bwd_inputs(torch, fg, shape, dev, seed):
@@ -1359,7 +1442,47 @@ def plain_bmm_order(torch, dev) -> dict:
     return shares
 
 
-def bf16_bwd_seeds(torch, fg, dev) -> dict:
+def yardstick_bwd(torch, xp, w_hh, b_hh, out, dy):
+    """dxp and dW_hh of the plain bf16 loop
+    (fused_gru.gru_recurrence_backward_plain, its formulas and its
+    roundings of dhp to bf16) with both step products, h_prev W_hh and
+    bf16(dhp) W_hh^T, summed in float64 and rounded to f32, and dW_hh
+    summed in float64: a yardstick that sums in no order of the kernel's
+    or the plain loop's."""
+    B, T, SH = out.shape
+    S, H = w_hh.shape[0], w_hh.shape[1]
+    x = xp.float().reshape(B, T, S, 3 * H)
+    hs, g = out.float().reshape(B, T, S, H), dy.float().reshape(B, T, S, H)
+    w64, b = w_hh.double(), b_hh.float()
+    dxp = xp.new_empty(B, T, S, 3 * H)
+    dw = torch.zeros(S, H, 3 * H, device=xp.device, dtype=torch.float64)
+    dh = x.new_zeros(S, B, H)
+    zero = x.new_zeros(B, H)
+    for step in range(T):
+        ts = [T - 1 - step, step][:S]
+        prev = [t - 1 if t > 0 else None for t in ts[:1]]
+        prev += [t + 1 if t < T - 1 else None for t in ts[1:]]
+        xt = torch.stack([x[:, t, s] for s, t in enumerate(ts)])
+        h_prev = torch.stack([zero if q is None else hs[:, q, s] for s, q in enumerate(prev)])
+        hp = torch.bmm(h_prev.double(), w64).float() + b[:, None]
+        r = torch.sigmoid(xt[..., :H] + hp[..., :H])
+        z = torch.sigmoid(xt[..., H:2 * H] + hp[..., H:2 * H])
+        hpn = hp[..., 2 * H:]
+        n = torch.tanh(xt[..., 2 * H:] + r * hpn)
+        dh = dh + torch.stack([g[:, t, s] for s, t in enumerate(ts)])
+        dz = dh * (h_prev - n) * z * (1.0 - z)
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dr = dn * hpn * r * (1.0 - r)
+        da = torch.cat([dr, dz, dn], dim=-1)
+        for s, t in enumerate(ts):
+            dxp[:, t, s] = da[s]
+        operand = torch.cat([dr, dz, dn * r], dim=-1).to(torch.bfloat16).double()
+        dh = dh * z + torch.bmm(operand, w64.transpose(1, 2)).float()
+        dw = dw + torch.bmm(h_prev.double().transpose(1, 2), operand)
+    return dxp.reshape(B, T, S * 3 * H), dw
+
+
+def bf16_bwd_seeds(torch, fg, dev, *, yardstick: bool = False) -> dict:
     """gru_bwd_bf16's dxp against the plain loop over BF16_GRU_BWD_SEEDS
     seeded inputs at the train shape (as check_bf16_bwd_kernel draws
     them): by seed, the excess beyond one bf16 ulp as a share of the
@@ -1367,7 +1490,10 @@ def bf16_bwd_seeds(torch, fg, dev) -> dict:
     BF16_BWD_OF_MAX. The plain loop adds its products one at a time in k
     order; where a sum in another order puts a dhp on the other side of a
     bf16 rounding, the carry takes it on: this reads how often that moves
-    dxp beyond the bar."""
+    dxp beyond the bar. With ``yardstick``, beside it on each seed, the
+    kernel's and the f32 plain loop's excess over the same bar from the
+    float64 yardstick (yardstick_bwd), and the seeds where each lies
+    beyond it."""
     by_seed = []
     for i in range(BF16_GRU_BWD_SEEDS):
         rng = np.random.default_rng(SEED + 100 + i)
@@ -1380,9 +1506,20 @@ def bf16_bwd_seeds(torch, fg, dev) -> dict:
         by_seed.append({"seed": SEED + 100 + i,
                         "beyond_one_ulp_of_max": bf16_ulps(torch, got, want)[1],
                         "bit_equal_share": (got == want).float().mean().item()})
-    beyond = [r["seed"] for r in by_seed if r["beyond_one_ulp_of_max"] > BF16_BWD_OF_MAX]
-    return {"shape": TRAIN_SHAPE, "by_seed": by_seed, "beyond_one_ulp_allowed": BF16_BWD_OF_MAX,
-            "seeds_beyond_allowed": beyond, "n_seeds": len(by_seed)}
+        if yardstick:
+            yard = yardstick_bwd(torch, *args)[0]
+            by_seed[-1].update(kernel_beyond_yardstick=bf16_ulps(torch, got, yard)[1],
+                               plain_beyond_yardstick=bf16_ulps(torch, want, yard)[1])
+
+    def beyond(key):
+        return [r["seed"] for r in by_seed if r[key] > BF16_BWD_OF_MAX]
+
+    out = {"shape": TRAIN_SHAPE, "by_seed": by_seed, "beyond_one_ulp_allowed": BF16_BWD_OF_MAX,
+           "seeds_beyond_allowed": beyond("beyond_one_ulp_of_max"), "n_seeds": len(by_seed)}
+    if yardstick:
+        out["kernel_seeds_beyond_yardstick"] = beyond("kernel_beyond_yardstick")
+        out["plain_seeds_beyond_yardstick"] = beyond("plain_beyond_yardstick")
+    return out
 
 
 def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, dev, counts,
@@ -1414,11 +1551,15 @@ def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, d
 
     rows["gru_bwd_bf16_card_test"] = bf16_bwd_card_test(torch, fg, dev)
     rows["gru_bwd_bf16_seeds"] = bf16_bwd_seeds(torch, fg, dev)
-    traced = rows["gru_bwd_bf16"][0]["ms_by_kernel"].get("kernel_names", {}).get("recurrence")
+    names = rows["gru_bwd_bf16"][0]["ms_by_kernel"].get("kernel_names", {})
+    traced, traced_dw = names.get("recurrence"), names.get("dw")
     if rows["gru_bwd_bf16"][0].get("variant") != "resident" or not traced or not all(
             "rec_resident_mma" in n for n in traced):
         fail(f"gru_bwd_bf16 at {BF16_GRU_BWD_SHAPES[0]} ran {traced}, not the resident mma "
              "recurrence")
+    if not traced_dw or not all("gru_bwd_bf16_dw_mma" in n for n in traced_dw):
+        fail(f"gru_bwd_bf16 at {BF16_GRU_BWD_SHAPES[0]} ran the weight-gradient passes "
+             f"{traced_dw}, not the tensor-core pass")
     for kernel, checked in (("lingru_fwd_bf16", rows["lingru_fwd_bf16"]),
                             ("lingru_bwd_bf16", rows["lingru_bwd_bf16"][:1])):
         for row in checked:
@@ -1669,7 +1810,10 @@ def one_kernel(torch, flag: str, root: str) -> None:
     gru_fwd_bf16 at the inference rungs (B = 32, 128, 512) as the
     precision phase checks it, gru_bwd_bf16 as the precision phase checks
     it (the train shape, the ragged one, the card test's inputs; its dxp
-    over seeds; the order of the plain loop's sums) and at B = 512, each timed and split by sub-kernel, the
+    over seeds, failing unless it lies beyond the bar from the float64
+    yardstick on no more seeds than the plain loop's own, C1's rule; the
+    order of the plain loop's sums) and at B = 512, each timed and split
+    by sub-kernel, its weight-gradient pass beside the library calls, the
     bf16 lingru scans as the precision phase checks them at B = 512 and
     128 (the backward at 128 first), beside the f32 scans on the same
     inputs and at every bf16 steps and stages; each with nvcc's ptxas
@@ -1712,8 +1856,15 @@ def one_kernel(torch, flag: str, root: str) -> None:
             check_bf16_bwd_kernel(torch, fg, fl, "gru", shape, dev, bwd_rng, timed=True)
             for shape in (*BF16_GRU_BWD_SHAPES, BF16_GRU_BWD_WIDE_SHAPE)],
             "card_test": bf16_bwd_card_test(torch, fg, dev),
-            "seeds": bf16_bwd_seeds(torch, fg, dev),
+            "seeds": bf16_bwd_seeds(torch, fg, dev, yardstick=True),
             "plain_bmm_in_k_order": plain_bmm_order(torch, dev)}
+        # C1's rule: the kernel's dxp lies beyond the bar from the float64
+        # yardstick on no more seeds than the f32 plain loop's own
+        kernel_n, plain_n = (len(result["seeds"][f"{who}_seeds_beyond_yardstick"])
+                             for who in ("kernel", "plain"))
+        if kernel_n > plain_n:
+            fail(f"gru_bwd_bf16's dxp is beyond the bar from the float64 yardstick on {kernel_n} "
+                 f"of {BF16_GRU_BWD_SEEDS} seeds, the plain loop's on {plain_n}")
     elif name == "fwd_bf16":
         # the precision phase's stream, so the rows match its own
         bf16_rng = np.random.default_rng(SEED + 4)
@@ -1964,7 +2115,7 @@ def main() -> None:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{k: row[k] for k in ("ms_from", "library_note", "variant", "rows_per_block",
                                    "steps_per_stage", "stages", "blocks", "waves",
-                                   "smem_bytes_per_block", "ms_by_kernel", "f32_ms",
+                                   "smem_bytes_per_block", "ms_by_kernel", "dw_pass", "f32_ms",
                                    "bit_equal_share", "atol", "max_ulps") if k in row},
         }
 

@@ -80,6 +80,18 @@ _BF16_HS = RESIDENT_MAX_HIDDEN + 8
 #: of W_hh[s] or of a slot's xp is _BF16_XS bf16 (WS there), of dy, h_prev
 #: or the zero row _BF16_HS
 _BF16_DS = 3 * RESIDENT_MAX_HIDDEN + 32
+#: gru_bwd_bf16's weight-gradient pass (part (b) of csrc/gru_bwd_bf16.cu):
+#: the columns of dW a block owns (DW_TC), the rows of B*T a stage of its
+#: ring holds (DW_KR), the stages (DW_STAGES), threads a block, the padding
+#: of an operand row (DW_BS - DW_TC), the SMs of an H100 its splits fill
+#: and the fewest rows a split takes
+_DW_COLS = 64
+_DW_ROWS = 32
+_DW_STAGES = 4
+_DW_THREADS = 256
+_DW_PAD = 8
+_H100_SMS = 132
+_DW_MIN_ROWS = 256
 
 
 def _shapes(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
@@ -147,7 +159,7 @@ def gru_recurrence_plain(
 
 def gru_recurrence_backward_plain(
     xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-    out: torch.Tensor, dy: torch.Tensor,
+    out: torch.Tensor, dy: torch.Tensor, *, dhp_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of :func:`gru_recurrence_plain` as a reverse-time Python
     loop with the formulas of ``pallas_gru.py::_bwd_kernel_v3`` (:252-285).
@@ -165,7 +177,9 @@ def gru_recurrence_backward_plain(
     to f32 and every sum is f32; ``dhp`` is rounded to bf16 only as the
     operand of ``dhp W_hh^T`` and ``h_prev^T dhp`` (``db_hh`` sums it
     unrounded), and dxp is stored rounded to bf16, as ``gru_bwd_bf16``
-    computes it."""
+    computes it. ``dhp_out`` ([B, T, S*3H], the accumulation dtype), when
+    given, takes each step's unrounded dhp, as the kernels' scratch does:
+    a seam for tests, which no program path sets."""
     B, T, S, H = _shapes(xp, w_hh, b_hh)
     cdt, acc = xp.dtype, torch.promote_types(xp.dtype, torch.float32)
     x = xp.to(acc).reshape(B, T, S, 3 * H)
@@ -196,6 +210,8 @@ def gru_recurrence_backward_plain(
         da = torch.cat([dr, dz, dn], dim=-1)
         for s, t in enumerate(ts):
             dxp[:, t, s] = da[s]
+            if dhp_out is not None:
+                dhp_out[:, t, s * 3 * H : (s + 1) * 3 * H] = dhp[s]
         operand = dhp.to(cdt).to(acc)  # the products' bf16 operand
         dh = dh * z + torch.bmm(operand, w.transpose(1, 2))
         dw = dw + torch.bmm(h_prev.transpose(1, 2), operand)
@@ -276,6 +292,48 @@ def bwd_splits(B: int, T: int, H: int, S: int) -> int:
     return max(1, min(-(-_BWD_TARGET_BLOCKS // tiles), -(-rows // 256)))
 
 
+def _dw_k_tiles_per_warp(H: int) -> int:
+    """The weight-gradient pass's k-tiles of 16 a warp (its template MT)."""
+    k_tiles = -(-H // 16)
+    return -(-k_tiles // (_DW_THREADS // 32))
+
+
+def _dw_blocks_per_sm(H: int) -> int:
+    """Blocks of the weight-gradient pass an SM holds (dw_min_blocks in
+    csrc/gru_bwd_bf16.cu): two up to 2 k-tiles a warp, else one."""
+    return 2 if _dw_k_tiles_per_warp(H) <= 2 else 1
+
+
+def dw_splits(B: int, T: int, H: int, S: int) -> int:
+    """Row splits of gru_bwd_bf16's weight-gradient pass: S * ceil(3H / 64)
+    column tiles a split, enough splits to fill the SMs of an H100 with as
+    many blocks as one holds, and at least _DW_MIN_ROWS rows a split. A
+    function of the shapes only, so two runs sum in the same order."""
+    tiles = S * -(-3 * H // _DW_COLS)
+    target = _H100_SMS * _dw_blocks_per_sm(H)
+    return max(1, min(-(-target // tiles), -(-max(B * T, 1) // _DW_MIN_ROWS)))
+
+
+def dw_plan(B: int, T: int, H: int, S: int) -> dict:
+    """How gru_bwd_bf16's weight-gradient pass launches: a block owns one
+    direction, one split of the B*T rows and a ``tile`` of dW, every k of
+    H up to whole k-tiles of 16 by 64 columns; ``splits``, ``blocks``
+    (column tiles x S x splits), ``threads`` a block, dynamic
+    shared-memory bytes a block (dw_smem_bytes in csrc/gru_bwd_bf16.cu: a
+    ring of 4 stages of 32 rows, each a bf16 row of h_prev of the tile's k
+    and 16 bytes and 64 f32 of dhp, and the bf16 operand tile [32][64 +
+    8]), ``k_tiles_per_warp`` (its template MT) and ``blocks_per_sm``, the
+    blocks an SM holds, which the splits aim to fill. Shapes only."""
+    hpad = -(-H // 16) * 16
+    splits = dw_splits(B, T, H, S)
+    smem = (_DW_STAGES * _DW_ROWS * (2 * (hpad + _DW_PAD) + 4 * _DW_COLS)
+            + 2 * _DW_ROWS * (_DW_COLS + _DW_PAD))
+    return dict(tile=(hpad, _DW_COLS), splits=splits,
+                blocks=-(-3 * H // _DW_COLS) * S * splits, threads=_DW_THREADS,
+                smem_bytes=smem, k_tiles_per_warp=_dw_k_tiles_per_warp(H),
+                blocks_per_sm=_dw_blocks_per_sm(H))
+
+
 def resident_rows(B: int, S: int, n_sm: int) -> int:
     """Batch rows a block of a resident recurrence (gru_fwd's or gru_bwd's)
     takes: the fewest of :data:`RESIDENT_ROWS` that keep the
@@ -329,7 +387,9 @@ def bwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = No
     (3 * 128 + 8 and twice 128 + 8), the double-buffered bf16 dhp tile
     [2][rows][3 * 128 + 32] and a zero row [128 + 8] (resident_smem_bytes
     in csrc/gru_bwd_bf16.cu). A streaming block of either holds h_prev and
-    dhp once, in f32."""
+    dhp once, in f32. ``splits`` are the row splits of the weight-gradient
+    pass: :func:`bwd_splits` for gru_bwd, and for gru_bwd_bf16 those of its
+    tensor-core pass, whose whole plan is ``dw`` (:func:`dw_plan`)."""
     variant, rows = _variant_rows("gru_bwd", B, H, S, n_sm, rows)
     threads = -(-H // 32) * 32
     if variant == "streaming":
@@ -341,19 +401,27 @@ def bwd_plan(B: int, T: int, H: int, S: int, n_sm: int, rows: Optional[int] = No
                     + 2 * rows * _BF16_DS + _BF16_HS)
     else:
         smem = 4 * (H * (3 * H + _W_PAD) + 2 * rows * 4 * H)
-    return dict(variant=variant, rows=rows, blocks=S * -(-B // rows),
+    plan = dict(variant=variant, rows=rows, blocks=S * -(-B // rows),
                 threads=threads, smem_bytes=smem, splits=bwd_splits(B, T, H, S))
+    if dtype == torch.bfloat16:
+        plan["dw"] = dw_plan(B, T, H, S)
+        plan["splits"] = plan["dw"]["splits"]
+    return plan
 
 
 def _gru_bwd_kernel(
     xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     out: torch.Tensor, dy: torch.Tensor, rows: Optional[int] = None,
+    dhp: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch ``gru_bwd`` for a float32 ``xp`` or ``gru_bwd_bf16`` for a
     bfloat16 one (or raise) as :func:`bwd_plan` lays it out; ``rows``
-    forces the resident recurrence's rows a block. dxp comes back in xp's
-    dtype, dW_hh and db_hh in float32. Counts on
-    ``gru_recurrence_backward.launches`` and
+    forces the resident recurrence's rows a block; ``dhp``, a contiguous
+    float32 [B, T, S*3H] on xp's device, takes the recurrence's unrounded
+    dhp, which the weight-gradient pass reads (by default a buffer of the
+    call's own; a seam for tests and chip_smoke.py, which no program path
+    sets). dxp comes back in xp's dtype, dW_hh and db_hh in float32.
+    Counts on ``gru_recurrence_backward.launches`` and
     ``gru_recurrence_backward.launches_bf16``."""
     B, T, S, H = _shapes(xp, w_hh, b_hh)
     bf16 = xp.dtype == torch.bfloat16
@@ -378,7 +446,15 @@ def _gru_bwd_kernel(
                     rows, xp.dtype)
     nsplit = plan["splits"]
     # dhp for the weight-gradient pass, unrounded: db_hh sums it as it is
-    dhp = torch.empty(B, T, S * 3 * H, **f32)
+    if dhp is None:
+        dhp = torch.empty(B, T, S * 3 * H, **f32)
+    elif (dhp.dtype, tuple(dhp.shape), dhp.device) != (torch.float32, (B, T, S * 3 * H),
+                                                         xp.device) or not dhp.is_contiguous():
+        raise ValueError(f"dhp must be a contiguous float32 [{B}, {T}, {S * 3 * H}] on "
+                         f"{xp.device}")
+    elif dhp.data_ptr() % 16:
+        raise ValueError(f"{name} copies dhp in 16-byte granules; its storage is not "
+                         "16-byte aligned")
     part_w = torch.empty(nsplit, S, H, 3 * H, **f32)
     part_b = torch.empty(nsplit, S, 3 * H, **f32)
     lib = kernels.library(name)

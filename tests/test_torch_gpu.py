@@ -699,6 +699,67 @@ def test_bf16_gru_bwd_resident_recurrence_does_not_spill(cuda, tmp_path, monkeyp
         assert u["registers"] <= 255, (name, u)
 
 
+def test_bf16_gru_bwd_dw_pass_does_not_spill(cuda, tmp_path, monkeypatch):
+    """ptxas holds the tensor-core weight-gradient pass (up to 128
+    accumulators a thread at H = 512) without spilling, at every k-tiles
+    a warp and both h_prev granules."""
+    from chip_smoke import ptxas_usage
+    from roko_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)  # a fresh build returns its report
+    report = kernels.build(["gru_bwd_bf16"])["gru_bwd_bf16"]["ptxas"]
+    usage = {n: u for n, u in ptxas_usage(report).items() if "gru_bwd_bf16_dw_mma" in n}
+    assert len(usage) == 4 * 2, report
+    for name, u in usage.items():
+        assert u["spill_stores"] == u["spill_loads"] == 0, (name, u)
+
+
+#: the weight-gradient pass against the float64 sums of its own operands
+#: (h_prev and bf16(dhp), products exact in f32): each mma's 16 products
+#: summed by the tensor core, then rounded f32 running sums over a split's
+#: row groups and the splits
+DW_F64_OF_MAX = 1e-5
+
+
+# every tile edge of the weight-gradient pass: H = 8 and 20 leave k-tiles
+# (of 16) partly empty and most warps idle, 36 and 132 are not multiples of
+# 8 (h_prev in 8-byte granules) and 132 and 256 take two k-tiles a warp
+# (the streaming recurrence); 3H is 24, 60, 108, 384, 396, 768 columns of
+# 64-column tiles; B T = 1 .. 11 520 rows in splits of 32-row stages
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("T", [1, 2, 90])
+@pytest.mark.parametrize("B", [1, 3, 128])
+@pytest.mark.parametrize("H", [8, 20, 36, 128, 132, 256])
+def test_bf16_gru_bwd_dw_pass_matches_plain(cuda, H, B, T, S):
+    """gru_bwd_bf16's dW_hh and db_hh within 2e-3 of their largest entry
+    of the plain loop's, and within DW_F64_OF_MAX of the float64 sums of
+    the kernel's own dhp; every output and the dhp scratch bitwise equal
+    across two launches and, on the resident recurrence, to launches
+    forced onto each of its rows a block (the recurrence, which writes
+    dxp and dhp, is the parent's)."""
+    from chip_smoke import h_prev_rows
+
+    args = _bf16_bwd_inputs(np.random.default_rng(H * 7 + B * 3 + T + S), B, T, H, S, cuda)
+    dhp = torch.empty(B, T, S * 3 * H, device=cuda)
+    got = fg._gru_bwd_kernel(*args, dhp=dhp)
+    want = fg.gru_recurrence_backward_plain(*args)
+    for name, g, w in (("dw_hh", got[1], want[1]), ("db_hh", got[2], want[2])):
+        torch.testing.assert_close(g, w, rtol=0, atol=BF16_DW_OF_MAX * w.abs().max().item(),
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    h_t = h_prev_rows(torch, args[3], S).transpose(1, 2).double()
+    d_rows = dhp.reshape(B * T, S, 3 * H).transpose(0, 1).double()
+    f64 = (torch.bmm(h_t, d_rows.to(torch.bfloat16).double()), d_rows.sum(dim=1))
+    for name, g, w in (("dw_hh", got[1], f64[0]), ("db_hh", got[2], f64[1])):
+        assert (g.double() - w).abs().max().item() <= DW_F64_OF_MAX * w.abs().max().item(), name
+    resident = fg.bwd_plan(B, T, H, S, _n_sm(cuda), dtype=torch.bfloat16)["variant"] == "resident"
+    for rows in (None, *(fg.BWD_ROWS if resident else ())):
+        again = torch.empty_like(dhp)
+        other = fg._gru_bwd_kernel(*args, rows=rows, dhp=again)
+        assert torch.equal(again, dhp), rows
+        for name, g, o in zip(("dxp", "dw_hh", "db_hh"), got, other):
+            assert torch.equal(g, o), (rows, name)
+
+
 @pytest.mark.parametrize("B,T,H", [(128, 90, 128), (512, 90, 128), (5, 90, 16), (11, 40, 12),
                                    (1, 1, 4), (9, 33, 512)])
 def test_bf16_lingru_bwd_kernel_matches_plain(cuda, B, T, H):

@@ -11,7 +11,10 @@ precision modes of ``test_torch_precision.py`` (bf16 logits against the
 reference's bf16 Pallas route, int8 logits) and the bf16 training of
 ``test_torch_bf16_train.py`` (per tensor, each layer's and each train
 step's gradients against the reference's bf16 Pallas-route gradients,
-beside that route's distance from its f32 ones). Run from the repo root:
+beside that route's distance from its f32 ones), and ``gru_bwd_bf16``'s
+weight-gradient pass in its order of sums, the plain loop and a float64
+yardstick against that route's dW_hh and db_hh (``test_torch_gru_bwd.py``).
+Run from the repo root:
 
     JAX_PLATFORMS=cpu python -m tests.torch_parity_report
 """
@@ -290,13 +293,39 @@ def _bf16_train_rows():
     return rows
 
 
+def _dw_twin_rows():
+    """gru_bwd_bf16's weight-gradient pass in its order of sums
+    (``test_torch_gru_bwd.dw_twin``), the plain bf16 loop and
+    ``chip_smoke.yardstick_bwd`` (the plain loop's formulas with its step
+    products summed in float64) against the reference's bf16 Pallas route
+    (``test_torch_gru_bwd.dw_twin_vs_pallas``): max |delta| as a share of
+    each tensor's largest entry, by case (``card_c2``: the inputs of the
+    card test that ROADMAP C2 names) and split count."""
+    import chip_smoke
+
+    def share(g, w):
+        return ((g.double() - w.double()).abs().max() / w.double().abs().max()).item()
+
+    rows = {}
+    for case in ("v3", "odd_batch", "card_c2"):
+        got = test_torch_gru_bwd.dw_twin_vs_pallas(case)
+        for splits, twin in got["twin"].items():
+            rows[f"{case}/{splits}_splits"] = {
+                name: share(g, w) for name, g, w in zip(("dw_hh", "db_hh"), twin, got["ref"])}
+        yard = chip_smoke.yardstick_bwd(torch, *got["args"])[1]
+        rows[f"{case}/plain_loop"] = {
+            name: share(g, w) for name, g, w in zip(("dw_hh", "db_hh"), got["plain"], got["ref"])}
+        rows[f"{case}/yardstick"] = {"dw_hh": share(yard, got["ref"][0])}
+    return rows
+
+
 def main():
     print(json.dumps({"gru": _gru_rows(), "model": _logit_rows(), "cli": _fasta_row(),
                       "gru_grads": _grad_rows(), "train_step": _step_rows(),
                       "short_run": _short_run_row(),
                       "lingru": _lingru_rows(), "lingru_model": _lingru_logit_rows(),
                       "lingru_cli": _lingru_fasta_row(), "precision": _precision_rows(),
-                      "bf16_train": _bf16_train_rows(),
+                      "bf16_train": _bf16_train_rows(), "bf16_dw_twin": _dw_twin_rows(),
                       "torch": torch.__version__, "jax": jax.__version__}, indent=1))
 
 

@@ -49,7 +49,20 @@ for ``kind="gru"`` and once for ``kind="lingru"``:
   labelled corpus with a held-out val set and the guard on, its
   checkpoints verified, and the best one polishing the contig; the bf16
   run through the bf16 kernels alone, its windows/s and losses printed
-  beside the f32 run's.
+  beside the f32 run's;
+- bench: ``python -m roko_tpu_torch bench --train`` in this process
+  (``benchmark.main`` at a pinned iteration count: the inference sweep at
+  batch 512 and 2048, the per-kind rows, the recurrence alone, the
+  precision column, the train rows), its JSON line printed, failing on an
+  error in any row of a ported suite; before it, the kernels at the
+  shapes its suites give them that no earlier phase launches (batch 2048;
+  hidden 256, the f32 streaming recurrences, at batch 512), each held
+  against its plain version.
+
+``--bwd-bf16-only`` also reads ROADMAP fault C2 against the reference's
+own numbers (``tests/torch_golden/c2_bf16_bwd.npz``): the kernel, the
+plain loop on the card and on the host CPU, and the order of
+``torch.bmm``'s sums at that shape.
 
 Each path runs with every launch count set to 0 just before it and read
 just after, and fails unless each kernel of the path launched as often as
@@ -62,6 +75,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import importlib.util
 import inspect
@@ -170,11 +184,24 @@ BF16_GRU_BWD_SHAPES = (TRAIN_SHAPE, dict(B=13, T=7, IN=256, H=128, S=1))
 # block, the widest mma tile). gru_bwd_bf16 at the train shape: the
 # precision phase holds it to the bar on the inputs of the card test
 # test_bf16_gru_bwd_kernel_matches_plain[128-90-128-2] as well (its seed),
-# and reads on how many of this many further seeded inputs its dxp lies
-# beyond the bar
+# and reads on how many further seeded inputs its dxp lies beyond the bar:
+# --bwd-bf16-only on this many, gated by C1's rule, the full run (read, not
+# gated) on the first of them, since the plain bf16 loop, one product at a
+# time, takes about half a second a seed on the card
 BF16_GRU_BWD_WIDE_SHAPE = dict(TRAIN_SHAPE, B=512)
 BF16_GRU_BWD_CARD_TEST_SEED = 3 * TRAIN_SHAPE["B"] + TRAIN_SHAPE["H"]
 BF16_GRU_BWD_SEEDS = 100
+BF16_GRU_BWD_SEEDS_READ = 20
+# the bench phase: python -m roko_tpu_torch bench --train at this pinned
+# iteration count; beside it, the kernels at the shapes its suites give them
+# that no earlier phase launches, each held against its plain version: the
+# inference sweep's widest batch, the stress train row (4 layers, hidden
+# 256: the f32 streaming recurrences) at the train suite's batch, ...
+BENCH_ITERS = 10
+BENCH_WIDE_B = 2048
+BENCH_STRESS_SHAPE = dict(B=512, T=90, IN=500, H=256, S=2)
+# ... and the train_gru row's first layer (the resident f32 backward)
+BENCH_TRAIN_SHAPE = dict(TRAIN_SHAPE, B=512)
 BF16_LIN_BWD_SHAPES = (LIN_TRAIN_SHAPE, dict(B=11, T=40, H=12))
 # a full-width bf16 train step through the kernels vs the plain bf16
 # recurrences: the loss at the f32 check's bar, each gradient within 1e-2
@@ -194,13 +221,24 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+@functools.lru_cache(maxsize=1)
+def _package_benchmark():
+    """``roko_tpu_torch/benchmark.py`` beside this script, loaded by its
+    path, so that a ``--*-only ROOT`` run keeps ROOT's package as
+    ``roko_tpu_torch``."""
+    path = os.path.join(ROOT, "roko_tpu_torch", "benchmark.py")
+    if not os.path.isfile(path):
+        fail(f"no roko_tpu_torch/benchmark.py beside this script ({path})")
+    spec = importlib.util.spec_from_file_location("chip_smoke_package_benchmark", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def card_peaks(name: str, ops: str = "f32"):
-    """(FLOP/s, memory bytes/s) from NVIDIA's H100 data sheet, the SXM part
-    unless the name says PCIe: ``ops`` "f32" for float32 without tensor
-    cores, "bf16" for dense bf16 on tensor cores."""
-    pcie = "PCIe" in name
-    flops = {"f32": 51.2e12 if pcie else 67e12, "bf16": 756e12 if pcie else 989e12}[ops]
-    return flops, 2.0e12 if pcie else 3.35e12
+    """(FLOP/s, memory bytes/s) from NVIDIA's H100 data sheet, the
+    package's ``benchmark.card_peaks``."""
+    return _package_benchmark().card_peaks(name, ops)
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -1418,14 +1456,16 @@ def bf16_bwd_card_test(torch, fg, dev) -> dict:
             "bit_equal_share": (got[0] == want[0]).float().mean().item()}
 
 
-def plain_bmm_order(torch, dev) -> dict:
-    """For the plain loop's two products at the train shape (h_prev W_hh
-    and bf16(dhp) W_hh^T, bf16 values in f32): the share of ``torch.bmm``'s
-    sums bit-equal to one product added at a time in k order, in f32 (the
-    products are exact, so each add is a fused multiply-add). 1.0 says the
-    plain loop sums in k order, one product at a time."""
+def plain_bmm_order(torch, dev, shape=TRAIN_SHAPE) -> dict:
+    """For the bf16 backward's two step products at ``shape`` (h_prev
+    W_hh and bf16(dhp) W_hh^T, bf16 values in f32): the share of
+    ``torch.bmm``'s sums bit-equal to one product added at a time in k
+    order, in f32 (the products are exact, so each add is a fused
+    multiply-add). 1.0 says ``torch.bmm`` sums in k order, one product at
+    a time, at that shape on this device, as the plain loop's own
+    ``k_order_bmm`` does at every shape."""
     rng = np.random.default_rng(SEED + 6)
-    B, H, S = (TRAIN_SHAPE[k] for k in ("B", "H", "S"))
+    B, H, S = (shape[k] for k in ("B", "H", "S"))
 
     def draw(shape, scale):
         a = (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -1440,6 +1480,57 @@ def plain_bmm_order(torch, dev) -> dict:
             acc = acc + a[:, :, k:k + 1] * b[:, k:k + 1, :]
         shares[name] = (torch.bmm(a, b) == acc).float().mean().item()
     return shares
+
+
+def c2_inputs(torch, dev):
+    """The inputs of ROADMAP C2 on ``dev`` in bf16, and the golden
+    (``tests/torch_golden/c2.py`` beside this script): the card test's
+    draws at H = 256, B = 1 from its seed, with the reference's own forward
+    output from the golden as ``out``. Fails unless the draws' digest is
+    the golden's."""
+    from tests.torch_golden import c2
+
+    golden = c2.load()
+    draws = c2.draw()
+    if c2.digest(*draws) != str(golden["draws_sha256"]):
+        fail("the C2 draws on this machine are not the golden's")
+    xp, w, b, dy = (torch.from_numpy(a).to(dev).to(torch.bfloat16) for a in draws)
+    out = torch.from_numpy(golden["y"]).to(dev).to(torch.bfloat16)
+    return (xp, w, b, out, dy), golden
+
+
+def c2_check(torch, fg, dev) -> dict:
+    """ROADMAP C2 on the golden's inputs, each as the largest |delta| of
+    dW_hh and db_hh from the reference's bf16 Pallas route, a share of
+    the reference's largest entry: (a) the kernel, (b) the plain loop on
+    the card, (c) the same plain loop on this machine's CPU, and (d) the
+    share of ``torch.bmm``'s sums in k order at C2's shape on the card
+    (plain_bmm_order); beside them the kernel from the card's plain loop,
+    as the card test holds it, and the launch plan."""
+    args, golden = c2_inputs(torch, dev)
+    ref = [torch.from_numpy(golden[k]).to(dev) for k in ("w_hh", "b_hh")]
+
+    def share(got, want=ref):
+        return {name: ((g.to(dev) - w).abs().max() / w.abs().max()).item()
+                for name, g, w in zip(("dw_hh", "db_hh"), got[1:], want)}
+
+    kernel = fg.gru_recurrence_backward(*args)
+    plain = fg.gru_recurrence_backward_plain(*args)
+    cpu = fg.gru_recurrence_backward_plain(*(a.cpu() for a in args))
+    B, T, SH = args[3].shape
+    S, H = args[1].shape[:2]
+    shape = dict(B=B, T=T, H=H, S=S)
+    out = {"shape": shape, "golden": "tests/torch_golden/c2_bf16_bwd.npz",
+           "bar_of_max": BF16_DW_OF_MAX,
+           "variant": fg.bwd_plan(B, T, H, S, torch.cuda.get_device_properties(dev)
+                                  .multi_processor_count, dtype=torch.bfloat16)["variant"],
+           "a_kernel_vs_reference": share(kernel),
+           "b_card_plain_vs_reference": share(plain),
+           "c_cpu_plain_vs_reference": share(cpu), "cpu_threads": torch.get_num_threads(),
+           "d_plain_bmm_in_k_order": plain_bmm_order(torch, dev, shape),
+           "kernel_vs_card_plain": share(kernel, plain[1:])}
+    out["kernel_within_bar"] = max(out["a_kernel_vs_reference"].values()) <= BF16_DW_OF_MAX
+    return out
 
 
 def yardstick_bwd(torch, xp, w_hh, b_hh, out, dy):
@@ -1482,8 +1573,8 @@ def yardstick_bwd(torch, xp, w_hh, b_hh, out, dy):
     return dxp.reshape(B, T, S * 3 * H), dw
 
 
-def bf16_bwd_seeds(torch, fg, dev, *, yardstick: bool = False) -> dict:
-    """gru_bwd_bf16's dxp against the plain loop over BF16_GRU_BWD_SEEDS
+def bf16_bwd_seeds(torch, fg, dev, n_seeds: int, *, yardstick: bool = False) -> dict:
+    """gru_bwd_bf16's dxp against the plain loop over ``n_seeds``
     seeded inputs at the train shape (as check_bf16_bwd_kernel draws
     them): by seed, the excess beyond one bf16 ulp as a share of the
     largest entry and the share of bit-equal entries; and the seeds beyond
@@ -1495,7 +1586,7 @@ def bf16_bwd_seeds(torch, fg, dev, *, yardstick: bool = False) -> dict:
     float64 yardstick (yardstick_bwd), and the seeds where each lies
     beyond it."""
     by_seed = []
-    for i in range(BF16_GRU_BWD_SEEDS):
+    for i in range(n_seeds):
         rng = np.random.default_rng(SEED + 100 + i)
         _, _, xp, w_hh, b_hh = layer_inputs(torch, TRAIN_SHAPE, dev, rng)
         xp, w_hh, b_hh = (a.to(torch.bfloat16) for a in (xp, w_hh, b_hh))
@@ -1550,7 +1641,7 @@ def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, d
         for i, shape in enumerate(BF16_LIN_BWD_SHAPES)]
 
     rows["gru_bwd_bf16_card_test"] = bf16_bwd_card_test(torch, fg, dev)
-    rows["gru_bwd_bf16_seeds"] = bf16_bwd_seeds(torch, fg, dev)
+    rows["gru_bwd_bf16_seeds"] = bf16_bwd_seeds(torch, fg, dev, BF16_GRU_BWD_SEEDS_READ)
     names = rows["gru_bwd_bf16"][0]["ms_by_kernel"].get("kernel_names", {})
     traced, traced_dw = names.get("recurrence"), names.get("dw")
     if rows["gru_bwd_bf16"][0].get("variant") != "resident" or not traced or not all(
@@ -1765,6 +1856,116 @@ def bf16_beside(f32_train: dict) -> dict:
         "val_acc": [h["val_acc"] for h in f32_train["history"]]}
 
 
+def bench_kernel_check(torch, port, dev) -> dict:
+    """The kernels at the bench's shapes that no earlier phase launches,
+    each against its plain version (the bars and checks of the rows
+    above), with its launch plan and its time by CUDA events: gru_fwd,
+    gru_fwd_bf16 and lingru_fwd at batch BENCH_WIDE_B, gru_fwd and gru_bwd
+    at BENCH_STRESS_SHAPE, which must run the streaming variants, and
+    gru_bwd at the train rows' batch; then, checked and not timed, the
+    forwards of the precision column's logit deltas at its batch,
+    ``benchmark.LOGIT_DELTA_BATCH`` (f32 and int8 on the f32 kernels, bf16
+    on the bf16 ones)."""
+    fg, fl, delta_b = port.fg, port.fl, port.bench.LOGIT_DELTA_BATCH
+    rng = np.random.default_rng(SEED + 7)
+    wide = dict(MAIN_SHAPE, B=BENCH_WIDE_B)
+    rows = {"gru_fwd": check_kernel(torch, fg, wide, dev, rng, timed=False),
+            "gru_fwd_bf16": check_bf16_kernel(torch, fg, fl, "gru", BENCH_WIDE_B, dev, rng,
+                                              timed=False),
+            "lingru_fwd": check_lingru(torch, fl, "fwd", dict(LIN_INFER_SHAPE, B=BENCH_WIDE_B),
+                                       dev, rng, timed=False),
+            "gru_fwd_stress": check_kernel(torch, fg, BENCH_STRESS_SHAPE, dev, rng, timed=False),
+            "gru_bwd_stress": check_bwd_kernel(torch, fg, BENCH_STRESS_SHAPE, dev, rng,
+                                               timed=False),
+            "gru_bwd_train": check_bwd_kernel(torch, fg, BENCH_TRAIN_SHAPE, dev, rng,
+                                              timed=False)}
+    if rows["gru_bwd_train"]["variant"] != "resident":
+        fail(f"gru_bwd at {BENCH_TRAIN_SHAPE} ran {rows['gru_bwd_train']['variant']}, "
+             "not resident")
+    for name in ("gru_fwd_stress", "gru_bwd_stress"):
+        if rows[name]["variant"] != "streaming":
+            fail(f"{name} at {BENCH_STRESS_SHAPE} ran {rows[name]['variant']}, not streaming")
+    for name, row in rows.items():
+        shape = row["shape"]
+        if name.startswith("lingru"):
+            args = lingru_inputs(torch, "fwd", fl, shape, dev, np.random.default_rng(SEED + 8))
+            run = fl.lingru_scan
+        else:
+            args = layer_inputs(torch, shape, dev, np.random.default_rng(SEED + 8))[2:]
+            if name == "gru_fwd_bf16":
+                args = tuple(a.to(torch.bfloat16) for a in args)
+            run = fg.gru_recurrence
+            if name.startswith("gru_bwd"):
+                out = fg.gru_recurrence(*args)
+                dy = torch.ones_like(out)
+                args, run = (*args, out, dy), fg.gru_recurrence_backward
+        row["ms"], row["ms_from"] = cuda_ms(torch, lambda: run(*args), iters=10), "events"
+    rows["delta_batch"] = {
+        "gru_fwd": check_kernel(torch, fg, dict(MAIN_SHAPE, B=delta_b), dev, rng,
+                                timed=False),
+        "lingru_fwd": check_lingru(torch, fl, "fwd", dict(LIN_INFER_SHAPE, B=delta_b),
+                                   dev, rng, timed=False),
+        **{f"{kind}_fwd_bf16": check_bf16_kernel(torch, fg, fl, kind, delta_b, dev, rng,
+                                                 timed=False)
+           for kind in ("gru", "lingru")}}
+    return rows
+
+
+def bench_launches(bench) -> dict:
+    """The kernel launches of ``bench --train --bench-iterations
+    BENCH_ITERS`` at the default widths (3 layers, one launch a layer and
+    forward or backward): every timed call runs bench.WARMUP + BENCH_ITERS
+    times. The inference sweep and the recurrence alone run gru_fwd; the
+    lingru row and its recurrence lingru_fwd; the precision column, per
+    kind, f32 and int8 (f32 compute) on the f32 kernel and bf16 on the
+    bf16 one, timed, then one forward of each for the logit deltas; the
+    train rows a forward and a backward a step, 4 layers in the stress
+    row."""
+    n, layers, stress = bench.WARMUP + BENCH_ITERS, 3, 4
+    timed = layers * n
+    precision_f32, precision_bf16 = 2 * timed + 2 * layers, timed + layers
+    return {"gru_fwd": len(bench.SWEEP_BATCHES) * timed + timed + precision_f32 + timed
+            + stress * n,
+            "gru_bwd": timed + stress * n,
+            "gru_fwd_bf16": precision_bf16,
+            "lingru_fwd": timed + timed + precision_f32,
+            "lingru_fwd_bf16": precision_bf16}
+
+
+def drive_bench(torch, port, counts) -> dict:
+    """The bench phase: ``python -m roko_tpu_torch bench --train
+    --bench-iterations BENCH_ITERS`` in this process (``benchmark.main``,
+    which prints its JSON line; its --out file is read back), with every
+    launch count set to 0 just before and read just after. Fails unless it
+    returns 0 with no error in a row of a ported suite, and each kernel
+    launched as often as its suites launch it."""
+    out_path = os.path.join(ROOT, "build", "chip_smoke_bench.json")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    counts.zero()
+    t0 = time.perf_counter()
+    rc = port.bench.main(["--train", "--bench-iterations", str(BENCH_ITERS), "--out", out_path])
+    seconds = time.perf_counter() - t0
+    with open(out_path) as f:
+        result = json.load(f)
+    errors = port.bench.ported_errors(result)
+    if rc != 0 or errors:
+        fail(f"bench returned {rc}; rows of ported suites failed: {errors}")
+    launches = counts.expect("the bench", bench_launches(port.bench))
+    d = result["detail"]
+    return {"seconds": seconds, "bench_iterations": BENCH_ITERS, "launches": launches,
+            **{k: result[k] for k in ("metric", "value", "unit", "vs_baseline")},
+            **{k: d.get(k) for k in ("compute_dtype", "windows_per_sec", "best_batch",
+                                     "batch_sweep", "mfu_pct", "recurrence_only",
+                                     "lingru_speedup_vs_gru", "torch_cpu_ref_windows_per_sec")},
+            "model_kinds": {k: r.get("kernels_windows_per_sec")
+                            for k, r in d["model_kinds"].items()},
+            "precision": {k: {c: r.get(c) for c in ("f32_windows_per_sec",
+                                                    "bf16_windows_per_sec",
+                                                    "int8_windows_per_sec")}
+                          for k, r in d["precision"].items()},
+            "train": {k: d["train"][k] for k in ("train_gru", "train_scan_stress")}}
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -1856,8 +2057,9 @@ def one_kernel(torch, flag: str, root: str) -> None:
             check_bf16_bwd_kernel(torch, fg, fl, "gru", shape, dev, bwd_rng, timed=True)
             for shape in (*BF16_GRU_BWD_SHAPES, BF16_GRU_BWD_WIDE_SHAPE)],
             "card_test": bf16_bwd_card_test(torch, fg, dev),
-            "seeds": bf16_bwd_seeds(torch, fg, dev, yardstick=True),
-            "plain_bmm_in_k_order": plain_bmm_order(torch, dev)}
+            "seeds": bf16_bwd_seeds(torch, fg, dev, BF16_GRU_BWD_SEEDS, yardstick=True),
+            "plain_bmm_in_k_order": plain_bmm_order(torch, dev),
+            "c2": c2_check(torch, fg, dev)}
         # C1's rule: the kernel's dxp lies beyond the bar from the float64
         # yardstick on no more seeds than the f32 plain loop's own
         kernel_n, plain_n = (len(result["seeds"][f"{who}_seeds_beyond_yardstick"])
@@ -1883,6 +2085,10 @@ def one_kernel(torch, flag: str, root: str) -> None:
     result["ptxas_usage"] = {n: ptxas_usage(r) for n, r in ptxas.items() if r}
     emit({f"{name}_only": {"root": root, "package": os.path.dirname(kernels.__file__),
                            "ptxas": ptxas, **result, "card": card}})
+    if name == "bwd_bf16" and not result["c2"]["kernel_within_bar"]:
+        c2 = result["c2"]
+        fail(f"gru_bwd_bf16 at {c2['shape']} is {c2['a_kernel_vs_reference']} of the largest "
+             f"entry from the reference's golden, beyond {BF16_DW_OF_MAX}")
 
 
 def main() -> None:
@@ -1900,6 +2106,7 @@ def main() -> None:
              "| --lingru-only ROOT | --lingru-bf16-only ROOT]")
     sys.path.insert(0, ROOT)
     try:
+        from roko_tpu_torch import benchmark as bench
         from roko_tpu_torch import constants as C
         from roko_tpu_torch import kernels
         from roko_tpu_torch.config import ModelConfig, RokoConfig, TrainConfig, resolve_ladder
@@ -1945,6 +2152,7 @@ def main() -> None:
         resolve_ladder=resolve_ladder, tail_rungs=tail_rungs, PolishSession=PolishSession,
         run_streaming_polish=run_streaming_polish, ServeMetrics=ServeMetrics,
         StageTimer=StageTimer, write_fasta=write_fasta, assess_fastas=assess_fastas,
+        bench=bench,
     )
     counts = Counts(fg, fl)
 
@@ -2108,6 +2316,13 @@ def main() -> None:
                ("lingru_fwd_bf16", "lingru_bwd_bf16"))
     emit({"lingru_train_breakdown_bf16": {**lin_breakdown_bf16, "card": card}})
 
+    # -- the bench: the system's own measurement entry point ----------------
+    emit({"bench_kernel_check": {**bench_kernel_check(torch, port, dev),
+                                 "atol": ATOL, "rtol": RTOL, "card": card}})
+    bench_run = drive_bench(torch, port, counts)
+    bench_launched = bench_run["launches"]
+    emit({"bench": {**bench_run, "card": card}})
+
     def timing(row):
         return {
             "shape": row["shape"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -2132,38 +2347,46 @@ def main() -> None:
                    "roko_tpu/models/pallas_gru.py:126", "roko_tpu/models/pallas_gru.py:171",
                    main_row, {"inference": launches, "polish": polish["gru_fwd_launches"],
                               "stream_polish": stream["gru_fwd_launches"], "train": train_fwd,
-                              **precision_launches["gru_fwd"]},
+                              **precision_launches["gru_fwd"],
+                              "bench": bench_launched["gru_fwd"]},
                    at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",
-                   bwd_row, {"inference": 0, "train": train_bwd}),
+                   bwd_row, {"inference": 0, "train": train_bwd,
+                             "bench": bench_launched["gru_bwd"]}),
         kernel_row("lingru_fwd", "roko_tpu_torch/csrc/lingru_fwd.cu",
                    "roko_tpu/models/pallas_lingru.py:90", None, lin_fwd_row,
                    {"inference": lin_path["lingru_fwd_launches"],
                     "stream_polish": lin_stream["lingru_fwd_launches"],
-                    "train": lin_train["lingru_fwd_launches"]},
+                    "train": lin_train["lingru_fwd_launches"],
+                    "bench": bench_launched["lingru_fwd"]},
                    at_train_batch=lin_fwd_train_row),
         kernel_row("lingru_bwd", "roko_tpu_torch/csrc/lingru_bwd.cu",
                    "roko_tpu/models/pallas_lingru.py:121", None, lin_bwd_row,
-                   {"inference": 0, "train": lin_train["lingru_bwd_launches"]}),
+                   {"inference": 0, "train": lin_train["lingru_bwd_launches"],
+                    "bench": bench_launched["lingru_bwd"]}),
         kernel_row("gru_fwd_bf16", "roko_tpu_torch/csrc/gru_fwd_bf16.cu",
                    "roko_tpu/models/pallas_gru.py:126", "roko_tpu/models/pallas_gru.py:171",
                    bf16_rows["gru_fwd_bf16"][-1],
                    {**precision_launches["gru_fwd_bf16"],
-                    "train": train_bf16["gru_fwd_bf16_launches"]},
+                    "train": train_bf16["gru_fwd_bf16_launches"],
+                    "bench": bench_launched["gru_fwd_bf16"]},
                    at_batch_128=bf16_rows["gru_fwd_bf16"][1]),
         kernel_row("lingru_fwd_bf16", "roko_tpu_torch/csrc/lingru_fwd_bf16.cu",
                    "roko_tpu/models/pallas_lingru.py:90", None, bf16_rows["lingru_fwd_bf16"][-1],
                    {**precision_launches["lingru_fwd_bf16"],
-                    "train": lin_train_bf16["lingru_fwd_bf16_launches"]},
+                    "train": lin_train_bf16["lingru_fwd_bf16_launches"],
+                    "bench": bench_launched["lingru_fwd_bf16"]},
                    at_batch_128=bf16_rows["lingru_fwd_bf16"][0]),
         kernel_row("gru_bwd_bf16", "roko_tpu_torch/csrc/gru_bwd_bf16.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",
                    bf16_rows["gru_bwd_bf16"][0],
-                   {"inference": 0, "train": train_bf16["gru_bwd_bf16_launches"]}),
+                   {"inference": 0, "train": train_bf16["gru_bwd_bf16_launches"],
+                    "bench": bench_launched["gru_bwd_bf16"]}),
         kernel_row("lingru_bwd_bf16", "roko_tpu_torch/csrc/lingru_bwd_bf16.cu",
                    "roko_tpu/models/pallas_lingru.py:121", None, bf16_rows["lingru_bwd_bf16"][0],
-                   {"inference": 0, "train": lin_train_bf16["lingru_bwd_bf16_launches"]}),
+                   {"inference": 0, "train": lin_train_bf16["lingru_bwd_bf16_launches"],
+                    "bench": bench_launched["lingru_bwd_bf16"]}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,14 +1,18 @@
 """Command line of the port: ``python -m roko_tpu_torch sim``,
-``features``, ``train``, ``inference``, ``polish`` and ``assess``.
+``features``, ``train``, ``inference``, ``polish``, ``assess`` and
+``bench``.
 
 Mirrors ``roko-tpu sim``, ``features``, ``train``, ``inference``,
-``polish`` and ``assess`` (``roko_tpu/cli.py:461-574``, :626-737, :1230,
-:1288; flags :1310-1370, :1545-1632, :1864-1887) with the flags of the
-same names (``--model-kind`` takes the kinds the port runs), plus
-``--device``. ``polish`` streams by default (extraction, batching and
-inference overlapped, ``--resume`` from its journal); ``--staged`` runs
-``features`` then ``inference``; ``--truth`` prints the assess report
-after either. ``inference`` and ``polish`` take a reference-layout
+``polish``, ``assess`` and ``bench`` (``roko_tpu/cli.py:461-574``,
+:590, :626-737, :1230, :1288; flags :1310-1370, :1469-1537, :1545-1632,
+:1864-1887) with the flags of the same names (``--model-kind`` takes the
+kinds the port runs), plus ``--device``. ``bench`` runs the suites of
+``benchmark.py`` that the port has (inference, per kind, recurrence,
+precision, ``--train``); the flags of the others are usage errors that
+name their queue item. ``polish`` streams by default (extraction,
+batching and inference overlapped, ``--resume`` from its journal);
+``--staged`` runs ``features`` then ``inference``; ``--truth`` prints
+the assess report after either. ``inference`` and ``polish`` take a reference-layout
 ``.pth`` state_dict or a checkpoint directory that ``train`` wrote.
 ``train``, ``inference`` and ``polish`` take ``--compute-dtype
 {auto,float32,bfloat16}`` and ``--quantize {int8,none}``
@@ -219,6 +223,22 @@ def cmd_inference(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_bench(args: argparse.Namespace) -> int:
+    """The benchmark JSON line (``benchmark.main``); 1 when a row of a
+    ported suite failed."""
+    from roko_tpu_torch.benchmark import main as bench_main
+
+    argv: List[str] = ["--device", args.device]
+    if args.train:
+        argv.append("--train")
+    for flag, value in (("--batch", args.b), ("--out", args.out),
+                        ("--bench-iterations", args.bench_iterations),
+                        ("--compare", args.compare)):
+        if value is not None:
+            argv += [flag, str(value)]
+    return bench_main(argv)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m roko_tpu_torch",
@@ -363,6 +383,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bed", default=None,
                    help="also write truth-space error loci (contig start end kind count)")
     p.set_defaults(fn=cmd_assess)
+
+    from roko_tpu_torch.benchmark import add_unported_flags
+
+    p = sub.add_parser("bench", help="print the benchmark JSON line")
+    p.add_argument("--train", action="store_true", help="also time training steps")
+    p.add_argument("--b", type=int, default=None,
+                   help="exact benchmark batch size (default: sweep 512, 2048 on a card)")
+    p.add_argument("--out", default=None, help="write full results JSON here")
+    p.add_argument("--bench-iterations", type=int, default=None,
+                   help="fixed-work mode: pin the timed iteration count of the suites")
+    p.add_argument("--compare", default=None, metavar="BENCH_JSON",
+                   help="previous result to diff against: adds detail.vs_previous, and "
+                   "defaults to fixed-work --bench-iterations")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the model runs (default cuda; no card is an error, never a "
+                   "silent move to the CPU)")
+    add_unported_flags(p)
+    p.set_defaults(fn=cmd_bench)
     return parser
 
 
@@ -376,6 +414,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             check_trainable(_model_config(args))
         except ValueError as e:
             parser.error(str(e))
+    if args.command == "bench":
+        from roko_tpu_torch.benchmark import unported_flag
+
+        msg = unported_flag(args)
+        if msg:
+            parser.error(msg)
     if args.command == "polish":
         for flag, item in (("distributed", "A10"), ("cascade", "A10"),
                            ("config", "A11"), ("trace_dir", "A11")):

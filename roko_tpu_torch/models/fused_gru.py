@@ -157,6 +157,21 @@ def gru_recurrence_plain(
     return out.reshape(B, T, S * H)
 
 
+def k_order_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [S, M, K] @ b [S, K, N]`` in a's dtype with each entry one
+    running sum over k = 0 .. K-1 from zero, one product added at a time:
+    the order of sums of the plain bf16 backward's two step products, the
+    same at every shape and on every device. On bf16 values held in float32
+    each product is exact, so this is what a fused multiply-add chain in k
+    order gives: gru_bwd_bf16's streaming recurrence, and cuBLAS's f32 GEMM
+    where it sums in k order. ``torch.bmm`` picks its order by shape and
+    device."""
+    out = a.new_zeros(a.shape[0], a.shape[1], b.shape[2])
+    for a_k, b_k in zip(a.unsqueeze(3).unbind(2), b.unsqueeze(1).unbind(2)):
+        out.addcmul_(a_k, b_k)
+    return out
+
+
 def gru_recurrence_backward_plain(
     xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     out: torch.Tensor, dy: torch.Tensor, *, dhp_out: Optional[torch.Tensor] = None,
@@ -177,9 +192,13 @@ def gru_recurrence_backward_plain(
     to f32 and every sum is f32; ``dhp`` is rounded to bf16 only as the
     operand of ``dhp W_hh^T`` and ``h_prev^T dhp`` (``db_hh`` sums it
     unrounded), and dxp is stored rounded to bf16, as ``gru_bwd_bf16``
-    computes it. ``dhp_out`` ([B, T, S*3H], the accumulation dtype), when
-    given, takes each step's unrounded dhp, as the kernels' scratch does:
-    a seam for tests, which no program path sets."""
+    computes it; both step products, ``h_prev W_hh`` and ``dhp W_hh^T``,
+    sum in k order one product at a time (:func:`k_order_bmm`), so the
+    rounding of dhp to bf16, which the carry takes on, does not hang on
+    the order a library picks. ``dhp_out`` ([B, T, S*3H], the
+    accumulation dtype), when given, takes each step's unrounded dhp, as
+    the kernels' scratch does: a seam for tests, which no program path
+    sets."""
     B, T, S, H = _shapes(xp, w_hh, b_hh)
     cdt, acc = xp.dtype, torch.promote_types(xp.dtype, torch.float32)
     x = xp.to(acc).reshape(B, T, S, 3 * H)
@@ -191,13 +210,18 @@ def gru_recurrence_backward_plain(
     db = x.new_zeros(S, 3 * H)
     dh = x.new_zeros(S, B, H)
     zero = x.new_zeros(B, H)
+    mm = torch.bmm if cdt == acc else k_order_bmm
+    h_prevs = torch.stack([  # [T, S, B, H]: each step's previous states
+        torch.stack([zero if p is None else hs[:, p, s] for s, p in enumerate(prev)])
+        for _, prev in (_prev_steps(T, S, step) for step in range(T))
+    ]) if T else x.new_zeros(0, S, B, H)
+    # no hp depends on dh: every step's in one product over the T*B rows
+    hps = mm(h_prevs.transpose(0, 1).reshape(S, T * B, H), w)
+    hps = hps.reshape(S, T, B, 3 * H).transpose(0, 1) + b[None, :, None]
     for step in range(T):
-        ts, prev = _prev_steps(T, S, step)
+        ts, _ = _prev_steps(T, S, step)
         xt = torch.stack([x[:, t, s] for s, t in enumerate(ts)])  # [S, B, 3H]
-        h_prev = torch.stack(
-            [zero if p is None else hs[:, p, s] for s, p in enumerate(prev)]
-        )
-        hp = torch.bmm(h_prev, w) + b[:, None]
+        h_prev, hp = h_prevs[step], hps[step]
         r = torch.sigmoid(xt[..., :H] + hp[..., :H])
         z = torch.sigmoid(xt[..., H : 2 * H] + hp[..., H : 2 * H])
         hpn = hp[..., 2 * H :]
@@ -213,7 +237,7 @@ def gru_recurrence_backward_plain(
             if dhp_out is not None:
                 dhp_out[:, t, s * 3 * H : (s + 1) * 3 * H] = dhp[s]
         operand = dhp.to(cdt).to(acc)  # the products' bf16 operand
-        dh = dh * z + torch.bmm(operand, w.transpose(1, 2))
+        dh = dh * z + mm(operand, w.transpose(1, 2))
         dw = dw + torch.bmm(h_prev.transpose(1, 2), operand)
         db = db + dhp.sum(dim=1)
     return dxp.reshape(B, T, S * 3 * H), dw, db

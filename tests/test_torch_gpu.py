@@ -760,6 +760,28 @@ def test_bf16_gru_bwd_dw_pass_matches_plain(cuda, H, B, T, S):
             assert torch.equal(g, o), (rows, name)
 
 
+def test_bf16_gru_bwd_matches_the_reference_golden_at_c2(cuda):
+    """ROADMAP C2: on the card test's draws at H = 256, B = 1 (the streaming
+    recurrence) with the reference's own forward output, the kernel's
+    dW_hh and db_hh within BF16_DW_OF_MAX of the largest entry of the
+    reference's bf16 Pallas route (tests/torch_golden/c2.py), and the plain
+    loop's beside them."""
+    from tests.torch_golden import c2
+
+    golden = c2.load()
+    x, w, b, dy = c2.draw()
+    assert c2.digest(x, w, b, dy) == str(golden["draws_sha256"])
+    args = tuple(torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+                 for a in (x, w, b, golden["y"], dy))
+    for who, got in (("kernel", fg.gru_recurrence_backward(*args)),
+                     ("plain", fg.gru_recurrence_backward_plain(*args))):
+        for name, g, key in (("dw_hh", got[1], "w_hh"), ("db_hh", got[2], "b_hh")):
+            want = torch.from_numpy(golden[key]).to(cuda)
+            torch.testing.assert_close(g, want, rtol=0,
+                                       atol=BF16_DW_OF_MAX * want.abs().max().item(),
+                                       msg=lambda m, n=f"{who} {name}": f"{n}: {m}")
+
+
 @pytest.mark.parametrize("B,T,H", [(128, 90, 128), (512, 90, 128), (5, 90, 16), (11, 40, 12),
                                    (1, 1, 4), (9, 33, 512)])
 def test_bf16_lingru_bwd_kernel_matches_plain(cuda, B, T, H):

@@ -15,6 +15,7 @@ import torch
 import roko_tpu.models.pallas_gru as pg
 from roko_tpu.models import gru as jgru
 from roko_tpu_torch.models import fused_gru as fg
+from tests.torch_golden import c2
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5  # f32 on both sides; only the summation order differs
@@ -393,14 +394,8 @@ def _twin_draw(case):
     misses its bar against the plain loop on the card (ROADMAP C2)."""
     T, S = 90, 2
     if case == "card_c2":
-        B, H = 1, 256
-        rng = np.random.default_rng(H * 7 + B * 3 + T + S)
-        bound = 1.0 / np.sqrt(H)
-        draws = (rng.standard_normal((B, T, S * 3 * H)), rng.uniform(-bound, bound, (S, H, 3 * H)),
-                 rng.uniform(-bound, bound, (S, 3 * H)), rng.standard_normal((B, T, S * H)))
-        x, w, b, g = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).float().numpy()
-                      for a in draws)
-        return B, H, w, b, x, g
+        x, w, b, g = c2.draw()
+        return c2.B, c2.H, w, b, x, g
     B, _, H, _ = CASES[case]
     rng = np.random.default_rng(26 if case == "v3" else 27)
     bound = 1.0 / np.sqrt(H)
@@ -487,3 +482,83 @@ def test_backward_plain_hands_out_its_dhp():
     torch.testing.assert_close(d[..., :2 * H].to(torch.bfloat16).float(), dxp[..., :2 * H],
                                rtol=0, atol=0)
     torch.testing.assert_close(d.sum(dim=(0, 1)), got[2], rtol=1e-5, atol=1e-5)
+
+
+# -- ROADMAP C2: the reference's golden and the plain loop's order of sums ----
+
+
+def test_c2_golden_is_the_references_own():
+    """The committed golden (tests/torch_golden/c2_bf16_bwd.npz) agrees with
+    the reference recomputed here: y, dW_hh and db_hh within 1e-5 of each
+    tensor's largest entry (the reference drifts by about 3e-7 between JAX
+    versions), on the same draws (their digest)."""
+    got, want = c2.load(), c2.compute()
+    assert str(got["draws_sha256"]) == str(want["draws_sha256"])
+    for k in ("y", "w_hh", "b_hh"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5 * np.abs(want[k]).max(),
+                                   err_msg=k)
+
+
+def test_bf16_backward_plain_matches_the_c2_golden():
+    """The plain bf16 loop on the golden's inputs (the card test's draws at
+    H = 256, B = 1 and the reference's forward output): dW_hh and db_hh
+    within the card's bar, BF16_DW_OF_MAX of the reference's largest
+    entry."""
+    golden = c2.load()
+    x, w, b, dy = c2.draw()
+    args = tuple(torch.from_numpy(a).to(torch.bfloat16) for a in (x, w, b, golden["y"], dy))
+    _, dw, db = fg.gru_recurrence_backward_plain(*args)
+    for name, g, key in (("dw_hh", dw, "w_hh"), ("db_hh", db, "b_hh")):
+        want = torch.from_numpy(golden[key])
+        torch.testing.assert_close(g, want, rtol=0,
+                                   atol=BF16_DW_OF_MAX * want.abs().max().item(), msg=name)
+
+
+def test_k_order_bmm_adds_one_product_at_a_time_in_k_order():
+    """``k_order_bmm`` on bf16 values in float32 is bitwise numpy's float32
+    running sum over k, one product at a time from zero."""
+    rng = np.random.default_rng(29)
+    a = _bf16_exact(rng, (2, 3, 40))
+    b = _bf16_exact(rng, (2, 40, 7), 0.2)
+    want = np.zeros((2, 3, 7), np.float32)
+    for k in range(a.shape[2]):
+        want = want + a[:, :, k, None] * b[:, None, k, :]
+    assert want.dtype == np.float32
+    assert torch.equal(fg.k_order_bmm(torch.from_numpy(a), torch.from_numpy(b)),
+                       torch.from_numpy(want))
+
+
+def _bmm_reversed(a, b):
+    """torch.bmm summed one product at a time from the last k down."""
+    out = a.new_zeros(a.shape[0], a.shape[1], b.shape[2])
+    for k in reversed(range(a.shape[2])):
+        out = out + a[:, :, k : k + 1] * b[:, k : k + 1, :]
+    return out
+
+
+@pytest.mark.parametrize("order", ["k_reversed", "float64"])
+def test_bf16_backward_plain_sums_in_its_own_order_whatever_bmm_does(order, monkeypatch):
+    """The plain bf16 loop's two step products sum in the order its code
+    fixes (``k_order_bmm``), not in torch.bmm's: with torch.bmm patched to
+    sum in another order (k reversed, or in float64 and rounded once),
+    which gives other bits on these products, dxp and the unrounded dhp
+    stay bitwise the same."""
+    rng = np.random.default_rng(30)
+    B, T, H, S = 3, 12, 32, 2
+    xp = torch.from_numpy(_bf16_exact(rng, (B, T, S * 3 * H))).to(torch.bfloat16)
+    w = torch.from_numpy(_bf16_exact(rng, (S, H, 3 * H), H ** -0.5)).to(torch.bfloat16)
+    b = torch.from_numpy(_bf16_exact(rng, (S, 3 * H), H ** -0.5)).to(torch.bfloat16)
+    dy = torch.from_numpy(_bf16_exact(rng, (B, T, S * H))).to(torch.bfloat16)
+    out = fg.gru_recurrence_plain(xp, w, b)
+    dhp = torch.empty(B, T, S * 3 * H)
+    want = fg.gru_recurrence_backward_plain(xp, w, b, out, dy, dhp_out=dhp)
+    real = torch.bmm
+    other = _bmm_reversed if order == "k_reversed" else (
+        lambda p, q: real(p.double(), q.double()).float())
+    probe = (dhp[:, 0].reshape(B, S, 3 * H).transpose(0, 1).to(torch.bfloat16).float(),
+             w.float().transpose(1, 2))
+    assert not torch.equal(other(*probe), fg.k_order_bmm(*probe))  # the patch has teeth
+    monkeypatch.setattr(torch, "bmm", other)
+    again = torch.empty_like(dhp)
+    got = fg.gru_recurrence_backward_plain(xp, w, b, out, dy, dhp_out=again)
+    assert torch.equal(got[0], want[0]) and torch.equal(again, dhp)

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --bwd-bf16-only ROOT   # gru_bwd_bf16 alone, from ROOT's port
     python3 chip_smoke.py --lingru-only ROOT   # both lingru scans, from ROOT's port
     python3 chip_smoke.py --lingru-bf16-only ROOT   # both bf16 lingru scans, from ROOT's port
+    python3 chip_smoke.py --train-plane-only   # the train_plane phase alone
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
 nvcc per source, started together), holds each kernel against its plain
@@ -50,6 +51,19 @@ for ``kind="gru"`` and once for ``kind="lingru"``:
   checkpoints verified, and the best one polishing the contig; the bf16
   run through the bf16 kernels alone, its windows/s and losses printed
   beside the f32 run's;
+- train_plane: the training data plane and run controls, gru f32 at full
+  width on an in-memory corpus of 2048 windows at batch 128: run A two
+  epochs saving ``latest`` every 5 steps, the same from a RokoConfig JSON
+  file, run B stopped by its log hook at epoch 1 step 8 and resumed (at
+  epoch 1, batch 5; the same batches from there on, and the same
+  parameters, bitwise when the card's train step repeats bitwise, else
+  within 1e-4 of each tensor's largest entry with the nondeterministic
+  gradient named), one epoch of each of 2 shards (a step batch of 64,
+  disjoint rows whose union is the 1-shard epoch), the engine's readahead
+  against none, and ``trace_dir`` traces of train and inference holding
+  ``gru_fwd`` and ``gru_bwd`` device time (``--train-plane-only`` runs
+  this phase alone); with h5py on the machine also ``train --no-memory
+  --save-every-steps 5`` on the corpus written to HDF5;
 - bench: ``python -m roko_tpu_torch bench --train`` in this process
   (``benchmark.main`` at a pinned iteration count: the inference sweep at
   batch 512 and 2048, the per-kind rows, the recurrence alone, the
@@ -120,6 +134,22 @@ TRAIN_EPOCHS = 2
 TRAIN_BATCH = 128
 # batches of 512 windows the trained checkpoint polishes
 TRAINED_POLISH_BATCHES = 4
+# the train_plane phase: the data plane and run controls on an in-memory
+# corpus of 2048 windows at batch 128 (16 steps an epoch, 8 blocks of 256
+# rows), two epochs, latest saved every 5 steps inside an epoch; run B is
+# stopped by its log hook at epoch 1 step 8 and resumed (from batch 5);
+# shards: one epoch of each of 2 shards at a step batch of 64
+PLANE_WINDOWS = 2048
+PLANE_EPOCHS = 2
+PLANE_SAVE_EVERY = 5
+PLANE_STOP = "epoch 1 step 8/16"
+PLANE_RESUMED = "epoch 1, batch 5,"
+PLANE_SHARDS = 2
+# when the card's train step is not bitwise repeatable: each parameter of
+# the resumed run within 1e-4 of its largest entry of the uninterrupted
+# one's, epoch 1's summary train loss within 1e-5 relative
+PLANE_PARAM_OF_MAX = 1e-4
+PLANE_LOSS_RTOL = 1e-5
 # one full-width train step through the kernels vs the plain recurrence:
 # each gradient is a sum over 128 x 90 columns through 3 layers of 90
 # steps, so f32 rounding of the two summation orders grows with the
@@ -1966,6 +1996,293 @@ def drive_bench(torch, port, counts) -> dict:
             "train": {k: d["train"][k] for k in ("train_gru", "train_scan_stress")}}
 
 
+class DigestedCorpus:
+    """An in-memory corpus that records each training batch it streams
+    (those drawn with a shuffle generator; evaluation's are not): its
+    step batch size, a sha256 of its (x, y, weight) and the sha256 of
+    each real row. Views (``sharded``, ``unsharded``) share the record."""
+
+    def __init__(self, port, X, Y):
+        corpus = self
+
+        class Recorded(port.InMemoryDataset):
+            def batches(self, batch_size, **kw):
+                for x, y, w in super().batches(batch_size, **kw):
+                    if kw.get("rng") is not None:
+                        corpus.record.append((
+                            len(x), hashlib.sha256(x.tobytes() + y.tobytes() + w.tobytes())
+                            .hexdigest(),
+                            [hashlib.sha256(r.tobytes()).hexdigest() for r in x[w > 0]]))
+                    yield x, y, w
+
+        self.dataset = Recorded(X, Y)
+        self.record = []
+
+
+def trace_kernels(path: str) -> dict:
+    """``{kind: {"events", "device_ms"}}`` of the port's kernels in a
+    torch.profiler Chrome trace (device events, category ``kernel``)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for e in events:
+        if e.get("cat") != "kernel" or not e.get("dur"):
+            continue
+        kind = next((k for k in KERNEL_KINDS if k in e.get("name", "").lower()), None)
+        if kind is not None:
+            row = out.setdefault(kind, {"events": 0, "device_ms": 0.0})
+            row["events"] += 1
+            row["device_ms"] += e["dur"] / 1e3
+    return out
+
+
+def nondeterministic_grads(torch, port, cfg, corpus, dev) -> list:
+    """The parameters whose gradient differs between two identical train
+    steps (same weights, batch and dropout masks) on the card."""
+    model = port.RokoModel(cfg, torch.Generator().manual_seed(SEED)).to(dev)
+    batch = next(corpus.batches(TRAIN_BATCH, rng=np.random.default_rng(SEED)))
+    x, y, w = port.loop.to_device(batch, dev)
+    grads = []
+    for _ in range(2):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        port.loop.grad_step(model, x, y, w, gen)
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    return sorted(n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n]))
+
+
+def drive_train_plane(torch, port, cfg, batches, contig, draft, dev, counts, card) -> dict:
+    """The training data plane and run controls at full width, each run
+    counted (``gru_fwd`` 3 times a step and an evaluation batch, ``gru_bwd``
+    3 times a step):
+
+    (a) run A trains two epochs saving ``latest`` every 5 steps; run A' is
+        the same from a RokoConfig JSON file (e); run B is stopped by its
+        log hook at epoch 1 step 8, its ``latest`` verified, and resumed,
+        which must name epoch 1, batch 5; A and B end at the same step,
+        with the same batch digests from the resume point on, and the
+        same parameters: bitwise when A and A' are, else within the bar,
+        with the gradients that differ between two identical steps named;
+    (b) one epoch of each of 2 shards at a step batch of 64: the shards'
+        rows are disjoint and their union is A's epoch 0;
+    (c) the engine's readahead (2 mix groups) against none, batch for batch;
+    (d) ``train(trace_dir=)`` and ``run_inference(trace_dir=)`` traces
+        that parse, with device time of ``gru_fwd`` and ``gru_bwd``;
+    (e) the config file's sections equal the keyword configs, and its run
+        takes A's steps and losses;
+    and, with h5py on the machine, ``train --no-memory --save-every-steps``
+    end to end on the corpus written to HDF5."""
+    loop = port.loop
+    root = os.path.join(ROOT, "build", "chip_smoke_train_plane")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(SEED + 6)
+    X = rng.integers(0, port.C.FEATURE_VOCAB, (PLANE_WINDOWS, port.C.WINDOW_ROWS,
+                                               port.C.WINDOW_COLS), dtype=np.uint8)
+    Y = (X.sum(axis=1) % port.C.NUM_CLASSES).astype(np.int32)
+    tcfg = port.TrainConfig(batch_size=TRAIN_BATCH, epochs=PLANE_EPOCHS, seed=SEED,
+                            log_every_steps=1)
+    gcfg = port.GuardConfig(save_every_steps=PLANE_SAVE_EVERY)
+    dcfg = port.DataConfig()
+    steps = PLANE_WINDOWS // TRAIN_BATCH
+    evals = -(-PLANE_WINDOWS // TRAIN_BATCH)
+    launched = {"gru_fwd": 0, "gru_bwd": 0}
+    layers = cfg.num_layers
+
+    def run(name, *, model_cfg=cfg, train_cfg=tcfg, guard_cfg=gcfg, data_cfg=dcfg,
+            log=None, trace_dir=None, want_steps, want_evals):
+        corpus = DigestedCorpus(port, X, Y)
+        logs = []
+        counts.zero()
+        t0 = time.perf_counter()
+        result = None
+        try:
+            result = loop.train(corpus.dataset, os.path.join(root, name), model_cfg=model_cfg,
+                                train_cfg=train_cfg, guard_cfg=guard_cfg, data_cfg=data_cfg,
+                                device=dev, trace_dir=trace_dir,
+                                log=lambda s: (logs.append(s), log and log(s)))
+        except StopRun:
+            pass
+        seconds = time.perf_counter() - t0
+        got = counts.expect(f"train_plane run {name} ({want_steps} steps, {want_evals} "
+                            "evaluation batches)",
+                            {"gru_fwd": layers * (want_steps + want_evals),
+                             "gru_bwd": layers * want_steps})
+        for k in launched:
+            launched[k] += got[k]
+        return result, corpus.record, logs, seconds
+
+    def stop_at(marker):
+        def hook(line):
+            if marker in line:
+                raise StopRun(line)
+        return hook
+
+    # (a) and (e): A by keywords, A' from the config file, B stopped and resumed
+    res_a, rec_a, logs_a, sec_a = run("a", want_steps=PLANE_EPOCHS * steps,
+                                      want_evals=PLANE_EPOCHS * evals)
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        f.write(port.RokoConfig(model=cfg, train=tcfg, guard=gcfg, data=dcfg).to_json())
+    with open(cfg_path) as f:
+        loaded = port.RokoConfig.from_json(f.read())
+    if (loaded.model, loaded.train, loaded.guard, loaded.data) != (cfg, tcfg, gcfg, dcfg):
+        fail("train_plane: the RokoConfig JSON does not load back to the keyword configs")
+    res_c, rec_c, logs_c, _ = run("config", model_cfg=loaded.model, train_cfg=loaded.train,
+                                  guard_cfg=loaded.guard, data_cfg=loaded.data,
+                                  want_steps=PLANE_EPOCHS * steps,
+                                  want_evals=PLANE_EPOCHS * evals)
+    stop_step = int(PLANE_STOP.split()[3].split("/")[0])
+    _, rec_b1, _, _ = run("b", log=stop_at(PLANE_STOP), want_steps=steps + stop_step,
+                          want_evals=evals)
+    status, detail = port.verify_manifest(os.path.join(root, "b", "latest"))
+    if status != "ok":
+        fail(f"train_plane: run B's mid-epoch latest fails verification: {detail}")
+    resume_batch = stop_step // PLANE_SAVE_EVERY * PLANE_SAVE_EVERY
+    res_b, rec_b, logs_b, _ = run("b", want_steps=steps - resume_batch, want_evals=evals)
+    resumed = [line for line in logs_b if line.startswith("resumed from step")]
+    if not resumed or PLANE_RESUMED not in resumed[0]:
+        fail(f"train_plane: run B resumed with {resumed}, not at {PLANE_RESUMED!r}")
+    if not res_a.step == res_b.step == res_c.step == PLANE_EPOCHS * steps:
+        fail(f"train_plane: steps A {res_a.step}, B {res_b.step}, config {res_c.step}")
+    if [r[1] for r in rec_b] != [r[1] for r in rec_a[steps + resume_batch:]]:
+        fail("train_plane: run B's batches after the resume differ from run A's")
+    if rec_c != rec_a:
+        fail("train_plane: the config run streamed other batches than run A")
+    if any(r[0] != TRAIN_BATCH for r in rec_a):
+        fail("train_plane: a step batch of run A is not the train batch")
+
+    sd = {k: v.float() for k, v in res_a.model.state_dict().items()}
+    repeatable = all(torch.equal(sd[k], v.float()) for k, v in res_c.model.state_dict().items())
+    loss_a = [h["train_loss"] for h in res_a.history]
+    if repeatable:
+        differs = []
+        same_params = all(torch.equal(sd[k], v.float())
+                          for k, v in res_b.model.state_dict().items())
+        if not same_params or res_b.history[-1]["train_loss"] != loss_a[1] or (
+                [h["train_loss"] for h in res_c.history] != loss_a):
+            fail("train_plane: the card's train step is bitwise repeatable, but the resumed "
+                 "or the config run does not end bitwise where run A ends")
+        bar = "bitwise"
+    else:
+        differs = nondeterministic_grads(torch, port, cfg, port.InMemoryDataset(X, Y), dev)
+        worst = 0.0
+        for other in (res_b, res_c):
+            for k, v in other.model.state_dict().items():
+                scale = max(sd[k].abs().max().item(), 1e-30)
+                d = (v.float() - sd[k]).abs().max().item() / scale
+                worst = max(worst, d)
+                if d > PLANE_PARAM_OF_MAX:
+                    fail(f"train_plane: parameter {k} of a resumed or config run lies "
+                         f"{d:.3g} of its largest entry from run A's")
+        for got in (res_b.history[-1]["train_loss"], res_c.history[-1]["train_loss"]):
+            if abs(got - loss_a[1]) > PLANE_LOSS_RTOL * abs(loss_a[1]):
+                fail(f"train_plane: epoch 1 loss {got} against run A's {loss_a[1]}")
+        bar = {"param_of_max": PLANE_PARAM_OF_MAX, "loss_rtol": PLANE_LOSS_RTOL,
+               "worst_param_of_max": worst}
+
+    # (b) shards: one epoch of each, a step batch of batch / shards
+    shard_rows, shard_runs = [], []
+    trace_dir = os.path.join(root, "trace_train")
+    for shard in range(PLANE_SHARDS):
+        one = dataclasses.replace(tcfg, epochs=1, log_every_steps=0)
+        res_s, rec_s, logs_s, _ = run(
+            f"shard{shard}", train_cfg=one,
+            data_cfg=port.DataConfig(shards=PLANE_SHARDS, shard_id=shard),
+            trace_dir=trace_dir if shard == 0 else None, want_steps=steps, want_evals=evals)
+        if any(r[0] != TRAIN_BATCH // PLANE_SHARDS for r in rec_s):
+            fail(f"train_plane: shard {shard} stepped on batches of "
+                 f"{sorted({r[0] for r in rec_s})}, not {TRAIN_BATCH // PLANE_SHARDS}")
+        shard_rows.append([h for r in rec_s for h in r[2]])
+        shard_runs.append({"steps": res_s.step, "local_batch": TRAIN_BATCH // PLANE_SHARDS,
+                           "rows": len(shard_rows[-1]),
+                           "log": [line for line in logs_s if "[shard" in line]})
+    epoch0 = [h for r in rec_a[:steps] for h in r[2]]
+    union = shard_rows[0] + shard_rows[1]
+    if set(shard_rows[0]) & set(shard_rows[1]) or sorted(union) != sorted(epoch0) or len(
+            set(epoch0)) != PLANE_WINDOWS:
+        fail("train_plane: the shards' rows do not partition the 1-shard epoch")
+
+    # (c) readahead: the engine with 2 mix groups ahead against none
+    corpus = port.InMemoryDataset(X, Y)
+    read, _ = corpus._reader()
+    streams = [list(port.iter_span_batches(corpus._counts(), read, TRAIN_BATCH,
+                                           rng=port.epoch_rng(SEED, 0), pad_to=TRAIN_BATCH,
+                                           prefetch_groups=depth)) for depth in (2, 0)]
+    if len(streams[0]) != len(streams[1]) or not all(
+            all(np.array_equal(a, b) for a, b in zip(p, q)) for p, q in zip(*streams)):
+        fail("train_plane: the engine with readahead yields other batches than without")
+
+    # (d) traces: the first shard's epoch, and an inference run
+    model = port.RokoModel(cfg)
+    model.load_state_dict(res_a.model.state_dict())
+    counts.zero()
+    port.run_inference(iter(batches), {contig: draft}, model, device=dev, log=lambda s: None,
+                       trace_dir=os.path.join(root, "trace_infer"))
+    got = counts.expect("the traced train_plane inference", {"gru_fwd": layers * len(batches)})
+    launched["gru_fwd"] += got["gru_fwd"]
+    traces = {}
+    for name, want in (("trace_train", ("gru_fwd", "gru_bwd")), ("trace_infer", ("gru_fwd",))):
+        files = os.listdir(os.path.join(root, name))
+        if len(files) != 1:
+            fail(f"train_plane: {name} holds {files}, not one trace")
+        kinds = trace_kernels(os.path.join(root, name, files[0]))
+        if any(kinds.get(k, {}).get("device_ms", 0) <= 0 for k in want) or set(kinds) - set(want):
+            fail(f"train_plane: {name} holds the device events {kinds}, expected {want}")
+        traces[name] = kinds
+
+    hdf5 = "not run: no h5py on this machine"
+    if importlib.util.find_spec("h5py") is not None:
+        from roko_tpu_torch.data.hdf5 import DataWriter
+
+        h5 = os.path.join(root, "corpus.hdf5")
+        cols = port.C.WINDOW_COLS
+        with DataWriter(h5, infer=False) as w:
+            w.write_contigs([("plane", "A" * 64)])
+            w.store("plane", [np.stack([np.arange(cols), np.zeros(cols)], 1)] * len(X),
+                    list(X), list(Y))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "roko_tpu_torch", "train", h5, os.path.join(root, "h5"),
+             "--no-memory", "--save-every-steps", str(PLANE_SAVE_EVERY), "--epochs", "1",
+             "--b", str(TRAIN_BATCH)], capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if proc.returncode != 0 or port.verify_manifest(
+                os.path.join(root, "h5", "latest"))[0] != "ok":
+            fail(f"train_plane: train --no-memory failed: {proc.stderr[-2000:]}")
+        hdf5 = {"seconds": time.perf_counter() - t0,
+                "log": [line for line in proc.stdout.splitlines() if line.startswith("epoch")]}
+
+    return {
+        "config": f"ModelConfig(kind={cfg.kind!r}) ({cfg.num_layers} layers, hidden "
+                  f"{cfg.hidden_size}, full width), in-memory corpus of {PLANE_WINDOWS} windows, "
+                  f"batch {TRAIN_BATCH}, {steps} steps an epoch",
+        "resume": {"stopped_at": PLANE_STOP, "resumed": resumed[0],
+                   "save_every_steps": PLANE_SAVE_EVERY, "steps": res_b.step,
+                   "batches_after_resume_equal": len(rec_b), "latest_manifest": status,
+                   "train_loss": {"a": loss_a, "b_epoch1": res_b.history[-1]["train_loss"]}},
+        "params": {"repeatable_bitwise": repeatable, "bar": bar,
+                   "nondeterministic_grads": differs,
+                   "op": (None if repeatable else
+                          "the embedding's backward (torch.nn.functional.embedding sums the "
+                          "rows' gradients with float atomics)" if differs == ["embedding.weight"]
+                          else f"the backward of {differs}" if differs else
+                          "not found in one step's gradients")},
+        "shards": {"shards": PLANE_SHARDS, "runs": shard_runs,
+                   "disjoint": True, "union_is_epoch0": True},
+        "prefetch": {"mix_groups_ahead": 2, "batches_equal": len(streams[0])},
+        "traces": traces,
+        "config_run": {"steps": res_c.step, "train_loss": [h["train_loss"]
+                                                           for h in res_c.history],
+                       "equal_to_keywords": True},
+        "windows_per_s_a": [h["windows_per_s"] for h in res_a.history],
+        "seconds_a": sec_a,
+        "hdf5": hdf5, "launches": launched, "card": card,
+    }
+
+
+class StopRun(Exception):
+    """Raised by a run's log hook to stop it where a kill would."""
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -2100,16 +2417,26 @@ def main() -> None:
              ["--lingru-only"], ["--lingru-bf16-only"])
     if sys.argv[1:2] in modes and len(sys.argv) == 3:
         return one_kernel(torch, sys.argv[1], sys.argv[2])
-    if sys.argv[1:]:
+    plane_only = sys.argv[1:] == ["--train-plane-only"]
+    if sys.argv[1:] and not plane_only:
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
              "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --bwd-bf16-only ROOT "
-             "| --lingru-only ROOT | --lingru-bf16-only ROOT]")
+             "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import benchmark as bench
         from roko_tpu_torch import constants as C
         from roko_tpu_torch import kernels
-        from roko_tpu_torch.config import ModelConfig, RokoConfig, TrainConfig, resolve_ladder
+        from roko_tpu_torch.config import (
+            DataConfig,
+            GuardConfig,
+            ModelConfig,
+            RokoConfig,
+            TrainConfig,
+            resolve_ladder,
+        )
+        from roko_tpu_torch.datapipe.dataset import epoch_rng
+        from roko_tpu_torch.datapipe.engine import iter_span_batches
         from roko_tpu_torch.eval.assess import assess_fastas
         from roko_tpu_torch.features import backend
         from roko_tpu_torch.features.extract import extract_windows
@@ -2152,7 +2479,8 @@ def main() -> None:
         resolve_ladder=resolve_ladder, tail_rungs=tail_rungs, PolishSession=PolishSession,
         run_streaming_polish=run_streaming_polish, ServeMetrics=ServeMetrics,
         StageTimer=StageTimer, write_fasta=write_fasta, assess_fastas=assess_fastas,
-        bench=bench,
+        bench=bench, InMemoryDataset=InMemoryDataset, GuardConfig=GuardConfig,
+        DataConfig=DataConfig, iter_span_batches=iter_span_batches, epoch_rng=epoch_rng,
     )
     counts = Counts(fg, fl)
 
@@ -2166,8 +2494,20 @@ def main() -> None:
 
     # -- build -------------------------------------------------------------
     t0 = time.perf_counter()
-    built = kernels.build()
+    built = kernels.build(["gru_fwd", "gru_bwd"] if plane_only else None)
     emit({"build": {"seconds": time.perf_counter() - t0, "kernels": built}})
+    if plane_only:  # the train_plane phase alone, on its own streams
+        rng = np.random.default_rng(SEED)
+        cfg = ModelConfig()
+        model = RokoModel(cfg)
+        model.load_state_dict(state_dict_from_jax(jax_layout_params(rng, cfg)), strict=True)
+        draft, positions, examples = synthetic_contig(rng, PATH_BATCHES * PATH_BATCH_SIZE, C)
+        batches = [(["synthetic"] * PATH_BATCH_SIZE, positions[i : i + PATH_BATCH_SIZE],
+                    examples[i : i + PATH_BATCH_SIZE])
+                   for i in range(0, len(examples), PATH_BATCH_SIZE)]
+        emit({"train_plane": drive_train_plane(torch, port, cfg, batches, "synthetic", draft,
+                                               dev, counts, card)})
+        return
 
     # -- kernels against their plain versions -------------------------------
     rng = np.random.default_rng(SEED)
@@ -2316,6 +2656,10 @@ def main() -> None:
                ("lingru_fwd_bf16", "lingru_bwd_bf16"))
     emit({"lingru_train_breakdown_bf16": {**lin_breakdown_bf16, "card": card}})
 
+    # -- the training data plane and run controls -----------------------------
+    plane = drive_train_plane(torch, port, cfg, batches, contig, draft, dev, counts, card)
+    emit({"train_plane": plane})
+
     # -- the bench: the system's own measurement entry point ----------------
     emit({"bench_kernel_check": {**bench_kernel_check(torch, port, dev),
                                  "atol": ATOL, "rtol": RTOL, "card": card}})
@@ -2348,11 +2692,13 @@ def main() -> None:
                    main_row, {"inference": launches, "polish": polish["gru_fwd_launches"],
                               "stream_polish": stream["gru_fwd_launches"], "train": train_fwd,
                               **precision_launches["gru_fwd"],
+                              "train_plane": plane["launches"]["gru_fwd"],
                               "bench": bench_launched["gru_fwd"]},
                    at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",
                    bwd_row, {"inference": 0, "train": train_bwd,
+                             "train_plane": plane["launches"]["gru_bwd"],
                              "bench": bench_launched["gru_bwd"]}),
         kernel_row("lingru_fwd", "roko_tpu_torch/csrc/lingru_fwd.cu",
                    "roko_tpu/models/pallas_lingru.py:90", None, lin_fwd_row,

@@ -70,13 +70,13 @@ _H100 = {
 #: suites of the reference whose modules the port lacks: detail key ->
 #: (ROADMAP queue item, why)
 UNPORTED_SUITES = {
-    "features": ("A11", "it times extraction into HDF5, and the card machine has no h5py"),
-    "end_to_end": ("A11", "it runs features -> HDF5 -> inference, and the card machine has "
+    "features": ("A11b", "it times extraction into HDF5, and the card machine has no h5py"),
+    "end_to_end": ("A11b", "it runs features -> HDF5 -> inference, and the card machine has "
                    "no h5py"),
-    "pipeline": ("A11", "its staged half goes through HDF5, and the card machine has no h5py"),
+    "pipeline": ("A11b", "its staged half goes through HDF5, and the card machine has no h5py"),
     "cascade": ("A10", "the cascade is not ported"),
     "coldstart": ("A9.3", "it needs the AOT bundle"),
-    "input": ("A11", "it needs the datapipe"),
+    "input": ("A11b", "it writes an HDF5 corpus, and the card machine has no h5py"),
     "mesh": ("A8", "multi-GPU is not ported"),
     "fleet": ("A9", "the serve stack is not ported"),
     "serve": ("A9", "the serve stack is not ported"),
@@ -95,19 +95,20 @@ UNPORTED_TRAIN_ROWS = {
     "train_transformer": "not ported yet (ROADMAP queue item A7)",
     "train_gru_pallas": "the same thing as train_gru in the port: its one train path runs "
                         "the hand-written kernels",
-    "input_stall": "not ported yet (ROADMAP queue item A11): it needs the datapipe",
+    "input_stall": "not ported yet (ROADMAP queue item A11b): it writes an HDF5 corpus, and "
+                   "the card machine has no h5py",
 }
 
 #: flags of the reference's bench whose suites are not ported: attribute ->
 #: (flag, ROADMAP queue item); None for --in-process, which is deliberately
 #: not ported
 UNPORTED_FLAGS = {
-    "features": ("--features", "A11"),
-    "e2e_draft": ("--e2e-draft", "A11"),
-    "pipeline_draft": ("--pipeline-draft", "A11"),
+    "features": ("--features", "A11b"),
+    "e2e_draft": ("--e2e-draft", "A11b"),
+    "pipeline_draft": ("--pipeline-draft", "A11b"),
     "cascade_draft": ("--cascade-draft", "A10"),
     "coldstart_ladder": ("--coldstart-ladder", "A9.3"),
-    "input_rows": ("--input-rows", "A11"),
+    "input_rows": ("--input-rows", "A11b"),
     "mesh_devices": ("--mesh-devices", "A8"),
     "fleet_workers": ("--fleet-workers", "A9"),
     "in_process": ("--in-process", None),
@@ -649,13 +650,15 @@ def _assemble_result(detail: Dict[str, Any], ref_windows_per_sec: float) -> Dict
     """The result's top-level shape, the reference's."""
     from roko_tpu_torch import constants as C
 
-    detail["torch_cpu_ref_windows_per_sec"] = round(ref_windows_per_sec, 1)
+    # the ratio of the two numbers the detail records, so that it can be
+    # recomputed from them
+    ref = detail["torch_cpu_ref_windows_per_sec"] = round(ref_windows_per_sec, 1)
     windows_per_sec = detail["windows_per_sec"]
     return {
         "metric": "polished_bases_per_sec_per_chip",
         "value": round(windows_per_sec * C.WINDOW_STRIDE, 1),
         "unit": "bases/s",
-        "vs_baseline": round(windows_per_sec / ref_windows_per_sec, 2),
+        "vs_baseline": round(windows_per_sec / ref, 2),
         "detail": detail,
     }
 
@@ -768,10 +771,10 @@ def unported_flag(args: argparse.Namespace) -> Optional[str]:
 def add_unported_flags(p: argparse.ArgumentParser) -> None:
     """The reference's flags of unported suites, so that they parse and
     :func:`unported_flag` can name their queue item."""
-    p.add_argument("--features", action="store_true", help="not ported yet (queue item A11)")
-    for flag, kind, item in (("--e2e-draft", int, "A11"), ("--pipeline-draft", int, "A11"),
+    p.add_argument("--features", action="store_true", help="not ported yet (queue item A11b)")
+    for flag, kind, item in (("--e2e-draft", int, "A11b"), ("--pipeline-draft", int, "A11b"),
                              ("--cascade-draft", int, "A10"),
-                             ("--coldstart-ladder", str, "A9.3"), ("--input-rows", int, "A11"),
+                             ("--coldstart-ladder", str, "A9.3"), ("--input-rows", int, "A11b"),
                              ("--mesh-devices", str, "A8"), ("--fleet-workers", str, "A9")):
         p.add_argument(flag, type=kind, default=None, help=f"not ported yet (queue item {item})")
     p.add_argument("--in-process", action="store_true",

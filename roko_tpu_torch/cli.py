@@ -1,12 +1,20 @@
 """Command line of the port: ``python -m roko_tpu_torch sim``,
-``features``, ``train``, ``inference``, ``polish``, ``assess`` and
-``bench``.
+``features``, ``train``, ``inference``, ``polish``, ``assess``, ``inspect``
+and ``bench``.
 
 Mirrors ``roko-tpu sim``, ``features``, ``train``, ``inference``,
-``polish``, ``assess`` and ``bench`` (``roko_tpu/cli.py:461-574``,
-:590, :626-737, :1230, :1288; flags :1310-1370, :1469-1537, :1545-1632,
-:1864-1887) with the flags of the same names (``--model-kind`` takes the
-kinds the port runs), plus ``--device``. ``bench`` runs the suites of
+``polish``, ``assess``, ``inspect`` and ``bench`` (``roko_tpu/cli.py:461-574``,
+:590, :626-737, :1230, :1254, :1288; flags :1310-1370, :1469-1537,
+:1545-1632, :1858-1887) with the flags of the same names (``--model-kind``
+takes the kinds the port runs), plus ``--device``. ``--config`` reads a
+``RokoConfig`` JSON file of the reference's layout: built-in defaults <
+the file < the flags given (``roko_tpu/cli.py:20-30``, :309-350), and
+``--quantize none`` clears the file's setting; a file that asks for what
+the port does not run is a usage error naming its queue item. ``train``
+streams the corpus with ``--no-memory``, reads one of ``--data-shards``
+shards, saves ``latest`` every ``--save-every-steps`` steps inside an
+epoch, and ``--trace-dir`` (also on ``inference`` and ``polish``) writes
+a ``torch.profiler`` trace. ``bench`` runs the suites of
 ``benchmark.py`` that the port has (inference, per kind, recurrence,
 precision, ``--train``); the flags of the others are usage errors that
 name their queue item. ``polish`` streams by default (extraction,
@@ -20,8 +28,7 @@ the assess report after either. ``inference`` and ``polish`` take a reference-la
 does, and trains in bfloat16 with float32 weights.
 Writing and reading the HDF5 needs ``h5py``. Not ported yet, each a
 usage error that names its queue item: ``--distributed`` and
-``--cascade`` (A10), ``--config`` and ``--trace-dir`` (A11), and remote
-paths.
+``--cascade`` (A10), and remote paths (A10).
 """
 
 from __future__ import annotations
@@ -36,37 +43,61 @@ from roko_tpu_torch.config import (
     QUANTIZE_MODES,
     FeaturesConfig,
     ModelConfig,
+    RokoConfig,
 )
 
 
-def _model_config(args: argparse.Namespace, **window) -> ModelConfig:
-    """The model flags over the defaults; ``--quantize none`` is off."""
-    return ModelConfig(kind=args.model_kind, **window, **{
-        k: v
-        for k, v in (("hidden_size", args.hidden_size), ("num_layers", args.num_layers),
-                     ("compute_dtype", args.compute_dtype))
-        if v is not None
-    }, quantize=None if args.quantize in (None, "none") else args.quantize)
-
-
-def _features_config(args: argparse.Namespace) -> FeaturesConfig:
-    """Defaults, overridden by the flags given (a flag left at None
-    defers to the default)."""
-    base = FeaturesConfig()
+def _build_config(args: argparse.Namespace) -> RokoConfig:
+    """Built-in defaults < the ``--config`` file < the flags given (a flag
+    left at None defers to the layer below)."""
+    base = RokoConfig()
+    if getattr(args, "config", None):
+        with open(args.config) as f:
+            base = RokoConfig.from_json(f.read())
 
     def over(dc, **names):
-        got = {f: getattr(args, attr) for f, attr in names.items()}
+        got = {f: getattr(args, attr, None) for f, attr in names.items()}
         return dataclasses.replace(dc, **{k: v for k, v in got.items() if v is not None})
 
+    window = over(base.window, rows="window_rows", cols="window_cols", stride="window_stride")
     read_filter = over(base.read_filter, min_mapq="min_mapq", filter_flag="filter_flag")
-    if args.no_proper_pair:
+    if getattr(args, "no_proper_pair", None):
         read_filter = dataclasses.replace(read_filter, require_proper_pair=False)
-    return FeaturesConfig(
-        window=over(base.window, rows="window_rows", cols="window_cols",
-                    stride="window_stride"),
-        read_filter=read_filter,
+    model = over(base.model, kind="model_kind", hidden_size="hidden_size",
+                 num_layers="num_layers", compute_dtype="compute_dtype")
+    quantize = getattr(args, "quantize", None)
+    if quantize is not None:  # "none" clears the file's setting
+        model = dataclasses.replace(model, quantize=None if quantize == "none" else quantize)
+    # the model consumes the window geometry
+    model = dataclasses.replace(model, window_rows=window.rows, window_cols=window.cols)
+    guard = over(base.guard, spike_sigma="spike_sigma", max_bad_steps="max_bad_steps",
+                 max_rollbacks="max_rollbacks", ema_beta="guard_ema_beta",
+                 warmup_steps="guard_warmup_steps", save_every_steps="save_every_steps")
+    if getattr(args, "no_guard", None):
+        guard = dataclasses.replace(guard, enabled=False)
+    return RokoConfig(
+        window=window, read_filter=read_filter,
         region=over(base.region, size="region_size", overlap="region_overlap"),
+        model=model,
+        train=over(base.train, batch_size="b", epochs="epochs", lr="lr", patience="patience",
+                   seed="seed", in_memory="memory", val_fraction="val_fraction"),
+        data=over(base.data, shards="data_shards", shard_id="data_shard_id",
+                  seed="data_seed", input_prefetch="input_prefetch",
+                  block_size="data_block_size", mix_blocks="data_mix_blocks",
+                  manifest="data_manifest"),
+        guard=guard, serve=base.serve,
+        pipeline=over(base.pipeline, prefetch="prefetch", queue_regions="queue_regions",
+                      max_batch_delay_ms="batch_delay_ms"),
+        resilience=base.resilience,
     )
+
+
+def _model_config(args: argparse.Namespace) -> ModelConfig:
+    return _build_config(args).model
+
+
+def _features_config(cfg: RokoConfig) -> FeaturesConfig:
+    return FeaturesConfig(window=cfg.window, read_filter=cfg.read_filter, region=cfg.region)
 
 
 def cmd_sim(args: argparse.Namespace) -> int:
@@ -97,26 +128,20 @@ def _run_features(args: argparse.Namespace, out: str, cfg: FeaturesConfig,
 
 
 def cmd_features(args: argparse.Namespace) -> int:
-    n = _run_features(args, args.o, _features_config(args), bam_y=args.Y)
+    n = _run_features(args, args.o, _features_config(args.cfg), bam_y=args.Y)
     print(f"wrote {n} windows to {args.o}")
     return 0
 
 
 def cmd_train(args: argparse.Namespace) -> int:
-    from roko_tpu_torch.config import TrainConfig
     from roko_tpu_torch.infer import resolve_device
     from roko_tpu_torch.training.loop import train
 
     device = resolve_device(args.device)
-    tcfg = TrainConfig(**{
-        k: v
-        for k, v in (("batch_size", args.b), ("epochs", args.epochs), ("lr", args.lr),
-                     ("patience", args.patience), ("seed", args.seed),
-                     ("val_fraction", args.val_fraction))
-        if v is not None
-    })
-    train(args.train, args.out, args.val, model_cfg=_model_config(args),
-          train_cfg=tcfg, device=device, resume=args.resume)
+    cfg = args.cfg
+    train(args.train, args.out, args.val, model_cfg=cfg.model, train_cfg=cfg.train,
+          guard_cfg=cfg.guard, data_cfg=cfg.data, device=device, resume=args.resume,
+          trace_dir=args.trace_dir)
     return 0
 
 
@@ -168,39 +193,31 @@ def cmd_polish(args: argparse.Namespace) -> int:
     import sys
     import tempfile
 
-    from roko_tpu_torch.config import PipelineConfig, RokoConfig
     from roko_tpu_torch.infer import polish_to_fasta, resolve_device
     from roko_tpu_torch.models.model import RokoModel
 
     device = resolve_device(args.device)
-    cfg = _features_config(args)
-    model = RokoModel(_model_config(args, window_rows=cfg.window.rows,
-                                    window_cols=cfg.window.cols))
+    cfg = args.cfg
+    model = RokoModel(cfg.model)
     model.load_state_dict(_load_model_params(args.model), strict=True)
     if args.staged:
         with tempfile.TemporaryDirectory() as td:
             hdf5 = args.keep_hdf5 or os.path.join(td, "features.hdf5")
-            n = _run_features(args, hdf5, cfg)
+            n = _run_features(args, hdf5, _features_config(cfg))
             print(f"extracted {n} windows")
-            polish_to_fasta(hdf5, model, args.out, device=device, batch_size=args.b)
+            polish_to_fasta(hdf5, model, args.out, device=device,
+                            batch_size=cfg.train.batch_size, trace_dir=args.trace_dir)
     else:
         from roko_tpu_torch.pipeline import run_streaming_polish
         from roko_tpu_torch.resilience import JournalMismatch
 
-        pipeline = PipelineConfig(**{
-            k: v for k, v in (("queue_regions", args.queue_regions),
-                              ("max_batch_delay_ms", args.batch_delay_ms),
-                              ("prefetch", args.prefetch))
-            if v is not None
-        })
         try:
             run_streaming_polish(
-                args.ref, args.X, model,
-                RokoConfig(window=cfg.window, read_filter=cfg.read_filter,
-                           region=cfg.region, model=model.cfg, pipeline=pipeline),
-                out_path=args.out, workers=args.t, seed=args.seed, batch_size=args.b,
-                device=device, tee_hdf5=args.keep_hdf5, job_retries=args.job_retries,
-                job_timeout=args.job_timeout, resume=args.resume,
+                args.ref, args.X, model, dataclasses.replace(cfg, model=model.cfg),
+                out_path=args.out, workers=args.t, seed=args.seed,
+                batch_size=cfg.train.batch_size, device=device, tee_hdf5=args.keep_hdf5,
+                job_retries=args.job_retries, job_timeout=args.job_timeout,
+                resume=args.resume, trace_dir=args.trace_dir,
             )
         except JournalMismatch as e:
             print(f"polish: {e}", file=sys.stderr)
@@ -216,10 +233,40 @@ def cmd_inference(args: argparse.Namespace) -> int:
     from roko_tpu_torch.models.model import RokoModel
 
     device = resolve_device(args.device)
-    model = RokoModel(_model_config(args))
+    model = RokoModel(args.cfg.model)
     model.load_state_dict(_load_model_params(args.model), strict=True)
-    polish_to_fasta(args.data, model, args.out, device=device, batch_size=args.b)
+    polish_to_fasta(args.data, model, args.out, device=device,
+                    batch_size=args.cfg.train.batch_size, trace_dir=args.trace_dir)
     print(f"wrote polished contigs to {args.out}")
+    return 0
+
+
+def cmd_inspect(args: argparse.Namespace) -> int:
+    """Per file of a features HDF5 (or a directory of them): its windows,
+    geometry, region groups, contigs and kind (``roko_tpu/cli.py:1254-1285``,
+    the same lines)."""
+    import h5py
+
+    from roko_tpu_torch.data.hdf5 import data_group_names, hdf5_files
+
+    total_windows = 0
+    for path in hdf5_files(args.data):
+        with h5py.File(path, "r") as fd:
+            groups = data_group_names(fd)
+            windows = sum(fd[g]["examples"].shape[0] for g in groups)
+            labeled = sum("labels" in fd[g] for g in groups)
+            contigs = sorted(fd["contigs"].keys()) if "contigs" in fd else []
+            first = fd[groups[0]]["examples"] if groups else None
+            geom = f"{first.shape[1]}x{first.shape[2]}" if first is not None else "-"
+            total_windows += windows
+            kind = ("EMPTY (no region groups)" if not groups
+                    else "training" if labeled == len(groups)
+                    else "inference" if labeled == 0
+                    else f"mixed ({labeled}/{len(groups)} labeled)")
+            print(f"{path}: {windows} windows ({geom}) in {len(groups)} region groups, "
+                  f"{len(contigs)} contig(s) "
+                  f"[{', '.join(contigs[:5])}{'...' if len(contigs) > 5 else ''}], {kind}")
+    print(f"total: {total_windows} windows")
     return 0
 
 
@@ -248,7 +295,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     def common(p: argparse.ArgumentParser) -> None:
         p.add_argument(
-            "--model-kind", choices=PORTED_KINDS, default="gru",
+            "--model-kind", choices=PORTED_KINDS, default=None,
             help="recurrence family: gru (torch-exact reference, default) or "
             "lingru (gated linear recurrence)",
         )
@@ -270,6 +317,16 @@ def build_parser() -> argparse.ArgumentParser:
             help="where the model runs (default cuda; no card is an error, "
             "never a silent move to the CPU)",
         )
+
+    def config(p: argparse.ArgumentParser, trace: Optional[str] = None) -> None:
+        p.add_argument(
+            "--config", default=None,
+            help="RokoConfig JSON file (RokoConfig.to_json layout, either package's); "
+            "the flags given override its values")
+        if trace:
+            p.add_argument("--trace-dir", default=None,
+                           help=f"write a torch.profiler trace of {trace} here "
+                           "(Chrome trace JSON; on a card with its kernels)")
 
     def extraction(p: argparse.ArgumentParser) -> None:
         p.add_argument("--t", type=int, default=1, help="feature workers")
@@ -308,6 +365,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("o", help="output HDF5 path")
     p.add_argument("--Y", default=None, help="truth-to-draft BAM or SAM (training mode)")
     extraction(p)
+    config(p)
     p.set_defaults(fn=cmd_features)
 
     p = sub.add_parser("train", help="training HDF5 -> checkpoints")
@@ -319,7 +377,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="without --val: hold out this fraction of training windows "
         "for validation so early stopping works (seeded split)",
     )
-    p.add_argument("--b", type=int, default=None, help="batch size (default 128)")
+    p.add_argument("--b", type=int, default=None,
+                   help="global batch size (default 128; a step's batch is b / --data-shards)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--patience", type=int, default=None)
@@ -328,7 +387,43 @@ def build_parser() -> argparse.ArgumentParser:
         "--no-resume", dest="resume", action="store_false", default=True,
         help="start fresh even if the checkpoint dir has a latest state",
     )
+    p.add_argument("--memory", action="store_true", default=None,
+                   help="hold the corpus in host memory (the default)")
+    p.add_argument("--no-memory", dest="memory", action="store_false", default=None,
+                   help="stream batches from the HDF5 files span by span instead")
+    for flag, kind, text in (
+        ("--data-shards", int, "split the corpus into this many deterministic shards and "
+         "train on one (default 0: one shard)"),
+        ("--data-shard-id", int, "the shard this run reads (default -1: 0)"),
+        ("--data-seed", int, "seed of the epoch shuffles (default -1: --seed)"),
+        ("--data-block-size", int, "rows of a span block: the unit the shuffle permutes "
+         "and a resume skips (default 256)"),
+        ("--data-mix-blocks", int, "blocks whose rows a mix group permutes together "
+         "(default 8)"),
+        ("--input-prefetch", int, "mix groups a reader thread keeps ahead of batching "
+         "with --no-memory (default 2)"),
+        ("--data-manifest", str, "pin the corpus manifest to this path: one that no longer "
+         "matches the files is refused with the per-file diff (default: the sidecar "
+         "beside the corpus, rebuilt when stale)"),
+    ):
+        p.add_argument(flag, type=kind, default=None, help=text)
+    p.add_argument("--no-guard", action="store_true", default=None,
+                   help="turn the NaN/loss-spike sentinel off")
+    for flag, kind, text in (
+        ("--spike-sigma", float, "skip an update whose loss lies this many EMA standard "
+         "deviations above the loss EMA (default 6)"),
+        ("--max-bad-steps", int, "skipped steps in a row that roll back to the last "
+         "checkpoint (default 3)"),
+        ("--max-rollbacks", int, "rollbacks after which the run gives up (default 3)"),
+        ("--guard-ema-beta", float, "decay of the loss EMA and its variance (default 0.98)"),
+        ("--guard-warmup-steps", int, "good steps before spike detection arms "
+         "(default 20)"),
+        ("--save-every-steps", int, "also save latest every N steps inside an epoch, with "
+         "the data position, so a resume continues at the next batch (default 0)"),
+    ):
+        p.add_argument(flag, type=kind, default=None, help=text)
     common(p)
+    config(p, "the first trained epoch")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("inference", help="features HDF5 + model -> polished FASTA")
@@ -336,8 +431,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("model", help="checkpoint directory of `train`, or a "
                    "reference-layout torch .pth state_dict")
     p.add_argument("out", help="output FASTA path")
-    p.add_argument("--b", type=int, default=128, help="batch size (default 128)")
+    p.add_argument("--b", type=int, default=None, help="batch size (default 128)")
     common(p)
+    config(p, "the inference loop")
     p.set_defaults(fn=cmd_inference)
 
     p = sub.add_parser(
@@ -354,7 +450,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write the features HDF5 here (streaming: a tee)")
     p.add_argument("--truth", default=None,
                    help="truth FASTA: print an assess report after polishing")
-    p.add_argument("--b", type=int, default=128, help="inference batch size (default 128)")
+    p.add_argument("--b", type=int, default=None, help="inference batch size (default 128)")
     p.add_argument("--prefetch", type=int, default=None,
                    help="streaming: submitted region blocks whose predictions may be "
                    "outstanding (default 2)")
@@ -369,10 +465,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "output (<out>.resume/); committed contigs are not re-extracted")
     for flag, item in (("--distributed", "A10"), ("--cascade", "A10")):
         p.add_argument(flag, action="store_true", help=f"not ported yet (queue item {item})")
-    for flag, item in (("--config", "A11"), ("--trace-dir", "A11")):
-        p.add_argument(flag, default=None, help=f"not ported yet (queue item {item})")
     extraction(p)
     common(p)
+    config(p, "the inference (streaming: the whole run)")
     p.set_defaults(fn=cmd_polish)
 
     p = sub.add_parser("assess", help="polished FASTA vs truth FASTA -> error rates + Qscore")
@@ -383,6 +478,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bed", default=None,
                    help="also write truth-space error loci (contig start end kind count)")
     p.set_defaults(fn=cmd_assess)
+
+    p = sub.add_parser("inspect", help="summarise a features HDF5 file or directory")
+    p.add_argument("data", help="features HDF5 file or directory")
+    p.set_defaults(fn=cmd_inspect)
 
     from roko_tpu_torch.benchmark import add_unported_flags
 
@@ -407,13 +506,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.command == "train":
-        from roko_tpu_torch.training.loop import check_trainable
-
-        try:
-            check_trainable(_model_config(args))
-        except ValueError as e:
-            parser.error(str(e))
     if args.command == "bench":
         from roko_tpu_torch.benchmark import unported_flag
 
@@ -421,12 +513,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         if msg:
             parser.error(msg)
     if args.command == "polish":
-        for flag, item in (("distributed", "A10"), ("cascade", "A10"),
-                           ("config", "A11"), ("trace_dir", "A11")):
+        for flag in ("distributed", "cascade"):
             if getattr(args, flag):
-                parser.error(f"polish --{flag.replace('_', '-')} is not ported yet "
-                             f"(queue item {item} of ROADMAP.md)")
+                parser.error(f"polish --{flag} is not ported yet (queue item A10 of "
+                             "ROADMAP.md)")
         if args.resume and args.staged:
             parser.error("polish --resume is a streaming-engine feature (the journal "
                          "rides the incremental writer); it cannot combine with --staged")
+    if hasattr(args, "config"):  # the subcommands that read a RokoConfig
+        try:
+            args.cfg = _build_config(args)
+            if args.command == "train":
+                from roko_tpu_torch.training.loop import check_trainable
+
+                check_trainable(args.cfg.model)
+        except ValueError as e:
+            parser.error(str(e))
     return args.fn(args)

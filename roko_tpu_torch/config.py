@@ -1,18 +1,23 @@
 """Configuration of the port: the fields of ``roko_tpu.config`` that the
 feature extractor, the inference and training paths of ``kind="gru"``
-and ``kind="lingru"`` and the streaming polish read, with the same names
-and defaults (``WindowConfig``, ``ReadFilterConfig``, ``RegionConfig``,
-``ModelConfig``, ``TrainConfig``, ``GuardConfig``, ``ServeConfig``, ``PipelineConfig``, ``ResilienceConfig``,
+and ``kind="lingru"``, the data plane and the streaming polish read, with
+the same names and defaults (``WindowConfig``, ``ReadFilterConfig``,
+``RegionConfig``, ``ModelConfig``, ``TrainConfig``, ``DataConfig``,
+``GuardConfig``, ``ServeConfig``, ``PipelineConfig``, ``ResilienceConfig``,
 ``resolve_ladder``, ``validate_ladder``, ``COMPUTE_DTYPES``,
-``QUANTIZE_MODES`` and ``default_compute_dtype``). ``FeaturesConfig`` holds the
-three sections of ``roko_tpu.config.RokoConfig`` that feature extraction
-reads; ``RokoConfig`` adds the sections the streaming polish reads."""
+``QUANTIZE_MODES`` and ``default_compute_dtype``). ``FeaturesConfig`` holds
+the three sections of ``roko_tpu.config.RokoConfig`` that feature
+extraction reads; ``RokoConfig`` adds the sections the port runs, with
+the reference's JSON layout (``to_json`` / ``from_json``): a file that
+``roko_tpu``'s ``RokoConfig.to_json`` wrote loads here, and one written
+here loads there."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 from roko_tpu_torch import constants as C
 
@@ -150,13 +155,42 @@ class TrainConfig:
     patience: int = 7
     #: seeds the init, the epoch shuffles, the holdout and dropout
     seed: int = 0
+    #: hold the corpus in host memory (``--memory``, the default); False
+    #: streams it from the HDF5 files span by span (``--no-memory``)
+    in_memory: bool = True
     #: with no val set, hold out this fraction of the training windows
     #: (seeded split); 0 = no split, and then no early stopping
     val_fraction: float = 0.0
     #: best checkpoints kept by val accuracy, beside ``latest``
     keep_checkpoints: int = 3
+    #: batches a producer thread stages on the device ahead of the step
+    prefetch: int = 2
     #: in-epoch heartbeat every N steps (0 disables)
     log_every_steps: int = 200
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """The sharded data plane (``roko_tpu/config.py:223-257``): shards that
+    partition the global shuffled stream, block and mix sizes, readahead,
+    and the manifest."""
+
+    #: data shards the corpus splits into; 0 = auto (one: one process)
+    shards: int = 0
+    #: this process's shard; -1 = auto (0 in one process)
+    shard_id: int = -1
+    #: seed of the epoch shuffles; -1 = ``TrainConfig.seed``
+    seed: int = -1
+    #: rows of a span block: the unit the shuffle permutes and fast-forward skips
+    block_size: int = 256
+    #: blocks whose rows one mix group permutes together
+    mix_blocks: int = 8
+    #: mix groups a reader thread keeps decoded ahead of batching (a
+    #: streamed corpus; device staging is ``TrainConfig.prefetch``)
+    input_prefetch: int = 2
+    #: pinned manifest; None = the sidecar beside the corpus (a stale one is
+    #: rebuilt, a pinned one that mismatches the files is refused)
+    manifest: Optional[str] = None
 
 
 @dataclass(frozen=True)
@@ -176,6 +210,10 @@ class GuardConfig:
     max_bad_steps: int = 3
     #: rollbacks after which the run gives up
     max_rollbacks: int = 3
+    #: also save ``latest`` every N steps inside an epoch, with the data
+    #: position, so a resume continues at the next batch; 0 = epoch
+    #: boundaries only
+    save_every_steps: int = 0
 
 
 @dataclass(frozen=True)
@@ -273,6 +311,63 @@ class ResilienceConfig:
     compile_deadline_s: float = 1800.0
 
 
+#: the fields of ``roko_tpu.config.RokoConfig`` the port does not run,
+#: by section: field -> (the reference's default, the ROADMAP queue item
+#: that ports it, or why it is not ported). A file that sets one to another
+#: value is refused, naming the item; none is dropped silently.
+_NOT_PORTED: Dict[str, Dict[str, Tuple[Any, str]]] = {
+    "model": {"remat_frontend": (False, "A12"), "remat_scan": (False, "A12")},
+    "train": {"dropout_rng_impl": ("threefry", "A12")},
+    "guard": {"event_log": (None, "A9"), "event_log_max_mb": (64.0, "A9")},
+    "resilience": {"hang_fallback": ("none", "deliberately not ported: finishing on the CPU "
+                                     "after the card failed would hide the card"),
+                   "breaker_failures": (5, "A9"), "breaker_reset_s": (30.0, "A9"),
+                   "drain_deadline_s": (20.0, "A9")},
+    "serve": {k: (v, "A9") for k, v in (
+        ("host", "127.0.0.1"), ("port", 8000), ("max_queue", 64), ("max_delay_ms", 25.0),
+        ("data_root", None), ("batching", "continuous"), ("max_queue_age_ms", 25.0),
+        ("retry_after_s", 1.0), ("latency_samples", 1024), ("event_log", None),
+        ("event_log_max_mb", 64.0), ("trace_ring", 256), ("trace_slowest", 32),
+        ("tenants", []))},
+    "mesh": {k: (v, "A8") for k, v in (("dp", -1), ("tp", 1), ("sp", 1))},
+    "compile": {k: (v, "A9.3") for k, v in (
+        ("enabled", True), ("cache_dir", None), ("cache_max_mb", 1024),
+        ("min_compile_time_s", 0.0), ("bundle_dir", None), ("parallel_warmup", True),
+        ("warmup_workers", 0))},
+    "cascade": {k: (v, "A10") for k, v in (
+        ("enabled", False), ("tier", "majority"), ("tier_version", None),
+        ("threshold", 0.05), ("method", "max_softmax"), ("calibration_path", None),
+        ("cache_bytes", 64 * 2**20), ("cache_dir", None))},
+    "distpolish": {k: (v, "A10") for k, v in (
+        ("unit_bases", 1_000_000), ("unit_attempts", 3), ("inflight_per_worker", 2),
+        ("max_inflight_units", 0), ("park_poll_s", 0.25), ("ready_timeout_s", 600.0),
+        ("unit_timeout_s", 600.0))},
+    "store": {k: (v, "A10") for k, v in (
+        ("cache_dir", None), ("cache_bytes", 256 * 2**20), ("block_bytes", 4 * 2**20),
+        ("timeout_s", 30.0), ("max_attempts", 4), ("hedge_s", 0.0), ("breaker_failures", 5),
+        ("breaker_reset_s", 30.0), ("endpoint", None))},
+    "fleet": {k: (v, "A9") for k, v in (
+        ("workers", 0), ("devices_per_worker", 0), ("heartbeat_interval_s", 2.0),
+        ("heartbeat_timeout_s", 5.0), ("heartbeat_misses", 3), ("spawn_deadline_s", 120.0),
+        ("term_grace_s", 10.0), ("restart_base_delay_s", 0.5), ("restart_max_delay_s", 30.0),
+        ("stable_after_s", 30.0), ("storm_threshold", 5), ("storm_reset_s", 60.0),
+        ("max_inflight", 0), ("failover_attempts", 3), ("runtime_dir", None),
+        ("registry_dir", None), ("bake_s", 15.0), ("rollback_error_pct", 2.0),
+        ("rollback_p99_x", 3.0), ("rollout_ready_timeout_s", 900.0), ("ab_version", None),
+        ("ab_fraction", 0.0), ("min_workers", 0), ("max_workers", 0),
+        ("autoscale_interval_s", 1.0), ("autoscale_up_backlog", 32.0),
+        ("autoscale_down_backlog", 4.0), ("autoscale_idle_s", 10.0),
+        ("autoscale_ema_beta", 0.5), ("autoscale_cooldown_s", 3.0), ("join", None),
+        ("host_id", None), ("lease_ttl_s", 10.0), ("fed_breaker_failures", 3),
+        ("fed_breaker_reset_s", 10.0))},
+}
+
+#: fields that load whatever they hold: ``use_pallas`` asks the reference
+#: for its Pallas kernels on a TPU (the port runs its own kernels on every
+#: card), and the transformer's widths mean nothing to the kinds the port
+#: runs (``kind="transformer"`` itself is refused, queue item A7)
+_IGNORED = {"model": ("use_pallas", "d_model", "num_heads", "mlp_ratio")}
+
 @dataclass(frozen=True)
 class RokoConfig(FeaturesConfig):
     """The sections of ``roko_tpu.config.RokoConfig`` the streaming polish
@@ -281,6 +376,48 @@ class RokoConfig(FeaturesConfig):
     model's ``window_rows``/``window_cols`` must match ``window``."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    guard: GuardConfig = field(default_factory=GuardConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+
+    def to_json(self) -> str:
+        """The reference's layout (``roko_tpu/config.py:935-983``): one
+        object per section, keys sorted."""
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @staticmethod
+    def from_json(text: str) -> "RokoConfig":
+        """Load a file of the reference's layout; a section or field
+        missing keeps its default. A field the port does not run must hold
+        the reference's default (:data:`_NOT_PORTED`), else the file is
+        refused with the field and its queue item."""
+        raw = json.loads(text)
+        classes = {f.name: f.default_factory for f in dataclasses.fields(RokoConfig)}
+        unknown = sorted(set(raw) - set(classes) - set(_NOT_PORTED))
+        if unknown:
+            raise ValueError(f"config sections {unknown} are not RokoConfig sections")
+        built = {}
+        for name in sorted(set(raw) | set(_NOT_PORTED)):
+            values = dict(raw.get(name, {}))
+            for key, (default, item) in _NOT_PORTED.get(name, {}).items():
+                if key in values and values.pop(key) != default:
+                    where = (f"not ported yet (queue item {item} of ROADMAP.md)"
+                             if item.startswith("A") else item)
+                    raise ValueError(
+                        f"config {name}.{key} = {raw[name][key]!r}: {where}; the port "
+                        f"runs only its default {default!r}")
+            for key in _IGNORED.get(name, ()):
+                values.pop(key, None)
+            if name not in classes:
+                continue
+            cls = classes[name]
+            known = {f.name for f in dataclasses.fields(cls)}
+            extra = sorted(set(values) - known)
+            if extra:
+                raise ValueError(f"config section {name!r} has unknown fields {extra}")
+            built[name] = cls(**{k: tuple(v) if isinstance(v, list) else v
+                                 for k, v in values.items()})
+        return RokoConfig(**built)

@@ -125,7 +125,9 @@ def data_group_names(fd) -> List[str]:
     return [g for g in fd.keys() if g not in ("contigs", "info")]
 
 
-def _file_identity(path: str):
+def file_identity(path: str):
+    """(device, inode), which folds symlinked and hard-linked aliases of one
+    file together, or the real path when ``stat`` fails."""
     try:
         st = os.stat(path)
         return (st.st_dev, st.st_ino)
@@ -146,7 +148,7 @@ def hdf5_files(path: str) -> List[str]:
         if not (f.endswith(".hdf5") or f.endswith(".h5")):
             continue
         p = os.path.join(path, f)
-        ident = _file_identity(p)
+        ident = file_identity(p)
         if ident not in seen:
             seen.add(ident)
             out.append(p)

@@ -22,7 +22,7 @@ those sizes, and the kernels run at a few known shapes.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Iterable, List, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +32,7 @@ from roko_tpu_torch.data.hdf5 import Batch, iter_inference_windows, load_contigs
 from roko_tpu_torch.io.fasta import write_fasta
 from roko_tpu_torch.models.model import RokoModel
 from roko_tpu_torch.models.quant import maybe_quantize
+from roko_tpu_torch.utils.profiling import device_trace
 
 _SLOTS = C.MAX_INS + 1  # ins 0..3
 
@@ -268,9 +269,11 @@ def run_inference(
     *,
     device: str | torch.device = "cuda",
     log: Callable[[str], None] = print,
+    trace_dir: Optional[str] = None,
 ) -> Dict[str, str]:
     """Predict every window of ``batches`` (``(names, positions, examples)``
-    tuples), vote, and stitch each contig: ``{contig: polished}``.
+    tuples), vote, and stitch each contig: ``{contig: polished}``;
+    ``trace_dir`` writes a device trace of the loop.
 
     One-deep pipeline: batch k+1's forward is enqueued on the device
     before the host blocks on batch k's class ids and votes them, so
@@ -284,15 +287,16 @@ def run_inference(
     n_windows = 0
     t0 = time.perf_counter()
     pending = None
-    for names, positions, x in batches:
-        preds = predict(model, x, dev)
+    with device_trace(trace_dir, dev):
+        for names, positions, x in batches:
+            preds = predict(model, x, dev)
+            if pending is not None:
+                board.add(pending[0], pending[1], pending[2].cpu().numpy())
+                n_windows += len(pending[0])
+            pending = (names, positions, preds)
         if pending is not None:
             board.add(pending[0], pending[1], pending[2].cpu().numpy())
             n_windows += len(pending[0])
-        pending = (names, positions, preds)
-    if pending is not None:
-        board.add(pending[0], pending[1], pending[2].cpu().numpy())
-        n_windows += len(pending[0])
     dt = max(time.perf_counter() - t0, 1e-9)
     log(
         f"inference: {n_windows} windows in {dt:.1f}s on {dev} "
@@ -310,11 +314,12 @@ def polish_to_fasta(
     device: str | torch.device = "cuda",
     batch_size: int = 128,
     log: Callable[[str], None] = print,
+    trace_dir: Optional[str] = None,
 ) -> None:
     """Polish every contig of a feature HDF5 and write the FASTA."""
     contigs = load_contigs(data_path)
     polished = run_inference(
         iter_inference_windows(data_path, batch_size), contigs, model,
-        device=device, log=log,
+        device=device, log=log, trace_dir=trace_dir,
     )
     write_fasta(out_path, list(polished.items()))

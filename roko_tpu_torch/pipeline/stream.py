@@ -49,8 +49,11 @@ The model's precision modes ride along: it runs in its resolved
 ``cfg.compute_dtype``, and a config that asks for int8 quantizes it once,
 before the journal's identity hash.
 
-Left out of the port: multi-host pods and the device mesh (A8), the
-cascade router (A10) and ``--trace-dir`` (A11).
+``trace_dir`` writes a device trace of the run's extraction, batching
+and inference loop (``utils/profiling.device_trace``).
+
+Left out of the port: multi-host pods and the device mesh (A8) and the
+cascade router (A10).
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ from roko_tpu_torch.resilience.watchdog import thread_stack
 from roko_tpu_torch.serve.metrics import ServeMetrics
 from roko_tpu_torch.serve.scheduler import ContinuousBatcher
 from roko_tpu_torch.serve.session import PolishSession
-from roko_tpu_torch.utils.profiling import StageTimer
+from roko_tpu_torch.utils.profiling import StageTimer, device_trace
 
 # queue item tags (first tuple element)
 _BLOCK, _DONE, _ERROR, _END = "block", "done", "error", "end"
@@ -265,6 +268,7 @@ def run_streaming_polish(
     job_timeout: Optional[float] = None,
     region_source=None,
     resume: bool = False,
+    trace_dir: Optional[str] = None,
 ) -> Dict[str, str]:
     """Polish ``ref_path``+``bam_x`` to ``{contig: sequence}`` with
     feature extraction, host batching and device inference overlapped;
@@ -466,32 +470,33 @@ def run_streaming_polish(
         try:
             finish_ready()  # zero-region contigs stitch immediately
             producer.start()
-            end = False
-            while not end:
-                # completed futures vote eagerly (a contig-complete
-                # notice must not sit behind a grinding extractor)
-                while inflight and inflight[0][3].done():
+            with device_trace(trace_dir, session.device):
+                end = False
+                while not end:
+                    # completed futures vote eagerly (a contig-complete
+                    # notice must not sit behind a grinding extractor)
+                    while inflight and inflight[0][3].done():
+                        n_windows += drain_one()
+                    if len(inflight) >= inflight_bound:
+                        n_windows += drain_one()
+                        continue
+                    try:
+                        item = q.get(timeout=0.25)
+                    except queue.Empty:
+                        continue
+                    tag = item[0]
+                    if tag == _BLOCK:
+                        _, contig, pos, x = item
+                        inflight.append((contig, pos, len(pos), batcher.submit(x)))
+                    elif tag == _DONE:
+                        final_counts[item[1]] = item[2]
+                        finish_ready()
+                    elif tag == _ERROR:
+                        raise item[1]
+                    else:  # _END
+                        end = True
+                while inflight:
                     n_windows += drain_one()
-                if len(inflight) >= inflight_bound:
-                    n_windows += drain_one()
-                    continue
-                try:
-                    item = q.get(timeout=0.25)
-                except queue.Empty:
-                    continue
-                tag = item[0]
-                if tag == _BLOCK:
-                    _, contig, pos, x = item
-                    inflight.append((contig, pos, len(pos), batcher.submit(x)))
-                elif tag == _DONE:
-                    final_counts[item[1]] = item[2]
-                    finish_ready()
-                elif tag == _ERROR:
-                    raise item[1]
-                else:  # _END
-                    end = True
-            while inflight:
-                n_windows += drain_one()
         finally:
             batcher.stop()
             producer.stop.set()

@@ -11,7 +11,9 @@ its rules:
   save killed midway leaves a directory without a committed manifest,
   never a silently truncated one;
 - the manager keeps the best ``keep`` checkpoints by val accuracy, named
-  by step, plus ``latest``, overwritten at every save;
+  by step, plus ``latest``, overwritten at every save; a mid-epoch save
+  (:meth:`CheckpointManager.save_latest`, ``save_every_steps``) writes
+  ``latest`` alone, under the same manifest;
 - :meth:`CheckpointManager.restore_latest` walks ``latest`` and then the
   numbered ones newest first, skips any that does not verify with a
   ``ROKO_GUARD event=ckpt_corrupt`` line, and raises
@@ -145,16 +147,18 @@ class CheckpointManager:
         except (OSError, ValueError, KeyError):
             return float("-inf")
 
-    def _write(self, name: Union[str, int], state: Dict[str, Any], val_acc: float) -> None:
+    def _write(self, name: Union[str, int], state: Dict[str, Any],
+               val_acc: Optional[float]) -> None:
         """Write into a fresh directory, move it into place, then commit
-        its manifest."""
+        its manifest. ``metrics.json`` only with a val accuracy."""
         final = self._path(name)
         tmp = f"{final}.tmp.{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         torch.save(state, os.path.join(tmp, STATE_NAME))
-        with open(os.path.join(tmp, METRICS_NAME), "w") as f:
-            json.dump({"val_acc": float(val_acc)}, f)
+        if val_acc is not None:
+            with open(os.path.join(tmp, METRICS_NAME), "w") as f:
+                json.dump({"val_acc": float(val_acc)}, f)
         shutil.rmtree(final, ignore_errors=True)
         os.replace(tmp, final)
         write_manifest(final)
@@ -167,6 +171,11 @@ class CheckpointManager:
         ranked = sorted(self._steps(), key=lambda s: (self._val_acc(s), s), reverse=True)
         for s in ranked[self.keep :]:
             shutil.rmtree(self._path(s), ignore_errors=True)
+
+    def save_latest(self, state: Dict[str, Any]) -> None:
+        """A mid-epoch save: ``latest`` alone (there is no val accuracy to
+        rank it by), with its manifest committed."""
+        self._write("latest", state, None)
 
     def _candidates(self) -> List[Tuple[Union[str, int], str]]:
         out: List[Tuple[Union[str, int], str]] = []

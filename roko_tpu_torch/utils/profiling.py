@@ -1,11 +1,16 @@
 """Named wall-clock spans for host-side stage attribution (the port's
-copy of ``roko_tpu/utils/profiling.py::StageTimer``). The JAX
-package's ``device_trace`` wraps ``jax.profiler`` and is not ported:
-the port traces the card with ``torch.profiler`` where it needs to."""
+copy of ``roko_tpu/utils/profiling.py::StageTimer``), and the device
+trace behind ``--trace-dir``: :func:`device_trace` and :func:`annotate`,
+the ``torch.profiler`` counterparts of the JAX package's
+``jax.profiler`` ones (:98-136). ``torch`` is imported inside them, so
+the host side imports this module without it. The server's on-demand
+trace (``capture_device_trace``, ``/profilez``) comes with the serve
+stack (ROADMAP queue item A9)."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict, deque
@@ -82,3 +87,41 @@ class StageTimer:
                 f"  {stage:<{width}}  {t:8.2f}s  {100 * t / max(total, 1e-9):5.1f}%"
                 f"  ({self.counts[stage]} spans)"
             )
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: Optional[str], device=None) -> Iterator[None]:
+    """Trace the block with ``torch.profiler`` into a Chrome trace JSON
+    under ``trace_dir`` (made if missing); a no-op for None. Host activity
+    always; on a CUDA ``device`` (None: the card when one is present) the
+    card's activity too, and a trace that recorded no device event raises:
+    a host-only trace would pass for one of the card."""
+    if trace_dir is None:
+        yield
+        return
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_type = (torch.device(device).type if device is not None
+                else "cuda" if torch.cuda.is_available() else "cpu")
+    activities = [ProfilerActivity.CPU]
+    if dev_type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if dev_type == "cuda":
+            torch.cuda.synchronize()
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"roko_trace.{os.getpid()}.{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    if dev_type == "cuda" and not any(e.device_type == DeviceType.CUDA for e in prof.events()):
+        raise RuntimeError(f"the trace {path} holds no device events: torch.profiler "
+                           "recorded no CUDA activity on the card")
+
+
+def annotate(name: str):
+    """A named range in the device trace (``torch.profiler.record_function``)."""
+    from torch.profiler import record_function
+
+    return record_function(name)

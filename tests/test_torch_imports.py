@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package ``roko_tpu``, and its
 host-side modules (features, I/O, the native extractor, the simulator,
-the assess tool, failure handling, the batching plane's scheduler) do
-not import torch.
+the assess tool, failure handling, the batching plane's scheduler, the
+training data plane) do not import torch.
 
 Every module of ``roko_tpu_torch`` is imported in a subprocess in which
 ``jax`` and ``roko_tpu`` (with all its submodules) are blocked, the
@@ -72,9 +72,9 @@ def _import_in_child(*names):
 
 
 #: the host side of the port: feature extraction runs in worker
-#: processes and threads, and the assess tool, the failure handling and
-#: the batching plane's scheduler are host code, so none of it may
-#: import torch
+#: processes and threads, and the assess tool, the failure handling,
+#: the batching plane's scheduler and the training data plane are host
+#: code, so none of it may import torch
 HOST_MODULES = [
     "roko_tpu_torch.sim", "roko_tpu_torch.utils.rng", "roko_tpu_torch.resilience.retry",
     "roko_tpu_torch.io.bgzf", "roko_tpu_torch.io.bam", "roko_tpu_torch.io.sam",
@@ -87,16 +87,23 @@ HOST_MODULES = [
     "roko_tpu_torch.resilience",
     "roko_tpu_torch.resilience.watchdog", "roko_tpu_torch.resilience.journal",
     "roko_tpu_torch.serve.batcher", "roko_tpu_torch.serve.metrics",
-    "roko_tpu_torch.serve.scheduler",
+    "roko_tpu_torch.serve.scheduler", "roko_tpu_torch.datapipe",
+    "roko_tpu_torch.datapipe.io", "roko_tpu_torch.datapipe.manifest",
+    "roko_tpu_torch.datapipe.engine", "roko_tpu_torch.datapipe.dataset",
+    "roko_tpu_torch.training.data", "roko_tpu_torch.training.lazy_data",
 ]
 
 
 def test_every_port_module_imports_without_jax():
     names = _import_in_child()
-    assert len(names) >= 59
+    assert len(names) >= 64
+    assert "roko_tpu_torch.training.engine" not in names  # moved to datapipe.engine
     assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru",
             "roko_tpu_torch.models.quant", "roko_tpu_torch.benchmark",
             "roko_tpu_torch.serve.session", "roko_tpu_torch.pipeline.stream",
+            "roko_tpu_torch.datapipe", "roko_tpu_torch.datapipe.io",
+            "roko_tpu_torch.datapipe.manifest", "roko_tpu_torch.datapipe.engine",
+            "roko_tpu_torch.datapipe.dataset", "roko_tpu_torch.training.lazy_data",
             *HOST_MODULES} <= set(names)
 
 

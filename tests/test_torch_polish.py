@@ -7,6 +7,7 @@ files, equal HDF5 datasets, byte-identical FASTA. ``polish`` without
 ``--staged``, or with ``--truth``, exits with a usage error and writes
 nothing."""
 
+import json
 import os
 import subprocess
 import sys
@@ -119,12 +120,23 @@ def test_polish_staged_fasta_byte_identical_to_reference(project, tmp_path, kind
 @pytest.mark.parametrize("extra,message", [
     (["--distributed"], "--distributed is not ported yet (queue item A10"),
     (["--cascade"], "--cascade is not ported yet (queue item A10"),
-    (["--config", "c.json"], "--config is not ported yet (queue item A11"),
-    (["--trace-dir", "trace"], "--trace-dir is not ported yet (queue item A11"),
+    # --config and --trace-dir are ported: a config file that asks for
+    # what the port does not run is refused, naming its queue item
+    (["--config", "mesh.json"], "config mesh.dp = 4: not ported yet (queue item A8"),
+    (["--config", "cascade.json"], "config cascade.enabled = True: not ported yet (queue "
+     "item A10"),
     (["--staged", "--resume"], "cannot combine with --staged"),
 ])
 def test_polish_refuses_what_is_not_ported(project, tmp_path, capsys, extra, message):
     out = tmp_path / "o.fasta"
+    unported = {"mesh.json": ("mesh", "dp", 4), "cascade.json": ("cascade", "enabled", True)}
+    if extra[-1] in unported:  # a reference-layout file, written beside the project
+        section, key, value = unported[extra[-1]]
+        raw = json.loads(RokoConfig().to_json())
+        raw[section][key] = value
+        path = project["root"] / extra[-1]
+        path.write_text(json.dumps(raw))
+        extra = [*extra[:-1], str(path)]
     with pytest.raises(SystemExit) as exc:
         cli.main(["polish", project["draft_fasta"], project["reads_bam"], project["pth"]["gru"],
                   str(out), *extra, *SMALL])

@@ -14,7 +14,8 @@ Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
 nvcc per source, started together), holds each kernel against its plain
 PyTorch version at the shapes its path gives it and times both, then
 drives the port's main paths with the default model at full width, once
-for ``kind="gru"`` and once for ``kind="lingru"``:
+for ``kind="gru"`` and once for ``kind="lingru"`` (and ``kind="transformer"``,
+which launches no kernel, in a phase of its own):
 
 - inference: polishes a synthetic contig through
   ``roko_tpu_torch.infer.run_inference`` (random weights from a numpy
@@ -51,6 +52,17 @@ for ``kind="gru"`` and once for ``kind="lingru"``:
   checkpoints verified, and the best one polishing the contig; the bf16
   run through the bf16 kernels alone, its windows/s and losses printed
   beside the f32 run's;
+- transformer: ``kind="transformer"`` at full width (3 layers, d_model
+  256, 8 heads, mlp_ratio 4; random weights from a numpy seed in the JAX
+  layout, through the weights bridge), which runs plain matrix products
+  and none of the kernels: the synthetic windows through
+  ``run_inference`` in f32 and bf16 with windows/s, the f32 logits of 64
+  windows against the same model on the host CPU (rtol 1e-4, atol 1e-5;
+  argmax equal where the top-two gap exceeds 1e-4), bf16's argmax
+  agreement with f32 and largest logit delta; the polish project
+  streamed, byte-equal to its staged stitch; ``train`` for two epochs in
+  f32 and in bf16, checkpoints verified, the best polishing, windows/s
+  and losses beside the gru runs'; every launch count 0 on each path;
 - train_plane: the training data plane and run controls, gru f32 at full
   width on an in-memory corpus of 2048 windows at batch 128: run A two
   epochs saving ``latest`` every 5 steps, the same from a RokoConfig JSON
@@ -67,8 +79,9 @@ for ``kind="gru"`` and once for ``kind="lingru"``:
 - bench: ``python -m roko_tpu_torch bench --train`` in this process
   (``benchmark.main`` at a pinned iteration count: the inference sweep at
   batch 512 and 2048, the per-kind rows, the recurrence alone, the
-  precision column, the train rows), its JSON line printed, failing on an
-  error in any row of a ported suite; before it, the kernels at the
+  precision column, the train rows, ``train_transformer`` among them),
+  its JSON line printed, failing on an error in any row of a ported suite
+  or a ``train_transformer`` row without windows/s; before it, the kernels at the
   shapes its suites give them that no earlier phase launches (batch 2048;
   hidden 256, the f32 streaming recurrences, at batch 512), each held
   against its plain version.
@@ -227,6 +240,11 @@ BF16_GRU_BWD_SEEDS_READ = 20
 # that no earlier phase launches, each held against its plain version: the
 # inference sweep's widest batch, the stress train row (4 layers, hidden
 # 256: the f32 streaming recurrences) at the train suite's batch, ...
+#: windows of the transformer's f32 logits held against the same model on
+#: the host CPU, and the bars
+TRANSFORMER_CPU_WINDOWS = 64
+TRANSFORMER_CPU_ATOL = 1e-5
+TRANSFORMER_ARGMAX_GAP = 1e-4
 BENCH_ITERS = 10
 BENCH_WIDE_B = 2048
 BENCH_STRESS_SHAPE = dict(B=512, T=90, IN=500, H=256, S=2)
@@ -316,24 +334,50 @@ def jax_layout_lingru_layer(rng, in_size: int, hidden: int):
     }
 
 
+def jax_layout_dense(rng, i: int, o: int):
+    b = 1.0 / math.sqrt(i)
+    return {"kernel": uniform(rng, b, (i, o)), "bias": uniform(rng, b, (o,))}
+
+
+def jax_layout_encoder(rng, cfg):
+    """The transformer's ``params["encoder"]`` as ``transformer_init``
+    draws it: dense layers U(+-1/sqrt(in)), ``pos_embed`` 0.02 N(0, 1),
+    layer norms scale 1 and bias 0."""
+    d, m = cfg.d_model, cfg.mlp_ratio * cfg.d_model
+
+    def norm():
+        return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
+
+    def layer():
+        qkvp = {name: jax_layout_dense(rng, d, d) for name in ("q", "k", "v", "proj")}
+        return {"ln1": norm(), **qkvp, "ln2": norm(), "mlp_in": jax_layout_dense(rng, d, m),
+                "mlp_out": jax_layout_dense(rng, m, d)}
+
+    return {
+        "in_proj": jax_layout_dense(rng, cfg.gru_in_size, d),
+        "pos_embed": (0.02 * rng.standard_normal((cfg.window_cols, d))).astype(np.float32),
+        "layers": tuple(layer() for _ in range(cfg.num_layers)),
+        "ln_out": norm(),
+    }
+
+
 def jax_layout_params(rng, cfg):
     """Random params of ``cfg.kind`` in the JAX package's tree layout."""
-
-    def dense(i, o):
-        b = 1.0 / math.sqrt(i)
-        return {"kernel": uniform(rng, b, (i, o)), "bias": uniform(rng, b, (o,))}
-
-    layer = jax_layout_gru_layer if cfg.kind == "gru" else jax_layout_lingru_layer
-    return {
+    params = {
         "embedding": rng.standard_normal((cfg.embed_vocab, cfg.embed_dim)).astype(np.float32),
-        "fc1": dense(cfg.window_rows, cfg.read_mlp[0]),
-        "fc2": dense(cfg.read_mlp[0], cfg.read_mlp[1]),
-        "head": dense(2 * cfg.hidden_size, cfg.num_classes),
-        cfg.kind: tuple(
-            layer(rng, cfg.gru_in_size if k == 0 else 2 * cfg.hidden_size, cfg.hidden_size)
-            for k in range(cfg.num_layers)
-        ),
+        "fc1": jax_layout_dense(rng, cfg.window_rows, cfg.read_mlp[0]),
+        "fc2": jax_layout_dense(rng, cfg.read_mlp[0], cfg.read_mlp[1]),
+        "head": jax_layout_dense(rng, 2 * cfg.hidden_size, cfg.num_classes),
     }
+    if cfg.kind == "transformer":
+        params["encoder"] = jax_layout_encoder(rng, cfg)
+        return params
+    layer = jax_layout_gru_layer if cfg.kind == "gru" else jax_layout_lingru_layer
+    params[cfg.kind] = tuple(
+        layer(rng, cfg.gru_in_size if k == 0 else 2 * cfg.hidden_size, cfg.hidden_size)
+        for k in range(cfg.num_layers)
+    )
+    return params
 
 
 def synthetic_contig(rng, n_windows: int, C):
@@ -1032,9 +1076,9 @@ def stream_and_compare(torch, port, model, dev, counts, polish, kernel):
     """``run_streaming_polish`` on the polish phase's project with
     ``model`` through a warm session on the card with the ladder
     32 / 128 / 512, 4 extraction workers, batch 512, counted (``kernel``
-    3 times a dispatched step, nothing else). Its FASTA must be byte-equal
-    to the stitch of the same windows' in-memory staged inference with
-    the same model."""
+    3 times a dispatched step, nothing else; with ``kernel`` None, no
+    kernel at all). Its FASTA must be byte-equal to the stitch of the
+    same windows' in-memory staged inference with the same model."""
     inputs = polish["_stream_inputs"]
     paths, contig, draft = inputs["paths"], inputs["contig"], inputs["draft"]
     work = os.path.dirname(paths["draft_fasta"])
@@ -1063,8 +1107,8 @@ def stream_and_compare(torch, port, model, dev, counts, polish, kernel):
                               log=logs.append)
     seconds = time.perf_counter() - t0
     steps = metrics.counters["batches"]
-    launches = counts.expect(f"the {kind} stream_polish path",
-                             {kernel: model.cfg.num_layers * steps})[kernel]
+    want = {kernel: model.cfg.num_layers * steps} if kernel else {}
+    launches = sum(counts.expect(f"the {kind} stream_polish path", want).values())
     shapes = sorted(session.dispatched_shapes)
     if not set(shapes) <= set(ladder):
         fail(f"{kind} stream_polish dispatched {shapes}, outside the ladder {ladder}")
@@ -1081,7 +1125,8 @@ def stream_and_compare(torch, port, model, dev, counts, polish, kernel):
         "windows": windows, "padded_rows": padded, "padding_efficiency": windows / padded,
         "seconds": seconds, "windows_per_s": windows / seconds,
         "spans_s": dict(timer.totals), "span_counts": dict(timer.counts),
-        "steps": steps, f"{kernel}_launches": launches, "launches_expected": "3 x steps",
+        "steps": steps, f"{kernel or 'kernel'}_launches": launches,
+        "launches_expected": "3 x steps" if kernel else "none",
         "ladder": list(ladder), "dispatched_shapes": shapes, "warmup_seconds": warmup_s,
         "fasta_byte_equal_to_staged_stitch": identical,
         "log": logs[-12:], "_run": (session, cfg, paths),
@@ -1784,9 +1829,10 @@ def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, f
                 out_name):
     """``loop.train`` of ``cfg`` on the in-memory corpus, counted (``bwd``
     once per layer and step, ``fwd`` once per layer and step or eval
-    batch), its checkpoints verified under ``build/out_name``, and the best
-    one polishing the synthetic contig through ``fwd``. Returns the
-    record, the result and the train config."""
+    batch; with both None, no kernel at all), its checkpoints verified
+    under ``build/out_name``, and the best one polishing the synthetic
+    contig through ``fwd``. Returns the record, the result and the train
+    config."""
     out_dir = os.path.join(ROOT, "build", out_name)
     shutil.rmtree(out_dir, ignore_errors=True)
     tcfg = port.TrainConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, seed=SEED,
@@ -1805,7 +1851,7 @@ def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, f
         f"{cfg.kind} training ({cfg.num_layers} layers, {result.step} steps, "
         f"{TRAIN_EPOCHS} x {eval_batches} eval batches)",
         {fwd: cfg.num_layers * (result.step + TRAIN_EPOCHS * eval_batches),
-         bwd: cfg.num_layers * result.step})
+         bwd: cfg.num_layers * result.step} if fwd else {})
     train_peak = torch.cuda.max_memory_allocated()
     if len(result.history) != TRAIN_EPOCHS:
         fail(f"{cfg.kind} train ran {len(result.history)} epochs, expected {TRAIN_EPOCHS}")
@@ -1832,7 +1878,7 @@ def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, f
     polished_t = port.run_inference(iter(polish_batches), {contig: draft},
                                     trained, device=dev, log=lambda s: None)[contig]
     counts.expect(f"polishing with the trained {cfg.kind} checkpoint",
-                  {fwd: cfg.num_layers * len(polish_batches)})
+                  {fwd: cfg.num_layers * len(polish_batches)} if fwd else {})
     board = port.VoteBoard({contig: draft})
     for names, pos, x in polish_batches:
         board.add(names, pos, port.predict(trained, x, dev).cpu().numpy())
@@ -1841,14 +1887,16 @@ def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, f
              "or is not the stitch of its votes")
     record = {
         "config": f"ModelConfig(kind={cfg.kind!r}, compute_dtype={cfg.compute_dtype!r}) "
-                  f"({cfg.num_layers} layers, hidden {cfg.hidden_size}, dropout {cfg.dropout}, "
-                  "full width)",
+                  f"({cfg.num_layers} layers, hidden {cfg.hidden_size}, dropout {cfg.dropout}"
+                  + (f", d_model {cfg.d_model}, {cfg.num_heads} heads, mlp_ratio "
+                     f"{cfg.mlp_ratio}" if cfg.kind == "transformer" else "") + ", full width)",
         "windows": TRAIN_WINDOWS, "val_fraction": TRAIN_VAL_FRACTION, "batch": TRAIN_BATCH,
         "epochs": TRAIN_EPOCHS, "steps": result.step, "seconds": train_seconds,
         "train_loop_seconds": train_secs, "steps_per_s": result.step / train_secs,
         "windows_per_s": result.step * TRAIN_BATCH / train_secs,
         "history": result.history, "guard": result.guard_counters,
-        f"{fwd}_launches": launches[fwd], f"{bwd}_launches": launches[bwd],
+        **({f"{fwd}_launches": launches[fwd], f"{bwd}_launches": launches[bwd]} if fwd
+           else {"kernel_launches": sum(launches.values())}),
         "eval_batches_per_epoch": eval_batches, "peak_device_bytes": train_peak,
         "checkpoints": manifests, "trained_polish_len": len(polished_t),
         "log": train_logs,
@@ -1884,6 +1932,127 @@ def bf16_beside(f32_train: dict) -> dict:
                                       "steps", "guard")} | {
         "train_loss": [h["train_loss"] for h in f32_train["history"]],
         "val_acc": [h["val_acc"] for h in f32_train["history"]]}
+
+
+def drive_transformer(torch, port, batches, contig, draft, dev, counts, polish, corpus,
+                      gru_train, gru_train_bf16, card, rng):
+    """``kind="transformer"`` at full width (3 layers, d_model 256, 8 heads,
+    mlp_ratio 4), random weights from ``rng`` in the JAX layout through
+    the weights bridge. Its products are plain matrix products: every path
+    runs with every launch count set to 0 and must leave them all at 0.
+
+    (a) ``run_inference`` of ``batches`` in f32 and in bf16, windows/s for
+    each; the f32 logits of the first ``TRANSFORMER_CPU_WINDOWS`` windows
+    against the same model on this machine's CPU (rtol 1e-4, atol 1e-5;
+    argmax equal where the CPU's top-two gap exceeds 1e-4); bf16 against
+    f32: argmax agreement over every window and the largest |logit delta|.
+    (b) ``run_streaming_polish`` of the polish project, byte-equal to the
+    staged stitch of the same windows with the same model. (c)
+    ``loop.train`` for two epochs over the training corpus in f32 and in
+    bf16, checkpoints verified, the best polishing, windows/s and losses
+    beside the gru runs'. A traced breakdown of inference and of train
+    steps in each dtype, which must hold none of the port's kernels."""
+
+    def traced(what, breakdown):
+        if breakdown.get("port_kernels_ms_calls"):
+            fail(f"the transformer's {what} trace holds the port's kernels: "
+                 f"{breakdown['port_kernels_ms_calls']}")
+        return breakdown
+
+    cfg = port.ModelConfig(kind="transformer")
+    model = port.RokoModel(cfg)
+    model.load_state_dict(port.state_dict_from_jax(jax_layout_params(rng, cfg)), strict=True)
+    bf16 = port.RokoModel(dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    bf16.load_state_dict(model.state_dict(), strict=True)
+    cpu_model = port.RokoModel(cfg)
+    cpu_model.load_state_dict(model.state_dict(), strict=True)
+    model.to(dev).eval()
+    bf16.to(dev).eval()
+    cpu_model.eval()
+    n_windows = sum(len(b[0]) for b in batches)
+
+    # (a) inference, counted: no kernel launches
+    paths = {}
+    for label, m in (("float32", model), ("bfloat16", bf16)):
+        port.predict(m, batches[0][2], dev)  # warm-up: library handles, allocator
+        torch.cuda.synchronize()
+        counts.zero()
+        t0 = time.perf_counter()
+        polished = port.run_inference(iter(batches), {contig: draft}, m, device=dev,
+                                      log=lambda s: None)[contig]
+        seconds = time.perf_counter() - t0
+        counts.expect(f"the transformer {label} inference path", {})
+        if not polished or set(polished) - set("ACGT"):
+            fail(f"transformer {label}: the polished contig is empty or holds letters other "
+                 "than ACGT")
+        paths[label] = {"seconds": seconds, "windows_per_s": n_windows / seconds,
+                        "kernel_launches": 0, "polished_len": len(polished)}
+    counts.zero()
+    with torch.inference_mode():
+        logits = {label: [m(torch.from_numpy(x).to(dev)) for _, _, x in batches]
+                  for label, m in (("float32", model), ("bfloat16", bf16))}
+        x_cpu = torch.from_numpy(batches[0][2][:TRANSFORMER_CPU_WINDOWS])
+        t0 = time.perf_counter()
+        on_cpu = cpu_model(x_cpu)
+        cpu_s = time.perf_counter() - t0
+    counts.expect("the transformer logits", {})
+    f32 = torch.cat(logits["float32"])
+    b16 = torch.cat(logits["bfloat16"])
+    if f32.shape != (n_windows, cfg.window_cols, cfg.num_classes) or b16.shape != f32.shape:
+        fail(f"transformer logits shapes {tuple(f32.shape)}, {tuple(b16.shape)}")
+    if not bool(torch.isfinite(f32).all()) or not bool(torch.isfinite(b16).all()):
+        fail("non-finite transformer logits")
+    card_part = f32[:TRANSFORMER_CPU_WINDOWS].cpu()
+    cpu_err = (card_part - on_cpu).abs().max().item()
+    if not torch.allclose(card_part, on_cpu, rtol=RTOL, atol=TRANSFORMER_CPU_ATOL):
+        fail(f"transformer f32 logits on the card and the CPU differ: max |d| {cpu_err}")
+    top2 = on_cpu.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > TRANSFORMER_ARGMAX_GAP
+    argmax_misses = int(((card_part.argmax(-1) != on_cpu.argmax(-1)) & clear).sum())
+    if argmax_misses:
+        fail(f"transformer: {argmax_misses} argmax differences between card and CPU on "
+             f"columns whose top-two gap exceeds {TRANSFORMER_ARGMAX_GAP}")
+    for label, m in (("float32", model), ("bfloat16", bf16)):
+        paths[label]["breakdown"] = traced(f"{label} inference", device_breakdown(
+            torch, lambda: port.run_inference(iter(batches), {contig: draft}, m, device=dev,
+                                              log=lambda s: None)))
+    inference = {
+        **paths,
+        "windows": n_windows, "batches": len(batches), "batch_size": len(batches[0][0]),
+        "vs_cpu": {"windows": TRANSFORMER_CPU_WINDOWS, "max_abs_err": cpu_err,
+                   "rtol": RTOL, "atol": TRANSFORMER_CPU_ATOL,
+                   "argmax_gap": TRANSFORMER_ARGMAX_GAP,
+                   "columns_checked": int(clear.sum()), "columns": clear.numel(),
+                   "argmax_misses": 0, "cpu_seconds": cpu_s},
+        "bfloat16_vs_float32": {
+            "argmax_agreement": (b16.argmax(-1) == f32.argmax(-1)).float().mean().item(),
+            "max_abs_logit_delta": (b16.float() - f32).abs().max().item()},
+    }
+
+    # (b) the polish project streamed: byte-equal to its staged stitch
+    stream = stream_and_compare(torch, port, model, dev, counts, polish, None)
+    stream.pop("_run")
+
+    # (c) training in f32 and bf16, no kernel launches
+    train, result, tcfg = drive_train(torch, port, cfg, corpus, batches, contig, draft, dev,
+                                      counts, None, None, "chip_smoke_train_transformer")
+    train_bf16, result_bf16, _ = drive_train(
+        torch, port, dataclasses.replace(cfg, compute_dtype="bfloat16"), corpus, batches, contig,
+        draft, dev, counts, None, None, "chip_smoke_train_transformer_bf16")
+    for rec, res, label in ((train, result, "float32"), (train_bf16, result_bf16, "bfloat16")):
+        rec.pop("log")
+        rec["breakdown"] = traced(f"{label} train", train_breakdown(
+            torch, port, res, corpus, tcfg, dev))
+    return {
+        "config": f"ModelConfig(kind='transformer') ({cfg.num_layers} layers, d_model "
+                  f"{cfg.d_model}, {cfg.num_heads} heads, mlp_ratio {cfg.mlp_ratio}, "
+                  "full width)",
+        "inference": inference, "stream_polish": stream,
+        "train": {**train, "gru": bf16_beside(gru_train)},
+        "train_bf16": {**train_bf16, "float32": bf16_beside(train),
+                       "gru": bf16_beside(gru_train_bf16)},
+        "kernel_launches": 0, "card": card,
+    }
 
 
 def bench_kernel_check(torch, port, dev) -> dict:
@@ -1950,7 +2119,7 @@ def bench_launches(bench) -> dict:
     kind, f32 and int8 (f32 compute) on the f32 kernel and bf16 on the
     bf16 one, timed, then one forward of each for the logit deltas; the
     train rows a forward and a backward a step, 4 layers in the stress
-    row."""
+    row; the transformer row none."""
     n, layers, stress = bench.WARMUP + BENCH_ITERS, 3, 4
     timed = layers * n
     precision_f32, precision_bf16 = 2 * timed + 2 * layers, timed + layers
@@ -1982,6 +2151,9 @@ def drive_bench(torch, port, counts) -> dict:
         fail(f"bench returned {rc}; rows of ported suites failed: {errors}")
     launches = counts.expect("the bench", bench_launches(port.bench))
     d = result["detail"]
+    row = d["train"]["train_transformer"]
+    if not row.get("windows_per_sec", 0) > 0:
+        fail(f"the bench's train_transformer row holds no number: {row}")
     return {"seconds": seconds, "bench_iterations": BENCH_ITERS, "launches": launches,
             **{k: result[k] for k in ("metric", "value", "unit", "vs_baseline")},
             **{k: d.get(k) for k in ("compute_dtype", "windows_per_sec", "best_batch",
@@ -1993,7 +2165,8 @@ def drive_bench(torch, port, counts) -> dict:
                                                     "bf16_windows_per_sec",
                                                     "int8_windows_per_sec")}
                           for k, r in d["precision"].items()},
-            "train": {k: d["train"][k] for k in ("train_gru", "train_scan_stress")}}
+            "train": {k: d["train"][k] for k in ("train_gru", "train_scan_stress",
+                                                  "train_transformer")}}
 
 
 class DigestedCorpus:
@@ -2481,6 +2654,7 @@ def main() -> None:
         StageTimer=StageTimer, write_fasta=write_fasta, assess_fastas=assess_fastas,
         bench=bench, InMemoryDataset=InMemoryDataset, GuardConfig=GuardConfig,
         DataConfig=DataConfig, iter_span_batches=iter_span_batches, epoch_rng=epoch_rng,
+        ModelConfig=ModelConfig, state_dict_from_jax=state_dict_from_jax,
     )
     counts = Counts(fg, fl)
 
@@ -2656,6 +2830,12 @@ def main() -> None:
                ("lingru_fwd_bf16", "lingru_bwd_bf16"))
     emit({"lingru_train_breakdown_bf16": {**lin_breakdown_bf16, "card": card}})
 
+    # -- kind="transformer": inference, stream polish, training; no kernels ---
+    transformer = drive_transformer(
+        torch, port, batches, contig, draft, dev, counts, polish, corpus, train, train_bf16,
+        card, np.random.default_rng(SEED + 6))
+    emit({"transformer": transformer})
+
     # -- the training data plane and run controls -----------------------------
     plane = drive_train_plane(torch, port, cfg, batches, contig, draft, dev, counts, card)
     emit({"train_plane": plane})
@@ -2679,6 +2859,8 @@ def main() -> None:
         }
 
     def kernel_row(name, source, replaces, replaces_also, row, by_path, **also):
+        # the transformer's paths launch no kernel (drive_transformer checks it)
+        by_path = {**by_path, "transformer": transformer["kernel_launches"]}
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "replaces_also": replaces_also,

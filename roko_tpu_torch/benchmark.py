@@ -92,7 +92,6 @@ UNPORTED_TRAIN_ROWS = {
                             "lacks (ROADMAP queue item A12)",
     "train_gru_rbg": "no counterpart: TrainConfig.dropout_rng_impl picks a JAX PRNG; the port "
                      "draws its dropout masks from a torch.Generator (ROADMAP queue item A12)",
-    "train_transformer": "not ported yet (ROADMAP queue item A7)",
     "train_gru_pallas": "the same thing as train_gru in the port: its one train path runs "
                         "the hand-written kernels",
     "input_stall": "not ported yet (ROADMAP queue item A11b): it writes an HDF5 corpus, and "
@@ -523,11 +522,13 @@ def run_train_suite(
     model_overrides: Optional[Dict] = None,
 ) -> Dict[str, Any]:
     """The train suite in the port's default compute dtype: ``train_gru``
-    (the default model) and ``train_scan_stress`` (4 layers, twice the
-    hidden size: 256 at the default widths), each with ``step_ms``,
-    ``windows_per_sec`` and, on an H100, ``mfu_pct``; the reference's other
-    rows as ``error`` strings that say why the port has no counterpart
-    (:data:`UNPORTED_TRAIN_ROWS`)."""
+    (the default model), ``train_scan_stress`` (4 layers, twice the
+    hidden size: 256 at the default widths) and ``train_transformer``
+    (``kind="transformer"``, ``d_model`` twice the hidden size), each with
+    ``step_ms`` and ``windows_per_sec``, and the gru rows on an H100 with
+    ``mfu_pct`` (the reference gives the transformer none); the
+    reference's other rows as ``error`` strings that say why the port has
+    no counterpart (:data:`UNPORTED_TRAIN_ROWS`)."""
     from roko_tpu_torch.config import ModelConfig, default_compute_dtype
     from roko_tpu_torch.infer import resolve_device
 
@@ -545,7 +546,8 @@ def run_train_suite(
         "train_gru_rbg": None,
         "train_scan_stress": ModelConfig(
             compute_dtype=dtype, **{**over, "num_layers": 4, "hidden_size": 2 * hidden}),
-        "train_transformer": None,
+        "train_transformer": ModelConfig(
+            compute_dtype=dtype, **{**over, "kind": "transformer", "d_model": 2 * hidden}),
         "train_gru_pallas": None,
     }
     for name, cfg in suites.items():

@@ -4,9 +4,11 @@ and ``bench``.
 
 Mirrors ``roko-tpu sim``, ``features``, ``train``, ``inference``,
 ``polish``, ``assess``, ``inspect`` and ``bench`` (``roko_tpu/cli.py:461-574``,
-:590, :626-737, :1230, :1254, :1288; flags :1310-1370, :1469-1537,
+:590, :626-737, :1230, :1254, :1288; flags :35-64, :1310-1370, :1469-1537,
 :1545-1632, :1858-1887) with the flags of the same names (``--model-kind``
-takes the kinds the port runs), plus ``--device``. ``--config`` reads a
+takes gru, lingru and transformer; ``--d-model``, ``--num-heads`` and
+``--mlp-ratio`` size the transformer, and ``--hidden-size`` without
+``--d-model`` sets ``d_model`` to twice it), plus ``--device``. ``--config`` reads a
 ``RokoConfig`` JSON file of the reference's layout: built-in defaults <
 the file < the flags given (``roko_tpu/cli.py:20-30``, :309-350), and
 ``--quantize none`` clears the file's setting; a file that asks for what
@@ -64,10 +66,15 @@ def _build_config(args: argparse.Namespace) -> RokoConfig:
     if getattr(args, "no_proper_pair", None):
         read_filter = dataclasses.replace(read_filter, require_proper_pair=False)
     model = over(base.model, kind="model_kind", hidden_size="hidden_size",
-                 num_layers="num_layers", compute_dtype="compute_dtype")
+                 num_layers="num_layers", compute_dtype="compute_dtype", d_model="d_model",
+                 num_heads="num_heads", mlp_ratio="mlp_ratio")
     quantize = getattr(args, "quantize", None)
     if quantize is not None:  # "none" clears the file's setting
         model = dataclasses.replace(model, quantize=None if quantize == "none" else quantize)
+    # the transformer's head is the recurrent kinds' head: d_model tracks
+    # 2 x hidden unless it is given
+    if getattr(args, "hidden_size", None) is not None and getattr(args, "d_model", None) is None:
+        model = dataclasses.replace(model, d_model=2 * model.hidden_size)
     # the model consumes the window geometry
     model = dataclasses.replace(model, window_rows=window.rows, window_cols=window.cols)
     guard = over(base.guard, spike_sigma="spike_sigma", max_bad_steps="max_bad_steps",
@@ -296,11 +303,17 @@ def build_parser() -> argparse.ArgumentParser:
     def common(p: argparse.ArgumentParser) -> None:
         p.add_argument(
             "--model-kind", choices=PORTED_KINDS, default=None,
-            help="recurrence family: gru (torch-exact reference, default) or "
-            "lingru (gated linear recurrence)",
+            help="sequence block: gru (torch-exact reference, default), lingru "
+            "(gated linear recurrence) or transformer (pre-LN encoder)",
         )
         p.add_argument("--hidden-size", type=int, default=None)
         p.add_argument("--num-layers", type=int, default=None)
+        p.add_argument("--d-model", type=int, default=None,
+                       help="transformer width (default 2 x --hidden-size)")
+        p.add_argument("--num-heads", type=int, default=None,
+                       help="transformer attention heads (default 8)")
+        p.add_argument("--mlp-ratio", type=int, default=None,
+                       help="transformer MLP width over d_model (default 4)")
         p.add_argument(
             "--compute-dtype", default=None, choices=COMPUTE_DTYPES,
             help="matmul and recurrence compute dtype (params stay f32). Default "

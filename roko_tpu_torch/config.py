@@ -63,7 +63,7 @@ class FeaturesConfig:
 
 
 #: the values of ``ModelConfig.kind`` the port runs
-PORTED_KINDS = ("gru", "lingru")
+PORTED_KINDS = ("gru", "lingru", "transformer")
 
 #: valid ``ModelConfig.compute_dtype`` values (``roko_tpu/config.py:60-66``):
 #: the width of the matrix products and of the recurrences' loads and
@@ -100,6 +100,11 @@ class ModelConfig:
     #: recurrent layers, in training only
     dropout: float = 0.2
     num_classes: int = C.NUM_CLASSES
+    #: ``kind="transformer"`` only: the encoder's width (2 x hidden_size,
+    #: so the head is shared), its attention heads and its MLP's widening
+    d_model: int = 256
+    num_heads: int = 8
+    mlp_ratio: int = 4
     #: one of COMPUTE_DTYPES; "auto" resolves per backend (:meth:`resolve`)
     compute_dtype: str = "auto"
     #: one of QUANTIZE_MODES or None; conversion-time only: training
@@ -115,8 +120,8 @@ class ModelConfig:
             )
         if self.kind not in PORTED_KINDS:
             raise ValueError(
-                f"model kind {self.kind!r} is not ported yet; the PyTorch "
-                f"port runs kind {' and '.join(map(repr, PORTED_KINDS))}"
+                f"unknown model kind {self.kind!r}; expected one of "
+                + "|".join(PORTED_KINDS)
             )
         if not 0.0 <= self.dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got {self.dropout}")
@@ -364,9 +369,9 @@ _NOT_PORTED: Dict[str, Dict[str, Tuple[Any, str]]] = {
 
 #: fields that load whatever they hold: ``use_pallas`` asks the reference
 #: for its Pallas kernels on a TPU (the port runs its own kernels on every
-#: card), and the transformer's widths mean nothing to the kinds the port
-#: runs (``kind="transformer"`` itself is refused, queue item A7)
-_IGNORED = {"model": ("use_pallas", "d_model", "num_heads", "mlp_ratio")}
+#: card)
+_IGNORED = {"model": ("use_pallas",)}
+
 
 @dataclass(frozen=True)
 class RokoConfig(FeaturesConfig):

@@ -6,7 +6,11 @@ GRU weights, the reference torch layout the transposes, with the same
 (r, z, n) gate order, so the bridge transposes and renames and nothing
 else. A ``kind="lingru"`` tree's ``params["lingru"]`` (``w_zx``, ``w_cx``
 [in, H]; ``b_z``, ``b_c`` [H]) maps the same way onto the port's
-``lingru.weight_zx_l{k}[_reverse]`` etc. ``jax_from_state_dict`` is the
+``lingru.weight_zx_l{k}[_reverse]`` etc. A ``kind="transformer"`` tree's
+``params["encoder"]`` maps onto the port's ``encoder.``: ``in_proj``, the
+``pos_embed`` table, per layer ``ln1``/``ln2`` (``scale`` -> ``weight``)
+and the dense ``q``, ``k``, ``v``, ``proj``, ``mlp_in`` and ``mlp_out``
+(kernels transposed), and ``ln_out``. ``jax_from_state_dict`` is the
 way back, so tests can hold trained parameters and gradients against the
 JAX package's. A quantized tree's int8 weights (``{"q", "scale"}``
 leaves, ``roko_tpu/models/quant.py``) cross as the ``<name>_q``
@@ -33,6 +37,8 @@ _RECURRENT = {
             ("b_ih", "bias_ih", False), ("b_hh", "bias_hh", False)),
     "lingru": lingru.PARAMS,
 }
+#: the dense layers of one encoder layer
+_ENCODER_DENSE = ("q", "k", "v", "proj", "mlp_in", "mlp_out")
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -51,9 +57,29 @@ def _put(sd: Dict[str, torch.Tensor], name: str, a: Any, transpose: bool) -> Non
     sd[name] = t.t().contiguous() if transpose else t
 
 
+def _put_encoder(sd: Dict[str, torch.Tensor], enc: Mapping[str, Any]) -> None:
+    def dense(name: str, p: Mapping[str, Any]) -> None:
+        _put(sd, f"{name}.weight", p["kernel"], True)
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+    def norm(name: str, p: Mapping[str, Any]) -> None:
+        sd[f"{name}.weight"] = _t(p["scale"])
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+    dense("encoder.in_proj", enc["in_proj"])
+    sd["encoder.pos_embed"] = _t(enc["pos_embed"])
+    for i, layer in enumerate(enc["layers"]):
+        for name in ("ln1", "ln2"):
+            norm(f"encoder.layers.{i}.{name}", layer[name])
+        for name in _ENCODER_DENSE:
+            dense(f"encoder.layers.{i}.{name}", layer[name])
+    norm("encoder.ln_out", enc["ln_out"])
+
+
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX param tree of arrays (``{"embedding", "fc1", "fc2", "head",
-    "gru" or "lingru": ({"fwd", "bwd"}, ...)}``) -> reference-layout
+    "gru" or "lingru": ({"fwd", "bwd"}, ...)}``, or ``"encoder"``:
+    ``{"in_proj", "pos_embed", "layers", "ln_out"}``) -> reference-layout
     state_dict."""
     sd: Dict[str, torch.Tensor] = OrderedDict()
     sd["embedding.weight"] = _t(params["embedding"])
@@ -65,6 +91,8 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             for direction, suffix in _DIRECTIONS:
                 for jax_name, name, transpose in names:
                     _put(sd, f"{kind}.{name}_l{k}{suffix}", layer[direction][jax_name], transpose)
+    if "encoder" in params:
+        _put_encoder(sd, params["encoder"])
     return sd
 
 
@@ -80,9 +108,25 @@ def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         t = sd[name].detach().cpu().float()
         return (t.t() if transpose else t).contiguous().numpy()
 
+    def dense(name: str) -> Dict[str, Any]:
+        return {"kernel": a(f"{name}.weight", True), "bias": a(f"{name}.bias")}
+
+    def norm(name: str) -> Dict[str, Any]:
+        return {"scale": a(f"{name}.weight"), "bias": a(f"{name}.bias")}
+
     tree: Dict[str, Any] = {"embedding": a("embedding.weight")}
     for name, key in (("fc1", "fc1"), ("fc2", "fc2"), ("fc4", "head")):
-        tree[key] = {"kernel": a(f"{name}.weight", True), "bias": a(f"{name}.bias")}
+        tree[key] = dense(name)
+    if any(n.startswith("encoder.") for n in sd):
+        layers = []
+        while f"encoder.layers.{len(layers)}.ln1.weight" in sd:
+            pre = f"encoder.layers.{len(layers)}"
+            layers.append({"ln1": norm(f"{pre}.ln1"), "ln2": norm(f"{pre}.ln2"),
+                           **{name: dense(f"{pre}.{name}") for name in _ENCODER_DENSE}})
+        tree["encoder"] = {"in_proj": dense("encoder.in_proj"),
+                           "pos_embed": a("encoder.pos_embed"), "layers": tuple(layers),
+                           "ln_out": norm("encoder.ln_out")}
+        return tree
     kind = "lingru" if any(n.startswith("lingru.") for n in sd) else "gru"
     names = _RECURRENT[kind]
     layers = []

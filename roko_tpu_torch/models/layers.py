@@ -1,8 +1,9 @@
 """Primitive layers shared by the port's models: the dense product, the
-``torch.nn.Linear``-style init, inverted dropout
-(``roko_tpu/models/layers.py:15-24,53-60``), and the one idiom every
-matrix product fetches its weight through (:26-85): a float tensor cast
-to the compute dtype, or an int8 weight-only matrix dequantized in place.
+``torch.nn.Linear``-style init, inverted dropout, the layer norm
+(``roko_tpu/models/layers.py:15-24,53-70``), the GELU of ``jax.nn.gelu``,
+and the one idiom every matrix product fetches its weight through
+(:26-85): a float tensor cast to the compute dtype, or an int8
+weight-only matrix dequantized in place.
 
 Matrices reach the products in the JAX package's layout, ``[in, out]``:
 transposed views of the port's ``[out, in]`` parameters, or, once
@@ -17,6 +18,7 @@ import math
 from typing import Any, Dict, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 Weight = Union[torch.Tensor, Dict[str, torch.Tensor]]
@@ -95,3 +97,41 @@ def dropout(
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mu) * rsqrt(var + eps) * scale + bias`` over the last axis,
+    op for op as ``roko_tpu.models.layers.layernorm`` writes it, in x's
+    dtype: the mean and the biased variance summed in float32 and each
+    rounded to x's dtype once (what ``jnp.mean`` and ``jnp.var`` do with
+    bfloat16), then every elementwise op rounded, ``eps`` a constant of
+    x's dtype, and the reciprocal square root taken in float32 and rounded
+    once, as XLA takes it (torch's bfloat16 ``rsqrt`` on the CPU differs
+    from it in the last bit). In float32 the roundings are no-ops; in
+    bfloat16 a fused ``F.layer_norm`` would round once, where the
+    reference rounds each op. ``scale`` and ``bias`` are in x's dtype."""
+    dtype = x.dtype
+    wide = x.float()
+    mu = wide.mean(dim=-1, keepdim=True).to(dtype)
+    var = wide.var(dim=-1, keepdim=True, correction=0).to(dtype)
+    inv = torch.rsqrt((var + torch.tensor(eps, dtype=dtype)).float()).to(dtype)
+    return (x - mu) * inv * scale + bias
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation
+    ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))`` (torch's
+    ``F.gelu`` defaults to the exact erf form). In float32 the fused
+    ``F.gelu(approximate="tanh")``; in a narrower dtype op for op in it,
+    each op rounded with constants of that dtype, as the reference rounds
+    them (the fused form rounds once, and misses many of its bf16
+    outputs)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+
+    def c(v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=x.dtype)
+
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))

@@ -11,7 +11,7 @@ records every padded batch size that reached the device.
 Each dispatch runs under the resilience watchdog (``call_with_deadline``)
 with split budgets: the first dispatch of a rung gets
 ``compile_deadline_s`` (on the card that first call also builds the
-kernels with nvcc), every later one ``predict_deadline_s``. A blown
+recurrent kinds' kernels with nvcc), every later one ``predict_deadline_s``. A blown
 deadline raises :class:`HangError`. The class ids come back to the host
 synchronously.
 

@@ -15,7 +15,8 @@ On a CUDA device every step runs the recurrence through its kernels:
 ``lingru_fwd`` and ``lingru_bwd`` (``models/fused_lingru.py``) for
 ``kind="lingru"``; with ``compute_dtype="bfloat16"`` their bf16 twins
 (``gru_fwd_bf16`` and ``gru_bwd_bf16``, ``lingru_fwd_bf16`` and
-``lingru_bwd_bf16``), evaluation included. The parameters, their
+``lingru_bwd_bf16``), evaluation included; ``kind="transformer"`` runs
+plain matrix products and launches none of them. The parameters, their
 gradients and Adam stay float32 in either dtype, as in the reference
 (params cast inside ``apply``). Dropout masks of step ``k`` come
 from a generator seeded by (seed, rollbacks, k), so a resumed run draws

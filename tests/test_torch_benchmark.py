@@ -136,20 +136,42 @@ def test_inference_suite_rows_on_a_tiny_model(quick):
 
 
 def test_train_suite_rows_on_a_tiny_model(quick):
-    """``train_gru`` and the stress row (4 layers, twice the hidden size)
-    timed; every other row of the reference's suite an error that says why
-    or names its queue item."""
+    """``train_gru``, the stress row (4 layers, twice the hidden size) and
+    ``train_transformer`` (d_model twice the hidden size) timed; every
+    other row of the reference's suite an error that says why or names its
+    queue item."""
     out = B.run_train_suite(3, iters=1, device="cpu", model_overrides=TINY)
     assert out["batch"] == 3 and out["iterations"] == 1 and out["compute_dtype"] == "float32"
-    for name in ("train_gru", "train_scan_stress"):
+    for name in ("train_gru", "train_scan_stress", "train_transformer"):
         row = out[name]
         assert row["windows_per_sec"] > 0 and row["step_ms"] > 0 and "mfu_pct" not in row
         assert row["windows_per_sec"] == pytest.approx(3 * 1e3 / row["step_ms"], rel=1e-2)
-    rows = ("train_gru_remat", "train_gru_remat_scan", "train_gru_rbg", "train_transformer",
-            "train_gru_pallas", "input_stall")
+    rows = ("train_gru_remat", "train_gru_remat_scan", "train_gru_rbg", "train_gru_pallas",
+            "input_stall")
     assert all(out[r] == {"error": B.UNPORTED_TRAIN_ROWS[r]} for r in rows)
-    assert "A7" in out["train_transformer"]["error"] and "A11" in out["input_stall"]["error"]
+    assert "train_transformer" not in B.UNPORTED_TRAIN_ROWS and "A11" in out["input_stall"]["error"]
     assert B.ported_errors({"detail": {"train": out}}) == []
+
+
+def test_train_transformer_row_builds_the_references_model(quick, monkeypatch):
+    """``train_transformer`` times ``ModelConfig(kind="transformer",
+    d_model=2 x hidden)`` in the suite's dtype, as ``roko_tpu/benchmark.py``
+    does, and an error in it is an error of a ported row."""
+    seen = {}
+
+    def fake(cfg, batch, iters, device="cuda"):
+        seen[cfg.kind] = cfg
+        if cfg.kind == "transformer":
+            raise RuntimeError("encoder exploded")
+        return {"step_ms": 1.0, "windows_per_sec": 3000.0}
+
+    monkeypatch.setattr(B, "bench_train", fake)
+    out = B.run_train_suite(3, iters=1, device="cpu", model_overrides=TINY)
+    cfg = seen["transformer"]
+    assert (cfg.d_model, cfg.hidden_size, cfg.num_heads, cfg.compute_dtype) == (
+        2 * TINY["hidden_size"], TINY["hidden_size"], 8, "float32")
+    assert B.ported_errors({"detail": {"train": out}}) == [
+        "train.train_transformer.error: RuntimeError: encoder exploded"]
 
 
 def test_a_failing_row_is_recorded_and_fails_the_command(quick, monkeypatch, capsys):

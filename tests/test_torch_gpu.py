@@ -3,7 +3,8 @@
 ``gru_fwd_bf16``, ``lingru_fwd_bf16``, ``gru_bwd_bf16`` and
 ``lingru_bwd_bf16`` against their plain versions, launch counting, input
 checks, determinism, and the model's forward and gradients on the card
-for both kinds, in float32 and bfloat16. They skip without a card; run
+for both recurrent kinds, in float32 and bfloat16, and the transformer's
+forward on the card against the CPU. They skip without a card; run
 them on one with
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -361,6 +362,28 @@ def test_lingru_model_on_card_matches_plain_and_cpu(cuda):
         plain = model(x.to(cuda), fl.lingru_scan_plain)
     torch.testing.assert_close(got, plain, atol=ATOL, rtol=RTOL)
     torch.testing.assert_close(got.cpu(), cpu, atol=ATOL, rtol=RTOL)
+
+
+def test_transformer_model_on_card_matches_cpu(cuda, monkeypatch):
+    """The tiny transformer's logits on the card against the CPU's: plain
+    matrix products, and none of the port's kernels launched."""
+    cfg = ModelConfig(kind="transformer", hidden_size=32, d_model=64, num_heads=4,
+                      num_layers=2)
+    model = RokoModel(cfg).eval()
+    x = torch.from_numpy(
+        np.random.default_rng(47).integers(0, 12, (4, 200, 90), dtype=np.uint8)
+    )
+    wrappers = (fg.gru_recurrence, fg.gru_recurrence_backward, fl.lingru_scan,
+                fl.lingru_scan_backward)
+    for w in wrappers:
+        monkeypatch.setattr(w, "launches", 0)
+        monkeypatch.setattr(w, "launches_bf16", 0)
+    with torch.inference_mode():
+        cpu = model(x)
+        model.to(cuda)
+        got = model(x.to(cuda))
+    torch.testing.assert_close(got.cpu(), cpu, atol=1e-5, rtol=1e-4)
+    assert all(w.launches == w.launches_bf16 == 0 for w in wrappers)
 
 
 def test_lingru_model_gradients_on_card_match_plain(cuda, monkeypatch):

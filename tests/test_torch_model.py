@@ -57,15 +57,26 @@ def test_config_defaults_match_reference():
 
 @pytest.mark.parametrize("kind", ["transformer"])
 def test_other_kinds_not_ported_yet(kind):
-    with pytest.raises(ValueError, match="not ported yet"):
-        ModelConfig(kind=kind)
+    """Every kind of the reference is ported now: the transformer constructs
+    with the reference's widths, and an unknown kind still raises."""
+    cfg, ref = ModelConfig(kind=kind), JaxModelConfig(kind=kind)
+    for f in _FIELDS + ("d_model", "num_heads", "mlp_ratio"):
+        assert getattr(cfg, f) == getattr(ref, f), f
+    assert (cfg.d_model, cfg.num_heads, cfg.mlp_ratio) == (256, 8, 4)
+    assert RokoModel(cfg).encoder.pos_embed.shape == (C.WINDOW_COLS, 256)
+    with pytest.raises(ValueError, match="unknown model kind 'mamba'"):
+        ModelConfig(kind="mamba")
 
 
 def test_lingru_config_constructs_and_transformer_still_raises():
+    """lingru constructs; the transformer's refusals stand: int8 weights,
+    and a d_model that is not twice the hidden size."""
     cfg = ModelConfig(kind="lingru")
     assert (cfg.kind, cfg.num_layers, cfg.hidden_size) == ("lingru", 3, 128)
-    with pytest.raises(ValueError, match="'gru' and 'lingru'"):
-        ModelConfig(kind="transformer")
+    with pytest.raises(ValueError, match="transformer variant has no int8 weight path"):
+        ModelConfig(kind="transformer", quantize="int8")
+    with pytest.raises(ValueError, match="must equal 2\\*hidden_size"):
+        RokoModel(ModelConfig(kind="transformer", hidden_size=64))
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))

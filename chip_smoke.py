@@ -9,6 +9,8 @@
     python3 chip_smoke.py --lingru-only ROOT   # both lingru scans, from ROOT's port
     python3 chip_smoke.py --lingru-bf16-only ROOT   # both bf16 lingru scans, from ROOT's port
     python3 chip_smoke.py --train-plane-only   # the train_plane phase alone
+    python3 chip_smoke.py --mesh-only          # the mesh phase alone
+    python3 chip_smoke.py --mesh-child SPEC    # one rank of the mesh phase (it starts them)
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
 nvcc per source, started together), holds each kernel against its plain
@@ -84,7 +86,21 @@ which launches no kernel, in a phase of its own):
   or a ``train_transformer`` row without windows/s; before it, the kernels at the
   shapes its suites give them that no earlier phase launches (batch 2048;
   hidden 256, the f32 streaming recurrences, at batch 512), each held
-  against its plain version.
+  against its plain version; its mesh suite (``--mesh-devices 1,2,4``:
+  one global batch of 128 split over 1, 2 and 4 child processes sharing
+  the card) runs in those processes, whose launches it reports by rank;
+- mesh: data parallelism across processes, the ranks joined by
+  ``ROKO_*`` as a user's would be: (a) an NCCL group of one rank, a dp
+  train step (all-reduced through NCCL) against the plain step; (b) two
+  gloo ranks sharing the card (NCCL refuses two ranks on one card), gru
+  f32 at full width, global batch 128: one dp step with dropout on
+  against one rank's step at the same batch and masks, one epoch of
+  ``train`` with shards = ranks, the replicas' parameters bitwise equal,
+  each rank's ``gru_fwd``/``gru_bwd`` launches and windows/s beside a
+  one-rank epoch; (c) their contig-split inference of 4 synthetic contigs,
+  FASTA byte-identical to one rank's; (d) the bench's mesh suite
+  byte-identical across 1, 2 and 4 ranks. NCCL across cards is not run:
+  the machine has one card.
 
 ``--bwd-bf16-only`` also reads ROADMAP fault C2 against the reference's
 own numbers (``tests/torch_golden/c2_bf16_bwd.npz``): the kernel, the
@@ -246,6 +262,24 @@ TRANSFORMER_CPU_WINDOWS = 64
 TRANSFORMER_CPU_ATOL = 1e-5
 TRANSFORMER_ARGMAX_GAP = 1e-4
 BENCH_ITERS = 10
+
+# the mesh phase, data parallelism across processes: ranks of one run share
+# the card through gloo (NCCL refuses two ranks on one card; the NCCL group
+# runs at world size 1). Training: gru f32 at full width, global batch
+# TRAIN_BATCH, one epoch over MESH_TRAIN_WINDOWS windows cut into blocks of
+# MESH_BLOCK rows, so that each rank's shard holds half of them (20 steps,
+# 20 eval batches); inference: MESH_CONTIGS contigs of MESH_CONTIG_WINDOWS
+# windows split by contig; the bench's mesh suite at MESH_DEVICES ranks
+MESH_RANKS = 2
+MESH_TRAIN_WINDOWS = 2560
+#: all-reduces of the step's flat buffer timed alone in each rank
+MESH_ALLREDUCE_REPS = 20
+MESH_BLOCK = 64
+MESH_CONTIGS = 4
+MESH_CONTIG_WINDOWS = 256
+MESH_DEVICES = "1,2,4"
+#: a child rank that outlasts this fails the phase (every wait is bounded)
+MESH_CHILD_TIMEOUT_S = 300
 BENCH_WIDE_B = 2048
 BENCH_STRESS_SHAPE = dict(B=512, T=90, IN=500, H=256, S=2)
 # ... and the train_gru row's first layer (the resident f32 backward)
@@ -2133,7 +2167,7 @@ def bench_launches(bench) -> dict:
 
 def drive_bench(torch, port, counts) -> dict:
     """The bench phase: ``python -m roko_tpu_torch bench --train
-    --bench-iterations BENCH_ITERS`` in this process (``benchmark.main``,
+    --bench-iterations BENCH_ITERS --mesh-devices 1,2,4`` in this process (``benchmark.main``,
     which prints its JSON line; its --out file is read back), with every
     launch count set to 0 just before and read just after. Fails unless it
     returns 0 with no error in a row of a ported suite, and each kernel
@@ -2142,7 +2176,8 @@ def drive_bench(torch, port, counts) -> dict:
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     counts.zero()
     t0 = time.perf_counter()
-    rc = port.bench.main(["--train", "--bench-iterations", str(BENCH_ITERS), "--out", out_path])
+    rc = port.bench.main(["--train", "--bench-iterations", str(BENCH_ITERS), "--mesh-devices",
+                          MESH_DEVICES, "--out", out_path])
     seconds = time.perf_counter() - t0
     with open(out_path) as f:
         result = json.load(f)
@@ -2166,7 +2201,8 @@ def drive_bench(torch, port, counts) -> dict:
                                                     "int8_windows_per_sec")}
                           for k, r in d["precision"].items()},
             "train": {k: d["train"][k] for k in ("train_gru", "train_scan_stress",
-                                                  "train_transformer")}}
+                                                  "train_transformer")},
+            "mesh": d.get("mesh")}
 
 
 class DigestedCorpus:
@@ -2456,6 +2492,338 @@ class StopRun(Exception):
     """Raised by a run's log hook to stop it where a kill would."""
 
 
+def mesh_corpus(port):
+    """The mesh phase's labelled corpus, the same in every process."""
+    C = port.C
+    rng = np.random.default_rng(SEED + 8)
+    X = rng.integers(0, C.FEATURE_VOCAB, (MESH_TRAIN_WINDOWS, C.WINDOW_ROWS, C.WINDOW_COLS),
+                     dtype=np.uint8)
+    return port.InMemoryDataset(X, (X.sum(axis=1) % C.NUM_CLASSES).astype(np.int32))
+
+
+def mesh_contigs(port):
+    """({name: draft}, windows(only)): MESH_CONTIGS synthetic contigs and
+    their window batches of 128, those of the contigs in ``only`` (None:
+    all), as ``infer.polish_windows_to_fasta`` reads them."""
+    rng = np.random.default_rng(SEED + 9)
+    contigs, per = {}, {}
+    for i in range(MESH_CONTIGS):
+        name = f"mesh{i}"
+        contigs[name], pos, x = synthetic_contig(rng, MESH_CONTIG_WINDOWS, port.C)
+        per[name] = [([name] * len(x[j : j + TRAIN_BATCH]), pos[j : j + TRAIN_BATCH],
+                      x[j : j + TRAIN_BATCH]) for j in range(0, len(x), TRAIN_BATCH)]
+
+    def windows(only):
+        for name in contigs:
+            if only is None or name in only:
+                yield from per[name]
+
+    return contigs, windows
+
+
+def flat_grads(torch, model):
+    """Every gradient of ``model`` in parameter order, one f32 vector on the host."""
+    return torch.cat([p.grad.reshape(-1) for p in model.parameters()]).cpu()
+
+
+def grads_within(torch, what, got, want, sizes, rtol=STEP_RTOL, atol_of_max=STEP_ATOL_OF_MAX):
+    """Each parameter's slice of the flat gradients ``got`` against
+    ``want`` at step_parity's bar; the worst one's numbers."""
+    worst, offset = {}, 0
+    for name, n in sizes:
+        g, ref = got[offset : offset + n], want[offset : offset + n]
+        offset += n
+        scale = ref.abs().max().item()
+        d = (g - ref).abs().max().item()
+        worst[name] = [d, scale]
+        if not torch.allclose(g, ref, rtol=rtol, atol=atol_of_max * scale):
+            fail(f"{what}: gradient {name}: max |d| {d} against max |g| {scale}")
+    top = max(worst, key=lambda n: worst[n][0] / max(worst[n][1], 1e-30))
+    return {"params": len(worst), "max_abs_err": max(v[0] for v in worst.values()),
+            "worst_relative": {"param": top, "max_abs_err": worst[top][0],
+                               "max_abs_grad": worst[top][1]},
+            "rtol": rtol, "atol_of_max_grad": atol_of_max}
+
+
+def params_sha(torch, model) -> str:
+    return hashlib.sha256(b"".join(p.detach().cpu().numpy().tobytes()
+                                   for p in model.parameters())).hexdigest()
+
+
+def mesh_child(torch, spec_path: str) -> None:
+    """One rank of the mesh phase (``chip_smoke.py --mesh-child SPEC``),
+    joined to its run by ``ROKO_*``: mode ``nccl1`` takes one dp train step
+    on an NCCL group of one rank and the same step through the plain
+    recurrence; mode ``pair`` takes one dp step with dropout on at the
+    global batch, trains one epoch with ``loop.train``, times the step's
+    flat all-reduce alone, and polishes the mesh contigs split by contig. Writes ``rank{r}.json`` beside SPEC."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, ROOT)
+    from roko_tpu_torch import constants as C
+    from roko_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from roko_tpu_torch.infer import polish_windows_to_fasta, use_float32_matmuls
+    from roko_tpu_torch.models import fused_gru as fg
+    from roko_tpu_torch.models import fused_lingru as fl
+    from roko_tpu_torch.models.model import RokoModel
+    from roko_tpu_torch.parallel import distributed
+    from roko_tpu_torch.parallel.mesh import all_reduce_, make_mesh, shard_batch
+    from roko_tpu_torch.training import loop
+    from roko_tpu_torch.training.data import InMemoryDataset
+
+    port = types.SimpleNamespace(C=C, InMemoryDataset=InMemoryDataset)
+    counts = Counts(fg, fl)
+    use_float32_matmuls()
+    distributed.initialize(device="cuda", backend=spec["backend"])
+    dev = distributed.device_of_rank("cuda")
+    mesh = make_mesh()
+    rank = mesh.rank
+    out = {"rank": rank, "world": distributed.world_size(), "backend": distributed.backend(),
+           "collective": mesh.collective, "device": str(dev)}
+    corpus = mesh_corpus(port)
+    batch = next(corpus.batches(TRAIN_BATCH, rng=np.random.default_rng(SEED)))
+    if spec["mode"] == "nccl1":
+        model = RokoModel(ModelConfig(dropout=0.0), torch.Generator().manual_seed(SEED))
+        model.to(dev).train()
+        x, y, w = loop.to_device(shard_batch(mesh, batch), dev)
+        counts.zero()
+        loss, finite = loop.grad_step(model, x, y, w, None, mesh)
+        out["launches"] = counts.expect("the dp step on NCCL", {"gru_fwd": 3, "gru_bwd": 3})
+        got = flat_grads(torch, model)
+        model.zero_grad(set_to_none=True)
+        loss_p, _, _ = loop.loss_and_stats(model(x, fg.gru_recurrence_plain), y, w)
+        loss_p.backward()
+        if not bool(finite) or abs(loss.item() - loss_p.item()) > STEP_RTOL * abs(loss_p.item()) + 1e-6:
+            fail(f"the dp step on NCCL: loss {loss.item()} (finite {bool(finite)}), plain "
+                 f"{loss_p.item()}")
+        out["step"] = {"loss_dp_kernels": loss.item(), "loss_plain": loss_p.item(),
+                       **grads_within(torch, "the dp step on NCCL against the plain step", got,
+                                      flat_grads(torch, model),
+                                      [(n, p.numel()) for n, p in model.named_parameters()])}
+        gathered = distributed.all_gather_cpu(torch.tensor([rank, 7]))
+        out["cpu_gather"] = gathered.tolist()
+    else:
+        cfg = ModelConfig()
+        model = RokoModel(cfg, torch.Generator().manual_seed(SEED)).to(dev)
+        x, y, w = loop.to_device(shard_batch(mesh, batch), dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        counts.zero()
+        loss, finite = loop.grad_step(model, x, y, w, gen, mesh)
+        out["step_launches"] = counts.expect("a dp step", {"gru_fwd": 3, "gru_bwd": 3})
+        grads = flat_grads(torch, model)
+        out["step"] = {"loss": loss.item(), "finite": bool(finite),
+                       "grads_sha256": hashlib.sha256(grads.numpy().tobytes()).hexdigest()}
+        if rank == 0:
+            np.save(os.path.join(spec["dir"], "grads_rank0.npy"), grads.numpy())
+        logs = []
+        torch.cuda.synchronize()
+        counts.zero()
+        t0 = time.perf_counter()
+        result = loop.train(corpus, os.path.join(spec["dir"], "ckpt"), model_cfg=cfg,
+                            train_cfg=TrainConfig(batch_size=TRAIN_BATCH, epochs=1, seed=SEED,
+                                                  log_every_steps=0),
+                            data_cfg=DataConfig(block_size=MESH_BLOCK), device="cuda",
+                            resume=False, log=logs.append)
+        out["train"] = {"seconds": time.perf_counter() - t0, "steps": result.step,
+                        "history": result.history, "log": logs,
+                        "launches": counts.expect("a dp train epoch", {
+                            "gru_fwd": 3 * (result.step + MESH_TRAIN_WINDOWS // TRAIN_BATCH),
+                            "gru_bwd": 3 * result.step}),
+                        "params_sha256": params_sha(torch, result.model)}
+        # the step's flat all-reduce alone: the loss and every gradient
+        flat = torch.zeros(1 + sum(p.numel() for p in model.parameters()), device=dev)
+        all_reduce_(mesh, flat)
+        torch.cuda.synchronize()
+        distributed.barrier()
+        t0 = time.perf_counter()
+        for _ in range(MESH_ALLREDUCE_REPS):
+            all_reduce_(mesh, flat)
+        torch.cuda.synchronize()
+        out["allreduce"] = {"bytes": flat.numel() * 4, "reps": MESH_ALLREDUCE_REPS,
+                            "ms": 1e3 * (time.perf_counter() - t0) / MESH_ALLREDUCE_REPS}
+        contigs, windows = mesh_contigs(port)
+        infer_model = RokoModel(cfg, torch.Generator().manual_seed(SEED + 1)).to(dev).eval()
+        counts.zero()
+        t0 = time.perf_counter()
+        polish_windows_to_fasta(contigs, windows, infer_model,
+                                os.path.join(spec["dir"], "mesh.fasta"), device="cuda",
+                                log=lambda s: None)
+        mine = sorted(contigs)[rank::distributed.world_size()]
+        out["infer"] = {"seconds": time.perf_counter() - t0, "contigs": mine,
+                        "launches": counts.expect("a rank's share of the contigs", {
+                            "gru_fwd": 3 * len(mine) * -(-MESH_CONTIG_WINDOWS // TRAIN_BATCH)})}
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+
+
+def run_ranks(mode: str, ranks: int, backend: str, out_dir: str) -> list:
+    """``ranks`` processes of ``chip_smoke.py --mesh-child`` in mode
+    ``mode``, joined by ``ROKO_*`` on a free localhost port; their
+    ``rank{r}.json``. Fails, after killing them all, unless every rank
+    exits 0 within MESH_CHILD_TIMEOUT_S."""
+    import socket
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    spec_path = os.path.join(out_dir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"mode": mode, "backend": backend, "dir": out_dir}, f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ROKO_")}
+    env.update(ROKO_COORDINATOR=f"127.0.0.1:{port}", ROKO_NUM_PROCESSES=str(ranks))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-child",
+                               spec_path], cwd=ROOT, env={**env, "ROKO_PROCESS_ID": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(ranks)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MESH_CHILD_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"mesh {mode}: a rank outlasted {MESH_CHILD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"mesh {mode}: rank {r} of {ranks} exited {p.returncode}:\n{log[-3000:]}")
+    out = []
+    for r in range(ranks):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def drive_mesh(torch, port, dev, counts, bench_mesh, card) -> dict:
+    """The mesh phase: (a) NCCL at world size 1, a dp train step through
+    the kernels against the plain step at step_parity's bar; (b) two gloo
+    ranks sharing the card: one dp step with dropout on at the global
+    batch against this process's one-rank step at the same batch and
+    masks (step_parity's bar: the card's embedding backward sums with
+    atomics), then one epoch of ``train`` (shards = ranks), replicas
+    bitwise equal, each rank's kernel launches, windows/s beside a
+    one-rank run here; (c) the two ranks' contig-split inference
+    byte-identical to one rank's, its parts removed; (d) the bench's mesh
+    suite (run by the bench phase) byte-identical across 1, 2 and 4 ranks."""
+    base = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
+    t0 = time.perf_counter()
+    (nccl,) = run_ranks("nccl1", 1, "nccl", os.path.join(base, "nccl1"))
+    if nccl["backend"] != "nccl" or not nccl["collective"] or nccl["cpu_gather"] != [[0, 7]]:
+        fail(f"mesh (a): not an NCCL group of one rank with its CPU side: {nccl}")
+    nccl_seconds = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pair_dir = os.path.join(base, "pair")
+    pair = run_ranks("pair", MESH_RANKS, "gloo", pair_dir)
+    pair_seconds = time.perf_counter() - t0
+    if {r["backend"] for r in pair} != {"gloo"} or [r["world"] for r in pair] != [2, 2]:
+        fail(f"mesh (b): ranks not in one gloo group of 2: {pair}")
+    for key in ("loss", "grads_sha256"):
+        if len({r["step"][key] for r in pair}) != 1:
+            fail(f"mesh (b): the ranks' dp steps differ in {key}")
+    if len({r["train"]["params_sha256"] for r in pair}) != 1:
+        fail("mesh (b): the replicas' parameters differ after training")
+    for r in pair:
+        losses = [h["train_loss"] for h in r["train"]["history"]]
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"mesh (b): rank {r['rank']} train losses {losses}")
+    # one rank at the global batch, the same masks: the card's step
+    cfg = port.ModelConfig()
+    model = port.RokoModel(cfg, torch.Generator().manual_seed(SEED)).to(dev)
+    corpus = mesh_corpus(port)
+    batch = next(corpus.batches(TRAIN_BATCH, rng=np.random.default_rng(SEED)))
+    x, y, w = port.loop.to_device(batch, dev)
+    loss, _ = port.loop.grad_step(model, x, y, w, torch.Generator(device=dev).manual_seed(SEED))
+    got = torch.from_numpy(np.load(os.path.join(pair_dir, "grads_rank0.npy")))
+    step = {"loss_2_ranks": pair[0]["step"]["loss"], "loss_1_rank": loss.item(),
+            **grads_within(torch, "mesh (b): two ranks' dp step against one rank", got,
+                           flat_grads(torch, model),
+                           [(n, p.numel()) for n, p in model.named_parameters()])}
+    if abs(step["loss_2_ranks"] - step["loss_1_rank"]) > STEP_RTOL * abs(step["loss_1_rank"]) + 1e-6:
+        fail(f"mesh (b): loss of two ranks {step['loss_2_ranks']}, one rank {step['loss_1_rank']}")
+    manifests = {}
+    for ckpt in sorted(os.listdir(os.path.join(pair_dir, "ckpt"))):
+        status, detail = port.verify_manifest(os.path.join(pair_dir, "ckpt", ckpt))
+        manifests[ckpt] = status
+        if status != "ok":
+            fail(f"mesh (b): checkpoint {ckpt} fails verification: {detail}")
+    # the same epoch in this process, one rank, for windows/s beside
+    one_dir = os.path.join(base, "one_rank")
+    shutil.rmtree(one_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    counts.zero()
+    one = port.loop.train(corpus, one_dir, model_cfg=cfg,
+                          train_cfg=port.TrainConfig(batch_size=TRAIN_BATCH, epochs=1, seed=SEED,
+                                                     log_every_steps=0),
+                          data_cfg=port.DataConfig(block_size=MESH_BLOCK), device=dev,
+                          resume=False, log=lambda s: None)
+    one_launches = counts.expect("the one-rank epoch", {
+        "gru_fwd": 3 * (one.step + MESH_TRAIN_WINDOWS // TRAIN_BATCH), "gru_bwd": 3 * one.step})
+    if one.step != pair[0]["train"]["steps"]:
+        fail(f"mesh (b): one rank took {one.step} steps, two ranks {pair[0]['train']['steps']}")
+
+    # (c) the contig-split FASTA against one rank's
+    contigs, windows = mesh_contigs(port)
+    infer_model = port.RokoModel(cfg, torch.Generator().manual_seed(SEED + 1)).to(dev).eval()
+    one_fasta = os.path.join(base, "one_rank.fasta")
+    counts.zero()
+    port.polish_windows_to_fasta(contigs, windows, infer_model, one_fasta, device=dev,
+                                 log=lambda s: None)
+    counts.expect("the one-rank inference", {
+        "gru_fwd": 3 * MESH_CONTIGS * -(-MESH_CONTIG_WINDOWS // TRAIN_BATCH)})
+    with open(one_fasta, "rb") as f:
+        want = f.read()
+    with open(os.path.join(pair_dir, "mesh.fasta"), "rb") as f:
+        fasta = f.read()
+    parts = [n for n in os.listdir(pair_dir) if ".part" in n]
+    if fasta != want or parts or fasta.count(b">") != MESH_CONTIGS:
+        fail(f"mesh (c): the two ranks' FASTA is not one rank's ({len(fasta)} vs {len(want)} "
+             f"bytes; parts left: {parts})")
+
+    # (d) the bench's mesh suite
+    if not bench_mesh or not bench_mesh.get("byte_identical"):
+        fail(f"mesh (d): the bench's mesh suite is not byte-identical across counts: "
+             f"{bench_mesh}")
+    for n, row in bench_mesh["rows"].items():
+        want_fwd = 3 * BENCH_ITERS
+        if any(r["gru_fwd"] != want_fwd for r in row["launches_by_rank"]):
+            fail(f"mesh (d): {n} rank(s) launched gru_fwd {row['launches_by_rank']}, "
+                 f"expected {want_fwd} each")
+
+    wps = pair[0]["train"]["history"][-1]["windows_per_s"]
+    one_wps = one.history[-1]["windows_per_s"]
+    return {
+        "nccl_world_1": {"seconds": nccl_seconds, "launches": nccl["launches"],
+                         "step": nccl["step"], "device": nccl["device"]},
+        "gloo_2_ranks": {
+            "seconds": pair_seconds, "config": "ModelConfig() (gru f32, 3 layers, hidden 128, "
+            "dropout 0.2, full width)", "windows": MESH_TRAIN_WINDOWS,
+            "global_batch": TRAIN_BATCH, "block_size": MESH_BLOCK,
+            "steps": pair[0]["train"]["steps"], "step_vs_1_rank": step,
+            "params_bitwise_equal": True, "params_sha256": pair[0]["train"]["params_sha256"],
+            "launches_by_rank": [{"step": r["step_launches"], "train": r["train"]["launches"],
+                                  "infer": r["infer"]["launches"]} for r in pair],
+            "windows_per_s": wps, "windows_per_s_1_rank": one_wps,
+            "allreduce_by_rank": [r["allreduce"] for r in pair],
+            "over_1_rank": wps / one_wps, "train_seconds_by_rank":
+                [r["train"]["seconds"] for r in pair],
+            "history_rank0": pair[0]["train"]["history"], "history_1_rank": one.history,
+            "launches_1_rank": one_launches, "checkpoints": manifests,
+            "log_rank0": pair[0]["train"]["log"], "log_rank1": pair[1]["train"]["log"]},
+        "contig_split": {"contigs": MESH_CONTIGS, "windows_per_contig": MESH_CONTIG_WINDOWS,
+                         "by_rank": [r["infer"]["contigs"] for r in pair],
+                         "seconds_by_rank": [r["infer"]["seconds"] for r in pair],
+                         "fasta_bytes": len(fasta), "byte_identical_to_1_rank": True},
+        "bench_mesh": bench_mesh, "card": card,
+        "not_run": "NCCL across more than one card: the machine has one",
+    }
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -2586,15 +2954,18 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    if sys.argv[1:2] == ["--mesh-child"] and len(sys.argv) == 3:
+        return mesh_child(torch, sys.argv[2])
     modes = (["--bwd-only"], ["--fwd-only"], ["--fwd-bf16-only"], ["--bwd-bf16-only"],
              ["--lingru-only"], ["--lingru-bf16-only"])
     if sys.argv[1:2] in modes and len(sys.argv) == 3:
         return one_kernel(torch, sys.argv[1], sys.argv[2])
     plane_only = sys.argv[1:] == ["--train-plane-only"]
-    if sys.argv[1:] and not plane_only:
+    mesh_only = sys.argv[1:] == ["--mesh-only"]
+    if sys.argv[1:] and not (plane_only or mesh_only):
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
              "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --bwd-bf16-only ROOT "
-             "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only]")
+             "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only | --mesh-only]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import benchmark as bench
@@ -2616,6 +2987,7 @@ def main() -> None:
         from roko_tpu_torch.features.pipeline import open_region_stream
         from roko_tpu_torch.infer import (
             VoteBoard,
+            polish_windows_to_fasta,
             predict,
             run_inference,
             tail_rungs,
@@ -2655,6 +3027,7 @@ def main() -> None:
         bench=bench, InMemoryDataset=InMemoryDataset, GuardConfig=GuardConfig,
         DataConfig=DataConfig, iter_span_batches=iter_span_batches, epoch_rng=epoch_rng,
         ModelConfig=ModelConfig, state_dict_from_jax=state_dict_from_jax,
+        polish_windows_to_fasta=polish_windows_to_fasta,
     )
     counts = Counts(fg, fl)
 
@@ -2668,8 +3041,16 @@ def main() -> None:
 
     # -- build -------------------------------------------------------------
     t0 = time.perf_counter()
-    built = kernels.build(["gru_fwd", "gru_bwd"] if plane_only else None)
+    built = kernels.build(["gru_fwd", "gru_bwd"] if plane_only or mesh_only else None)
     emit({"build": {"seconds": time.perf_counter() - t0, "kernels": built}})
+    if mesh_only:  # the mesh phase alone, the bench's mesh suite called directly
+        t0 = time.perf_counter()
+        bench_mesh = bench.run_mesh_suite(bench.parse_counts(MESH_DEVICES),
+                                          iterations=BENCH_ITERS, device="cuda")
+        bench_mesh["seconds"] = time.perf_counter() - t0
+        emit({"mesh": drive_mesh(torch, port, torch.device("cuda", 0), counts, bench_mesh,
+                                 card)})
+        return
     if plane_only:  # the train_plane phase alone, on its own streams
         rng = np.random.default_rng(SEED)
         cfg = ModelConfig()
@@ -2847,6 +3228,18 @@ def main() -> None:
     bench_launched = bench_run["launches"]
     emit({"bench": {**bench_run, "card": card}})
 
+    # -- data parallelism across processes (the card shared by the ranks) ---
+    mesh = drive_mesh(torch, port, dev, counts, bench_run["mesh"], card)
+    emit({"mesh": mesh})
+    mesh_fwd = (mesh["nccl_world_1"]["launches"]["gru_fwd"]
+                + sum(r["step"]["gru_fwd"] + r["train"]["gru_fwd"] + r["infer"]["gru_fwd"]
+                      for r in mesh["gloo_2_ranks"]["launches_by_rank"])
+                + mesh["gloo_2_ranks"]["launches_1_rank"]["gru_fwd"])
+    mesh_bwd = (mesh["nccl_world_1"]["launches"]["gru_bwd"]
+                + sum(r["step"]["gru_bwd"] + r["train"]["gru_bwd"]
+                      for r in mesh["gloo_2_ranks"]["launches_by_rank"])
+                + mesh["gloo_2_ranks"]["launches_1_rank"]["gru_bwd"])
+
     def timing(row):
         return {
             "shape": row["shape"], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -2875,13 +3268,13 @@ def main() -> None:
                               "stream_polish": stream["gru_fwd_launches"], "train": train_fwd,
                               **precision_launches["gru_fwd"],
                               "train_plane": plane["launches"]["gru_fwd"],
-                              "bench": bench_launched["gru_fwd"]},
+                              "bench": bench_launched["gru_fwd"], "mesh": mesh_fwd},
                    at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",
                    bwd_row, {"inference": 0, "train": train_bwd,
                              "train_plane": plane["launches"]["gru_bwd"],
-                             "bench": bench_launched["gru_bwd"]}),
+                             "bench": bench_launched["gru_bwd"], "mesh": mesh_bwd}),
         kernel_row("lingru_fwd", "roko_tpu_torch/csrc/lingru_fwd.cu",
                    "roko_tpu/models/pallas_lingru.py:90", None, lin_fwd_row,
                    {"inference": lin_path["lingru_fwd_launches"],

@@ -2,8 +2,10 @@
 
 Counterpart of ``roko_tpu/benchmark.py`` for the suites that run on the
 port's modules: the inference batch sweep (:383), the per-kind rows, the
-recurrence alone (:178), the precision column (:215) and, with
-``--train``, the train suite (:575). Driver contract, as the reference's:
+recurrence alone (:178), the precision column (:215), with
+``--train`` the train suite (:575), and with ``--mesh-devices`` the mesh
+suite (:2163, the same global batch split over 1, 2 and 4 processes,
+``parallel/``). Driver contract, as the reference's:
 ONE JSON line ``{"metric", "value", "unit", "vs_baseline", "detail"}``,
 ``value`` the polished bases per second of the card (windows/s x
 WINDOW_STRIDE = 30) and ``vs_baseline`` the windows/s over those of the
@@ -77,7 +79,6 @@ UNPORTED_SUITES = {
     "cascade": ("A10", "the cascade is not ported"),
     "coldstart": ("A9.3", "it needs the AOT bundle"),
     "input": ("A11b", "it writes an HDF5 corpus, and the card machine has no h5py"),
-    "mesh": ("A8", "multi-GPU is not ported"),
     "fleet": ("A9", "the serve stack is not ported"),
     "serve": ("A9", "the serve stack is not ported"),
 }
@@ -108,7 +109,6 @@ UNPORTED_FLAGS = {
     "cascade_draft": ("--cascade-draft", "A10"),
     "coldstart_ladder": ("--coldstart-ladder", "A9.3"),
     "input_rows": ("--input-rows", "A11b"),
-    "mesh_devices": ("--mesh-devices", "A8"),
     "fleet_workers": ("--fleet-workers", "A9"),
     "in_process": ("--in-process", None),
 }
@@ -570,6 +570,191 @@ def run_train_suite(
     return out
 
 
+#: mesh suite: rank counts (--mesh-devices), timed iterations
+#: (--bench-iterations overrides), and the fixed global batch every count
+#: shards (divisible by every default count)
+DEFAULT_MESH_DEVICES = (1, 2, 4)
+MESH_SUITE_ITERS = 8
+MESH_SUITE_GLOBAL_BATCH = 128
+
+
+def parse_counts(text: Optional[str]) -> Tuple[int, ...]:
+    """``--mesh-devices``: "1,2,4" -> (1, 2, 4); None, "", "0" or "off" -> ()."""
+    if text is None or str(text).strip() in ("", "0", "off"):
+        return ()
+    return tuple(int(t) for t in str(text).split(",") if t.strip())
+
+
+def _mesh_child(spec_path: str) -> None:
+    """One rank of :func:`run_mesh_suite`, in a process of its own: joins
+    the count's process group (``ROKO_*`` from the parent; none for one
+    rank), predicts its rows of the fixed global batch through the port's
+    forward and argmax (``infer.predict``, host windows in, host class ids
+    out), untimed once and then ``iterations`` times between barriers, and
+    writes its time, its class ids and its kernel launches."""
+    import dataclasses
+
+    import torch
+
+    from roko_tpu_torch import constants as C
+    from roko_tpu_torch.config import ModelConfig
+    from roko_tpu_torch.infer import predict, resolve_device, use_float32_matmuls
+    from roko_tpu_torch.models import fused_gru as fg
+    from roko_tpu_torch.models import fused_lingru as fl
+    from roko_tpu_torch.models.model import RokoModel
+    from roko_tpu_torch.parallel import distributed
+    from roko_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = resolve_device(spec["device"])
+    distributed.initialize(device=dev, backend=spec.get("backend"))
+    dev = distributed.device_of_rank(dev)
+    mesh = make_mesh()
+    use_float32_matmuls()
+    over = {k: tuple(v) if isinstance(v, list) else v
+            for k, v in (spec.get("model") or {}).items()}
+    cfg = dataclasses.replace(ModelConfig(), **over)
+    model = RokoModel(cfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    gb = int(spec["global_batch"])
+    rng = np.random.default_rng(0)  # the same windows in every rank and count
+    x = rng.integers(0, C.FEATURE_VOCAB, (gb, cfg.window_rows, cfg.window_cols)).astype(np.uint8)
+    (mine,) = shard_batch(mesh, (x,))
+    preds = predict(model, mine, dev).cpu().numpy()  # the first dispatch, outside the clock
+    counters = {"gru_fwd": (fg.gru_recurrence, "launches"),
+                "lingru_fwd": (fl.lingru_scan, "launches"),
+                "gru_fwd_bf16": (fg.gru_recurrence, "launches_bf16"),
+                "lingru_fwd_bf16": (fl.lingru_scan, "launches_bf16")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    iters = int(spec["iterations"])
+    distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        predict(model, mine, dev).cpu()
+    wall = time.perf_counter() - t0
+    distributed.barrier()
+    np.save(f"{spec['out']}.rank{mesh.rank}.npy", preds)
+    with open(f"{spec['out']}.rank{mesh.rank}.json", "w") as f:
+        json.dump({"wall_s": wall, "rows": len(mine),
+                   "launches": {k: getattr(fn, a) for k, (fn, a) in counters.items()}}, f)
+    distributed.shutdown()
+
+
+def _mesh_backend(n: int, device: str) -> Tuple[Optional[str], str]:
+    """(backend, what ran) for ``n`` ranks on ``device``: one rank needs
+    no group; ranks that fit the cards run NCCL, ranks that share a card
+    gloo (NCCL refuses two ranks on one card)."""
+    if device == "cpu":
+        return (None, "cpu (1 rank)") if n == 1 else ("gloo", f"cpu ({n} ranks, gloo)")
+    import torch
+
+    cards = torch.cuda.device_count()
+    used = min(n, cards)
+    if n == 1:
+        return None, "1 rank on 1 card"
+    backend = "nccl" if n <= cards else "gloo"
+    return backend, f"{n} ranks on {used} card{'s' if used > 1 else ''} ({backend})"
+
+
+def run_mesh_suite(
+    device_counts=DEFAULT_MESH_DEVICES,
+    iterations: Optional[int] = None,
+    global_batch: int = MESH_SUITE_GLOBAL_BATCH,
+    child_budget_s: float = 900.0,
+    device: str = "cuda",
+    model_overrides: Optional[Dict] = None,
+) -> Dict[str, Any]:
+    """Windows/s of the same fixed global batch split over 1, 2 and 4
+    ranks (``roko_tpu/benchmark.py:2163-2300``): each count is a fresh
+    group of that many child processes, each predicting its rows. The
+    reference simulated devices on the CPU; the port's ranks are real
+    processes, and on a machine with fewer cards than ranks they share
+    the cards through gloo, which adds no silicon: the ideal efficiency
+    is then 1.0, as on the reference's simulated devices.
+
+    Rows: ``devices`` (ranks), ``per_device_batch``, ``wall_s`` (the
+    slowest rank's), ``windows_per_sec``, ``preds_sha256`` of the class
+    ids of the whole global batch in rank order, ``backend`` and each
+    rank's kernel launches. ``scaling_efficiency`` is windows/s at N over
+    windows/s at the smallest count (``efficiency_vs_devices``), and
+    ``byte_identical`` whether every count predicted the same bytes; when
+    one does not, its row says how many (window, column) class ids differ
+    from the smallest count's."""
+    import hashlib
+    import tempfile
+
+    counts = tuple(sorted(set(int(c) for c in device_counts)))
+    bad = [c for c in counts if c < 1 or global_batch % c]
+    if bad:
+        raise ValueError(f"mesh suite device counts {bad} must be >= 1 and divide the fixed "
+                         f"global batch {global_batch}")
+    iters = iterations or MESH_SUITE_ITERS
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    results: Dict[str, Any] = {"device_counts": list(counts), "global_batch": global_batch,
+                               "iterations": iters, "rows": {}}
+    preds: Dict[int, np.ndarray] = {}
+    with tempfile.TemporaryDirectory() as td:
+        for n in counts:
+            backend, what = _mesh_backend(n, device)
+            out = os.path.join(td, f"mesh{n}")
+            spec = {"global_batch": global_batch, "iterations": iters, "out": out,
+                    "device": device, "backend": backend, "model": model_overrides or {}}
+            spec_path = f"{out}.spec.json"
+            with open(spec_path, "w") as f:
+                json.dump(spec, f)
+            env = {k: v for k, v in os.environ.items() if not k.startswith("ROKO_")}
+            if n > 1:
+                import socket
+
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    port = sock.getsockname()[1]
+                env.update(ROKO_COORDINATOR=f"127.0.0.1:{port}", ROKO_NUM_PROCESSES=str(n))
+            cmd = [sys.executable, "-c", "import sys; from roko_tpu_torch.benchmark import "
+                   "_mesh_child; _mesh_child(sys.argv[1])", spec_path]
+            procs = [subprocess.Popen(cmd, cwd=repo_root, env={**env, "ROKO_PROCESS_ID": str(r)},
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for r in range(n)]
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(timeout=child_budget_s)[0])
+            finally:
+                for p in procs:
+                    p.kill()
+            for r, p in enumerate(procs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"mesh suite child (rank {r} of {n}) rc={p.returncode}; "
+                                       f"log tail:\n{logs[r][-800:] if r < len(logs) else ''}")
+            ranks = []
+            for r in range(n):
+                with open(f"{out}.rank{r}.json") as f:
+                    ranks.append(json.load(f))
+            preds[n] = np.concatenate([np.load(f"{out}.rank{r}.npy") for r in range(n)])
+            wall = max(rk["wall_s"] for rk in ranks)
+            results["rows"][str(n)] = {
+                "devices": n, "global_batch": global_batch,
+                "per_device_batch": global_batch // n, "iterations": iters, "backend": what,
+                "wall_s": wall, "windows_per_sec": iters * global_batch / max(wall, 1e-9),
+                "preds_sha256": hashlib.sha256(np.ascontiguousarray(preds[n]).tobytes()
+                                               ).hexdigest(),
+                "launches_by_rank": [rk["launches"] for rk in ranks],
+            }
+    base = counts[0]
+    for n in counts[1:]:
+        differ = int((preds[n] != preds[base]).sum())
+        if differ:
+            results["rows"][str(n)]["columns_differing"] = differ
+    results["byte_identical"] = len({r["preds_sha256"] for r in results["rows"].values()}) == 1
+    results["backend"] = "; ".join(f"{n}: {results['rows'][str(n)]['backend']}" for n in counts)
+    results["efficiency_vs_devices"] = base
+    base_wps = results["rows"][str(base)]["windows_per_sec"]
+    results["scaling_efficiency"] = {
+        str(n): results["rows"][str(n)]["windows_per_sec"] / base_wps for n in counts[1:]}
+    return results
+
+
 def ported_errors(result: Dict[str, Any]) -> List[str]:
     """The errors in rows of the ported suites of a bench result, as
     ``"path.to.row: error"``: every ``error`` or ``*_error`` entry of
@@ -634,6 +819,14 @@ def _measure(args, model_overrides: Optional[Dict] = None) -> Dict[str, Any]:
         _stamp("train suite")
         detail["train"] = run_train_suite(args.batch or BATCH, iters=bench_iters, device=dev,
                                           model_overrides=model_overrides)
+    mesh_devices = parse_counts(getattr(args, "mesh_devices", None))
+    if mesh_devices:
+        _stamp(f"mesh suite (ranks {mesh_devices})")
+        try:
+            detail["mesh"] = run_mesh_suite(mesh_devices, iterations=bench_iters,
+                                            device=dev.type, model_overrides=model_overrides)
+        except Exception as e:  # report, never swallow
+            detail["mesh"] = {"error": _error(e)}
     for key, (item, why) in UNPORTED_SUITES.items():
         detail[key] = {"error": f"not ported yet (ROADMAP queue item {item}): {why}"}
     _stamp("torch reference")
@@ -692,6 +885,11 @@ def compare_to_previous(
         prow = (prev_d.get("precision") or {}).get(kind) or {}
         for col in ("f32_windows_per_sec", "bf16_windows_per_sec", "int8_windows_per_sec"):
             pairs[f"precision.{kind}.{col}"] = ((row or {}).get(col), prow.get(col))
+    # the mesh rows: windows/s at each rank count on the same global work
+    for n, row in ((cur_d.get("mesh") or {}).get("rows") or {}).items():
+        prow = ((prev_d.get("mesh") or {}).get("rows") or {}).get(n) or {}
+        pairs[f"mesh.{n}.windows_per_sec"] = ((row or {}).get("windows_per_sec"),
+                                              prow.get("windows_per_sec"))
     metrics: Dict[str, Any] = {}
     for name, (cur, old) in pairs.items():
         if not isinstance(cur, (int, float)) or not isinstance(old, (int, float)) or not old:
@@ -770,6 +968,13 @@ def unported_flag(args: argparse.Namespace) -> Optional[str]:
     return None
 
 
+def add_mesh_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh-devices", default=None,
+                   help="mesh suite: rank counts that split one fixed global batch of "
+                   f"{MESH_SUITE_GLOBAL_BATCH}, e.g. 1,2,4 (windows/s, scaling efficiency and "
+                   "byte-identity of the class ids across counts); 0 or absent: off")
+
+
 def add_unported_flags(p: argparse.ArgumentParser) -> None:
     """The reference's flags of unported suites, so that they parse and
     :func:`unported_flag` can name their queue item."""
@@ -777,7 +982,7 @@ def add_unported_flags(p: argparse.ArgumentParser) -> None:
     for flag, kind, item in (("--e2e-draft", int, "A11b"), ("--pipeline-draft", int, "A11b"),
                              ("--cascade-draft", int, "A10"),
                              ("--coldstart-ladder", str, "A9.3"), ("--input-rows", int, "A11b"),
-                             ("--mesh-devices", str, "A8"), ("--fleet-workers", str, "A9")):
+                             ("--fleet-workers", str, "A9")):
         p.add_argument(flag, type=kind, default=None, help=f"not ported yet (queue item {item})")
     p.add_argument("--in-process", action="store_true",
                    help="deliberately not ported: bench always measures in process")
@@ -802,6 +1007,7 @@ def main(argv: Optional[List[str]] = None, model_overrides: Optional[Dict] = Non
                     "defaults the run to fixed-work --bench-iterations")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs (default cuda; no card is an error)")
+    add_mesh_flag(ap)
     add_unported_flags(ap)
     args = ap.parse_args(argv)
     msg = unported_flag(args)

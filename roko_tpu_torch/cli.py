@@ -18,7 +18,7 @@ shards, saves ``latest`` every ``--save-every-steps`` steps inside an
 epoch, and ``--trace-dir`` (also on ``inference`` and ``polish``) writes
 a ``torch.profiler`` trace. ``bench`` runs the suites of
 ``benchmark.py`` that the port has (inference, per kind, recurrence,
-precision, ``--train``); the flags of the others are usage errors that
+precision, ``--train``, ``--mesh-devices``); the flags of the others are usage errors that
 name their queue item. ``polish`` streams by default (extraction,
 batching and inference overlapped, ``--resume`` from its journal);
 ``--staged`` runs ``features`` then ``inference``; ``--truth`` prints
@@ -27,7 +27,15 @@ the assess report after either. ``inference`` and ``polish`` take a reference-la
 ``train``, ``inference`` and ``polish`` take ``--compute-dtype
 {auto,float32,bfloat16}`` and ``--quantize {int8,none}``
 (``roko_tpu/cli.py:44-59``); ``train`` refuses int8, as the reference
-does, and trains in bfloat16 with float32 weights.
+does, and trains in bfloat16 with float32 weights. ``train``,
+``inference`` and ``polish`` take ``--dp`` (``roko_tpu/cli.py:29-32``):
+started as N processes with ``ROKO_COORDINATOR``, ``ROKO_NUM_PROCESSES``
+and ``ROKO_PROCESS_ID`` (one per card), ``train`` splits each step's
+batch over them and ``inference`` and ``polish`` split the contigs;
+``polish`` then runs staged and refuses ``--resume`` and ``--keep-hdf5``
+(:645-760), and ``--truth`` prints on rank 0. ``--dp`` that does not
+cover the processes, and ``--tp`` or ``--sp`` above 1 (queue item A8b),
+are usage errors.
 Writing and reading the HDF5 needs ``h5py``. Not ported yet, each a
 usage error that names its queue item: ``--distributed`` and
 ``--cascade`` (A10), and remote paths (A10).
@@ -77,6 +85,7 @@ def _build_config(args: argparse.Namespace) -> RokoConfig:
         model = dataclasses.replace(model, d_model=2 * model.hidden_size)
     # the model consumes the window geometry
     model = dataclasses.replace(model, window_rows=window.rows, window_cols=window.cols)
+    mesh = over(base.mesh, dp="dp", tp="tp", sp="sp")
     guard = over(base.guard, spike_sigma="spike_sigma", max_bad_steps="max_bad_steps",
                  max_rollbacks="max_rollbacks", ema_beta="guard_ema_beta",
                  warmup_steps="guard_warmup_steps", save_every_steps="save_every_steps")
@@ -92,7 +101,7 @@ def _build_config(args: argparse.Namespace) -> RokoConfig:
                   seed="data_seed", input_prefetch="input_prefetch",
                   block_size="data_block_size", mix_blocks="data_mix_blocks",
                   manifest="data_manifest"),
-        guard=guard, serve=base.serve,
+        mesh=mesh, guard=guard, serve=base.serve,
         pipeline=over(base.pipeline, prefetch="prefetch", queue_regions="queue_regions",
                       max_batch_delay_ms="batch_delay_ms"),
         resilience=base.resilience,
@@ -147,8 +156,8 @@ def cmd_train(args: argparse.Namespace) -> int:
     device = resolve_device(args.device)
     cfg = args.cfg
     train(args.train, args.out, args.val, model_cfg=cfg.model, train_cfg=cfg.train,
-          guard_cfg=cfg.guard, data_cfg=cfg.data, device=device, resume=args.resume,
-          trace_dir=args.trace_dir)
+          guard_cfg=cfg.guard, data_cfg=cfg.data, mesh_cfg=cfg.mesh, device=device,
+          resume=args.resume, trace_dir=args.trace_dir)
     return 0
 
 
@@ -193,21 +202,34 @@ def cmd_polish(args: argparse.Namespace) -> int:
     (``pipeline.stream``), which writes each contig as soon as its last
     window is voted, behind a resume journal; ``--keep-hdf5`` tees the
     features to an HDF5 file. ``--staged``: features into an HDF5 file (a
-    temporary one unless ``--keep-hdf5``), then ``inference`` on it. The
-    model is loaded on the host first, so a bad checkpoint fails before
-    the extraction."""
+    temporary one unless ``--keep-hdf5``), then ``inference`` on it; a run
+    of several processes is always staged, each rank extracting into a
+    file of its own and polishing its contigs (``roko_tpu/cli.py:645-760``).
+    The model is loaded on the host first, so a bad checkpoint fails
+    before the extraction."""
     import os
     import sys
     import tempfile
 
     from roko_tpu_torch.infer import polish_to_fasta, resolve_device
     from roko_tpu_torch.models.model import RokoModel
+    from roko_tpu_torch.parallel import distributed
 
     device = resolve_device(args.device)
     cfg = args.cfg
+    several = distributed.world_size() > 1
+    if several and args.keep_hdf5:
+        raise SystemExit(
+            "polish --keep-hdf5 is single-host only: every pod process would write the same "
+            "path on a shared filesystem. Run the staged `features` + `inference` commands "
+            "instead.")
+    if several and args.resume:
+        raise SystemExit(
+            "polish --resume is a streaming-engine feature (the journal rides the incremental "
+            "writer); it cannot combine with --staged or a multi-host pod.")
     model = RokoModel(cfg.model)
     model.load_state_dict(_load_model_params(args.model), strict=True)
-    if args.staged:
+    if args.staged or several:
         with tempfile.TemporaryDirectory() as td:
             hdf5 = args.keep_hdf5 or os.path.join(td, "features.hdf5")
             n = _run_features(args, hdf5, _features_config(cfg))
@@ -229,9 +251,11 @@ def cmd_polish(args: argparse.Namespace) -> int:
         except JournalMismatch as e:
             print(f"polish: {e}", file=sys.stderr)
             return 1
-    print(f"wrote polished contigs to {args.out}")
-    if args.truth:
-        _print_assess(args.out, args.truth)
+    # the FASTA is rank 0's: only there is it certain to exist
+    if distributed.is_primary():
+        print(f"wrote polished contigs to {args.out}")
+        if args.truth:
+            _print_assess(args.out, args.truth)
     return 0
 
 
@@ -244,7 +268,10 @@ def cmd_inference(args: argparse.Namespace) -> int:
     model.load_state_dict(_load_model_params(args.model), strict=True)
     polish_to_fasta(args.data, model, args.out, device=device,
                     batch_size=args.cfg.train.batch_size, trace_dir=args.trace_dir)
-    print(f"wrote polished contigs to {args.out}")
+    from roko_tpu_torch.parallel import distributed
+
+    if distributed.is_primary():
+        print(f"wrote polished contigs to {args.out}")
     return 0
 
 
@@ -287,7 +314,7 @@ def cmd_bench(args: argparse.Namespace) -> int:
         argv.append("--train")
     for flag, value in (("--batch", args.b), ("--out", args.out),
                         ("--bench-iterations", args.bench_iterations),
-                        ("--compare", args.compare)):
+                        ("--compare", args.compare), ("--mesh-devices", args.mesh_devices)):
         if value is not None:
             argv += [flag, str(value)]
     return bench_main(argv)
@@ -330,6 +357,15 @@ def build_parser() -> argparse.ArgumentParser:
             help="where the model runs (default cuda; no card is an error, "
             "never a silent move to the CPU)",
         )
+
+    def mesh(p: argparse.ArgumentParser) -> None:
+        p.add_argument("--dp", type=int, default=None,
+                       help="data-parallel mesh axis: the processes of the run, one per card "
+                       "(-1 = all of them, the default)")
+        p.add_argument("--tp", type=int, default=None,
+                       help="tensor-parallel mesh axis (only 1: queue item A8b)")
+        p.add_argument("--sp", type=int, default=None,
+                       help="sequence-parallel mesh axis (only 1: queue item A8b)")
 
     def config(p: argparse.ArgumentParser, trace: Optional[str] = None) -> None:
         p.add_argument(
@@ -436,6 +472,7 @@ def build_parser() -> argparse.ArgumentParser:
     ):
         p.add_argument(flag, type=kind, default=None, help=text)
     common(p)
+    mesh(p)
     config(p, "the first trained epoch")
     p.set_defaults(fn=cmd_train)
 
@@ -446,6 +483,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("out", help="output FASTA path")
     p.add_argument("--b", type=int, default=None, help="batch size (default 128)")
     common(p)
+    mesh(p)
     config(p, "the inference loop")
     p.set_defaults(fn=cmd_inference)
 
@@ -480,6 +518,7 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument(flag, action="store_true", help=f"not ported yet (queue item {item})")
     extraction(p)
     common(p)
+    mesh(p)
     config(p, "the inference (streaming: the whole run)")
     p.set_defaults(fn=cmd_polish)
 
@@ -496,7 +535,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("data", help="features HDF5 file or directory")
     p.set_defaults(fn=cmd_inspect)
 
-    from roko_tpu_torch.benchmark import add_unported_flags
+    from roko_tpu_torch.benchmark import add_mesh_flag, add_unported_flags
 
     p = sub.add_parser("bench", help="print the benchmark JSON line")
     p.add_argument("--train", action="store_true", help="also time training steps")
@@ -511,6 +550,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs (default cuda; no card is an error, never a "
                    "silent move to the CPU)")
+    add_mesh_flag(p)
     add_unported_flags(p)
     p.set_defaults(fn=cmd_bench)
     return parser
@@ -542,4 +582,26 @@ def main(argv: Optional[List[str]] = None) -> int:
                 check_trainable(args.cfg.model)
         except ValueError as e:
             parser.error(str(e))
+    if hasattr(args, "dp"):  # the subcommands that run on the mesh
+        _check_mesh(parser, args)
     return args.fn(args)
+
+
+def _check_mesh(parser: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+    """Join the run's processes (``ROKO_*``; nothing in one process) and
+    refuse a mesh the port does not run: tp or sp above 1 (A8b), or a dp
+    that does not cover the processes."""
+    from roko_tpu_torch.parallel import distributed
+    from roko_tpu_torch.parallel.mesh import check_ported, mesh_shape
+
+    try:
+        check_ported(args.cfg.mesh)
+    except ValueError as e:
+        parser.error(str(e))
+    distributed.initialize(device=args.device)
+    try:
+        mesh_shape(args.cfg.mesh)
+    except ValueError as e:
+        parser.error(f"mesh dp={args.cfg.mesh.dp}: {e}; the port runs one process per card: "
+                     "start N processes with ROKO_COORDINATOR, ROKO_NUM_PROCESSES=N and "
+                     "ROKO_PROCESS_ID for --dp N")

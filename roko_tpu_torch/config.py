@@ -3,7 +3,7 @@ feature extractor, the inference and training paths of ``kind="gru"``
 and ``kind="lingru"``, the data plane and the streaming polish read, with
 the same names and defaults (``WindowConfig``, ``ReadFilterConfig``,
 ``RegionConfig``, ``ModelConfig``, ``TrainConfig``, ``DataConfig``,
-``GuardConfig``, ``ServeConfig``, ``PipelineConfig``, ``ResilienceConfig``,
+``MeshConfig``, ``GuardConfig``, ``ServeConfig``, ``PipelineConfig``, ``ResilienceConfig``,
 ``resolve_ladder``, ``validate_ladder``, ``COMPUTE_DTYPES``,
 ``QUANTIZE_MODES`` and ``default_compute_dtype``). ``FeaturesConfig`` holds
 the three sections of ``roko_tpu.config.RokoConfig`` that feature
@@ -199,6 +199,17 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The process mesh (``roko_tpu/config.py:259-265``): dp shards the
+    batch over the run's processes, one per card; tp and sp, the
+    transformer's tensor and sequence axes, must stay 1 (queue item A8b)."""
+
+    dp: int = -1  # -1 = all remaining processes
+    tp: int = 1
+    sp: int = 1
+
+
+@dataclass(frozen=True)
 class GuardConfig:
     """NaN/loss-spike sentinel (``roko_tpu/config.py:780-815``), on by
     default: a bad step's update is skipped, and ``max_bad_steps`` bad
@@ -255,8 +266,12 @@ class ServeConfig:
 def resolve_ladder(serve: ServeConfig, dp: int) -> Tuple[int, ...]:
     """The global rung ladder a session on a ``dp``-wide device set uses:
     explicit ``serve.ladder`` rungs pass through (sorted, deduped), and
-    the auto default scales each ``serve.ladder_base`` rung by dp. The
-    port's session runs on one card, dp = 1."""
+    the auto default scales each ``serve.ladder_base`` rung by dp. ``dp``
+    is the extent of the mesh the session runs on: a process of the port
+    drives one card, so a session's dp is 1 in every process of a run
+    (``MeshConfig.dp`` splits training steps and the contigs of an
+    inference across processes, never a session's batch; a session over
+    several cards is queue item A8b)."""
     if dp < 1:
         raise ValueError(f"mesh dp axis must be >= 1; got {dp}")
     if serve.ladder:
@@ -334,7 +349,7 @@ _NOT_PORTED: Dict[str, Dict[str, Tuple[Any, str]]] = {
         ("retry_after_s", 1.0), ("latency_samples", 1024), ("event_log", None),
         ("event_log_max_mb", 64.0), ("trace_ring", 256), ("trace_slowest", 32),
         ("tenants", []))},
-    "mesh": {k: (v, "A8") for k, v in (("dp", -1), ("tp", 1), ("sp", 1))},
+    "mesh": {"tp": (1, "A8b"), "sp": (1, "A8b")},
     "compile": {k: (v, "A9.3") for k, v in (
         ("enabled", True), ("cache_dir", None), ("cache_max_mb", 1024),
         ("min_compile_time_s", 0.0), ("bundle_dir", None), ("parallel_warmup", True),
@@ -383,6 +398,7 @@ class RokoConfig(FeaturesConfig):
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     guard: GuardConfig = field(default_factory=GuardConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 from collections import deque
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -180,10 +180,12 @@ def load_contigs(path: str) -> Dict[str, str]:
 
 
 def iter_inference_windows(
-    path: str, batch_size: int, slab: int = 4096
+    path: str, batch_size: int, slab: int = 4096, contig_filter: Optional[set] = None,
 ) -> Iterator[Batch]:
     """Yield ``(contig names, positions int64[B,90,2], examples
     uint8[B,200,90])`` batches in genome order; the last may be short.
+    ``contig_filter`` restricts the walk to the windows of those contigs
+    (a rank of a run of several processes reads only its own).
 
     Groups are walked by (contig, first position, name), not by name: in
     string order ``c_1000000-...`` would come before ``c_200000-...``. At
@@ -222,6 +224,8 @@ def iter_inference_windows(
 
         for g in sorted(data_group_names(fd), key=genome_order):
             contig = str(fd[g].attrs["contig"])
+            if contig_filter is not None and contig not in contig_filter:
+                continue
             dpos, dx = fd[g]["positions"], fd[g]["examples"]
             n = dpos.shape[0]
             for s in range(0, n, slab):

@@ -231,7 +231,7 @@ class Manifest:
                 raise
             fh.close()
             return
-        tmp = path + ".tmp"
+        tmp = f"{path}.tmp.{os.getpid()}"  # ranks of one run may save at once
         with open(tmp, "w") as f:
             json.dump(self.to_dict(), f, indent=1, sort_keys=True)
             f.flush()
@@ -434,12 +434,45 @@ def load_or_build_manifest(
     return manifest, paths
 
 
-def crosscheck_fingerprint(manifest: Manifest, world_size: int = 1) -> None:
-    """Every process of a run must see the same corpus. One process has
-    nothing to compare; the gather across processes comes with multi-GPU
-    training (ROADMAP queue item A8)."""
-    if world_size > 1:
-        raise NotImplementedError(
-            "the corpus fingerprint check across processes is not ported yet "
-            "(queue item A8 of ROADMAP.md)"
+def crosscheck_corpus(fingerprint: str, n_files: int, n_rows: int, names: str) -> None:
+    """Every process of a run must see the same corpus, or the shard
+    assignment is undefined: gathers each rank's ``[hi, lo, files, rows]``
+    (the fingerprint's first 64 bits as two int32s) as CPU tensors and
+    raises :class:`ManifestMismatch` on every rank when one differs. A run
+    of one process has nothing to compare."""
+    from roko_tpu_torch.parallel import distributed
+
+    if distributed.world_size() <= 1:
+        return
+    import numpy as np
+    import torch
+
+    mine = np.asarray([*fingerprint32_pair(fingerprint), n_files, n_rows], np.int64)
+    allv = distributed.all_gather_cpu(torch.from_numpy(mine)).numpy()
+    bad = [i for i in range(allv.shape[0]) if not np.array_equal(allv[i], mine)]
+    if bad:
+        raise ManifestMismatch(
+            f"hosts disagree on the training file set: process "
+            f"{distributed.rank()} fingerprint {fingerprint[:12]} "
+            f"({n_files} files, {n_rows} rows: {names}) differs from process(es) {bad}. "
+            "Every host must see the identical corpus — sync the files or pin a shared "
+            "manifest with --data-manifest, then compare each host's refusal line to see "
+            "the per-host diff."
         )
+
+
+def crosscheck_fingerprint(manifest: Manifest, log=None) -> None:
+    """Multi-process agreement check of ``roko_tpu/datapipe/manifest.py:515-540``:
+    every process must have computed the same corpus fingerprint
+    (:func:`crosscheck_corpus`). No-op in one process."""
+    crosscheck_corpus(manifest.fingerprint, len(manifest.files), manifest.total_rows,
+                      ", ".join(fe.name for fe in manifest.files))
+
+
+def fingerprint32_pair(fingerprint: str) -> Tuple[int, int]:
+    """A fingerprint's first 64 bits as two signed int32s, as the
+    reference's ``Manifest.fingerprint32_pair`` gives them."""
+    v = int(fingerprint[:16], 16)
+    hi, lo = (v >> 32) & 0xFFFFFFFF, v & 0xFFFFFFFF
+    return (hi - (1 << 32) if hi >= 1 << 31 else hi,
+            lo - (1 << 32) if lo >= 1 << 31 else lo)

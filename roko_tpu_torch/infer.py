@@ -1,7 +1,8 @@
 """Inference and consensus stitching: the port's main path.
 
 Counterpart of ``roko_tpu/infer.py`` (``VoteBoard`` :163,
-``run_inference`` :401, ``polish_to_fasta`` :599). Window batches run the
+``run_inference`` :401, ``polish_to_fasta`` :599; in a run of several
+processes each polishes its share of the contigs, :415-440). Window batches run the
 model forward and an argmax on the device; the class ids come back to
 the host and vote per (contig, position, insertion slot); each contig is
 stitched from its votes:
@@ -21,6 +22,7 @@ those sizes, and the kernels run at a few known shapes.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -29,7 +31,7 @@ import torch
 
 from roko_tpu_torch import constants as C
 from roko_tpu_torch.data.hdf5 import Batch, iter_inference_windows, load_contigs
-from roko_tpu_torch.io.fasta import write_fasta
+from roko_tpu_torch.io.fasta import read_fasta, write_fasta
 from roko_tpu_torch.models.model import RokoModel
 from roko_tpu_torch.models.quant import maybe_quantize
 from roko_tpu_torch.utils.profiling import device_trace
@@ -316,10 +318,62 @@ def polish_to_fasta(
     log: Callable[[str], None] = print,
     trace_dir: Optional[str] = None,
 ) -> None:
-    """Polish every contig of a feature HDF5 and write the FASTA."""
-    contigs = load_contigs(data_path)
-    polished = run_inference(
-        iter_inference_windows(data_path, batch_size), contigs, model,
-        device=device, log=log, trace_dir=trace_dir,
+    """Polish every contig of a feature HDF5 and write the FASTA; in a
+    run of several processes each rank reads only the windows of its
+    contigs (:func:`polish_windows_to_fasta`)."""
+    polish_windows_to_fasta(
+        load_contigs(data_path),
+        lambda only: iter_inference_windows(data_path, batch_size, contig_filter=only),
+        model, out_path, device=device, log=log, trace_dir=trace_dir,
     )
-    write_fasta(out_path, list(polished.items()))
+
+
+def polish_windows_to_fasta(
+    contigs: Dict[str, str],
+    windows: Callable[[Optional[set]], Iterable[Batch]],
+    model: RokoModel,
+    out_path: str,
+    *,
+    device: str | torch.device = "cuda",
+    log: Callable[[str], None] = print,
+    trace_dir: Optional[str] = None,
+) -> None:
+    """Polish ``contigs`` (``{name: draft}`` in the draft's order) from
+    ``windows(only)``, the window batches of the contigs in ``only`` (None:
+    all), and write the FASTA.
+
+    In a run of several processes (``parallel.distributed``, initialized
+    here from ``ROKO_*``) the work is split by contig, as
+    ``roko_tpu/infer.py:415-440, 599-633`` splits it: rank p polishes
+    ``sorted(contigs)[p::world]`` on its card, reading only their windows,
+    and writes them to ``out_path.part{p}``; after a barrier rank 0 merges
+    the parts in the draft's order and deletes them, and every rank waits
+    for the merge. Votes stay with the rank that owns the contig, so
+    nothing is reduced across ranks."""
+    from roko_tpu_torch.parallel import distributed
+
+    dev = resolve_device(device)
+    distributed.initialize(device=dev)
+    world, rank = distributed.world_size(), distributed.rank()
+    if world == 1:
+        polished = run_inference(windows(None), contigs, model, device=dev, log=log,
+                                 trace_dir=trace_dir)
+        write_fasta(out_path, list(polished.items()))
+        return
+    mine = set(sorted(contigs)[rank::world])
+    polished = run_inference(
+        windows(mine), {k: v for k, v in contigs.items() if k in mine}, model,
+        device=distributed.device_of_rank(dev),
+        log=log if rank == 0 else (lambda s: None),
+        trace_dir=trace_dir if rank == 0 else None,
+    )
+    write_fasta(f"{out_path}.part{rank}", list(polished.items()))
+    distributed.barrier()
+    if rank == 0:
+        merged: Dict[str, str] = {}
+        for p in range(world):
+            merged.update(read_fasta(f"{out_path}.part{p}"))
+        write_fasta(out_path, [(name, merged[name]) for name in contigs])
+        for p in range(world):
+            os.remove(f"{out_path}.part{p}")
+    distributed.barrier()

@@ -14,6 +14,7 @@ sits on the last axis, where the JAX package keeps it."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Union
 
@@ -86,16 +87,39 @@ def init_dense(weight: torch.Tensor, bias: torch.Tensor, generator: torch.Genera
     bias.uniform_(-bound, bound, generator=generator)
 
 
+@dataclasses.dataclass(frozen=True)
+class GlobalRows:
+    """A dropout generator for rank ``rank`` of ``world`` data-parallel
+    ranks, each holding ``B`` rows of a global batch of ``world * B``:
+    every mask is drawn for the whole global batch from ``generator`` and
+    the rank keeps its own rows, so the ranks together drop what one
+    process at the global batch drops, and every rank's generator stays in
+    step. It costs ``world`` times the draws of a rank's own rows."""
+
+    generator: torch.Generator
+    rank: int
+    world: int
+
+
 def dropout(
-    x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+    x: torch.Tensor, rate: float,
+    generator: Union[torch.Generator, GlobalRows, None],
 ) -> torch.Tensor:
     """Inverted dropout: each element kept with probability ``1 - rate``
     and scaled by ``1 / (1 - rate)``, else zero. The mask is drawn from
-    ``generator``, which lies on ``x``'s device. ``rate`` 0 returns ``x``."""
+    ``generator``, which lies on ``x``'s device, or, for a
+    :class:`GlobalRows`, drawn for the global batch along ``x``'s first
+    axis and cut to this rank's rows. ``rate`` 0 returns ``x``."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if isinstance(generator, GlobalRows):
+        b = x.shape[0]
+        full = torch.rand((b * generator.world, *x.shape[1:]), generator=generator.generator,
+                          device=x.device)
+        mask = full[generator.rank * b : (generator.rank + 1) * b] < keep
+    else:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

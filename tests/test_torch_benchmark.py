@@ -235,7 +235,7 @@ def test_bench_asks_for_a_card_by_default():
     ("--features", None, "A11"), ("--e2e-draft", "60000", "A11"),
     ("--pipeline-draft", "60000", "A11"), ("--cascade-draft", "40000", "A10"),
     ("--coldstart-ladder", "32,128", "A9.3"), ("--input-rows", "1536", "A11"),
-    ("--mesh-devices", "1,2,4", "A8"), ("--fleet-workers", "1,2", "A9"),
+    ("--fleet-workers", "1,2", "A9"),
     ("--in-process", None, "deliberately not ported"),
 ])
 def test_unported_suite_flags_are_usage_errors(flag, value, item, capsys):
@@ -270,3 +270,49 @@ def test_stress_row_doubles_the_hidden_size(monkeypatch):
         "step_ms": 1.0, "windows_per_sec": 1.0})
     B.run_train_suite(2, iters=1, device="cpu")
     assert dataclasses.replace(seen[0], num_layers=4, hidden_size=256) == seen[1]
+
+
+def test_mesh_suite_contract(monkeypatch):
+    """The mesh suite on the CPU (the contract of
+    ``tests/test_mesh_serve.py::test_bench_mesh_suite_contract``): a fresh
+    group of child processes for each count, windows/s rows, class ids
+    byte-identical across counts, the efficiency against the smallest
+    count, and counts that do not divide the global batch refused."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the children's torch threads
+    out = B.run_mesh_suite((1, 2), iterations=2, global_batch=32, device="cpu",
+                           model_overrides=TINY)
+    assert out["byte_identical"] is True
+    assert out["rows"]["1"]["windows_per_sec"] > 0
+    assert out["rows"]["2"]["per_device_batch"] == 16
+    assert out["rows"]["2"]["backend"] == "cpu (2 ranks, gloo)"
+    assert len(out["rows"]["2"]["launches_by_rank"]) == 2
+    assert "2" in out["scaling_efficiency"] and out["efficiency_vs_devices"] == 1
+    assert "columns_differing" not in out["rows"]["2"]
+    with pytest.raises(ValueError, match="divide"):
+        B.run_mesh_suite((3,), global_batch=32, device="cpu")
+
+
+def test_mesh_devices_flag_runs_the_suite_and_compares(tmp_path, monkeypatch):
+    """``--mesh-devices`` reaches the suite from the CLI and from
+    ``benchmark.main`` ("0" is off), and ``--compare`` pairs its rows."""
+    seen = []
+
+    def fake(counts, **kw):
+        seen.append((counts, kw["device"], kw["iterations"]))
+        return {"rows": {str(n): {"windows_per_sec": 100.0 * n} for n in counts}}
+
+    monkeypatch.setattr(B, "run_mesh_suite", fake)
+    monkeypatch.setattr(B, "bench_torch_reference", lambda: 1.0)
+    monkeypatch.setattr(B, "run_inference_suite",
+                        lambda *a, **k: {"windows_per_sec": 1.0, "iterations": 1})
+    prev = tmp_path / "prev.json"
+    assert cli.main(["bench", "--device", "cpu", "--bench-iterations", "1",
+                     "--mesh-devices", "1,2", "--out", str(prev)]) == 0
+    assert B.main(["--device", "cpu", "--mesh-devices", "1,2", "--compare", str(prev)]) == 0
+    assert B.main(["--device", "cpu", "--mesh-devices", "0"]) == 0
+    assert seen == [((1, 2), "cpu", 1), ((1, 2), "cpu", B.ITERS)]
+    assert B.parse_counts("1,2,4") == (1, 2, 4) and B.parse_counts(None) == ()
+    result = B._assemble_result({"windows_per_sec": 1.0,
+                                 "mesh": fake((1, 2), device="cpu", iterations=1)}, 1.0)
+    block = B.compare_to_previous(result, json.loads(prev.read_text()))
+    assert block["metrics"]["mesh.2.windows_per_sec"]["delta_pct"] == 0.0

@@ -178,10 +178,17 @@ def test_manifest_diff_names_missing_and_extra(tmp_path):
 
 
 def test_fingerprint_crosscheck_is_a_no_op_in_one_process(tmp_path):
+    """Without a process group there is nothing to compare; the check
+    across processes is ``tests/test_torch_multiprocess.py``'s."""
+    from roko_tpu_torch.datapipe.manifest import crosscheck_corpus, fingerprint32_pair
+    from roko_tpu_torch.parallel import distributed
+
     m, _ = build_manifest(_corpus(tmp_path))
+    assert not distributed.is_initialized()
     crosscheck_fingerprint(m)
-    with pytest.raises(NotImplementedError, match="A8"):
-        crosscheck_fingerprint(m, world_size=2)
+    crosscheck_corpus("0" * 64, 1, 0, "nothing")
+    assert fingerprint32_pair(m.fingerprint) == RefManifest.from_dict(
+        m.to_dict()).fingerprint32_pair()
 
 
 def test_stale_sidecar_manifest_rebuilds_loudly(tmp_path):

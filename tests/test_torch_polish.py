@@ -122,14 +122,17 @@ def test_polish_staged_fasta_byte_identical_to_reference(project, tmp_path, kind
     (["--cascade"], "--cascade is not ported yet (queue item A10"),
     # --config and --trace-dir are ported: a config file that asks for
     # what the port does not run is refused, naming its queue item
-    (["--config", "mesh.json"], "config mesh.dp = 4: not ported yet (queue item A8"),
+    # a mesh the run's processes cannot fill, and an axis that is not ported
+    (["--config", "mesh.json"], "mesh dp=4: mesh [4, 1, 1] wants 4 devices, have 1"),
+    (["--config", "mesh_tp.json"], "config mesh.tp = 2: not ported yet (queue item A8b"),
     (["--config", "cascade.json"], "config cascade.enabled = True: not ported yet (queue "
      "item A10"),
     (["--staged", "--resume"], "cannot combine with --staged"),
 ])
 def test_polish_refuses_what_is_not_ported(project, tmp_path, capsys, extra, message):
     out = tmp_path / "o.fasta"
-    unported = {"mesh.json": ("mesh", "dp", 4), "cascade.json": ("cascade", "enabled", True)}
+    unported = {"mesh.json": ("mesh", "dp", 4), "mesh_tp.json": ("mesh", "tp", 2),
+                "cascade.json": ("cascade", "enabled", True)}
     if extra[-1] in unported:  # a reference-layout file, written beside the project
         section, key, value = unported[extra[-1]]
         raw = json.loads(RokoConfig().to_json())

@@ -181,9 +181,9 @@ def test_bad_steps_skip_then_roll_back(tmp_path, monkeypatch):
     real = loop.grad_step
     calls = {"n": 0}
 
-    def faulty(model, x, y, w, gen):
+    def faulty(model, x, y, w, gen, mesh=None):
         calls["n"] += 1
-        loss, finite = real(model, x, y, w, gen)
+        loss, finite = real(model, x, y, w, gen, mesh)
         if 6 <= calls["n"] <= 8:  # three steps of the second epoch, once
             return loss * float("nan"), torch.zeros((), dtype=torch.bool)
         return loss, finite

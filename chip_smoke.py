@@ -10,7 +10,8 @@
     python3 chip_smoke.py --lingru-bf16-only ROOT   # both bf16 lingru scans, from ROOT's port
     python3 chip_smoke.py --train-plane-only   # the train_plane phase alone
     python3 chip_smoke.py --mesh-only          # the mesh phase alone
-    python3 chip_smoke.py --mesh-child SPEC    # one rank of the mesh phase (it starts them)
+    python3 chip_smoke.py --tp-sp-only         # the tp_sp phase alone
+    python3 chip_smoke.py --mesh-child SPEC    # one rank of the mesh or tp_sp phase (they start them)
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
 nvcc per source, started together), holds each kernel against its plain
@@ -100,7 +101,19 @@ which launches no kernel, in a phase of its own):
   one-rank epoch; (c) their contig-split inference of 4 synthetic contigs,
   FASTA byte-identical to one rank's; (d) the bench's mesh suite
   byte-identical across 1, 2 and 4 ranks. NCCL across cards is not run:
-  the machine has one card.
+  the machine has one card. The mesh contigs' names are not in sorted
+  order: one rank writes the draft's order, two ranks the names sorted;
+- tp_sp: tensor and sequence parallelism of ``kind="transformer"`` at full
+  width (dropout 0.2), gloo ranks sharing the card: (a) ring attention
+  alone at sp 2 and 3 (T=90, B=128) against dense attention here, output
+  and dq/dk/dv; (b) one train step at dp1 x tp2, dp1 x sp2 and dp2 x tp2
+  against one rank's step at the global batch with the same masks, and
+  every rank holding a part bitwise equal to its peers after 3 Adam steps;
+  (c) the mesh contigs polished at tp2 and sp2 against one rank (FASTA,
+  logits, argmax flips only where one rank's top-two gap is under the max
+  |d logits|); (d) windows/s of each layout's step and inference beside
+  one rank's; (e) the ring's transport per backend and one rotation's
+  time. Every launch count stays 0 (the transformer runs no kernel).
 
 ``--bwd-bf16-only`` also reads ROADMAP fault C2 against the reference's
 own numbers (``tests/torch_golden/c2_bf16_bwd.npz``): the kernel, the
@@ -276,10 +289,34 @@ MESH_TRAIN_WINDOWS = 2560
 MESH_ALLREDUCE_REPS = 20
 MESH_BLOCK = 64
 MESH_CONTIGS = 4
+#: the draft's order of the mesh contigs, not sorted by name: one rank
+#: writes this order, several write the names sorted, as the reference does
+MESH_CONTIG_ORDER = (2, 0, 3, 1)
 MESH_CONTIG_WINDOWS = 256
 MESH_DEVICES = "1,2,4"
 #: a child rank that outlasts this fails the phase (every wait is bounded)
 MESH_CHILD_TIMEOUT_S = 300
+# the tp_sp phase, tensor and sequence parallelism of the transformer at
+# full width (3 layers, d_model 256, 8 heads, mlp 1024): gloo ranks sharing
+# the card, as the mesh phase's. Ring attention alone at T=90 and B=128 on
+# sp = 2 and 3 ranks against dense attention; one train step (batch 128,
+# dropout 0.2) and 3 Adam steps on each layout against one rank's step at
+# the global batch; the mesh contigs' inference at tp=2 and sp=2.
+TP_SP_LAYOUTS = {"tp2": dict(dp=1, tp=2), "sp2": dict(dp=1, sp=2),
+                 "dp2tp2": dict(dp=2, tp=2)}
+#: the launches of the phase: (ranks, the ring's sp, layouts); the ring
+#: runs on the first sp ranks (at sp 3 of 4, on a group of its own, so that
+#: the phase launches ranks twice, not three times)
+TP_SP_RUNS = {"tp_pair": (2, 2, ("tp2", "sp2")), "tp_quad": (4, 3, ("dp2tp2",))}
+TP_SP_INFER_LAYOUTS = ("tp2", "sp2")
+TP_SP_DROPOUT = 0.2
+TP_SP_ADAM_STEPS = 3
+TP_SP_LR = 1e-3
+TP_SP_TIMED_STEPS = 5
+TP_SP_ROTATIONS = 20
+#: ring attention against dense attention, f32: the reference's bars
+#: (tests/test_ring.py), forward and q/k/v gradients
+RING_FWD_TOL, RING_GRAD_TOL = 2e-5, 3e-5
 BENCH_WIDE_B = 2048
 BENCH_STRESS_SHAPE = dict(B=512, T=90, IN=500, H=256, S=2)
 # ... and the train_gru row's first layer (the resident f32 backward)
@@ -2507,7 +2544,7 @@ def mesh_contigs(port):
     all), as ``infer.polish_windows_to_fasta`` reads them."""
     rng = np.random.default_rng(SEED + 9)
     contigs, per = {}, {}
-    for i in range(MESH_CONTIGS):
+    for i in MESH_CONTIG_ORDER:
         name = f"mesh{i}"
         contigs[name], pos, x = synthetic_contig(rng, MESH_CONTIG_WINDOWS, port.C)
         per[name] = [([name] * len(x[j : j + TRAIN_BATCH]), pos[j : j + TRAIN_BATCH],
@@ -2526,14 +2563,21 @@ def flat_grads(torch, model):
     return torch.cat([p.grad.reshape(-1) for p in model.parameters()]).cpu()
 
 
-def grads_within(torch, what, got, want, sizes, rtol=STEP_RTOL, atol_of_max=STEP_ATOL_OF_MAX):
+def grads_within(torch, what, got, want, sizes, rtol=STEP_RTOL, atol_of_max=STEP_ATOL_OF_MAX,
+                 scale_of=None):
     """Each parameter's slice of the flat gradients ``got`` against
-    ``want`` at step_parity's bar; the worst one's numbers."""
-    worst, offset = {}, 0
+    ``want`` at step_parity's bar; the worst one's numbers. ``scale_of``
+    names, for a parameter whose exact gradient is 0 (its entries rounding
+    noise), the parameter whose largest entry sets its bar."""
+    worst, offset, spans = {}, 0, {}
     for name, n in sizes:
-        g, ref = got[offset : offset + n], want[offset : offset + n]
+        spans[name] = (offset, offset + n)
         offset += n
-        scale = ref.abs().max().item()
+    for name, n in sizes:
+        a, b = spans[name]
+        g, ref = got[a:b], want[a:b]
+        a, b = spans[(scale_of or {}).get(name, name)]
+        scale = want[a:b].abs().max().item()
         d = (g - ref).abs().max().item()
         worst[name] = [d, scale]
         if not torch.allclose(g, ref, rtol=rtol, atol=atol_of_max * scale):
@@ -2559,6 +2603,8 @@ def mesh_child(torch, spec_path: str) -> None:
     flat all-reduce alone, and polishes the mesh contigs split by contig. Writes ``rank{r}.json`` beside SPEC."""
     with open(spec_path) as f:
         spec = json.load(f)
+    if spec["mode"] in TP_SP_RUNS:
+        return tp_sp_child(torch, spec)
     sys.path.insert(0, ROOT)
     from roko_tpu_torch import constants as C
     from roko_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
@@ -2767,23 +2813,29 @@ def drive_mesh(torch, port, dev, counts, bench_mesh, card) -> dict:
     if one.step != pair[0]["train"]["steps"]:
         fail(f"mesh (b): one rank took {one.step} steps, two ranks {pair[0]['train']['steps']}")
 
-    # (c) the contig-split FASTA against one rank's
+    # (c) the contig-split FASTA against one rank's: one rank writes the
+    # draft's order, two ranks the names sorted (as the reference merges)
     contigs, windows = mesh_contigs(port)
     infer_model = port.RokoModel(cfg, torch.Generator().manual_seed(SEED + 1)).to(dev).eval()
     one_fasta = os.path.join(base, "one_rank.fasta")
     counts.zero()
-    port.polish_windows_to_fasta(contigs, windows, infer_model, one_fasta, device=dev,
-                                 log=lambda s: None)
+    polished = port.polish_windows_to_fasta(contigs, windows, infer_model, one_fasta,
+                                            device=dev, log=lambda s: None)
     counts.expect("the one-rank inference", {
         "gru_fwd": 3 * MESH_CONTIGS * -(-MESH_CONTIG_WINDOWS // TRAIN_BATCH)})
-    with open(one_fasta, "rb") as f:
+    one_order = [n for n, _ in port.read_fasta(one_fasta)]
+    if one_order != list(contigs):
+        fail(f"mesh (c): one rank wrote {one_order}, not the draft's order {list(contigs)}")
+    sorted_fasta = os.path.join(base, "one_rank_sorted.fasta")
+    port.write_fasta(sorted_fasta, sorted(polished.items()))
+    with open(sorted_fasta, "rb") as f:
         want = f.read()
     with open(os.path.join(pair_dir, "mesh.fasta"), "rb") as f:
         fasta = f.read()
     parts = [n for n in os.listdir(pair_dir) if ".part" in n]
     if fasta != want or parts or fasta.count(b">") != MESH_CONTIGS:
-        fail(f"mesh (c): the two ranks' FASTA is not one rank's ({len(fasta)} vs {len(want)} "
-             f"bytes; parts left: {parts})")
+        fail(f"mesh (c): the two ranks' FASTA is not one rank's with the names sorted "
+             f"({len(fasta)} vs {len(want)} bytes; parts left: {parts})")
 
     # (d) the bench's mesh suite
     if not bench_mesh or not bench_mesh.get("byte_identical"):
@@ -2816,11 +2868,346 @@ def drive_mesh(torch, port, dev, counts, bench_mesh, card) -> dict:
             "launches_1_rank": one_launches, "checkpoints": manifests,
             "log_rank0": pair[0]["train"]["log"], "log_rank1": pair[1]["train"]["log"]},
         "contig_split": {"contigs": MESH_CONTIGS, "windows_per_contig": MESH_CONTIG_WINDOWS,
+                         "draft_order": list(contigs), "one_rank_order": one_order,
+                         "two_rank_order": [n for n, _ in port.read_fasta(
+                             os.path.join(pair_dir, "mesh.fasta"))],
                          "by_rank": [r["infer"]["contigs"] for r in pair],
                          "seconds_by_rank": [r["infer"]["seconds"] for r in pair],
-                         "fasta_bytes": len(fasta), "byte_identical_to_1_rank": True},
+                         "fasta_bytes": len(fasta),
+                         "byte_identical_to_1_rank_names_sorted": True},
         "bench_mesh": bench_mesh, "card": card,
         "not_run": "NCCL across more than one card: the machine has one",
+    }
+
+
+def key_bias_scale(sizes) -> dict:
+    """The key biases' gradients are 0 exactly (a bias on every key adds the
+    same score to each key of a query, which the softmax cancels): their
+    entries are rounding noise, held within 1e-4 of the largest entry of
+    their layer's key weight gradient instead of their own."""
+    return {n: n[: -len("bias")] + "weight" for n, _ in sizes if n.endswith(".k.bias")}
+
+
+def tp_sp_config(port):
+    """The phase's model: ``kind="transformer"`` at full width, dropout 0.2."""
+    return port.ModelConfig(kind="transformer", dropout=TP_SP_DROPOUT)
+
+
+def tp_sp_weights(port, cfg):
+    """The full state_dict, from a numpy seed through the weights bridge."""
+    return port.state_dict_from_jax(jax_layout_params(np.random.default_rng(SEED + 11), cfg))
+
+
+def tp_sp_batch(C):
+    """The global train batch of the phase (TRAIN_BATCH windows, all real)."""
+    rng = np.random.default_rng(SEED + 12)
+    x = rng.integers(0, C.FEATURE_VOCAB, (TRAIN_BATCH, C.WINDOW_ROWS, C.WINDOW_COLS),
+                     dtype=np.uint8)
+    return x, (x.sum(axis=1) % C.NUM_CLASSES).astype(np.int32), np.ones(TRAIN_BATCH, np.float32)
+
+
+def ring_inputs(torch, cfg, dev):
+    """q, k, v and the output's cotangent, [TRAIN_BATCH, 90, d_model] f32."""
+    rng = np.random.default_rng(SEED + 13)
+    shape = (TRAIN_BATCH, cfg.window_cols, cfg.d_model)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+            for _ in range(4)]
+
+
+def all_logits(torch, model, windows, gather) -> np.ndarray:
+    """Every window's logits, batch by batch as ``windows(None)`` gives them."""
+    out = []
+    with torch.inference_mode():
+        for _, _, x in windows(None):
+            out.append(gather(model(torch.from_numpy(x).to(next(model.parameters()).device)))
+                       .float().cpu().numpy())
+    return np.concatenate(out)
+
+
+def timed_steps(torch, step, n: int) -> float:
+    """Milliseconds a call of ``step`` takes, over ``n`` calls after one."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def tp_sp_child(torch, spec) -> None:
+    """One rank of the tp_sp phase (``--mesh-child`` with a ``tp_*`` mode),
+    gloo on the shared card: the ring alone on the run's first sp ranks
+    (its block of the output and of dq/dk/dv saved, one rotation timed); then for each
+    layout of the run, one train step with dropout on at the global batch
+    (the full gradients, gathered over tp, saved by rank 0), 3 Adam steps
+    (a sha256 of every parameter part), the step timed, and for tp=2 and
+    sp=2 the mesh contigs' inference (FASTA, every window's logits, timed).
+    Every launch count must stay 0: the transformer runs no kernel."""
+    sys.path.insert(0, ROOT)
+    from roko_tpu_torch import constants as C
+    from roko_tpu_torch.config import MeshConfig, ModelConfig
+    from roko_tpu_torch.infer import polish_windows_to_fasta, use_float32_matmuls
+    from roko_tpu_torch.models import fused_gru as fg
+    from roko_tpu_torch.models import fused_lingru as fl
+    from roko_tpu_torch.models.convert import state_dict_from_jax
+    from roko_tpu_torch.models.model import RokoModel
+    from roko_tpu_torch.parallel import distributed, ring, tp
+    from roko_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
+    from roko_tpu_torch.training import loop
+    from roko_tpu_torch.training.data import InMemoryDataset
+
+    port = types.SimpleNamespace(C=C, InMemoryDataset=InMemoryDataset, ModelConfig=ModelConfig,
+                                 state_dict_from_jax=state_dict_from_jax)
+    counts = Counts(fg, fl)
+    use_float32_matmuls()
+    distributed.initialize(device="cuda", backend=spec["backend"])
+    dev = distributed.device_of_rank("cuda")
+    rank, world = distributed.rank(), distributed.world_size()
+    _, ring_sp, layouts = TP_SP_RUNS[spec["mode"]]
+    cfg = tp_sp_config(port)
+    out = {"rank": rank, "world": world, "backend": distributed.backend(), "layouts": {}}
+
+    def save(name, **arrays):
+        np.savez(os.path.join(spec["dir"], f"{name}.npz"),
+                 **{k: v.detach().float().cpu().numpy() for k, v in arrays.items()})
+
+    if ring_sp == world:
+        mesh = make_mesh(MeshConfig(dp=1, sp=ring_sp))
+    else:  # a ring on the first ring_sp ranks; every rank makes its group
+        import torch.distributed as dist
+
+        group = dist.new_group(list(range(ring_sp)))
+        mesh = Mesh(dp=1, rank=rank, group=dist.group.WORLD, sp=ring_sp, sp_group=group)
+    if rank < ring_sp:
+        cols = ring.column_block(mesh, cfg.window_cols)
+        q, k, v, ct = (t[:, cols].contiguous().requires_grad_(i < 3)
+                       for i, t in enumerate(ring_inputs(torch, cfg, dev)))
+        counts.zero()
+        o = ring.ring_attention(q, k, v, cfg.num_heads, mesh)
+        (o * ct).sum().backward()
+        counts.expect("ring attention", {})
+        save(f"ring{ring_sp}_s{mesh.s}", out=o, dq=q.grad, dk=k.grad, dv=v.grad)
+        blocks = [k.detach(), v.detach()]
+        out["ring"] = {"sp": ring_sp, "s": mesh.s, "transport": ring.transport(dev),
+                       "rotation_bytes": sum(b.numel() * b.element_size() for b in blocks),
+                       "rotation_ms": timed_steps(torch, lambda: ring.rotate(blocks, mesh, 1),
+                                                  TP_SP_ROTATIONS)}
+    full = tp_sp_weights(port, cfg)
+    batch = tp_sp_batch(C)
+    for name in layouts:
+        mesh = make_mesh(MeshConfig(**TP_SP_LAYOUTS[name]))
+        model = RokoModel(cfg, mesh=mesh)
+        model.load_state_dict(tp.shard_state_dict(cfg, full, mesh), strict=True)
+        model.to(dev)
+        x, y, w = loop.to_device(shard_batch(mesh, batch), dev)
+        gen = torch.Generator(device=dev)
+        opt = loop.make_optimizer(model, TP_SP_LR)
+        row = {"coords": [mesh.d, mesh.t, mesh.s], "losses": []}
+        counts.zero()
+        for k in range(TP_SP_ADAM_STEPS):
+            gen.manual_seed(SEED + k)
+            loss, finite = loop.grad_step(model, x, y, w, gen, mesh)
+            if not bool(finite):
+                fail(f"tp_sp (b) {name}: step {k} not finite")
+            row["losses"].append(loss.item())
+            if k == 0:
+                grads = [tp.gather(p.grad, tp.split_axis(n), mesh).cpu().reshape(-1)
+                         for n, p in model.named_parameters()]
+                if rank == 0:
+                    np.save(os.path.join(spec["dir"], f"grads_{name}.npy"),
+                            torch.cat(grads).numpy())
+            opt.step()
+        row["params_sha256"] = {n: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+                                for n, p in model.named_parameters()}
+        gen.manual_seed(SEED)
+        row["step_ms"] = timed_steps(torch, lambda: loop.grad_step(model, x, y, w, gen, mesh),
+                                     TP_SP_TIMED_STEPS)
+        row["launches"] = counts.expect(f"tp_sp {name} train steps", {})
+        if name in TP_SP_INFER_LAYOUTS:
+            infer = RokoModel(cfg, mesh=mesh)
+            infer.load_state_dict(tp.shard_state_dict(cfg, full, mesh), strict=True)
+            infer.to(dev).eval()
+            contigs, windows = mesh_contigs(port)
+            counts.zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            polish_windows_to_fasta(contigs, windows, infer,
+                                    os.path.join(spec["dir"], f"{name}.fasta"), device="cuda",
+                                    log=lambda s: None)
+            torch.cuda.synchronize()
+            row["infer_seconds"] = time.perf_counter() - t0
+            logits = all_logits(torch, infer, windows,
+                                lambda t: ring.gather_columns(t, mesh) if infer.column_split
+                                else t)
+            row["infer_launches"] = counts.expect(f"tp_sp {name} inference", {})
+            if rank == 0:
+                np.save(os.path.join(spec["dir"], f"logits_{name}.npy"), logits)
+        out["layouts"][name] = row
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+
+
+def fasta_diff(want: dict, got: dict) -> dict:
+    """Per contig name: identical, and the bases that differ (positions,
+    where the lengths agree; else the lengths)."""
+    out = {}
+    for name, seq in want.items():
+        other = got.get(name, "")
+        if len(seq) == len(other):
+            out[name] = sum(a != b for a, b in zip(seq, other))
+        else:
+            out[name] = {"lengths": [len(seq), len(other)]}
+    return out
+
+
+def drive_tp_sp(torch, port, dev, counts, card) -> dict:
+    """The tp_sp phase: tensor and sequence parallelism of the transformer
+    at full width, on gloo ranks sharing the card. (a) ring attention alone
+    at sp = 2 and 3 (T=90, B=128) against dense ``attention`` here: max |d|
+    of the output and of dq/dk/dv, at the reference's bars; (b) one train
+    step (batch 128, dropout 0.2) at dp=1 x tp=2, dp=1 x sp=2 and dp=2 x
+    tp=2 against one rank's step at the global batch with the same masks
+    (each gradient within 1e-4 of its largest entry), and after 3 Adam
+    steps every rank holding a part bitwise equal to its peers; (c) the
+    mesh contigs (names not sorted) polished at tp=2 and sp=2 against one
+    rank: FASTA identical or the differing bases, which must lie where
+    one rank's top-two logit gap is under the max |d logits|; (d)
+    windows/s of each layout's train step and inference beside one
+    rank's; (e) the ring's transport per backend and the time of one
+    rotation."""
+    base = os.path.join(ROOT, "build", "chip_smoke_tp_sp")
+    torch.cuda.empty_cache()
+    cfg = tp_sp_config(port)
+    runs, seconds = {}, {}
+    for mode, (ranks, _, _) in TP_SP_RUNS.items():
+        t0 = time.perf_counter()
+        runs[mode] = run_ranks(mode, ranks, "gloo", os.path.join(base, mode))
+        seconds[mode] = time.perf_counter() - t0
+        if {r["backend"] for r in runs[mode]} != {"gloo"}:
+            fail(f"tp_sp: {mode}'s ranks are not one gloo group: {runs[mode]}")
+
+    # (a) the ring against dense attention, on this card
+    q, k, v, ct = (t.requires_grad_(i < 3) for i, t in enumerate(ring_inputs(torch, cfg, dev)))
+    dense = port.attention(q, k, v, cfg.num_heads)
+    (dense * ct).sum().backward()
+    want = {"out": dense.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    ring_rows = {}
+    for mode, (_, sp, _) in TP_SP_RUNS.items():
+        blocks = [np.load(os.path.join(base, mode, f"ring{sp}_s{s}.npz")) for s in range(sp)]
+        row = {}
+        for key, ref in want.items():
+            got = torch.from_numpy(np.concatenate([b[key] for b in blocks], axis=1)).to(dev)
+            tol = RING_FWD_TOL if key == "out" else RING_GRAD_TOL
+            row[f"max_abs_err_{key}"] = (got - ref).abs().max().item()
+            if not torch.allclose(got, ref, rtol=tol, atol=tol):
+                fail(f"tp_sp (a): ring at sp={sp}, {key}: max |d| {row[f'max_abs_err_{key}']}")
+        rank0 = runs[mode][0]["ring"]
+        ring_rows[f"sp{sp}"] = {**row, "transport": rank0["transport"],
+                                "rotation_ms": rank0["rotation_ms"],
+                                "rotation_bytes": rank0["rotation_bytes"]}
+
+    # (b) one rank's step at the global batch, the same masks
+    full = tp_sp_weights(port, cfg)
+    model = port.RokoModel(cfg)
+    model.load_state_dict(full, strict=True)
+    model.to(dev)
+    x, y, w = port.loop.to_device(tp_sp_batch(port.C), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    counts.zero()
+    loss, _ = port.loop.grad_step(model, x, y, w, gen)
+    one_grads = flat_grads(torch, model)
+    sizes = [(n, p.numel()) for n, p in model.named_parameters()]
+    gen.manual_seed(SEED)
+    one_step_ms = timed_steps(torch, lambda: port.loop.grad_step(model, x, y, w, gen),
+                              TP_SP_TIMED_STEPS)
+    model.load_state_dict(full, strict=True)  # the ranks' Adam steps, on one rank
+    opt = port.loop.make_optimizer(model, TP_SP_LR)
+    one_losses = []
+    for k in range(TP_SP_ADAM_STEPS):
+        gen.manual_seed(SEED + k)
+        one_losses.append(port.loop.grad_step(model, x, y, w, gen)[0].item())
+        opt.step()
+    steps = {}
+    for mode, (_, _, layouts) in TP_SP_RUNS.items():
+        for name in layouts:
+            rows = [r["layouts"][name] for r in runs[mode]]
+            got = torch.from_numpy(np.load(os.path.join(base, mode, f"grads_{name}.npy")))
+            step = {"loss": rows[0]["losses"][0], "loss_1_rank": loss.item(),
+                    **grads_within(torch, f"tp_sp (b) {name} against one rank", got,
+                                   one_grads, sizes, scale_of=key_bias_scale(sizes))}
+            if abs(step["loss"] - loss.item()) > STEP_RTOL * abs(loss.item()) + 1e-6:
+                fail(f"tp_sp (b) {name}: loss {step['loss']}, one rank {loss.item()}")
+            if len({tuple(r["losses"]) for r in rows}) != 1:
+                fail(f"tp_sp (b) {name}: the ranks' losses differ: {[r['losses'] for r in rows]}")
+            for r in rows:  # replicated tensors on every rank, tp parts on their peers
+                peer = next(p for p in rows if p["coords"][1] == r["coords"][1])
+                for n, sha in r["params_sha256"].items():
+                    ref = rows[0] if port.split_axis(n) is None else peer
+                    if sha != ref["params_sha256"][n]:
+                        fail(f"tp_sp (b) {name}: {n} of rank {r['coords']} differs from "
+                             f"{ref['coords']} after {TP_SP_ADAM_STEPS} Adam steps")
+            steps[name] = {**step, "losses": rows[0]["losses"], "losses_1_rank": one_losses,
+                           "params_bitwise_equal_after_adam": True,
+                           "step_ms_by_rank": [r["step_ms"] for r in rows],
+                           "windows_per_s": TRAIN_BATCH / (max(r["step_ms"] for r in rows) / 1e3),
+                           "windows_per_s_1_rank": TRAIN_BATCH / (one_step_ms / 1e3),
+                           "launches_by_rank": [r["launches"] for r in rows]}
+    counts.expect("the one-rank transformer steps", {})
+
+    # (c) the mesh contigs at tp=2 and sp=2 against one rank
+    infer = port.RokoModel(dataclasses.replace(cfg, dropout=0.0))
+    infer.load_state_dict(full, strict=True)
+    infer.to(dev).eval()
+    contigs, windows = mesh_contigs(port)
+    counts.zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_polished = port.polish_windows_to_fasta(
+        contigs, windows, infer, os.path.join(base, "one_rank.fasta"), device=dev,
+        log=lambda s: None)
+    torch.cuda.synchronize()
+    one_infer_s = time.perf_counter() - t0
+    one_logits = all_logits(torch, infer, windows, lambda t: t)
+    counts.expect("the one-rank transformer inference", {})
+    top2 = np.sort(one_logits, axis=-1)[..., -2:]
+    gap = top2[..., 1] - top2[..., 0]
+    n_windows = MESH_CONTIGS * MESH_CONTIG_WINDOWS
+    inference = {}
+    for name in TP_SP_INFER_LAYOUTS:
+        mode = next(m for m, (_, _, lay) in TP_SP_RUNS.items() if name in lay)
+        path = os.path.join(base, mode, f"{name}.fasta")
+        got = port.read_fasta(path)
+        if [n for n, _ in got] != sorted(contigs):
+            fail(f"tp_sp (c) {name}: contigs written as {[n for n, _ in got]}, not sorted")
+        logits = np.load(os.path.join(base, mode, f"logits_{name}.npy"))
+        delta = float(np.abs(logits - one_logits).max())
+        flips = logits.argmax(-1) != one_logits.argmax(-1)
+        if (gap[flips] >= delta).any():
+            fail(f"tp_sp (c) {name}: an argmax differs where one rank's top-two gap "
+                 f"{gap[flips].max()} is not under max |d logits| {delta}")
+        differing = fasta_diff(one_polished, dict(got))
+        rows = [r["layouts"][name] for r in runs[mode]]
+        inference[name] = {
+            "identical": dict(got) == one_polished, "differing_bases": differing,
+            "max_abs_err_logits": delta, "argmax_flips": int(flips.sum()),
+            "order": [n for n, _ in got],
+            "windows_per_s": n_windows / max(r["infer_seconds"] for r in rows),
+            "windows_per_s_1_rank": n_windows / one_infer_s,
+            "launches_by_rank": [r["infer_launches"] for r in rows]}
+    return {
+        "config": "ModelConfig(kind='transformer', dropout=0.2): 3 layers, d_model 256, "
+                  "8 heads, mlp 1024, the published front end; every rank on the one card "
+                  "through gloo",
+        "seconds_by_run": seconds, "ring": ring_rows, "steps": steps,
+        "inference": inference, "contig_order": list(contigs),
+        "transport": {"gloo": ring_rows["sp2"]["transport"],
+                      "nccl": "direct (CUDA tensors point to point); not run: NCCL refuses "
+                              "two ranks on one card"},
+        "bars": {"ring_fwd": RING_FWD_TOL, "ring_grad": RING_GRAD_TOL,
+                 "step_rtol": STEP_RTOL, "step_atol_of_max": STEP_ATOL_OF_MAX},
+        "kernel_launches": 0, "card": card,
     }
 
 
@@ -2962,10 +3349,12 @@ def main() -> None:
         return one_kernel(torch, sys.argv[1], sys.argv[2])
     plane_only = sys.argv[1:] == ["--train-plane-only"]
     mesh_only = sys.argv[1:] == ["--mesh-only"]
-    if sys.argv[1:] and not (plane_only or mesh_only):
+    tp_sp_only = sys.argv[1:] == ["--tp-sp-only"]
+    if sys.argv[1:] and not (plane_only or mesh_only or tp_sp_only):
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
              "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --bwd-bf16-only ROOT "
-             "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only | --mesh-only]")
+             "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only | --mesh-only "
+             "| --tp-sp-only]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import benchmark as bench
@@ -2999,8 +3388,10 @@ def main() -> None:
         from roko_tpu_torch.models import fused_lingru as fl
         from roko_tpu_torch.models.convert import state_dict_from_jax
         from roko_tpu_torch.models.model import RokoModel
+        from roko_tpu_torch.models.transformer import attention
         from roko_tpu_torch.native import binding as native_binding
         from roko_tpu_torch.native import build as native_build
+        from roko_tpu_torch.parallel.tp import split_axis
         from roko_tpu_torch.pipeline import run_streaming_polish
         from roko_tpu_torch.serve.metrics import ServeMetrics
         from roko_tpu_torch.serve.session import PolishSession
@@ -3027,7 +3418,8 @@ def main() -> None:
         bench=bench, InMemoryDataset=InMemoryDataset, GuardConfig=GuardConfig,
         DataConfig=DataConfig, iter_span_batches=iter_span_batches, epoch_rng=epoch_rng,
         ModelConfig=ModelConfig, state_dict_from_jax=state_dict_from_jax,
-        polish_windows_to_fasta=polish_windows_to_fasta,
+        polish_windows_to_fasta=polish_windows_to_fasta, attention=attention,
+        split_axis=split_axis,
     )
     counts = Counts(fg, fl)
 
@@ -3050,6 +3442,9 @@ def main() -> None:
         bench_mesh["seconds"] = time.perf_counter() - t0
         emit({"mesh": drive_mesh(torch, port, torch.device("cuda", 0), counts, bench_mesh,
                                  card)})
+        return
+    if tp_sp_only:  # the tp_sp phase alone: the transformer launches no kernel
+        emit({"tp_sp": drive_tp_sp(torch, port, dev, counts, card)})
         return
     if plane_only:  # the train_plane phase alone, on its own streams
         rng = np.random.default_rng(SEED)
@@ -3231,6 +3626,9 @@ def main() -> None:
     # -- data parallelism across processes (the card shared by the ranks) ---
     mesh = drive_mesh(torch, port, dev, counts, bench_run["mesh"], card)
     emit({"mesh": mesh})
+    # -- tensor and sequence parallelism of the transformer (ranks share the card)
+    tp_sp = drive_tp_sp(torch, port, dev, counts, card)
+    emit({"tp_sp": tp_sp})
     mesh_fwd = (mesh["nccl_world_1"]["launches"]["gru_fwd"]
                 + sum(r["step"]["gru_fwd"] + r["train"]["gru_fwd"] + r["infer"]["gru_fwd"]
                       for r in mesh["gloo_2_ranks"]["launches_by_rank"])
@@ -3252,8 +3650,10 @@ def main() -> None:
         }
 
     def kernel_row(name, source, replaces, replaces_also, row, by_path, **also):
-        # the transformer's paths launch no kernel (drive_transformer checks it)
-        by_path = {**by_path, "transformer": transformer["kernel_launches"]}
+        # the transformer's paths launch no kernel (drive_transformer and
+        # drive_tp_sp check it)
+        by_path = {**by_path, "transformer": transformer["kernel_launches"],
+                   "tp_sp": tp_sp["kernel_launches"]}
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "replaces_also": replaces_also,

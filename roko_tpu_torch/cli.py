@@ -33,9 +33,13 @@ started as N processes with ``ROKO_COORDINATOR``, ``ROKO_NUM_PROCESSES``
 and ``ROKO_PROCESS_ID`` (one per card), ``train`` splits each step's
 batch over them and ``inference`` and ``polish`` split the contigs;
 ``polish`` then runs staged and refuses ``--resume`` and ``--keep-hdf5``
-(:645-760), and ``--truth`` prints on rank 0. ``--dp`` that does not
-cover the processes, and ``--tp`` or ``--sp`` above 1 (queue item A8b),
-are usage errors.
+(:645-760), and ``--truth`` prints on rank 0. ``--tp`` and ``--sp``
+split the transformer over a dp x tp x sp grid of the processes (its
+heads and MLP units, its pileup columns; ``parallel/``): the dp groups
+split the batch or the contigs, and the ranks of a group run them
+together. A grid that does not cover the processes, and a transformer
+whose heads (tp) or 90 columns (sp) the grid does not divide, are usage
+errors.
 Writing and reading the HDF5 needs ``h5py``. Not ported yet, each a
 usage error that names its queue item: ``--distributed`` and
 ``--cascade`` (A10), and remote paths (A10).
@@ -212,7 +216,6 @@ def cmd_polish(args: argparse.Namespace) -> int:
     import tempfile
 
     from roko_tpu_torch.infer import polish_to_fasta, resolve_device
-    from roko_tpu_torch.models.model import RokoModel
     from roko_tpu_torch.parallel import distributed
 
     device = resolve_device(args.device)
@@ -227,8 +230,7 @@ def cmd_polish(args: argparse.Namespace) -> int:
         raise SystemExit(
             "polish --resume is a streaming-engine feature (the journal rides the incremental "
             "writer); it cannot combine with --staged or a multi-host pod.")
-    model = RokoModel(cfg.model)
-    model.load_state_dict(_load_model_params(args.model), strict=True)
+    model = _model_on_mesh(cfg, args.model)
     if args.staged or several:
         with tempfile.TemporaryDirectory() as td:
             hdf5 = args.keep_hdf5 or os.path.join(td, "features.hdf5")
@@ -261,11 +263,9 @@ def cmd_polish(args: argparse.Namespace) -> int:
 
 def cmd_inference(args: argparse.Namespace) -> int:
     from roko_tpu_torch.infer import polish_to_fasta, resolve_device
-    from roko_tpu_torch.models.model import RokoModel
 
     device = resolve_device(args.device)
-    model = RokoModel(args.cfg.model)
-    model.load_state_dict(_load_model_params(args.model), strict=True)
+    model = _model_on_mesh(args.cfg, args.model)
     polish_to_fasta(args.data, model, args.out, device=device,
                     batch_size=args.cfg.train.batch_size, trace_dir=args.trace_dir)
     from roko_tpu_torch.parallel import distributed
@@ -363,9 +363,11 @@ def build_parser() -> argparse.ArgumentParser:
                        help="data-parallel mesh axis: the processes of the run, one per card "
                        "(-1 = all of them, the default)")
         p.add_argument("--tp", type=int, default=None,
-                       help="tensor-parallel mesh axis (only 1: queue item A8b)")
+                       help="tensor-parallel mesh axis: ranks that split the transformer's "
+                       "heads and MLP units (default 1)")
         p.add_argument("--sp", type=int, default=None,
-                       help="sequence-parallel mesh axis (only 1: queue item A8b)")
+                       help="sequence-parallel mesh axis: ranks that split the transformer's "
+                       "pileup columns, with ring attention (default 1)")
 
     def config(p: argparse.ArgumentParser, trace: Optional[str] = None) -> None:
         p.add_argument(
@@ -589,19 +591,36 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def _check_mesh(parser: argparse.ArgumentParser, args: argparse.Namespace) -> None:
     """Join the run's processes (``ROKO_*``; nothing in one process) and
-    refuse a mesh the port does not run: tp or sp above 1 (A8b), or a dp
-    that does not cover the processes."""
+    refuse a grid the processes do not fill (``mesh_shape``'s message), or
+    one that does not divide the transformer."""
     from roko_tpu_torch.parallel import distributed
-    from roko_tpu_torch.parallel.mesh import check_ported, mesh_shape
+    from roko_tpu_torch.parallel.mesh import mesh_shape
+    from roko_tpu_torch.parallel.tp import check_divisible
 
-    try:
-        check_ported(args.cfg.mesh)
-    except ValueError as e:
-        parser.error(str(e))
+    mesh = args.cfg.mesh
     distributed.initialize(device=args.device)
     try:
-        mesh_shape(args.cfg.mesh)
+        _, tp, sp = mesh_shape(mesh)
     except ValueError as e:
-        parser.error(f"mesh dp={args.cfg.mesh.dp}: {e}; the port runs one process per card: "
+        parser.error(f"mesh dp={mesh.dp}: {e}; the port runs one process per card: "
                      "start N processes with ROKO_COORDINATOR, ROKO_NUM_PROCESSES=N and "
-                     "ROKO_PROCESS_ID for --dp N")
+                     "ROKO_PROCESS_ID for a dp x tp x sp grid of N")
+    try:
+        check_divisible(args.cfg.model, tp, sp)
+    except ValueError as e:
+        parser.error(f"mesh tp={tp} sp={sp}: {e}")
+
+
+def _model_on_mesh(cfg: RokoConfig, model_arg: str):
+    """The model of ``cfg`` on the run's grid, its parameters (a full
+    state_dict: a checkpoint directory or a reference ``.pth``) cut to
+    this rank's part."""
+    from roko_tpu_torch.models.model import RokoModel
+    from roko_tpu_torch.parallel.mesh import make_mesh
+    from roko_tpu_torch.parallel.tp import shard_state_dict
+
+    mesh = make_mesh(cfg.mesh)
+    model = RokoModel(cfg.model, mesh=mesh)
+    model.load_state_dict(shard_state_dict(cfg.model, _load_model_params(model_arg), mesh),
+                          strict=True)
+    return model

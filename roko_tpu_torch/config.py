@@ -200,9 +200,10 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The process mesh (``roko_tpu/config.py:259-265``): dp shards the
-    batch over the run's processes, one per card; tp and sp, the
-    transformer's tensor and sequence axes, must stay 1 (queue item A8b)."""
+    """The process mesh (``roko_tpu/config.py:259-265``), a dp x tp x sp
+    grid of the run's processes, one per card: dp shards the batch, tp the
+    transformer's heads and MLP units, sp its pileup columns
+    (``parallel/``)."""
 
     dp: int = -1  # -1 = all remaining processes
     tp: int = 1
@@ -269,9 +270,9 @@ def resolve_ladder(serve: ServeConfig, dp: int) -> Tuple[int, ...]:
     the auto default scales each ``serve.ladder_base`` rung by dp. ``dp``
     is the extent of the mesh the session runs on: a process of the port
     drives one card, so a session's dp is 1 in every process of a run
-    (``MeshConfig.dp`` splits training steps and the contigs of an
-    inference across processes, never a session's batch; a session over
-    several cards is queue item A8b)."""
+    (``MeshConfig`` splits training steps and the contigs of an inference
+    across processes, never a session's batch; a session over several
+    cards is queue item A9.1)."""
     if dp < 1:
         raise ValueError(f"mesh dp axis must be >= 1; got {dp}")
     if serve.ladder:
@@ -349,7 +350,6 @@ _NOT_PORTED: Dict[str, Dict[str, Tuple[Any, str]]] = {
         ("retry_after_s", 1.0), ("latency_samples", 1024), ("event_log", None),
         ("event_log_max_mb", 64.0), ("trace_ring", 256), ("trace_slowest", 32),
         ("tenants", []))},
-    "mesh": {"tp": (1, "A8b"), "sp": (1, "A8b")},
     "compile": {k: (v, "A9.3") for k, v in (
         ("enabled", True), ("cache_dir", None), ("cache_max_mb", 1024),
         ("min_compile_time_s", 0.0), ("bundle_dir", None), ("parallel_warmup", True),

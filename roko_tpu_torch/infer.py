@@ -34,6 +34,7 @@ from roko_tpu_torch.data.hdf5 import Batch, iter_inference_windows, load_contigs
 from roko_tpu_torch.io.fasta import read_fasta, write_fasta
 from roko_tpu_torch.models.model import RokoModel
 from roko_tpu_torch.models.quant import maybe_quantize
+from roko_tpu_torch.parallel.ring import gather_columns
 from roko_tpu_torch.utils.profiling import device_trace
 
 _SLOTS = C.MAX_INS + 1  # ins 0..3
@@ -257,11 +258,15 @@ def predict(model: RokoModel, x: np.ndarray, device: torch.device) -> torch.Tens
     """Forward + argmax, enqueued on ``device``: uint8[B,200,90] ->
     int32[B,90] class ids, still on the device. The model runs in its
     compute dtype, quantized first when its config asks for int8 (a no-op
-    once it is)."""
+    once it is). A model that computes a block of the columns (sp above
+    1) gathers the logits of its sp group first, through the host."""
     maybe_quantize(model)
     xt = torch.from_numpy(np.ascontiguousarray(x)).to(device, non_blocking=True)
     with torch.inference_mode():
-        return model(xt).argmax(dim=-1).to(torch.int32)
+        logits = model(xt)
+        if model.column_split:
+            logits = gather_columns(logits, model.mesh)
+        return logits.argmax(dim=-1).to(torch.int32)
 
 
 def run_inference(
@@ -317,11 +322,11 @@ def polish_to_fasta(
     batch_size: int = 128,
     log: Callable[[str], None] = print,
     trace_dir: Optional[str] = None,
-) -> None:
+) -> Dict[str, str]:
     """Polish every contig of a feature HDF5 and write the FASTA; in a
-    run of several processes each rank reads only the windows of its
-    contigs (:func:`polish_windows_to_fasta`)."""
-    polish_windows_to_fasta(
+    run of several processes each dp group reads only the windows of its
+    contigs (:func:`polish_windows_to_fasta`, whose dict it returns)."""
+    return polish_windows_to_fasta(
         load_contigs(data_path),
         lambda only: iter_inference_windows(data_path, batch_size, contig_filter=only),
         model, out_path, device=device, log=log, trace_dir=trace_dir,
@@ -337,43 +342,52 @@ def polish_windows_to_fasta(
     device: str | torch.device = "cuda",
     log: Callable[[str], None] = print,
     trace_dir: Optional[str] = None,
-) -> None:
+) -> Dict[str, str]:
     """Polish ``contigs`` (``{name: draft}`` in the draft's order) from
     ``windows(only)``, the window batches of the contigs in ``only`` (None:
-    all), and write the FASTA.
+    all), and write the FASTA. Returns ``{name: polished}`` of the contigs
+    this process polished (all of them in a run of one process).
 
-    In a run of several processes (``parallel.distributed``, initialized
-    here from ``ROKO_*``) the work is split by contig, as
-    ``roko_tpu/infer.py:415-440, 599-633`` splits it: rank p polishes
-    ``sorted(contigs)[p::world]`` on its card, reading only their windows,
-    and writes them to ``out_path.part{p}``; after a barrier rank 0 merges
-    the parts in the draft's order and deletes them, and every rank waits
-    for the merge. Votes stay with the rank that owns the contig, so
-    nothing is reduced across ranks."""
+    One process writes the contigs in the draft's order. In a run of
+    several processes (``parallel.distributed``, initialized here from
+    ``ROKO_*``) the work is split by contig over the dp groups of the
+    model's mesh (``model.mesh``; without one, every process is a dp
+    group), as ``roko_tpu/infer.py:415-440, 599-633`` splits it: group d
+    polishes ``sorted(contigs)[d::dp]``, reading only their windows, its
+    tp x sp ranks running the same batches through the split forward; the
+    group's first rank (t = 0, s = 0) writes them to ``out_path.part{d}``;
+    after a barrier rank 0 merges the parts with the names sorted, as
+    ``roko_tpu/infer.py:629`` orders them, and deletes them, and every
+    rank waits for the merge. Votes stay with the group that owns the
+    contig, so nothing is reduced across groups."""
     from roko_tpu_torch.parallel import distributed
+    from roko_tpu_torch.parallel.mesh import make_mesh
 
     dev = resolve_device(device)
     distributed.initialize(device=dev)
-    world, rank = distributed.world_size(), distributed.rank()
-    if world == 1:
+    if distributed.world_size() == 1:
         polished = run_inference(windows(None), contigs, model, device=dev, log=log,
                                  trace_dir=trace_dir)
         write_fasta(out_path, list(polished.items()))
-        return
-    mine = set(sorted(contigs)[rank::world])
+        return polished
+    mesh = model.mesh if model.mesh is not None else make_mesh()
+    rank = distributed.rank()
+    mine = set(sorted(contigs)[mesh.d :: mesh.dp])
     polished = run_inference(
         windows(mine), {k: v for k, v in contigs.items() if k in mine}, model,
         device=distributed.device_of_rank(dev),
         log=log if rank == 0 else (lambda s: None),
         trace_dir=trace_dir if rank == 0 else None,
     )
-    write_fasta(f"{out_path}.part{rank}", list(polished.items()))
+    if mesh.t == 0 and mesh.s == 0:
+        write_fasta(f"{out_path}.part{mesh.d}", list(polished.items()))
     distributed.barrier()
     if rank == 0:
         merged: Dict[str, str] = {}
-        for p in range(world):
+        for p in range(mesh.dp):
             merged.update(read_fasta(f"{out_path}.part{p}"))
-        write_fasta(out_path, [(name, merged[name]) for name in contigs])
-        for p in range(world):
+        write_fasta(out_path, [(name, merged[name]) for name in sorted(merged)])
+        for p in range(mesh.dp):
             os.remove(f"{out_path}.part{p}")
     distributed.barrier()
+    return polished

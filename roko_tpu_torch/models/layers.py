@@ -88,36 +88,56 @@ def init_dense(weight: torch.Tensor, bias: torch.Tensor, generator: torch.Genera
 
 
 @dataclasses.dataclass(frozen=True)
-class GlobalRows:
-    """A dropout generator for rank ``rank`` of ``world`` data-parallel
-    ranks, each holding ``B`` rows of a global batch of ``world * B``:
-    every mask is drawn for the whole global batch from ``generator`` and
-    the rank keeps its own rows, so the ranks together drop what one
+class GlobalSlice:
+    """A dropout generator for the rank that holds rows block ``rank`` of
+    ``world`` (its dp place) and columns block ``col`` of ``cols`` (its sp
+    place, 1 block when the columns are not split) of the global batch:
+    every mask is drawn for the whole global tensor from ``generator`` and
+    the rank keeps its own block, so the ranks together drop what one
     process at the global batch drops, and every rank's generator stays in
-    step. It costs ``world`` times the draws of a rank's own rows."""
+    step. The port's counterpart of the reference's partitionable threefry
+    (``roko_tpu/parallel/mesh.py:34-41``): masks that do not depend on the
+    sharding. It costs ``world * cols`` times the draws of the rank's own
+    block."""
 
     generator: torch.Generator
     rank: int
     world: int
+    col: int = 0
+    cols: int = 1
+    #: the axis of the columns in the tensors this generator's masks cover
+    col_axis: int = 1
+
+
+def on_column_axis(generator, axis: int):
+    """``generator`` for a dropout site whose columns lie on ``axis``: a
+    :class:`GlobalSlice` with that ``col_axis``; a plain generator as it is."""
+    if isinstance(generator, GlobalSlice):
+        return dataclasses.replace(generator, col_axis=axis)
+    return generator
 
 
 def dropout(
     x: torch.Tensor, rate: float,
-    generator: Union[torch.Generator, GlobalRows, None],
+    generator: Union[torch.Generator, GlobalSlice, None],
 ) -> torch.Tensor:
     """Inverted dropout: each element kept with probability ``1 - rate``
     and scaled by ``1 / (1 - rate)``, else zero. The mask is drawn from
     ``generator``, which lies on ``x``'s device, or, for a
-    :class:`GlobalRows`, drawn for the global batch along ``x``'s first
-    axis and cut to this rank's rows. ``rate`` 0 returns ``x``."""
+    :class:`GlobalSlice`, drawn for the global tensor (rows along ``x``'s
+    first axis, columns along its ``col_axis``) and cut to this rank's
+    block. ``rate`` 0 returns ``x``."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    if isinstance(generator, GlobalRows):
-        b = x.shape[0]
-        full = torch.rand((b * generator.world, *x.shape[1:]), generator=generator.generator,
-                          device=x.device)
-        mask = full[generator.rank * b : (generator.rank + 1) * b] < keep
+    if isinstance(generator, GlobalSlice):
+        g, axis = generator, generator.col_axis
+        b, c = x.shape[0], x.shape[axis]
+        shape = list(x.shape)
+        shape[0] *= g.world
+        shape[axis] *= g.cols
+        full = torch.rand(shape, generator=g.generator, device=x.device)
+        mask = full[g.rank * b : (g.rank + 1) * b].narrow(axis, g.col * c, c) < keep
     else:
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -57,6 +57,20 @@ recurrent orthogonal matrices and N(0, 1) biases (the encoder's draws:
 ``fc2``, ``gru``, ``fc4``) are those of the reference ``.pth``;
 ``kind="lingru"`` has ``lingru`` in place of ``gru``, and
 ``kind="transformer"`` ``encoder``.
+
+On a ``mesh`` (``parallel/``) the transformer is split: with tp above 1
+the encoder holds this rank's part of the Megatron split, and with sp
+above 1 the whole forward runs on this rank's block of the pileup
+columns (:attr:`RokoModel.columns`): every op but the attention acts on
+one column, so rank s takes columns ``[s * T / sp, (s + 1) * T / sp)`` of
+the windows, runs the ring attention, and returns logits for its
+columns, as the reference's ``shard_map`` specs ``P(dp, sp, None)`` ask.
+In training, a :class:`~roko_tpu_torch.models.layers.GlobalSlice`
+generator cuts each mask from the global batch's, the column axis by
+site: 2 for the embedding's ``[B, R, T, D]``, 1 for ``[B, T, D, J]``
+and the encoder's ``[B, T, d]``. The gru and lingru kinds replicate over
+tp and sp. ``attn`` injects an attention into the transformer, as the
+reference's ``attn_fn`` (:57-66, :227).
 """
 
 from __future__ import annotations
@@ -70,9 +84,18 @@ from torch.nn.utils import skip_init
 
 from roko_tpu_torch.config import ModelConfig
 from roko_tpu_torch.models.gru import RokoGRU
-from roko_tpu_torch.models.layers import dense, dropout, init_dense, jax_weight, weight
+from roko_tpu_torch.models.layers import (
+    dense,
+    dropout,
+    init_dense,
+    jax_weight,
+    on_column_axis,
+    weight,
+)
 from roko_tpu_torch.models.lingru import RokoLinGRU
-from roko_tpu_torch.models.transformer import RokoTransformer
+from roko_tpu_torch.models.transformer import Attention, RokoTransformer
+from roko_tpu_torch.parallel.mesh import Mesh
+from roko_tpu_torch.parallel.ring import column_block
 
 
 class _RoundGrad(torch.autograd.Function):
@@ -94,13 +117,16 @@ class RokoModel(nn.Module):
     def __init__(
         self, cfg: Optional[ModelConfig] = None,
         generator: Optional[torch.Generator] = None,
+        *, mesh: Optional[Mesh] = None, attn: Optional[Attention] = None,
     ):
         """``generator`` draws the initial parameters (default: a CPU
         generator seeded with 0). The model starts in eval mode, as
         ``apply`` defaults to ``deterministic=True``; ``train()`` turns
-        dropout on."""
+        dropout on. ``mesh`` splits a transformer over its tp and sp axes;
+        ``attn`` replaces the transformer's attention."""
         super().__init__()
         self.cfg = cfg = (cfg or ModelConfig()).resolve()
+        self.mesh = mesh
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         # skip_init: no draw from torch's global generator
@@ -118,23 +144,30 @@ class RokoModel(nn.Module):
         elif cfg.kind == "lingru":
             self.lingru = RokoLinGRU(*args)
         else:
-            self.encoder = RokoTransformer(cfg, generator)
+            self.encoder = RokoTransformer(cfg, generator, mesh, attn)
+        #: the block of pileup columns this rank computes
+        self.columns = (column_block(mesh, cfg.window_cols)
+                        if cfg.kind == "transformer" and mesh is not None and mesh.sp > 1
+                        else slice(0, cfg.window_cols))
         self.eval()
 
     def forward(
         self, x: torch.Tensor,
         recurrence: Optional[Callable[..., torch.Tensor]] = None,
-        generator: Optional[torch.Generator] = None,
+        generator=None,
     ) -> torch.Tensor:
         """int[B, rows, cols] feature windows -> float32 logits
-        [B, cols, num_classes]. ``recurrence`` replaces the kind's
+        [B, cols, num_classes] (the columns of :attr:`columns`).
+        ``recurrence`` replaces the kind's
         kernel-backed one (``fused_gru.gru_recurrence_plain`` for gru,
         ``fused_lingru.lingru_scan_plain`` for lingru); None keeps it. The
         transformer has no recurrence to replace, and refuses one. In
-        training, dropout draws from ``generator``."""
+        training, dropout draws from ``generator``: a ``torch.Generator``
+        or a :class:`~roko_tpu_torch.models.layers.GlobalSlice`."""
         if self.cfg.kind == "transformer" and recurrence is not None:
             raise ValueError("kind='transformer' has no recurrence to replace; "
                              "recurrence= applies to gru and lingru")
+        x = x[:, :, self.columns]
         if self.training:
             if self.cfg.quantize is not None:
                 raise ValueError(
@@ -143,13 +176,19 @@ class RokoModel(nn.Module):
             h = self._front_train(x, generator)
         else:
             h = self._front_eval(x)
-        h = h.reshape(x.shape[0], self.cfg.window_cols, self.cfg.gru_in_size)
+        h = h.reshape(x.shape[0], x.shape[2], self.cfg.gru_in_size)
         if self.cfg.kind == "transformer":
-            h = self.encoder(h, generator)
+            h = self.encoder(h, generator, self.columns.start)
         else:
             rnn = self.gru if self.cfg.kind == "gru" else self.lingru
             h = rnn(h, recurrence, generator)
         return dense(h.float(), self.fc4)
+
+    @property
+    def column_split(self) -> bool:
+        """True when the forward computes a block of the columns (a
+        transformer on a mesh whose sp axis is above 1)."""
+        return self.columns.stop - self.columns.start != self.cfg.window_cols
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -166,7 +205,8 @@ class RokoModel(nn.Module):
         table = self.embedding.weight
         if dtype != table.dtype:
             table = _RoundGrad.apply(table, dtype)
-        e = dropout(F.embedding(x.long(), table).to(dtype), rate, generator)  # [B, R, T, D]
+        e = F.embedding(x.long(), table).to(dtype)  # [B, R, T, D]: its columns on axis 2
+        e = dropout(e, rate, on_column_axis(generator, 2))
         w1 = weight(jax_weight(self.fc1, "weight"), dtype)  # [R, J]
         h = torch.einsum("brtd,rj->btdj", e, w1)
         h = dropout(torch.relu(h + self.fc1.bias.to(dtype)), rate, generator)

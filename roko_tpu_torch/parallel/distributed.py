@@ -15,6 +15,10 @@ layout itself, naming gloo: several ranks can share one card through
 gloo, whose collectives take CUDA tensors for ``all_reduce``,
 ``broadcast`` and ``barrier``, all that data-parallel training needs on
 the device. The backend changes only when the caller asks for it.
+
+A dp x tp x sp grid (``parallel/mesh.py``) reduces over subgroups of the
+run: :func:`grid_groups` makes them, every rank every group in one order,
+as ``torch.distributed.new_group`` requires.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from __future__ import annotations
 import datetime
 import os
 import socket
-from typing import List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -174,16 +178,62 @@ def device_of_rank(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
-def all_gather_cpu(t: torch.Tensor) -> torch.Tensor:
-    """``[world, *t.shape]``: every rank's ``t``, a CPU tensor, in rank
-    order (gloo, the one backend that gathers CPU tensors)."""
+def grid_members(dp: int, tp: int, sp: int) -> Dict[str, List[List[int]]]:
+    """The ranks of every subgroup of a dp x tp x sp grid laid out
+    row-major (rank ``(d * tp + t) * sp + s``), by axis: ``dp`` (the ranks
+    that share t and s), ``tp`` (share d and s), ``sp`` (share d and t)
+    and ``dp_sp`` (share t)."""
+
+    def at(d: int, t: int, s: int) -> int:
+        return (d * tp + t) * sp + s
+
+    D, T, S = range(dp), range(tp), range(sp)
+    return {
+        "dp": [[at(d, t, s) for d in D] for t in T for s in S],
+        "tp": [[at(d, t, s) for t in T] for d in D for s in S],
+        "sp": [[at(d, t, s) for s in S] for d in D for t in T],
+        "dp_sp": [[at(d, t, s) for d in D for s in S] for t in T],
+    }
+
+
+def grid_groups(dp: int, tp: int, sp: int) -> Dict[str, Any]:
+    """This rank's process group on each axis of :func:`grid_members`.
+    Every rank creates every group, in the same order, or a rank that
+    skips one hangs the run. A group of the whole run is the default
+    group, a group of one rank is None (its collectives are no-ops);
+    without a process group every one is None."""
+    import torch.distributed as dist
+
+    out: Dict[str, Any] = dict.fromkeys(("dp", "tp", "sp", "dp_sp"))
+    if not is_initialized():
+        return out
+    me, n = rank(), world_size()
+    for axis, groups in grid_members(dp, tp, sp).items():
+        for ranks in groups:
+            if len(ranks) == n:
+                group = dist.group.WORLD
+            elif len(ranks) == 1:
+                group = None
+            else:
+                group = dist.new_group(ranks)
+            if me in ranks:
+                out[axis] = group
+    return out
+
+
+def all_gather_cpu(t: torch.Tensor, group: Any = "world") -> torch.Tensor:
+    """``[ranks, *t.shape]``: the ``t`` of every rank of ``group`` (default
+    the whole run; None, a group of one rank), a CPU tensor, in rank order
+    (gloo, the one backend that gathers CPU tensors)."""
     import torch.distributed as dist
 
     t = t.cpu().contiguous()
-    if not is_initialized():
+    if group == "world":
+        group = dist.group.WORLD if is_initialized() else None
+    if group is None:
         return t.unsqueeze(0)
-    out = [torch.empty_like(t) for _ in range(world_size())]
-    dist.all_gather(out, t)
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, t, group=group)
     return torch.stack(out)
 
 

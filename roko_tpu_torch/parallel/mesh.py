@@ -1,18 +1,24 @@
-"""The process mesh and the data-parallel collectives of the port.
+"""The process mesh of the port: a dp x tp x sp grid of processes.
 
 Counterpart of ``roko_tpu/parallel/mesh.py`` (:30-90, :291). Axis
 convention (``MeshConfig``, ``roko_tpu_torch/config.py``):
 
-- ``dp``: data parallel. Each process holds a replica of the model and
-  the rows ``[rank * B / dp, (rank + 1) * B / dp)`` of a global batch of
-  B; the gradients are summed across the replicas by an all-reduce.
-- ``tp`` and ``sp``: tensor and sequence parallel, for the transformer
-  (ROADMAP queue item A8b). Not ported: a size above 1 is refused.
+- ``dp``: data parallel. Each dp group holds a replica of the model and
+  the rows ``[d * B / dp, (d + 1) * B / dp)`` of a global batch of B; the
+  gradients are summed across the replicas.
+- ``tp``: tensor parallel, for the transformer: each tp rank holds
+  ``1/tp`` of the heads and of the MLP's hidden units (``tp.py``).
+- ``sp``: sequence parallel, for the transformer: each sp rank holds
+  ``1/sp`` of the pileup columns and the attention runs as a ring
+  (``ring.py``).
 
-The reference lays a ``jax.sharding.Mesh`` over devices and lets XLA
-insert the collectives; the port runs one process per card, so its mesh
-is the processes of the run, and the collectives are explicit calls on
-the ``torch.distributed`` group of :mod:`.distributed`.
+Ranks lie on the grid row-major, as the reference reshapes
+``jax.devices()`` (:68-73): rank ``(d * tp + t) * sp + s``, so a tp or
+sp group is neighbouring ranks. The reference lays a
+``jax.sharding.Mesh`` over devices and lets XLA insert the collectives;
+the port runs one process per card, so its mesh is the processes of the
+run, and the collectives are explicit calls on the ``torch.distributed``
+subgroups of :func:`distributed.grid_groups`.
 """
 
 from __future__ import annotations
@@ -29,9 +35,6 @@ from roko_tpu_torch.parallel import distributed
 AXIS_DP = "dp"
 AXIS_TP = "tp"
 AXIS_SP = "sp"
-
-_A8B = ("{axis}={size}: tensor and sequence parallelism are not ported yet (queue item "
-        "A8b of ROADMAP.md); the port runs data parallelism only, --tp 1 --sp 1")
 
 
 def mesh_shape(cfg: MeshConfig, n_devices: Optional[int] = None) -> Tuple[int, int, int]:
@@ -52,24 +55,24 @@ def mesh_shape(cfg: MeshConfig, n_devices: Optional[int] = None) -> Tuple[int, i
     return tuple(sizes)  # type: ignore[return-value]
 
 
-def check_ported(cfg: MeshConfig) -> None:
-    """Raise ``ValueError`` naming A8b for a tp or sp axis above 1."""
-    for axis in (AXIS_TP, AXIS_SP):
-        size = getattr(cfg, axis)
-        if size != 1:
-            raise ValueError(_A8B.format(axis=axis, size=size))
-
-
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The dp axis of a run (tp and sp are 1 until A8b): its size, this
-    process's place on it, and the process group its collectives run on
-    (None for a run of one process without a group, where every
-    collective is a no-op)."""
+    """The grid of a run: its sizes, this process's rank, and the process
+    groups its collectives run on. ``group`` is the whole run; ``dp_group``
+    the ranks that share this rank's (t, s), ``tp_group`` its (d, s),
+    ``sp_group`` its (d, t) and ``dp_sp_group`` its t. A run of one
+    process without a group has every group None, and every collective is
+    a no-op; so is one over a group of one rank."""
 
     dp: int
     rank: int = 0
     group: Any = None
+    tp: int = 1
+    sp: int = 1
+    dp_group: Any = None
+    tp_group: Any = None
+    sp_group: Any = None
+    dp_sp_group: Any = None
 
     @property
     def collective(self) -> bool:
@@ -77,49 +80,75 @@ class Mesh:
         one rank that joined a group (its collectives still run)."""
         return self.group is not None
 
+    @property
+    def d(self) -> int:
+        """This rank's place on the dp axis."""
+        return self.rank // (self.tp * self.sp)
+
+    @property
+    def t(self) -> int:
+        """This rank's place on the tp axis."""
+        return self.rank // self.sp % self.tp
+
+    @property
+    def s(self) -> int:
+        """This rank's place on the sp axis."""
+        return self.rank % self.sp
+
+    def rank_of(self, d: int, t: int, s: int) -> int:
+        """The rank at grid point (d, t, s)."""
+        return (d * self.tp + t) * self.sp + s
+
 
 def make_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
-    """The mesh of ``cfg`` over the run's processes: dp must cover every
-    process (``--dp 2`` in one process is refused), and tp and sp must be 1
-    until A8b."""
+    """The grid of ``cfg`` over the run's processes: its sizes must cover
+    every process (``--dp 2`` or ``--tp 2`` in one process is refused with
+    :func:`mesh_shape`'s message), and every rank makes every subgroup."""
     cfg = cfg or MeshConfig()
-    check_ported(cfg)
-    dp, _, _ = mesh_shape(cfg)
+    dp, tp, sp = mesh_shape(cfg)
+    groups = distributed.grid_groups(dp, tp, sp)
     group = None
     if distributed.is_initialized():
         import torch.distributed as dist
 
         group = dist.group.WORLD
-    return Mesh(dp=dp, rank=distributed.rank(), group=group)
+    return Mesh(dp=dp, rank=distributed.rank(), group=group, tp=tp, sp=sp,
+                dp_group=groups["dp"], tp_group=groups["tp"], sp_group=groups["sp"],
+                dp_sp_group=groups["dp_sp"])
 
 
 def shard_batch(mesh: Mesh, batch: Sequence[Any]) -> Tuple[Any, ...]:
     """This rank's rows of every array of a global batch (leading axis =
-    batch): rows ``[rank * n / dp, (rank + 1) * n / dp)``."""
+    batch): rows ``[d * n / dp, (d + 1) * n / dp)``. The ranks of one
+    tp x sp block hold the same rows."""
     n = len(batch[0])
     if n % mesh.dp:
         raise ValueError(f"global batch {n} not divisible by dp={mesh.dp}")
     per = n // mesh.dp
-    return tuple(a[mesh.rank * per : (mesh.rank + 1) * per] for a in batch)
+    return tuple(a[mesh.d * per : (mesh.d + 1) * per] for a in batch)
 
 
-def all_reduce_(mesh: Mesh, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """Reduce ``t`` in place across the dp group ("sum" or "min")."""
-    if mesh.collective:
+def group_reduce_(t: torch.Tensor, group: Any, op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` in place across ``group`` ("sum" or "min"); None (one
+    rank) is a no-op."""
+    if group is not None:
         import torch.distributed as dist
 
-        dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MIN,
-                        group=mesh.group)
+        op_ = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MIN
+        dist.all_reduce(t, op=op_, group=group)
     return t
 
 
-def put_replicated(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
-    """Make every rank's ``tensors`` rank 0's, in place (a broadcast from
-    rank 0): the replicas start equal whatever each rank drew or read."""
-    if not mesh.collective:
-        return
-    import torch.distributed as dist
+def all_reduce_(mesh: Mesh, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` in place across the whole run ("sum" or "min")."""
+    return group_reduce_(t, mesh.group, op)
 
-    with torch.no_grad():
-        for t in tensors:
-            dist.broadcast(t, src=0, group=mesh.group)
+
+def group_broadcast_(t: torch.Tensor, group: Any, src: int) -> torch.Tensor:
+    """Make ``t`` rank ``src``'s (a global rank of ``group``) in place on
+    every rank of ``group``; None is a no-op."""
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.broadcast(t, src=src, group=group)
+    return t

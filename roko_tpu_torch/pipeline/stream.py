@@ -52,8 +52,9 @@ before the journal's identity hash.
 ``trace_dir`` writes a device trace of the run's extraction, batching
 and inference loop (``utils/profiling.device_trace``).
 
-Left out of the port: multi-host pods and the device mesh (A8) and the
-cascade router (A10).
+Left out of the port: a stream over several processes or a device mesh
+(a session over several ranks, A9.1; several processes polish staged) and
+the cascade router (A10).
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ deadline raises :class:`HangError`. The class ids come back to the host
 synchronously.
 
 What the JAX package's session does and this one does not: shard over a
-device mesh (one card here; multi-GPU is queue item A8), load AOT bundles
+device mesh (one card here; a session over several ranks is queue item A9.1), load AOT bundles
 or a persistent compile cache (A9.3), run a ragged step (A9.2), or fail
 over to the host CPU after a hang (not ported: carrying on on the CPU
 after the card failed would hide the card's failure).

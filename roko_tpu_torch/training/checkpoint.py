@@ -20,6 +20,12 @@ its rules:
   :class:`CheckpointIntegrityError` when checkpoints exist but none
   verifies;
 - :func:`load_params` returns the best checkpoint's model state_dict.
+
+A checkpoint holds full tensors whatever grid wrote it: a tp run gathers
+its parts of the model (``parallel.tp.gather_state_dict``) and of Adam's
+per-parameter state (:func:`gather_optimizer_state`; Adam acts element by
+element, so a split Adam is the full Adam cut) before rank 0 writes, and
+a resume cuts them again (:func:`shard_optimizer_state`).
 """
 
 from __future__ import annotations
@@ -33,12 +39,44 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from roko_tpu_torch.parallel import tp
+from roko_tpu_torch.parallel.mesh import Mesh
 from roko_tpu_torch.training.guard import guard_line
 
 #: committed last, atomically: its presence is the commit record
 MANIFEST_NAME = "roko_manifest.json"
 STATE_NAME = "state.pt"
 METRICS_NAME = "metrics.json"
+
+
+def _map_optimizer_state(cfg, opt: Dict[str, Any], names: List[str], mesh: Mesh,
+                         fn: Callable[[torch.Tensor, Optional[int], Mesh], torch.Tensor]
+                         ) -> Dict[str, Any]:
+    """``opt`` (an optimizer ``state_dict`` over the parameters ``names``,
+    in order) with ``fn(tensor, split axis, mesh)`` applied to each
+    per-parameter tensor (Adam's moments; not its scalar step)."""
+    if mesh.tp == 1:
+        return opt
+    specs = tp.param_specs(cfg, dict.fromkeys(names))
+    state = {}
+    for i, entry in sorted(opt["state"].items()):
+        axis = specs[names[i]]
+        state[i] = {k: fn(v, axis, mesh) if torch.is_tensor(v) and v.dim() else v
+                    for k, v in entry.items()}
+    return {**opt, "state": state}
+
+
+def gather_optimizer_state(cfg, part: Dict[str, Any], names: List[str],
+                           mesh: Mesh) -> Dict[str, Any]:
+    """The full optimizer state of which the tp ranks hold parts; a
+    collective over the tp group."""
+    return _map_optimizer_state(cfg, part, names, mesh, tp.gather)
+
+
+def shard_optimizer_state(cfg, full: Dict[str, Any], names: List[str],
+                          mesh: Mesh) -> Dict[str, Any]:
+    """This tp rank's part of a full optimizer state."""
+    return _map_optimizer_state(cfg, full, names, mesh, tp.shard)
 
 
 class CheckpointIntegrityError(RuntimeError):

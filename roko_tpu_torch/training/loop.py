@@ -46,10 +46,21 @@ are all-reduced as a sum in one flat buffer in parameter order, the loss
 and the finite flag are all-reduced before the guard reads them (so every
 rank skips or rolls back in lockstep), and each rank draws the dropout
 masks of the whole global batch and keeps its rows
-(``models.layers.GlobalRows``). The replicas start from rank 0's
+(``models.layers.GlobalSlice``). The replicas start from rank 0's
 parameters and stay equal; evaluation all-reduces its sums; rank 0 alone
 logs and writes checkpoints, and every rank waits for each write before
-it goes on. Tensor and sequence parallelism are queue item A8b.
+it goes on.
+
+On a dp x tp x sp grid (``parallel/mesh.py``) the transformer is split
+over tp (``parallel/tp.py``) and sp (its columns, ``parallel/ring.py``):
+the batch is split over dp only, every rank of a tp x sp block reading
+its dp group's rows, and each sp rank sums its columns' log-likelihood
+over all ``window_cols`` columns, so the ranks' losses sum to the global
+one. The gradient of each parameter is summed over the axes it is
+partial over (:func:`reduce_step`); a checkpoint holds the full tensors,
+gathered over tp (``training/checkpoint.py``), and a resume cuts them
+again, so a grid's checkpoint loads in one process and the other way
+round.
 """
 
 from __future__ import annotations
@@ -67,32 +78,52 @@ from roko_tpu_torch.datapipe.dataset import ShardedDataset
 from roko_tpu_torch.datapipe.engine import Batch, prefetch
 from roko_tpu_torch.datapipe.manifest import crosscheck_corpus, crosscheck_fingerprint
 from roko_tpu_torch.infer import resolve_device, use_float32_matmuls
-from roko_tpu_torch.models.layers import GlobalRows
+from roko_tpu_torch.models.layers import GlobalSlice
 from roko_tpu_torch.models.model import RokoModel
 from roko_tpu_torch.parallel import distributed
-from roko_tpu_torch.parallel.mesh import Mesh, all_reduce_, make_mesh, put_replicated, shard_batch
-from roko_tpu_torch.training.checkpoint import CheckpointManager
+from roko_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    group_broadcast_,
+    group_reduce_,
+    make_mesh,
+    shard_batch,
+)
+from roko_tpu_torch.parallel.tp import gather_state_dict, param_specs, shard_state_dict
+from roko_tpu_torch.training.checkpoint import (
+    CheckpointManager,
+    gather_optimizer_state,
+    shard_optimizer_state,
+)
 from roko_tpu_torch.training.guard import RollbackRequested, TrainGuard, guard_line
 from roko_tpu_torch.utils.profiling import device_trace
 
 
 def loss_and_stats(
     logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-    w_total: Optional[torch.Tensor] = None,
+    w_total: Optional[torch.Tensor] = None, cols: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(loss, correct, total): the mean over real rows (weight ``w``) of
     each row's mean cross-entropy over its columns, the count of correct
     columns of real rows, and the count of their columns. ``w_total``
     replaces ``w.sum()`` as the loss's denominator: a data-parallel rank
-    passes the global batch's, so the ranks' losses sum to its loss."""
+    passes the global batch's, so the ranks' losses sum to its loss.
+    ``cols`` replaces the row's column count in its mean: an sp rank holds
+    a block of the columns and passes the window's count."""
     logp = torch.log_softmax(logits, dim=-1)
     ll = logp.gather(-1, y.long().unsqueeze(-1)).squeeze(-1)
-    per_row = -ll.mean(dim=-1)
+    per_row = -ll.mean(dim=-1) if cols is None else -ll.sum(dim=-1) / cols
     denom = w.sum() if w_total is None else w_total
     loss = (per_row * w).sum() / torch.clamp(denom, min=1.0)
     correct = ((logits.argmax(dim=-1) == y) * w[:, None]).sum()
     total = w.sum() * y.shape[1]
     return loss, correct, total
+
+
+def split_columns(model: RokoModel, y: torch.Tensor) -> Tuple[torch.Tensor, Optional[int]]:
+    """(this rank's columns of the labels ``y``, the window's column count
+    when the model computes a block of them, else None)."""
+    return (y[:, model.columns], y.shape[1]) if model.column_split else (y, None)
 
 
 def make_optimizer(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
@@ -116,13 +147,12 @@ def grad_step(
     ``finite`` is a device bool covering the loss and every gradient.
 
     On a ``mesh`` whose steps reduce (:attr:`Mesh.collective`), ``x``,
-    ``y`` and ``w`` are this rank's rows of the global batch and the step
-    is the global batch's: the dropout masks are drawn for the global
-    batch (:class:`GlobalRows`), the loss divides by the all-reduced
-    ``w.sum()``, and the loss and the gradients are summed across the
-    ranks in one flat buffer in parameter order; then the finite flag is
-    all-reduced (min). Every rank returns the same loss and flag and holds
-    the same gradients."""
+    ``y`` and ``w`` are this rank's dp group's rows of the global batch
+    and the step is the global batch's: the dropout masks are drawn for
+    the global batch (:class:`GlobalSlice`), the loss divides by ``w.sum()``
+    summed over dp, and the loss and the gradients are reduced by
+    :func:`reduce_step`. Every rank returns the same loss and flag, and
+    holds the gradients of its part of the parameters."""
     model.train()
     model.zero_grad(set_to_none=True)
     if mesh is None or not mesh.collective:
@@ -132,21 +162,74 @@ def grad_step(
         flags = [torch.isfinite(loss)]
         flags += [torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None]
         return loss.detach(), torch.stack(flags).all()
+    y, cols = split_columns(model, y)
     if generator is not None:
-        generator = GlobalRows(generator, mesh.rank, mesh.dp)
+        generator = GlobalSlice(generator, mesh.d, mesh.dp,
+                                *((mesh.s, mesh.sp) if cols is not None else (0, 1)))
     logits = model(x, generator=generator)
-    w_total = all_reduce_(mesh, w.sum().reshape(1))
-    loss, _, _ = loss_and_stats(logits, y, w, w_total=w_total[0])
+    w_total = group_reduce_(w.sum().reshape(1), mesh.dp_group)
+    loss, _, _ = loss_and_stats(logits, y, w, w_total=w_total[0], cols=cols)
     loss.backward()
-    params = [p for p in model.parameters() if p.grad is not None]
-    flat = all_reduce_(mesh, torch.cat([loss.detach().reshape(1)]
-                                       + [p.grad.reshape(-1) for p in params]))
+    return reduce_step(model, loss.detach(), mesh)
+
+
+def reduce_step(model: RokoModel, loss: torch.Tensor, mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum this rank's loss and gradients over the axes they are partial
+    over, one flat buffer per group in parameter order, and return
+    (global loss, finite). The transformer's are partial over dp (rows) and
+    sp (columns): summed over the dp x sp group; then the loss and the
+    gradient of each parameter replicated over tp are tp rank 0's (a
+    broadcast: equal on the CPU, but on a card the embedding's backward
+    sums with atomics, and tp peers would drift apart in the last bits).
+    The gru and lingru kinds' are partial over dp only: summed over dp,
+    then the first rank's of the tp x sp block. The finite flag is a min
+    over the whole run, so every rank skips or rolls back in step."""
+    named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+    flat = torch.cat([loss.reshape(1)] + [p.grad.reshape(-1) for _, p in named])
+    d, t, s = mesh.d, mesh.t, mesh.s
+    if model.cfg.kind == "transformer":
+        group_reduce_(flat, mesh.dp_sp_group)
+        if mesh.tp > 1:
+            specs = param_specs(model.cfg, dict(named))
+            spans, offset = [(0, 1)], 1
+            for n, p in named:
+                if specs[n] is None:
+                    spans.append((offset, offset + p.numel()))
+                offset += p.numel()
+            rep = group_broadcast_(torch.cat([flat[a:b] for a, b in spans]), mesh.tp_group,
+                                   mesh.rank_of(d, 0, s))
+            at = 0
+            for a, b in spans:
+                flat[a:b] = rep[at : at + b - a]
+                at += b - a
+    else:
+        group_reduce_(flat, mesh.dp_group)
+        if mesh.tp > 1:
+            group_broadcast_(flat, mesh.tp_group, mesh.rank_of(d, 0, s))
+        if mesh.sp > 1:
+            group_broadcast_(flat, mesh.sp_group, mesh.rank_of(d, t, 0))
     offset = 1
-    for p in params:
+    for _, p in named:
         p.grad.copy_(flat[offset : offset + p.numel()].view_as(p.grad))
         offset += p.numel()
     finite = all_reduce_(mesh, torch.isfinite(flat).all().to(torch.float32).reshape(1), "min")
     return flat[0], finite[0] > 0
+
+
+def replicate_(model: RokoModel, mesh: Mesh) -> None:
+    """Make every rank's parameters and buffers, in place, those of the
+    first rank holding the same part: rank 0's for a tensor replicated
+    over tp, the first rank of the dp x sp group for a tp part."""
+    if not mesh.collective:
+        return
+    state = model.state_dict()
+    specs = param_specs(model.cfg, state)
+    with torch.no_grad():
+        for name, t in state.items():
+            if specs[name] is None or mesh.tp == 1:
+                group_broadcast_(t, mesh.group, 0)
+            else:
+                group_broadcast_(t, mesh.dp_sp_group, mesh.rank_of(0, mesh.t, 0))
 
 
 def params_finite(model: torch.nn.Module) -> bool:
@@ -158,8 +241,9 @@ def evaluate(model: RokoModel, dataset, batch_size: int,
              device: torch.device, mesh: Optional[Mesh] = None) -> Tuple[float, float]:
     """(column accuracy, mean per-window loss) over ``dataset`` in stored
     order; leaves the model in eval mode. On a ``mesh``, each rank reads
-    the same batches of ``batch_size`` and evaluates its rows of each, and
-    the sums are all-reduced."""
+    the same batches of ``batch_size`` and evaluates its dp group's rows
+    of each (its columns of them, when the model splits the columns), and
+    the sums are reduced over the ranks that hold different parts."""
     model.eval()
     correct = torch.zeros((), device=device)
     total = torch.zeros((), device=device)
@@ -169,13 +253,16 @@ def evaluate(model: RokoModel, dataset, batch_size: int,
         if mesh is not None:
             batch = shard_batch(mesh, batch)
         x, y, w = to_device(batch, device)
-        loss, c, t = loss_and_stats(model(x), y, w)
+        y, cols = split_columns(model, y)
+        loss, c, t = loss_and_stats(model(x), y, w, cols=cols)
         loss_sum += loss * w.sum()
-        rows += w.sum()
+        if not model.column_split or mesh.s == 0:  # a row counts once over its blocks
+            rows += w.sum()
         correct += c
         total += t
     if mesh is not None and mesh.collective:
-        sums = all_reduce_(mesh, torch.stack([correct, total, loss_sum, rows]))
+        group = mesh.dp_sp_group if model.column_split else mesh.dp_group
+        sums = group_reduce_(torch.stack([correct, total, loss_sum, rows]), group)
         correct, total, loss_sum, rows = sums.unbind()
     acc = float(correct / torch.clamp(total, min=1.0))
     return acc, float(loss_sum / torch.clamp(rows, min=1.0))
@@ -257,12 +344,14 @@ def train(
 
     In a run of several processes (``parallel.distributed.initialize``
     from ``ROKO_*``, called here) every rank calls this with the same
-    arguments; ``mesh_cfg`` must cover them all with dp."""
+    arguments; ``mesh_cfg``'s dp x tp x sp grid must cover them all. The
+    data shards are the dp groups."""
     check_trainable(model_cfg)
     dev = resolve_device(device)
     distributed.initialize(device=dev)
     dev = distributed.device_of_rank(dev)
     mesh = make_mesh(mesh_cfg)
+    #: the dp groups, each reading one shard of the corpus
     nproc = mesh.dp
     if not distributed.is_primary():
         log = lambda s: None  # noqa: E731 (rank 0 alone logs)
@@ -271,17 +360,17 @@ def train(
     seed = tcfg.seed
 
     # -- the data plane: one process reads shard shard_id of shards; in a
-    # run of several processes the shards are the ranks
+    # run of several processes the shards are the dp groups
     shards = dcfg.shards if dcfg.shards > 0 else nproc
-    shard_id = dcfg.shard_id if dcfg.shard_id >= 0 else mesh.rank
+    shard_id = dcfg.shard_id if dcfg.shard_id >= 0 else mesh.d
     data_seed = dcfg.seed if dcfg.seed >= 0 else seed
     if nproc > 1:
         if shards != nproc:
-            raise ValueError(f"--data-shards {shards} on a {nproc}-process run: shards must "
-                             "equal the process count (one shard per process)")
-        if shard_id != mesh.rank:
-            raise ValueError(f"--data-shard-id {shard_id} conflicts with this process's rank "
-                             f"{mesh.rank} of {nproc}; leave it at -1 (auto)")
+            raise ValueError(f"--data-shards {shards} on a run of {nproc} dp groups: shards "
+                             "must equal the dp size (one shard per dp group)")
+        if shard_id != mesh.d:
+            raise ValueError(f"--data-shard-id {shard_id} conflicts with this process's dp "
+                             f"place {mesh.d} of {nproc}; leave it at -1 (auto)")
     if tcfg.batch_size % shards:
         raise ValueError(f"batch_size {tcfg.batch_size} not divisible by {shards} data shards")
     local_bs = tcfg.batch_size // shards
@@ -332,21 +421,25 @@ def train(
     def place(batch: Batch) -> Tuple[torch.Tensor, ...]:
         return to_device(batch, dev)
 
-    def write(save: Callable[[], None]) -> None:
-        """Rank 0 writes; every rank waits until it has."""
+    def write(save: Callable[[Dict[str, Any]], None], make: Callable[[], Dict[str, Any]]) -> None:
+        """Every rank makes the state (its full tensors are gathered over
+        tp, a collective), rank 0 writes it, and every rank waits until it
+        has."""
+        st = make()
         if distributed.is_primary():
-            save()
+            save(st)
         distributed.barrier()
 
     def run(attempt: int) -> TrainResult:
         history: List[Dict[str, float]] = []
         if init_params is not None:
-            model = RokoModel(model_cfg)
-            model.load_state_dict(init_params, strict=True)
+            model = RokoModel(model_cfg, mesh=mesh)
+            model.load_state_dict(shard_state_dict(model_cfg, init_params, mesh), strict=True)
         else:
-            model = RokoModel(model_cfg, torch.Generator().manual_seed(seed))
+            model = RokoModel(model_cfg, torch.Generator().manual_seed(seed), mesh=mesh)
         model.to(dev).train()
         optimizer = make_optimizer(model, tcfg.lr)
+        names = [n for n, _ in model.named_parameters()]  # the optimizer's order
         hstep, start_epoch, best_acc, bad_epochs, rollbacks = 0, 0, -1.0, 0, 0
         start_batch, start_applied, loss_sum = 0, 0, 0.0
         restored = manager.restore_latest() if (resume or attempt > 0) else None
@@ -366,8 +459,10 @@ def train(
                     f"checkpoint ({diff}); the stream would diverge from the trained "
                     "prefix: restore the original sharding, seed and corpus, or start "
                     "fresh with --no-resume")
-            model.load_state_dict(restored["model"], strict=True)
-            optimizer.load_state_dict(restored["optimizer"])
+            model.load_state_dict(shard_state_dict(model_cfg, restored["model"], mesh),
+                                  strict=True)
+            optimizer.load_state_dict(shard_optimizer_state(
+                model_cfg, restored["optimizer"], names, mesh))
             hstep = int(restored["step"])
             start_epoch = int(dstate["epoch"])
             start_applied = int(dstate.get("applied", 0))
@@ -381,7 +476,7 @@ def train(
                 guard.load_state(gstate)
             log(f"resumed from step {hstep} (epoch {start_epoch}, batch {start_batch}, "
                 f"best val_acc {best_acc:.5f}, {bad_epochs} stale epochs)")
-        put_replicated([*model.parameters(), *model.buffers()], mesh)
+        replicate_(model, mesh)
         # a rollback re-seeds the dropout stream, so a transient fault does
         # not replay on the same masks; a resume keeps the stream it had
         jitter = rollbacks + attempt
@@ -395,7 +490,9 @@ def train(
                     "guard": {**g, "rollbacks": jitter}, "pipe": pipe}
 
         def state(epoch: int, dstate: Dict[str, Any]) -> Dict[str, Any]:
-            return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+            return {"model": gather_state_dict(model_cfg, model.state_dict(), mesh),
+                    "optimizer": gather_optimizer_state(model_cfg, optimizer.state_dict(),
+                                                        names, mesh),
                     "step": hstep, "epoch": epoch,
                     "early_stop": {"best_acc": best_acc, "bad_epochs": bad_epochs},
                     "data_state": dstate}
@@ -439,8 +536,8 @@ def train(
                     # epoch-boundary save follows at once
                     if (gcfg.save_every_steps and n_batches % gcfg.save_every_steps == 0
                             and n_batches < steps_per_epoch):
-                        write(lambda: manager.save_latest(state(epoch - 1, data_state(
-                            epoch, n_batches, n_applied, running))))
+                        write(manager.save_latest, lambda: state(epoch - 1, data_state(
+                            epoch, n_batches, n_applied, running)))
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
             train_loss = float(running) / max(n_applied, 1)
@@ -463,8 +560,8 @@ def train(
                 best_acc, bad_epochs = acc, 0
             else:
                 bad_epochs += 1
-            write(lambda: manager.save(hstep, state(epoch, data_state(epoch + 1, 0, 0, 0.0)),
-                                       acc))
+            write(lambda st: manager.save(hstep, st, acc),
+                  lambda: state(epoch, data_state(epoch + 1, 0, 0, 0.0)))
             if val_ds is not None and bad_epochs >= tcfg.patience:
                 log(f"early stop at epoch {epoch} (best val_acc {best_acc:.5f})")
                 break

@@ -96,7 +96,7 @@ HOST_MODULES = [
 
 def test_every_port_module_imports_without_jax():
     names = _import_in_child()
-    assert len(names) >= 68
+    assert len(names) >= 70
     assert "roko_tpu_torch.training.engine" not in names  # moved to datapipe.engine
     assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru",
             "roko_tpu_torch.models.transformer",
@@ -106,7 +106,8 @@ def test_every_port_module_imports_without_jax():
             "roko_tpu_torch.datapipe.manifest", "roko_tpu_torch.datapipe.engine",
             "roko_tpu_torch.datapipe.dataset", "roko_tpu_torch.training.lazy_data",
             "roko_tpu_torch.parallel", "roko_tpu_torch.parallel.distributed",
-            "roko_tpu_torch.parallel.mesh", *HOST_MODULES} <= set(names)
+            "roko_tpu_torch.parallel.mesh", "roko_tpu_torch.parallel.tp",
+            "roko_tpu_torch.parallel.ring", *HOST_MODULES} <= set(names)
 
 
 def test_host_modules_import_without_torch():

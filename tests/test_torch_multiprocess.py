@@ -6,7 +6,8 @@ and ``polish --dp 2`` (``tests/torch_dp_worker.py``, mode ``cli``): rank
 0 alone writes the checkpoint, each rank polishes its contigs, and rank 0
 merges the parts into a FASTA byte-identical to the port's one-process
 run and to ``roko_tpu.infer.polish_to_fasta`` with the same parameters,
-then removes the parts; ``polish`` runs staged and refuses
+then removes the parts (with the names sorted when the draft's are not,
+as the reference merges); ``polish`` runs staged and refuses
 ``--keep-hdf5`` and ``--resume``, with the reference's messages. The
 corpus check refuses ranks that read different files.
 """
@@ -28,7 +29,8 @@ from roko_tpu_torch import cli
 from roko_tpu_torch import constants as C
 from roko_tpu_torch.config import ModelConfig
 from roko_tpu_torch.data.hdf5 import DataWriter
-from roko_tpu_torch.infer import polish_to_fasta
+from roko_tpu_torch.infer import polish_to_fasta, polish_windows_to_fasta
+from roko_tpu_torch.io.fasta import read_fasta
 from roko_tpu_torch.models.convert import jax_from_state_dict
 from roko_tpu_torch.models.model import RokoModel
 from roko_tpu_torch.sim import build_synthetic_project
@@ -112,6 +114,37 @@ def test_fasta_equals_one_process_and_reference(run, tmp_path):
                         batch_size=16, mesh=ref_make_mesh(cfg.mesh, jax.devices()[:1]),
                         log=lambda *a: None)
     assert got == ref.read_bytes()
+
+
+def test_several_processes_write_the_contigs_sorted_by_name(run, tmp_path):
+    """C3: a draft whose names are not sorted (ctgB, ctgA, ctgC, in memory:
+    through an HDF5 file the draft's order is h5py's, sorted by name, in
+    both packages). One process writes the draft's order; two ranks write
+    the names sorted, the order ``roko_tpu/infer.py:629`` writes, byte-
+    identical to ``roko_tpu``'s FASTA, whose contigs come sorted from the
+    HDF5. ``polish_windows_to_fasta`` returns the contigs each process
+    polished, in one process all of them."""
+    params = load_params(str(run["out"] / "ckpt"))
+    model = RokoModel(ModelConfig(hidden_size=16, num_layers=1, d_model=32))
+    model.load_state_dict(params, strict=True)
+    contigs, windows = W.unsorted_draft(run["paths"]["infer"])
+    one = tmp_path / "one.fasta"
+    returned = polish_windows_to_fasta(contigs, windows, model, str(one), device="cpu",
+                                       log=lambda s: None)
+    assert [n for n, _ in read_fasta(str(one))] == ["ctgB", "ctgA", "ctgC"]
+    assert returned == dict(read_fasta(str(one)))
+    ref = tmp_path / "ref.fasta"
+    cfg = JaxRokoConfig(model=JaxModelConfig(hidden_size=16, num_layers=1),
+                        mesh=JaxMeshConfig(dp=1))
+    ref_polish_to_fasta(run["paths"]["infer"], jax_from_state_dict(params), str(ref), cfg,
+                        batch_size=16, mesh=ref_make_mesh(cfg.mesh, jax.devices()[:1]),
+                        log=lambda *a: None)
+    assert [n for n, _ in read_fasta(str(ref))] == ["ctgA", "ctgB", "ctgC"]
+    assert (run["out"] / "unsorted.fasta").read_bytes() == ref.read_bytes()
+    assert dict(read_fasta(str(ref))) == returned
+    by_rank = [r["unsorted_returned"] for r in run["ranks"]]
+    assert [sorted(d) for d in by_rank] == [["ctgA", "ctgC"], ["ctgB"]]
+    assert {**by_rank[0], **by_rank[1]} == returned
 
 
 def test_polish_runs_staged_split_by_contig(run, tmp_path, capsys):

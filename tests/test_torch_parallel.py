@@ -30,8 +30,9 @@ from roko_tpu.training.loop import _loss_and_stats
 from roko_tpu_torch import cli
 from roko_tpu_torch.config import MeshConfig
 from roko_tpu_torch.models.convert import jax_from_state_dict
-from roko_tpu_torch.models.layers import GlobalRows, dropout
-from roko_tpu_torch.parallel import distributed, make_mesh, mesh_shape, shard_batch
+from roko_tpu_torch.models.layers import GlobalSlice, dropout
+from roko_tpu_torch.parallel import Mesh, distributed, make_mesh, mesh_shape, shard_batch
+from roko_tpu_torch.parallel.distributed import grid_members
 from roko_tpu_torch.training.loop import evaluate, make_optimizer
 from tests import torch_dp_worker as W
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -70,13 +71,40 @@ def test_mesh_shape_matches_reference(dp, tp, sp, n):
 
 
 def test_make_mesh_refuses_tp_sp_and_a_dp_beyond_the_processes():
-    for cfg in (MeshConfig(tp=2), MeshConfig(sp=2), MeshConfig(dp=1, tp=2)):
-        with pytest.raises(ValueError, match="A8b"):
+    """A grid the processes cannot fill is refused with the reference's
+    own wording; one process makes the grid of one point, no groups."""
+    for cfg in (MeshConfig(tp=2), MeshConfig(sp=2), MeshConfig(dp=1, tp=2),
+                MeshConfig(dp=2)):
+        with pytest.raises(ValueError) as want:
+            ref_mesh_shape(JaxMeshConfig(dp=cfg.dp, tp=cfg.tp, sp=cfg.sp), 1)
+        with pytest.raises(ValueError) as got:
             make_mesh(cfg)
-    with pytest.raises(ValueError, match=r"mesh \[2, 1, 1\] wants 2 devices, have 1"):
-        make_mesh(MeshConfig(dp=2))
+        assert str(got.value) == str(want.value)
+    assert str(got.value) == "mesh [2, 1, 1] wants 2 devices, have 1"
     mesh = make_mesh()
     assert (mesh.dp, mesh.rank, mesh.collective) == (1, 0, False)
+    assert (mesh.d, mesh.t, mesh.s) == (0, 0, 0)
+    assert (mesh.dp_group, mesh.tp_group, mesh.sp_group, mesh.dp_sp_group) == (None,) * 4
+
+
+@pytest.mark.parametrize("dp,tp,sp", [(2, 2, 3), (1, 2, 2), (3, 1, 2), (4, 2, 1)])
+def test_grid_coordinates_and_groups_follow_the_references_layout(dp, tp, sp):
+    """Rank r sits where the reference's ``make_mesh`` puts device r
+    (``np.array(devices).reshape(dp, tp, sp)``), and each group holds the
+    ranks that share the other coordinates."""
+    grid = np.arange(dp * tp * sp).reshape(dp, tp, sp)
+    members = grid_members(dp, tp, sp)
+    want = {"dp": [grid[:, t, s] for t in range(tp) for s in range(sp)],
+            "tp": [grid[d, :, s] for d in range(dp) for s in range(sp)],
+            "sp": [grid[d, t, :] for d in range(dp) for t in range(tp)],
+            "dp_sp": [grid[:, t, :].ravel() for t in range(tp)]}
+    assert members == {axis: [g.tolist() for g in groups] for axis, groups in want.items()}
+    for r in range(grid.size):
+        mesh = Mesh(dp=dp, rank=r, tp=tp, sp=sp)
+        assert grid[mesh.d, mesh.t, mesh.s] == r == mesh.rank_of(mesh.d, mesh.t, mesh.s)
+    x = np.arange(4 * dp)
+    assert shard_batch(Mesh(dp=dp, rank=grid[dp - 1, tp - 1, sp - 1], tp=tp, sp=sp),
+                       (x,))[0].tolist() == x[-4:].tolist()
 
 
 def test_initialize_stays_single_process_without_environment(monkeypatch):
@@ -118,9 +146,27 @@ def test_global_rows_dropout_is_the_global_batchs_mask():
     for r in (0, 1):
         g = torch.Generator().manual_seed(4)
         for k in range(2):
-            got = dropout(x[3 * r : 3 * r + 3], 0.3, GlobalRows(g, r, 2))
+            got = dropout(x[3 * r : 3 * r + 3], 0.3, GlobalSlice(g, r, 2))
             assert torch.equal(got, want[k][3 * r : 3 * r + 3])
         assert torch.equal(g.get_state(), one.get_state())
+
+
+@pytest.mark.parametrize("col_axis", [1, 2])
+def test_global_slice_dropout_is_the_global_batchs_mask_cut_by_columns(col_axis):
+    """On a dp=2 x sp=3 grid each rank's block of rows and columns of the
+    masks equals one process's, on the column axis of each site (2 for the
+    embedding's [B, R, T, D], 1 for [B, T, D, J] and the encoder's [B, T, d])."""
+    shape = [4, 6, 6, 5]
+    x = torch.randn(shape)
+    one = torch.Generator().manual_seed(8)
+    want = dropout(x, 0.25, one)
+    for d in range(2):
+        for s in range(3):
+            g = torch.Generator().manual_seed(8)
+            block = x[2 * d : 2 * d + 2].narrow(col_axis, 2 * s, 2)
+            got = dropout(block, 0.25, GlobalSlice(g, d, 2, s, 3, col_axis))
+            assert torch.equal(got, want[2 * d : 2 * d + 2].narrow(col_axis, 2 * s, 2))
+            assert torch.equal(g.get_state(), one.get_state())
 
 
 # -- two gloo ranks against one process ------------------------------------
@@ -214,13 +260,15 @@ def test_evaluate_equals_one_process(ranks):
 
 @pytest.mark.parametrize("command", ["train", "inference", "polish"])
 @pytest.mark.parametrize("flags,message", [
-    (["--tp", "2"], "tp=2: tensor and sequence parallelism are not ported yet (queue item A8b"),
-    (["--sp", "2"], "sp=2: tensor and sequence parallelism are not ported yet (queue item A8b"),
+    (["--tp", "2"], "mesh dp=-1: 1 devices not divisible by fixed axes product 2"),
+    (["--sp", "2"], "mesh dp=-1: 1 devices not divisible by fixed axes product 2"),
+    (["--dp", "1", "--tp", "2"], "mesh dp=1: mesh [1, 2, 1] wants 2 devices, have 1"),
     (["--dp", "2"], "mesh dp=2: mesh [2, 1, 1] wants 2 devices, have 1"),
 ])
 def test_mesh_flags_are_usage_errors(tmp_path, capsys, command, flags, message):
-    """In one process, --tp/--sp above 1 (naming A8b) and --dp 2 are
-    usage errors (rc 2) before anything is read; --dp 1 and -1 parse."""
+    """In one process, a grid of more than one process (--tp, --sp or --dp
+    2) is a usage error (rc 2) with ``roko_tpu``'s ``mesh_shape`` wording,
+    before anything is read; --dp 1 and -1 parse."""
     positional = {"train": ["t.hdf5", "ckpt"], "inference": ["i.hdf5", "ckpt", "o.fasta"],
                   "polish": ["d.fasta", "r.bam", "ckpt", "o.fasta"]}[command]
     argv = [command, *[str(tmp_path / a) for a in positional], "--device", "cpu"]

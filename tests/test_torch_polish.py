@@ -122,9 +122,10 @@ def test_polish_staged_fasta_byte_identical_to_reference(project, tmp_path, kind
     (["--cascade"], "--cascade is not ported yet (queue item A10"),
     # --config and --trace-dir are ported: a config file that asks for
     # what the port does not run is refused, naming its queue item
-    # a mesh the run's processes cannot fill, and an axis that is not ported
+    # a mesh the run's processes cannot fill, on any of its axes
     (["--config", "mesh.json"], "mesh dp=4: mesh [4, 1, 1] wants 4 devices, have 1"),
-    (["--config", "mesh_tp.json"], "config mesh.tp = 2: not ported yet (queue item A8b"),
+    (["--config", "mesh_tp.json"], "mesh dp=-1: 1 devices not divisible by fixed axes "
+     "product 2"),
     (["--config", "cascade.json"], "config cascade.enabled = True: not ported yet (queue "
      "item A10"),
     (["--staged", "--resume"], "cannot combine with --staged"),

@@ -309,8 +309,8 @@ def test_every_reference_field_is_ported_refused_or_ignored():
 
 
 @pytest.mark.parametrize("section,value,item", [
-    # the mesh's dp is ported; its tp and sp axes are queue item A8b
-    ("mesh", {"tp": 2}, "A8"), ("cascade", {"enabled": True}, "A10"),
+    # the mesh's dp, tp and sp are ported; the AOT bundle is queue item A9.3
+    ("compile", {"bundle_dir": "b"}, "A9.3"), ("cascade", {"enabled": True}, "A10"),
     ("serve", {"port": 9000}, "A9"), ("store", {"endpoint": "http://h"}, "A10"),
     ("model", {"remat_scan": True}, "A12"),
 ])

@@ -108,6 +108,17 @@ def mode_steps(out_dir: str) -> None:
     torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
 
 
+def unsorted_draft(infer_h5: str):
+    """({name: draft} of ``infer_h5``'s contigs in the order ctgB, ctgA,
+    ctgC, not sorted by name; windows(only)), as ``infer.polish_windows_
+    to_fasta`` reads them."""
+    from roko_tpu_torch.data.hdf5 import iter_inference_windows, load_contigs
+
+    contigs = load_contigs(infer_h5)
+    return ({name: contigs[name] for name in ("ctgB", "ctgA", "ctgC")},
+            lambda only: iter_inference_windows(infer_h5, 16, contig_filter=only))
+
+
 def mode_cli(out_dir: str, *argv: str) -> None:
     """``argv``: train.hdf5 other.hdf5 infer.hdf5 draft.fasta reads.bam,
     then the model flags."""
@@ -136,6 +147,15 @@ def mode_cli(out_dir: str, *argv: str) -> None:
                          "--b", "16", "--dp", "2", "--device", "cpu", *flags])
     rc_polish = cli.main(["polish", draft, bam, ckpt, os.path.join(out_dir, "polish.fasta"),
                           "--b", "16", "--dp", "2", "--device", "cpu", *flags])
+    # a draft whose names are not sorted
+    from roko_tpu_torch.infer import polish_windows_to_fasta
+    from roko_tpu_torch.training.checkpoint import load_params
+
+    model = RokoModel(ModelConfig(hidden_size=16, num_layers=1))
+    model.load_state_dict(load_params(ckpt), strict=True)
+    unsorted_returned = polish_windows_to_fasta(
+        *unsorted_draft(infer_h5), model, os.path.join(out_dir, "unsorted.fasta"),
+        device="cpu", log=lambda s: None)
     refused = {}
     for extra in (["--keep-hdf5", os.path.join(out_dir, "kept.hdf5")], ["--resume"]):
         try:
@@ -151,6 +171,7 @@ def mode_cli(out_dir: str, *argv: str) -> None:
         mismatch = str(e)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump({"rc_train": rc_train, "rc_infer": rc_infer, "rc_polish": rc_polish,
+                   "unsorted_returned": unsorted_returned,
                    "refused": refused, "writes": writes,
                    "world": distributed.world_size(), "mismatch": mismatch}, f)
 
@@ -192,10 +213,12 @@ def mode_resume(out_dir: str) -> None:
                os.path.join(out_dir, f"rank{distributed.rank()}.pt"))
 
 
-def launch(mode: str, out_dir: str, *args: str, ranks: int = 2, timeout: float = 300.0):
-    """Run ``ranks`` processes of ``mode`` on localhost; returns their
-    outputs, and raises with them when a rank fails or outlasts
-    ``timeout`` seconds (a lost rank would otherwise hang its peers)."""
+def launch(mode: str, out_dir: str, *args: str, ranks: int = 2, timeout: float = 300.0,
+           module: str = "tests.torch_dp_worker"):
+    """Run ``ranks`` processes of ``mode`` of the worker ``module`` on
+    localhost; returns their outputs, and raises with them when a rank
+    fails or outlasts ``timeout`` seconds (a lost rank would otherwise hang
+    its peers)."""
     import socket
     import subprocess
 
@@ -206,7 +229,7 @@ def launch(mode: str, out_dir: str, *args: str, ranks: int = 2, timeout: float =
     env = {k: v for k, v in os.environ.items() if not k.startswith("ROKO_")}
     env.update(ROKO_COORDINATOR=f"127.0.0.1:{port}", ROKO_NUM_PROCESSES=str(ranks),
                OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_dp_worker", mode, out_dir,
+    procs = [subprocess.Popen([sys.executable, "-m", module, mode, out_dir,
                                *args], cwd=root, env={**env, "ROKO_PROCESS_ID": str(r)},
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(ranks)]

@@ -11,6 +11,7 @@
     python3 chip_smoke.py --train-plane-only   # the train_plane phase alone
     python3 chip_smoke.py --mesh-only          # the mesh phase alone
     python3 chip_smoke.py --tp-sp-only         # the tp_sp phase alone
+    python3 chip_smoke.py --serve-only         # the serve phase alone
     python3 chip_smoke.py --mesh-child SPEC    # one rank of the mesh or tp_sp phase (they start them)
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
@@ -113,7 +114,27 @@ which launches no kernel, in a phase of its own):
   logits, argmax flips only where one rank's top-two gap is under the max
   |d logits|); (d) windows/s of each layout's step and inference beside
   one rank's; (e) the ring's transport per backend and one rotation's
-  time. Every launch count stays 0 (the transformer runs no kernel).
+  time. Every launch count stays 0 (the transformer runs no kernel);
+- serve: the polishing service, ``kind="gru"`` at full width (random
+  weights from a numpy seed through the weights bridge), the default
+  ladder 32 / 128 / 512: (a) ``python -m roko_tpu_torch serve CKPT --port
+  0 --announce F`` as a subprocess, /healthz polled out of ``warming``,
+  7-, 300- and 700-window requests, each ``polished`` byte-equal to the
+  port's staged stitch of the same windows on the card, and a
+  ``/profilez?seconds=1`` capture taken under requests whose trace must
+  hold ``gru_fwd`` kernels; (b) closed-loop mixed load in this process on
+  one warm session through ``make_server`` and ``PolishClient``: the
+  bench's schedule (``4:90,256:10``, 48 requests, 6 clients) under the
+  deadline, continuous and ragged batchers, every reply byte-equal to the
+  solo-predict stitch, with req/s, p50 and p99 by size class, padding
+  efficiency and ``gru_fwd`` launches by mode; a ``kind="lingru"`` session
+  the same way (continuous, 12 requests, ``lingru_fwd``); (c) the same in
+  bf16 (continuous), each reply byte-equal to the bf16 staged stitch;
+  (d) SIGTERM to the subprocess while a 700-window request's body is half
+  sent: the request completes with 200, a new one gets 503, and the
+  process exits 0 within ``drain_deadline_s``; (e) the warmup seconds and
+  the subprocess's start-to-ready seconds (``--serve-only`` runs this
+  phase alone).
 
 ``--bwd-bf16-only`` also reads ROADMAP fault C2 against the reference's
 own numbers (``tests/torch_golden/c2_bf16_bwd.npz``): the kernel, the
@@ -317,6 +338,19 @@ TP_SP_ROTATIONS = 20
 #: ring attention against dense attention, f32: the reference's bars
 #: (tests/test_ring.py), forward and q/k/v gradients
 RING_FWD_TOL, RING_GRAD_TOL = 2e-5, 3e-5
+# the serve phase: the bench's mixed schedule (``benchmark.SERVE_MIX_DEFAULT_TPU``,
+# its request and client counts), the subprocess's request sizes (7, and
+# two above the 128 and 512 rungs), the drained request's windows, the
+# /profilez window, the lingru session's requests, and the subprocess's
+# start bound
+SERVE_MIX = "4:90,256:10"
+SERVE_REQUESTS = 48
+SERVE_CLIENTS = 6
+SERVE_SIZES = (7, 300, 700)
+SERVE_DRAIN_WINDOWS = 700
+SERVE_PROFILE_S = 1.0
+SERVE_LINGRU_REQUESTS = 12
+SERVE_START_TIMEOUT_S = 300
 BENCH_WIDE_B = 2048
 BENCH_STRESS_SHAPE = dict(B=512, T=90, IN=500, H=256, S=2)
 # ... and the train_gru row's first layer (the resident f32 backward)
@@ -3211,6 +3245,347 @@ def drive_tp_sp(torch, port, dev, counts, card) -> dict:
     }
 
 
+def http_json(base: str, path: str, payload=None, timeout: float = 300.0):
+    """(status, parsed body, headers) of one request to the service,
+    whatever its status."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, method="POST" if data else "GET",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, body, hdrs = resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as e:
+        status, body, hdrs = e.code, e.read(), e.headers
+    try:
+        return status, json.loads(body), hdrs
+    except ValueError:
+        return status, body.decode(errors="replace"), hdrs
+
+
+def serve_counts(counts, what: str, kernel: str, steps: int, exact: bool = True) -> int:
+    """``kernel``'s launches since the last ``counts.zero()``: 3 a device
+    step (one a layer; at least that when one coalesced batch may chunk,
+    ``exact`` False), and no other kernel launched."""
+    got = {name: getattr(w, attr) for name, (w, attr) in counts.wrappers.items()}
+    n = got.pop(kernel)
+    if any(got.values()) or n % 3 or (n != 3 * steps if exact else n < 3 * steps) or not n:
+        fail(f"serve {what}: {kernel} launched {n} times over {steps} steps, others {got}")
+    return n
+
+
+def drive_serve(torch, port, dev, counts, card, rng) -> dict:
+    """The polishing service at full width: (a) the ``serve`` command as a
+    subprocess with a /profilez trace, (b) the three batchers under the
+    bench's closed-loop mix in this process (and a lingru session), (c)
+    bf16, (d) the subprocess drained by SIGTERM mid-request, (e) warmup
+    and start-to-ready seconds. Every reply is checked byte for byte."""
+    import http.client
+    import signal
+    import tempfile
+    import threading
+
+    C, bench = port.C, port.bench
+    cfg = port.ModelConfig()
+    sd = port.state_dict_from_jax(jax_layout_params(rng, cfg))
+    model = port.RokoModel(cfg)
+    model.load_state_dict(sd, strict=True)
+    model.to(dev).eval()
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    pth = os.path.join(work, "model.pth")
+    torch.save(sd, pth)
+    contig = "serve"
+    draft, positions, examples = synthetic_contig(rng, max(SERVE_SIZES), C)
+
+    def payload(n):
+        return {"contig": contig, "draft": draft, "n": n,
+                "positions": base64_le(positions[:n]), "examples": base64_le(examples[:n])}
+
+    def staged(m, n):
+        """The port's staged stitch of the first n windows on the card."""
+        return port.run_inference(iter([([contig] * n, positions[:n], examples[:n])]),
+                                  {contig: draft}, m, device=dev, log=lambda s: None)[contig]
+
+    def solo(session, n):
+        """The stitch of a solo ``session.predict`` of the first n windows."""
+        board = port.VoteBoard({contig: draft})
+        board.add([contig] * n, positions[:n], session.predict(examples[:n]))
+        return board.stitch(contig)
+
+    out: dict = {"model": {"kind": cfg.kind, "num_layers": cfg.num_layers,
+                           "hidden_size": cfg.hidden_size},
+                 "card": card}
+    want_f32 = {n: staged(model, n) for n in SERVE_SIZES}
+
+    # -- (a) the serve command as a subprocess ------------------------------
+    announce = os.path.join(work, "announce.json")
+    log_path = os.path.join(work, "serve.log")
+    logf = open(log_path, "w")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "roko_tpu_torch", "serve", pth, "--port", "0",
+                             "--announce", announce], cwd=ROOT, stdout=logf,
+                            stderr=subprocess.STDOUT)
+
+    def log_tail():
+        logf.flush()
+        with open(log_path) as f:
+            return f.read()[-3000:]
+
+    try:
+        statuses = []
+        while True:
+            if proc.poll() is not None:
+                fail(f"serve exited with {proc.returncode} before it was ready:\n{log_tail()}")
+            if time.perf_counter() - t_start > SERVE_START_TIMEOUT_S:
+                fail(f"serve was not ready within {SERVE_START_TIMEOUT_S} s:\n{log_tail()}")
+            if os.path.exists(announce):
+                with open(announce) as f:
+                    base = f"http://127.0.0.1:{json.load(f)['port']}"
+                status, body, _ = http_json(base, "/healthz")
+                statuses.append(body.get("status"))
+                if status == 200 and body.get("status") == "ok":
+                    break
+                if body.get("status") != "warming":
+                    fail(f"serve /healthz said {status} {body} while starting")
+            time.sleep(0.05)
+        ready_s = time.perf_counter() - t_start
+        client = port.PolishClient(base, timeout=300.0)
+        sub: dict = {"command": "python -m roko_tpu_torch serve CKPT --port 0 --announce F",
+                     "start_to_ready_s": ready_s,
+                     "healthz_while_starting": sorted(set(statuses)), "healthz": body}
+        for n in SERVE_SIZES:
+            t0 = time.perf_counter()
+            reply = client.polish(draft, positions[:n], examples[:n], contig=contig)
+            sub[f"reply_{n}_s"] = time.perf_counter() - t0
+            if reply["polished"] != want_f32[n] or reply["windows"] != n:
+                fail(f"serve (a): the {n}-window reply differs from the staged stitch on the "
+                     "card")
+        # /profilez over requests in flight: its trace must hold gru_fwd
+        prof: dict = {}
+        prof_thread = threading.Thread(target=lambda: prof.update(
+            r=http_json(base, f"/profilez?seconds={SERVE_PROFILE_S}", {})), daemon=True)
+        prof_thread.start()
+        during, k = 0, 0
+        while prof_thread.is_alive():
+            n = SERVE_SIZES[k % len(SERVE_SIZES)]
+            reply = client.polish(draft, positions[:n], examples[:n], contig=contig)
+            if reply["polished"] != want_f32[n]:
+                fail(f"serve (a): a {n}-window reply under /profilez differs from the staged "
+                     "stitch")
+            during, k = during + 1, k + 1
+        prof_thread.join()
+        status, body, _ = prof["r"]
+        if status != 200:
+            fail(f"serve /profilez: {status} {body}")
+        traced = trace_kernels(body["trace_file"])
+        if traced.get("gru_fwd", {}).get("events", 0) == 0:
+            fail(f"serve /profilez trace {body['trace_file']} holds no gru_fwd kernel: {traced}")
+        shutil.rmtree(body["trace_dir"], ignore_errors=True)
+        sub["profilez"] = {"seconds": body["seconds"], "requests_during": during,
+                           "port_kernels": traced}
+        metrics = port.parse_metric_values(client.metrics(), (
+            "roko_serve_requests_total", "roko_serve_batches_total",
+            "roko_serve_warmup_seconds", "roko_serve_padding_efficiency",
+            "roko_serve_errors_total"))
+        sub["metrics"] = metrics
+        sub["replies_byte_equal_to_staged_stitch"] = True
+
+        # -- (d) SIGTERM while a 700-window request's body is half sent ----
+        body_bytes = json.dumps(payload(SERVE_DRAIN_WINDOWS)).encode()
+        host, port_no = base.split("//")[1].split(":")
+        conn = http.client.HTTPConnection(host, int(port_no), timeout=300)
+        conn.putrequest("POST", "/polish")
+        conn.putheader("Content-Type", "application/json")
+        conn.putheader("Content-Length", str(len(body_bytes)))
+        conn.endheaders()
+        half = len(body_bytes) // 2
+        conn.send(body_bytes[:half])
+        time.sleep(0.5)  # the handler has passed its draining check and reads the body
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        while True:
+            status, health, _ = http_json(base, "/healthz")
+            if health.get("status") == "draining":
+                break
+            if time.perf_counter() - t_term > 10:
+                fail(f"serve did not start draining after SIGTERM: {health}")
+            time.sleep(0.01)
+        late_status, late, late_hdrs = http_json(base, "/polish", payload(7))
+        if late_status != 503 or late.get("error") != "server draining" or \
+                "Retry-After" not in late_hdrs:
+            fail(f"serve (d): a request during the drain got {late_status} {late}")
+        conn.send(body_bytes[half:])
+        resp = conn.getresponse()
+        drained = json.loads(resp.read())
+        conn.close()
+        if resp.status != 200 or drained.get("polished") != want_f32[SERVE_DRAIN_WINDOWS]:
+            fail(f"serve (d): the request in flight at SIGTERM got {resp.status}, not the staged "
+                 "stitch")
+        deadline_s = port.RokoConfig().resilience.drain_deadline_s
+        try:
+            rc = proc.wait(timeout=deadline_s + 10)
+        except subprocess.TimeoutExpired:
+            fail(f"serve did not exit within {deadline_s + 10} s of SIGTERM:\n{log_tail()}")
+        exit_s = time.perf_counter() - t_term
+        if rc != 0 or exit_s > deadline_s:
+            fail(f"serve exited {rc} {exit_s:.1f} s after SIGTERM:\n{log_tail()}")
+        logf.flush()
+        with open(log_path) as f:
+            log = f.read()
+        if "drained clean" not in log:
+            fail(f"serve's log does not say it drained clean:\n{log[-3000:]}")
+        out["subprocess"] = sub
+        out["drain"] = {"in_flight_request": 200, "request_during_drain": late_status,
+                        "retry_after": late_hdrs.get("Retry-After"), "exit_code": rc,
+                        "sigterm_to_exit_s": exit_s, "drain_deadline_s": deadline_s,
+                        "log": [ln for ln in log.splitlines() if "roko serve" in ln
+                                or ln.startswith("serve:") or ln.startswith("warmup:")]}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+
+    # -- (b) the three batchers under the bench's mixed load, in process ---
+    mix = bench._parse_mix(SERVE_MIX)
+    schedule = bench._mix_schedule(mix, SERVE_REQUESTS)
+    sizes = sorted({n for n, _ in mix})
+
+    def closed_loop(session, mode, want, kernel, n_requests=None):
+        srv = port.make_server(session, port.ServeConfig(batching=mode,
+                                                         max_queue=SERVE_CLIENTS * 2), port=0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        cl = port.PolishClient(base, timeout=300.0)
+        try:
+            for n in sizes:  # untimed calibration: one request a size
+                if cl.polish(draft, positions[:n], examples[:n], contig=contig)["polished"] \
+                        != want[n]:
+                    fail(f"serve {mode} {kernel}: a calibration reply differs")
+            cal_w, cal_p = srv.metrics.fill_totals()
+            steps0 = srv.metrics.counters["batches"]
+            work_list = list(schedule if n_requests is None else schedule[:n_requests])
+            lat = {n: [] for n in sizes}
+            spans = {n: [] for n in sizes}  # the server's own timings of each reply
+            bad, errors = [], []
+            lock = threading.Lock()
+
+            def one_client():
+                while True:
+                    with lock:
+                        if not work_list:
+                            return
+                        n = work_list.pop()
+                    t0 = time.perf_counter()
+                    try:
+                        r = cl.polish(draft, positions[:n], examples[:n], contig=contig)
+                    except Exception as e:
+                        with lock:
+                            errors.append(f"{type(e).__name__}: {e}"[:200])
+                        continue
+                    dt = time.perf_counter() - t0
+                    with lock:
+                        lat[n].append(dt)
+                        spans[n].append({"server_total": r["timings"]["total_s"],
+                                         **r["timings"]["spans"]})
+                        if r["polished"] != want[n]:
+                            bad.append(n)
+
+            n_sched = len(work_list)
+            counts.zero()
+            threads = [threading.Thread(target=one_client, daemon=True)
+                       for _ in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+            steps = srv.metrics.counters["batches"] - steps0
+            launches = serve_counts(counts, mode, kernel, steps, exact=mode != "deadline")
+            if bad or errors:
+                fail(f"serve {mode} {kernel}: {len(bad)} replies differ from the solo stitch "
+                     f"(sizes {sorted(set(bad))}), {len(errors)} errors {errors[:3]}")
+            fill_w, fill_p = srv.metrics.fill_totals()
+            row = bench._mixed_latency_row(wall, n_sched, lat)
+            # where a request's time goes: its client latency against the
+            # server's span sums (the rest is the client's encoding, HTTP
+            # and the reply's JSON), medians by size class
+            row["server_spans_p50_s"] = {
+                str(n): {k: float(np.median([d.get(k, 0.0) for d in v]))
+                         for k in ("server_total", "queue_wait", "pack", "device", "scatter",
+                                   "stitch")}
+                for n, v in spans.items() if v}
+            row.update({"padding_efficiency": (fill_w - cal_w) / (fill_p - cal_p),
+                        "byte_identical": True, "client_errors": 0, "steps": steps,
+                        f"{kernel}_launches": launches,
+                        "dispatched_shapes": sorted(session.dispatched_shapes)})
+            return row
+        finally:
+            srv.shutdown()
+            srv.batcher.stop()
+            srv.server_close()
+            thread.join(10.0)
+
+    session = port.PolishSession(model, port.RokoConfig(model=cfg), device=dev)
+    session.warmup()
+    warm = session.warmup_report.as_dict()
+    want = {n: solo(session, n) for n in sizes}
+    modes = {mode: closed_loop(session, mode, want, "gru_fwd")
+             for mode in ("deadline", "continuous", "ragged")}
+    small = str(min(sizes))
+    out["load"] = {"mix": SERVE_MIX, "requests": len(schedule), "clients": SERVE_CLIENTS,
+                   "ladder": list(session.ladder), "modes": modes,
+                   "small_p99_deadline_over_continuous":
+                       modes["deadline"]["size_classes"][small]["p99_s"]
+                       / modes["continuous"]["size_classes"][small]["p99_s"],
+                   "replies_byte_equal_to_solo_predict_stitch": True}
+    lin_cfg = port.ModelConfig(kind="lingru")
+    lin = port.RokoModel(lin_cfg)
+    lin.load_state_dict(port.state_dict_from_jax(jax_layout_params(rng, lin_cfg)), strict=True)
+    lin_session = port.PolishSession(lin, port.RokoConfig(model=lin_cfg), device=dev)
+    lin_session.warmup()
+    out["lingru"] = closed_loop(lin_session, "continuous",
+                                {n: solo(lin_session, n) for n in sizes}, "lingru_fwd",
+                                SERVE_LINGRU_REQUESTS)
+
+    # -- (c) bf16, continuous, against the bf16 staged stitch ---------------
+    bf_cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    bf = port.RokoModel(bf_cfg)
+    bf.load_state_dict(sd, strict=True)
+    bf.to(dev).eval()
+    bf_session = port.PolishSession(bf, port.RokoConfig(model=bf_cfg), device=dev)
+    bf_session.warmup()
+    bf_want = {n: staged(bf, n) for n in sizes}
+    out["bf16"] = closed_loop(bf_session, "continuous", bf_want, "gru_fwd_bf16")
+    out["bf16"]["replies_byte_equal_to_bf16_staged_stitch"] = True
+    out["bf16"]["differs_from_f32_stitch"] = {n: bf_want[n] != want[n] for n in sizes}
+
+    # -- (e) warmup ---------------------------------------------------------
+    out["warmup"] = {"in_process_f32": warm, "in_process_bf16": bf_session.warmup_report.as_dict(),
+                     "subprocess_warmup_seconds": float(out["subprocess"]["metrics"][
+                         "roko_serve_warmup_seconds"]),
+                     "subprocess_start_to_ready_s": out["subprocess"]["start_to_ready_s"]}
+    out["launches"] = {
+        "gru_fwd": sum(r["gru_fwd_launches"] for r in modes.values()),
+        "gru_fwd_bf16": out["bf16"]["gru_fwd_bf16_launches"],
+        "lingru_fwd": out["lingru"]["lingru_fwd_launches"],
+    }
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def base64_le(a: np.ndarray) -> str:
+    """An array as the service's wire format: base64 of its raw
+    little-endian bytes."""
+    import base64
+
+    return base64.b64encode(np.ascontiguousarray(a, a.dtype.newbyteorder("<")).tobytes()).decode()
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -3350,11 +3725,12 @@ def main() -> None:
     plane_only = sys.argv[1:] == ["--train-plane-only"]
     mesh_only = sys.argv[1:] == ["--mesh-only"]
     tp_sp_only = sys.argv[1:] == ["--tp-sp-only"]
-    if sys.argv[1:] and not (plane_only or mesh_only or tp_sp_only):
+    serve_only = sys.argv[1:] == ["--serve-only"]
+    if sys.argv[1:] and not (plane_only or mesh_only or tp_sp_only or serve_only):
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
              "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --bwd-bf16-only ROOT "
              "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only | --mesh-only "
-             "| --tp-sp-only]")
+             "| --tp-sp-only | --serve-only]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import benchmark as bench
@@ -3365,6 +3741,7 @@ def main() -> None:
             GuardConfig,
             ModelConfig,
             RokoConfig,
+            ServeConfig,
             TrainConfig,
             resolve_ladder,
         )
@@ -3393,7 +3770,9 @@ def main() -> None:
         from roko_tpu_torch.native import build as native_build
         from roko_tpu_torch.parallel.tp import split_axis
         from roko_tpu_torch.pipeline import run_streaming_polish
-        from roko_tpu_torch.serve.metrics import ServeMetrics
+        from roko_tpu_torch.serve.client import PolishClient
+        from roko_tpu_torch.serve.metrics import ServeMetrics, parse_metric_values
+        from roko_tpu_torch.serve.server import make_server
         from roko_tpu_torch.serve.session import PolishSession
         from roko_tpu_torch.sim import build_synthetic_project
         from roko_tpu_torch.training import loop
@@ -3419,7 +3798,8 @@ def main() -> None:
         DataConfig=DataConfig, iter_span_batches=iter_span_batches, epoch_rng=epoch_rng,
         ModelConfig=ModelConfig, state_dict_from_jax=state_dict_from_jax,
         polish_windows_to_fasta=polish_windows_to_fasta, attention=attention,
-        split_axis=split_axis,
+        split_axis=split_axis, make_server=make_server, PolishClient=PolishClient,
+        ServeConfig=ServeConfig, parse_metric_values=parse_metric_values,
     )
     counts = Counts(fg, fl)
 
@@ -3433,8 +3813,14 @@ def main() -> None:
 
     # -- build -------------------------------------------------------------
     t0 = time.perf_counter()
-    built = kernels.build(["gru_fwd", "gru_bwd"] if plane_only or mesh_only else None)
+    built = kernels.build(["gru_fwd", "gru_bwd"] if plane_only or mesh_only
+                          else ["gru_fwd", "gru_fwd_bf16", "lingru_fwd"] if serve_only
+                          else None)
     emit({"build": {"seconds": time.perf_counter() - t0, "kernels": built}})
+    if serve_only:  # the serve phase alone
+        emit({"serve": drive_serve(torch, port, dev, counts, card,
+                                   np.random.default_rng(SEED + 22))})
+        return
     if mesh_only:  # the mesh phase alone, the bench's mesh suite called directly
         t0 = time.perf_counter()
         bench_mesh = bench.run_mesh_suite(bench.parse_counts(MESH_DEVICES),
@@ -3629,6 +4015,10 @@ def main() -> None:
     # -- tensor and sequence parallelism of the transformer (ranks share the card)
     tp_sp = drive_tp_sp(torch, port, dev, counts, card)
     emit({"tp_sp": tp_sp})
+    # -- the polishing service: subprocess, three batchers, bf16, drain ----
+    serve = drive_serve(torch, port, dev, counts, card, np.random.default_rng(SEED + 22))
+    emit({"serve": serve})
+    serve_launches = {name: serve["launches"].get(name, 0) for name in counts.wrappers}
     mesh_fwd = (mesh["nccl_world_1"]["launches"]["gru_fwd"]
                 + sum(r["step"]["gru_fwd"] + r["train"]["gru_fwd"] + r["infer"]["gru_fwd"]
                       for r in mesh["gloo_2_ranks"]["launches_by_rank"])
@@ -3653,7 +4043,7 @@ def main() -> None:
         # the transformer's paths launch no kernel (drive_transformer and
         # drive_tp_sp check it)
         by_path = {**by_path, "transformer": transformer["kernel_launches"],
-                   "tp_sp": tp_sp["kernel_launches"]}
+                   "tp_sp": tp_sp["kernel_launches"], "serve": serve_launches[name]}
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "replaces_also": replaces_also,

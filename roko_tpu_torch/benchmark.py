@@ -3,9 +3,11 @@
 Counterpart of ``roko_tpu/benchmark.py`` for the suites that run on the
 port's modules: the inference batch sweep (:383), the per-kind rows, the
 recurrence alone (:178), the precision column (:215), with
-``--train`` the train suite (:575), and with ``--mesh-devices`` the mesh
+``--train`` the train suite (:575), with ``--mesh-devices`` the mesh
 suite (:2163, the same global batch split over 1, 2 and 4 processes,
-``parallel/``). Driver contract, as the reference's:
+``parallel/``), and with ``--serve-mix`` the serve suite (:2402, the
+deadline, continuous and ragged batchers under one mixed-size closed-loop
+schedule, ``serve/``). Driver contract, as the reference's:
 ONE JSON line ``{"metric", "value", "unit", "vs_baseline", "detail"}``,
 ``value`` the polished bases per second of the card (windows/s x
 WINDOW_STRIDE = 30) and ``vs_baseline`` the windows/s over those of the
@@ -79,8 +81,7 @@ UNPORTED_SUITES = {
     "cascade": ("A10", "the cascade is not ported"),
     "coldstart": ("A9.3", "it needs the AOT bundle"),
     "input": ("A11b", "it writes an HDF5 corpus, and the card machine has no h5py"),
-    "fleet": ("A9", "the serve stack is not ported"),
-    "serve": ("A9", "the serve stack is not ported"),
+    "fleet": ("A9.5", "the fleet (supervisor and workers) is not ported"),
 }
 
 #: rows of the reference's train suite with no counterpart in the port
@@ -109,7 +110,7 @@ UNPORTED_FLAGS = {
     "cascade_draft": ("--cascade-draft", "A10"),
     "coldstart_ladder": ("--coldstart-ladder", "A9.3"),
     "input_rows": ("--input-rows", "A11b"),
-    "fleet_workers": ("--fleet-workers", "A9"),
+    "fleet_workers": ("--fleet-workers", "A9.5"),
     "in_process": ("--in-process", None),
 }
 
@@ -755,11 +756,339 @@ def run_mesh_suite(
     return results
 
 
+#: mixed-size serve suite (``roko_tpu/benchmark.py:2330-2339``): windows a
+#: request : percent of requests, the card's mix and the CPU's (a
+#: 256-window request would bury the scheduling signal in raw compute on
+#: the host), total requests a batching mode (--bench-iterations
+#: overrides) and closed-loop clients
+SERVE_MIX_DEFAULT_TPU = "4:90,256:10"
+SERVE_MIX_DEFAULT_CPU = "4:90,64:10"
+SERVE_SUITE_REQUESTS = 48
+SERVE_SUITE_CLIENTS = 6
+
+#: rows of the reference's serve suite with no counterpart in the port
+UNPORTED_SERVE_ROWS = {
+    "autoscale": "not ported yet (ROADMAP queue item A9.5): it drives the fleet "
+                 "supervisor's Autoscaler",
+}
+
+
+def _parse_mix(spec: str):
+    """``"4:90,256:10"`` -> ``((4, 90.0), (256, 10.0))``; the percents
+    must sum to about 100."""
+    out = []
+    try:
+        for part in spec.split(","):
+            size, pct = part.split(":")
+            out.append((int(size), float(pct)))
+    except ValueError:
+        raise ValueError(f"bad --serve-mix {spec!r}; want SIZE:PCT[,SIZE:PCT...] like "
+                         "4:90,256:10") from None
+    if not out or any(s <= 0 or p < 0 for s, p in out):
+        raise ValueError(f"bad --serve-mix {spec!r}: sizes must be positive")
+    total = sum(p for _, p in out)
+    if not 99.0 <= total <= 101.0:
+        raise ValueError(f"--serve-mix percents sum to {total:g}, want ~100")
+    return tuple(out)
+
+
+def _mix_schedule(mix, total_requests: int, seed: int = 0):
+    """The request-size schedule: counts rounded from the percents (each
+    named class at least once), shuffled with a fixed seed, so every
+    batching mode replays the same work."""
+    sizes = []
+    for size, pct in mix:
+        count = max(1, round(total_requests * pct / 100.0)) if pct else 0
+        sizes += [size] * count
+    np.random.default_rng(seed).shuffle(sizes)
+    return sizes
+
+
+def _mixed_latency_row(wall: float, n_scheduled: int, lat: Dict[int, list]) -> Dict[str, Any]:
+    """One mixed-size row: ``req_per_s`` counts the COMPLETED requests,
+    with p50 and p99 by size class."""
+    completed = sum(len(v) for v in lat.values())
+    row: Dict[str, Any] = {
+        "wall_s": round(wall, 3),
+        "requests_scheduled": n_scheduled,
+        "req_per_s": round(completed / wall, 2) if wall else 0.0,
+        "size_classes": {},
+    }
+    for size, samples in sorted(lat.items()):
+        if samples:
+            row["size_classes"][str(size)] = {
+                "requests": len(samples),
+                "p50_s": round(float(np.percentile(samples, 50)), 4),
+                "p99_s": round(float(np.percentile(samples, 99)), 4),
+            }
+    return row
+
+
+def run_serve_suite(
+    mix_spec: str,
+    iterations: int = SERVE_SUITE_REQUESTS,
+    clients: int = SERVE_SUITE_CLIENTS,
+    device="cuda",
+    model_overrides: Optional[Dict] = None,
+) -> Dict[str, Any]:
+    """The serve suite (``roko_tpu/benchmark.py:2402-2806``): the same
+    seeded mixed-size schedule driven closed loop by ``clients`` threads
+    against one warm :class:`PolishSession` under the deadline, continuous
+    and ragged batchers, each row with req/s, p50 and p99 by size class,
+    ``padding_efficiency`` (real windows over the rows or slots
+    dispatched), ``byte_identical`` (every reply equal to a solo
+    ``session.predict``) and ``client_errors``; then
+    ``small_p99_improvement`` (deadline p99 over continuous p99 of the
+    smallest class), the ``ragged`` headline, the ``precision`` A/B
+    (int8 weights in the continuous mode, each variant against its own
+    solo predicts) and ``tenant_mix`` (a weighted interactive tenant
+    beside a bulk flood, fair share on and off). ``autoscale`` is an
+    error row (:data:`UNPORTED_SERVE_ROWS`)."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from roko_tpu_torch import constants as C
+    from roko_tpu_torch.config import ModelConfig, RokoConfig, ServeConfig, TenantConfig
+    from roko_tpu_torch.infer import resolve_device
+    from roko_tpu_torch.models.model import RokoModel
+    from roko_tpu_torch.serve.batcher import MicroBatcher
+    from roko_tpu_torch.serve.metrics import ServeMetrics
+    from roko_tpu_torch.serve.scheduler import ContinuousBatcher, RaggedBatcher
+    from roko_tpu_torch.serve.session import PolishSession
+
+    dev = resolve_device(device)
+    mix = _parse_mix(mix_spec)
+    large = max(size for size, _ in mix)
+    # the flagship ladder's shape at suite scale: a bottom rung, a middle
+    # one and a top rung sized to the large class, the same for every mode
+    ladder = tuple(sorted({min(8, large), min(32, large), large}))
+    cfg = RokoConfig(model=ModelConfig(**(model_overrides or {})),
+                     serve=ServeConfig(ladder=ladder))
+    model = RokoModel(cfg.model, generator=torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    session = PolishSession(model, cfg, device=dev)
+    session.warmup()
+
+    rng = np.random.default_rng(0)
+    rows, cols = cfg.model.window_rows, cfg.model.window_cols
+    payloads = {size: rng.integers(0, C.FEATURE_VOCAB, (size, rows, cols)).astype(np.uint8)
+                for size, _ in mix}
+    expected = {size: session.predict(x) for size, x in payloads.items()}
+    schedule = _mix_schedule(mix, iterations)
+
+    def drive(mode: str, session=session, expected=expected) -> Dict[str, Any]:
+        metrics = ServeMetrics()
+        metrics.size_classes = ladder
+        if mode in ("continuous", "ragged"):
+            cls = RaggedBatcher if mode == "ragged" else ContinuousBatcher
+            batcher = cls(session, metrics=metrics, max_queue=clients * 2)
+        else:
+            batcher = MicroBatcher(session, metrics=metrics, max_queue=clients * 2)
+        lat: Dict[int, list] = {size: [] for size, _ in mix}
+        mismatches: list = []
+        errors: list = []
+        lock = threading.Lock()
+        work = list(schedule)
+
+        def one_client():
+            while True:
+                with lock:
+                    if not work:
+                        return
+                    size = work.pop()
+                t0 = time.perf_counter()
+                try:
+                    preds = batcher.predict(payloads[size], timeout=600.0)
+                except Exception as e:
+                    # counted, so byte_identical cannot pass vacuously
+                    with lock:
+                        errors.append(_error(e)[:200])
+                    continue
+                dt = time.perf_counter() - t0
+                ok = np.array_equal(preds, expected[size])
+                with lock:
+                    lat[size].append(dt)
+                    if not ok:
+                        mismatches.append(size)
+
+        try:
+            # untimed calibration: one request a class warms the
+            # throughput EMA; its heavily padded steps are left out of
+            # padding_efficiency
+            for size in payloads:
+                batcher.predict(payloads[size], timeout=600.0)
+            cal_windows, cal_padded = metrics.fill_totals()
+            threads = [threading.Thread(target=one_client, daemon=True)
+                       for _ in range(clients)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+        finally:
+            batcher.stop()
+        fill_windows, fill_padded = metrics.fill_totals()
+        padded = fill_padded - cal_padded
+        row = _mixed_latency_row(wall, len(schedule), lat)
+        row["padding_efficiency"] = (
+            round((fill_windows - cal_windows) / padded, 4) if padded else 0.0)
+        row["byte_identical"] = not mismatches and not errors
+        row["client_errors"] = len(errors)
+        if errors:
+            row["errors"] = errors[:5]
+        return row
+
+    results: Dict[str, Any] = {
+        "mix": mix_spec, "iterations": len(schedule), "clients": clients,
+        "ladder": list(ladder), "modes": {},
+    }
+    for mode in ("deadline", "continuous", "ragged"):
+        results["modes"][mode] = drive(mode)
+    small = str(min(size for size, _ in mix))
+    try:
+        d = results["modes"]["deadline"]["size_classes"][small]["p99_s"]
+        c = results["modes"]["continuous"]["size_classes"][small]["p99_s"]
+        if c > 0:
+            results["small_p99_improvement"] = round(d / c, 3)
+    except KeyError:
+        pass
+    rg = results["modes"].get("ragged") or {}
+    co = results["modes"].get("continuous") or {}
+    ragged_row: Dict[str, Any] = {
+        "padding_efficiency": rg.get("padding_efficiency"),
+        "continuous_padding_efficiency": co.get("padding_efficiency"),
+        "req_per_s": rg.get("req_per_s"),
+        "continuous_req_per_s": co.get("req_per_s"),
+        "byte_identical": rg.get("byte_identical"),
+    }
+    if rg.get("req_per_s") and co.get("req_per_s"):
+        ragged_row["req_per_s_vs_continuous"] = round(rg["req_per_s"] / co["req_per_s"], 3)
+    results["ragged"] = ragged_row
+
+    # the precision A/B: the same schedule, continuous mode, sessions that
+    # differ only in precision, each reply against its own solo predicts
+    resolved = session.model.cfg
+    base_tag = resolved.compute_dtype + (f"+{resolved.quantize}" if resolved.quantize else "")
+    variants: Dict[str, Tuple[str, Optional[str]]] = {}
+    if resolved.quantize != "int8" and resolved.kind != "transformer":
+        variants["float32+int8"] = ("float32", "int8")
+    if resolved.compute_dtype != "float32" or resolved.quantize:
+        variants["float32"] = ("float32", None)
+    prec: Dict[str, Any] = {"baseline": base_tag,
+                            "modes": {base_tag: results["modes"]["continuous"]}}
+    results["precision"] = prec
+    for tag, (vdtype, vquant) in variants.items():
+        try:
+            vcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, compute_dtype=vdtype, quantize=vquant))
+            vmodel = RokoModel(vcfg.model)
+            vmodel.load_state_dict(state, strict=True)
+            vsession = PolishSession(vmodel, vcfg, device=dev)
+            vsession.warmup()
+            vexpected = {size: vsession.predict(x) for size, x in payloads.items()}
+            prec["modes"][tag] = drive("continuous", session=vsession, expected=vexpected)
+        except Exception as e:  # report, never swallow
+            prec["modes"][tag] = {"error": _error(e)}
+    base_rps = prec["modes"][base_tag].get("req_per_s")
+    int8_tag = base_tag if resolved.quantize == "int8" else "float32+int8"
+    int8_rps = (prec["modes"].get(int8_tag) or {}).get("req_per_s")
+    f32_rps = ((prec["modes"].get("float32") or {}).get("req_per_s")
+               or (base_rps if base_tag == "float32" else None))
+    if int8_rps and f32_rps:
+        prec["int8_req_per_s_vs_f32"] = round(int8_rps / f32_rps, 3)
+
+    # the tenant mix: an interactive tenant (small requests, weight 4)
+    # beside a bulk flood (large requests), fair share on against every
+    # request in the default tenant, on the same fixed work
+    small_sz = min(size for size, _ in mix)
+    n_inter = max(6, len(schedule) // 2)
+    n_bulk = max(3, len(schedule) // 3)
+
+    def drive_tenants(fair: bool) -> Dict[str, Any]:
+        metrics = ServeMetrics()
+        metrics.size_classes = ladder
+        tenants = ((TenantConfig("interactive", weight=4.0), TenantConfig("bulk", weight=1.0))
+                   if fair else ())
+        batcher = ContinuousBatcher(session, metrics=metrics, max_queue=clients * 4,
+                                    tenants=tenants)
+        work = {"interactive": [small_sz] * n_inter, "bulk": [large] * n_bulk}
+        lat: Dict[str, list] = {"interactive": [], "bulk": []}
+        errors: list = []
+        lock = threading.Lock()
+
+        def one_client(tname: str):
+            while True:
+                with lock:
+                    if not work[tname]:
+                        return
+                    size = work[tname].pop()
+                t0 = time.perf_counter()
+                try:
+                    preds = batcher.submit(payloads[size],
+                                           tenant=tname if fair else None).result(600.0)
+                except Exception as e:
+                    with lock:
+                        errors.append(_error(e)[:200])
+                    continue
+                dt = time.perf_counter() - t0
+                ok = np.array_equal(preds, expected[size])
+                with lock:
+                    lat[tname].append(dt)
+                    if not ok:
+                        errors.append(f"mismatch:{tname}")
+
+        try:
+            for size in payloads:  # untimed EMA calibration
+                batcher.submit(payloads[size]).result(600.0)
+            threads = [threading.Thread(target=one_client, args=(t,), daemon=True)
+                       for t in ("interactive", "interactive", "bulk", "bulk", "bulk")]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+        finally:
+            batcher.stop()
+        row: Dict[str, Any] = {"fair_share": fair, "wall_s": round(wall, 3),
+                               "client_errors": len(errors), "tenants": {}}
+        for tname, samples in sorted(lat.items()):
+            if samples:
+                row["tenants"][tname] = {
+                    "requests": len(samples),
+                    "req_per_s": round(len(samples) / wall, 2),
+                    "p50_s": round(float(np.percentile(samples, 50)), 4),
+                    "p99_s": round(float(np.percentile(samples, 99)), 4),
+                }
+        return row
+
+    tmix: Dict[str, Any] = {"fair": drive_tenants(True), "unfair": drive_tenants(False)}
+    try:
+        off = tmix["unfair"]["tenants"]["interactive"]["p99_s"]
+        on = tmix["fair"]["tenants"]["interactive"]["p99_s"]
+        if on > 0:
+            tmix["interactive_p99_improvement"] = round(off / on, 3)
+        off_b = tmix["unfair"]["tenants"]["bulk"]["req_per_s"]
+        on_b = tmix["fair"]["tenants"]["bulk"]["req_per_s"]
+        if off_b > 0:
+            tmix["bulk_req_per_s_retained"] = round(on_b / off_b, 3)
+    except KeyError:
+        pass
+    results["tenant_mix"] = tmix
+    for key, why in UNPORTED_SERVE_ROWS.items():
+        results[key] = {"error": why}
+    return results
+
+
 def ported_errors(result: Dict[str, Any]) -> List[str]:
     """The errors in rows of the ported suites of a bench result, as
     ``"path.to.row: error"``: every ``error`` or ``*_error`` entry of
     ``detail`` outside :data:`UNPORTED_SUITES`, the train suite's
-    :data:`UNPORTED_TRAIN_ROWS` and the ``--compare`` block."""
+    :data:`UNPORTED_TRAIN_ROWS`, the serve suite's
+    :data:`UNPORTED_SERVE_ROWS` and the ``--compare`` block."""
     found: List[str] = []
 
     def walk(node: Any, path: str) -> None:
@@ -776,8 +1105,9 @@ def ported_errors(result: Dict[str, Any]) -> List[str]:
     for key, value in detail.items():
         if key in UNPORTED_SUITES or key == "vs_previous":
             continue
-        if key == "train" and isinstance(value, dict):
-            walk({k: v for k, v in value.items() if k not in UNPORTED_TRAIN_ROWS}, key)
+        if key in ("train", "serve") and isinstance(value, dict):
+            skip = UNPORTED_TRAIN_ROWS if key == "train" else UNPORTED_SERVE_ROWS
+            walk({k: v for k, v in value.items() if k not in skip}, key)
         else:
             walk({key: value}, "")
     return found
@@ -827,6 +1157,17 @@ def _measure(args, model_overrides: Optional[Dict] = None) -> Dict[str, Any]:
                                             device=dev.type, model_overrides=model_overrides)
         except Exception as e:  # report, never swallow
             detail["mesh"] = {"error": _error(e)}
+    serve_mix = getattr(args, "serve_mix", None)
+    if serve_mix == "default":
+        serve_mix = SERVE_MIX_DEFAULT_TPU if dev.type == "cuda" else SERVE_MIX_DEFAULT_CPU
+    if serve_mix and serve_mix not in ("0", "off"):
+        _stamp(f"serve suite (mixed sizes {serve_mix}, three batching modes)")
+        try:
+            detail["serve"] = run_serve_suite(
+                serve_mix, iterations=bench_iters or SERVE_SUITE_REQUESTS, device=dev,
+                model_overrides=model_overrides)
+        except Exception as e:  # report, never swallow
+            detail["serve"] = {"error": _error(e)}
     for key, (item, why) in UNPORTED_SUITES.items():
         detail[key] = {"error": f"not ported yet (ROADMAP queue item {item}): {why}"}
     _stamp("torch reference")
@@ -975,6 +1316,14 @@ def add_mesh_flag(p: argparse.ArgumentParser) -> None:
                    "byte-identity of the class ids across counts); 0 or absent: off")
 
 
+def add_serve_mix_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--serve-mix", nargs="?", const="default", default=None,
+                   metavar="SIZE:PCT,...",
+                   help="serve suite: windows a request and its percent of the requests, e.g. "
+                   f"2:50,8:50; bare: {SERVE_MIX_DEFAULT_TPU} on a card, "
+                   f"{SERVE_MIX_DEFAULT_CPU} on the CPU; 0, off or absent: off")
+
+
 def add_unported_flags(p: argparse.ArgumentParser) -> None:
     """The reference's flags of unported suites, so that they parse and
     :func:`unported_flag` can name their queue item."""
@@ -982,7 +1331,7 @@ def add_unported_flags(p: argparse.ArgumentParser) -> None:
     for flag, kind, item in (("--e2e-draft", int, "A11b"), ("--pipeline-draft", int, "A11b"),
                              ("--cascade-draft", int, "A10"),
                              ("--coldstart-ladder", str, "A9.3"), ("--input-rows", int, "A11b"),
-                             ("--fleet-workers", str, "A9")):
+                             ("--fleet-workers", str, "A9.5")):
         p.add_argument(flag, type=kind, default=None, help=f"not ported yet (queue item {item})")
     p.add_argument("--in-process", action="store_true",
                    help="deliberately not ported: bench always measures in process")
@@ -1009,6 +1358,7 @@ def main(argv: Optional[List[str]] = None, model_overrides: Optional[Dict] = Non
                     help="where the model runs (default cuda; no card is an error)")
     add_mesh_flag(ap)
     add_unported_flags(ap)
+    add_serve_mix_flag(ap)
     args = ap.parse_args(argv)
     msg = unported_flag(args)
     if msg:

@@ -1,6 +1,6 @@
 """Command line of the port: ``python -m roko_tpu_torch sim``,
-``features``, ``train``, ``inference``, ``polish``, ``assess``, ``inspect``
-and ``bench``.
+``features``, ``train``, ``inference``, ``polish``, ``assess``, ``inspect``,
+``bench`` and ``serve``.
 
 Mirrors ``roko-tpu sim``, ``features``, ``train``, ``inference``,
 ``polish``, ``assess``, ``inspect`` and ``bench`` (``roko_tpu/cli.py:461-574``,
@@ -40,9 +40,18 @@ split the batch or the contigs, and the ranks of a group run them
 together. A grid that does not cover the processes, and a transformer
 whose heads (tp) or 90 columns (sp) the grid does not divide, are usage
 errors.
-Writing and reading the HDF5 needs ``h5py``. Not ported yet, each a
-usage error that names its queue item: ``--distributed`` and
-``--cascade`` (A10), and remote paths (A10).
+``serve MODEL`` is the single-process polishing service
+(``roko_tpu/cli.py:966-1108``, flags :1644-1819): it loads the model
+once, binds the socket, warms the batch ladder on a thread while
+``/healthz`` says ``warming``, prints its ready line and answers ``POST
+/polish`` through the ``--batching`` policy (``serve/server.py``);
+``--announce FILE`` writes the bound port. ``train`` and ``serve`` take
+``--event-log``. Writing and reading the HDF5 needs ``h5py``. Not ported
+yet, each a usage error that names its queue item: ``--distributed`` and
+``--cascade`` (A10), remote paths (A10), and of ``serve`` the fleet,
+federation and rollout flags (A9.5), ``--bundle`` and the compile cache
+(A9.3), ``--cascade`` and the store flags (A10), and a mesh over several
+ranks (A9.1).
 """
 
 from __future__ import annotations
@@ -92,7 +101,8 @@ def _build_config(args: argparse.Namespace) -> RokoConfig:
     mesh = over(base.mesh, dp="dp", tp="tp", sp="sp")
     guard = over(base.guard, spike_sigma="spike_sigma", max_bad_steps="max_bad_steps",
                  max_rollbacks="max_rollbacks", ema_beta="guard_ema_beta",
-                 warmup_steps="guard_warmup_steps", save_every_steps="save_every_steps")
+                 warmup_steps="guard_warmup_steps", save_every_steps="save_every_steps",
+                 event_log="event_log", event_log_max_mb="event_log_max_mb")
     if getattr(args, "no_guard", None):
         guard = dataclasses.replace(guard, enabled=False)
     return RokoConfig(
@@ -105,10 +115,19 @@ def _build_config(args: argparse.Namespace) -> RokoConfig:
                   seed="data_seed", input_prefetch="input_prefetch",
                   block_size="data_block_size", mix_blocks="data_mix_blocks",
                   manifest="data_manifest"),
-        mesh=mesh, guard=guard, serve=base.serve,
+        mesh=mesh, guard=guard,
+        serve=over(base.serve, host="host", port="port", max_queue="max_queue",
+                   max_delay_ms="max_delay_ms", data_root="data_root", ladder="ladder",
+                   batching="batching", max_queue_age_ms="max_queue_age_ms",
+                   rung_upgrade_fill="rung_upgrade_fill", event_log="event_log",
+                   event_log_max_mb="event_log_max_mb", trace_ring="trace_ring",
+                   tenants="tenants"),
         pipeline=over(base.pipeline, prefetch="prefetch", queue_regions="queue_regions",
                       max_batch_delay_ms="batch_delay_ms"),
-        resilience=base.resilience,
+        resilience=over(base.resilience, predict_deadline_s="predict_deadline",
+                        compile_deadline_s="compile_deadline",
+                        breaker_failures="breaker_failures",
+                        breaker_reset_s="breaker_reset_s", drain_deadline_s="drain_deadline"),
     )
 
 
@@ -153,12 +172,23 @@ def cmd_features(args: argparse.Namespace) -> int:
     return 0
 
 
+def _configure_event_log(path: Optional[str], max_mb: float) -> None:
+    """Install the process-wide JSONL event sink (``obs/events.py``)."""
+    if not path:
+        return
+    from roko_tpu_torch.obs.events import configure_event_log
+
+    configure_event_log(path, max_mb)
+    print(f"obs: event log -> {path}")
+
+
 def cmd_train(args: argparse.Namespace) -> int:
     from roko_tpu_torch.infer import resolve_device
     from roko_tpu_torch.training.loop import train
 
     device = resolve_device(args.device)
     cfg = args.cfg
+    _configure_event_log(cfg.guard.event_log, cfg.guard.event_log_max_mb)
     train(args.train, args.out, args.val, model_cfg=cfg.model, train_cfg=cfg.train,
           guard_cfg=cfg.guard, data_cfg=cfg.data, mesh_cfg=cfg.mesh, device=device,
           resume=args.resume, trace_dir=args.trace_dir)
@@ -314,10 +344,125 @@ def cmd_bench(args: argparse.Namespace) -> int:
         argv.append("--train")
     for flag, value in (("--batch", args.b), ("--out", args.out),
                         ("--bench-iterations", args.bench_iterations),
-                        ("--compare", args.compare), ("--mesh-devices", args.mesh_devices)):
+                        ("--compare", args.compare), ("--mesh-devices", args.mesh_devices),
+                        ("--serve-mix", args.serve_mix)):
         if value is not None:
             argv += [flag, str(value)]
     return bench_main(argv)
+
+
+#: flags of the reference's ``serve`` the port does not run: attribute ->
+#: (flag, ROADMAP queue item)
+UNPORTED_SERVE_FLAGS = {
+    "workers": ("--workers", "A9.5"), "devices_per_worker": ("--devices-per-worker", "A9.5"),
+    "heartbeat_interval": ("--heartbeat-interval", "A9.5"), "registry": ("--registry", "A9.5"),
+    "bake_s": ("--bake-s", "A9.5"), "rollback_error_pct": ("--rollback-error-pct", "A9.5"),
+    "rollback_p99_x": ("--rollback-p99-x", "A9.5"), "min_workers": ("--min-workers", "A9.5"),
+    "max_workers": ("--max-workers", "A9.5"), "ab_lane": ("--ab-lane", "A9.5"),
+    "federation": ("--federation", "A9.5"), "host_agent": ("--host-agent", "A9.5"),
+    "join": ("--join", "A9.5"), "host_id": ("--host-id", "A9.5"),
+    "lease_ttl": ("--lease-ttl", "A9.5"), "worker_id": ("--worker-id", "A9.5"),
+    "bundle": ("--bundle", "A9.3"), "compile_cache": ("--compile-cache", "A9.3"),
+    "no_compile_cache": ("--no-compile-cache", "A9.3"), "cascade": ("--cascade", "A10"),
+    "store_cache": ("--store-cache", "A10"), "store_endpoint": ("--store-endpoint", "A10"),
+}
+
+
+def _ladder_type(text: str):
+    """``--ladder 32,128,512``: a clean usage error on a malformed list."""
+    try:
+        rungs = tuple(int(t) for t in text.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected comma-separated integers, got {text!r}") from None
+    return rungs
+
+
+def _tenants_type(text: str):
+    """``--tenants name[:weight[:max_queue[:max_inflight]]],...`` into
+    :class:`TenantConfig` rows (``roko_tpu/cli.py:773``)."""
+    from roko_tpu_torch.config import TenantConfig
+
+    out = []
+    for spec in text.split(","):
+        spec = spec.strip()
+        if not spec:
+            continue
+        parts = spec.split(":")
+        if len(parts) > 4:
+            raise argparse.ArgumentTypeError(
+                f"tenant spec {spec!r}: expected name[:weight[:max_queue[:max_inflight]]]")
+        try:
+            out.append(TenantConfig(
+                name=parts[0],
+                weight=float(parts[1]) if len(parts) > 1 else 1.0,
+                max_queue=int(parts[2]) if len(parts) > 2 else 0,
+                max_inflight=int(parts[3]) if len(parts) > 3 else 0,
+            ))
+        except ValueError as e:
+            raise argparse.ArgumentTypeError(f"tenant spec {spec!r}: {e}") from None
+    if not out:
+        raise argparse.ArgumentTypeError("no tenant specs given")
+    return tuple(out)
+
+
+def cmd_serve(args: argparse.Namespace) -> int:
+    """The polishing service (``roko_tpu/cli.py:966-1108``, single
+    process): load the model once, bind the socket, warm the batch ladder
+    on a thread (``/healthz`` says ``warming`` and ``/polish`` sheds with
+    503 meanwhile), print the ready line, and serve until SIGTERM drains
+    it. A failed warmup stops the server and exits non-zero."""
+    import sys
+    import threading
+    import time
+
+    from roko_tpu_torch.infer import resolve_device
+    from roko_tpu_torch.models.model import RokoModel
+    from roko_tpu_torch.serve.server import make_server, serve_forever, write_announce
+    from roko_tpu_torch.serve.session import PolishSession
+
+    cfg = args.cfg
+    _configure_event_log(cfg.serve.event_log, cfg.serve.event_log_max_mb)
+    device = resolve_device(args.device)
+    model = RokoModel(cfg.model)
+    model.load_state_dict(_load_model_params(args.model), strict=True)
+    try:
+        session = PolishSession(model, cfg, device=device)
+    except ValueError as e:
+        print(f"serve: {e}", file=sys.stderr)
+        return 1
+    server = make_server(session, cfg.serve, warming=True)
+    if args.announce:
+        # written after the bind and before the warmup, so whoever started
+        # a --port 0 server can watch it warm
+        write_announce(args.announce, server.server_address[1])
+    print(f"serve: warming predict ladder {session.ladder} on {session.device} "
+          f"({cfg.serve.batching} batching; healthz=warming, /polish sheds until ready) ...",
+          flush=True)
+    warm_error: list = []
+
+    def _warm() -> None:
+        try:
+            t0 = time.perf_counter()
+            ready = session.warmup(log=print)
+            dt = time.perf_counter() - t0
+            server.metrics.warmup_seconds = dt  # type: ignore[attr-defined]
+            server._warming.clear()  # type: ignore[attr-defined]
+            print(f"serve: {ready} executables ready in {dt:.1f}s "
+                  f"({session.warmup_report.mode}); accepting requests", flush=True)
+        except BaseException as e:
+            # a half-warm service must die loudly, not sit at 503 forever
+            import traceback
+
+            traceback.print_exc(file=sys.stderr)
+            warm_error.append(e)
+            server.shutdown()
+
+    threading.Thread(target=_warm, name="roko-serve-warmup", daemon=True).start()
+    serve_forever(server)
+    if warm_error:
+        raise SystemExit(f"serve: warmup failed: {warm_error[0]}")
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -379,6 +524,13 @@ def build_parser() -> argparse.ArgumentParser:
                            help=f"write a torch.profiler trace of {trace} here "
                            "(Chrome trace JSON; on a card with its kernels)")
 
+    def event_log(p: argparse.ArgumentParser) -> None:
+        p.add_argument("--event-log", default=None, metavar="PATH",
+                       help="append every ROKO_* event as one JSON record to this JSONL file "
+                       "(rotated to PATH.1 past --event-log-max-mb); the stderr lines stay")
+        p.add_argument("--event-log-max-mb", type=float, default=None,
+                       help="event-log rotation cap in MiB (default 64)")
+
     def extraction(p: argparse.ArgumentParser) -> None:
         p.add_argument("--t", type=int, default=1, help="feature workers")
         p.add_argument("--seed", type=int, default=0, help="row-sampling RNG seed")
@@ -388,6 +540,9 @@ def build_parser() -> argparse.ArgumentParser:
             "--job-timeout", type=float, default=None,
             help="seconds to wait per region result before assuming the worker "
             "died and finishing the rest in the parent (process pools only)")
+        geometry(p)
+
+    def geometry(p: argparse.ArgumentParser) -> None:
         p.add_argument("--window-rows", type=int, default=None, help="pileup rows per window")
         p.add_argument("--window-cols", type=int, default=None,
                        help="pileup columns per window")
@@ -476,6 +631,7 @@ def build_parser() -> argparse.ArgumentParser:
     common(p)
     mesh(p)
     config(p, "the first trained epoch")
+    event_log(p)
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("inference", help="features HDF5 + model -> polished FASTA")
@@ -537,7 +693,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("data", help="features HDF5 file or directory")
     p.set_defaults(fn=cmd_inspect)
 
-    from roko_tpu_torch.benchmark import add_mesh_flag, add_unported_flags
+    from roko_tpu_torch.benchmark import add_mesh_flag, add_serve_mix_flag, add_unported_flags
 
     p = sub.add_parser("bench", help="print the benchmark JSON line")
     p.add_argument("--train", action="store_true", help="also time training steps")
@@ -554,7 +710,73 @@ def build_parser() -> argparse.ArgumentParser:
                    "silent move to the CPU)")
     add_mesh_flag(p)
     add_unported_flags(p)
+    add_serve_mix_flag(p)
     p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser(
+        "serve", help="persistent polishing service: warm model + batched HTTP /polish "
+        "(+ /healthz, /metrics, /tracez, /profilez)")
+    p.add_argument("model", help="checkpoint directory of `train`, or a reference-layout "
+                   "torch .pth state_dict")
+    p.add_argument("--host", default=None, help="bind address (default 127.0.0.1)")
+    p.add_argument("--port", type=int, default=None,
+                   help="bind port (default 8000; 0 = ephemeral, see --announce)")
+    p.add_argument("--ladder", type=_ladder_type, default=None,
+                   help="comma-separated padded batch sizes the session warms "
+                   "(default 32,128,512)")
+    p.add_argument("--max-queue", type=int, default=None,
+                   help="bounded request pool (full -> 503 + Retry-After; default 64)")
+    p.add_argument("--max-delay-ms", type=float, default=None,
+                   help="deadline batching: a partial batch waits at most this long after "
+                   "its first request (default 25)")
+    p.add_argument("--batching", choices=("continuous", "deadline", "ragged"), default=None,
+                   help="batching policy (default continuous): 'continuous' packs windows "
+                   "of many requests densely into ladder-rung steps; 'deadline' coalesces "
+                   "whole requests; 'ragged' packs as continuous but runs every step at the "
+                   "top rung with its valid-row count")
+    p.add_argument("--max-queue-age-ms", type=float, default=None,
+                   help="continuous and ragged: the oldest queued window waits at most this "
+                   "long before a partial batch dispatches (default 25)")
+    p.add_argument("--rung-upgrade-fill", type=float, default=None,
+                   help="continuous: pad up to the next-larger rung only when the pending "
+                   "windows fill at least this share of it (default 0.75)")
+    p.add_argument("--data-root", default=None,
+                   help="confine the ref+bam form of /polish to files under this directory")
+    p.add_argument("--trace-ring", type=int, default=None,
+                   help="GET /tracez retention: request traces kept (default 256)")
+    p.add_argument("--tenants", type=_tenants_type, default=None,
+                   metavar="NAME[:W[:Q[:I]]],...",
+                   help="tenant fair share: name[:weight[:max_queue[:max_inflight]]] specs; "
+                   "requests carry X-Roko-Tenant, slots grant by deficit-weighted round-robin, "
+                   "and a tenant past its quota gets 429 + Retry-After")
+    p.add_argument("--announce", default=None, metavar="FILE",
+                   help="write {\"pid\", \"port\"} of the bound socket here (atomic rename)")
+    for flag, kind, text in (
+        ("--predict-deadline", float, "watchdog: seconds one device predict may take "
+         "(default 600; 0 disables)"),
+        ("--compile-deadline", float, "watchdog: seconds the first dispatch of each batch "
+         "shape may take, kernel build included (default 1800; 0 disables)"),
+        ("--breaker-failures", int, "circuit breaker: consecutive device failures that trip "
+         "it (default 5; 0 disables)"),
+        ("--breaker-reset-s", float, "circuit breaker: seconds open before half-open "
+         "probing (default 30)"),
+        ("--drain-deadline", float, "SIGTERM drain: seconds in-flight requests get to "
+         "finish (default 20)"),
+    ):
+        p.add_argument(flag, type=kind, default=None, help=text)
+    for attr, (flag, item) in UNPORTED_SERVE_FLAGS.items():
+        text = f"not ported yet (queue item {item})"
+        if attr in ("federation", "host_agent", "no_compile_cache"):
+            p.add_argument(flag, dest=attr, action="store_true", default=None, help=text)
+        else:  # --cascade takes an optional threshold, as the reference's
+            p.add_argument(flag, dest=attr, default=None, help=text,
+                           **({"nargs": "?", "const": "on"} if attr == "cascade" else {}))
+    common(p)
+    mesh(p)
+    geometry(p)
+    config(p)
+    event_log(p)
+    p.set_defaults(fn=cmd_serve)
     return parser
 
 
@@ -567,6 +789,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         msg = unported_flag(args)
         if msg:
             parser.error(msg)
+    if args.command == "serve":
+        for attr, (flag, item) in UNPORTED_SERVE_FLAGS.items():
+            if getattr(args, attr) is not None:
+                parser.error(f"serve {flag} is not ported yet (queue item {item} of "
+                             "ROADMAP.md)")
+        for axis in ("dp", "tp", "sp"):
+            if getattr(args, axis) not in (None, 1):
+                parser.error(f"serve --{axis} {getattr(args, axis)}: a session over several "
+                             "ranks is not ported yet (queue item A9.1 of ROADMAP.md); the "
+                             "service drives one card")
     if args.command == "polish":
         for flag in ("distributed", "cascade"):
             if getattr(args, flag):
@@ -584,7 +816,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 check_trainable(args.cfg.model)
         except ValueError as e:
             parser.error(str(e))
-    if hasattr(args, "dp"):  # the subcommands that run on the mesh
+    if hasattr(args, "dp") and args.command != "serve":  # the subcommands on the mesh
         _check_mesh(parser, args)
     return args.fn(args)
 

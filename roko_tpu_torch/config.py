@@ -1,9 +1,10 @@
 """Configuration of the port: the fields of ``roko_tpu.config`` that the
-feature extractor, the inference and training paths of ``kind="gru"``
-and ``kind="lingru"``, the data plane and the streaming polish read, with
-the same names and defaults (``WindowConfig``, ``ReadFilterConfig``,
-``RegionConfig``, ``ModelConfig``, ``TrainConfig``, ``DataConfig``,
-``MeshConfig``, ``GuardConfig``, ``ServeConfig``, ``PipelineConfig``, ``ResilienceConfig``,
+feature extractor, the inference and training paths, the data plane, the
+streaming polish and the polishing service read, with the same names and
+defaults (``WindowConfig``, ``ReadFilterConfig``, ``RegionConfig``,
+``ModelConfig``, ``TrainConfig``, ``DataConfig``, ``MeshConfig``,
+``GuardConfig``, ``ServeConfig``, ``TenantConfig``, ``DEFAULT_TENANT``,
+``BATCHING_MODES``, ``PipelineConfig``, ``ResilienceConfig``,
 ``resolve_ladder``, ``validate_ladder``, ``COMPUTE_DTYPES``,
 ``QUANTIZE_MODES`` and ``default_compute_dtype``). ``FeaturesConfig`` holds
 the three sections of ``roko_tpu.config.RokoConfig`` that feature
@@ -231,37 +232,133 @@ class GuardConfig:
     #: position, so a resume continues at the next batch; 0 = epoch
     #: boundaries only
     save_every_steps: int = 0
+    #: JSONL event sink of the guard's events (``obs/events.py``); None =
+    #: stderr lines only
+    event_log: Optional[str] = None
+    event_log_max_mb: float = 64.0
+
+
+#: tenant id every request without an ``X-Roko-Tenant`` header (or a
+#: client ``tenant=``) is accounted under; with one tenant the deficit
+#: round-robin reduces to arrival order
+DEFAULT_TENANT = "default"
+
+
+@dataclass(frozen=True)
+class TenantConfig:
+    """One row of the tenant fair-share table (``roko_tpu/config.py:275-
+    323``): an admission weight plus optional per-tenant caps. Unlisted
+    tenants get ``weight=1`` and no caps."""
+
+    name: str
+    #: deficit-round-robin weight: each scheduler round grants a tenant
+    #: ``weight`` x the base share of device-slot windows
+    weight: float = 1.0
+    #: queued windows this tenant may hold in the batcher pool; beyond it
+    #: submissions get 429 + Retry-After (0 = no cap)
+    max_queue: int = 0
+    #: concurrent in-flight REQUESTS for this tenant; beyond it 429 (0 =
+    #: no cap)
+    max_inflight: int = 0
+
+    def __post_init__(self) -> None:
+        if not self.name:
+            raise ValueError("tenant name must be non-empty")
+        if self.weight <= 0:
+            # a zero weight never accumulates deficit: the grant loop
+            # needs weight > 0 to end
+            raise ValueError(
+                f"tenant {self.name!r} weight must be > 0; got {self.weight}"
+            )
+        if self.max_queue < 0 or self.max_inflight < 0:
+            raise ValueError(
+                f"tenant {self.name!r} caps must be >= 0; got "
+                f"max_queue={self.max_queue} max_inflight={self.max_inflight}"
+            )
+
+
+#: valid ``ServeConfig.batching`` policies: "continuous" packs windows of
+#: many requests densely into ladder-rung device steps
+#: (``serve/scheduler.py::ContinuousBatcher``); "deadline" is the
+#: whole-request coalescer (``serve/batcher.py::MicroBatcher``); "ragged"
+#: packs as continuous but runs every step at the top rung with a
+#: valid-row count (``RaggedBatcher``)
+BATCHING_MODES = ("continuous", "deadline", "ragged")
 
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """The batching plane's fields of ``roko_tpu/config.py::ServeConfig``
-    (:325-429): the padded batch ladder and the continuous scheduler's
-    rung-upgrade hysteresis (the stream sets the age flush bound from
-    ``PipelineConfig.max_batch_delay_ms``). The HTTP server with its
-    request pool bound, age flush default, Retry-After and tenant table,
-    the deadline and ragged batchers and the trace ring are not ported
-    yet (queue items A9.2, A9.4)."""
+    """The polishing service and its batching plane
+    (``roko_tpu/config.py:325-429``): the bind address, the padded batch
+    ladder, the request pool bound, the batching policy and its flush
+    bounds, the Retry-After hint, the latency reservoir, the ``data_root``
+    confinement, the event log, the trace ring and the tenant table."""
 
+    host: str = "127.0.0.1"
+    port: int = 8000
     #: padded batch-size ladder; () = auto: ``ladder_base`` scaled by dp
     ladder: Tuple[int, ...] = ()
     #: per-device rung sizes the auto ladder scales by the dp extent
     ladder_base: Tuple[int, ...] = (32, 128, 512)
+    #: bounded request pool: submissions beyond it get 503 + Retry-After
+    max_queue: int = 64
+    #: deadline batching: a partial batch dispatches at most this long
+    #: after its first request arrived
+    max_delay_ms: float = 25.0
+    #: one of BATCHING_MODES
+    batching: str = "continuous"
+    #: continuous and ragged batching: the oldest queued window waits at
+    #: most this long before a partial batch dispatches
+    max_queue_age_ms: float = 25.0
     #: pending windows pad up to the next-larger rung only when they
     #: fill at least this fraction of it
     rung_upgrade_fill: float = 0.75
+    #: seconds a rejected client is told to wait before retrying (the
+    #: continuous batcher's floor until it has measured its throughput)
+    retry_after_s: float = 1.0
+    #: per-stage latency reservoir behind the /metrics p50/p99 rows
+    latency_samples: int = 1024
+    #: confine the ref+bam form of POST /polish to files under this
+    #: directory; None = any readable path
+    data_root: Optional[str] = None
+    #: JSONL event sink (``obs/events.py``); None = stderr lines only
+    event_log: Optional[str] = None
+    event_log_max_mb: float = 64.0
+    #: GET /tracez retention: the last N request traces and the slowest N
+    trace_ring: int = 256
+    trace_slowest: int = 32
+    #: tenant fair-share table; () = the single default tenant
+    tenants: Tuple[TenantConfig, ...] = ()
 
     def __post_init__(self) -> None:
+        if self.batching not in BATCHING_MODES:
+            raise ValueError(
+                f"unknown batching policy {self.batching!r}; expected one "
+                "of " + "|".join(BATCHING_MODES)
+            )
         if not 0.0 < self.rung_upgrade_fill <= 1.0:
             raise ValueError(
                 "rung_upgrade_fill must lie in (0, 1]; got "
                 f"{self.rung_upgrade_fill}"
+            )
+        if self.max_queue_age_ms < 0:
+            raise ValueError(
+                f"max_queue_age_ms must be >= 0; got {self.max_queue_age_ms}"
             )
         if not self.ladder_base or any(r <= 0 for r in self.ladder_base):
             raise ValueError(
                 "ladder_base must name at least one positive per-device "
                 f"rung size; got {self.ladder_base}"
             )
+        if self.trace_ring < 1 or self.trace_slowest < 1:
+            raise ValueError(
+                "trace_ring/trace_slowest must be >= 1; got "
+                f"{self.trace_ring}/{self.trace_slowest}"
+            )
+        names = [t.name for t in self.tenants]
+        if len(names) != len(set(names)):
+            dupes = sorted({n for n in names if names.count(n) > 1})
+            raise ValueError(f"duplicate tenant names: {dupes}")
 
 
 def resolve_ladder(serve: ServeConfig, dp: int) -> Tuple[int, ...]:
@@ -330,6 +427,13 @@ class ResilienceConfig:
     #: deadline of the FIRST dispatch of each padded batch shape, which
     #: on the card also builds the kernels. 0 disables it.
     compile_deadline_s: float = 1800.0
+    #: serve: consecutive device failures that trip the circuit breaker
+    #: (0 disables it)
+    breaker_failures: int = 5
+    #: serve: seconds an open breaker waits before half-open probing
+    breaker_reset_s: float = 30.0
+    #: serve: seconds in-flight requests get to finish after SIGTERM
+    drain_deadline_s: float = 20.0
 
 
 #: the fields of ``roko_tpu.config.RokoConfig`` the port does not run,
@@ -339,17 +443,8 @@ class ResilienceConfig:
 _NOT_PORTED: Dict[str, Dict[str, Tuple[Any, str]]] = {
     "model": {"remat_frontend": (False, "A12"), "remat_scan": (False, "A12")},
     "train": {"dropout_rng_impl": ("threefry", "A12")},
-    "guard": {"event_log": (None, "A9"), "event_log_max_mb": (64.0, "A9")},
     "resilience": {"hang_fallback": ("none", "deliberately not ported: finishing on the CPU "
-                                     "after the card failed would hide the card"),
-                   "breaker_failures": (5, "A9"), "breaker_reset_s": (30.0, "A9"),
-                   "drain_deadline_s": (20.0, "A9")},
-    "serve": {k: (v, "A9") for k, v in (
-        ("host", "127.0.0.1"), ("port", 8000), ("max_queue", 64), ("max_delay_ms", 25.0),
-        ("data_root", None), ("batching", "continuous"), ("max_queue_age_ms", 25.0),
-        ("retry_after_s", 1.0), ("latency_samples", 1024), ("event_log", None),
-        ("event_log_max_mb", 64.0), ("trace_ring", 256), ("trace_slowest", 32),
-        ("tenants", []))},
+                                     "after the card failed would hide the card")},
     "compile": {k: (v, "A9.3") for k, v in (
         ("enabled", True), ("cache_dir", None), ("cache_max_mb", 1024),
         ("min_compile_time_s", 0.0), ("bundle_dir", None), ("parallel_warmup", True),
@@ -366,7 +461,7 @@ _NOT_PORTED: Dict[str, Dict[str, Tuple[Any, str]]] = {
         ("cache_dir", None), ("cache_bytes", 256 * 2**20), ("block_bytes", 4 * 2**20),
         ("timeout_s", 30.0), ("max_attempts", 4), ("hedge_s", 0.0), ("breaker_failures", 5),
         ("breaker_reset_s", 30.0), ("endpoint", None))},
-    "fleet": {k: (v, "A9") for k, v in (
+    "fleet": {k: (v, "A9.5") for k, v in (
         ("workers", 0), ("devices_per_worker", 0), ("heartbeat_interval_s", 2.0),
         ("heartbeat_timeout_s", 5.0), ("heartbeat_misses", 3), ("spawn_deadline_s", 120.0),
         ("term_grace_s", 10.0), ("restart_base_delay_s", 0.5), ("restart_max_delay_s", 30.0),
@@ -439,6 +534,7 @@ class RokoConfig(FeaturesConfig):
             extra = sorted(set(values) - known)
             if extra:
                 raise ValueError(f"config section {name!r} has unknown fields {extra}")
-            built[name] = cls(**{k: tuple(v) if isinstance(v, list) else v
+            built[name] = cls(**{k: tuple(TenantConfig(**t) for t in v) if k == "tenants"
+                                 else tuple(v) if isinstance(v, list) else v
                                  for k, v in values.items()})
         return RokoConfig(**built)

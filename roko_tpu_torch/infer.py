@@ -17,7 +17,8 @@ Eager PyTorch has no fixed-shape executables, so ``run_inference``
 needs no batch padding. The streaming polish's session still pads to a
 ladder of batch sizes (``pad_windows``, ``tail_rungs``, ``rung_for``,
 ``roko_tpu/infer.py:57-92``): its batcher packs windows into steps of
-those sizes, and the kernels run at a few known shapes.
+those sizes, and the kernels run at a few known shapes. The ragged step
+of the service masks a top-rung slab instead (``mask_rows``).
 """
 
 from __future__ import annotations
@@ -49,6 +50,15 @@ def pad_windows(x: np.ndarray, batch_size: int) -> np.ndarray:
         raise ValueError(f"batch of {n} windows exceeds pad target {batch_size}")
     pad = batch_size - n
     return np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+
+
+def mask_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` with its rows at or past ``n`` zeroed, in place: the ragged
+    step's mask (``roko_tpu/infer.py:108-137``). Zero rows are what
+    :func:`pad_windows` appends, so a masked top-rung slab gives the class
+    ids of the first ``n`` rows padded to the top rung."""
+    x[n:] = 0
+    return x
 
 
 def tail_rungs(ladder: Sequence[int], batch_size: int, dp: int) -> Tuple[int, ...]:

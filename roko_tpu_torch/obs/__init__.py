@@ -1,2 +1,3 @@
-"""Observability of the port's host side: the one-line event format
-(``events``)."""
+"""Observability of the port's host side: the one-line event format and
+its JSONL sink (``events``), request-scoped tracing (``trace``) and
+mergeable latency histograms (``hist``)."""

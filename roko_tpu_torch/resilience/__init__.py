@@ -1,10 +1,10 @@
 """Failure handling of the port's host side (copies of
 ``roko_tpu/resilience``): bounded retries of region jobs (``retry``),
 hard deadlines around device calls (``watchdog``) and the streaming
-polish's resume journal (``journal``). The batching plane's circuit
-breaker waits for the HTTP service (queue item A9.4). Pure Python: none
-of it imports torch."""
+polish's resume journal (``journal``), and the serving plane's circuit
+breaker (``breaker``). Pure Python: none of it imports torch."""
 
+from roko_tpu_torch.resilience.breaker import CircuitBreaker
 from roko_tpu_torch.resilience.journal import JournalMismatch, PolishJournal
 from roko_tpu_torch.resilience.retry import RetryPolicy
 from roko_tpu_torch.resilience.watchdog import (
@@ -15,6 +15,7 @@ from roko_tpu_torch.resilience.watchdog import (
 )
 
 __all__ = [
+    "CircuitBreaker",
     "DeadlinePolicy",
     "HangError",
     "JournalMismatch",

@@ -1,30 +1,171 @@
-"""Counters of the batching plane (the part of
-``roko_tpu/serve/metrics.py::ServeMetrics`` that the streaming polish
-reads).
+"""Prometheus text metrics of the polishing service (the port's copy of
+``roko_tpu/serve/metrics.py``), built on
+:class:`roko_tpu_torch.utils.profiling.StageTimer` and the mergeable
+histograms of ``obs/hist.py``.
 
-The :class:`ContinuousBatcher` counts requests, windows, device steps
-(``batches``) and rejections, and the real windows and padded rows it
-dispatched, whose ratio is the run's ``padding_efficiency``. The
-Prometheus rendering, the latency histograms, the queue and tenant
-gauges and the XLA compile-cache counters wait for the HTTP service
-(queue items A9.4 and A11).
+Series (prefixed ``roko_serve_`` unless named otherwise):
+
+- ``requests_total``, ``windows_total``, ``batches_total``,
+  ``rejected_total``, ``errors_total`` — counters;
+- ``queue_depth`` — gauge, sampled at scrape time;
+- ``cpu_fallback`` — gauge, always 0: the port has no CPU fail-over;
+- ``batch_fill_ratio`` and ``padding_efficiency`` — gauges, real windows
+  over the padded rows (or ragged slots) dispatched, with the raw
+  ``fill_windows_total`` and ``fill_padded_total`` beside them;
+- ``queue_windows`` and ``scheduler_occupancy`` — gauges of the
+  continuous and ragged batchers (absent under the deadline batcher);
+- ``tenant_requests_total``, ``tenant_rejected_total``,
+  ``tenant_backlog`` and ``model_requests_total`` — tenant- and
+  model-labelled rows, once traffic carries a tenant or the process a
+  ``ROKO_MODEL_VERSION``;
+- ``breaker_state`` (0 closed, 1 half-open, 2 open) and
+  ``breaker_trips_total`` with a circuit breaker attached;
+- ``warmup_seconds`` — gauge, NaN while the ladder warms;
+- ``request_latency_seconds`` — summary (p50, p99, count, sum) over the
+  retained samples, and per size class (``size_class="le{rung}"``,
+  ``gt{top}`` past the top rung);
+- the mergeable histograms ``roko_request_latency_seconds`` (by size
+  class, tenant and model), ``roko_queue_wait_seconds`` and
+  ``roko_device_time_seconds``.
+
+Left out, having no counterpart in the port yet: the persistent compile
+cache's ``roko_compile_cache_hits`` and ``roko_compile_cache_misses``
+(queue item A9.3 decides what replaces them), the cascade's
+``roko_cascade_tier_seconds`` histogram and ``cascade_*`` rows (A10), and
+the object-store client's ``roko_store_*_total`` counters (A10):
+:data:`UNPORTED_SERIES`.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
-_COUNTERS = ("requests", "windows", "batches", "rejected")
+from roko_tpu_torch.obs.hist import HistogramFamily
+from roko_tpu_torch.utils.profiling import StageTimer
+
+_PREFIX = "roko_serve_"
+_COUNTERS = ("requests", "windows", "batches", "rejected", "errors")
+
+#: series of the reference's ``/metrics`` the port does not render, with
+#: the ROADMAP queue item that would bring each (a trailing ``*`` stands
+#: for any name with that prefix)
+UNPORTED_SERIES = {
+    "roko_compile_cache_hits": "A9.3",
+    "roko_compile_cache_misses": "A9.3",
+    "roko_cascade_tier_seconds": "A10",
+    "roko_serve_cascade_*": "A10",
+    "roko_store_*": "A10",
+}
+
+
+def parse_labeled_rows(text: str, names) -> Dict[str, list]:
+    """``{name: [(label_body, value), ...]}`` for the LABELLED series of a
+    Prometheus text body (``label_body`` is the raw text inside the
+    braces)."""
+    wanted = set(names)
+    out: Dict[str, list] = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#") or "{" not in line:
+            continue
+        name, rest = line.split("{", 1)
+        if name not in wanted or "}" not in rest:
+            continue
+        body, _, value = rest.partition("}")
+        value = value.strip()
+        if value:
+            out.setdefault(name, []).append((body, value))
+    return out
+
+
+def parse_metric_values(text: str, names) -> Dict[str, str]:
+    """``{name: value}`` for the unlabelled series of a Prometheus text
+    body; values stay strings."""
+    wanted = set(names)
+    out: Dict[str, str] = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        parts = line.split()
+        if len(parts) == 2 and parts[0] in wanted:
+            out[parts[0]] = parts[1]
+    return out
 
 
 class ServeMetrics:
-    def __init__(self):
+    def __init__(self, latency_samples: int = 1024):
         self._lock = threading.Lock()
         self.counters: Dict[str, int] = {name: 0 for name in _COUNTERS}
+        self.timer = StageTimer(max_samples=latency_samples)
         #: windows actually dispatched / padded rows dispatched
         self._fill_windows = 0
         self._fill_padded = 0
+        #: scrape-time gauge; the batcher points this at its queue
+        self.queue_depth: Callable[[], int] = lambda: 0
+        #: scrape-time gauge; make_server points this at
+        #: ``PolishSession.failed_over`` (always False in the port)
+        self.cpu_fallback: Callable[[], bool] = lambda: False
+        #: circuit breaker to render state and trips for (make_server)
+        self.breaker = None
+        #: ladder warmup wall seconds (None renders NaN: still warming)
+        self.warmup_seconds: Optional[float] = None
+        #: request-size latency classes (the session's ladder rungs, set
+        #: by make_server); empty = per-class rows off
+        self.size_classes: Tuple[int, ...] = ()
+        #: continuous-scheduler gauges (None under the deadline batcher)
+        self.queue_windows: Optional[Callable[[], int]] = None
+        self.occupancy: Optional[Callable[[], float]] = None
+        #: per-tenant queued-window gauge source (continuous batchers)
+        self.tenant_backlogs: Optional[Callable[[], Dict[str, int]]] = None
+        self._tenant_requests: Dict[str, int] = {}
+        self._tenant_rejected: Dict[str, int] = {}
+        #: per-model request counter; ``model_version`` is this process's
+        #: version identity (env ROKO_MODEL_VERSION) and labels the
+        #: latency histogram
+        self._model_requests: Dict[str, int] = {}
+        self.model_version: Optional[str] = None
+        #: mergeable cumulative histograms: request latency by size class,
+        #: and the queue-wait / device-time decomposition
+        self.hist_latency = HistogramFamily("roko_request_latency_seconds", label="size_class")
+        self.hist_queue_wait = HistogramFamily("roko_queue_wait_seconds")
+        self.hist_device = HistogramFamily("roko_device_time_seconds")
+
+    def size_class(self, windows: int) -> str:
+        """``le{r}`` for the smallest rung r >= n, ``gt{top}`` past the top."""
+        for rung in self.size_classes:
+            if windows <= rung:
+                return f"le{rung}"
+        return f"gt{self.size_classes[-1]}"
+
+    def observe_request(
+        self,
+        windows: int,
+        seconds: float,
+        tenant: Optional[str] = None,
+        model: Optional[str] = None,
+    ) -> None:
+        """One completed request: the aggregate latency span, its size
+        class's span, and the histogram rows (with tenant and model rows
+        beside the size-class one)."""
+        self.timer.record("request", seconds)
+        label = self.size_class(windows) if self.size_classes else None
+        if label is not None:
+            self.timer.record(f"request:{label}", seconds)
+        model = model or self.model_version
+        extra = []
+        if tenant:
+            extra.append(("tenant", tenant))
+            with self._lock:
+                self._tenant_requests[tenant] = self._tenant_requests.get(tenant, 0) + 1
+        if model:
+            extra.append(("model", model))
+            with self._lock:
+                self._model_requests[model] = self._model_requests.get(model, 0) + 1
+        self.hist_latency.observe(seconds, label, extra_labels=extra)
+
+    def inc_tenant_rejected(self, tenant: str) -> None:
+        with self._lock:
+            self._tenant_rejected[tenant] = self._tenant_rejected.get(tenant, 0) + 1
 
     def inc(self, name: str, by: int = 1) -> None:
         with self._lock:
@@ -37,7 +178,7 @@ class ServeMetrics:
 
     def fill_ratio(self) -> Optional[float]:
         """Real windows over padded rows dispatched (None before the
-        first step): the ``padding_efficiency`` the stream reports."""
+        first step): the ``padding_efficiency``."""
         with self._lock:
             if not self._fill_padded:
                 return None
@@ -47,3 +188,83 @@ class ServeMetrics:
         """(real windows, padded rows) dispatched so far."""
         with self._lock:
             return self._fill_windows, self._fill_padded
+
+    def render(self) -> str:
+        """The ``GET /metrics`` body, in the reference's order and format."""
+        lines = []
+        for name in _COUNTERS:
+            full = f"{_PREFIX}{name}_total"
+            lines.append(f"# TYPE {full} counter")
+            lines.append(f"{full} {self.counters[name]}")
+        lines.append(f"# TYPE {_PREFIX}queue_depth gauge")
+        lines.append(f"{_PREFIX}queue_depth {int(self.queue_depth())}")
+        fill = self.fill_ratio()
+        for gauge in ("batch_fill_ratio", "padding_efficiency"):
+            lines.append(f"# TYPE {_PREFIX}{gauge} gauge")
+            lines.append(f"{_PREFIX}{gauge} " + ("NaN" if fill is None else f"{fill:.4f}"))
+        fw, fp = self.fill_totals()
+        lines.append(f"# TYPE {_PREFIX}fill_windows_total counter")
+        lines.append(f"{_PREFIX}fill_windows_total {fw}")
+        lines.append(f"# TYPE {_PREFIX}fill_padded_total counter")
+        lines.append(f"{_PREFIX}fill_padded_total {fp}")
+        if self.queue_windows is not None:
+            lines.append(f"# TYPE {_PREFIX}queue_windows gauge")
+            lines.append(f"{_PREFIX}queue_windows {int(self.queue_windows())}")
+        if self.occupancy is not None:
+            lines.append(f"# TYPE {_PREFIX}scheduler_occupancy gauge")
+            lines.append(f"{_PREFIX}scheduler_occupancy {self.occupancy():.4f}")
+        with self._lock:
+            t_req = dict(self._tenant_requests)
+            t_rej = dict(self._tenant_rejected)
+            m_req = dict(self._model_requests)
+        t_backlog = self.tenant_backlogs() if self.tenant_backlogs else {}
+        for series, kind, label, rows in (
+            ("tenant_requests_total", "counter", "tenant", t_req),
+            ("tenant_rejected_total", "counter", "tenant", t_rej),
+            ("tenant_backlog", "gauge", "tenant", t_backlog),
+            ("model_requests_total", "counter", "model", m_req),
+        ):
+            if rows:
+                lines.append(f"# TYPE {_PREFIX}{series} {kind}")
+                for key in sorted(rows):
+                    lines.append(f'{_PREFIX}{series}{{{label}="{key}"}} {int(rows[key])}')
+        lines.append(f"# TYPE {_PREFIX}cpu_fallback gauge")
+        lines.append(f"{_PREFIX}cpu_fallback {int(bool(self.cpu_fallback()))}")
+        if self.breaker is not None:
+            lines.append(f"# TYPE {_PREFIX}breaker_state gauge")
+            lines.append(f"{_PREFIX}breaker_state {self.breaker.state_code()}")
+            lines.append(f"# TYPE {_PREFIX}breaker_trips_total counter")
+            lines.append(f"{_PREFIX}breaker_trips_total {self.breaker.trip_count}")
+        lines.append(f"# TYPE {_PREFIX}warmup_seconds gauge")
+        lines.append(
+            f"{_PREFIX}warmup_seconds "
+            + ("NaN" if self.warmup_seconds is None else f"{self.warmup_seconds:.3f}")
+        )
+        lat = f"{_PREFIX}request_latency_seconds"
+        lines.append(f"# TYPE {lat} summary")
+        for q in (50, 99):
+            v = self.timer.percentile("request", q)
+            if v is not None:
+                lines.append(f'{lat}{{quantile="0.{q}"}} {v:.6f}')
+        lines.append(f"{lat}_count {self.timer.counts.get('request', 0)}")
+        lines.append(f"{lat}_sum {self.timer.totals.get('request', 0.0):.6f}")
+        # per-size-class rows, for the classes that have seen traffic
+        for rung in self.size_classes:
+            for label in (f"le{rung}",) + ((f"gt{rung}",) if rung == self.size_classes[-1]
+                                            else ()):
+                stage = f"request:{label}"
+                if not self.timer.counts.get(stage):
+                    continue
+                for q in (50, 99):
+                    v = self.timer.percentile(stage, q)
+                    if v is not None:
+                        lines.append(f'{lat}{{quantile="0.{q}",size_class="{label}"}} {v:.6f}')
+                lines.append(f'{lat}_count{{size_class="{label}"}} {self.timer.counts[stage]}')
+                lines.append(
+                    f'{lat}_sum{{size_class="{label}"}} '
+                    f"{self.timer.totals.get(stage, 0.0):.6f}"
+                )
+        # mergeable histograms last (no serve prefix)
+        for hist in (self.hist_latency, self.hist_queue_wait, self.hist_device):
+            lines.extend(hist.render())
+        return "\n".join(lines) + "\n"

@@ -15,27 +15,38 @@ recurrent kinds' kernels with nvcc), every later one ``predict_deadline_s``. A b
 deadline raises :class:`HangError`. The class ids come back to the host
 synchronously.
 
+The ragged step (``predict_ragged``, ``ServeConfig.batching ==
+"ragged"``): one top-rung slab and a valid-row count; the rows at or past
+the count are zeroed on the device before the same forward and argmax,
+so its class ids are those of ``pad_windows`` of the first rows
+(``roko_tpu/serve/session.py:334-415``). A ragged session warms the top
+rung only.
+
 What the JAX package's session does and this one does not: shard over a
-device mesh (one card here; a session over several ranks is queue item A9.1), load AOT bundles
-or a persistent compile cache (A9.3), run a ragged step (A9.2), or fail
+device mesh (one card here; a session over several ranks is queue item
+A9.1), load AOT bundles or a persistent compile cache (A9.3), or fail
 over to the host CPU after a hang (not ported: carrying on on the CPU
-after the card failed would hide the card's failure).
-``warmup`` runs each rung once through the model and does nothing else.
-The model runs in its resolved ``cfg.compute_dtype``; a config that asks
-for int8 quantizes it once, when the session is built.
+after the card failed would hide the card's failure; ``failed_over`` is
+always False). ``warmup`` runs each rung once through the model
+(``warmup_report``: per-rung seconds, mode ``"eager"``, there being no
+compile to cache). The model runs in its resolved ``cfg.compute_dtype``;
+a config that asks for int8 quantizes it once, when the session is built.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional, Sequence, Set, Tuple
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, Hashable, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from roko_tpu_torch.config import RokoConfig, resolve_ladder, validate_ladder
 from roko_tpu_torch.infer import (
+    mask_rows,
     pad_windows,
     resolve_device,
     rung_for,
@@ -44,6 +55,24 @@ from roko_tpu_torch.infer import (
 from roko_tpu_torch.models.model import RokoModel
 from roko_tpu_torch.models.quant import maybe_quantize
 from roko_tpu_torch.resilience import DeadlinePolicy, call_with_deadline
+
+
+@dataclass
+class WarmupReport:
+    """What a ladder warmup cost (``roko_tpu/compile/warmup.py:32``, less
+    the persistent-cache counters the port has no counterpart of)."""
+
+    seconds: float = 0.0
+    #: always "eager": each rung runs once through the model
+    mode: str = "eager"
+    per_rung_s: Dict[int, float] = field(default_factory=dict)
+
+    def as_dict(self) -> Dict[str, object]:
+        return {
+            "seconds": round(self.seconds, 3),
+            "mode": self.mode,
+            "per_rung_s": {str(r): round(t, 3) for r, t in sorted(self.per_rung_s.items())},
+        }
 
 
 class PolishSession:
@@ -83,16 +112,57 @@ class PolishSession:
         self.dispatched_shapes: Set[int] = set()
         res = self.cfg.resilience
         self._deadlines = DeadlinePolicy(res.predict_deadline_s, res.compile_deadline_s)
+        #: dispatch keys (padded rungs, ``("ragged", top)``) that have run
+        self._ready: Set[Hashable] = set()
+        #: a ragged session serves every step at the top rung
+        self.ragged: bool = self.cfg.serve.batching == "ragged"
+        #: filled by ``warmup``
+        self.warmup_report: Optional[WarmupReport] = None
         w = model.cfg
         self._window_shape = (w.window_rows, w.window_cols)
 
-    def warmup(self) -> int:
+    # -- readiness ------------------------------------------------------------
+
+    def cache_size(self) -> int:
+        """The dispatch shapes that have run at least once (the ``compiled``
+        of ``/healthz``): the port builds its kernels once per process, so
+        a rung is ready once its first dispatch returned."""
+        with self._lock:
+            return len(self._ready)
+
+    def ready_executables(self) -> int:
+        """The rungs warmed: every ladder rung, or the top one for a ragged
+        session."""
+        return self.cache_size()
+
+    @property
+    def failed_over(self) -> bool:
+        """Always False: the port has no CPU fail-over after a hang (the
+        ``cpu_fallback`` of ``/healthz`` and ``/metrics`` say so)."""
+        return False
+
+    def warmup(self, log=None) -> int:
         """Run one zero batch of every rung through the model (on the
-        card, the first call builds the kernels); returns the rung count."""
-        for rung in self.ladder:
+        card, the first call builds the kernels); a ragged session runs
+        its one top-rung step instead. Returns :meth:`ready_executables`
+        and fills ``warmup_report``."""
+        report = WarmupReport()
+        t0 = time.perf_counter()
+        rungs = self.ladder[-1:] if self.ragged else self.ladder
+        for rung in rungs:
+            t_r = time.perf_counter()
+            zeros = np.zeros((rung,) + self._window_shape, np.uint8)
             with self._lock:
-                self._dispatch(np.zeros((rung,) + self._window_shape, np.uint8))
-        return len(self.ladder)
+                if self.ragged:
+                    self._dispatch(zeros, 0)
+                else:
+                    self._dispatch(zeros)
+            report.per_rung_s[rung] = time.perf_counter() - t_r
+        report.seconds = time.perf_counter() - t0
+        self.warmup_report = report
+        if log is not None:
+            log(f"warmup: {len(rungs)} rung(s) ready in {report.seconds:.1f}s ({report.mode})")
+        return self.ready_executables()
 
     # -- dispatch -----------------------------------------------------------
 
@@ -107,25 +177,32 @@ class PolishSession:
         full, rest = divmod(n, top)
         return full * top + (self.rung_for(rest) if rest else 0)
 
-    def _forward(self, x: np.ndarray) -> np.ndarray:
+    def _forward(self, x: np.ndarray, n: Optional[int] = None) -> np.ndarray:
         """uint8[rung, rows, cols] -> int32[rung, cols] class ids, copied
-        back to the host. Runs on the watchdog's thread: the inference
-        mode and the current device are per thread, so both are set here."""
+        back to the host; with ``n``, rows at or past ``n`` are zeroed on
+        the device first (the ragged step). Runs on the watchdog's thread:
+        the inference mode and the current device are per thread, so both
+        are set here."""
         on_card = self.device.type == "cuda"
         with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
             with torch.inference_mode():
                 xt = torch.from_numpy(x).to(self.device)
+                if n is not None:
+                    xt = mask_rows(xt, n)
                 preds = self.model(xt).argmax(dim=-1).to(torch.int32)
                 return preds.cpu().numpy()
 
-    def _dispatch(self, x: np.ndarray) -> np.ndarray:
-        """One padded batch through the device, under the watchdog."""
+    def _dispatch(self, x: np.ndarray, n: Optional[int] = None) -> np.ndarray:
+        """One padded batch (or, with ``n``, one ragged top-rung slab)
+        through the device, under the watchdog; the ragged step has a
+        first-call budget of its own (key ``("ragged", top)``)."""
         rung = x.shape[0]
         self.dispatched_shapes.add(rung)
-        deadline_s, first = self._deadlines.deadline_for(rung)
+        key: Any = rung if n is None else ("ragged", rung)
+        deadline_s, first = self._deadlines.deadline_for(key)
         try:
-            return call_with_deadline(
-                lambda: self._forward(x),
+            out = call_with_deadline(
+                lambda: self._forward(x) if n is None else self._forward(x, n),
                 deadline_s,
                 stage="serve-compile" if first else "serve-predict",
             )
@@ -133,8 +210,36 @@ class PolishSession:
             # a failed first dispatch re-arms the first-call budget, so a
             # retry is not judged by the tight predict deadline
             if first:
-                self._deadlines.forget(rung)
+                self._deadlines.forget(key)
             raise
+        self._ready.add(key)
+        return out
+
+    def ragged_slots(self, n: int) -> int:
+        """Device slots an n-window ragged step spends compute on, the
+        ragged twin of ``padded_size`` behind ``padding_efficiency``: the
+        reference's formula, n rounded up to the dp granularity (dp is 1
+        here, so n)."""
+        return -(-n // self.dp) * self.dp
+
+    def predict_ragged(self, x: np.ndarray, n: int) -> np.ndarray:
+        """uint8[top, rows, cols] slab + valid-row count -> int32[n, cols]
+        class ids. The slab must be top-rung shaped (the ragged batcher
+        packs it); rows at or past ``n`` are zeroed on the device, so
+        stale slab rows never reach the model."""
+        x = np.ascontiguousarray(x, dtype=np.uint8)
+        top = self.ladder[-1]
+        if x.ndim != 3 or x.shape != (top,) + self._window_shape:
+            raise ValueError(
+                f"ragged slab shaped {x.shape}, want {(top,) + self._window_shape}"
+            )
+        if not 0 <= n <= top:
+            raise ValueError(f"valid-row count {n} outside [0, {top}]")
+        if not x.flags.writeable:  # torch.from_numpy wants a writeable array
+            x = x.copy()
+        with self._lock:
+            preds = self._dispatch(x, n)
+        return preds[:n]
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         """uint8[n, rows, cols] -> int32[n, cols] class ids, padding to

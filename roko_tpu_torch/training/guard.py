@@ -11,7 +11,9 @@ step computes the loss and the gradients first; the host then asks
   the loop restores the last good checkpoint with a re-seeded dropout
   stream.
 
-Every event is one ``ROKO_GUARD event=... k=v`` line through ``log``.
+Every event is one ``ROKO_GUARD event=... k=v`` line through ``log``, and
+a JSON record in the event log when one is configured
+(``GuardConfig.event_log``, ``train --event-log``).
 """
 
 from __future__ import annotations
@@ -20,15 +22,13 @@ import math
 from typing import Any, Callable, Dict, Optional
 
 from roko_tpu_torch.config import GuardConfig
+from roko_tpu_torch.obs import events as obs_events
 
 
 def guard_line(event: str, **fields: Any) -> str:
     """``ROKO_GUARD event=<event> k=v ...``, floats as ``%.6g``, keys in
-    call order."""
-    parts = ["ROKO_GUARD", f"event={event}"]
-    for k, v in fields.items():
-        parts.append(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}")
-    return " ".join(parts)
+    call order (``obs.events.format_line``)."""
+    return obs_events.format_line("guard", event, fields)
 
 
 class RollbackRequested(RuntimeError):
@@ -93,11 +93,11 @@ class TrainGuard:
 
         self.consecutive_bad += 1
         self.counters[f"skipped_{reason}"] += 1
-        self._log(guard_line(
-            "skip", reason=reason, step=step, loss=loss,
+        obs_events.emit(
+            "guard", "skip", log=self._log, reason=reason, step=step, loss=loss,
             ema=self.ema if self.ema is not None else float("nan"),
             consecutive=self.consecutive_bad, max_bad_steps=self.cfg.max_bad_steps,
-        ))
+        )
         if self.consecutive_bad >= self.cfg.max_bad_steps:
             raise RollbackRequested(reason, step)
         return False
@@ -106,7 +106,8 @@ class TrainGuard:
         """An applied update left non-finite parameters: the old ones are
         gone, so this rolls back at once."""
         self.counters["param_nonfinite"] += 1
-        self._log(guard_line("param_nonfinite", step=step, action="rollback"))
+        obs_events.emit("guard", "param_nonfinite", log=self._log, step=step,
+                        action="rollback")
         raise RollbackRequested("param_nonfinite", step)
 
     def state_dict(self) -> Dict[str, Any]:

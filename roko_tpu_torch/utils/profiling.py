@@ -2,10 +2,9 @@
 copy of ``roko_tpu/utils/profiling.py::StageTimer``), and the device
 trace behind ``--trace-dir``: :func:`device_trace` and :func:`annotate`,
 the ``torch.profiler`` counterparts of the JAX package's
-``jax.profiler`` ones (:98-136). ``torch`` is imported inside them, so
-the host side imports this module without it. The server's on-demand
-trace (``capture_device_trace``, ``/profilez``) comes with the serve
-stack (ROADMAP queue item A9)."""
+``jax.profiler`` ones (:98-136), and the server's on-demand trace behind
+``POST /profilez`` (:func:`capture_device_trace`). ``torch`` is imported
+inside them, so the host side imports this module without it."""
 
 from __future__ import annotations
 
@@ -118,6 +117,32 @@ def device_trace(trace_dir: Optional[str], device=None) -> Iterator[None]:
     if dev_type == "cuda" and not any(e.device_type == DeviceType.CUDA for e in prof.events()):
         raise RuntimeError(f"the trace {path} holds no device events: torch.profiler "
                            "recorded no CUDA activity on the card")
+
+
+def capture_device_trace(trace_dir: str, seconds: float, device=None) -> str:
+    """Hold ``torch.profiler`` open for ``seconds`` of wall time and write
+    its Chrome trace JSON into ``trace_dir``: the live-service half of
+    :func:`device_trace` (``roko_tpu/utils/profiling.py:109``). It traces
+    whatever the process runs in the window, the card's kernels included
+    on a CUDA ``device`` (None: the card when one is present), whichever
+    thread launched them. A window with no device work is no error: the
+    service may have been idle. Returns the trace file's path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_type = (torch.device(device).type if device is not None
+                else "cuda" if torch.cuda.is_available() else "cpu")
+    activities = [ProfilerActivity.CPU]
+    if dev_type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        time.sleep(max(0.0, seconds))
+        if dev_type == "cuda":
+            torch.cuda.synchronize()
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"roko_profilez.{os.getpid()}.{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def annotate(name: str):

@@ -235,7 +235,7 @@ def test_bench_asks_for_a_card_by_default():
     ("--features", None, "A11"), ("--e2e-draft", "60000", "A11"),
     ("--pipeline-draft", "60000", "A11"), ("--cascade-draft", "40000", "A10"),
     ("--coldstart-ladder", "32,128", "A9.3"), ("--input-rows", "1536", "A11"),
-    ("--fleet-workers", "1,2", "A9"),
+    ("--fleet-workers", "1,2", "A9.5"),
     ("--in-process", None, "deliberately not ported"),
 ])
 def test_unported_suite_flags_are_usage_errors(flag, value, item, capsys):
@@ -316,3 +316,65 @@ def test_mesh_devices_flag_runs_the_suite_and_compares(tmp_path, monkeypatch):
                                  "mesh": fake((1, 2), device="cpu", iterations=1)}, 1.0)
     block = B.compare_to_previous(result, json.loads(prev.read_text()))
     assert block["metrics"]["mesh.2.windows_per_sec"]["delta_pct"] == 0.0
+
+
+def _key_paths(d, prefix=""):
+    out = set()
+    for k, v in d.items():
+        out.add(prefix + k)
+        if isinstance(v, dict):
+            out |= _key_paths(v, prefix + k + ".")
+    return out
+
+
+def test_serve_suite_rows_are_the_references():
+    """The serve suite on a tiny model at a tiny mix (8 requests of 2 and
+    8 windows): the row keys of ``roko_tpu.benchmark.run_serve_suite`` on
+    the same mix and widths, except the reference's ``autoscale`` row,
+    which is an error row here (it drives the fleet supervisor, queue item
+    A9.5); every mode byte-identical and error-free; and no error counts
+    against the command."""
+    from roko_tpu.config import RokoConfig as RefRokoConfig
+
+    got = B.run_serve_suite("2:50,8:50", iterations=8, device="cpu", model_overrides=TINY)
+    want = RB.run_serve_suite("2:50,8:50", iterations=8,
+                              config_json=RefRokoConfig(model=RefModelConfig(**TINY)).to_json())
+    autoscale = {k for k in _key_paths(want) if k.startswith("autoscale.")}
+    assert _key_paths(got) - {"autoscale.error"} == _key_paths(want) - autoscale
+    assert got["autoscale"] == {"error": B.UNPORTED_SERVE_ROWS["autoscale"]}
+    assert "A9.5" in got["autoscale"]["error"]
+    assert got["ladder"] == want["ladder"] == [8] and got["iterations"] == 8
+    for mode, row in got["modes"].items():
+        assert row["byte_identical"] is True and row["client_errors"] == 0, mode
+        assert sum(c["requests"] for c in row["size_classes"].values()) == 8
+    assert got["modes"]["ragged"]["padding_efficiency"] == 1.0
+    assert got["precision"]["modes"]["float32+int8"]["byte_identical"] is True
+    assert B.ported_errors({"detail": {"serve": got}}) == []
+
+
+def test_serve_mix_flag_runs_the_suite(monkeypatch):
+    """``--serve-mix`` reaches the suite from the CLI and from
+    ``benchmark.main``: bare, the device's default mix; "off" and absent,
+    no suite; a failing suite is a ported error."""
+    seen = []
+
+    def fake(mix, **kw):
+        seen.append((mix, kw["device"].type, kw["iterations"]))
+        return {"modes": {}, "autoscale": {"error": B.UNPORTED_SERVE_ROWS["autoscale"]}}
+
+    monkeypatch.setattr(B, "run_serve_suite", fake)
+    monkeypatch.setattr(B, "bench_torch_reference", lambda: 1.0)
+    monkeypatch.setattr(B, "run_inference_suite",
+                        lambda *a, **k: {"windows_per_sec": 1.0, "iterations": 1})
+    assert cli.main(["bench", "--device", "cpu", "--serve-mix"]) == 0
+    assert B.main(["--device", "cpu", "--serve-mix", "2:50,8:50", "--bench-iterations", "3"]) == 0
+    assert B.main(["--device", "cpu", "--serve-mix", "off"]) == 0
+    assert B.main(["--device", "cpu"]) == 0
+    assert seen == [(B.SERVE_MIX_DEFAULT_CPU, "cpu", B.SERVE_SUITE_REQUESTS),
+                    ("2:50,8:50", "cpu", 3)]
+    assert (B.SERVE_MIX_DEFAULT_TPU, B.SERVE_SUITE_REQUESTS, B.SERVE_SUITE_CLIENTS) == \
+        (RB.SERVE_MIX_DEFAULT_TPU, RB.SERVE_SUITE_REQUESTS, RB.SERVE_SUITE_CLIENTS)
+    monkeypatch.setattr(B, "run_serve_suite", lambda mix, **kw: {"error": "boom"})
+    assert B.main(["--device", "cpu", "--serve-mix", "2:100"]) == 1
+    with pytest.raises(ValueError, match="sum to"):
+        B._parse_mix("2:50")

@@ -72,9 +72,10 @@ def _import_in_child(*names):
 
 
 #: the host side of the port: feature extraction runs in worker
-#: processes and threads, and the assess tool, the failure handling,
-#: the batching plane's scheduler and the training data plane are host
-#: code, so none of it may import torch
+#: processes and threads, and the assess tool, the failure handling and
+#: the circuit breaker, the batching plane's batchers, the service's
+#: client, its traces and histograms, and the training data plane are
+#: host code, so none of it may import torch
 HOST_MODULES = [
     "roko_tpu_torch.sim", "roko_tpu_torch.utils.rng", "roko_tpu_torch.resilience.retry",
     "roko_tpu_torch.io.bgzf", "roko_tpu_torch.io.bam", "roko_tpu_torch.io.sam",
@@ -86,8 +87,9 @@ HOST_MODULES = [
     "roko_tpu_torch.utils.profiling", "roko_tpu_torch.obs.events",
     "roko_tpu_torch.resilience",
     "roko_tpu_torch.resilience.watchdog", "roko_tpu_torch.resilience.journal",
+    "roko_tpu_torch.resilience.breaker", "roko_tpu_torch.obs.hist", "roko_tpu_torch.obs.trace",
     "roko_tpu_torch.serve.batcher", "roko_tpu_torch.serve.metrics",
-    "roko_tpu_torch.serve.scheduler", "roko_tpu_torch.datapipe",
+    "roko_tpu_torch.serve.scheduler", "roko_tpu_torch.serve.client", "roko_tpu_torch.datapipe",
     "roko_tpu_torch.datapipe.io", "roko_tpu_torch.datapipe.manifest",
     "roko_tpu_torch.datapipe.engine", "roko_tpu_torch.datapipe.dataset",
     "roko_tpu_torch.training.data", "roko_tpu_torch.training.lazy_data",
@@ -96,7 +98,7 @@ HOST_MODULES = [
 
 def test_every_port_module_imports_without_jax():
     names = _import_in_child()
-    assert len(names) >= 70
+    assert len(names) >= 75
     assert "roko_tpu_torch.training.engine" not in names  # moved to datapipe.engine
     assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru",
             "roko_tpu_torch.models.transformer",
@@ -107,7 +109,8 @@ def test_every_port_module_imports_without_jax():
             "roko_tpu_torch.datapipe.dataset", "roko_tpu_torch.training.lazy_data",
             "roko_tpu_torch.parallel", "roko_tpu_torch.parallel.distributed",
             "roko_tpu_torch.parallel.mesh", "roko_tpu_torch.parallel.tp",
-            "roko_tpu_torch.parallel.ring", *HOST_MODULES} <= set(names)
+            "roko_tpu_torch.parallel.ring", "roko_tpu_torch.serve.server",
+            "roko_tpu_torch.serve.client", *HOST_MODULES} <= set(names)
 
 
 def test_host_modules_import_without_torch():

@@ -311,7 +311,7 @@ def test_every_reference_field_is_ported_refused_or_ignored():
 @pytest.mark.parametrize("section,value,item", [
     # the mesh's dp, tp and sp are ported; the AOT bundle is queue item A9.3
     ("compile", {"bundle_dir": "b"}, "A9.3"), ("cascade", {"enabled": True}, "A10"),
-    ("serve", {"port": 9000}, "A9"), ("store", {"endpoint": "http://h"}, "A10"),
+    ("fleet", {"workers": 2}, "A9.5"), ("store", {"endpoint": "http://h"}, "A10"),
     ("model", {"remat_scan": True}, "A12"),
 ])
 def test_unported_config_is_refused_by_name(tmp_path, capsys, section, value, item):

@@ -12,6 +12,8 @@
     python3 chip_smoke.py --mesh-only          # the mesh phase alone
     python3 chip_smoke.py --tp-sp-only         # the tp_sp phase alone
     python3 chip_smoke.py --serve-only         # the serve phase alone
+    python3 chip_smoke.py --coldstart-only     # the coldstart phase alone
+    python3 chip_smoke.py --fleet-only         # the fleet phase alone
     python3 chip_smoke.py --mesh-child SPEC    # one rank of the mesh or tp_sp phase (they start them)
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
@@ -134,7 +136,31 @@ which launches no kernel, in a phase of its own):
   sent: the request completes with 200, a new one gets 503, and the
   process exits 0 within ``drain_deadline_s``; (e) the warmup seconds and
   the subprocess's start-to-ready seconds (``--serve-only`` runs this
-  phase alone).
+  phase alone);
+- coldstart: ``benchmark.run_coldstart_suite`` at full width (gru, 3
+  layers, h=128, f32; the ladder 32 / 128 / 512): time to the first
+  prediction of four starts, each a child process: ``cold`` (an empty
+  build directory through ``ROKO_COMPILE_CACHE``, nvcc runs),
+  ``cold_parallel`` (the cache off, the rungs at once), ``warm_cache``
+  (``cold``'s directory again) and ``aot`` (the kernel bundle, the cache
+  off); fails unless ``cold`` ran nvcc and ``warm_cache`` and ``aot``
+  ran none (``roko_compile_cache_misses`` 0) (``--coldstart-only``);
+- fleet: the single-host fleet at full width: ``python -m roko_tpu_torch
+  compile`` writes bundles v1 and v2 at once (weights of two seeds
+  through the weights bridge), v1 checked in a fresh process, each
+  registered with ``--params``; a lingru config loading v1 and a v1 whose manifest names
+  another card each make ``serve`` exit non-zero naming ``model.kind``
+  and ``device_kind``; ``serve --workers 2 --devices-per-worker 0
+  --bundle v1`` as a subprocess (supervisor, two workers and the clients
+  on the one card, the build cache off): the 7-, 300- and 700-window
+  replies byte-equal to the staged stitch of v1's weights, every
+  worker's ``roko_compile_cache_misses`` 0, req/s under closed-loop load,
+  a worker SIGKILLed under load (every reply 200 and byte-equal, the
+  worker back in rotation), ``python -m roko_tpu_torch rollout v2`` under
+  load (no request fails, each reply v1's or v2's stitch, one worker at a
+  time, every reply v2's after), and SIGTERM to the supervisor (rolling
+  drain, exit 0, no worker process left); the workers' kernel launches
+  come from the files they write at exit (``--fleet-only``).
 
 ``--bwd-bf16-only`` also reads ROADMAP fault C2 against the reference's
 own numbers (``tests/torch_golden/c2_bf16_bwd.npz``): the kernel, the
@@ -351,6 +377,15 @@ SERVE_DRAIN_WINDOWS = 700
 SERVE_PROFILE_S = 1.0
 SERVE_LINGRU_REQUESTS = 12
 SERVE_START_TIMEOUT_S = 300
+# the coldstart phase's ladder (the serve default) and the fleet phase's
+# request sizes, closed-loop clients and load seconds, rollout bake, and
+# the bound on a fleet's start, a worker's rejoin and a rollout
+COLDSTART_LADDER = (32, 128, 512)
+FLEET_SIZES = (7, 300, 700)
+FLEET_CLIENTS = 3
+FLEET_LOAD_S = 4.0
+FLEET_BAKE_S = 2
+FLEET_TIMEOUT_S = 300
 BENCH_WIDE_B = 2048
 BENCH_STRESS_SHAPE = dict(B=512, T=90, IN=500, H=256, S=2)
 # ... and the train_gru row's first layer (the resident f32 backward)
@@ -3578,6 +3613,409 @@ def drive_serve(torch, port, dev, counts, card, rng) -> dict:
     return out
 
 
+def drive_coldstart(port, card) -> dict:
+    """The bench's coldstart suite at full width on the card; fails unless
+    the cold starts ran nvcc, the warm-cache and bundle starts ran none,
+    and every start launched ``gru_fwd`` only."""
+    t0 = time.perf_counter()
+    res = port.bench.run_coldstart_suite(COLDSTART_LADDER, device="cuda")
+    res["seconds"] = time.perf_counter() - t0
+    for mode in ("cold", "cold_parallel"):
+        if res[mode]["compile_cache_misses"] < 1:
+            fail(f"coldstart {mode}: no nvcc ran in an empty build directory: {res[mode]}")
+    for mode in ("warm_cache", "aot"):
+        if res[mode]["compile_cache_misses"] != 0:
+            fail(f"coldstart {mode}: {res[mode]['compile_cache_misses']} kernel(s) built with "
+                 "nvcc; the build cache or the bundle should have carried them")
+    if res["aot"]["warmup"]["mode"] != "aot":
+        fail(f"coldstart aot warmed in mode {res['aot']['warmup']['mode']}")
+    for mode in ("cold", "cold_parallel", "warm_cache", "aot"):
+        got = dict(res[mode]["launches"])
+        if got.pop("gru_fwd") < 3 or any(got.values()):
+            fail(f"coldstart {mode}: kernel launches {res[mode]['launches']}")
+    res["launches"] = {"gru_fwd": sum(res[m]["launches"]["gru_fwd"]
+                                      for m in ("cold", "cold_parallel", "warm_cache", "aot"))}
+    res["card"] = card
+    return res
+
+
+def drive_fleet(torch, port, dev, card) -> dict:
+    """The single-host fleet at full width (gru, 3 bidirectional layers,
+    h=128, f32): bundles and the registry, the refusals, a 2-worker fleet
+    on the card, failover, a rollout and the drain. Every reply is held
+    byte for byte against the staged stitch of the version that served it."""
+    import signal
+    import tempfile
+    import threading
+
+    C = port.C
+    cfg = port.ModelConfig()
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    reg = os.path.join(work, "registry")
+    contig = "fleet"
+    rng = np.random.default_rng(SEED + 23)
+    draft, positions, examples = synthetic_contig(rng, max(FLEET_SIZES), C)
+    want: dict = {}
+    ckpt: dict = {}
+    for v, seed in (("v1", SEED + 24), ("v2", SEED + 25)):
+        sd = port.state_dict_from_jax(jax_layout_params(np.random.default_rng(seed), cfg))
+        ckpt[v] = os.path.join(work, f"{v}.pth")
+        torch.save(sd, ckpt[v])
+        model = port.RokoModel(cfg)
+        model.load_state_dict(sd, strict=True)
+        model.to(dev).eval()
+        want[v] = {n: port.run_inference(
+            iter([([contig] * n, positions[:n], examples[:n])]), {contig: draft}, model,
+            device=dev, log=lambda m: None)[contig] for n in FLEET_SIZES}
+        del model
+    if want["v1"] == want["v2"]:
+        fail("fleet: v1 and v2 give the same stitches; the rollout could not be told apart")
+    py = [sys.executable, "-m", "roko_tpu_torch"]
+    env = dict(os.environ, ROKO_REGISTRY=reg)
+    out: dict = {"model": {"kind": cfg.kind, "num_layers": cfg.num_layers,
+                           "hidden_size": cfg.hidden_size}, "card": card}
+
+    def start(argvs):
+        """Start the commands at once (each process spends most of its
+        start reaching the card)."""
+        return [(argv, time.perf_counter(), subprocess.Popen(
+            py + argv, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)) for argv in argvs]
+
+    def wait_all(started):
+        """[(CompletedProcess, seconds from its start)] in order."""
+        out = []
+        for argv, t0, proc in started:
+            try:
+                stdout, stderr = proc.communicate(timeout=FLEET_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                for _, _, p in started:
+                    p.kill()
+                fail(f"fleet: {argv[:2]} did not end within {FLEET_TIMEOUT_S} s")
+            out.append((subprocess.CompletedProcess(argv, proc.returncode, stdout, stderr),
+                        time.perf_counter() - t0))
+        return out
+
+    # -- compile: bundles v1 and v2 at once, v1 checked in a fresh process,
+    # both registered with their weights
+    bundles = {v: os.path.join(work, f"bundle_{v}") for v in ("v1", "v2")}
+    compiling = start([["compile", bundles[v], "--register", v, "--params", ckpt[v],
+                        "--registry", reg] + (["--no-verify"] if v == "v2" else [])
+                       for v in ("v1", "v2")])
+    # -- a bundle that does not match is refused, naming the field: these
+    # need v1's manifest only, so they start while v1's fresh-process
+    # check runs (a failed check fails the compile below)
+    lin_cfg = port.ModelConfig(kind="lingru")
+    lin_pth = os.path.join(work, "lingru.pth")
+    torch.save(port.state_dict_from_jax(jax_layout_params(np.random.default_rng(SEED + 26),
+                                                          lin_cfg)), lin_pth)
+    man_v1 = os.path.join(bundles["v1"], "manifest.json")
+    while not os.path.exists(man_v1) and compiling[0][2].poll() is None:
+        time.sleep(0.1)
+    if not os.path.exists(man_v1):
+        r, _ = wait_all(compiling)[0]
+        fail(f"fleet: compile v1 exited {r.returncode} without a manifest:\n"
+             f"{(r.stdout + r.stderr)[-3000:]}")
+    edited = os.path.join(work, "bundle_v1_edited")
+    shutil.copytree(bundles["v1"], edited)
+    man_path = os.path.join(edited, "manifest.json")
+    man = json.load(open(man_path))
+    man["identity"]["device_kind"] += " (edited)"
+    json.dump(man, open(man_path, "w"))
+    cases = (("lingru_config", ["serve", lin_pth, "--model-kind", "lingru", "--bundle",
+                                bundles["v1"]], "model.kind"),
+             ("edited_device_kind", ["serve", ckpt["v1"], "--bundle", edited], "device_kind"))
+    refusing = start([argv + ["--port", "0"] for _, argv, _ in cases])
+    for v, (r, secs) in zip(("v1", "v2"), wait_all(compiling)):
+        if r.returncode != 0:
+            fail(f"fleet: compile {v} exited {r.returncode}:\n{(r.stdout + r.stderr)[-3000:]}")
+        manifest = json.load(open(os.path.join(bundles[v], "manifest.json")))
+        out[f"compile_{v}"] = {"seconds": secs, "digest": manifest["digest"],
+                               "libraries": manifest["libraries"], "rungs": manifest["rungs"],
+                               "rung_seconds": manifest["rung_seconds"],
+                               "verified": "(fresh process)" in r.stdout}
+        if list(manifest["libraries"]) != ["gru_fwd"] or \
+                out[f"compile_{v}"]["verified"] != (v == "v1"):
+            fail(f"fleet: bundle {v} holds {list(manifest['libraries'])}, verified "
+                 f"{out[f'compile_{v}']['verified']}")
+    if out["compile_v1"]["digest"] != out["compile_v2"]["digest"]:
+        fail("fleet: two bundles of one config and card have different digests")
+
+    refusals = {}
+    for (what, argv, field), (r, secs) in zip(cases, wait_all(refusing)):
+        text = r.stdout + r.stderr
+        named = "BundleMismatch" in text and f"{field}:" in text
+        refusals[what] = {"rc": r.returncode, "names": field, "named": named, "seconds": secs}
+        if r.returncode == 0 or not named:
+            fail(f"fleet: serve with {what} exited {r.returncode}, naming {field} {named}:\n"
+                 f"{text[-2000:]}")
+    out["refusals"] = refusals
+
+    # -- the fleet: supervisor + 2 workers sharing the card ----------------
+    runtime = os.path.join(work, "runtime")
+    cfg_path = os.path.join(work, "fleet.json")
+    rcfg = port.RokoConfig()
+    rcfg = dataclasses.replace(rcfg, fleet=dataclasses.replace(rcfg.fleet, runtime_dir=runtime))
+    with open(cfg_path, "w") as f:
+        f.write(rcfg.to_json())
+    announce = os.path.join(work, "front.json")
+    launches_prefix = os.path.join(work, "launches")
+    fenv = dict(env, ROKO_COMPILE_CACHE="off", ROKO_KERNEL_LAUNCHES=launches_prefix)
+    log_path = os.path.join(work, "supervisor.log")
+    logf = open(log_path, "w")
+    t_start = time.perf_counter()
+    sup = subprocess.Popen(py + ["serve", ckpt["v1"], "--workers", "2", "--devices-per-worker",
+                                 "0", "--bundle", bundles["v1"], "--registry", reg,
+                                 "--config", cfg_path, "--port", "0", "--announce", announce,
+                                 "--heartbeat-interval", "0.5", "--bake-s", str(FLEET_BAKE_S)],
+                           cwd=ROOT, env=fenv, stdout=logf, stderr=subprocess.STDOUT,
+                           start_new_session=True)
+    # the supervisor leads a process group of its own: its workers are in
+    # it, so whatever fails below, no process of the fleet outlives the
+    # phase
+    roll = None
+    poll_errors = []
+    poll_max_s = [0.0]
+
+    def poll(path):
+        """(status, body) of a status endpoint; a connection that fails or
+        times out is counted (the clients' requests carry their own
+        retries and are held to 0 failures) and answers (None, {})."""
+        t0 = time.perf_counter()
+        try:
+            status, body, _ = http_json(base, path, timeout=10)
+        except OSError as e:
+            poll_errors.append(f"{path}: {type(e).__name__}: {e}"[:200])
+            return None, {}
+        finally:
+            poll_max_s[0] = max(poll_max_s[0], time.perf_counter() - t0)
+        return status, body if isinstance(body, dict) else {}
+
+    def log_tail():
+        logf.flush()
+        with open(log_path) as f:
+            return f.read()[-4000:]
+
+    def worker_pids():
+        pids = {}
+        for wid in (0, 1):
+            try:
+                with open(os.path.join(runtime, f"worker-{wid}.announce.json")) as f:
+                    pids[wid] = json.load(f)["pid"]
+            except (OSError, ValueError, KeyError):
+                pass
+        return pids
+
+    def alive(pid):
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return False
+        try:  # a reaped child is gone; an unreaped one shows as a zombie
+            with open(f"/proc/{pid}/stat") as f:
+                return f.read().split(")")[-1].split()[0] != "Z"
+        except OSError:
+            return False
+
+    all_pids: set = set()
+    try:
+        while True:
+            if sup.poll() is not None:
+                fail(f"fleet: the supervisor exited {sup.returncode}:\n{log_tail()}")
+            if time.perf_counter() - t_start > FLEET_TIMEOUT_S:
+                fail(f"fleet: not ready within {FLEET_TIMEOUT_S} s:\n{log_tail()}")
+            if os.path.exists(announce):
+                base = f"http://127.0.0.1:{json.load(open(announce))['port']}"
+                status, health = poll("/healthz")
+                if status == 200 and health.get("status") == "ok":
+                    break
+            time.sleep(0.1)
+        out["ready_s"] = time.perf_counter() - t_start
+        all_pids |= set(worker_pids().values())
+        client = port.PolishClient(base, timeout=300.0)
+        replies = {}
+        for n in FLEET_SIZES:
+            t0 = time.perf_counter()
+            reply = client.polish(draft, positions[:n], examples[:n], contig=contig, retries=8)
+            replies[n] = time.perf_counter() - t0
+            if reply["polished"] != want["v1"][n] or reply["windows"] != n:
+                fail(f"fleet: the {n}-window reply differs from v1's staged stitch")
+        out["reply_s"] = replies
+        metrics_text = client.metrics()
+        misses = re.findall(r'^roko_compile_cache_misses\{worker="(\d+)"\} (\S+)$',
+                            metrics_text, re.M)
+        if sorted(w for w, _ in misses) != ["0", "1"] or any(float(v) for _, v in misses):
+            fail(f"fleet: workers' roko_compile_cache_misses {misses}; a worker loaded from "
+                 "a bundle must run no nvcc")
+        out["compile_cache_misses_by_worker"] = {w: float(v) for w, v in misses}
+
+        def load(seconds, stop=None, allowed=("v1",)):
+            """Closed-loop clients until ``seconds`` pass (or ``stop`` is
+            set); every reply must be one allowed version's stitch."""
+            got, errors, which = [], [], []
+            lock = threading.Lock()
+            t_end = time.perf_counter() + seconds
+
+            def one(k):
+                c = port.PolishClient(base, timeout=300.0)
+                i = k
+                while (stop is None and time.perf_counter() < t_end) or \
+                        (stop is not None and not stop.is_set()):
+                    n = FLEET_SIZES[i % 2]  # 7 and 300 windows
+                    i += 1
+                    t0 = time.perf_counter()
+                    try:
+                        r = c.polish(draft, positions[:n], examples[:n], contig=contig,
+                                     retries=8)
+                    except Exception as e:
+                        with lock:
+                            errors.append(f"{type(e).__name__}: {e}"[:300])
+                        continue
+                    v = next((v for v in allowed if r["polished"] == want[v][n]), None)
+                    with lock:
+                        got.append(time.perf_counter() - t0)
+                        which.append(v)
+                        if v is None:
+                            errors.append(f"a {n}-window reply matches none of {allowed}")
+
+            threads = [threading.Thread(target=one, args=(k,), daemon=True)
+                       for k in range(FLEET_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            return threads, got, errors, which, t0
+
+        def finish(threads, got, errors, which, t0, what):
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+            if errors:
+                fail(f"fleet {what}: {len(errors)} failed request(s): {errors[:5]}")
+            return {"requests": len(got), "req_per_s": len(got) / wall, "wall_s": wall,
+                    "p50_s": float(np.percentile(got, 50)) if got else None,
+                    "p99_s": float(np.percentile(got, 99)) if got else None,
+                    "versions": {v: which.count(v) for v in set(which)}}
+
+        out["load"] = finish(*load(FLEET_LOAD_S), "load")
+
+        # -- failover: SIGKILL worker 0 under load --------------------------
+        pids = worker_pids()
+        stop = threading.Event()
+        handle = load(0, stop)
+        time.sleep(1.0)
+        os.kill(pids[0], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        time.sleep(4.0)
+        stop.set()
+        out["failover"] = finish(*handle, "failover")
+        while True:
+            status, health = poll("/healthz")
+            w0 = health.get("workers", {}).get("0", {})
+            if status == 200 and health.get("workers_up") == 2 and w0.get("restarts", 0) >= 1:
+                break
+            if time.perf_counter() - t_kill > FLEET_TIMEOUT_S:
+                fail(f"fleet: worker 0 did not rejoin after SIGKILL: {health}\n{log_tail()}")
+            time.sleep(0.2)
+        out["failover"]["rejoin_s"] = time.perf_counter() - t_kill
+        out["failover"]["killed_pid"] = pids[0]
+        all_pids |= set(worker_pids().values())
+
+        # -- rollout v2 under load --------------------------------------------
+        stop = threading.Event()
+        handle = load(0, stop, allowed=("v1", "v2"))
+        t_roll = time.perf_counter()
+        roll = subprocess.Popen(py + ["rollout", "v2", "--url", base, "--timeout",
+                                      str(FLEET_TIMEOUT_S), "--poll-s", "0.2"],
+                                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        done_at, seen = {}, set()
+        while roll.poll() is None:
+            if time.perf_counter() - t_roll > FLEET_TIMEOUT_S + 60:
+                fail(f"fleet: the rollout command did not end:\n{log_tail()}")
+            _, st = poll("/rollout")
+            for w in st.get("workers_done", []):
+                if w not in seen:
+                    seen.add(w)
+                    done_at[w] = time.perf_counter() - t_roll
+            all_pids |= set(worker_pids().values())
+            time.sleep(0.1)
+        t_cmd_end = time.perf_counter()
+        roll_out = roll.stdout.read()
+        stop.set()
+        during = finish(*handle, "rollout")
+        if roll.returncode != 0:
+            fail(f"fleet: rollout v2 exited {roll.returncode}:\n{roll_out}\n{log_tail()}")
+        st = {}
+        while not st:
+            _, st = poll("/rollout")
+        after = finish(*load(2.0, allowed=("v2",)), "after the rollout")
+        times = [done_at[w] for w in sorted(done_at, key=done_at.get)]
+        out["rollout"] = {"seconds": time.perf_counter() - t_roll - after["wall_s"],
+                          "command_s": t_cmd_end - t_roll,
+                          "worker_done_s": times,
+                          "seconds_per_worker": [b - a for a, b in zip([0.0] + times, times)],
+                          "state": st.get("state"), "worker_versions": st.get("worker_versions"),
+                          "during": during, "after": after, "log": roll_out.splitlines()[-4:]}
+        if st.get("state") != "done" or set(st.get("worker_versions", {}).values()) != {"v2"}:
+            fail(f"fleet: rollout ended {st}")
+        all_pids |= set(worker_pids().values())
+
+        # -- drain: SIGTERM the supervisor ---------------------------------------
+        t_term = time.perf_counter()
+        sup.send_signal(signal.SIGTERM)
+        try:
+            rc = sup.wait(FLEET_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"fleet: the supervisor did not exit within {FLEET_TIMEOUT_S} s of SIGTERM")
+        left = sorted(p for p in all_pids if alive(p))
+        try:
+            os.killpg(sup.pid, 0)
+            group_left = True
+        except ProcessLookupError:
+            group_left = False
+        out["drain"] = {"rc": rc, "seconds": time.perf_counter() - t_term,
+                        "workers_seen": sorted(all_pids), "workers_left": left,
+                        "process_group_left": group_left}
+        out["status_poll_errors"] = poll_errors
+        out["status_poll_max_s"] = poll_max_s[0]
+        if rc != 0 or left or group_left:
+            fail(f"fleet: SIGTERM drain exited {rc}, worker processes left {left}:\n"
+                 f"{log_tail()}")
+    finally:
+        if roll is not None and roll.poll() is None:
+            roll.kill()
+            roll.wait()
+        if sup.poll() is None:  # a failure above: drain, then kill the group
+            sup.send_signal(signal.SIGTERM)
+            try:
+                sup.wait(60)
+            except subprocess.TimeoutExpired:
+                pass
+        try:
+            os.killpg(sup.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        if sup.poll() is None:
+            sup.wait()
+        for pid in all_pids:
+            if alive(pid):
+                os.kill(pid, signal.SIGKILL)
+        logf.close()
+    launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "lingru_fwd": 0, "lingru_fwd_bf16": 0}
+    files = [f for f in os.listdir(work) if f.startswith("launches.")]
+    for name in files:
+        with open(os.path.join(work, name)) as f:
+            for k, v in json.load(f)["launches"].items():
+                launches[k] += v
+    if not files or launches.pop("gru_fwd") < 3 * len(files) or any(launches.values()):
+        fail(f"fleet: the workers' kernel launches {launches} from {len(files)} file(s)")
+    out["launches"] = {"gru_fwd": sum(json.load(open(os.path.join(work, f)))["launches"]
+                                      ["gru_fwd"] for f in files),
+                       "workers_reporting": len(files)}
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def base64_le(a: np.ndarray) -> str:
     """An array as the service's wire format: base64 of its raw
     little-endian bytes."""
@@ -3726,11 +4164,14 @@ def main() -> None:
     mesh_only = sys.argv[1:] == ["--mesh-only"]
     tp_sp_only = sys.argv[1:] == ["--tp-sp-only"]
     serve_only = sys.argv[1:] == ["--serve-only"]
-    if sys.argv[1:] and not (plane_only or mesh_only or tp_sp_only or serve_only):
+    coldstart_only = sys.argv[1:] == ["--coldstart-only"]
+    fleet_only = sys.argv[1:] == ["--fleet-only"]
+    if sys.argv[1:] and not (plane_only or mesh_only or tp_sp_only or serve_only
+                             or coldstart_only or fleet_only):
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
              "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --bwd-bf16-only ROOT "
              "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only | --mesh-only "
-             "| --tp-sp-only | --serve-only]")
+             "| --tp-sp-only | --serve-only | --coldstart-only | --fleet-only]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import benchmark as bench
@@ -3815,8 +4256,15 @@ def main() -> None:
     t0 = time.perf_counter()
     built = kernels.build(["gru_fwd", "gru_bwd"] if plane_only or mesh_only
                           else ["gru_fwd", "gru_fwd_bf16", "lingru_fwd"] if serve_only
+                          else ["gru_fwd"] if coldstart_only or fleet_only
                           else None)
     emit({"build": {"seconds": time.perf_counter() - t0, "kernels": built}})
+    if coldstart_only:  # the coldstart phase alone
+        emit({"coldstart": drive_coldstart(port, card)})
+        return
+    if fleet_only:  # the fleet phase alone
+        emit({"fleet": drive_fleet(torch, port, dev, card)})
+        return
     if serve_only:  # the serve phase alone
         emit({"serve": drive_serve(torch, port, dev, counts, card,
                                    np.random.default_rng(SEED + 22))})
@@ -4019,6 +4467,12 @@ def main() -> None:
     serve = drive_serve(torch, port, dev, counts, card, np.random.default_rng(SEED + 22))
     emit({"serve": serve})
     serve_launches = {name: serve["launches"].get(name, 0) for name in counts.wrappers}
+    # -- cold start: four starts of a serve session, each a child process --
+    coldstart = drive_coldstart(port, card)
+    emit({"coldstart": coldstart})
+    # -- the single-host fleet: bundles, registry, failover, rollout, drain
+    fleet = drive_fleet(torch, port, dev, card)
+    emit({"fleet": fleet})
     mesh_fwd = (mesh["nccl_world_1"]["launches"]["gru_fwd"]
                 + sum(r["step"]["gru_fwd"] + r["train"]["gru_fwd"] + r["infer"]["gru_fwd"]
                       for r in mesh["gloo_2_ranks"]["launches_by_rank"])
@@ -4058,7 +4512,9 @@ def main() -> None:
                               "stream_polish": stream["gru_fwd_launches"], "train": train_fwd,
                               **precision_launches["gru_fwd"],
                               "train_plane": plane["launches"]["gru_fwd"],
-                              "bench": bench_launched["gru_fwd"], "mesh": mesh_fwd},
+                              "bench": bench_launched["gru_fwd"], "mesh": mesh_fwd,
+                              "coldstart": coldstart["launches"]["gru_fwd"],
+                              "fleet": fleet["launches"]["gru_fwd"]},
                    at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",

@@ -7,7 +7,13 @@ recurrence alone (:178), the precision column (:215), with
 suite (:2163, the same global batch split over 1, 2 and 4 processes,
 ``parallel/``), and with ``--serve-mix`` the serve suite (:2402, the
 deadline, continuous and ragged batchers under one mixed-size closed-loop
-schedule, ``serve/``). Driver contract, as the reference's:
+schedule, and the autoscaler's row, ``serve/``), with ``--coldstart-ladder``
+the coldstart suite (:2069, time to first prediction of four start modes,
+each a child process: cold build directory, cold with the rungs at once,
+warm build cache, kernel bundle; ``compile/``) and with
+``--fleet-workers`` the fleet suite (:2809, a supervised fleet of serve
+processes under closed-loop load, and a worker SIGKILLed under it;
+``serve/fleet.py``). Driver contract, as the reference's:
 ONE JSON line ``{"metric", "value", "unit", "vs_baseline", "detail"}``,
 ``value`` the polished bases per second of the card (windows/s x
 WINDOW_STRIDE = 30) and ``vs_baseline`` the windows/s over those of the
@@ -79,9 +85,7 @@ UNPORTED_SUITES = {
                    "no h5py"),
     "pipeline": ("A11b", "its staged half goes through HDF5, and the card machine has no h5py"),
     "cascade": ("A10", "the cascade is not ported"),
-    "coldstart": ("A9.3", "it needs the AOT bundle"),
     "input": ("A11b", "it writes an HDF5 corpus, and the card machine has no h5py"),
-    "fleet": ("A9.5", "the fleet (supervisor and workers) is not ported"),
 }
 
 #: rows of the reference's train suite with no counterpart in the port
@@ -108,9 +112,7 @@ UNPORTED_FLAGS = {
     "e2e_draft": ("--e2e-draft", "A11b"),
     "pipeline_draft": ("--pipeline-draft", "A11b"),
     "cascade_draft": ("--cascade-draft", "A10"),
-    "coldstart_ladder": ("--coldstart-ladder", "A9.3"),
     "input_rows": ("--input-rows", "A11b"),
-    "fleet_workers": ("--fleet-workers", "A9.5"),
     "in_process": ("--in-process", None),
 }
 
@@ -756,6 +758,341 @@ def run_mesh_suite(
     return results
 
 
+#: coldstart suite: the ladder the reference measures by default (:1978)
+DEFAULT_COLDSTART_LADDER = (2, 4, 6, 8)
+
+
+def _child_model(spec: Dict[str, Any]):
+    """(RokoConfig, RokoModel) of a suite child: the default config with
+    the spec's model overrides, seeded weights."""
+    import dataclasses
+
+    import torch
+
+    from roko_tpu_torch.config import ModelConfig, RokoConfig
+    from roko_tpu_torch.models.model import RokoModel
+
+    over = {k: tuple(v) if isinstance(v, list) else v
+            for k, v in (spec.get("model") or {}).items()}
+    cfg = RokoConfig(model=dataclasses.replace(ModelConfig(), **over))
+    return cfg, RokoModel(cfg.model, generator=torch.Generator().manual_seed(0))
+
+
+def _coldstart_child(spec_path: str) -> None:
+    """One start of :func:`run_coldstart_suite`, in a process of its own
+    (the kernel build directory comes from the ``ROKO_COMPILE_CACHE`` the
+    parent set): ``export`` writes the bundle; ``measure`` builds a
+    session (from the bundle when the spec names one), warms its ladder
+    and predicts one batch, timing both."""
+    import dataclasses
+
+    from roko_tpu_torch import constants as C
+    from roko_tpu_torch.compile import cache_counters, enable_persistent_cache, export_bundle
+    from roko_tpu_torch.config import CompileConfig
+    from roko_tpu_torch.infer import resolve_device
+    from roko_tpu_torch.serve.session import PolishSession
+
+    t_start = time.perf_counter()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    ladder = tuple(spec["ladder"])
+    cfg, model = _child_model(spec)
+    cfg = dataclasses.replace(
+        cfg, serve=dataclasses.replace(cfg.serve, ladder=ladder),
+        compile=CompileConfig(bundle_dir=spec.get("bundle"),
+                              parallel_warmup=spec.get("parallel", True)))
+    dev = resolve_device(spec["device"])
+    if spec["mode"] == "export":
+        t0 = time.perf_counter()
+        export_bundle(spec["bundle_out"], cfg, ladder=ladder, device=dev, log=lambda m: None)
+        out: Dict[str, Any] = {"export_s": round(time.perf_counter() - t0, 3)}
+    else:
+        enable_persistent_cache(cfg.compile)
+        session = PolishSession(model, cfg, device=dev)
+        t0 = time.perf_counter()
+        session.warmup(parallel=spec.get("parallel", True))
+        warmup_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        x = rng.integers(0, C.FEATURE_VOCAB, (ladder[0], C.WINDOW_ROWS, C.WINDOW_COLS)
+                         ).astype(np.uint8)
+        t1 = time.perf_counter()
+        session.predict(x)
+        first_s = time.perf_counter() - t1
+        hits, misses = cache_counters()
+        from roko_tpu_torch.kernels import forward_launches
+
+        out = {
+            "launches": forward_launches(),
+            "warmup_s": round(warmup_s, 3),
+            "first_predict_s": round(first_s, 3),
+            # params ready -> first prediction back on the host
+            "ttfp_s": round(warmup_s + first_s, 3),
+            # the child's own start (torch import and card init included)
+            "process_ttfp_s": round(time.perf_counter() - t_start, 3),
+            "warmup": session.warmup_report.as_dict(),
+            "compile_cache_hits": hits, "compile_cache_misses": misses,
+        }
+    tmp = spec["out"] + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(out, f)
+    os.replace(tmp, spec["out"])
+
+
+def run_coldstart_suite(
+    ladder=DEFAULT_COLDSTART_LADDER,
+    child_budget_s: float = 900.0,
+    device: str = "cuda",
+    model_overrides: Optional[Dict] = None,
+) -> Dict[str, Any]:
+    """Time to first prediction of the same serve ladder under four start
+    modes, each in a fresh child process (``roko_tpu/benchmark.py:2069``):
+
+    - ``cold``          — an empty kernel build directory
+      (``ROKO_COMPILE_CACHE=<tmp>``, never the shared one), the rungs
+      warmed one by one: nvcc runs for every library the model launches;
+    - ``cold_parallel`` — the cache off (a fresh directory), the rungs
+      warmed at once; ``kernels.build`` starts one nvcc per source
+      together (a model of one kind and dtype launches one library);
+    - ``warm_cache``    — the second start on ``cold``'s directory: the
+      libraries load, no nvcc;
+    - ``aot``           — the kernel bundle, with the cache off: its
+      libraries load, no nvcc (``export_seconds`` is what writing it
+      cost, once, in a child of its own on ``cold``'s directory).
+
+    Each row has ``ttfp_s`` (warmup + first predict), ``process_ttfp_s``
+    (the child's start included), the warmup report and the build cache's
+    hits and misses; ``speedup_*`` is ``cold``'s ttfp over the mode's."""
+    import tempfile
+
+    results: Dict[str, Any] = {"ladder": list(ladder), "device": device}
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory() as td:
+        cache = os.path.join(td, "kernel-cache")
+        bundle = os.path.join(td, "bundle")
+
+        def child(tag: str, mode: str, cache_env: str, use_bundle: bool, parallel: bool = True):
+            spec = {"mode": mode, "ladder": list(ladder), "out": os.path.join(td, f"{tag}.json"),
+                    "bundle_out": bundle, "parallel": parallel, "device": device,
+                    "model": model_overrides or {}}
+            if use_bundle:
+                spec["bundle"] = bundle
+            spec_path = os.path.join(td, f"{tag}.spec.json")
+            with open(spec_path, "w") as f:
+                json.dump(spec, f)
+            env = dict(os.environ, ROKO_COMPILE_CACHE=cache_env)
+            cmd = [sys.executable, "-c", "import sys; from roko_tpu_torch.benchmark import "
+                   "_coldstart_child; _coldstart_child(sys.argv[1])", spec_path]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=repo_root, env=env, capture_output=True, text=True,
+                                  timeout=child_budget_s)
+            if proc.returncode != 0:
+                raise RuntimeError(f"coldstart child {tag} rc={proc.returncode}; log tail:\n"
+                                   f"{(proc.stdout + proc.stderr)[-800:]}")
+            with open(spec["out"]) as f:
+                row = json.load(f)
+            row["spawn_to_result_s"] = round(time.perf_counter() - t0, 3)
+            return row
+
+        results["cold"] = child("cold", "measure", cache, False, parallel=False)
+        results["cold_parallel"] = child("coldp", "measure", "off", False)
+        results["warm_cache"] = child("warm", "measure", cache, False)
+        # the export on cold's directory: its library is found built
+        results["export_seconds"] = child("export", "export", cache, False)["export_s"]
+        results["aot"] = child("aot", "measure", "off", True)
+    for key in ("cold_parallel", "warm_cache", "aot"):
+        denom = results[key]["ttfp_s"]
+        if denom > 0:
+            results[f"speedup_{key}"] = round(results["cold"]["ttfp_s"] / denom, 2)
+    return results
+
+
+#: fleet suite (:2326-2330): closed-loop requests a client, clients, and
+#: windows a request
+FLEET_ITERS = 25
+FLEET_CLIENTS = 3
+FLEET_REQUEST_WINDOWS = 8
+
+
+def run_fleet_suite(
+    worker_counts=(1, 2),
+    iterations: int = FLEET_ITERS,
+    clients: int = FLEET_CLIENTS,
+    device: str = "cuda",
+    model_overrides: Optional[Dict] = None,
+    startup_budget_s: float = 600.0,
+) -> Dict[str, Any]:
+    """Saturation and fault tolerance of the serving fleet
+    (``roko_tpu/benchmark.py:2809``): fixed-work closed-loop load
+    (``clients`` threads, ``iterations`` polish requests each) against a
+    supervised fleet of real ``serve`` worker processes at each worker
+    count, with req/s, p99 and mean latency and the 1 -> 2 worker scaling
+    efficiency; then the same load with one worker SIGKILLed a quarter of
+    the way in, where ``client_errors`` must stay 0 (failover) and the
+    worker must rejoin. On a card the workers share it
+    (``devices_per_worker`` 0). The reference's mixed-size phase under an
+    explicit ``--serve-mix`` is not ported (the serve suite carries the
+    mixed schedule)."""
+    import dataclasses
+    import tempfile
+    import threading
+
+    import torch
+
+    from roko_tpu_torch import constants as C
+    from roko_tpu_torch.serve.client import PolishClient
+    from roko_tpu_torch.serve.fleet import Fleet
+    from roko_tpu_torch.serve.supervisor import make_front_server, worker_command
+
+    cfg, model = _child_model({"model": model_overrides or {}})
+    cfg = dataclasses.replace(
+        cfg,
+        serve=dataclasses.replace(cfg.serve, ladder=(FLEET_REQUEST_WINDOWS,), max_delay_ms=5.0),
+        fleet=dataclasses.replace(cfg.fleet, heartbeat_interval_s=0.25, heartbeat_timeout_s=5.0,
+                                  stable_after_s=1.0, restart_base_delay_s=0.1,
+                                  spawn_deadline_s=startup_budget_s))
+    results: Dict[str, Any] = {"iterations": iterations, "clients": clients,
+                               "windows_per_request": FLEET_REQUEST_WINDOWS, "device": device,
+                               "workers": {}}
+    rng = np.random.default_rng(0)
+    rows, cols = cfg.model.window_rows, cfg.model.window_cols
+    stride = cfg.window.stride
+    n_win = FLEET_REQUEST_WINDOWS
+    x = rng.integers(0, C.FEATURE_VOCAB, (n_win, rows, cols)).astype(np.uint8)
+    positions = np.zeros((n_win, cols, 2), np.int64)
+    for i in range(n_win):
+        positions[i, :, 0] = np.arange(i * stride, i * stride + cols)
+    draft = "".join(rng.choice(list("ACGT"), (n_win - 1) * stride + cols + 10))
+
+    with tempfile.TemporaryDirectory() as td:
+        ckpt = os.path.join(td, "model.pth")
+        torch.save(model.state_dict(), ckpt)
+        cfg_path = os.path.join(td, "worker-config.json")
+        with open(cfg_path, "w") as f:
+            f.write(dataclasses.replace(
+                cfg, fleet=dataclasses.replace(cfg.fleet, workers=0)).to_json())
+
+        def start_fleet(n: int):
+            fleet = Fleet(dataclasses.replace(cfg, fleet=dataclasses.replace(cfg.fleet,
+                                                                             workers=n)),
+                          worker_command(ckpt, cfg_path, device),
+                          runtime_dir=os.path.join(td, f"fleet-{n}"), log=lambda m: None)
+            fleet.start()
+            # the front end binds only once the workers are ready
+            deadline = time.monotonic() + startup_budget_s
+            t0 = time.perf_counter()
+            while fleet.ready_count() < n:
+                if time.monotonic() > deadline:
+                    fleet.stop(rolling=False)
+                    raise RuntimeError(f"fleet of {n} not ready within {startup_budget_s:.0f}s")
+                time.sleep(0.2)
+            ready_s = time.perf_counter() - t0
+            server = make_front_server(fleet, port=0)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            return fleet, server, thread, ready_s
+
+        def stop_fleet(fleet, server, thread):
+            server.shutdown()
+            server.server_close()
+            thread.join(10.0)
+            fleet.stop(rolling=False)
+
+        def drive(port: int, per_client: int, mid_action=None):
+            """Closed-loop fixed work; ``mid_action(done)`` fires after
+            every completed request (the kill phase hooks it)."""
+            lat: list = []
+            errors: list = []
+            lock = threading.Lock()
+
+            def one_client():
+                client = PolishClient(f"http://127.0.0.1:{port}", timeout=300.0)
+                for _ in range(per_client):
+                    t0 = time.perf_counter()
+                    try:
+                        client.polish(draft, positions, x, retries=8)
+                    except Exception as e:
+                        with lock:
+                            errors.append(_error(e)[:200])
+                    else:
+                        with lock:
+                            lat.append(time.perf_counter() - t0)
+                    if mid_action is not None:
+                        with lock:
+                            done = len(lat) + len(errors)
+                        mid_action(done)
+
+            threads = [threading.Thread(target=one_client, daemon=True) for _ in range(clients)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            return time.perf_counter() - t0, lat, errors
+
+        for n in worker_counts:
+            fleet, server, thread, ready_s = start_fleet(n)
+            try:
+                port = server.server_address[1]
+                drive(port, 1)  # untimed: first-dispatch costs off the clock
+                wall, lat, errors = drive(port, iterations)
+                row: Dict[str, Any] = {
+                    "ready_s": round(ready_s, 3),
+                    "req_per_s": round(clients * iterations / wall, 2),
+                    "p99_s": round(float(np.percentile(lat, 99)), 4) if lat else None,
+                    "mean_s": round(float(np.mean(lat)), 4) if lat else None,
+                    "client_errors": len(errors),
+                }
+                if errors:
+                    row["errors"] = errors[:5]
+                results["workers"][str(n)] = row
+            finally:
+                stop_fleet(fleet, server, thread)
+        r1 = results["workers"].get("1", {}).get("req_per_s")
+        r2 = results["workers"].get("2", {}).get("req_per_s")
+        if r1 and r2:
+            results["scaling_efficiency"] = round(r2 / (2 * r1), 3)
+
+        # forced fault: SIGKILL one worker mid-load at the top count;
+        # failover must keep client_errors at 0
+        n_kill = max(worker_counts)
+        if n_kill >= 2:
+            fleet, server, thread, _ = start_fleet(n_kill)
+            try:
+                port = server.server_address[1]
+                drive(port, 1)
+                total = clients * iterations
+                killed = threading.Event()
+
+                def kill_at_quarter(done: int) -> None:
+                    if not killed.is_set() and done >= max(2, total // 4):
+                        killed.set()
+                        fleet.workers[0].proc.kill()
+
+                wall, lat, errors = drive(port, iterations, mid_action=kill_at_quarter)
+                rejoined = False
+                deadline = time.monotonic() + startup_budget_s
+                while time.monotonic() < deadline:
+                    if fleet.ready_count() == n_kill:
+                        rejoined = True
+                        break
+                    time.sleep(0.2)
+                kill_row: Dict[str, Any] = {
+                    "workers": n_kill,
+                    "req_per_s_during_kill": round(total / wall, 2),
+                    "p99_s": round(float(np.percentile(lat, 99)), 4) if lat else None,
+                    "client_errors": len(errors),
+                    "failovers": fleet.counter("failovers"),
+                    "restarts": fleet.counter("restarts"),
+                    "worker_rejoined": rejoined,
+                }
+                if errors:
+                    kill_row["errors"] = errors[:5]
+                results["forced_kill"] = kill_row
+            finally:
+                stop_fleet(fleet, server, thread)
+    return results
+
+
 #: mixed-size serve suite (``roko_tpu/benchmark.py:2330-2339``): windows a
 #: request : percent of requests, the card's mix and the CPU's (a
 #: 256-window request would bury the scheduling signal in raw compute on
@@ -767,10 +1104,7 @@ SERVE_SUITE_REQUESTS = 48
 SERVE_SUITE_CLIENTS = 6
 
 #: rows of the reference's serve suite with no counterpart in the port
-UNPORTED_SERVE_ROWS = {
-    "autoscale": "not ported yet (ROADMAP queue item A9.5): it drives the fleet "
-                 "supervisor's Autoscaler",
-}
+UNPORTED_SERVE_ROWS: Dict[str, str] = {}
 
 
 def _parse_mix(spec: str):
@@ -842,8 +1176,9 @@ def run_serve_suite(
     smallest class), the ``ragged`` headline, the ``precision`` A/B
     (int8 weights in the continuous mode, each variant against its own
     solo predicts) and ``tenant_mix`` (a weighted interactive tenant
-    beside a bulk flood, fair share on and off). ``autoscale`` is an
-    error row (:data:`UNPORTED_SERVE_ROWS`)."""
+    beside a bulk flood, fair share on and off), and ``autoscale`` (the
+    fleet's :class:`~roko_tpu_torch.serve.supervisor.Autoscaler` on the
+    continuous batcher's real backlog through idle, flood and drain)."""
     import dataclasses
     import threading
 
@@ -1078,8 +1413,65 @@ def run_serve_suite(
     except KeyError:
         pass
     results["tenant_mix"] = tmix
-    for key, why in UNPORTED_SERVE_ROWS.items():
-        results[key] = {"error": why}
+
+    # the autoscale row (:2734): the supervisor's Autoscaler driven by the
+    # continuous batcher's real backlog through a load step (idle, flood,
+    # drain), with a stand-in actuator for the worker processes: the
+    # decision loop's worker-count trajectory beside the measured req/s
+    from roko_tpu_torch.config import FleetConfig
+    from roko_tpu_torch.serve.supervisor import Autoscaler
+
+    fc = FleetConfig(workers=2, min_workers=1, max_workers=3,
+                     autoscale_up_backlog=float(large), autoscale_down_backlog=1.0,
+                     autoscale_idle_s=3.0, autoscale_cooldown_s=1.0, autoscale_ema_beta=0.3)
+    metrics = ServeMetrics()
+    metrics.size_classes = ladder
+    batcher = ContinuousBatcher(session, metrics=metrics, max_queue=max(64, clients * 8))
+
+    class _ScaleProbe:
+        """Autoscaler actuator stand-in: real backlog, counted workers."""
+        fleet_cfg = fc
+        jobs_parked = False
+        workers = [0] * fc.workers
+
+        def backlog_windows(self):
+            return batcher.backlog_windows()
+
+        def scale_to(self, n, reason=""):
+            self.workers = [0] * n
+            return n
+
+    probe = _ScaleProbe()
+    fake_now = [0.0]
+    scaler = Autoscaler(probe, log=lambda m: None, clock=lambda: fake_now[0])
+    trajectory = []
+
+    def run_phase(name: str, futures, ticks: int) -> Dict[str, Any]:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            fake_now[0] += 1.0
+            scaler.tick()
+            trajectory.append(len(probe.workers))
+            time.sleep(0.01)
+        done = [f.result(600.0) for f in futures]
+        wall = time.perf_counter() - t0
+        return {"phase": name, "requests": len(done),
+                "req_per_s": round(len(done) / wall, 2) if wall else 0.0,
+                "workers_after": len(probe.workers)}
+
+    auto: Dict[str, Any] = {"min_workers": 1, "max_workers": 3, "phases": []}
+    try:
+        auto["phases"].append(run_phase("idle", [], ticks=2))
+        flood = [batcher.submit(payloads[large]) for _ in range(max(8, len(schedule) // 4))]
+        auto["phases"].append(run_phase("flood", flood, ticks=6))
+        fake_now[0] += fc.autoscale_idle_s
+        auto["phases"].append(run_phase("drain", [], ticks=8))
+    finally:
+        batcher.stop()
+    auto["worker_trajectory"] = trajectory
+    auto["scaled_up"] = max(trajectory) > fc.workers
+    auto["scaled_down"] = trajectory[-1] < max(trajectory)
+    results["autoscale"] = auto
     return results
 
 
@@ -1168,6 +1560,23 @@ def _measure(args, model_overrides: Optional[Dict] = None) -> Dict[str, Any]:
                 model_overrides=model_overrides)
         except Exception as e:  # report, never swallow
             detail["serve"] = {"error": _error(e)}
+    coldstart = parse_counts(getattr(args, "coldstart_ladder", None))
+    if coldstart:
+        _stamp(f"coldstart suite (ladder {coldstart})")
+        try:
+            detail["coldstart"] = run_coldstart_suite(coldstart, device=dev.type,
+                                                      model_overrides=model_overrides)
+        except Exception as e:  # report, never swallow
+            detail["coldstart"] = {"error": _error(e)}
+    fleet_workers = parse_counts(getattr(args, "fleet_workers", None))
+    if fleet_workers:
+        _stamp(f"fleet suite (workers {fleet_workers})")
+        try:
+            detail["fleet"] = run_fleet_suite(fleet_workers,
+                                              iterations=bench_iters or FLEET_ITERS,
+                                              device=dev.type, model_overrides=model_overrides)
+        except Exception as e:  # report, never swallow
+            detail["fleet"] = {"error": _error(e)}
     for key, (item, why) in UNPORTED_SUITES.items():
         detail[key] = {"error": f"not ported yet (ROADMAP queue item {item}): {why}"}
     _stamp("torch reference")
@@ -1316,6 +1725,17 @@ def add_mesh_flag(p: argparse.ArgumentParser) -> None:
                    "byte-identity of the class ids across counts); 0 or absent: off")
 
 
+def add_fleet_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--coldstart-ladder", default=None, metavar="RUNGS",
+                   help="coldstart suite: the serve ladder whose time to first prediction "
+                   "is measured in four start modes, each in a child process (cold, "
+                   "cold_parallel, warm_cache, aot), e.g. 32,128,512; 0 or absent: off")
+    p.add_argument("--fleet-workers", default=None, metavar="COUNTS",
+                   help="fleet suite: worker counts of a supervised fleet of serve "
+                   "processes under closed-loop load, with a SIGKILL phase at the largest, "
+                   "e.g. 1,2; 0 or absent: off")
+
+
 def add_serve_mix_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--serve-mix", nargs="?", const="default", default=None,
                    metavar="SIZE:PCT,...",
@@ -1329,9 +1749,7 @@ def add_unported_flags(p: argparse.ArgumentParser) -> None:
     :func:`unported_flag` can name their queue item."""
     p.add_argument("--features", action="store_true", help="not ported yet (queue item A11b)")
     for flag, kind, item in (("--e2e-draft", int, "A11b"), ("--pipeline-draft", int, "A11b"),
-                             ("--cascade-draft", int, "A10"),
-                             ("--coldstart-ladder", str, "A9.3"), ("--input-rows", int, "A11b"),
-                             ("--fleet-workers", str, "A9.5")):
+                             ("--cascade-draft", int, "A10"), ("--input-rows", int, "A11b")):
         p.add_argument(flag, type=kind, default=None, help=f"not ported yet (queue item {item})")
     p.add_argument("--in-process", action="store_true",
                    help="deliberately not ported: bench always measures in process")
@@ -1357,6 +1775,7 @@ def main(argv: Optional[List[str]] = None, model_overrides: Optional[Dict] = Non
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs (default cuda; no card is an error)")
     add_mesh_flag(ap)
+    add_fleet_flags(ap)
     add_unported_flags(ap)
     add_serve_mix_flag(ap)
     args = ap.parse_args(argv)

@@ -1,6 +1,6 @@
 """Command line of the port: ``python -m roko_tpu_torch sim``,
 ``features``, ``train``, ``inference``, ``polish``, ``assess``, ``inspect``,
-``bench`` and ``serve``.
+``bench``, ``serve``, ``compile`` and ``rollout``.
 
 Mirrors ``roko-tpu sim``, ``features``, ``train``, ``inference``,
 ``polish``, ``assess``, ``inspect`` and ``bench`` (``roko_tpu/cli.py:461-574``,
@@ -18,7 +18,8 @@ shards, saves ``latest`` every ``--save-every-steps`` steps inside an
 epoch, and ``--trace-dir`` (also on ``inference`` and ``polish``) writes
 a ``torch.profiler`` trace. ``bench`` runs the suites of
 ``benchmark.py`` that the port has (inference, per kind, recurrence,
-precision, ``--train``, ``--mesh-devices``); the flags of the others are usage errors that
+precision, ``--train``, ``--mesh-devices``, ``--serve-mix``,
+``--coldstart-ladder``, ``--fleet-workers``); the flags of the others are usage errors that
 name their queue item. ``polish`` streams by default (extraction,
 batching and inference overlapped, ``--resume`` from its journal);
 ``--staged`` runs ``features`` then ``inference``; ``--truth`` prints
@@ -46,12 +47,25 @@ once, binds the socket, warms the batch ladder on a thread while
 ``/healthz`` says ``warming``, prints its ready line and answers ``POST
 /polish`` through the ``--batching`` policy (``serve/server.py``);
 ``--announce FILE`` writes the bound port. ``train`` and ``serve`` take
-``--event-log``. Writing and reading the HDF5 needs ``h5py``. Not ported
-yet, each a usage error that names its queue item: ``--distributed`` and
-``--cascade`` (A10), remote paths (A10), and of ``serve`` the fleet,
-federation and rollout flags (A9.5), ``--bundle`` and the compile cache
-(A9.3), ``--cascade`` and the store flags (A10), and a mesh over several
-ranks (A9.1).
+``--event-log``. ``serve --workers N`` (``auto``: one per visible card)
+runs the fleet's supervisor instead (``serve/supervisor.py``,
+``roko_tpu/cli.py:1006-1035``): N worker ``serve`` processes on their
+``--devices-per-worker`` card slices (0: sharing the cards), failover
+routing, restarts, ``--registry``, the rollout gate's ``--bake-s``,
+``--rollback-error-pct`` and ``--rollback-p99-x``, the autoscaler's
+``--min-workers``/``--max-workers`` and the ``--ab-lane``; ``rollout
+NAME`` drives a running supervisor onto a registered version
+(:1112-1227). ``compile OUT`` writes a kernel bundle
+(``compile/bundle.py``, :842-964): the libraries the model's kind and
+dtype launch, checked in a fresh process unless ``--no-verify``, and
+registered with ``--register NAME [--params CKPT]``; ``serve``,
+``polish`` and ``inference`` load one with ``--bundle`` and take
+``--compile-cache DIR`` and ``--no-compile-cache`` (the kernel build
+cache, ``compile/cache.py``). Writing and reading the HDF5 needs
+``h5py``. Not ported yet, each a usage error that names its queue item:
+``--distributed`` and ``--cascade`` (A10), remote paths (A10), and of
+``serve`` the federation flags (A9.5b), ``--cascade`` and the store flags
+(A10), and a mesh over several ranks (A9.1).
 """
 
 from __future__ import annotations
@@ -68,6 +82,9 @@ from roko_tpu_torch.config import (
     ModelConfig,
     RokoConfig,
 )
+
+#: the fleet's front end and workers: ``python -m roko_tpu_torch``
+_MODULE = "roko_tpu_torch"
 
 
 def _build_config(args: argparse.Namespace) -> RokoConfig:
@@ -105,6 +122,17 @@ def _build_config(args: argparse.Namespace) -> RokoConfig:
                  event_log="event_log", event_log_max_mb="event_log_max_mb")
     if getattr(args, "no_guard", None):
         guard = dataclasses.replace(guard, enabled=False)
+    fleet = over(base.fleet, workers="workers", devices_per_worker="devices_per_worker",
+                 heartbeat_interval_s="heartbeat_interval", registry_dir="registry",
+                 bake_s="bake_s", rollback_error_pct="rollback_error_pct",
+                 rollback_p99_x="rollback_p99_x", min_workers="min_workers",
+                 max_workers="max_workers")
+    ab = getattr(args, "ab_lane", None)
+    if ab is not None:
+        fleet = dataclasses.replace(fleet, ab_version=ab[0], ab_fraction=ab[1])
+    compile_cfg = over(base.compile, cache_dir="compile_cache", bundle_dir="bundle")
+    if getattr(args, "no_compile_cache", None):
+        compile_cfg = dataclasses.replace(compile_cfg, enabled=False)
     return RokoConfig(
         window=window, read_filter=read_filter,
         region=over(base.region, size="region_size", overlap="region_overlap"),
@@ -128,6 +156,7 @@ def _build_config(args: argparse.Namespace) -> RokoConfig:
                         compile_deadline_s="compile_deadline",
                         breaker_failures="breaker_failures",
                         breaker_reset_s="breaker_reset_s", drain_deadline_s="drain_deadline"),
+        compile=compile_cfg, fleet=fleet,
     )
 
 
@@ -172,12 +201,17 @@ def cmd_features(args: argparse.Namespace) -> int:
     return 0
 
 
-def _configure_event_log(path: Optional[str], max_mb: float) -> None:
-    """Install the process-wide JSONL event sink (``obs/events.py``)."""
+def _configure_event_log(path: Optional[str], max_mb: float,
+                         worker_id: Optional[int] = None) -> None:
+    """Install the process-wide JSONL event sink (``obs/events.py``); a
+    fleet worker writes ``PATH.w<id>``, so N processes never share one
+    file's rotation."""
     if not path:
         return
     from roko_tpu_torch.obs.events import configure_event_log
 
+    if worker_id is not None:
+        path = f"{path}.w{worker_id}"
     configure_event_log(path, max_mb)
     print(f"obs: event log -> {path}")
 
@@ -267,7 +301,7 @@ def cmd_polish(args: argparse.Namespace) -> int:
             n = _run_features(args, hdf5, _features_config(cfg))
             print(f"extracted {n} windows")
             polish_to_fasta(hdf5, model, args.out, device=device,
-                            batch_size=cfg.train.batch_size, trace_dir=args.trace_dir)
+                            batch_size=cfg.train.batch_size, trace_dir=args.trace_dir, cfg=cfg)
     else:
         from roko_tpu_torch.pipeline import run_streaming_polish
         from roko_tpu_torch.resilience import JournalMismatch
@@ -297,7 +331,7 @@ def cmd_inference(args: argparse.Namespace) -> int:
     device = resolve_device(args.device)
     model = _model_on_mesh(args.cfg, args.model)
     polish_to_fasta(args.data, model, args.out, device=device,
-                    batch_size=args.cfg.train.batch_size, trace_dir=args.trace_dir)
+                    batch_size=args.cfg.train.batch_size, trace_dir=args.trace_dir, cfg=args.cfg)
     from roko_tpu_torch.parallel import distributed
 
     if distributed.is_primary():
@@ -345,6 +379,8 @@ def cmd_bench(args: argparse.Namespace) -> int:
     for flag, value in (("--batch", args.b), ("--out", args.out),
                         ("--bench-iterations", args.bench_iterations),
                         ("--compare", args.compare), ("--mesh-devices", args.mesh_devices),
+                        ("--coldstart-ladder", args.coldstart_ladder),
+                        ("--fleet-workers", args.fleet_workers),
                         ("--serve-mix", args.serve_mix)):
         if value is not None:
             argv += [flag, str(value)]
@@ -354,18 +390,40 @@ def cmd_bench(args: argparse.Namespace) -> int:
 #: flags of the reference's ``serve`` the port does not run: attribute ->
 #: (flag, ROADMAP queue item)
 UNPORTED_SERVE_FLAGS = {
-    "workers": ("--workers", "A9.5"), "devices_per_worker": ("--devices-per-worker", "A9.5"),
-    "heartbeat_interval": ("--heartbeat-interval", "A9.5"), "registry": ("--registry", "A9.5"),
-    "bake_s": ("--bake-s", "A9.5"), "rollback_error_pct": ("--rollback-error-pct", "A9.5"),
-    "rollback_p99_x": ("--rollback-p99-x", "A9.5"), "min_workers": ("--min-workers", "A9.5"),
-    "max_workers": ("--max-workers", "A9.5"), "ab_lane": ("--ab-lane", "A9.5"),
-    "federation": ("--federation", "A9.5"), "host_agent": ("--host-agent", "A9.5"),
-    "join": ("--join", "A9.5"), "host_id": ("--host-id", "A9.5"),
-    "lease_ttl": ("--lease-ttl", "A9.5"), "worker_id": ("--worker-id", "A9.5"),
-    "bundle": ("--bundle", "A9.3"), "compile_cache": ("--compile-cache", "A9.3"),
-    "no_compile_cache": ("--no-compile-cache", "A9.3"), "cascade": ("--cascade", "A10"),
+    "federation": ("--federation", "A9.5b"), "host_agent": ("--host-agent", "A9.5b"),
+    "join": ("--join", "A9.5b"), "host_id": ("--host-id", "A9.5b"),
+    "lease_ttl": ("--lease-ttl", "A9.5b"), "cascade": ("--cascade", "A10"),
     "store_cache": ("--store-cache", "A10"), "store_endpoint": ("--store-endpoint", "A10"),
 }
+
+
+def _workers_type(text: str):
+    """``--workers``: a count, or ``auto`` (-1, one per visible card)."""
+    if text.strip().lower() == "auto":
+        return -1
+    try:
+        n = int(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer worker count or 'auto', got {text!r}") from None
+    if n < 0:
+        raise argparse.ArgumentTypeError("worker count must be >= 0 (use 'auto' for "
+                                         "one per visible card)")
+    return n
+
+
+def _ab_lane_type(text: str):
+    """``--ab-lane VERSION:FRACTION`` with the fraction in (0, 1]."""
+    name, sep, frac = text.rpartition(":")
+    if not sep or not name:
+        raise argparse.ArgumentTypeError(f"expected VERSION:FRACTION, got {text!r}")
+    try:
+        fraction = float(frac)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"A/B fraction {frac!r} is not a number") from None
+    if not 0.0 < fraction <= 1.0:
+        raise argparse.ArgumentTypeError("A/B fraction must be in (0, 1]")
+    return name, fraction
 
 
 def _ladder_type(text: str):
@@ -406,23 +464,61 @@ def _tenants_type(text: str):
     return tuple(out)
 
 
+#: env var: a path prefix under which a serve process writes its kernel
+#: launch counts when it exits (``<prefix>.<pid>.json``), so a harness can
+#: read what its fleet workers launched
+ENV_LAUNCHES = "ROKO_KERNEL_LAUNCHES"
+
+
+def _write_launch_counts() -> None:
+    import json
+    import os
+
+    prefix = os.environ.get(ENV_LAUNCHES)
+    if not prefix:
+        return
+    from roko_tpu_torch.kernels import forward_launches
+
+    with open(f"{prefix}.{os.getpid()}.json", "w") as f:
+        json.dump({"pid": os.getpid(), "model_version": os.environ.get("ROKO_MODEL_VERSION"),
+                   "launches": forward_launches()}, f)
+
+
 def cmd_serve(args: argparse.Namespace) -> int:
     """The polishing service (``roko_tpu/cli.py:966-1108``, single
     process): load the model once, bind the socket, warm the batch ladder
     on a thread (``/healthz`` says ``warming`` and ``/polish`` sheds with
     503 meanwhile), print the ready line, and serve until SIGTERM drains
-    it. A failed warmup stops the server and exits non-zero."""
+    it. A failed warmup (a kernel bundle that does not match included)
+    stops the server and exits non-zero. With ``--workers N`` (and no
+    ``--worker-id``) this process is the fleet's supervisor instead
+    (``serve/supervisor.py``, ``roko_tpu/cli.py:1006-1035``)."""
     import sys
     import threading
     import time
 
+    cfg = args.cfg
+    _configure_event_log(cfg.serve.event_log, cfg.serve.event_log_max_mb,
+                         worker_id=args.worker_id)
+    if cfg.fleet.workers != 0 and args.worker_id is None:
+        # the fleet's supervisor: it only routes, so it loads no model and
+        # never initialises CUDA; --workers auto and an oversubscribing
+        # slice are settled before anything spawns
+        from roko_tpu_torch.parallel.mesh import resolve_fleet_topology
+        from roko_tpu_torch.serve.supervisor import run_supervisor
+
+        try:
+            cfg = dataclasses.replace(
+                cfg, fleet=resolve_fleet_topology(cfg.fleet, backend=args.device))
+        except ValueError as e:
+            print(f"serve: {e}", file=sys.stderr)
+            return 1
+        return run_supervisor(args.model, cfg, announce=args.announce, device=args.device)
     from roko_tpu_torch.infer import resolve_device
     from roko_tpu_torch.models.model import RokoModel
     from roko_tpu_torch.serve.server import make_server, serve_forever, write_announce
     from roko_tpu_torch.serve.session import PolishSession
 
-    cfg = args.cfg
-    _configure_event_log(cfg.serve.event_log, cfg.serve.event_log_max_mb)
     device = resolve_device(args.device)
     model = RokoModel(cfg.model)
     model.load_state_dict(_load_model_params(args.model), strict=True)
@@ -431,7 +527,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     except ValueError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 1
-    server = make_server(session, cfg.serve, warming=True)
+    server = make_server(session, cfg.serve, warming=True, worker_id=args.worker_id)
     if args.announce:
         # written after the bind and before the warmup, so whoever started
         # a --port 0 server can watch it warm
@@ -444,6 +540,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
     def _warm() -> None:
         try:
             t0 = time.perf_counter()
+            # the kernel bundle (cfg.compile.bundle_dir) loads here, or
+            # the kernels build: a mismatch fails the start loudly
             ready = session.warmup(log=print)
             dt = time.perf_counter() - t0
             server.metrics.warmup_seconds = dt  # type: ignore[attr-defined]
@@ -460,9 +558,172 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
     threading.Thread(target=_warm, name="roko-serve-warmup", daemon=True).start()
     serve_forever(server)
+    _write_launch_counts()
     if warm_error:
         raise SystemExit(f"serve: warmup failed: {warm_error[0]}")
     return 0
+
+
+def cmd_compile(args: argparse.Namespace) -> int:
+    """Write a kernel bundle (``compile/bundle.py``,
+    ``roko_tpu/cli.py:842-964``): the libraries the model's kind and dtype
+    launch, built and copied in, every ladder rung (and ``--b``) run once,
+    and the manifest with the identity digest. Unless ``--no-verify``, a
+    fresh process then loads the bundle with the build cache off and runs
+    every rung; a failure removes the manifest, so the bundle never looks
+    loadable. ``--register NAME`` then pins it (and ``--params``) in the
+    model registry. No checkpoint is needed: the kernels depend on the
+    config only."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+
+    from roko_tpu_torch.compile import BUNDLE_MANIFEST, export_bundle
+    from roko_tpu_torch.config import resolve_ladder
+
+    cfg = args.cfg
+    try:
+        rungs = set(args.ladder or resolve_ladder(cfg.serve, 1))
+        if args.b:
+            rungs.add(args.b)  # inference/polish dispatch at --b too
+        manifest = export_bundle(args.out, cfg, ladder=sorted(rungs), device=args.device)
+    except ValueError as e:
+        print(f"compile: {e}", file=sys.stderr)
+        return 1
+    ident = manifest["identity"]
+    model = ident["model"]
+    print(f"compile: wrote bundle {args.out} (kind {model['kind']}, compute_dtype="
+          f"{model['compute_dtype']}, quantize={model['quantize'] or 'none'}, "
+          f"mesh=dp{ident['mesh']['dp']}xtp{ident['mesh']['tp']}xsp{ident['mesh']['sp']}, "
+          f"{ident['backend']} {ident['device_kind']}, libraries "
+          f"{sorted(manifest['libraries'])}, rungs {manifest['rungs']}, "
+          f"digest {manifest['digest'][:12]})")
+    if not args.no_verify:
+        with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+            f.write(cfg.to_json())
+            cfg_path = f.name
+        budget = cfg.resilience.compile_deadline_s or None
+        try:
+            env = dict(os.environ, ROKO_COMPILE_CACHE="off")
+            r = subprocess.run(
+                [sys.executable, "-c", "import sys; from roko_tpu_torch.compile.bundle import "
+                 "verify_main; verify_main(*sys.argv[1:])", args.out, cfg_path, args.device],
+                capture_output=True, text=True, env=env, timeout=budget)
+            failure = (r.stderr or r.stdout) if r.returncode != 0 else None
+        except subprocess.TimeoutExpired:
+            failure = f"verification timed out after {budget:.0f}s"
+        finally:
+            os.unlink(cfg_path)
+        if failure is not None:
+            print("compile: bundle FAILED fresh-process verification — refusing to leave it "
+                  "loadable:\n" + failure, file=sys.stderr)
+            os.unlink(os.path.join(args.out, BUNDLE_MANIFEST))
+            return 1
+        print(f"compile: {r.stdout.strip().splitlines()[-1]} (fresh process)")
+    if args.register:
+        # after the check: the registry never names a bundle that has not
+        # loaded in a fresh process
+        from roko_tpu_torch.serve.registry import (
+            RegistryError,
+            register_model,
+            resolve_registry_dir,
+        )
+
+        try:
+            register_model(resolve_registry_dir(args.registry or cfg.fleet.registry_dir),
+                           args.register, args.out, params_path=args.params, force=args.force)
+        except RegistryError as e:
+            print(f"compile: registration refused — {e}", file=sys.stderr)
+            return 1
+    return 0
+
+
+def cmd_rollout(args: argparse.Namespace) -> int:
+    """Drive a running fleet supervisor onto a registered model version
+    (``roko_tpu/cli.py:1112-1227``): ``POST /rollout``, then poll ``GET
+    /rollout`` printing each state change until the rollout lands (0) or
+    rolls back or fails (1). The supervisor does the work, one worker at a
+    time, so this command is safe to interrupt and re-run."""
+    import json
+    import sys
+    import time
+    import urllib.error
+    import urllib.request
+
+    url = args.url.rstrip("/")
+    payload = {"name": args.name}
+    for key, val in (("bake_s", args.bake_s), ("rollback_error_pct", args.rollback_error_pct),
+                     ("rollback_p99_x", args.rollback_p99_x)):
+        if val is not None:
+            payload[key] = val
+    req = urllib.request.Request(url + "/rollout", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        # generous: the supervisor re-hashes the registered version first
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status = json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        body = e.read()
+        try:
+            msg = json.loads(body).get("error", "")
+        except ValueError:
+            msg = body[:200].decode(errors="replace")
+        print(f"rollout: refused (HTTP {e.code}): {msg}", file=sys.stderr)
+        return 1
+    except TimeoutError:
+        print(f"rollout: the supervisor at {url} did not answer the submission within 300s; "
+              f"observe with `python -m {_MODULE} rollout {args.name} --url {url}`",
+              file=sys.stderr)
+        return 1
+    except OSError as e:
+        print(f"rollout: no supervisor at {url} ({e}); start one with "
+              f"`python -m {_MODULE} serve CKPT --workers N`", file=sys.stderr)
+        return 1
+    print(f"rollout: {status['from_version']} -> {status['to_version']} accepted "
+          f"(bake {status['bake_s']:g}s, workers {status['workers']})", flush=True)
+    if args.no_wait:
+        return 0
+    deadline = time.monotonic() + args.timeout
+    last = None
+    while time.monotonic() < deadline:
+        time.sleep(args.poll_s)
+        try:
+            with urllib.request.urlopen(url + "/rollout", timeout=30) as r:
+                status = json.loads(r.read())
+        except (OSError, ValueError):
+            continue  # a transient scrape failure; the supervisor journals
+        snap = (status.get("state"), tuple(status.get("workers_done", [])))
+        if snap != last:
+            last = snap
+            reason = status.get("reason")
+            print(f"rollout: state={status.get('state')} done={status.get('workers_done')} "
+                  f"versions={status.get('worker_versions')}"
+                  + (f" reason={reason!r}" if reason else ""), flush=True)
+        if status.get("state") == "done":
+            print(f"rollout: complete — fleet on {status['to_version']}")
+            return 0
+        if status.get("state") == "idle":
+            # a supervisor restarted mid-watch reports idle even when its
+            # recovery finalized the rollout: ask what the fleet runs
+            try:
+                with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+                    live = json.loads(r.read()).get("version")
+            except (OSError, ValueError):
+                live = None
+            if live == args.name:
+                print(f"rollout: complete — fleet on {args.name} (finalized across a "
+                      "supervisor restart)")
+                return 0
+        if status.get("state") in ("rolled_back", "failed", "idle"):
+            print(f"rollout: NOT applied (state={status.get('state')}"
+                  + (f", reason={status.get('reason')!r})" if status.get("reason") else ")"),
+                  file=sys.stderr)
+            return 1
+    print(f"rollout: still {status.get('state')!r} after {args.timeout:g}s of watching; the "
+          f"supervisor keeps going — re-observe with `python -m {_MODULE} rollout "
+          f"{args.name} --url {url}`", file=sys.stderr)
+    return 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -530,6 +791,19 @@ def build_parser() -> argparse.ArgumentParser:
                        "(rotated to PATH.1 past --event-log-max-mb); the stderr lines stay")
         p.add_argument("--event-log-max-mb", type=float, default=None,
                        help="event-log rotation cap in MiB (default 64)")
+
+    def compile_flags(p: argparse.ArgumentParser) -> None:
+        p.add_argument("--compile-cache", default=None, metavar="DIR",
+                       help="kernel build cache directory (default build/roko_tpu_torch/ "
+                       "beside the package; env ROKO_COMPILE_CACHE overrides, and "
+                       "ROKO_COMPILE_CACHE=off turns it off)")
+        p.add_argument("--no-compile-cache", action="store_true", default=None,
+                       help="build every kernel into a fresh directory of this process "
+                       "(each start runs nvcc)")
+        p.add_argument("--bundle", default=None, metavar="DIR",
+                       help="kernel bundle (written by `compile`) whose libraries load "
+                       "instead of being built; one that does not match the model or the "
+                       "card is refused, never rebuilt")
 
     def extraction(p: argparse.ArgumentParser) -> None:
         p.add_argument("--t", type=int, default=1, help="feature workers")
@@ -643,6 +917,7 @@ def build_parser() -> argparse.ArgumentParser:
     common(p)
     mesh(p)
     config(p, "the inference loop")
+    compile_flags(p)
     p.set_defaults(fn=cmd_inference)
 
     p = sub.add_parser(
@@ -678,6 +953,7 @@ def build_parser() -> argparse.ArgumentParser:
     common(p)
     mesh(p)
     config(p, "the inference (streaming: the whole run)")
+    compile_flags(p)
     p.set_defaults(fn=cmd_polish)
 
     p = sub.add_parser("assess", help="polished FASTA vs truth FASTA -> error rates + Qscore")
@@ -693,7 +969,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("data", help="features HDF5 file or directory")
     p.set_defaults(fn=cmd_inspect)
 
-    from roko_tpu_torch.benchmark import add_mesh_flag, add_serve_mix_flag, add_unported_flags
+    from roko_tpu_torch.benchmark import (
+        add_fleet_flags,
+        add_mesh_flag,
+        add_serve_mix_flag,
+        add_unported_flags,
+    )
 
     p = sub.add_parser("bench", help="print the benchmark JSON line")
     p.add_argument("--train", action="store_true", help="also time training steps")
@@ -709,6 +990,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the model runs (default cuda; no card is an error, never a "
                    "silent move to the CPU)")
     add_mesh_flag(p)
+    add_fleet_flags(p)
     add_unported_flags(p)
     add_serve_mix_flag(p)
     p.set_defaults(fn=cmd_bench)
@@ -764,9 +1046,41 @@ def build_parser() -> argparse.ArgumentParser:
          "finish (default 20)"),
     ):
         p.add_argument(flag, type=kind, default=None, help=text)
+    p.add_argument("--workers", type=_workers_type, default=None,
+                   help="fleet mode: start this many worker serve processes behind a "
+                   "supervising front end that restarts crashed or hung workers and fails "
+                   "requests over (default 0: one process; 'auto': one per visible card "
+                   "over --devices-per-worker)")
+    p.add_argument("--devices-per-worker", type=int, default=None,
+                   help="fleet mode: cards each worker sees through CUDA_VISIBLE_DEVICES "
+                   "(default 0: the workers share the cards)")
+    p.add_argument("--heartbeat-interval", type=float, default=None,
+                   help="fleet mode: seconds between the supervisor's /healthz probes of "
+                   "each worker (default 2)")
+    p.add_argument("--registry", default=None, metavar="DIR",
+                   help="fleet mode: the model registry rollouts resolve names in (default "
+                   "build/roko_tpu_torch_registry; env ROKO_REGISTRY overrides)")
+    p.add_argument("--bake-s", type=float, default=None,
+                   help="fleet mode: seconds each rolled worker must stay healthy before the "
+                   "next is touched; the canary gate is judged over it (default 15)")
+    p.add_argument("--rollback-error-pct", type=float, default=None,
+                   help="fleet mode: canary error %% past this (and past the incumbent's) "
+                   "rolls the fleet back (default 2)")
+    p.add_argument("--rollback-p99-x", type=float, default=None,
+                   help="fleet mode: canary p99 past this multiple of the incumbent's rolls "
+                   "back (default 3)")
+    p.add_argument("--min-workers", type=int, default=None,
+                   help="fleet mode: autoscaler floor (default 0 = --workers)")
+    p.add_argument("--max-workers", type=int, default=None,
+                   help="fleet mode: autoscaler ceiling (default 0 = --workers)")
+    p.add_argument("--ab-lane", type=_ab_lane_type, default=None, metavar="VERSION:FRACTION",
+                   help="fleet mode: route this share of unpinned traffic to workers "
+                   "running the named registered version")
+    p.add_argument("--worker-id", type=int, default=None, help=argparse.SUPPRESS)
+    compile_flags(p)
     for attr, (flag, item) in UNPORTED_SERVE_FLAGS.items():
         text = f"not ported yet (queue item {item})"
-        if attr in ("federation", "host_agent", "no_compile_cache"):
+        if attr in ("federation", "host_agent"):
             p.add_argument(flag, dest=attr, action="store_true", default=None, help=text)
         else:  # --cascade takes an optional threshold, as the reference's
             p.add_argument(flag, dest=attr, default=None, help=text,
@@ -777,6 +1091,53 @@ def build_parser() -> argparse.ArgumentParser:
     config(p)
     event_log(p)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "compile", help="write a kernel bundle: the libraries the model launches, with the "
+        "identity they were built for (load with serve/polish/inference --bundle)")
+    p.add_argument("out", help="bundle output directory")
+    p.add_argument("--ladder", type=_ladder_type, default=None,
+                   help="comma-separated batch sizes to run once (default the serve ladder "
+                   "32,128,512)")
+    p.add_argument("--b", type=int, default=None,
+                   help="also run this batch size (inference/polish's steady-state batch)")
+    p.add_argument("--no-verify", action="store_true",
+                   help="skip the fresh-process load and run of the written bundle")
+    p.add_argument("--register", default=None, metavar="NAME",
+                   help="after the check, register the bundle in the model registry under "
+                   "this version name (the target of `rollout NAME`)")
+    p.add_argument("--params", default=None, metavar="CKPT",
+                   help="with --register: pin this checkpoint's bytes (sha256 a file) into "
+                   "the version; omitted: the version rolls out on the fleet's checkpoint")
+    p.add_argument("--registry", default=None, metavar="DIR",
+                   help="model registry directory (default build/roko_tpu_torch_registry; "
+                   "env ROKO_REGISTRY overrides)")
+    p.add_argument("--force", action="store_true",
+                   help="with --register: overwrite a name registered with another identity")
+    common(p)
+    mesh(p)
+    geometry(p)
+    config(p)
+    p.set_defaults(fn=cmd_compile)
+
+    p = sub.add_parser(
+        "rollout", help="roll a running fleet supervisor onto a registered model version, "
+        "one worker at a time, with a canary gate and automatic rollback")
+    p.add_argument("name", help="registered model version name")
+    p.add_argument("--url", default="http://127.0.0.1:8000",
+                   help="fleet supervisor base URL (default http://127.0.0.1:8000)")
+    p.add_argument("--bake-s", type=float, default=None,
+                   help="this rollout's healthy stretch a worker")
+    p.add_argument("--rollback-error-pct", type=float, default=None,
+                   help="this rollout's canary error-rate threshold (%%)")
+    p.add_argument("--rollback-p99-x", type=float, default=None,
+                   help="this rollout's canary p99 multiple threshold")
+    p.add_argument("--no-wait", action="store_true",
+                   help="submit and exit 0 at once instead of watching the rollout")
+    p.add_argument("--timeout", type=float, default=3600.0,
+                   help="seconds to watch before giving up (default 3600)")
+    p.add_argument("--poll-s", type=float, default=1.0, help=argparse.SUPPRESS)
+    p.set_defaults(fn=cmd_rollout)
     return parser
 
 

@@ -5,6 +5,7 @@ defaults (``WindowConfig``, ``ReadFilterConfig``, ``RegionConfig``,
 ``ModelConfig``, ``TrainConfig``, ``DataConfig``, ``MeshConfig``,
 ``GuardConfig``, ``ServeConfig``, ``TenantConfig``, ``DEFAULT_TENANT``,
 ``BATCHING_MODES``, ``PipelineConfig``, ``ResilienceConfig``,
+``CompileConfig``, ``FleetConfig``,
 ``resolve_ladder``, ``validate_ladder``, ``COMPUTE_DTYPES``,
 ``QUANTIZE_MODES`` and ``default_compute_dtype``). ``FeaturesConfig`` holds
 the three sections of ``roko_tpu.config.RokoConfig`` that feature
@@ -436,6 +437,106 @@ class ResilienceConfig:
     drain_deadline_s: float = 20.0
 
 
+@dataclass(frozen=True)
+class CompileConfig:
+    """Cold start (``roko_tpu/config.py:719-746``): the kernel build cache,
+    kernel bundles and the ladder warmup (``roko_tpu_torch/compile``). The
+    port's compiled artifacts are the nvcc-built kernel libraries, so its
+    "persistent compile cache" is the kernel build directory and its
+    bundle carries those libraries. ``cache_max_mb`` and
+    ``min_compile_time_s`` steer JAX's persistent cache and have no nvcc
+    counterpart: they stay at their defaults (:data:`_NOT_PORTED`)."""
+
+    #: kernel build cache on/off (``--no-compile-cache``, or
+    #: ``ROKO_COMPILE_CACHE=off``, which overrides everything here): off
+    #: builds every kernel into a fresh directory of this process
+    enabled: bool = True
+    #: build directory; None = ``build/roko_tpu_torch/`` beside the package
+    cache_dir: Optional[str] = None
+    #: kernel bundle (written by ``python -m roko_tpu_torch compile``) whose
+    #: libraries load instead of being built; a mismatch refuses loudly
+    bundle_dir: Optional[str] = None
+    #: warm the ladder's rungs on threads at once; False = one by one
+    parallel_warmup: bool = True
+    #: warmup thread cap; 0 = min(len(ladder), host cores)
+    warmup_workers: int = 0
+
+
+@dataclass(frozen=True)
+class FleetConfig:
+    """The single-host serving fleet (``roko_tpu/config.py:473-640``): a
+    supervising front end starts ``workers`` serve processes, each pinned
+    to a slice of the cards by ``CUDA_VISIBLE_DEVICES`` (or sharing them
+    with ``devices_per_worker=0``), and routes around crashed, hung and
+    breaker-tripped workers; rollouts, the A/B lane and the autoscaler ride
+    on it. The federation's fields (``join``, ``host_id``, ``lease_ttl_s``,
+    ``fed_breaker_*``) are queue item A9.5b (:data:`_NOT_PORTED`)."""
+
+    #: worker processes; 0 = the single-process service; -1 = auto (one
+    #: per ``devices_per_worker`` visible cards)
+    workers: int = 0
+    #: cards each worker sees; 0 = every worker shares every card
+    devices_per_worker: int = 0
+    heartbeat_interval_s: float = 2.0
+    heartbeat_timeout_s: float = 5.0
+    heartbeat_misses: int = 3
+    spawn_deadline_s: float = 120.0
+    term_grace_s: float = 10.0
+    restart_base_delay_s: float = 0.5
+    restart_max_delay_s: float = 30.0
+    stable_after_s: float = 30.0
+    storm_threshold: int = 5
+    storm_reset_s: float = 60.0
+    max_inflight: int = 0
+    failover_attempts: int = 3
+    #: worker logs, announce files and the rollout journal; None = a
+    #: ``roko-fleet-<pid>`` directory under the temporary directory
+    runtime_dir: Optional[str] = None
+    #: model registry; None = ``build/roko_tpu_torch_registry`` beside the
+    #: package (env ``ROKO_REGISTRY`` overrides both)
+    registry_dir: Optional[str] = None
+    bake_s: float = 15.0
+    rollback_error_pct: float = 2.0
+    rollback_p99_x: float = 3.0
+    rollout_ready_timeout_s: float = 900.0
+    min_workers: int = 0
+    max_workers: int = 0
+    autoscale_interval_s: float = 1.0
+    autoscale_up_backlog: float = 32.0
+    autoscale_down_backlog: float = 4.0
+    autoscale_idle_s: float = 10.0
+    autoscale_cooldown_s: float = 3.0
+    autoscale_ema_beta: float = 0.5
+    ab_version: Optional[str] = None
+    ab_fraction: float = 0.0
+
+    def __post_init__(self) -> None:
+        if self.min_workers < 0 or self.max_workers < 0:
+            raise ValueError(
+                "min_workers/max_workers must be >= 0; got "
+                f"{self.min_workers}/{self.max_workers}"
+            )
+        if self.max_workers and self.min_workers > self.max_workers:
+            raise ValueError(
+                f"min_workers ({self.min_workers}) exceeds max_workers "
+                f"({self.max_workers})"
+            )
+        if not 0.0 <= self.ab_fraction <= 1.0:
+            raise ValueError(f"ab_fraction must lie in [0, 1]; got {self.ab_fraction}")
+        if self.ab_fraction > 0 and not self.ab_version:
+            raise ValueError("ab_fraction > 0 needs ab_version (a registry name)")
+        if self.autoscale_down_backlog > self.autoscale_up_backlog:
+            raise ValueError(
+                "autoscale_down_backlog must not exceed "
+                "autoscale_up_backlog (the hysteresis band); got "
+                f"{self.autoscale_down_backlog} > {self.autoscale_up_backlog}"
+            )
+        if not 0.0 <= self.autoscale_ema_beta < 1.0:
+            raise ValueError(
+                f"autoscale_ema_beta must lie in [0, 1); got {self.autoscale_ema_beta}"
+            )
+
+
 #: the fields of ``roko_tpu.config.RokoConfig`` the port does not run,
 #: by section: field -> (the reference's default, the ROADMAP queue item
 #: that ports it, or why it is not ported). A file that sets one to another
@@ -445,10 +546,12 @@ _NOT_PORTED: Dict[str, Dict[str, Tuple[Any, str]]] = {
     "train": {"dropout_rng_impl": ("threefry", "A12")},
     "resilience": {"hang_fallback": ("none", "deliberately not ported: finishing on the CPU "
                                      "after the card failed would hide the card")},
-    "compile": {k: (v, "A9.3") for k, v in (
-        ("enabled", True), ("cache_dir", None), ("cache_max_mb", 1024),
-        ("min_compile_time_s", 0.0), ("bundle_dir", None), ("parallel_warmup", True),
-        ("warmup_workers", 0))},
+    "compile": {
+        "cache_max_mb": (1024, "no nvcc counterpart: it bounds JAX's persistent XLA cache by "
+                         "LRU eviction, and the port's kernel build directory evicts nothing"),
+        "min_compile_time_s": (0.0, "no nvcc counterpart: it skips caching fast XLA compiles, "
+                               "and every nvcc build is cached"),
+    },
     "cascade": {k: (v, "A10") for k, v in (
         ("enabled", False), ("tier", "majority"), ("tier_version", None),
         ("threshold", 0.05), ("method", "max_softmax"), ("calibration_path", None),
@@ -461,20 +564,9 @@ _NOT_PORTED: Dict[str, Dict[str, Tuple[Any, str]]] = {
         ("cache_dir", None), ("cache_bytes", 256 * 2**20), ("block_bytes", 4 * 2**20),
         ("timeout_s", 30.0), ("max_attempts", 4), ("hedge_s", 0.0), ("breaker_failures", 5),
         ("breaker_reset_s", 30.0), ("endpoint", None))},
-    "fleet": {k: (v, "A9.5") for k, v in (
-        ("workers", 0), ("devices_per_worker", 0), ("heartbeat_interval_s", 2.0),
-        ("heartbeat_timeout_s", 5.0), ("heartbeat_misses", 3), ("spawn_deadline_s", 120.0),
-        ("term_grace_s", 10.0), ("restart_base_delay_s", 0.5), ("restart_max_delay_s", 30.0),
-        ("stable_after_s", 30.0), ("storm_threshold", 5), ("storm_reset_s", 60.0),
-        ("max_inflight", 0), ("failover_attempts", 3), ("runtime_dir", None),
-        ("registry_dir", None), ("bake_s", 15.0), ("rollback_error_pct", 2.0),
-        ("rollback_p99_x", 3.0), ("rollout_ready_timeout_s", 900.0), ("ab_version", None),
-        ("ab_fraction", 0.0), ("min_workers", 0), ("max_workers", 0),
-        ("autoscale_interval_s", 1.0), ("autoscale_up_backlog", 32.0),
-        ("autoscale_down_backlog", 4.0), ("autoscale_idle_s", 10.0),
-        ("autoscale_ema_beta", 0.5), ("autoscale_cooldown_s", 3.0), ("join", None),
-        ("host_id", None), ("lease_ttl_s", 10.0), ("fed_breaker_failures", 3),
-        ("fed_breaker_reset_s", 10.0))},
+    "fleet": {k: (v, "A9.5b") for k, v in (
+        ("join", None), ("host_id", None), ("lease_ttl_s", 10.0),
+        ("fed_breaker_failures", 3), ("fed_breaker_reset_s", 10.0))},
 }
 
 #: fields that load whatever they hold: ``use_pallas`` asks the reference
@@ -487,7 +579,8 @@ _IGNORED = {"model": ("use_pallas",)}
 class RokoConfig(FeaturesConfig):
     """The sections of ``roko_tpu.config.RokoConfig`` the streaming polish
     reads: the feature sections (it is a ``FeaturesConfig``), the model,
-    the batching plane, the pipeline and the failure handling. The
+    the batching plane, the pipeline, the failure handling, the kernel
+    build cache and bundles, and the serving fleet. The
     model's ``window_rows``/``window_cols`` must match ``window``."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -498,6 +591,8 @@ class RokoConfig(FeaturesConfig):
     serve: ServeConfig = field(default_factory=ServeConfig)
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    compile: CompileConfig = field(default_factory=CompileConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
 
     def to_json(self) -> str:
         """The reference's layout (``roko_tpu/config.py:935-983``): one

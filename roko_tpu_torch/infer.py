@@ -287,10 +287,14 @@ def run_inference(
     device: str | torch.device = "cuda",
     log: Callable[[str], None] = print,
     trace_dir: Optional[str] = None,
+    cfg=None,
 ) -> Dict[str, str]:
     """Predict every window of ``batches`` (``(names, positions, examples)``
     tuples), vote, and stitch each contig: ``{contig: polished}``;
-    ``trace_dir`` writes a device trace of the loop.
+    ``trace_dir`` writes a device trace of the loop. ``cfg`` (a
+    ``RokoConfig``) brings its ``compile`` section: the kernel build
+    cache, and a kernel bundle whose libraries load in place of nvcc
+    (``BundleMismatch`` when it does not match ``model``'s config).
 
     One-deep pipeline: batch k+1's forward is enqueued on the device
     before the host blocks on batch k's class ids and votes them, so
@@ -298,6 +302,12 @@ def run_inference(
     ``cfg.compute_dtype``, and is quantized here, once, when
     ``cfg.quantize`` asks for int8 (``models/quant.py``)."""
     dev = resolve_device(device)
+    if cfg is not None:
+        from roko_tpu_torch.compile import enable_persistent_cache, load_bundle
+
+        enable_persistent_cache(cfg.compile)
+        if cfg.compile.bundle_dir:
+            load_bundle(cfg.compile.bundle_dir, cfg, log=log)
     use_float32_matmuls()
     maybe_quantize(model).to(dev).eval()
     board = VoteBoard(contigs)
@@ -332,14 +342,16 @@ def polish_to_fasta(
     batch_size: int = 128,
     log: Callable[[str], None] = print,
     trace_dir: Optional[str] = None,
+    cfg=None,
 ) -> Dict[str, str]:
-    """Polish every contig of a feature HDF5 and write the FASTA; in a
+    """Polish every contig of a feature HDF5 and write the FASTA (``cfg``
+    as :func:`run_inference`'s); in a
     run of several processes each dp group reads only the windows of its
     contigs (:func:`polish_windows_to_fasta`, whose dict it returns)."""
     return polish_windows_to_fasta(
         load_contigs(data_path),
         lambda only: iter_inference_windows(data_path, batch_size, contig_filter=only),
-        model, out_path, device=device, log=log, trace_dir=trace_dir,
+        model, out_path, device=device, log=log, trace_dir=trace_dir, cfg=cfg,
     )
 
 
@@ -352,6 +364,7 @@ def polish_windows_to_fasta(
     device: str | torch.device = "cuda",
     log: Callable[[str], None] = print,
     trace_dir: Optional[str] = None,
+    cfg=None,
 ) -> Dict[str, str]:
     """Polish ``contigs`` (``{name: draft}`` in the draft's order) from
     ``windows(only)``, the window batches of the contigs in ``only`` (None:
@@ -377,7 +390,7 @@ def polish_windows_to_fasta(
     distributed.initialize(device=dev)
     if distributed.world_size() == 1:
         polished = run_inference(windows(None), contigs, model, device=dev, log=log,
-                                 trace_dir=trace_dir)
+                                 trace_dir=trace_dir, cfg=cfg)
         write_fasta(out_path, list(polished.items()))
         return polished
     mesh = model.mesh if model.mesh is not None else make_mesh()
@@ -387,7 +400,7 @@ def polish_windows_to_fasta(
         windows(mine), {k: v for k, v in contigs.items() if k in mine}, model,
         device=distributed.device_of_rank(dev),
         log=log if rank == 0 else (lambda s: None),
-        trace_dir=trace_dir if rank == 0 else None,
+        trace_dir=trace_dir if rank == 0 else None, cfg=cfg,
     )
     if mesh.t == 0 and mesh.s == 0:
         write_fasta(f"{out_path}.part{mesh.d}", list(polished.items()))

@@ -2,12 +2,16 @@
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface (it may
 include the shared headers ``csrc/*.cuh``). It is compiled for
-``sm_90a`` into ``build/roko_tpu_torch/`` beside the package on first
-use, under a name that carries a hash of the sources and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
-Nothing here runs at import time: the CPU tests import every module of
-the package on a machine without nvcc. Beside the build, the checks
-every kernel wrapper makes before a launch.
+``sm_90a`` on first use into the kernel build cache
+(``compile/cache.py``: ``ROKO_COMPILE_CACHE``, else
+``CompileConfig.cache_dir``, else ``build/roko_tpu_torch/`` beside the
+package), under a name that carries a hash of the sources and the flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is.
+A process that loaded a kernel bundle (``compile/bundle.py``) loads the
+bundle's copies instead, through the same checked route, and never runs
+nvcc for a kernel the bundle lacks. Nothing here runs at import time: the
+CPU tests import every module of the package on a machine without nvcc.
+Beside the build, the checks every kernel wrapper makes before a launch.
 """
 
 from __future__ import annotations
@@ -23,8 +27,14 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from roko_tpu_torch.compile import cache
+
 _PKG = Path(__file__).resolve().parent
-BUILD_DIR = _PKG.parent / "build" / "roko_tpu_torch"
+
+#: where the libraries are built: None until the first build asks the
+#: kernel build cache (``cache.enable_persistent_cache``) for this
+#: process's directory; a test may point it elsewhere
+BUILD_DIR: Optional[Path] = None
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -82,6 +92,22 @@ KERNELS = {
 DTYPES = {name: torch.bfloat16 if name.endswith("_bf16") else torch.float32 for name in KERNELS}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: the file each loaded library came from
+_loaded_from: Dict[str, Path] = {}
+#: kernels counted in the build cache's hits and misses (once a process)
+_counted: set = set()
+#: kernel name -> its library in a loaded bundle; once a bundle is
+#: installed (``_bundle_dir``), a kernel it lacks is refused, not built
+_bundle_paths: Dict[str, Path] = {}
+_bundle_dir: Optional[str] = None
+
+
+def build_dir() -> Path:
+    """This process's kernel build directory (fixed on first use)."""
+    global BUILD_DIR
+    if BUILD_DIR is None:
+        BUILD_DIR = Path(cache.enable_persistent_cache())
+    return Path(BUILD_DIR)
 
 
 def nvcc_path() -> str:
@@ -107,13 +133,30 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    """The library of kernel ``name``, named by a hash of its source, the
-    shared headers of ``csrc/`` and the flags."""
+def source_digest(name: str) -> str:
+    """sha256 of kernel ``name``'s source, the shared headers of ``csrc/``
+    and the flags: what its library's name carries."""
     src = (_PKG / KERNELS[name][0]).read_bytes()
     src += b"".join(h.read_bytes() for h in sorted((_PKG / "csrc").glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    return hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
+def library_path(name: str) -> Path:
+    """The library of kernel ``name`` in the build directory, named by its
+    :func:`source_digest`."""
+    return build_dir() / f"{name}-{source_digest(name)[:16]}.so"
+
+
+def inference_kernels(model_cfg, backend: str = "cuda") -> tuple:
+    """The kernels a forward of ``model_cfg`` launches on a card: the
+    recurrence of its kind in its resolved compute dtype (int8 weights
+    dequantize into it); none for the transformer, whose products are
+    library calls."""
+    if model_cfg.kind == "transformer":
+        return ()
+    dtype = model_cfg.resolve(backend).compute_dtype
+    base = "gru_fwd" if model_cfg.kind == "gru" else "lingru_fwd"
+    return (base + "_bf16",) if dtype == "bfloat16" else (base,)
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
@@ -122,10 +165,21 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     ``{name: {"seconds": wall time, "ptxas": nvcc's resource report}}`` for
     the kernels it compiled. Raises with nvcc's stderr when one fails."""
     names = list(KERNELS if names is None else names)
+    refused = [n for n in names if _bundle_dir is not None and n not in _bundle_paths]
+    if refused:
+        raise RuntimeError(
+            f"kernel bundle {_bundle_dir!r} carries no library for {refused}; a process "
+            "that loaded a bundle never builds a kernel with nvcc (export a bundle for "
+            "this model's kind and dtype with `python -m roko_tpu_torch compile`)")
+    names = [n for n in names if n not in _bundle_paths]
     todo = [n for n in names if not library_path(n).exists()]
+    for n in names:
+        if n not in _counted:
+            _counted.add(n)
+            cache.record(hit=n not in todo)
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
@@ -160,18 +214,55 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``: the bundle's copy when a
+    bundle carries it, else the build directory's, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        path = _bundle_paths.get(name)
+        if path is None:
+            build([name])
+            path = library_path(name)
+        lib = ctypes.CDLL(str(path))
         entry = getattr(lib, KERNELS[name][1])
         entry.argtypes = KERNELS[name][2]
         entry.restype = ctypes.c_int
         lib.roko_cuda_error_string.argtypes = [ctypes.c_int]
         lib.roko_cuda_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
+        _loaded_from[name] = Path(path)
     return lib
+
+
+def forward_launches() -> Dict[str, int]:
+    """This process's launch counts of the inference kernels, by name (the
+    wrappers' counters)."""
+    from roko_tpu_torch.models import fused_gru as fg
+    from roko_tpu_torch.models import fused_lingru as fl
+
+    return {"gru_fwd": fg.gru_recurrence.launches,
+            "gru_fwd_bf16": fg.gru_recurrence.launches_bf16,
+            "lingru_fwd": fl.lingru_scan.launches,
+            "lingru_fwd_bf16": fl.lingru_scan.launches_bf16}
+
+
+def install_bundle(bundle_dir: str, paths: Dict[str, Path]) -> None:
+    """Point :func:`library` at a bundle's libraries (``{name: path}``,
+    already checked by ``compile.bundle.load_bundle``). Refuses a kernel
+    that this process has already loaded from anywhere else, and a
+    second, different bundle: one kernel never loads from two files in
+    one process."""
+    global _bundle_dir
+    if _bundle_dir is not None and _bundle_dir != bundle_dir:
+        raise RuntimeError(f"kernel bundle {_bundle_dir!r} is already loaded in this "
+                           f"process; refusing a second one ({bundle_dir!r})")
+    clash = [n for n, p in paths.items()
+             if n in _loaded_from and _loaded_from[n] != Path(p)]
+    if clash:
+        raise RuntimeError(
+            f"kernels {clash} are already loaded from {[str(_loaded_from[n]) for n in clash]}; "
+            f"refusing to load them again from bundle {bundle_dir!r}")
+    _bundle_dir = bundle_dir
+    _bundle_paths.update({n: Path(p) for n, p in paths.items()})
 
 
 def device_kind(t: torch.Tensor, name: str) -> str:

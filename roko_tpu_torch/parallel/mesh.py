@@ -19,6 +19,12 @@ sp group is neighbouring ranks. The reference lays a
 the port runs one process per card, so its mesh is the processes of the
 run, and the collectives are explicit calls on the ``torch.distributed``
 subgroups of :func:`distributed.grid_groups`.
+
+Beside the grid, the serving fleet's card slices (:92-290 of the
+reference's module): :func:`fleet_worker_slice`, :func:`fleet_worker_env`
+(a ``CUDA_VISIBLE_DEVICES`` overlay), :func:`visible_device_count` and
+:func:`resolve_fleet_topology`, which the supervisor calls without
+initialising CUDA.
 """
 
 from __future__ import annotations
@@ -152,3 +158,72 @@ def group_broadcast_(t: torch.Tensor, group: Any, src: int) -> torch.Tensor:
 
         dist.broadcast(t, src=src, group=group)
     return t
+
+
+def fleet_worker_slice(worker_index: int, num_workers: int, devices_per_worker: int) -> "list[int]":
+    """The contiguous card ids fleet worker ``i`` of ``n`` owns:
+    ``[i*k, (i+1)*k)`` for ``k = devices_per_worker``."""
+    if worker_index < 0 or worker_index >= num_workers:
+        raise ValueError(f"worker_index {worker_index} outside fleet of {num_workers}")
+    if devices_per_worker < 1:
+        raise ValueError("devices_per_worker must be >= 1 to pin a slice")
+    first = worker_index * devices_per_worker
+    return list(range(first, first + devices_per_worker))
+
+
+def fleet_worker_env(worker_index: int, num_workers: int, devices_per_worker: int = 0,
+                     backend: str = "cuda") -> "dict[str, str]":
+    """The environment overlay that pins one fleet worker to its cards:
+    ``CUDA_VISIBLE_DEVICES`` of its slice. Pure computation, touching no
+    CUDA API (the supervisor calls it). ``devices_per_worker == 0`` (the
+    workers share the cards) and the CPU give an empty overlay."""
+    if devices_per_worker <= 0 or backend == "cpu":
+        return {}
+    ids = fleet_worker_slice(worker_index, num_workers, devices_per_worker)
+    return {"CUDA_VISIBLE_DEVICES": ",".join(str(i) for i in ids)}
+
+
+def visible_device_count(backend: str = "cuda") -> Optional[int]:
+    """The cards this process (or a child with its environment) sees:
+    ``CUDA_VISIBLE_DEVICES`` when set, else ``torch.cuda.device_count()``,
+    which counts without initialising CUDA in this process; 1 on the CPU
+    (the host)."""
+    import os
+
+    if backend == "cpu":
+        return 1
+    ids = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if ids is not None:
+        return len([t for t in ids.split(",") if t.strip()])
+    return torch.cuda.device_count()
+
+
+def resolve_fleet_topology(fleet_cfg, backend: str = "cuda"):
+    """Resolve ``--workers auto`` and refuse oversubscription, before
+    anything spawns; returns a (possibly updated) ``FleetConfig``.
+
+    - ``workers == -1`` (auto): the visible cards over
+      ``devices_per_worker`` (1 when unset, which turns pinning on);
+    - explicit ``workers`` with ``devices_per_worker > 0`` on the card:
+      a worker count x slice above the visible cards is refused. With
+      ``devices_per_worker == 0`` the workers share the cards, and on the
+      CPU there is nothing to oversubscribe."""
+    fc = fleet_cfg
+    n = visible_device_count(backend)
+    if fc.workers == -1:
+        per = fc.devices_per_worker if fc.devices_per_worker > 0 else 1
+        workers = (n or 0) // per
+        if workers < 1:
+            raise ValueError(
+                f"--workers auto: {n} visible card(s) cannot host even one worker of {per} "
+                "card(s) (--devices-per-worker); pass --workers explicitly")
+        fc = dataclasses.replace(fc, workers=workers, devices_per_worker=per)
+    if backend != "cpu" and fc.workers > 0 and fc.devices_per_worker > 0 and n is not None:
+        need = fc.workers * fc.devices_per_worker
+        if need > n:
+            raise ValueError(
+                f"fleet topology oversubscribes the host: {fc.workers} worker(s) x "
+                f"{fc.devices_per_worker} card(s) each = {need} > {n} visible card(s). Use "
+                f"--workers auto, --devices-per-worker 0 to share the cards, or at most "
+                f"{n // fc.devices_per_worker} worker(s) at this slice size.")
+    return fc

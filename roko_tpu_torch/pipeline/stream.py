@@ -342,6 +342,10 @@ def run_streaming_polish(
                 model, cfg, device=device,
                 ladder=tail_rungs(resolve_ladder(cfg.serve, 1), batch_size, 1),
             )
+            # cfg.compile: the build cache, and a bundle's libraries in
+            # place of nvcc (require_all=False: a rung the bundle lacks
+            # simply runs; a library it lacks is refused, never built)
+            session.load_compiled(require_all=False, log=log)
         if region_source is None:
             region_source = stack.enter_context(
                 open_region_stream(

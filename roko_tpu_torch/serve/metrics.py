@@ -21,6 +21,10 @@ Series (prefixed ``roko_serve_`` unless named otherwise):
 - ``breaker_state`` (0 closed, 1 half-open, 2 open) and
   ``breaker_trips_total`` with a circuit breaker attached;
 - ``warmup_seconds`` — gauge, NaN while the ladder warms;
+- ``roko_compile_cache_hits`` and ``roko_compile_cache_misses`` — the
+  kernel build cache of this process (``compile/cache.py``): libraries
+  found already built, and nvcc runs (0 in a worker started from a
+  kernel bundle);
 - ``request_latency_seconds`` — summary (p50, p99, count, sum) over the
   retained samples, and per size class (``size_class="le{rung}"``,
   ``gt{top}`` past the top rung);
@@ -28,9 +32,7 @@ Series (prefixed ``roko_serve_`` unless named otherwise):
   class, tenant and model), ``roko_queue_wait_seconds`` and
   ``roko_device_time_seconds``.
 
-Left out, having no counterpart in the port yet: the persistent compile
-cache's ``roko_compile_cache_hits`` and ``roko_compile_cache_misses``
-(queue item A9.3 decides what replaces them), the cascade's
+Left out, having no counterpart in the port yet: the cascade's
 ``roko_cascade_tier_seconds`` histogram and ``cascade_*`` rows (A10), and
 the object-store client's ``roko_store_*_total`` counters (A10):
 :data:`UNPORTED_SERIES`.
@@ -41,18 +43,36 @@ from __future__ import annotations
 import threading
 from typing import Callable, Dict, Optional, Tuple
 
+from roko_tpu_torch.compile.cache import cache_counters
 from roko_tpu_torch.obs.hist import HistogramFamily
 from roko_tpu_torch.utils.profiling import StageTimer
 
 _PREFIX = "roko_serve_"
 _COUNTERS = ("requests", "windows", "batches", "rejected", "errors")
 
+#: the mergeable histogram families a worker renders, which the fleet's
+#: supervisor sums bucket by bucket into fleet rows (``serve/fleet.py``);
+#: the cascade's family (A10) is absent from the port's workers
+HISTOGRAM_SERIES = (
+    "roko_request_latency_seconds",
+    "roko_queue_wait_seconds",
+    "roko_device_time_seconds",
+    "roko_cascade_tier_seconds",
+)
+
+#: labelled series the supervisor passes through row by row, each with a
+#: ``worker="i"`` label appended
+LABELED_SERIES = (
+    "roko_serve_tenant_requests_total",
+    "roko_serve_tenant_rejected_total",
+    "roko_serve_tenant_backlog",
+    "roko_serve_model_requests_total",
+)
+
 #: series of the reference's ``/metrics`` the port does not render, with
 #: the ROADMAP queue item that would bring each (a trailing ``*`` stands
 #: for any name with that prefix)
 UNPORTED_SERIES = {
-    "roko_compile_cache_hits": "A9.3",
-    "roko_compile_cache_misses": "A9.3",
     "roko_cascade_tier_seconds": "A10",
     "roko_serve_cascade_*": "A10",
     "roko_store_*": "A10",
@@ -240,6 +260,11 @@ class ServeMetrics:
             f"{_PREFIX}warmup_seconds "
             + ("NaN" if self.warmup_seconds is None else f"{self.warmup_seconds:.3f}")
         )
+        hits, misses = cache_counters()
+        lines.append("# TYPE roko_compile_cache_hits counter")
+        lines.append(f"roko_compile_cache_hits {hits}")
+        lines.append("# TYPE roko_compile_cache_misses counter")
+        lines.append(f"roko_compile_cache_misses {misses}")
         lat = f"{_PREFIX}request_latency_seconds"
         lines.append(f"# TYPE {lat} summary")
         for q in (50, 99):

@@ -22,15 +22,24 @@ so its class ids are those of ``pad_windows`` of the first rows
 (``roko_tpu/serve/session.py:334-415``). A ragged session warms the top
 rung only.
 
+Cold start (``cfg.compile``, ``compile/``): ``warmup`` first fixes the
+process's kernel build cache and, when ``cfg.compile.bundle_dir`` names a
+kernel bundle, loads it (:meth:`load_compiled`: a mismatch refuses with
+``BundleMismatch``, and the bundle's libraries then load with no nvcc
+run); otherwise it builds the kernels the model launches, one nvcc per
+source, all at once. Then every rung runs once through the model, on
+threads at once (``cfg.compile.parallel_warmup``) or one by one
+(``compile.warmup_ladder``; ``warmup_report``: per-rung seconds, the
+mode ``"aot"``, ``"parallel"`` or ``"serial"``, and the build cache's
+hits and misses).
+
 What the JAX package's session does and this one does not: shard over a
 device mesh (one card here; a session over several ranks is queue item
-A9.1), load AOT bundles or a persistent compile cache (A9.3), or fail
-over to the host CPU after a hang (not ported: carrying on on the CPU
-after the card failed would hide the card's failure; ``failed_over`` is
-always False). ``warmup`` runs each rung once through the model
-(``warmup_report``: per-rung seconds, mode ``"eager"``, there being no
-compile to cache). The model runs in its resolved ``cfg.compute_dtype``;
-a config that asks for int8 quantizes it once, when the session is built.
+A9.1), or fail over to the host CPU after a hang (not ported: carrying
+on on the CPU after the card failed would hide the card's failure;
+``failed_over`` is always False). The model runs in its resolved
+``cfg.compute_dtype``; a config that asks for int8 quantizes it once,
+when the session is built.
 """
 
 from __future__ import annotations
@@ -38,12 +47,13 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from dataclasses import dataclass, field
 from typing import Any, Dict, Hashable, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
+from roko_tpu_torch.compile.cache import cache_counters, enable_persistent_cache
+from roko_tpu_torch.compile.warmup import WarmupReport, warmup_ladder
 from roko_tpu_torch.config import RokoConfig, resolve_ladder, validate_ladder
 from roko_tpu_torch.infer import (
     mask_rows,
@@ -55,24 +65,6 @@ from roko_tpu_torch.infer import (
 from roko_tpu_torch.models.model import RokoModel
 from roko_tpu_torch.models.quant import maybe_quantize
 from roko_tpu_torch.resilience import DeadlinePolicy, call_with_deadline
-
-
-@dataclass
-class WarmupReport:
-    """What a ladder warmup cost (``roko_tpu/compile/warmup.py:32``, less
-    the persistent-cache counters the port has no counterpart of)."""
-
-    seconds: float = 0.0
-    #: always "eager": each rung runs once through the model
-    mode: str = "eager"
-    per_rung_s: Dict[int, float] = field(default_factory=dict)
-
-    def as_dict(self) -> Dict[str, object]:
-        return {
-            "seconds": round(self.seconds, 3),
-            "mode": self.mode,
-            "per_rung_s": {str(r): round(t, 3) for r, t in sorted(self.per_rung_s.items())},
-        }
 
 
 class PolishSession:
@@ -141,27 +133,58 @@ class PolishSession:
         ``cpu_fallback`` of ``/healthz`` and ``/metrics`` say so)."""
         return False
 
-    def warmup(self, log=None) -> int:
-        """Run one zero batch of every rung through the model (on the
-        card, the first call builds the kernels); a ragged session runs
-        its one top-rung step instead. Returns :meth:`ready_executables`
-        and fills ``warmup_report``."""
-        report = WarmupReport()
+    def load_compiled(self, *, require_all: bool = True, log=None) -> Optional[Dict[str, Any]]:
+        """Fix the kernel build cache (``cfg.compile``) and, when
+        ``cfg.compile.bundle_dir`` is set, load that kernel bundle
+        (``compile.load_bundle``: ``BundleMismatch`` when it does not match
+        this model and card, or lacks a rung of the ladder and
+        ``require_all``). Returns the bundle's check, None without one."""
+        from roko_tpu_torch.compile.bundle import load_bundle
+
+        enable_persistent_cache(self.cfg.compile, log=log)
+        bundle = self.cfg.compile.bundle_dir
+        if not bundle:
+            return None
+        return load_bundle(bundle, self.cfg, rungs=self.ladder, require_all=require_all,
+                           log=log or (lambda m: None))
+
+    def warmup(self, log=None, *, parallel: Optional[bool] = None,
+               require_all: bool = True) -> int:
+        """Load the bundle or build the kernels (:meth:`load_compiled`),
+        then run one zero batch of every rung through the model (a ragged
+        session runs its one top-rung step instead), on threads at once or
+        one by one. Returns :meth:`ready_executables` and fills
+        ``warmup_report``."""
+        from roko_tpu_torch import kernels
+
+        hits0, misses0 = cache_counters()
         t0 = time.perf_counter()
+        bundle = self.load_compiled(require_all=require_all, log=log)
+        if self.device.type == "cuda":
+            # every kernel the model launches, one nvcc per source at once
+            # (none with a bundle: its libraries are already installed)
+            kernels.build(kernels.inference_kernels(self.model.cfg))
         rungs = self.ladder[-1:] if self.ragged else self.ladder
-        for rung in rungs:
-            t_r = time.perf_counter()
+
+        def one(rung: int) -> None:
             zeros = np.zeros((rung,) + self._window_shape, np.uint8)
             with self._lock:
                 if self.ragged:
                     self._dispatch(zeros, 0)
                 else:
                     self._dispatch(zeros)
-            report.per_rung_s[rung] = time.perf_counter() - t_r
+
+        cc = self.cfg.compile
+        report = warmup_ladder(
+            rungs, one, parallel=cc.parallel_warmup if parallel is None else parallel,
+            max_workers=cc.warmup_workers, mode="aot" if bundle is not None else None)
+        hits1, misses1 = cache_counters()
         report.seconds = time.perf_counter() - t0
+        report.cache_hits, report.cache_misses = hits1 - hits0, misses1 - misses0
         self.warmup_report = report
         if log is not None:
-            log(f"warmup: {len(rungs)} rung(s) ready in {report.seconds:.1f}s ({report.mode})")
+            log(f"warmup: {len(rungs)} rung(s) ready in {report.seconds:.1f}s ({report.mode}; "
+                f"kernel cache hits={report.cache_hits} misses={report.cache_misses})")
         return self.ready_executables()
 
     # -- dispatch -----------------------------------------------------------

@@ -234,8 +234,8 @@ def test_bench_asks_for_a_card_by_default():
 @pytest.mark.parametrize("flag,value,item", [
     ("--features", None, "A11"), ("--e2e-draft", "60000", "A11"),
     ("--pipeline-draft", "60000", "A11"), ("--cascade-draft", "40000", "A10"),
-    ("--coldstart-ladder", "32,128", "A9.3"), ("--input-rows", "1536", "A11"),
-    ("--fleet-workers", "1,2", "A9.5"),
+    ("--cascade-draft", "1", "A10"), ("--input-rows", "1536", "A11"),
+    ("--input-rows", "1", "A11b"),
     ("--in-process", None, "deliberately not ported"),
 ])
 def test_unported_suite_flags_are_usage_errors(flag, value, item, capsys):
@@ -330,19 +330,19 @@ def _key_paths(d, prefix=""):
 def test_serve_suite_rows_are_the_references():
     """The serve suite on a tiny model at a tiny mix (8 requests of 2 and
     8 windows): the row keys of ``roko_tpu.benchmark.run_serve_suite`` on
-    the same mix and widths, except the reference's ``autoscale`` row,
-    which is an error row here (it drives the fleet supervisor, queue item
-    A9.5); every mode byte-identical and error-free; and no error counts
-    against the command."""
+    the same mix and widths, its ``autoscale`` row (the fleet's
+    Autoscaler on the batcher's real backlog) included, with the
+    reference's worker trajectory; every mode byte-identical and
+    error-free; and no error counts against the command."""
     from roko_tpu.config import RokoConfig as RefRokoConfig
 
     got = B.run_serve_suite("2:50,8:50", iterations=8, device="cpu", model_overrides=TINY)
     want = RB.run_serve_suite("2:50,8:50", iterations=8,
                               config_json=RefRokoConfig(model=RefModelConfig(**TINY)).to_json())
-    autoscale = {k for k in _key_paths(want) if k.startswith("autoscale.")}
-    assert _key_paths(got) - {"autoscale.error"} == _key_paths(want) - autoscale
-    assert got["autoscale"] == {"error": B.UNPORTED_SERVE_ROWS["autoscale"]}
-    assert "A9.5" in got["autoscale"]["error"]
+    assert _key_paths(got) == _key_paths(want)
+    assert B.UNPORTED_SERVE_ROWS == {}
+    assert got["autoscale"]["scaled_up"] and got["autoscale"]["scaled_down"]
+    assert [p["phase"] for p in got["autoscale"]["phases"]] == ["idle", "flood", "drain"]
     assert got["ladder"] == want["ladder"] == [8] and got["iterations"] == 8
     for mode, row in got["modes"].items():
         assert row["byte_identical"] is True and row["client_errors"] == 0, mode
@@ -360,7 +360,7 @@ def test_serve_mix_flag_runs_the_suite(monkeypatch):
 
     def fake(mix, **kw):
         seen.append((mix, kw["device"].type, kw["iterations"]))
-        return {"modes": {}, "autoscale": {"error": B.UNPORTED_SERVE_ROWS["autoscale"]}}
+        return {"modes": {}, "autoscale": {"worker_trajectory": [2]}}
 
     monkeypatch.setattr(B, "run_serve_suite", fake)
     monkeypatch.setattr(B, "bench_torch_reference", lambda: 1.0)
@@ -378,3 +378,43 @@ def test_serve_mix_flag_runs_the_suite(monkeypatch):
     assert B.main(["--device", "cpu", "--serve-mix", "2:100"]) == 1
     with pytest.raises(ValueError, match="sum to"):
         B._parse_mix("2:50")
+
+
+def test_coldstart_and_fleet_flags_run_their_suites(monkeypatch):
+    """``--coldstart-ladder`` and ``--fleet-workers`` reach their suites
+    from the CLI and from ``benchmark.main``; 0 and absent run neither; a
+    failing suite is a ported error."""
+    seen = []
+    monkeypatch.setattr(B, "run_coldstart_suite",
+                        lambda ladder, **kw: seen.append(("cold", ladder, kw["device"])) or {})
+    monkeypatch.setattr(B, "run_fleet_suite",
+                        lambda counts, **kw: seen.append(("fleet", counts, kw["iterations"]))
+                        or {})
+    monkeypatch.setattr(B, "bench_torch_reference", lambda: 1.0)
+    monkeypatch.setattr(B, "run_inference_suite",
+                        lambda *a, **k: {"windows_per_sec": 1.0, "iterations": 1})
+    assert cli.main(["bench", "--device", "cpu", "--coldstart-ladder", "8,16"]) == 0
+    assert B.main(["--device", "cpu", "--fleet-workers", "1,2", "--bench-iterations", "3"]) == 0
+    assert B.main(["--device", "cpu", "--coldstart-ladder", "0", "--fleet-workers", "0"]) == 0
+    assert seen == [("cold", (8, 16), "cpu"), ("fleet", (1, 2), 3)]
+    assert (B.FLEET_ITERS, B.FLEET_CLIENTS, B.FLEET_REQUEST_WINDOWS) == \
+        (RB.FLEET_ITERS, RB.FLEET_CLIENTS, RB.FLEET_REQUEST_WINDOWS)
+    assert B.DEFAULT_COLDSTART_LADDER == RB.DEFAULT_COLDSTART_LADDER
+    monkeypatch.setattr(B, "run_fleet_suite", lambda counts, **kw: {"error": "boom"})
+    assert B.main(["--device", "cpu", "--fleet-workers", "2"]) == 1
+
+
+def test_fleet_suite_rows_are_the_references():
+    """The fleet suite on a tiny model over real ``serve --device cpu``
+    workers: the reference's rows (req/s, p99, mean, errors a worker
+    count, the scaling efficiency, the SIGKILL phase) plus each count's
+    ready seconds; no client error, the killed worker back."""
+    got = B.run_fleet_suite((1, 2), iterations=2, device="cpu", model_overrides=TINY)
+    assert set(got["workers"]) == {"1", "2"} and "scaling_efficiency" in got
+    for row in got["workers"].values():
+        assert {"req_per_s", "p99_s", "mean_s", "client_errors", "ready_s"} <= set(row)
+        assert row["client_errors"] == 0
+    kill = got["forced_kill"]
+    assert kill["client_errors"] == 0 and kill["worker_rejoined"] and kill["restarts"] >= 1
+    assert set(kill) == {"workers", "req_per_s_during_kill", "p99_s", "client_errors",
+                         "failovers", "restarts", "worker_rejoined"}

@@ -74,8 +74,10 @@ def _import_in_child(*names):
 #: the host side of the port: feature extraction runs in worker
 #: processes and threads, and the assess tool, the failure handling and
 #: the circuit breaker, the batching plane's batchers, the service's
-#: client, its traces and histograms, and the training data plane are
-#: host code, so none of it may import torch
+#: client, its traces and histograms, the training data plane, the
+#: kernel build cache and bundle manifests, and the fleet (its
+#: supervisor routes and never touches the card) are host code, so none
+#: of it may import torch
 HOST_MODULES = [
     "roko_tpu_torch.sim", "roko_tpu_torch.utils.rng", "roko_tpu_torch.resilience.retry",
     "roko_tpu_torch.io.bgzf", "roko_tpu_torch.io.bam", "roko_tpu_torch.io.sam",
@@ -93,12 +95,16 @@ HOST_MODULES = [
     "roko_tpu_torch.datapipe.io", "roko_tpu_torch.datapipe.manifest",
     "roko_tpu_torch.datapipe.engine", "roko_tpu_torch.datapipe.dataset",
     "roko_tpu_torch.training.data", "roko_tpu_torch.training.lazy_data",
+    "roko_tpu_torch.compile", "roko_tpu_torch.compile.cache", "roko_tpu_torch.compile.warmup",
+    "roko_tpu_torch.compile.bundle", "roko_tpu_torch.serve.httpbase",
+    "roko_tpu_torch.serve.registry", "roko_tpu_torch.serve.fleet",
+    "roko_tpu_torch.serve.rollout", "roko_tpu_torch.serve.supervisor",
 ]
 
 
 def test_every_port_module_imports_without_jax():
     names = _import_in_child()
-    assert len(names) >= 75
+    assert len(names) >= 84
     assert "roko_tpu_torch.training.engine" not in names  # moved to datapipe.engine
     assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru",
             "roko_tpu_torch.models.transformer",

@@ -492,9 +492,10 @@ def test_in_process_sigterm_drains_serve_forever(port_session):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--workers", "2"], "A9.5"), (["--federation"], "A9.5"), (["--host-agent"], "A9.5"),
-    (["--join", "h:1"], "A9.5"), (["--registry", "r"], "A9.5"), (["--ab-lane", "v:0.5"], "A9.5"),
-    (["--min-workers", "1"], "A9.5"), (["--bundle", "b"], "A9.3"), (["--cascade"], "A10"),
+    (["--host-id", "h"], "A9.5b"), (["--federation"], "A9.5b"), (["--host-agent"], "A9.5b"),
+    (["--join", "h:1"], "A9.5b"), (["--lease-ttl", "3"], "A9.5b"),
+    (["--store-cache", "d"], "A10"), (["--store-endpoint", "http://h"], "A10"),
+    (["--tp", "2"], "A9.1"), (["--cascade"], "A10"),
     (["--cascade", "0.1"], "A10"), (["--dp", "2"], "A9.1"),
 ])
 def test_unported_serve_flags_are_usage_errors(argv, item, capsys, tmp_path):

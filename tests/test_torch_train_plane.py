@@ -309,9 +309,12 @@ def test_every_reference_field_is_ported_refused_or_ignored():
 
 
 @pytest.mark.parametrize("section,value,item", [
-    # the mesh's dp, tp and sp are ported; the AOT bundle is queue item A9.3
-    ("compile", {"bundle_dir": "b"}, "A9.3"), ("cascade", {"enabled": True}, "A10"),
-    ("fleet", {"workers": 2}, "A9.5"), ("store", {"endpoint": "http://h"}, "A10"),
+    # the mesh's dp, tp and sp, the kernel bundle and the fleet are ported;
+    # the federation's fields are queue item A9.5b, and the JAX cache's
+    # size bound has no nvcc counterpart
+    ("compile", {"cache_max_mb": 7}, "no nvcc counterpart"),
+    ("cascade", {"enabled": True}, "A10"),
+    ("fleet", {"join": "h:1"}, "A9.5b"), ("store", {"endpoint": "http://h"}, "A10"),
     ("model", {"remat_scan": True}, "A12"),
 ])
 def test_unported_config_is_refused_by_name(tmp_path, capsys, section, value, item):

@@ -14,6 +14,8 @@
     python3 chip_smoke.py --serve-only         # the serve phase alone
     python3 chip_smoke.py --coldstart-only     # the coldstart phase alone
     python3 chip_smoke.py --fleet-only         # the fleet phase alone
+    python3 chip_smoke.py --cascade-only       # the cascade phase alone
+    python3 chip_smoke.py --distpolish-only    # polish --distributed alone
     python3 chip_smoke.py --mesh-child SPEC    # one rank of the mesh or tp_sp phase (they start them)
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
@@ -160,7 +162,38 @@ which launches no kernel, in a phase of its own):
   load (no request fails, each reply v1's or v2's stitch, one worker at a
   time, every reply v2's after), and SIGTERM to the supervisor (rolling
   drain, exit 0, no worker process left); the workers' kernel launches
-  come from the files they write at exit (``--fleet-only``).
+  come from the files they rewrite at their warmup's end, before each
+  answered reply and at exit (``--fleet-only``). Before
+  the drain, the ``distpolish`` line: a distributed polish job posted to
+  that supervisor (``POST /job``) on the polish phase's project with
+  span units, the worker of its first unit SIGKILLed mid-unit; it passes
+  when ``GET /jobz`` says ``done``, at most one unit ran twice, the FASTA
+  is the single-process polish's on the card byte for byte, the
+  supervisor holds no context on the card (``nvidia-smi
+  --query-compute-apps``, and its ``/dev/nvidia*`` handles), and the
+  workers' files, read just before ``POST /job`` and at its end, show
+  the job's windows served exactly once and ``gru_fwd`` launched 3 times
+  a step that served them (the path's own count; the fleet's is the
+  rest). ``--distpolish-only`` runs ``polish --distributed`` from the
+  command line instead, on a 100 kb project with its own 2-worker
+  fleet, counted the same way, in a session of its own; the
+  coordinator's process group and the one its fleet's workers run in
+  must both be empty at the end.
+- the ``cascade`` line (``cascade/``, on the polish phase's windows and
+  the gru model): threshold 0's FASTA the plain path's byte for byte;
+  the majority tier at 0.05 over an on-disk cache, cold then warm
+  (escalation share, windows/s beside the plain path's, the warm run's
+  hit rate 1 with no launch, tier 1's host seconds beside tier 2's); the
+  ``model`` tier with a registered lingru checkpoint (``lingru_fwd`` 3
+  times a batch beside ``gru_fwd`` for the escalated batches, in one
+  process; escalating every window, the plain path's FASTA), again at a
+  threshold set from the median tier-1 confidence (the FASTA voted from
+  the lingru model's argmax on the kept rows and the plain path's rows
+  on the escalated ones), and a gru-only kernel bundle refused for it,
+  naming the library; the logits of escalated subsets of 37 and 301 rows against
+  the same rows of the full 512-row batch (the argmax that differ and the
+  largest difference, recorded); and the bench's ``cascade`` rows
+  (``--cascade-only`` runs it on a 100 kb project).
 
 ``--bwd-bf16-only`` also reads ROADMAP fault C2 against the reference's
 own numbers (``tests/torch_golden/c2_bf16_bwd.npz``): the kernel, the
@@ -386,6 +419,20 @@ FLEET_CLIENTS = 3
 FLEET_LOAD_S = 4.0
 FLEET_BAKE_S = 2
 FLEET_TIMEOUT_S = 300
+# the cascade phase: the working threshold, the odd subset sizes held
+# against the full batch, the bench's draft, the project of --cascade-only
+CASCADE_THRESHOLD = 0.05
+CASCADE_SUBSETS = (37, 301)
+CASCADE_BENCH_DRAFT = 40_000
+# the on-disk cache writes and reads a file a window: its cold and warm
+# runs take the first 10 batches (5 120 windows), not all of them
+CASCADE_CACHE_BATCHES = 10
+SMALL_PROJECT_LEN = 100_000
+# the distributed polish: span units of one 100 kb region each; the 100 kb
+# project of --distpolish-only is cut into 40 kb regions for span units
+DIST_UNIT_BASES = 150_000
+DIST_CLI_REGION = 40_000
+DIST_CLI_UNIT_BASES = 50_000
 BENCH_WIDE_B = 2048
 BENCH_STRESS_SHAPE = dict(B=512, T=90, IN=500, H=256, S=2)
 # ... and the train_gru row's first layer (the resident f32 backward)
@@ -400,7 +447,13 @@ BF16_LIN_BWD_SHAPES = (LIN_TRAIN_SHAPE, dict(B=11, T=40, H=12))
 BF16_STEP_ATOL_OF_MAX = 1e-2
 
 
+#: (the line's first key, seconds since the script started) of each line
+TIMELINE: list = []
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    TIMELINE.append((next(iter(obj)), round(time.perf_counter() - _T0, 1)))
     print(json.dumps(obj), flush=True)
 
 
@@ -3639,11 +3692,14 @@ def drive_coldstart(port, card) -> dict:
     return res
 
 
-def drive_fleet(torch, port, dev, card) -> dict:
+def drive_fleet(torch, port, dev, card, job_inputs=None) -> dict:
     """The single-host fleet at full width (gru, 3 bidirectional layers,
     h=128, f32): bundles and the registry, the refusals, a 2-worker fleet
     on the card, failover, a rollout and the drain. Every reply is held
-    byte for byte against the staged stitch of the version that served it."""
+    byte for byte against the staged stitch of the version that served it.
+    With ``job_inputs`` (a project in the polish phase's ``_stream_inputs``
+    layout), a distributed polish job is posted to the supervisor before
+    the drain (``out["distpolish"]``, :func:`run_job`)."""
     import signal
     import tempfile
     import threading
@@ -3657,8 +3713,10 @@ def drive_fleet(torch, port, dev, card) -> dict:
     draft, positions, examples = synthetic_contig(rng, max(FLEET_SIZES), C)
     want: dict = {}
     ckpt: dict = {}
+    sds: dict = {}
     for v, seed in (("v1", SEED + 24), ("v2", SEED + 25)):
-        sd = port.state_dict_from_jax(jax_layout_params(np.random.default_rng(seed), cfg))
+        sd = sds[v] = port.state_dict_from_jax(jax_layout_params(np.random.default_rng(seed),
+                                                                 cfg))
         ckpt[v] = os.path.join(work, f"{v}.pth")
         torch.save(sd, ckpt[v])
         model = port.RokoModel(cfg)
@@ -3755,7 +3813,13 @@ def drive_fleet(torch, port, dev, card) -> dict:
     runtime = os.path.join(work, "runtime")
     cfg_path = os.path.join(work, "fleet.json")
     rcfg = port.RokoConfig()
-    rcfg = dataclasses.replace(rcfg, fleet=dataclasses.replace(rcfg.fleet, runtime_dir=runtime))
+    # the distributed polish job's units: one region each
+    rcfg = dataclasses.replace(
+        rcfg, fleet=dataclasses.replace(rcfg.fleet, runtime_dir=runtime),
+        distpolish=port.DistPolishConfig(unit_bases=DIST_UNIT_BASES, inflight_per_worker=1,
+                                         park_poll_s=0.05))
+    job_want = (single_process_polish(torch, port, sds["v2"], rcfg, job_inputs, dev)
+                if job_inputs is not None else None)
     with open(cfg_path, "w") as f:
         f.write(rcfg.to_json())
     announce = os.path.join(work, "front.json")
@@ -3960,6 +4024,46 @@ def drive_fleet(torch, port, dev, card) -> dict:
             fail(f"fleet: rollout ended {st}")
         all_pids |= set(worker_pids().values())
 
+        # -- a distributed polish job over the fleet (POST /job) -------------
+        if job_inputs is not None:
+            job_out = os.path.join(work, "distributed.fasta")
+            jpaths = job_inputs["paths"]
+            # the workers are idle: their launch files are the job's zero
+            before_job = launch_reports(work)
+            status, body, _ = http_json(base, "/job", {
+                "ref": jpaths["draft_fasta"], "bam": jpaths["reads_bam"], "out": job_out,
+                "seed": 0}, timeout=30)
+            if status != 202:
+                fail(f"distpolish: POST /job answered {status}: {body}\n{log_tail()}")
+
+            def wait_done():
+                t0 = time.perf_counter()
+                while True:
+                    _, snap = poll("/jobz")
+                    if snap.get("state") in ("done", "failed"):
+                        return snap
+                    if time.perf_counter() - t0 > 2 * FLEET_TIMEOUT_S:
+                        fail(f"distpolish: the job did not end: {snap}\n{log_tail()}")
+                    all_pids.update(worker_pids().values())
+                    time.sleep(0.1)
+
+            out["distpolish"] = run_job(base, sup.pid, runtime, job_inputs, job_out, job_want,
+                                        lambda b, path: poll(path), wait_done,
+                                        lambda: launch_reports(work), before_job,
+                                        cfg.num_layers)
+            all_pids |= set(worker_pids().values())
+            # the restarted worker back in rotation before the drain
+            t_back = time.perf_counter()
+            while True:
+                status, health = poll("/healthz")
+                if status == 200 and health.get("workers_up") == 2:
+                    break
+                if time.perf_counter() - t_back > FLEET_TIMEOUT_S:
+                    fail(f"distpolish: the killed worker did not rejoin: {health}")
+                time.sleep(0.2)
+            out["distpolish"]["worker_rejoin_s"] = time.perf_counter() - t_back
+            all_pids |= set(worker_pids().values())
+
         # -- drain: SIGTERM the supervisor ---------------------------------------
         t_term = time.perf_counter()
         sup.send_signal(signal.SIGTERM)
@@ -4001,19 +4105,498 @@ def drive_fleet(torch, port, dev, card) -> dict:
             if alive(pid):
                 os.kill(pid, signal.SIGKILL)
         logf.close()
+    # every worker's launch file: the last one each wrote (at its exit, or
+    # at its last answered request for a SIGKILLed one)
+    reports = launch_reports(work)
     launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "lingru_fwd": 0, "lingru_fwd_bf16": 0}
-    files = [f for f in os.listdir(work) if f.startswith("launches.")]
-    for name in files:
-        with open(os.path.join(work, name)) as f:
-            for k, v in json.load(f)["launches"].items():
-                launches[k] += v
-    if not files or launches.pop("gru_fwd") < 3 * len(files) or any(launches.values()):
-        fail(f"fleet: the workers' kernel launches {launches} from {len(files)} file(s)")
-    out["launches"] = {"gru_fwd": sum(json.load(open(os.path.join(work, f)))["launches"]
-                                      ["gru_fwd"] for f in files),
-                       "workers_reporting": len(files)}
+    for r in reports.values():
+        for k, v in r["launches"].items():
+            launches[k] += v
+    total = launches.pop("gru_fwd")
+    if not reports or total < 3 * len(reports) or any(launches.values()):
+        fail(f"fleet: the workers' kernel launches {launches} from {len(reports)} file(s)")
+    # the job's launches are the distpolish path's, the rest the fleet's
+    job = out["distpolish"]["launches"]["gru_fwd"] if job_inputs is not None else 0
+    out["launches"] = {"gru_fwd": total - job, "workers_reporting": len(reports)}
     shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def small_project(port, work: str, region=None) -> dict:
+    """A 100 kb sim project and its windows (regions of ``region``, a
+    ``RegionConfig``) in batches of 512, in the polish phase's
+    ``_stream_inputs`` layout (``--cascade-only`` and
+    ``--distpolish-only``)."""
+    shutil.rmtree(work, ignore_errors=True)
+    paths = port.build_synthetic_project(work, genome_len=SMALL_PROJECT_LEN,
+                                         seed=POLISH_SIM_SEED)
+    contig = paths["contig"]
+    draft = port.read_fasta(paths["draft_fasta"])[0][1]
+    config = port.RokoConfig() if region is None else port.RokoConfig(region=region)
+    with port.open_region_stream(paths["draft_fasta"], paths["reads_bam"],
+                                 workers=POLISH_WORKERS, seed=0, log=lambda s: None,
+                                 config=config) as stream:
+        blocks = [r for r in stream.results if r is not None and len(r[1])]
+    positions = np.concatenate([b[1] for b in blocks])
+    examples = np.concatenate([b[2] for b in blocks])
+    batches = [([contig] * len(positions[i : i + PATH_BATCH_SIZE]),
+                positions[i : i + PATH_BATCH_SIZE], examples[i : i + PATH_BATCH_SIZE])
+               for i in range(0, len(positions), PATH_BATCH_SIZE)]
+    return {"paths": paths, "contig": contig, "draft": draft, "batches": batches,
+            "windows": len(positions)}
+
+
+def drive_cascade(torch, port, model, lin_model, dev, counts, inputs, card) -> dict:
+    """The cascade on the card, in this process, on ``model`` (full-width
+    gru) and ``inputs`` (the polish phase's windows in batches of 512):
+    threshold 0 against the plain path, the majority tier cold and warm
+    over an on-disk cache, the ``model`` tier with ``lin_model``
+    registered as a version, a gru-only bundle refused for it, escalated
+    subsets against the full batch, and the bench's rows. Each run's
+    launches are counted from 0."""
+    import tempfile
+
+    contig, draft, batches = inputs["contig"], inputs["draft"], inputs["batches"]
+    n_batches, n = len(batches), sum(len(b[0]) for b in batches)
+    layers = model.cfg.num_layers
+    work = tempfile.mkdtemp(prefix="chip_smoke_cascade_")
+    base = port.RokoConfig(model=model.cfg)
+
+    def cascaded(**kw):
+        return dataclasses.replace(base, cascade=port.CascadeConfig(enabled=True, **kw))
+
+    def run(cfg, what, want=None, use=batches):
+        stats: dict = {}
+        counts.zero()
+        t0 = time.perf_counter()
+        got = port.run_inference(iter(use), {contig: draft}, model, device=dev,
+                                 log=lambda s: None, cfg=cfg, cascade_stats=stats)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: getattr(w, a) for k, (w, a) in counts.wrappers.items()}
+        if want is not None:
+            counts.expect(f"cascade {what}", want)
+        return got, seconds, launches, stats
+
+    run(base, "warm-up")
+    plain, plain_s, _, _ = run(base, "plain", {"gru_fwd": layers * n_batches})
+    zero, zero_s, zero_l, zero_st = run(cascaded(threshold=0.0), "threshold 0",
+                                        {"gru_fwd": layers * n_batches})
+    if zero != plain or zero_st["escalation_fraction"] != 1.0:
+        fail(f"cascade: threshold 0's FASTA differs from the plain path's ({zero_st})")
+
+    # the majority tier, cold then warm over one on-disk cache; the
+    # escalating batches counted on the host with the same decision
+    maj = cascaded(threshold=CASCADE_THRESHOLD, cache_dir=os.path.join(work, "cache"))
+    router = port.CascadeRouter(threshold=CASCADE_THRESHOLD, params_digest="count",
+                                cache_bytes=port.CascadeConfig().cache_bytes,
+                                calibration=port.Calibration(temperature=8.0))
+    cached = batches[:CASCADE_CACHE_BATCHES]
+    n_cached = sum(len(b[0]) for b in cached)
+    esc_batches = 0
+    for _, _, x in cached:  # the same decisions and cache hits, tier 2 a stand-in
+        before = router.escalated
+        router.route(x, lambda xs: np.zeros((len(xs), xs.shape[2]), np.int32))
+        esc_batches += router.escalated > before
+    cold, cold_s, cold_l, cold_st = run(maj, "majority cold", {"gru_fwd": layers * esc_batches},
+                                        use=cached)
+    warm, warm_s, warm_l, warm_st = run(maj, "majority warm", {}, use=cached)
+    if warm != cold or warm_st["cache_hit_rate"] != 1.0 or not cold_st["escalated"] < n_cached:
+        fail(f"cascade: majority cold {cold_st} / warm {warm_st}")
+
+    # the model tier: a registered lingru version, its kernel beside tier 2's
+    lin_pth = os.path.join(work, "lingru.pth")
+    torch.save(lin_model.state_dict(), lin_pth)
+    reg = os.path.join(work, "registry")
+    t0 = time.perf_counter()
+    port.export_bundle(os.path.join(work, "b_lingru"), port.RokoConfig(model=lin_model.cfg),
+                       ladder=(32,), device="cuda", log=lambda s: None)
+    port.register_model(reg, "cascade_lingru", os.path.join(work, "b_lingru"), lin_pth,
+                        log=lambda s: None)
+    register_s = time.perf_counter() - t0
+    tier = dataclasses.replace(
+        cascaded(tier="model", tier_version="cascade_lingru", threshold=CASCADE_THRESHOLD,
+                 cache_bytes=0),
+        fleet=port.FleetConfig(registry_dir=reg))
+    mt, mt_s, mt_l, mt_st = run(tier, "model tier")
+    others = {k: v for k, v in mt_l.items() if k not in ("gru_fwd", "lingru_fwd") and v}
+    if (mt_l["lingru_fwd"] != lin_model.cfg.num_layers * n_batches or others
+            or mt_l["gru_fwd"] % layers or (mt_l["gru_fwd"] > 0) != (mt_st["escalated"] > 0)):
+        fail(f"cascade: the model tier launched {mt_l} over {n_batches} batches ({mt_st})")
+    if mt_st["escalation_fraction"] == 1.0 and mt != plain:
+        fail(f"cascade: the model tier escalated every window, and its FASTA differs from the "
+             f"plain path's ({mt_st})")
+    # a keep floor at the median tier-1 confidence (as the CPU test sets
+    # it), so that some windows keep the tier model's argmax: the FASTA must
+    # be the one voted from those rows and the plain path's rows for the
+    # rest, and each tier's kernel must run where its rows need it
+    cal = port.Calibration(method=tier.cascade.method)
+    with torch.inference_mode():
+        tier1 = [lin_model(torch.from_numpy(np.ascontiguousarray(b[2])).to(dev)).float().cpu()
+                 .numpy() for b in batches]
+        tier2 = [port.predict(model, b[2], dev).cpu().numpy() for b in batches]
+    threshold = 1.0 - float(np.median(np.concatenate([cal.confidence(t) for t in tier1])))
+    esc = [port.escalate_mask(cal.confidence(t), threshold) for t in tier1]
+    board = port.VoteBoard({contig: draft})
+    for (names, positions, _), t1, t2, e in zip(batches, tier1, tier2, esc):
+        board.add(names, positions, np.where(e[:, None], t2, t1.argmax(-1)).astype(np.int32))
+    split_want = board.stitch_all()
+    split_cfg = dataclasses.replace(tier, cascade=dataclasses.replace(tier.cascade,
+                                                                     threshold=threshold))
+    n_esc = int(sum(e.sum() for e in esc))
+    esc_batches_mt = int(sum(bool(e.any()) for e in esc))
+    ms, ms_s, ms_l, ms_st = run(split_cfg, "model tier at the median", {
+        "gru_fwd": layers * esc_batches_mt, "lingru_fwd": lin_model.cfg.num_layers * n_batches})
+    if ms != split_want or ms_st["escalated"] != n_esc or not 0 < n_esc < n:
+        fail(f"cascade: the model tier at threshold {threshold} escalated {ms_st['escalated']} "
+             f"windows (want {n_esc} of {n}); its FASTA equals the rows it should keep and "
+             f"escalate: {ms == split_want}")
+    # a bundle without the tier model's library is refused at start
+    port.export_bundle(os.path.join(work, "b_gru"), base, ladder=(32,), device="cuda",
+                       log=lambda s: None)
+    try:
+        port.build_router(dataclasses.replace(tier, compile=dataclasses.replace(
+            tier.compile, bundle_dir=os.path.join(work, "b_gru"))), params=model, device=dev)
+        fail("cascade: a gru-only bundle was not refused for a lingru tier model")
+    except RuntimeError as e:
+        if "lingru_fwd" not in str(e):
+            fail(f"cascade: the bundle refusal does not name lingru_fwd: {e}")
+        refusal = str(e).splitlines()[0][:300]
+
+    # escalated subsets of odd sizes against the same rows of the full batch
+    x = torch.from_numpy(np.ascontiguousarray(batches[0][2])).to(dev)
+    rng = np.random.default_rng(SEED + 27)
+    subsets = {}
+    with torch.inference_mode():
+        full = model(x).float()
+        for m in CASCADE_SUBSETS:
+            idx = np.sort(rng.choice(len(x), m, replace=False))
+            sub = model(x[torch.from_numpy(idx).to(dev)]).float()
+            ref = full[torch.from_numpy(idx).to(dev)]
+            subsets[m] = {
+                "max_abs_logit_delta": float((sub - ref).abs().max()),
+                "argmax_differing": int((sub.argmax(-1) != ref.argmax(-1)).sum()),
+                "columns": int(ref.shape[0] * ref.shape[1]),
+                "bitwise_equal": bool(torch.equal(sub, ref)),
+            }
+
+    # the bench's rows
+    t0 = time.perf_counter()
+    bench_rows = port.bench.run_cascade_suite(CASCADE_BENCH_DRAFT, device="cuda")
+    bench_s = time.perf_counter() - t0
+    if "error" in bench_rows or bench_rows.get("threshold0_identical") is not True:
+        fail(f"cascade: the bench's cascade rows {bench_rows}")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def tiers(st):
+        return {k: st[k] for k in ("windows", "escalated", "escalation_fraction", "cache_hits",
+                                   "cache_hit_rate", "tier1_seconds", "tier2_seconds")}
+
+    return {
+        "windows": n, "batches": n_batches, "plain_seconds": plain_s,
+        "plain_windows_per_s": n / plain_s,
+        "threshold0": {"fasta_identical": True, "seconds": zero_s, "windows_per_s": n / zero_s,
+                       "launches": zero_l["gru_fwd"]},
+        "majority": {"threshold": CASCADE_THRESHOLD, "temperature": 8.0,
+                     "windows": n_cached, "batches": len(cached),
+                     "escalation_pct": 100.0 * cold_st["escalation_fraction"],
+                     "escalating_batches": esc_batches,
+                     "cold": {**tiers(cold_st), "seconds": cold_s,
+                              "windows_per_s": n_cached / cold_s,
+                              "gru_fwd_launches": cold_l["gru_fwd"]},
+                     "warm": {**tiers(warm_st), "seconds": warm_s,
+                              "windows_per_s": n_cached / warm_s,
+                              "gru_fwd_launches": warm_l["gru_fwd"]},
+                     "tier1_host_s_per_window": cold_st["tier1_seconds"] / n_cached,
+                     "speedup_cold_vs_plain": (plain_s / n) / (cold_s / n_cached)},
+        "model_tier": {"kind": lin_model.cfg.kind, "threshold": CASCADE_THRESHOLD,
+                       **tiers(mt_st), "seconds": mt_s, "windows_per_s": n / mt_s,
+                       "lingru_fwd_launches": mt_l["lingru_fwd"],
+                       "gru_fwd_launches": mt_l["gru_fwd"],
+                       "fasta_identical_to_plain": mt == plain,
+                       "export_and_register_s": register_s, "bundle_refusal": refusal,
+                       "at_median": {"threshold": threshold, **tiers(ms_st), "seconds": ms_s,
+                                     "windows_per_s": n / ms_s,
+                                     "lingru_fwd_launches": ms_l["lingru_fwd"],
+                                     "gru_fwd_launches": ms_l["gru_fwd"],
+                                     "fasta_identical_to_kept_and_plain_rows": True}},
+        "subsets_vs_full_batch": subsets,
+        "bench": {**bench_rows, "seconds": bench_s},
+        "launches": {"gru_fwd": zero_l["gru_fwd"] + cold_l["gru_fwd"] + mt_l["gru_fwd"]
+                     + ms_l["gru_fwd"],
+                     "lingru_fwd": mt_l["lingru_fwd"] + ms_l["lingru_fwd"]},
+        "card": card,
+    }
+
+
+def nvidia_apps() -> list:
+    """The pids holding a context on the card, as nvidia-smi lists them."""
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return [int(t) for t in smi.stdout.split() if t.strip().isdigit()]
+
+
+def nvidia_handles(pid: int) -> list:
+    """The ``/dev/nvidia*`` files process ``pid`` holds open: none in a
+    process that never initialised CUDA (nvidia-smi's pids may be another
+    pid namespace's, so they alone cannot show it)."""
+    out = []
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                out.append(target)
+    except OSError:
+        pass
+    return sorted(set(out))
+
+
+def launch_reports(folder: str) -> dict:
+    """{pid: report} of the serve processes' launch files in ``folder``
+    (``ROKO_KERNEL_LAUNCHES=<folder>/launches``; each is rewritten at the
+    worker's warmup end, after each answered request and at its exit)."""
+    out = {}
+    for name in os.listdir(folder):
+        if name.startswith("launches.") and name.endswith(".json"):
+            with open(os.path.join(folder, name)) as f:
+                report = json.load(f)
+            out[report["pid"]] = report
+    return out
+
+
+def job_launches(before: dict, after: dict) -> dict:
+    """What the workers launched and served between two
+    :func:`launch_reports` snapshots: each worker's counts past its
+    warmup, less those it had at ``before`` (a worker absent there
+    started from 0)."""
+    served = {"windows": 0, "batches": 0}
+    launched = {"gru_fwd": 0, "gru_fwd_bf16": 0, "lingru_fwd": 0, "lingru_fwd_bf16": 0}
+    for pid, r in after.items():
+        p = before.get(pid)
+        for k in served:
+            served[k] += r["served"][k] - (p["served"][k] if p else 0)
+        for k in launched:
+            launched[k] += r["launches"][k] - r["warmup_launches"].get(k, 0)
+            if p:
+                launched[k] -= p["launches"][k] - p["warmup_launches"].get(k, 0)
+    return {"launches": launched, "served": served}
+
+
+def run_job(base: str, coordinator_pid: int, runtime: str, inputs: dict, out: str,
+            want: bytes, http, wait_done, reports, before: dict, layers: int) -> dict:
+    """A distributed polish job over a fleet: SIGKILL the worker of the
+    first unit seen in flight, read ``/jobz`` to its end, and hold the
+    FASTA and the coordinator's hands off the card. ``wait_done()`` waits
+    for the job to end (the coordinator's exit, or ``/jobz`` done).
+
+    The job's launches are the workers' launch files (``reports()``) at
+    its end less ``before``, each past its warmup. A worker writes its
+    file before each reply, so the SIGKILLed one counts the requests it
+    answered and nothing of the unit it died in: the job's windows are
+    then the single process's exactly, and ``gru_fwd`` ran ``layers``
+    times in each step that predicted them."""
+    import signal
+
+    def worker_pid(wid):
+        with open(os.path.join(runtime, f"worker-{wid}.announce.json")) as f:
+            return json.load(f)["pid"]
+
+    t0 = time.perf_counter()
+    victim = None
+    while victim is None:
+        if time.perf_counter() - t0 > FLEET_TIMEOUT_S:
+            fail(f"distpolish: no unit went in flight within {FLEET_TIMEOUT_S} s")
+        status, body = http(base, "/jobz")
+        for u in (body.get("units") or {}).values():
+            if u.get("state") == "inflight" and u.get("worker") is not None:
+                victim = u["worker"]
+                break
+        time.sleep(0.02)
+    killed = worker_pid(victim)
+    os.kill(killed, signal.SIGKILL)
+    t_kill = time.perf_counter() - t0
+    apps = nvidia_apps()
+    workers = {}
+    for wid in (0, 1):
+        try:
+            workers[wid] = worker_pid(wid)
+        except (OSError, ValueError, KeyError):
+            pass
+    handles = nvidia_handles(coordinator_pid)
+    snap = wait_done()
+    seconds = time.perf_counter() - t0
+    units = list(snap.get("units", {}).values())
+    reruns = max(sum(u.get("attempts", 0) for u in units), snap.get("retries_logged", 0))
+    spans = sum(1 for u in units if not u.get("whole"))
+    with open(out, "rb") as fh:
+        identical = fh.read() == want
+    ran = job_launches(before, reports())
+    windows = sum(len(b[0]) for b in inputs["batches"])
+    result = {
+        "state": snap.get("state"), "units": len(units), "span_units": spans,
+        "units_run_twice": reruns,
+        # the single process's windows: the units extract the same set
+        "windows": windows, "served": ran["served"],
+        "launches": {k: v for k, v in ran["launches"].items() if v},
+        "gru_fwd_launches_want": layers * ran["served"]["batches"],
+        "seconds": seconds, "killed_worker": victim, "killed_pid": killed,
+        "killed_at_s": t_kill, "fasta_identical_to_single_process": identical,
+        "nvidia_smi_compute_pids": apps, "worker_pids": workers,
+        "coordinator_pid": coordinator_pid, "coordinator_on_card": coordinator_pid in apps,
+        "coordinator_nvidia_handles": handles,
+    }
+    if (snap.get("state") != "done" or reruns > 1 or not spans or not identical
+            or coordinator_pid in apps or handles):
+        fail(f"distpolish: {result}")
+    if (ran["served"]["windows"] != windows or ran["served"]["batches"] < len(units)
+            or ran["launches"]["gru_fwd"] != layers * ran["served"]["batches"]
+            or set(result["launches"]) != {"gru_fwd"}):
+        fail(f"distpolish: the workers served and launched {ran} for the job's {windows} "
+             f"windows in {len(units)} units")
+    return result
+
+
+def single_process_polish(torch, port, sd, cfg, inputs, dev) -> bytes:
+    """The single-process polish on the card (the streaming engine) of
+    ``inputs``' project with the weights ``sd``: the bytes a distributed
+    job must write."""
+    import tempfile
+
+    model = port.RokoModel(cfg.model)
+    model.load_state_dict(sd, strict=True)
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_single_"), "single.fasta")
+    paths = inputs["paths"]
+    port.run_streaming_polish(paths["draft_fasta"], paths["reads_bam"], model, cfg, out_path=out,
+                              workers=POLISH_WORKERS, seed=0, batch_size=PATH_BATCH_SIZE,
+                              device=dev, log=lambda s: None)
+    with open(out, "rb") as fh:
+        data = fh.read()
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    return data
+
+
+def drive_distpolish_cli(torch, port, dev, card) -> dict:
+    """``polish --distributed`` from the command line on a 100 kb project:
+    its own fleet of 2 workers sharing the card, span units, the worker of
+    the first unit SIGKILLed mid-unit, the coordinator in a session of its
+    own (drained, then its group and its fleet's group killed, on any
+    failure). Its workers report their launches (:func:`run_job`)."""
+    import signal
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_distpolish_")
+    cfg = port.RokoConfig(region=port.RegionConfig(size=DIST_CLI_REGION, overlap=300))
+    inputs = small_project(port, os.path.join(work, "project"), cfg.region)
+    sd = port.state_dict_from_jax(jax_layout_params(np.random.default_rng(SEED + 28), cfg.model))
+    pth = os.path.join(work, "model.pth")
+    torch.save(sd, pth)
+    want = single_process_polish(torch, port, sd, cfg, inputs, dev)
+    runtime = os.path.join(work, "runtime")
+    cfg = dataclasses.replace(
+        cfg, fleet=dataclasses.replace(cfg.fleet, runtime_dir=runtime,
+                                       heartbeat_interval_s=0.5),
+        distpolish=port.DistPolishConfig(unit_bases=DIST_CLI_UNIT_BASES, inflight_per_worker=1,
+                                         park_poll_s=0.05))
+    cfg_path = os.path.join(work, "cfg.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    out = os.path.join(work, "distributed.fasta")
+    log_path = os.path.join(work, "coordinator.log")
+    logf = open(log_path, "w")
+    env = dict(os.environ, ROKO_COMPILE_CACHE="off",
+               ROKO_KERNEL_LAUNCHES=os.path.join(work, "launches"))
+    t_start = time.perf_counter()
+    paths = inputs["paths"]
+    proc = subprocess.Popen([sys.executable, "-m", "roko_tpu_torch", "polish",
+                             paths["draft_fasta"], paths["reads_bam"], pth, out, "--distributed",
+                             "--workers", "2", "--config", cfg_path, "--seed", "0"],
+                            cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+
+    def log_tail():
+        logf.flush()
+        with open(log_path) as f:
+            return f.read()[-4000:]
+
+    def http(base, path):
+        try:
+            status, body, _ = http_json(base, path, timeout=10)
+        except OSError:
+            return None, {}
+        return status, body if isinstance(body, dict) else {}
+
+    try:
+        base = None
+        while base is None:
+            if proc.poll() is not None:
+                fail(f"distpolish: polish --distributed exited {proc.returncode}:\n{log_tail()}")
+            if time.perf_counter() - t_start > FLEET_TIMEOUT_S:
+                fail(f"distpolish: no front end within {FLEET_TIMEOUT_S} s:\n{log_tail()}")
+            m = re.search(r"front end at (http://[\d.]+:\d+)", log_tail())
+            base = m.group(1) if m else None
+            time.sleep(0.1)
+        last = {}
+
+        def wait_done():
+            deadline = time.perf_counter() + 2 * FLEET_TIMEOUT_S
+            while proc.poll() is None:
+                status, body = http(base, "/jobz")
+                if body.get("units"):
+                    last.update(body)
+                if time.perf_counter() > deadline:
+                    fail(f"distpolish: the job did not end:\n{log_tail()}")
+                time.sleep(0.1)
+            if proc.returncode != 0:
+                fail(f"distpolish: polish --distributed exited {proc.returncode}:\n{log_tail()}")
+            # the last live snapshot; the job's end is the coordinator's
+            # own event line
+            logf.flush()
+            with open(log_path) as f:
+                text = f.read()
+            return {**last, "state": "done" if "ROKO_JOB event=job_done" in text else "failed",
+                    "retries_logged": text.count("ROKO_JOB event=unit_retry")}
+
+        result = run_job(base, proc.pid, runtime, inputs, out, want, http, wait_done,
+                         lambda: launch_reports(work), {}, cfg.model.num_layers)
+        result["rc"] = proc.returncode
+        result["wall_s"] = time.perf_counter() - t_start
+        # the coordinator's group, and the one its fleet's workers ran in
+        m = re.search(r"fleet workers in process group (\d+)", log_tail())
+        fleet_group = int(m.group(1)) if m else None
+        left = {}
+        for what, pgid in (("coordinator", proc.pid), ("fleet", fleet_group)):
+            try:
+                os.killpg(pgid, 0)
+                left[what] = True
+            except ProcessLookupError:
+                left[what] = False
+        result.update(fleet_process_group=fleet_group, process_groups_left=left)
+        if fleet_group is None or any(left.values()):
+            fail(f"distpolish: processes of the coordinator's groups {left} outlived it "
+                 f"(the fleet's group {fleet_group}):\n{log_tail()}")
+    finally:
+        if proc.poll() is None:  # a failure above: drain, then kill the group
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                pass
+        m = re.search(r"fleet workers in process group (\d+)", log_tail())
+        for pgid in (proc.pid, int(m.group(1)) if m else None):
+            try:
+                if pgid is not None:
+                    os.killpg(pgid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        if proc.poll() is None:
+            proc.wait()
+        logf.close()
+    shutil.rmtree(work, ignore_errors=True)
+    return {**result, "mode": "polish --distributed (CLI)", "project_len": SMALL_PROJECT_LEN,
+            "region_size": DIST_CLI_REGION, "unit_bases": DIST_CLI_UNIT_BASES, "card": card}
 
 
 def base64_le(a: np.ndarray) -> str:
@@ -4166,21 +4749,36 @@ def main() -> None:
     serve_only = sys.argv[1:] == ["--serve-only"]
     coldstart_only = sys.argv[1:] == ["--coldstart-only"]
     fleet_only = sys.argv[1:] == ["--fleet-only"]
+    cascade_only = sys.argv[1:] == ["--cascade-only"]
+    distpolish_only = sys.argv[1:] == ["--distpolish-only"]
     if sys.argv[1:] and not (plane_only or mesh_only or tp_sp_only or serve_only
-                             or coldstart_only or fleet_only):
+                             or coldstart_only or fleet_only or cascade_only
+                             or distpolish_only):
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
              "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --bwd-bf16-only ROOT "
              "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only | --mesh-only "
-             "| --tp-sp-only | --serve-only | --coldstart-only | --fleet-only]")
+             "| --tp-sp-only | --serve-only | --coldstart-only | --fleet-only | --cascade-only "
+             "| --distpolish-only]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import benchmark as bench
         from roko_tpu_torch import constants as C
         from roko_tpu_torch import kernels
+        from roko_tpu_torch.cascade import (
+            Calibration,
+            CascadeRouter,
+            build_router,
+            escalate_mask,
+        )
+        from roko_tpu_torch.compile.bundle import export_bundle
         from roko_tpu_torch.config import (
+            CascadeConfig,
             DataConfig,
+            DistPolishConfig,
+            FleetConfig,
             GuardConfig,
             ModelConfig,
+            RegionConfig,
             RokoConfig,
             ServeConfig,
             TrainConfig,
@@ -4213,6 +4811,7 @@ def main() -> None:
         from roko_tpu_torch.pipeline import run_streaming_polish
         from roko_tpu_torch.serve.client import PolishClient
         from roko_tpu_torch.serve.metrics import ServeMetrics, parse_metric_values
+        from roko_tpu_torch.serve.registry import register_model
         from roko_tpu_torch.serve.server import make_server
         from roko_tpu_torch.serve.session import PolishSession
         from roko_tpu_torch.sim import build_synthetic_project
@@ -4241,6 +4840,10 @@ def main() -> None:
         polish_windows_to_fasta=polish_windows_to_fasta, attention=attention,
         split_axis=split_axis, make_server=make_server, PolishClient=PolishClient,
         ServeConfig=ServeConfig, parse_metric_values=parse_metric_values,
+        CascadeConfig=CascadeConfig, DistPolishConfig=DistPolishConfig, FleetConfig=FleetConfig,
+        Calibration=Calibration, CascadeRouter=CascadeRouter, build_router=build_router,
+        escalate_mask=escalate_mask,
+        export_bundle=export_bundle, register_model=register_model, RegionConfig=RegionConfig,
     )
     counts = Counts(fg, fl)
 
@@ -4256,7 +4859,8 @@ def main() -> None:
     t0 = time.perf_counter()
     built = kernels.build(["gru_fwd", "gru_bwd"] if plane_only or mesh_only
                           else ["gru_fwd", "gru_fwd_bf16", "lingru_fwd"] if serve_only
-                          else ["gru_fwd"] if coldstart_only or fleet_only
+                          else ["gru_fwd", "lingru_fwd"] if cascade_only
+                          else ["gru_fwd"] if coldstart_only or fleet_only or distpolish_only
                           else None)
     emit({"build": {"seconds": time.perf_counter() - t0, "kernels": built}})
     if coldstart_only:  # the coldstart phase alone
@@ -4264,6 +4868,21 @@ def main() -> None:
         return
     if fleet_only:  # the fleet phase alone
         emit({"fleet": drive_fleet(torch, port, dev, card)})
+        return
+    if distpolish_only:  # polish --distributed from the command line, its own fleet
+        emit({"distpolish": drive_distpolish_cli(torch, port, dev, card)})
+        return
+    if cascade_only:  # the cascade phase alone, on a 100 kb project
+        rng = np.random.default_rng(SEED)
+        models = []
+        for kind, seed in (("gru", SEED), ("lingru", SEED + 1)):
+            mcfg = ModelConfig(kind=kind)
+            m = RokoModel(mcfg)
+            m.load_state_dict(state_dict_from_jax(jax_layout_params(
+                np.random.default_rng(seed), mcfg)), strict=True)
+            models.append(m.to(dev).eval())
+        inputs = small_project(port, os.path.join(ROOT, "build", "chip_smoke_cascade"))
+        emit({"cascade": drive_cascade(torch, port, *models, dev, counts, inputs, card)})
         return
     if serve_only:  # the serve phase alone
         emit({"serve": drive_serve(torch, port, dev, counts, card,
@@ -4384,6 +5003,10 @@ def main() -> None:
     emit({"lingru_breakdown": {**device_breakdown(
         torch, lambda: run_inference(iter(batches), {contig: draft}, lin_model, device=dev,
                                      log=lambda s: None)), "card": card}})
+    # -- the cascade: tier 1 in front of the model, on the polish windows ---
+    cascade = drive_cascade(torch, port, model, lin_model, dev, counts,
+                            polish["_stream_inputs"], card)
+    emit({"cascade": cascade})
 
     # -- the precision modes: bf16 kernels, bf16 and int8 inference, bf16 stream
     precision, bf16_rows, precision_launches = drive_precision(
@@ -4471,8 +5094,12 @@ def main() -> None:
     coldstart = drive_coldstart(port, card)
     emit({"coldstart": coldstart})
     # -- the single-host fleet: bundles, registry, failover, rollout, drain
-    fleet = drive_fleet(torch, port, dev, card)
+    fleet = drive_fleet(torch, port, dev, card, job_inputs=polish["_stream_inputs"])
+    distpolish = fleet.pop("distpolish")
     emit({"fleet": fleet})
+    # -- the distributed polish posted to that fleet, before its drain --
+    emit({"distpolish": {**distpolish, "mode": "POST /job to the fleet phase's supervisor",
+                         "unit_bases": DIST_UNIT_BASES, "card": card}})
     mesh_fwd = (mesh["nccl_world_1"]["launches"]["gru_fwd"]
                 + sum(r["step"]["gru_fwd"] + r["train"]["gru_fwd"] + r["infer"]["gru_fwd"]
                       for r in mesh["gloo_2_ranks"]["launches_by_rank"])
@@ -4505,6 +5132,7 @@ def main() -> None:
             **timing(row), **{k: timing(r) for k, r in also.items()},
         }
 
+    emit({"timeline": TIMELINE})
     emit({"kernels": [
         kernel_row("gru_fwd", "roko_tpu_torch/csrc/gru_fwd.cu",
                    "roko_tpu/models/pallas_gru.py:126", "roko_tpu/models/pallas_gru.py:171",
@@ -4514,7 +5142,9 @@ def main() -> None:
                               "train_plane": plane["launches"]["gru_fwd"],
                               "bench": bench_launched["gru_fwd"], "mesh": mesh_fwd,
                               "coldstart": coldstart["launches"]["gru_fwd"],
-                              "fleet": fleet["launches"]["gru_fwd"]},
+                              "fleet": fleet["launches"]["gru_fwd"],
+                              "distpolish": distpolish["launches"]["gru_fwd"],
+                              "cascade": cascade["launches"]["gru_fwd"]},
                    at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",
@@ -4525,6 +5155,7 @@ def main() -> None:
                    "roko_tpu/models/pallas_lingru.py:90", None, lin_fwd_row,
                    {"inference": lin_path["lingru_fwd_launches"],
                     "stream_polish": lin_stream["lingru_fwd_launches"],
+                    "cascade": cascade["launches"]["lingru_fwd"],
                     "train": lin_train["lingru_fwd_launches"],
                     "bench": bench_launched["lingru_fwd"]},
                    at_train_batch=lin_fwd_train_row),

@@ -84,7 +84,6 @@ UNPORTED_SUITES = {
     "end_to_end": ("A11b", "it runs features -> HDF5 -> inference, and the card machine has "
                    "no h5py"),
     "pipeline": ("A11b", "its staged half goes through HDF5, and the card machine has no h5py"),
-    "cascade": ("A10", "the cascade is not ported"),
     "input": ("A11b", "it writes an HDF5 corpus, and the card machine has no h5py"),
 }
 
@@ -111,7 +110,6 @@ UNPORTED_FLAGS = {
     "features": ("--features", "A11b"),
     "e2e_draft": ("--e2e-draft", "A11b"),
     "pipeline_draft": ("--pipeline-draft", "A11b"),
-    "cascade_draft": ("--cascade-draft", "A10"),
     "input_rows": ("--input-rows", "A11b"),
     "in_process": ("--in-process", None),
 }
@@ -1516,6 +1514,100 @@ def _git_rev() -> str:
         return "unknown"
 
 
+def cascade_corpus(draft_len: int, coverage: int = 20, workers: Optional[int] = None):
+    """The cascade suite's sim corpus, extracted in memory through the
+    region stream (the reference writes it to HDF5; the windows are the
+    same): ``(contigs, batches of 512)`` for ``run_inference``."""
+    import os
+    import random
+    import tempfile
+
+    from roko_tpu_torch.features.pipeline import open_region_stream
+    from roko_tpu_torch.io.bam import write_sorted_bam
+    from roko_tpu_torch.io.fasta import write_fasta
+    from roko_tpu_torch.sim import random_seq, simulate_reads
+
+    rng = random.Random(0)
+    draft = random_seq(rng, draft_len)
+    records = simulate_reads(rng, draft, 0, coverage=coverage,
+                             read_len=min(3000, max(100, draft_len // 4)))
+    with tempfile.TemporaryDirectory() as td:
+        fasta, bam = os.path.join(td, "draft.fasta"), os.path.join(td, "reads.bam")
+        write_fasta(fasta, [("ctg", draft)])
+        write_sorted_bam(bam, [("ctg", draft_len)], records)
+        with open_region_stream(fasta, bam, workers=workers or max(1, os.cpu_count() or 1),
+                                seed=0, log=lambda *a, **k: None) as stream:
+            blocks = [r for r in stream.results if r is not None and len(r[1])]
+    positions = np.concatenate([b[1] for b in blocks])
+    examples = np.concatenate([b[2] for b in blocks])
+    batches = [(["ctg"] * len(positions[i:i + BATCH]), positions[i:i + BATCH],
+                examples[i:i + BATCH]) for i in range(0, len(positions), BATCH)]
+    return {"ctg": draft}, batches
+
+
+def run_cascade_suite(
+    draft_len: int = 40_000, coverage: int = 20, threshold: float = 0.05,
+    device="cuda", model_overrides: Optional[Dict] = None,
+) -> Dict[str, Any]:
+    """The cascade suite (``roko_tpu/benchmark.py:1740-1860``): one sim
+    corpus through the plain ``run_inference`` (the reference row), the
+    cascade at threshold 0 (every window escalates: its FASTA must be the
+    plain one's, sha256 for sha256), and the cascade at ``threshold``
+    twice over one on-disk window cache (cold, then warm: the warm hit
+    rate is what a distributed polish's second worker sees). Rows:
+    windows/s of both paths, the speedup, ``escalation_pct``, the cold
+    and warm cache hit rates."""
+    import dataclasses
+    import hashlib
+    import os
+    import tempfile
+
+    import torch
+
+    from roko_tpu_torch.config import CascadeConfig, ModelConfig, RokoConfig
+    from roko_tpu_torch.infer import run_inference
+    from roko_tpu_torch.models.model import RokoModel
+
+    def _sha(polished: Dict[str, str]) -> str:
+        h = hashlib.sha256()
+        for name in sorted(polished):
+            h.update(name.encode() + b"\x00" + polished[name].encode() + b"\x00")
+        return h.hexdigest()
+
+    quiet = lambda *a, **k: None  # noqa: E731
+    contigs, batches = cascade_corpus(draft_len, coverage)
+    n = sum(len(b[0]) for b in batches)
+    out: Dict[str, Any] = {"draft_len": draft_len, "coverage": coverage,
+                           "threshold": threshold, "windows": n}
+    cfg = RokoConfig(model=ModelConfig(**(model_overrides or {})))
+    model = RokoModel(cfg.model, generator=torch.Generator().manual_seed(0))
+
+    def run(c: RokoConfig, stats=None):
+        t0 = time.perf_counter()
+        got = run_inference(iter(batches), contigs, model, device=device, log=quiet, cfg=c,
+                            cascade_stats=stats)
+        return got, time.perf_counter() - t0
+
+    run(cfg)  # the kernels' build and first launch stay out of the rows
+    ref, ref_s = run(cfg)
+    out["reference_windows_per_sec"] = round(n / ref_s, 1)
+    zero, _ = run(dataclasses.replace(cfg, cascade=CascadeConfig(enabled=True, threshold=0.0)))
+    out["threshold0_identical"] = _sha(zero) == _sha(ref)
+    with tempfile.TemporaryDirectory() as td:
+        casc = dataclasses.replace(cfg, cascade=CascadeConfig(
+            enabled=True, threshold=threshold, cache_dir=os.path.join(td, "wcache")))
+        cold: Dict[str, Any] = {}
+        _, casc_s = run(casc, cold)
+        out["cascade_windows_per_sec"] = round(n / casc_s, 1)
+        out["speedup_vs_reference"] = round(ref_s / casc_s, 2)
+        out["escalation_pct"] = round(100.0 * cold.get("escalation_fraction", 0.0), 1)
+        out["cold_cache_hit_rate"] = round(cold.get("cache_hit_rate", 0.0), 3)
+        warm: Dict[str, Any] = {}
+        run(casc, warm)  # a fresh router over the SAME on-disk cache
+        out["cache_hit_rate"] = round(warm.get("cache_hit_rate", 0.0), 3)
+    return out
+
+
 def _measure(args, model_overrides: Optional[Dict] = None) -> Dict[str, Any]:
     """Run the suites in this process on ``args.device`` and return the
     result object: the inference suite, the train suite with ``--train``,
@@ -1577,6 +1669,14 @@ def _measure(args, model_overrides: Optional[Dict] = None) -> Dict[str, Any]:
                                               device=dev.type, model_overrides=model_overrides)
         except Exception as e:  # report, never swallow
             detail["fleet"] = {"error": _error(e)}
+    cascade_draft = getattr(args, "cascade_draft", None)
+    if cascade_draft:
+        _stamp(f"cascade suite (tier router + window cache, draft {cascade_draft})")
+        try:
+            detail["cascade"] = run_cascade_suite(cascade_draft, device=dev,
+                                                  model_overrides=model_overrides)
+        except Exception as e:  # report, never swallow
+            detail["cascade"] = {"error": _error(e)}
     for key, (item, why) in UNPORTED_SUITES.items():
         detail[key] = {"error": f"not ported yet (ROADMAP queue item {item}): {why}"}
     _stamp("torch reference")
@@ -1635,6 +1735,11 @@ def compare_to_previous(
         prow = (prev_d.get("precision") or {}).get(kind) or {}
         for col in ("f32_windows_per_sec", "bf16_windows_per_sec", "int8_windows_per_sec"):
             pairs[f"precision.{kind}.{col}"] = ((row or {}).get(col), prow.get(col))
+    # the cascade rows: the plain and the cascaded throughput, and routing
+    for col in ("reference_windows_per_sec", "cascade_windows_per_sec", "escalation_pct",
+                "cache_hit_rate"):
+        pairs[f"cascade.{col}"] = ((cur_d.get("cascade") or {}).get(col),
+                                   (prev_d.get("cascade") or {}).get(col))
     # the mesh rows: windows/s at each rank count on the same global work
     for n, row in ((cur_d.get("mesh") or {}).get("rows") or {}).items():
         prow = ((prev_d.get("mesh") or {}).get("rows") or {}).get(n) or {}
@@ -1744,12 +1849,19 @@ def add_serve_mix_flag(p: argparse.ArgumentParser) -> None:
                    f"{SERVE_MIX_DEFAULT_CPU} on the CPU; 0, off or absent: off")
 
 
+def add_cascade_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--cascade-draft", type=int, default=None, metavar="BASES",
+                   help="cascade suite: draft length of its sim corpus (the plain path's and "
+                   "the cascade's windows/s, escalation %%, cold and warm cache hit rates, "
+                   "threshold-0 byte identity); 0 or absent: off")
+
+
 def add_unported_flags(p: argparse.ArgumentParser) -> None:
     """The reference's flags of unported suites, so that they parse and
     :func:`unported_flag` can name their queue item."""
     p.add_argument("--features", action="store_true", help="not ported yet (queue item A11b)")
     for flag, kind, item in (("--e2e-draft", int, "A11b"), ("--pipeline-draft", int, "A11b"),
-                             ("--cascade-draft", int, "A10"), ("--input-rows", int, "A11b")):
+                             ("--input-rows", int, "A11b")):
         p.add_argument(flag, type=kind, default=None, help=f"not ported yet (queue item {item})")
     p.add_argument("--in-process", action="store_true",
                    help="deliberately not ported: bench always measures in process")
@@ -1776,6 +1888,7 @@ def main(argv: Optional[List[str]] = None, model_overrides: Optional[Dict] = Non
                     help="where the model runs (default cuda; no card is an error)")
     add_mesh_flag(ap)
     add_fleet_flags(ap)
+    add_cascade_flag(ap)
     add_unported_flags(ap)
     add_serve_mix_flag(ap)
     args = ap.parse_args(argv)

@@ -19,8 +19,8 @@ epoch, and ``--trace-dir`` (also on ``inference`` and ``polish``) writes
 a ``torch.profiler`` trace. ``bench`` runs the suites of
 ``benchmark.py`` that the port has (inference, per kind, recurrence,
 precision, ``--train``, ``--mesh-devices``, ``--serve-mix``,
-``--coldstart-ladder``, ``--fleet-workers``); the flags of the others are usage errors that
-name their queue item. ``polish`` streams by default (extraction,
+``--coldstart-ladder``, ``--fleet-workers``, ``--cascade-draft``); the
+flags of the others are usage errors that name their queue item. ``polish`` streams by default (extraction,
 batching and inference overlapped, ``--resume`` from its journal);
 ``--staged`` runs ``features`` then ``inference``; ``--truth`` prints
 the assess report after either. ``inference`` and ``polish`` take a reference-layout
@@ -61,11 +61,18 @@ dtype launch, checked in a fresh process unless ``--no-verify``, and
 registered with ``--register NAME [--params CKPT]``; ``serve``,
 ``polish`` and ``inference`` load one with ``--bundle`` and take
 ``--compile-cache DIR`` and ``--no-compile-cache`` (the kernel build
-cache, ``compile/cache.py``). Writing and reading the HDF5 needs
-``h5py``. Not ported yet, each a usage error that names its queue item:
-``--distributed`` and ``--cascade`` (A10), remote paths (A10), and of
-``serve`` the federation flags (A9.5b), ``--cascade`` and the store flags
-(A10), and a mesh over several ranks (A9.1).
+cache, ``compile/cache.py``). ``inference``, ``polish`` and ``serve``
+take ``--cascade [T]`` with ``--cascade-tier``, ``--cascade-version``,
+``--cascade-method``, ``--cascade-calibration``, ``--cascade-cache-bytes``
+and ``--cascade-cache-dir`` (``cascade/``, ``roko_tpu/cli.py:252-290``):
+a cheap tier first, only uncertain windows reach the model. ``polish
+--distributed`` (``pipeline/distpolish.py``, :662-695) shards the job over
+a forked fleet of ``--workers`` serve processes in units of whole contigs
+or ``--unit-bases`` spans, ``--unit-attempts`` each, resumable with
+``--resume``; ``polish`` takes ``--event-log``. Writing and reading the
+HDF5 needs ``h5py``. Not ported yet, each a usage error that names its
+queue item: remote paths (A10.3), and of ``serve`` the federation flags
+(A9.5b), the store flags (A10.3) and a mesh over several ranks (A9.1).
 """
 
 from __future__ import annotations
@@ -133,6 +140,15 @@ def _build_config(args: argparse.Namespace) -> RokoConfig:
     compile_cfg = over(base.compile, cache_dir="compile_cache", bundle_dir="bundle")
     if getattr(args, "no_compile_cache", None):
         compile_cfg = dataclasses.replace(compile_cfg, enabled=False)
+    cascade = over(base.cascade, tier="cascade_tier", tier_version="cascade_version",
+                   method="cascade_method", calibration_path="cascade_calibration",
+                   cache_bytes="cascade_cache_bytes", cache_dir="cascade_cache_dir")
+    # --cascade enables; its optional value (-1.0 for the bare flag) sets
+    # the threshold over the config layer
+    casc_flag = getattr(args, "cascade", None)
+    if casc_flag is not None:
+        cascade = dataclasses.replace(
+            cascade, enabled=True, **({} if casc_flag == -1.0 else {"threshold": casc_flag}))
     return RokoConfig(
         window=window, read_filter=read_filter,
         region=over(base.region, size="region_size", overlap="region_overlap"),
@@ -157,6 +173,9 @@ def _build_config(args: argparse.Namespace) -> RokoConfig:
                         breaker_failures="breaker_failures",
                         breaker_reset_s="breaker_reset_s", drain_deadline_s="drain_deadline"),
         compile=compile_cfg, fleet=fleet,
+        distpolish=over(base.distpolish, unit_bases="unit_bases",
+                        unit_attempts="unit_attempts"),
+        cascade=cascade,
     )
 
 
@@ -231,15 +250,9 @@ def cmd_train(args: argparse.Namespace) -> int:
 
 def _load_model_params(model_arg: str):
     """A checkpoint directory of ``train``, or a reference ``.pth``."""
-    import os
+    from roko_tpu_torch.models.convert import load_model_params
 
-    if os.path.isdir(model_arg):
-        from roko_tpu_torch.training.checkpoint import load_params
-
-        return load_params(model_arg)
-    from roko_tpu_torch.models.convert import load_reference_pth
-
-    return load_reference_pth(model_arg)
+    return load_model_params(model_arg)
 
 
 def _print_assess(polished_path: str, truth_path: str, k: int = 16,
@@ -282,9 +295,33 @@ def cmd_polish(args: argparse.Namespace) -> int:
     from roko_tpu_torch.infer import polish_to_fasta, resolve_device
     from roko_tpu_torch.parallel import distributed
 
-    device = resolve_device(args.device)
     cfg = args.cfg
     several = distributed.world_size() > 1
+    _configure_event_log(cfg.serve.event_log, cfg.serve.event_log_max_mb,
+                         worker_id=distributed.rank() if several else None)
+    if args.distributed:
+        # the map-reduce polish over a forked worker fleet
+        # (pipeline/distpolish.py, roko_tpu/cli.py:662-695): this process
+        # coordinates and never loads the model; its workers do, on
+        # --device
+        if several:
+            raise SystemExit(
+                "polish --distributed forks its own worker fleet; run it from one process, "
+                "not under a multi-process launcher")
+        from roko_tpu_torch.pipeline.distpolish import PoisonedUnit, run_distributed_polish
+        from roko_tpu_torch.resilience import JournalMismatch
+
+        try:
+            run_distributed_polish(args.ref, args.X, args.model, args.out, cfg,
+                                   seed=args.seed, resume=args.resume, device=args.device)
+        except (PoisonedUnit, JournalMismatch) as e:
+            print(f"polish: {e}", file=sys.stderr)
+            return 1
+        print(f"wrote polished contigs to {args.out}")
+        if args.truth:
+            _print_assess(args.out, args.truth)
+        return 0
+    device = resolve_device(args.device)
     if several and args.keep_hdf5:
         raise SystemExit(
             "polish --keep-hdf5 is single-host only: every pod process would write the same "
@@ -381,6 +418,7 @@ def cmd_bench(args: argparse.Namespace) -> int:
                         ("--compare", args.compare), ("--mesh-devices", args.mesh_devices),
                         ("--coldstart-ladder", args.coldstart_ladder),
                         ("--fleet-workers", args.fleet_workers),
+                        ("--cascade-draft", args.cascade_draft),
                         ("--serve-mix", args.serve_mix)):
         if value is not None:
             argv += [flag, str(value)]
@@ -392,8 +430,8 @@ def cmd_bench(args: argparse.Namespace) -> int:
 UNPORTED_SERVE_FLAGS = {
     "federation": ("--federation", "A9.5b"), "host_agent": ("--host-agent", "A9.5b"),
     "join": ("--join", "A9.5b"), "host_id": ("--host-id", "A9.5b"),
-    "lease_ttl": ("--lease-ttl", "A9.5b"), "cascade": ("--cascade", "A10"),
-    "store_cache": ("--store-cache", "A10"), "store_endpoint": ("--store-endpoint", "A10"),
+    "lease_ttl": ("--lease-ttl", "A9.5b"),
+    "store_cache": ("--store-cache", "A10.3"), "store_endpoint": ("--store-endpoint", "A10.3"),
 }
 
 
@@ -465,23 +503,49 @@ def _tenants_type(text: str):
 
 
 #: env var: a path prefix under which a serve process writes its kernel
-#: launch counts when it exits (``<prefix>.<pid>.json``), so a harness can
-#: read what its fleet workers launched
+#: launch counts (``<prefix>.<pid>.json``), so a harness can read what its
+#: fleet workers launched
 ENV_LAUNCHES = "ROKO_KERNEL_LAUNCHES"
 
 
-def _write_launch_counts() -> None:
-    import json
-    import os
+class _LaunchReport:
+    """The file ``<prefix>.<pid>.json`` of a serve process under
+    :data:`ENV_LAUNCHES`: the kernel wrappers' launch counts, those at the
+    end of the warmup, and the requests, windows and batches served. It is
+    rewritten (atomically) at the warmup's end, after each answered
+    ``/polish`` request before its reply goes out, and at exit, so a
+    SIGKILLed worker's file still holds every request it answered."""
 
-    prefix = os.environ.get(ENV_LAUNCHES)
-    if not prefix:
-        return
-    from roko_tpu_torch.kernels import forward_launches
+    def __init__(self, prefix: str, metrics):
+        import os
+        import threading
 
-    with open(f"{prefix}.{os.getpid()}.json", "w") as f:
-        json.dump({"pid": os.getpid(), "model_version": os.environ.get("ROKO_MODEL_VERSION"),
-                   "launches": forward_launches()}, f)
+        self.path = f"{prefix}.{os.getpid()}.json"
+        self.metrics = metrics
+        self.warmup: dict = {}
+        self._lock = threading.Lock()
+
+    def warm(self) -> None:
+        from roko_tpu_torch.kernels import forward_launches
+
+        self.warmup = forward_launches()
+        self.write()
+
+    def write(self) -> None:
+        import json
+        import os
+
+        from roko_tpu_torch.kernels import forward_launches
+
+        with self._lock:
+            report = {"pid": os.getpid(),
+                      "model_version": os.environ.get("ROKO_MODEL_VERSION"),
+                      "launches": forward_launches(), "warmup_launches": self.warmup,
+                      "served": {k: self.metrics.counters[k]
+                                 for k in ("requests", "windows", "batches")}}
+            with open(self.path + ".tmp", "w") as f:
+                json.dump(report, f)
+            os.replace(self.path + ".tmp", self.path)
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
@@ -493,6 +557,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     stops the server and exits non-zero. With ``--workers N`` (and no
     ``--worker-id``) this process is the fleet's supervisor instead
     (``serve/supervisor.py``, ``roko_tpu/cli.py:1006-1035``)."""
+    import os
     import sys
     import threading
     import time
@@ -516,6 +581,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         return run_supervisor(args.model, cfg, announce=args.announce, device=args.device)
     from roko_tpu_torch.infer import resolve_device
     from roko_tpu_torch.models.model import RokoModel
+    from roko_tpu_torch.serve.metrics import ServeMetrics
     from roko_tpu_torch.serve.server import make_server, serve_forever, write_announce
     from roko_tpu_torch.serve.session import PolishSession
 
@@ -527,7 +593,12 @@ def cmd_serve(args: argparse.Namespace) -> int:
     except ValueError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 1
-    server = make_server(session, cfg.serve, warming=True, worker_id=args.worker_id)
+    metrics = ServeMetrics(latency_samples=cfg.serve.latency_samples)
+    report = (_LaunchReport(os.environ[ENV_LAUNCHES], metrics)
+              if os.environ.get(ENV_LAUNCHES) else None)
+    server = make_server(session, cfg.serve, metrics=metrics, warming=True,
+                         worker_id=args.worker_id,
+                         on_polished=report.write if report is not None else None)
     if args.announce:
         # written after the bind and before the warmup, so whoever started
         # a --port 0 server can watch it warm
@@ -545,6 +616,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
             ready = session.warmup(log=print)
             dt = time.perf_counter() - t0
             server.metrics.warmup_seconds = dt  # type: ignore[attr-defined]
+            if report is not None:
+                report.warm()
             server._warming.clear()  # type: ignore[attr-defined]
             print(f"serve: {ready} executables ready in {dt:.1f}s "
                   f"({session.warmup_report.mode}); accepting requests", flush=True)
@@ -558,7 +631,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
     threading.Thread(target=_warm, name="roko-serve-warmup", daemon=True).start()
     serve_forever(server)
-    _write_launch_counts()
+    if report is not None:
+        report.write()
     if warm_error:
         raise SystemExit(f"serve: warmup failed: {warm_error[0]}")
     return 0
@@ -805,6 +879,30 @@ def build_parser() -> argparse.ArgumentParser:
                        "instead of being built; one that does not match the model or the "
                        "card is refused, never rebuilt")
 
+    def cascade(p: argparse.ArgumentParser) -> None:
+        """The cascade's knobs (``cascade/``, ``roko_tpu/cli.py:252-290``)."""
+        p.add_argument(
+            "--cascade", nargs="?", const=-1.0, type=float, default=None, metavar="THRESHOLD",
+            help="enable the confidence cascade: a cheap tier first, only uncertain windows "
+            "escalate to the model. The optional value sets the threshold in [0, 1] (0 "
+            "escalates every window: the plain path's output; 1 none); bare --cascade keeps "
+            "the config's (default 0.05)")
+        p.add_argument("--cascade-tier", choices=("majority", "model"), default=None,
+                       help="tier 1: 'majority' (the pileup majority vote, on the host) or "
+                       "'model' (a registered version, on --device; needs --cascade-version)")
+        p.add_argument("--cascade-version", default=None, metavar="NAME",
+                       help="registry version of --cascade-tier model (digest-verified)")
+        p.add_argument("--cascade-method", choices=("max_softmax", "margin"), default=None,
+                       help="calibrated confidence function (default max_softmax)")
+        p.add_argument("--cascade-calibration", default=None, metavar="PATH",
+                       help="temperature-scaling artifact JSON (refuses another model's "
+                       "params digest)")
+        p.add_argument("--cascade-cache-bytes", type=int, default=None, metavar="N",
+                       help="in-memory window-cache byte cap (0 turns it off; default 64 MiB)")
+        p.add_argument("--cascade-cache-dir", default=None, metavar="DIR",
+                       help="shared on-disk window cache (identity pinned by its meta.json; "
+                       "a distributed polish's workers share one)")
+
     def extraction(p: argparse.ArgumentParser) -> None:
         p.add_argument("--t", type=int, default=1, help="feature workers")
         p.add_argument("--seed", type=int, default=0, help="row-sampling RNG seed")
@@ -918,6 +1016,7 @@ def build_parser() -> argparse.ArgumentParser:
     mesh(p)
     config(p, "the inference loop")
     compile_flags(p)
+    cascade(p)
     p.set_defaults(fn=cmd_inference)
 
     p = sub.add_parser(
@@ -947,13 +1046,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="streaming: resume a crashed run from the journal beside the "
                    "output (<out>.resume/); committed contigs are not re-extracted")
-    for flag, item in (("--distributed", "A10"), ("--cascade", "A10")):
-        p.add_argument(flag, action="store_true", help=f"not ported yet (queue item {item})")
+    p.add_argument("--distributed", action="store_true",
+                   help="shard the job over a forked worker fleet (--workers, default 2): a "
+                   "commit or retry per unit through the resume journal; a SIGKILLed worker "
+                   "costs one unit's re-run and the FASTA is the single process's byte for "
+                   "byte; GET /jobz on the printed front-end port shows each unit's state")
+    p.add_argument("--workers", type=_workers_type, default=None,
+                   help="with --distributed: fleet worker processes ('auto' = visible cards / "
+                   "--devices-per-worker; default 2)")
+    p.add_argument("--devices-per-worker", type=int, default=None,
+                   help="with --distributed: cards each worker sees (default 0: the workers "
+                   "share the cards)")
+    p.add_argument("--unit-bases", type=int, default=None,
+                   help="with --distributed: split contigs longer than this into "
+                   "region-aligned span units, stitched by the coordinator (default 1000000; "
+                   "0 = whole contigs only)")
+    p.add_argument("--unit-attempts", type=int, default=None,
+                   help="with --distributed: attempts of a unit on distinct workers before "
+                   "its contig is quarantined and the job fails naming it (default 3)")
     extraction(p)
     common(p)
     mesh(p)
     config(p, "the inference (streaming: the whole run)")
     compile_flags(p)
+    cascade(p)
+    event_log(p)
     p.set_defaults(fn=cmd_polish)
 
     p = sub.add_parser("assess", help="polished FASTA vs truth FASTA -> error rates + Qscore")
@@ -970,6 +1087,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_inspect)
 
     from roko_tpu_torch.benchmark import (
+        add_cascade_flag,
         add_fleet_flags,
         add_mesh_flag,
         add_serve_mix_flag,
@@ -991,6 +1109,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "silent move to the CPU)")
     add_mesh_flag(p)
     add_fleet_flags(p)
+    add_cascade_flag(p)
     add_unported_flags(p)
     add_serve_mix_flag(p)
     p.set_defaults(fn=cmd_bench)
@@ -1078,13 +1197,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "running the named registered version")
     p.add_argument("--worker-id", type=int, default=None, help=argparse.SUPPRESS)
     compile_flags(p)
+    cascade(p)
     for attr, (flag, item) in UNPORTED_SERVE_FLAGS.items():
         text = f"not ported yet (queue item {item})"
         if attr in ("federation", "host_agent"):
             p.add_argument(flag, dest=attr, action="store_true", default=None, help=text)
-        else:  # --cascade takes an optional threshold, as the reference's
-            p.add_argument(flag, dest=attr, default=None, help=text,
-                           **({"nargs": "?", "const": "on"} if attr == "cascade" else {}))
+        else:
+            p.add_argument(flag, dest=attr, default=None, help=text)
     common(p)
     mesh(p)
     geometry(p)
@@ -1161,10 +1280,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "ranks is not ported yet (queue item A9.1 of ROADMAP.md); the "
                              "service drives one card")
     if args.command == "polish":
-        for flag in ("distributed", "cascade"):
-            if getattr(args, flag):
-                parser.error(f"polish --{flag} is not ported yet (queue item A10 of "
-                             "ROADMAP.md)")
+        if args.distributed and (args.staged or args.keep_hdf5):
+            parser.error("polish --distributed drives the fleet workers' own streaming stacks; "
+                         "it cannot combine with --staged or --keep-hdf5")
         if args.resume and args.staged:
             parser.error("polish --resume is a streaming-engine feature (the journal "
                          "rides the incremental writer); it cannot combine with --staged")

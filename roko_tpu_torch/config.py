@@ -537,6 +537,85 @@ class FleetConfig:
             )
 
 
+@dataclass(frozen=True)
+class DistPolishConfig:
+    """The distributed polish over the worker fleet (``polish
+    --distributed``, ``pipeline/distpolish.py``; ``roko_tpu/config.py:
+    665-718``): a whole-genome job splits into per-contig work units
+    (contigs past ``unit_bases`` into region-aligned span units),
+    dispatched across the fleet's workers with a commit or retry per unit
+    through the resume journal."""
+
+    #: contigs longer than this split into span units on the extraction
+    #: region table; 0 = whole-contig units only
+    unit_bases: int = 1_000_000
+    #: distinct dispatch attempts of one unit before it is quarantined
+    #: and the job fails naming its contig
+    unit_attempts: int = 3
+    #: hard cap on units in flight across the fleet; 0 = auto
+    #: (``inflight_per_worker`` x worker count)
+    max_inflight_units: int = 0
+    #: units in flight per READY worker (the live limit follows the fleet)
+    inflight_per_worker: int = 2
+    #: deadline of one unit's round trip; on expiry the attempt fails
+    unit_timeout_s: float = 600.0
+    #: scheduler poll while parked (draining, no ready worker, backoff)
+    park_poll_s: float = 0.25
+    #: seconds to wait for the first ready worker, and for a fully
+    #: unready fleet mid-job, before the job gives up
+    ready_timeout_s: float = 600.0
+
+    def __post_init__(self) -> None:
+        if self.unit_attempts < 1:
+            raise ValueError(f"unit_attempts must be >= 1; got {self.unit_attempts}")
+        if self.inflight_per_worker < 1:
+            raise ValueError(
+                f"inflight_per_worker must be >= 1; got {self.inflight_per_worker}")
+
+
+@dataclass(frozen=True)
+class CascadeConfig:
+    """Adaptive compute (``cascade/``; ``roko_tpu/config.py:819-880``):
+    every window goes through a cheap tier first, only the uncertain rest
+    escalates to the model, and repeated windows come from a
+    content-addressed cache."""
+
+    #: False keeps the plain single-tier path everywhere
+    enabled: bool = False
+    #: tier-1 kind: "majority" (the pileup majority vote, on the host) or
+    #: "model" (a named registry version, on the session's device)
+    tier: str = "majority"
+    #: registry version name of ``tier="model"``
+    tier_version: Optional[str] = None
+    #: windows whose calibrated confidence is <= 1 - threshold escalate:
+    #: 0 escalates every window (the plain path's bytes), 1 none
+    threshold: float = 0.05
+    #: confidence function: "max_softmax" or "margin" (top-2 logit gap)
+    method: str = "max_softmax"
+    #: temperature-scaling artifact (JSON beside the checkpoint); None =
+    #: the tier's default temperature
+    calibration_path: Optional[str] = None
+    #: byte cap of the in-memory window cache; 0 turns it off
+    cache_bytes: int = 64 * 2**20
+    #: on-disk cache directory a distributed polish's workers share
+    #: (identity pinned by its meta.json); None = in memory only
+    cache_dir: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        if self.tier not in ("majority", "model"):
+            raise ValueError(f"cascade.tier must be 'majority' or 'model', got {self.tier!r}")
+        if self.method not in ("max_softmax", "margin"):
+            raise ValueError(
+                f"cascade.method must be 'max_softmax' or 'margin', got {self.method!r}")
+        if not 0.0 <= self.threshold <= 1.0:
+            raise ValueError(f"cascade.threshold must lie in [0, 1], got {self.threshold}")
+        if self.cache_bytes < 0:
+            raise ValueError(f"cascade.cache_bytes must be >= 0, got {self.cache_bytes}")
+        if self.tier == "model" and not self.tier_version:
+            raise ValueError(
+                "cascade.tier='model' needs cascade.tier_version (a model-registry name)")
+
+
 #: the fields of ``roko_tpu.config.RokoConfig`` the port does not run,
 #: by section: field -> (the reference's default, the ROADMAP queue item
 #: that ports it, or why it is not ported). A file that sets one to another
@@ -552,15 +631,7 @@ _NOT_PORTED: Dict[str, Dict[str, Tuple[Any, str]]] = {
         "min_compile_time_s": (0.0, "no nvcc counterpart: it skips caching fast XLA compiles, "
                                "and every nvcc build is cached"),
     },
-    "cascade": {k: (v, "A10") for k, v in (
-        ("enabled", False), ("tier", "majority"), ("tier_version", None),
-        ("threshold", 0.05), ("method", "max_softmax"), ("calibration_path", None),
-        ("cache_bytes", 64 * 2**20), ("cache_dir", None))},
-    "distpolish": {k: (v, "A10") for k, v in (
-        ("unit_bases", 1_000_000), ("unit_attempts", 3), ("inflight_per_worker", 2),
-        ("max_inflight_units", 0), ("park_poll_s", 0.25), ("ready_timeout_s", 600.0),
-        ("unit_timeout_s", 600.0))},
-    "store": {k: (v, "A10") for k, v in (
+    "store": {k: (v, "A10.3") for k, v in (
         ("cache_dir", None), ("cache_bytes", 256 * 2**20), ("block_bytes", 4 * 2**20),
         ("timeout_s", 30.0), ("max_attempts", 4), ("hedge_s", 0.0), ("breaker_failures", 5),
         ("breaker_reset_s", 30.0), ("endpoint", None))},
@@ -580,8 +651,8 @@ class RokoConfig(FeaturesConfig):
     """The sections of ``roko_tpu.config.RokoConfig`` the streaming polish
     reads: the feature sections (it is a ``FeaturesConfig``), the model,
     the batching plane, the pipeline, the failure handling, the kernel
-    build cache and bundles, and the serving fleet. The
-    model's ``window_rows``/``window_cols`` must match ``window``."""
+    build cache and bundles, the serving fleet, the distributed polish
+    and the cascade. The model's ``window_rows``/``window_cols`` must match ``window``."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
@@ -593,6 +664,8 @@ class RokoConfig(FeaturesConfig):
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     compile: CompileConfig = field(default_factory=CompileConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
+    distpolish: DistPolishConfig = field(default_factory=DistPolishConfig)
+    cascade: CascadeConfig = field(default_factory=CascadeConfig)
 
     def to_json(self) -> str:
         """The reference's layout (``roko_tpu/config.py:935-983``): one

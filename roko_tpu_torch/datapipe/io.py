@@ -9,12 +9,14 @@ object-store half.
   :func:`register_writer` and :func:`abort_output` (a remote handle's
   ``abort()`` discards what it spooled);
 - :func:`open_h5` opens one corpus HDF5 through the seam (``h5py`` is
-  imported inside it).
+  imported inside it);
+- :func:`ensure_local` gives a real file name of a local path (the
+  distributed polish's workers read their unit's inputs through it).
 
 ``gs://``, ``s3://`` and ``http(s)://`` are the reference's object-store
 schemes, served there by ``datapipe/store.py``. The port has no store
-client yet (ROADMAP queue item A10), so those schemes are refused unless
-a caller registered its own handler for them.
+client yet (ROADMAP queue item A10.3), so those schemes are refused
+unless a caller registered its own handler for them.
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ def _refuse(kind: str, registry: Dict[str, Opener], scheme: str, path: str,
     if scheme in STORE_SCHEMES:
         return ValueError(
             f"{path!r}: the {scheme}:// object-store client is not ported yet "
-            "(queue item A10 of ROADMAP.md); register a handler with "
+            "(queue item A10.3 of ROADMAP.md); register a handler with "
             f"roko_tpu_torch.datapipe.io.{register_fn}({scheme!r}, fn) or use a "
             "local path"
         )
@@ -140,6 +142,17 @@ def abort_output(fh) -> None:
         abort()
     else:
         fh.close()
+
+
+def ensure_local(path: str) -> str:
+    """A local file-system path for ``path``, for readers that need a real
+    file name (the native BAM reader): a plain or ``file://`` path passes
+    through; a store URL is refused, naming queue item A10.3 (the JAX
+    package downloads it into a cache here)."""
+    scheme = path_scheme(path)
+    if scheme in ("", "file"):
+        return strip_file_scheme(path)
+    raise _refuse("local copy", {}, scheme, path, "register_opener")
 
 
 def open_h5(path: str, *, opener: Optional[Opener] = None):

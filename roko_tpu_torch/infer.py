@@ -288,17 +288,24 @@ def run_inference(
     log: Callable[[str], None] = print,
     trace_dir: Optional[str] = None,
     cfg=None,
+    cascade_stats: Optional[dict] = None,
 ) -> Dict[str, str]:
     """Predict every window of ``batches`` (``(names, positions, examples)``
     tuples), vote, and stitch each contig: ``{contig: polished}``;
     ``trace_dir`` writes a device trace of the loop. ``cfg`` (a
     ``RokoConfig``) brings its ``compile`` section: the kernel build
     cache, and a kernel bundle whose libraries load in place of nvcc
-    (``BundleMismatch`` when it does not match ``model``'s config).
+    (``BundleMismatch`` when it does not match ``model``'s config); and
+    its ``cascade`` section (``roko_tpu/infer.py:492-542``): when enabled,
+    a router (``cascade/``) decides per batch which windows reach the
+    model, and ``cascade_stats`` (a dict) receives its ``stats()``.
 
     One-deep pipeline: batch k+1's forward is enqueued on the device
     before the host blocks on batch k's class ids and votes them, so
-    voting overlaps the device's work. The model runs in its resolved
+    voting overlaps the device's work. The cascaded loop has none (what
+    reaches the device depends on tier 1's decision); at threshold 0
+    every window escalates in its batch, and the FASTA is the plain
+    path's byte for byte. The model runs in its resolved
     ``cfg.compute_dtype``, and is quantized here, once, when
     ``cfg.quantize`` asks for int8 (``models/quant.py``)."""
     dev = resolve_device(device)
@@ -313,6 +320,31 @@ def run_inference(
     board = VoteBoard(contigs)
     n_windows = 0
     t0 = time.perf_counter()
+    if cfg is not None and cfg.cascade.enabled:
+        # built against the quantized weights tier 2 predicts with, so the
+        # cache keys and the calibration identity match what runs
+        from roko_tpu_torch.cascade import build_router
+
+        router = build_router(cfg, params=model, device=dev)
+
+        def tier2_predict(xe: np.ndarray) -> np.ndarray:
+            return predict(model, xe, dev).cpu().numpy()
+
+        with device_trace(trace_dir, dev):
+            for names, positions, x in batches:
+                board.add(names, positions, router.route(np.asarray(x), tier2_predict))
+                n_windows += len(names)
+        dt = max(time.perf_counter() - t0, 1e-9)
+        s = router.stats()
+        if cascade_stats is not None:
+            cascade_stats.update(s)
+        log(
+            f"inference: {n_windows} windows in {dt:.1f}s on {dev} "
+            f"({n_windows / dt:.0f} windows/s) — cascade escalated "
+            f"{s['escalated']}/{s['windows']} ({100 * s['escalation_fraction']:.1f}%), "
+            f"cache hit rate {100 * s['cache_hit_rate']:.1f}%"
+        )
+        return board.stitch_all()
     pending = None
     with device_trace(trace_dir, dev):
         for names, positions, x in batches:

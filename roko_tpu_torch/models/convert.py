@@ -149,3 +149,15 @@ def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     if not isinstance(sd, Mapping) or "embedding.weight" not in sd:
         raise ValueError(f"{path} does not look like a roko RNN state_dict")
     return sd
+
+
+def load_model_params(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict at ``path``: a checkpoint directory that ``train``
+    wrote, or a reference-layout ``.pth``."""
+    import os
+
+    if os.path.isdir(path):
+        from roko_tpu_torch.training.checkpoint import load_params
+
+        return load_params(path)
+    return load_reference_pth(path)

@@ -186,8 +186,8 @@ def fleet_worker_env(worker_index: int, num_workers: int, devices_per_worker: in
 def visible_device_count(backend: str = "cuda") -> Optional[int]:
     """The cards this process (or a child with its environment) sees:
     ``CUDA_VISIBLE_DEVICES`` when set, else ``torch.cuda.device_count()``,
-    which counts without initialising CUDA in this process; 1 on the CPU
-    (the host)."""
+    which creates no context on a card but does open the card's device
+    files (``/dev/nvidia*``) in this process; 1 on the CPU (the host)."""
     import os
 
     if backend == "cpu":
@@ -207,8 +207,12 @@ def resolve_fleet_topology(fleet_cfg, backend: str = "cuda"):
     - explicit ``workers`` with ``devices_per_worker > 0`` on the card:
       a worker count x slice above the visible cards is refused. With
       ``devices_per_worker == 0`` the workers share the cards, and on the
-      CPU there is nothing to oversubscribe."""
+      CPU there is nothing to oversubscribe: then nothing is counted, so a
+      supervisor or a distributed polish's coordinator opens no device
+      file of the card."""
     fc = fleet_cfg
+    if fc.workers != -1 and (backend == "cpu" or fc.devices_per_worker <= 0):
+        return fc
     n = visible_device_count(backend)
     if fc.workers == -1:
         per = fc.devices_per_worker if fc.devices_per_worker > 0 else 1

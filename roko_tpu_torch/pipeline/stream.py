@@ -442,6 +442,22 @@ def run_streaming_polish(
             max_queue=inflight_bound + queue_regions + 2,
             max_queue_age_ms=deadline_s * 1e3,
         )
+        # the cascade (cascade/, roko_tpu/pipeline/stream.py:503-515): the
+        # router wraps submit, so the cache and tier 1 decide on the host
+        # at submit time and only the uncertain windows ride the batching
+        # plane; its future drains as a plain one. At threshold 0 every
+        # window escalates and the output is the plain path's
+        router = None
+        if cfg.cascade.enabled:
+            from roko_tpu_torch.cascade import build_router
+
+            router = build_router(cfg, params=session.model, metrics=metrics,
+                                  device=session.device)
+
+        def submit_block(x):
+            if router is None:
+                return batcher.submit(x)
+            return router.submit(x, batcher.submit)
 
         #: submitted blocks whose predictions are not yet voted
         inflight: "deque[Tuple[str, Any, int, Any]]" = deque()
@@ -492,7 +508,7 @@ def run_streaming_polish(
                     tag = item[0]
                     if tag == _BLOCK:
                         _, contig, pos, x = item
-                        inflight.append((contig, pos, len(pos), batcher.submit(x)))
+                        inflight.append((contig, pos, len(pos), submit_block(x)))
                     elif tag == _DONE:
                         final_counts[item[1]] = item[2]
                         finish_ready()

@@ -16,7 +16,17 @@ output so ``polish --resume`` recomputes only what is missing:
                         (tmp file + fsync + ``os.replace``);
     ``manifest.jsonl``  one line per committed contig
                         ``{"contig", "file", "windows"}``, appended and
-                        fsync'd only AFTER its ``.seq`` landed.
+                        fsync'd only AFTER its ``.seq`` landed;
+    ``units.jsonl``     the distributed polish's unit ledger (one event
+                        a line: attempt / commit / quarantine, with the
+                        attempt count and worker id), written by the
+                        ``polish --distributed`` coordinator
+                        (``pipeline/distpolish.py``);
+    ``unit-<sha1>.npz`` a committed SPAN unit's raw predictions
+                        (positions + preds), written atomically BEFORE
+                        its ledger commit line, so a resumed coordinator
+                        stitches a split contig again from them instead
+                        of running its units again.
 
 Commit order makes the journal crash-consistent at every byte: a torn
 trailing manifest line (the crash hit mid-append) fails to parse and is
@@ -25,9 +35,9 @@ Everything that does parse is a contig whose sequence is complete on
 disk. On success the engine deletes the whole directory — the journal
 exists only while a run is unfinished.
 
-The port takes local paths only: a remote store URL is refused (the
-JAX package keeps such a journal in a local scratch directory). The
-distributed polish's unit ledger is not ported.
+The port takes local paths only: a remote store URL is refused, naming
+queue item A10.3 (the JAX package keeps such a journal in a local scratch
+directory and mirrors the span payloads to the store).
 """
 
 from __future__ import annotations
@@ -67,14 +77,17 @@ class PolishJournal:
         if out_path.startswith(REMOTE_SCHEMES):
             raise ValueError(
                 f"{out_path}: remote stores (gs://, s3://, http(s)://) are not "
-                "ported yet; write the polished FASTA to a local path")
+                "ported yet (queue item A10.3 of ROADMAP.md); write the polished "
+                "FASTA to a local path")
         if out_path.startswith("file://"):
             out_path = out_path[len("file://"):]
         self.dir = out_path + ".resume"
         os.makedirs(os.path.dirname(self.dir) or ".", exist_ok=True)
         self.meta_path = os.path.join(self.dir, "meta.json")
         self.manifest_path = os.path.join(self.dir, "manifest.jsonl")
+        self.units_path = os.path.join(self.dir, "units.jsonl")
         self._manifest_fh = None
+        self._units_fh = None
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -160,10 +173,97 @@ class PolishJournal:
         self._manifest_fh.flush()
         os.fsync(self._manifest_fh.fileno())
 
+    # -- unit ledger (distributed polish) -----------------------------------
+
+    def unit_event(self, uid: str, event: str, *, durable: bool = False, **fields) -> None:
+        """Append one ledger event of work unit ``uid``. ``durable``
+        fsyncs (commits and quarantines survive a power cut; attempt
+        bookkeeping is best effort: a torn trailing line is skipped on
+        load)."""
+        if self._units_fh is None:
+            self._units_fh = open(self.units_path, "a")
+        line = json.dumps(dict({"unit": uid, "event": event}, **fields))
+        self._units_fh.write(line + "\n")
+        self._units_fh.flush()
+        if durable:
+            os.fsync(self._units_fh.fileno())
+
+    def commit_unit(self, uid: str, windows: int, *, positions=None, preds=None,
+                    worker=None) -> None:
+        """Durably record one finished work unit. A span unit carries its
+        predictions (``positions``/``preds``), written as an atomic,
+        fsync'd ``.npz`` BEFORE the ledger line (the ledger never names
+        bytes that are not whole on disk), so a resumed coordinator
+        stitches its contig without running the unit again."""
+        fields: Dict = {"windows": int(windows)}
+        if worker is not None:
+            fields["worker"] = worker
+        if positions is not None:
+            import numpy as np
+
+            fname = "unit-" + hashlib.sha1(uid.encode()).hexdigest() + ".npz"
+            path = os.path.join(self.dir, fname)
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as fh:
+                np.savez(fh, positions=positions, preds=preds)
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp, path)
+            fields["file"] = fname
+        self.unit_event(uid, "commit", durable=True, **fields)
+
+    def load_units(self) -> Dict[str, Dict]:
+        """The unit ledger folded into each unit's latest state:
+        ``{uid: {"state", "attempts", "windows", "file", ...}}``. Torn or
+        unparsable lines are skipped (the contig manifest's rule). A
+        quarantine is informational: a resumed run retries the unit with a
+        fresh attempt budget."""
+        out: Dict[str, Dict] = {}
+        with contextlib.suppress(OSError):
+            with open(self.units_path) as fh:
+                for line in fh:
+                    try:
+                        rec = json.loads(line)
+                        uid, event = rec["unit"], rec["event"]
+                    except (ValueError, KeyError, TypeError):
+                        continue  # torn trailing append
+                    cur = out.setdefault(uid, {"state": "pending"})
+                    if event == "attempt":
+                        cur["attempts"] = int(rec.get("attempts", 0))
+                    elif event == "commit":
+                        cur["state"] = "committed"
+                        cur["windows"] = int(rec.get("windows", 0))
+                        if rec.get("file"):
+                            cur["file"] = rec["file"]
+                    elif event == "quarantine":
+                        cur["state"] = "quarantined"
+        return out
+
+    def load_unit_preds(self, rec: Dict):
+        """The committed span unit's ``(positions, preds)`` that a
+        :meth:`load_units` record names, or ``None`` when its ``.npz`` is
+        missing or unreadable (the unit then runs again: a vanished
+        payload degrades to a recompute, never to a wrong FASTA)."""
+        fname = rec.get("file")
+        if not fname:
+            return None
+        import zipfile
+
+        import numpy as np
+
+        try:
+            with np.load(os.path.join(self.dir, fname)) as z:
+                return z["positions"], z["preds"]
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            return None
+
     def close(self) -> None:
         if self._manifest_fh is not None:
             self._manifest_fh.close()
             self._manifest_fh = None
+        if self._units_fh is not None:
+            self._units_fh.close()
+            self._units_fh = None
 
     def finalize(self) -> None:
         """The run completed and the FASTA is whole: the journal has

@@ -48,7 +48,9 @@ import http.client
 import json
 import os
 import shutil
+import signal
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -116,6 +118,21 @@ _CONN_ERRORS = (OSError, http.client.HTTPException)
 #: rollout has installed a registry-named one (docs/SERVING.md
 #: "Model lifecycle")
 BOOT_VERSION = "boot"
+
+#: the program of a fleet's process-group leader (``Fleet(own_process_group
+#: =True)``): it holds the group open for the workers to join, and when its
+#: standard input reaches its end (the fleet's process exited or was
+#: killed) it drains the group with SIGTERM, waits ``argv[1]`` seconds and
+#: kills it, itself included
+_GROUP_LEADER = (
+    "import os, signal, sys, time\n"
+    "signal.signal(signal.SIGTERM, signal.SIG_IGN)\n"
+    "signal.signal(signal.SIGINT, signal.SIG_IGN)\n"
+    "sys.stdin.buffer.read()\n"
+    "os.killpg(0, signal.SIGTERM)\n"
+    "time.sleep(float(sys.argv[1]))\n"
+    "os.killpg(0, signal.SIGKILL)\n"
+)
 
 
 class WorkerLaunchSpec:
@@ -225,7 +242,14 @@ class Fleet:
     worker's command line (the supervisor builds a ``python -m roko_tpu_torch serve``
     invocation; tests substitute a stdlib stub worker), and
     ``worker_env(worker_id) -> dict`` the per-worker environment overlay
-    (device-slice pinning by default)."""
+    (device-slice pinning by default).
+
+    With ``own_process_group`` the workers run in a process group of
+    their own, led by a small process (:data:`_GROUP_LEADER`) that
+    outlives nothing of the fleet: :meth:`stop` drains the workers and
+    then kills the group, and should this process die without a stop
+    (SIGKILL, the OOM killer) the leader drains and kills the group
+    itself, so no worker is left holding the card."""
 
     def __init__(
         self,
@@ -236,6 +260,7 @@ class Fleet:
         runtime_dir: Optional[str] = None,
         log: Callable[[str], None] = print,
         clock: Callable[[], float] = time.monotonic,
+        own_process_group: bool = False,
     ):
         self.cfg = cfg
         fc = cfg.fleet
@@ -285,15 +310,23 @@ class Fleet:
         #: and device slice may still be live
         self._retiring: set = set()
         #: the autoscaler's park flag for background jobs while interactive
-        #: backlog spikes (the reference's distributed polish reads it;
-        #: queue item A10); rendered as roko_fleet_jobs_parked
+        #: backlog spikes: a distributed polish job dispatches no new unit
+        #: while it is set (pipeline/distpolish.py); rendered as
+        #: roko_fleet_jobs_parked
         self.jobs_parked = False
+        #: the distributed polish job running, or last run, over this fleet
+        #: (pipeline/distpolish.py; GET /jobz reads its snapshot)
+        self.job = None
         self._counters = {"restarts": 0, "failovers": 0,
                           "requests": 0, "rejected": 0,
                           "scale_ups": 0, "scale_downs": 0}
         self._stop = threading.Event()
         self._draining = False
         self._drain_done = threading.Event()
+        self._own_process_group = own_process_group
+        #: the group leader's Popen while the fleet runs in a group of its
+        #: own; its pid is the group's id
+        self._leader: Optional[subprocess.Popen] = None
         self._thread: Optional[threading.Thread] = None
 
     # -- launch specs -------------------------------------------------------
@@ -361,11 +394,21 @@ class Fleet:
         with self._lock:
             return self._counters[name]
 
+    @property
+    def process_group(self) -> Optional[int]:
+        """The id of the workers' own process group, while there is one."""
+        return None if self._leader is None else self._leader.pid
+
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> None:
         """Spawn every worker and start the supervision thread."""
         os.makedirs(self.runtime_dir, exist_ok=True)
+        if self._own_process_group and self._leader is None:
+            grace = self.cfg.resilience.drain_deadline_s + self.fleet_cfg.term_grace_s
+            self._leader = subprocess.Popen(
+                [sys.executable, "-c", _GROUP_LEADER, str(grace)],
+                stdin=subprocess.PIPE, process_group=0)
         now = self._clock()
         for w in self.workers:
             self._spawn(w, now)
@@ -406,6 +449,7 @@ class Fleet:
                 stdout=logf,
                 stderr=subprocess.STDOUT,
                 env=env,
+                **({} if self._leader is None else {"process_group": self._leader.pid}),
             )
         finally:
             logf.close()  # the child keeps its own copy of the fd
@@ -585,6 +629,13 @@ class Fleet:
             if cleanup and self._own_runtime_dir:
                 shutil.rmtree(self.runtime_dir, ignore_errors=True)
         finally:
+            if self._leader is not None:  # drained: kill what is left of the group
+                try:
+                    os.killpg(self._leader.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                self._leader.wait()
+                self._leader.stdin.close()
             self._drain_done.set()
 
     def _terminate(self, w: WorkerHandle, grace_s: float) -> None:

@@ -28,14 +28,16 @@ Series (prefixed ``roko_serve_`` unless named otherwise):
 - ``request_latency_seconds`` — summary (p50, p99, count, sum) over the
   retained samples, and per size class (``size_class="le{rung}"``,
   ``gt{top}`` past the top rung);
+- ``cascade_windows_total``, ``cascade_escalated_total``,
+  ``cascade_cache_hits_total`` (counters), ``cascade_escalation_fraction``
+  and ``cascade_cache_hit_rate`` (gauges), once a cascade router reported;
 - the mergeable histograms ``roko_request_latency_seconds`` (by size
-  class, tenant and model), ``roko_queue_wait_seconds`` and
-  ``roko_device_time_seconds``.
+  class, tenant and model), ``roko_queue_wait_seconds``,
+  ``roko_device_time_seconds`` and ``roko_cascade_tier_seconds`` (by
+  tier).
 
-Left out, having no counterpart in the port yet: the cascade's
-``roko_cascade_tier_seconds`` histogram and ``cascade_*`` rows (A10), and
-the object-store client's ``roko_store_*_total`` counters (A10):
-:data:`UNPORTED_SERIES`.
+Left out, having no counterpart in the port yet: the object-store
+client's ``roko_store_*_total`` counters (A10.3): :data:`UNPORTED_SERIES`.
 """
 
 from __future__ import annotations
@@ -51,8 +53,7 @@ _PREFIX = "roko_serve_"
 _COUNTERS = ("requests", "windows", "batches", "rejected", "errors")
 
 #: the mergeable histogram families a worker renders, which the fleet's
-#: supervisor sums bucket by bucket into fleet rows (``serve/fleet.py``);
-#: the cascade's family (A10) is absent from the port's workers
+#: supervisor sums bucket by bucket into fleet rows (``serve/fleet.py``)
 HISTOGRAM_SERIES = (
     "roko_request_latency_seconds",
     "roko_queue_wait_seconds",
@@ -73,9 +74,7 @@ LABELED_SERIES = (
 #: the ROADMAP queue item that would bring each (a trailing ``*`` stands
 #: for any name with that prefix)
 UNPORTED_SERIES = {
-    "roko_cascade_tier_seconds": "A10",
-    "roko_serve_cascade_*": "A10",
-    "roko_store_*": "A10",
+    "roko_store_*": "A10.3",
 }
 
 
@@ -149,6 +148,13 @@ class ServeMetrics:
         self.hist_latency = HistogramFamily("roko_request_latency_seconds", label="size_class")
         self.hist_queue_wait = HistogramFamily("roko_queue_wait_seconds")
         self.hist_device = HistogramFamily("roko_device_time_seconds")
+        #: the cascade's per-tier time, labelled tier1/tier2 (mergeable)
+        self.hist_cascade = HistogramFamily("roko_cascade_tier_seconds", label="tier")
+        #: the cascade's counters; rendered only once a router reported
+        self._cascade_windows = 0
+        self._cascade_escalated = 0
+        self._cascade_cache_hits = 0
+        self.cascade_enabled = False
 
     def size_class(self, windows: int) -> str:
         """``le{r}`` for the smallest rung r >= n, ``gt{top}`` past the top."""
@@ -186,6 +192,27 @@ class ServeMetrics:
     def inc_tenant_rejected(self, tenant: str) -> None:
         with self._lock:
             self._tenant_rejected[tenant] = self._tenant_rejected.get(tenant, 0) + 1
+
+    def observe_cascade(
+        self,
+        *,
+        windows: int = 0,
+        escalated: int = 0,
+        cache_hits: int = 0,
+        tier1_seconds: Optional[float] = None,
+        tier2_seconds: Optional[float] = None,
+    ) -> None:
+        """One routed batch (``CascadeRouter`` calls this): the window
+        counters and the per-tier time."""
+        with self._lock:
+            self.cascade_enabled = True
+            self._cascade_windows += windows
+            self._cascade_escalated += escalated
+            self._cascade_cache_hits += cache_hits
+        if tier1_seconds is not None:
+            self.hist_cascade.observe(tier1_seconds, "tier1")
+        if tier2_seconds is not None:
+            self.hist_cascade.observe(tier2_seconds, "tier2")
 
     def inc(self, name: str, by: int = 1) -> None:
         with self._lock:
@@ -289,7 +316,19 @@ class ServeMetrics:
                     f'{lat}_sum{{size_class="{label}"}} '
                     f"{self.timer.totals.get(stage, 0.0):.6f}"
                 )
+        if self.cascade_enabled:
+            with self._lock:
+                cw, ce, ch = (self._cascade_windows, self._cascade_escalated,
+                              self._cascade_cache_hits)
+            for name, value in (("windows_total", cw), ("escalated_total", ce),
+                                ("cache_hits_total", ch)):
+                lines.append(f"# TYPE {_PREFIX}cascade_{name} counter")
+                lines.append(f"{_PREFIX}cascade_{name} {value}")
+            for name, num in (("escalation_fraction", ce), ("cache_hit_rate", ch)):
+                lines.append(f"# TYPE {_PREFIX}cascade_{name} gauge")
+                lines.append(f"{_PREFIX}cascade_{name} " + (f"{num / cw:.4f}" if cw else "NaN"))
         # mergeable histograms last (no serve prefix)
-        for hist in (self.hist_latency, self.hist_queue_wait, self.hist_device):
+        for hist in (self.hist_latency, self.hist_queue_wait, self.hist_device,
+                     self.hist_cascade):
             lines.extend(hist.render())
         return "\n".join(lines) + "\n"

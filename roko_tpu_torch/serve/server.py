@@ -17,10 +17,16 @@ Routes:
      memory, its windows go through the same batcher, and the reply is
      ``{"contigs": {name: polished}}``. The reference writes a temporary
      HDF5 file here; the replies are the same.
+  3. **unit** (ref + bam + a ``unit`` object): one work unit of the
+     distributed polish (``pipeline/distpolish.py``): the unit's region
+     slice is extracted, predicted, and either stitched (``emit:
+     "contig"``) or returned as raw per-window predictions (``emit:
+     "preds"``, a span unit the coordinator votes and stitches).
 
-  Not ported yet, each refused with 400 naming ROADMAP queue item A10:
-  a ``cascade`` override object (the reference's reply for a server with
-  no cascade configured) and the work-unit form (``unit``).
+  Each form goes through the server's cascade router when it was started
+  with one (``cascade/``); ``"cascade": false`` takes the plain path for
+  one request and ``"cascade": {"threshold": t}`` a same-identity router
+  at another threshold.
 - ``GET /healthz`` — liveness, the ladder, the batching policy, the
   live Retry-After hint and tenant backlogs; **503** while the ladder
   warms, while the circuit breaker is open and while the server drains.
@@ -57,7 +63,7 @@ import time
 import traceback
 import urllib.parse
 from http.server import ThreadingHTTPServer
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -89,9 +95,8 @@ from roko_tpu_torch.serve.session import PolishSession
 #: the kernels on the card, which takes far longer than a queue drains
 WARMING_RETRY_AFTER_S = 30.0
 
-#: the ROADMAP queue item of what waits for the cascade, the distributed
-#: polish and remote stores
-_A10 = "A10"
+#: the ROADMAP queue item of remote stores
+_A10_3 = "A10.3"
 
 
 def _decode_array(payload: Dict[str, Any], key: str, dtype, shape: Tuple[int, ...]) -> np.ndarray:
@@ -127,33 +132,57 @@ def _decode_array(payload: Dict[str, Any], key: str, dtype, shape: Tuple[int, ..
     return arr
 
 
-def _check_cascade(payload: Dict[str, Any]) -> None:
-    """The per-request cascade control: absent or ``false`` is the plain
-    path, as on a reference server with no cascade; an override object is
-    refused as that server refuses it (the cascade is not ported)."""
+def _cascade_override(payload: Dict[str, Any], router):
+    """The per-request cascade control (``roko_tpu/serve/server.py:
+    190-228``): ``"cascade": false`` forces the plain path for this
+    request; ``"cascade": {"threshold": t}`` routes through a
+    same-identity router at another threshold (another threshold is
+    another cache keyspace); absent = the server's default."""
     raw = payload.get("cascade", None)
-    if raw is None or raw is False:
-        return
+    if raw is None:
+        return router
+    if raw is False:
+        return None
     if not isinstance(raw, dict):
         raise _BadRequest(
             "field 'cascade' must be false or an object like "
             '{"threshold": 0.02}'
         )
-    raise _BadRequest(
-        "cascade override given but the server has no cascade configured "
-        f"(the cascade is not ported yet: queue item {_A10} of ROADMAP.md)"
+    if router is None:
+        raise _BadRequest(
+            "cascade override given but the server has no cascade "
+            "configured (start with --cascade)"
+        )
+    try:
+        threshold = float(raw["threshold"])
+    except (KeyError, TypeError, ValueError):
+        raise _BadRequest("field 'cascade.threshold' must be a number in [0, 1]") from None
+    if not 0.0 <= threshold <= 1.0:
+        raise _BadRequest("field 'cascade.threshold' must be a number in [0, 1]")
+    if threshold == router.threshold:
+        return router
+    return router.with_threshold(threshold)
+
+
+def _batch_predict(batcher, x, trace=None, router=None, tenant=None) -> np.ndarray:
+    """One predict through the batching plane, cascaded when a router is
+    given: the chokepoint of every /polish form. ``tenant`` rides into
+    ``submit``; the router's path closes over it, since its submit
+    function takes ``(x, trace=)``."""
+    if router is None:
+        return batcher.submit(x, trace=trace, tenant=tenant).result(REQUEST_TIMEOUT_S)
+    submit = (
+        batcher.submit
+        if tenant is None
+        else lambda xs, trace=None: batcher.submit(xs, trace=trace, tenant=tenant)
     )
-
-
-def _batch_predict(batcher, x, trace=None, tenant=None) -> np.ndarray:
-    """One predict through the batching plane: the chokepoint of both
-    /polish forms."""
-    return batcher.submit(x, trace=trace, tenant=tenant).result(REQUEST_TIMEOUT_S)
+    return router.predict(x, submit, timeout=REQUEST_TIMEOUT_S, trace=trace)
 
 
 def _polish_windows(
     batcher, payload: Dict[str, Any],
     trace: Optional[RequestTrace] = None,
+    router=None,
     tenant: Optional[str] = None,
 ) -> Dict[str, Any]:
     cfg = batcher.session.cfg.model
@@ -181,7 +210,7 @@ def _polish_windows(
                 f"positions out of range: pos must lie in [0, {len(draft)})"
                 f" (draft length) and ins in [0, {C.MAX_INS}]"
             )
-    preds = _batch_predict(batcher, examples, trace=trace, tenant=tenant)
+    preds = _batch_predict(batcher, examples, trace=trace, router=router, tenant=tenant)
     t0 = time.perf_counter()
     board = VoteBoard({contig: draft})
     board.add([contig] * n, positions, preds)
@@ -202,7 +231,7 @@ def _check_data_path(label: str, path: Any, data_root: Optional[str]) -> str:
     for every failure (bad type, outside the root, missing), so the reply
     is no file-existence oracle. A remote URL (``gs://``, ``s3://``,
     ``http(s)://``) is refused as one with a data root set; without one
-    it is refused too, naming queue item A10 (the port has no store
+    it is refused too, naming queue item A10.3 (the port has no store
     client)."""
     from roko_tpu_torch.datapipe.io import STORE_SCHEMES, path_scheme
 
@@ -217,7 +246,7 @@ def _check_data_path(label: str, path: Any, data_root: Optional[str]) -> str:
             raise err
         raise _BadRequest(
             f"field {label!r}: remote paths are not ported yet (queue item "
-            f"{_A10} of ROADMAP.md)"
+            f"{_A10_3} of ROADMAP.md)"
         )
     if data_root is not None and not path_under_root(path, data_root):
         raise err
@@ -231,6 +260,7 @@ def _polish_bam(
     batcher, payload: Dict[str, Any],
     data_root: Optional[str] = None,
     trace: Optional[RequestTrace] = None,
+    router=None,
     tenant: Optional[str] = None,
 ) -> Dict[str, Any]:
     """The ref + bam form: extract every region of the server-local draft
@@ -263,13 +293,84 @@ def _polish_bam(
             for s in range(0, len(examples), top):
                 x = examples[s : s + top]
                 board.add([contig] * len(x), positions[s : s + top],
-                          _batch_predict(batcher, x, trace=trace, tenant=tenant))
+                          _batch_predict(batcher, x, trace=trace, router=router,
+                                         tenant=tenant))
                 n += len(x)
     t0 = time.perf_counter()
     contigs = board.stitch_all()
     if trace is not None:
         trace.add("stitch", time.perf_counter() - t0)
     return {"contigs": contigs, "windows": n}
+
+
+def _polish_unit(
+    batcher, payload: Dict[str, Any],
+    data_root: Optional[str] = None,
+    trace: Optional[RequestTrace] = None,
+    router=None,
+    tenant: Optional[str] = None,
+) -> Dict[str, Any]:
+    """One work unit of the distributed polish (``pipeline/
+    distpolish.py``, ``roko_tpu/serve/server.py:397-482``): extract
+    exactly the unit's region slice of the server-local ``ref`` + ``bam``,
+    predict it through the warm session, and either stitch the contig
+    (``emit: "contig"``, a whole-contig unit) or return the raw
+    per-window predictions (``emit: "preds"``, a span unit the
+    coordinator votes and stitches). The region table and the seeds are
+    derived again as the single process derives them, so the windows are
+    that run's, bit for bit."""
+    from roko_tpu_torch.pipeline.distpolish import b64_array, extract_unit_windows
+
+    ref = _check_data_path("ref", payload.get("ref"), data_root)
+    bam = _check_data_path("bam", payload.get("bam"), data_root)
+    unit = payload.get("unit")
+    if not isinstance(unit, dict):
+        raise _BadRequest("field 'unit' must be an object")
+    try:
+        contig = unit["contig"]
+        first = int(unit["first_region"])
+        count = int(unit["n_regions"])
+    except (KeyError, TypeError, ValueError):
+        raise _BadRequest("field 'unit' needs 'contig', 'first_region', 'n_regions'") from None
+    if not isinstance(contig, str) or not contig:
+        raise _BadRequest("'unit.contig' must be a contig name")
+    emit = unit.get("emit", "contig")
+    if emit not in ("contig", "preds"):
+        raise _BadRequest("'unit.emit' must be 'contig' or 'preds'")
+    try:
+        seed = int(payload.get("seed", 0))
+    except (TypeError, ValueError):
+        raise _BadRequest("'seed' must be an integer") from None
+    session = batcher.session
+    t0 = time.perf_counter()
+    try:
+        draft, positions, x = extract_unit_windows(ref, bam, contig, first, count, seed,
+                                                   session.cfg)
+    except ValueError as e:
+        raise _BadRequest(str(e)) from None
+    if trace is not None:
+        trace.add("extract", time.perf_counter() - t0)
+    n = int(len(positions))
+    # top-rung chunks, so a giant unit never exceeds the batching plane's
+    # admission bounds (the ref + bam form's rule)
+    top = session.ladder[-1]
+    chunks = [
+        _batch_predict(batcher, x[i : i + top], trace=trace, router=router, tenant=tenant)
+        for i in range(0, n, top)
+    ]
+    preds = (np.concatenate(chunks) if chunks
+             else np.empty((0, session.cfg.model.window_cols), np.int32))
+    if emit == "preds":
+        return {"contig": contig, "windows": n, "positions": b64_array(positions, np.int64),
+                "preds": b64_array(preds, np.int32)}
+    t0 = time.perf_counter()
+    board = VoteBoard({contig: draft})
+    if n:
+        board.add([contig] * n, positions, preds)
+    polished = board.stitch(contig)
+    if trace is not None:
+        trace.add("stitch", time.perf_counter() - t0)
+    return {"contig": contig, "polished": polished, "windows": n}
 
 
 class _Handler(JsonRequestHandler):
@@ -279,6 +380,8 @@ class _Handler(JsonRequestHandler):
     ring: Optional[TraceRing] = None
     data_root: Optional[str] = None
     worker_id: Optional[int] = None
+    router = None
+    on_polished: Optional[Callable[[], None]] = None
 
     def do_GET(self) -> None:  # noqa: N802 - http.server API
         if self.path.split("?", 1)[0] == "/tracez":
@@ -440,22 +543,23 @@ class _Handler(JsonRequestHandler):
             check_model_pin(self.headers, payload, self.metrics.model_version)
             trace.tenant = tenant
             trace.model = self.metrics.model_version
-            _check_cascade(payload)
+            router = _cascade_override(payload, self.router)
             if "unit" in payload:
-                raise _BadRequest(
-                    "the work-unit form of POST /polish (the distributed polish) is not "
-                    f"ported yet (queue item {_A10} of ROADMAP.md)"
-                )
-            if "bam" in payload:
+                result = _polish_unit(self.batcher, payload, self.data_root, trace=trace,
+                                      router=router, tenant=tenant)
+            elif "bam" in payload:
                 result = _polish_bam(self.batcher, payload, self.data_root, trace=trace,
-                                     tenant=tenant)
+                                     router=router, tenant=tenant)
             else:
-                result = _polish_windows(self.batcher, payload, trace=trace, tenant=tenant)
+                result = _polish_windows(self.batcher, payload, trace=trace, router=router,
+                                         tenant=tenant)
             trace.windows = int(result.get("windows", 0))
             result["request_id"] = rid
             result["timings"] = trace.timings()
             if self.ring is not None:
                 self.ring.record(trace)
+            if self.on_polished is not None:
+                self.on_polished()
             self._reply_json(200, result)
         except QuotaExceeded as e:
             self._reply_json(
@@ -513,6 +617,7 @@ def make_server(
     port: Optional[int] = None,
     warming: bool = False,
     worker_id: Optional[int] = None,
+    on_polished: Optional[Callable[[], None]] = None,
 ) -> ThreadingHTTPServer:
     """Bind (port 0 = ephemeral) and return the server; the caller runs
     ``serve_forever``. The batcher, metrics, breaker and trace ring ride
@@ -520,7 +625,8 @@ def make_server(
 
     ``warming=True`` starts in the not-ready state: ``/healthz`` says
     ``"warming"`` (503) and ``/polish`` sheds with 503 + Retry-After until
-    the caller clears ``server._warming``."""
+    the caller clears ``server._warming``. ``on_polished()`` is called
+    after each answered ``/polish`` request, before its reply is sent."""
     serve_cfg = serve_cfg or session.cfg.serve
     rcfg = session.cfg.resilience
     metrics = metrics or ServeMetrics(latency_samples=serve_cfg.latency_samples)
@@ -536,10 +642,21 @@ def make_server(
         breaker = breaker or batcher.breaker
     metrics.breaker = breaker
     metrics.cpu_fallback = lambda: getattr(session, "failed_over", False)
+    # the cascade (cascade/, roko_tpu/serve/server.py:956-961): the router
+    # is built against the session's quantized weights, so its cache keys
+    # and calibration identity match what the card predicts with; a model
+    # tier whose kernels the bundle lacks refuses here, at start
+    router = None
+    if session.cfg.cascade.enabled:
+        from roko_tpu_torch.cascade import build_router
+
+        router = build_router(session.cfg, params=session.model, metrics=metrics,
+                              device=session.device)
     ring = TraceRing(serve_cfg.trace_ring, serve_cfg.trace_slowest)
     handler = type("RokoServeHandler", (_Handler,), {
         "batcher": batcher, "metrics": metrics, "ring": ring,
-        "data_root": serve_cfg.data_root, "worker_id": worker_id,
+        "data_root": serve_cfg.data_root, "worker_id": worker_id, "router": router,
+        "on_polished": staticmethod(on_polished) if on_polished else None,
     })
     server = ThreadingHTTPServer(
         (serve_cfg.host if host is None else host, serve_cfg.port if port is None else port),
@@ -550,6 +667,7 @@ def make_server(
     server.session = session  # type: ignore[attr-defined]
     server.breaker = breaker  # type: ignore[attr-defined]
     server.ring = ring  # type: ignore[attr-defined]
+    server.router = router  # type: ignore[attr-defined]
     server._profile_lock = threading.Lock()  # type: ignore[attr-defined]
     init_lifecycle(server, rcfg.drain_deadline_s, warming=warming)
     return server

@@ -21,9 +21,11 @@ thin HTTP surface over the fleet:
 - ``POST /rollout`` / ``GET /rollout`` — start / observe a
   health-gated zero-downtime rollout onto a registered model version
   (``serve/rollout.py``).
-- ``POST /job`` / ``GET /jobz`` — the reference's distributed polish
-  over the fleet: not ported yet, answered 501 naming ROADMAP queue item
-  A10.
+- ``POST /job`` / ``GET /jobz`` — submit a whole-genome distributed
+  polish (server-side ref/bam/out paths) over this fleet, and read its
+  per-unit state (``pipeline/distpolish.py``); a rollout is refused while
+  a job runs, a job while a rollout runs, and a job dispatches no new
+  unit while the autoscaler has parked background work.
 
 Every front-end 503 (draining, at capacity, no worker available)
 carries the LARGEST live worker ``Retry-After`` hint (each worker
@@ -35,7 +37,8 @@ The supervisor process never initialises CUDA: it only routes, so it
 loads no params, builds no model, and computes the workers' card slices
 with the pure ``parallel.mesh.fleet_worker_env`` helper. This module
 imports no torch; ``parallel.mesh`` (which imports torch without touching
-the card) is imported where the slices are computed.
+the card) is imported where the slices are computed, and a distributed
+polish job's stitch where the job runs.
 
 SIGTERM is a rolling drain: the front end stops admitting and finishes
 in-flight relays first, then workers are SIGTERMed one at a time (each
@@ -85,10 +88,6 @@ from roko_tpu_torch.serve.rollout import (
     recover_rollout,
 )
 
-#: what the reference's distributed polish routes answer in the port
-_JOB_UNPORTED = ("distributed polish jobs (POST /job, GET /jobz) are not ported yet "
-                 "(queue item A10 of ROADMAP.md)")
-
 
 class _FrontHandler(JsonRequestHandler):
     # set by make_front_server on the class copy
@@ -122,14 +121,16 @@ class _FrontHandler(JsonRequestHandler):
                 200, ctl.status() if ctl is not None else {"state": "idle"}
             )
         elif self.path == "/jobz":
-            self._reply_json(501, {"error": _JOB_UNPORTED})
+            # the distributed polish job's per-unit state table
+            job = getattr(self.fleet, "job", None)
+            self._reply_json(200, job.snapshot() if job is not None else {"state": "idle"})
         else:
             self._reply_json(404, {"error": f"no route {self.path}"})
 
     def _handle_starter(self, attr: str, what: str) -> None:
-        """POST plumbing for the operator surface whose implementation
-        run_supervisor wires onto the server object (``/rollout``): 501
-        when unconfigured, bounded
+        """POST plumbing for the operator surfaces whose implementation
+        run_supervisor wires onto the server object (``/rollout`` and
+        ``/job``): 501 when unconfigured, bounded
         body read, JSON-object validation, then ``(code, body)`` from
         the starter."""
         starter = getattr(self.server, attr, None)
@@ -158,7 +159,9 @@ class _FrontHandler(JsonRequestHandler):
             self._handle_starter("_start_rollout", "rollout")
             return
         if self.path == "/job":
-            self._reply_json(501, {"error": _JOB_UNPORTED})
+            # a whole-genome distributed polish over THIS fleet; observe
+            # it with GET /jobz
+            self._handle_starter("_start_job", "distributed polish jobs")
             return
         if self.path != "/polish":
             self._reply_json(404, {"error": f"no route {self.path}"})
@@ -287,9 +290,10 @@ def make_front_server(
         handler,
     )
     server.fleet = fleet  # type: ignore[attr-defined]
-    #: POST /rollout implementation; run_supervisor wires the real one
-    #: (needs the registry + journal), bare front ends answer 501
+    #: POST /rollout and POST /job implementations; run_supervisor wires
+    #: the real ones, bare front ends answer 501
     server._start_rollout = None  # type: ignore[attr-defined]
+    server._start_job = None  # type: ignore[attr-defined]
     #: (version, fraction) when an A/B lane routes a slice of unpinned
     #: traffic to a candidate version; run_supervisor wires it
     server._ab_lane = None  # type: ignore[attr-defined]
@@ -471,6 +475,17 @@ def make_rollout_starter(
                     "error": "a rollout is already in progress",
                     "status": ctl.status(),
                 }
+            job = getattr(fleet, "job", None)
+            if job is not None and job.active():
+                # a rollout mid-job would splice two versions' contigs
+                # into one FASTA, the mix the job's journal identity
+                # refuses; the job starter refuses the mirror race
+                return 409, {
+                    "error": "a distributed polish job is running; "
+                             "refusing to roll worker versions "
+                             "underneath it",
+                    "job": job.snapshot(),
+                }
             if fleet.active_version == name:
                 return 409, {
                     "error": f"fleet is already on version {name!r}",
@@ -542,9 +557,8 @@ class Autoscaler:
       resets the stretch), re-arming the stretch per step down;
     - **parks background jobs** — ``fleet.jobs_parked`` flips on when
       interactive backlog spikes past the up threshold and off once it
-      falls back under the down threshold (the flag the reference's
-      distributed polish reads; the port renders it, queue item A10
-      brings the jobs).
+      falls back under the down threshold (a distributed polish job
+      dispatches no new unit while it is set; ``pipeline/distpolish.py``).
 
     The up threshold strictly above the down threshold (enforced by
     FleetConfig) plus the idle-stretch requirement is the hysteresis
@@ -827,6 +841,12 @@ def run_supervisor(
     # (a recovered/pinned version, not necessarily the CLI args)
     server._start_rollout = make_rollout_starter(  # type: ignore[attr-defined]
         fleet, journal, boot_model, boot_cfg, log=log, device=device
+    )
+    # distributed polish jobs over this fleet (POST /job, GET /jobz)
+    from roko_tpu_torch.pipeline.distpolish import make_job_starter
+
+    server._start_job = make_job_starter(  # type: ignore[attr-defined]
+        fleet, boot_cfg, log=log
     )
     if announce:
         write_announce(announce, server.server_address[1])

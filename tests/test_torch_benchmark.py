@@ -9,6 +9,7 @@ Each test runs a tiny model, or none."""
 import dataclasses
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -233,8 +234,8 @@ def test_bench_asks_for_a_card_by_default():
 
 @pytest.mark.parametrize("flag,value,item", [
     ("--features", None, "A11"), ("--e2e-draft", "60000", "A11"),
-    ("--pipeline-draft", "60000", "A11"), ("--cascade-draft", "40000", "A10"),
-    ("--cascade-draft", "1", "A10"), ("--input-rows", "1536", "A11"),
+    ("--pipeline-draft", "60000", "A11"), ("--e2e-draft", "1", "A11b"),
+    ("--pipeline-draft", "1", "A11b"), ("--input-rows", "1536", "A11"),
     ("--input-rows", "1", "A11b"),
     ("--in-process", None, "deliberately not ported"),
 ])
@@ -418,3 +419,48 @@ def test_fleet_suite_rows_are_the_references():
     assert kill["client_errors"] == 0 and kill["worker_rejoined"] and kill["restarts"] >= 1
     assert set(kill) == {"workers", "req_per_s_during_kill", "p99_s", "client_errors",
                          "failovers", "restarts", "worker_rejoined"}
+
+
+#: the cascade suite's rows in ``roko_tpu.benchmark.run_cascade_suite``
+REF_CASCADE_ROWS = {"draft_len", "coverage", "threshold", "windows", "reference_windows_per_sec",
+                    "threshold0_identical", "cascade_windows_per_sec", "speedup_vs_reference",
+                    "escalation_pct", "cold_cache_hit_rate", "cache_hit_rate"}
+
+
+def test_cascade_suite_rows_are_the_references():
+    """The cascade suite on a tiny model and a 4 kb sim draft: the
+    reference's rows; threshold 0's FASTA the plain one's; the warm run
+    over the shared on-disk cache hits every window; the escalation share
+    is the reference router's on the same windows."""
+    from roko_tpu.cascade import Calibration as RefCalibration
+    from roko_tpu.cascade import CascadeRouter as RefRouter
+
+    got = B.run_cascade_suite(4000, coverage=8, device="cpu", model_overrides=TINY)
+    assert set(got) == REF_CASCADE_ROWS
+    assert got["threshold0_identical"] is True and got["windows"] > 50
+    assert got["cold_cache_hit_rate"] == 0.0 and got["cache_hit_rate"] == 1.0
+    _, batches = B.cascade_corpus(4000, coverage=8)
+    ref = RefRouter(threshold=0.05, params_digest="p", cache_bytes=0,
+                    calibration=RefCalibration(temperature=8.0))
+    for _, _, x in batches:
+        ref.route(x, lambda xs: np.zeros(xs.shape[::2], np.int32))
+    assert got["escalation_pct"] == round(100.0 * ref.stats()["escalation_fraction"], 1)
+    assert B.ported_errors({"detail": {"cascade": got}}) == []
+
+
+def test_cascade_draft_flag_runs_the_suite(monkeypatch):
+    """``--cascade-draft`` reaches the suite from the CLI and from
+    ``benchmark.main``; 0 and absent run none; a failing suite is a ported
+    error."""
+    seen = []
+    monkeypatch.setattr(B, "run_cascade_suite",
+                        lambda n, **kw: seen.append((n, kw["device"].type)) or {})
+    monkeypatch.setattr(B, "bench_torch_reference", lambda: 1.0)
+    monkeypatch.setattr(B, "run_inference_suite",
+                        lambda *a, **k: {"windows_per_sec": 1.0, "iterations": 1})
+    assert cli.main(["bench", "--device", "cpu", "--cascade-draft", "5000"]) == 0
+    assert B.main(["--device", "cpu", "--cascade-draft", "0"]) == 0
+    assert B.main(["--device", "cpu"]) == 0
+    assert seen == [(5000, "cpu")]
+    monkeypatch.setattr(B, "run_cascade_suite", lambda n, **kw: {"error": "boom"})
+    assert B.main(["--device", "cpu", "--cascade-draft", "100"]) == 1

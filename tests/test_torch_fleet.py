@@ -919,20 +919,20 @@ def test_autoscaler_decisions_equal_reference(seed):
 
 
 def test_front_job_routes_name_a10(tmp_path):
-    """The reference's distributed-polish routes answer 501 naming their
-    queue item; nothing of the job plane is imported."""
+    """The distributed polish's routes (ported from queue item A10): a
+    bare front end reads no job (``GET /jobz`` idle) and has no job
+    starter wired (``POST /job`` 501, as the reference's bare front end)."""
     fleet = make_fleet(tmp_path, workers=1)
     server, thread = start_front(fleet)
     port = server.server_address[1]
     try:
-        code, body = get_json(port, "/jobz")
-        assert code == 501 and "A10" in body["error"]
+        assert get_json(port, "/jobz") == (200, {"state": "idle"})
         req = urllib.request.Request(f"http://127.0.0.1:{port}/job", data=b"{}",
                                      headers={"Content-Type": "application/json"},
                                      method="POST")
         with pytest.raises(urllib.error.HTTPError) as exc:
             urllib.request.urlopen(req, timeout=10)
-        assert exc.value.code == 501 and "A10" in json.loads(exc.value.read())["error"]
+        assert exc.value.code == 501 and "not configured" in json.loads(exc.value.read())["error"]
     finally:
         stop_front(server, thread)
 

@@ -75,9 +75,10 @@ def _import_in_child(*names):
 #: processes and threads, and the assess tool, the failure handling and
 #: the circuit breaker, the batching plane's batchers, the service's
 #: client, its traces and histograms, the training data plane, the
-#: kernel build cache and bundle manifests, and the fleet (its
-#: supervisor routes and never touches the card) are host code, so none
-#: of it may import torch
+#: kernel build cache and bundle manifests, the fleet (its supervisor
+#: routes and never touches the card), the distributed polish's
+#: coordinator and the cascade's calibration and window cache are host
+#: code, so none of it may import torch
 HOST_MODULES = [
     "roko_tpu_torch.sim", "roko_tpu_torch.utils.rng", "roko_tpu_torch.resilience.retry",
     "roko_tpu_torch.io.bgzf", "roko_tpu_torch.io.bam", "roko_tpu_torch.io.sam",
@@ -99,12 +100,14 @@ HOST_MODULES = [
     "roko_tpu_torch.compile.bundle", "roko_tpu_torch.serve.httpbase",
     "roko_tpu_torch.serve.registry", "roko_tpu_torch.serve.fleet",
     "roko_tpu_torch.serve.rollout", "roko_tpu_torch.serve.supervisor",
+    "roko_tpu_torch.pipeline.distpolish", "roko_tpu_torch.cascade.cache",
+    "roko_tpu_torch.cascade.calibration",
 ]
 
 
 def test_every_port_module_imports_without_jax():
     names = _import_in_child()
-    assert len(names) >= 84
+    assert len(names) >= 89
     assert "roko_tpu_torch.training.engine" not in names  # moved to datapipe.engine
     assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru",
             "roko_tpu_torch.models.transformer",
@@ -116,7 +119,8 @@ def test_every_port_module_imports_without_jax():
             "roko_tpu_torch.parallel", "roko_tpu_torch.parallel.distributed",
             "roko_tpu_torch.parallel.mesh", "roko_tpu_torch.parallel.tp",
             "roko_tpu_torch.parallel.ring", "roko_tpu_torch.serve.server",
-            "roko_tpu_torch.serve.client", *HOST_MODULES} <= set(names)
+            "roko_tpu_torch.serve.client", "roko_tpu_torch.cascade",
+            "roko_tpu_torch.cascade.router", *HOST_MODULES} <= set(names)
 
 
 def test_host_modules_import_without_torch():

@@ -118,22 +118,23 @@ def test_polish_staged_fasta_byte_identical_to_reference(project, tmp_path, kind
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--distributed"], "--distributed is not ported yet (queue item A10"),
-    (["--cascade"], "--cascade is not ported yet (queue item A10"),
+    (["--distributed", "--staged"], "--distributed drives the fleet workers' own streaming "
+     "stacks; it cannot combine with --staged or --keep-hdf5"),
+    (["--cascade", "1.5"], "cascade.threshold must lie in [0, 1], got 1.5"),
     # --config and --trace-dir are ported: a config file that asks for
     # what the port does not run is refused, naming its queue item
     # a mesh the run's processes cannot fill, on any of its axes
     (["--config", "mesh.json"], "mesh dp=4: mesh [4, 1, 1] wants 4 devices, have 1"),
     (["--config", "mesh_tp.json"], "mesh dp=-1: 1 devices not divisible by fixed axes "
      "product 2"),
-    (["--config", "cascade.json"], "config cascade.enabled = True: not ported yet (queue "
-     "item A10"),
+    (["--config", "store.json"], "config store.endpoint = 'http://h': not ported yet (queue "
+     "item A10.3"),
     (["--staged", "--resume"], "cannot combine with --staged"),
 ])
 def test_polish_refuses_what_is_not_ported(project, tmp_path, capsys, extra, message):
     out = tmp_path / "o.fasta"
     unported = {"mesh.json": ("mesh", "dp", 4), "mesh_tp.json": ("mesh", "tp", 2),
-                "cascade.json": ("cascade", "enabled", True)}
+                "store.json": ("store", "endpoint", "http://h")}
     if extra[-1] in unported:  # a reference-layout file, written beside the project
         section, key, value = unported[extra[-1]]
         raw = json.loads(RokoConfig().to_json())

@@ -273,12 +273,14 @@ def test_status_codes_equal_reference(port_session, ref_session):
             conn.endheaders()
             assert conn.getresponse().status == 400
             conn.close()
-        # the refusals that wait for the cascade and the distributed polish
-        # name their queue item in the port
-        _, _, body = _raw(pbase, "/polish", cases[10][0])
-        assert "A10" in body["error"] and "no cascade configured" in body["error"]
-        status, _, body = _raw(pbase, "/polish", {"ref": "r", "bam": "b", "unit": {}})
-        assert status == 400 and "A10" in body["error"]
+        # a cascade override on a server with no cascade, and a work unit
+        # on paths that are not there, are refused with the reference's
+        # messages
+        for payload, says in ((cases[10][0], "no cascade configured"),
+                              ({"ref": "r", "bam": "b", "unit": {}}, "readable data file")):
+            got, want = _raw(pbase, "/polish", payload), _raw(rbase, "/polish", payload)
+            assert got[0] == want[0] == 400 and got[2]["error"] == want[2]["error"]
+            assert says in got[2]["error"]
 
 
 def test_full_queue_is_503_with_retry_after(port_session, ref_session):
@@ -418,8 +420,8 @@ def _unported(name: str) -> bool:
 def test_healthz_keys_and_metrics_series_equal_reference(port_session, ref_session):
     """After the same traffic (a tenant-tagged request and an untagged
     one): /healthz has the reference's keys, and /metrics the reference's
-    series, less UNPORTED_SERIES (the compile cache, the cascade and the
-    store client), read with the reference's own parsers."""
+    series, less UNPORTED_SERIES (the store client), read with the
+    reference's own parsers."""
     rng = np.random.default_rng(6)
     positions, x = _windows(rng, 5)
     draft = "".join(rng.choice(list("ACGT"), 300))
@@ -441,6 +443,45 @@ def test_healthz_keys_and_metrics_series_equal_reference(port_session, ref_sessi
         assert unlabeled[name] == ref_metrics.parse_metric_values(rtext, want)[name], name
     assert ref_metrics.parse_labeled_rows(ptext, ref_metrics.LABELED_SERIES) == \
         ref_metrics.parse_labeled_rows(rtext, ref_metrics.LABELED_SERIES)
+
+
+def test_launch_report_is_written_before_each_reply(port_session, tmp_path):
+    """The serve process's launch report (``ROKO_KERNEL_LAUNCHES``):
+    written at the warmup's end and, through ``on_polished``, before each
+    answered ``/polish`` reply, so the file a SIGKILLed worker leaves counts
+    every request it answered; a refused request writes nothing."""
+    from roko_tpu_torch.serve.metrics import ServeMetrics
+
+    metrics = ServeMetrics()
+    report = cli._LaunchReport(str(tmp_path / "launches"), metrics)
+    report.warm()
+
+    def read():
+        with open(report.path) as f:
+            return json.load(f)
+
+    assert report.path == str(tmp_path / f"launches.{os.getpid()}.json")
+    assert read()["served"] == {"requests": 0, "windows": 0, "batches": 0}
+    assert read()["warmup_launches"] == read()["launches"]
+    seen = []
+
+    def on_polished():
+        report.write()
+        seen.append(read()["served"])
+
+    rng = np.random.default_rng(8)
+    positions, x = _windows(rng, 4)
+    draft = "".join(rng.choice(list("ACGT"), 300))
+    with serving(port_server, port_session, _serve_cfg(True), metrics=metrics,
+                 on_polished=on_polished) as (_, client, base):
+        reply = client.polish(draft, positions, x)
+        assert _raw(base, "/polish", {"draft": draft, "n": 2})[0] == 400
+    assert reply["windows"] == 4 and len(seen) == 1
+    assert seen[0]["windows"] == 4 and seen[0]["batches"] >= 1
+    assert read()["served"] == seen[0] and read()["pid"] == os.getpid()
+    assert set(read()["launches"]) == {"gru_fwd", "gru_fwd_bf16", "lingru_fwd",
+                                       "lingru_fwd_bf16"}
+    assert not os.path.exists(report.path + ".tmp")
 
 
 def test_tracez_carries_request_ids_and_profilez_writes_a_trace(port_session):
@@ -495,8 +536,9 @@ def test_in_process_sigterm_drains_serve_forever(port_session):
     (["--host-id", "h"], "A9.5b"), (["--federation"], "A9.5b"), (["--host-agent"], "A9.5b"),
     (["--join", "h:1"], "A9.5b"), (["--lease-ttl", "3"], "A9.5b"),
     (["--store-cache", "d"], "A10"), (["--store-endpoint", "http://h"], "A10"),
-    (["--tp", "2"], "A9.1"), (["--cascade"], "A10"),
-    (["--cascade", "0.1"], "A10"), (["--dp", "2"], "A9.1"),
+    (["--tp", "2"], "A9.1"), (["--cascade", "1.5"], "cascade.threshold must lie in [0, 1]"),
+    (["--cascade-tier", "model"], "cascade.tier='model' needs cascade.tier_version"),
+    (["--dp", "2"], "A9.1"),
 ])
 def test_unported_serve_flags_are_usage_errors(argv, item, capsys, tmp_path):
     with pytest.raises(SystemExit) as e:

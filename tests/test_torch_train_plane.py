@@ -309,11 +309,12 @@ def test_every_reference_field_is_ported_refused_or_ignored():
 
 
 @pytest.mark.parametrize("section,value,item", [
-    # the mesh's dp, tp and sp, the kernel bundle and the fleet are ported;
+    # the mesh's dp, tp and sp, the kernel bundle, the fleet, the cascade
+    # and the distributed polish are ported;
     # the federation's fields are queue item A9.5b, and the JAX cache's
     # size bound has no nvcc counterpart
     ("compile", {"cache_max_mb": 7}, "no nvcc counterpart"),
-    ("cascade", {"enabled": True}, "A10"),
+    ("store", {"cache_dir": "/s"}, "A10.3"),
     ("fleet", {"join": "h:1"}, "A9.5b"), ("store", {"endpoint": "http://h"}, "A10"),
     ("model", {"remat_scan": True}, "A12"),
 ])

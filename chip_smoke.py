@@ -16,6 +16,7 @@
     python3 chip_smoke.py --fleet-only         # the fleet phase alone
     python3 chip_smoke.py --cascade-only       # the cascade phase alone
     python3 chip_smoke.py --distpolish-only    # polish --distributed alone
+    python3 chip_smoke.py --federation-only    # the federation phase alone
     python3 chip_smoke.py --mesh-child SPEC    # one rank of the mesh or tp_sp phase (they start them)
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
@@ -194,6 +195,27 @@ which launches no kernel, in a phase of its own):
   the same rows of the full 512-row batch (the argmax that differ and the
   largest difference, recorded); and the bench's ``cascade`` rows
   (``--cascade-only`` runs it on a 100 kb project).
+- the ``federation`` line (``serve/federation.py``, ``serve/transport.py``,
+  ``datapipe/store.py``; ``--federation-only`` runs it alone), on the
+  ``--distpolish-only`` project: a ``StubObjectStore`` on loopback holds
+  the draft, the BAM and its BAI, and ``python -m roko_tpu_torch polish``
+  reads them and writes its FASTA there (``s3://`` through
+  ``--store-endpoint``) under ``ROKO_STORE_FAULTS`` at the storage gate's
+  rates (seed 42): the FASTA read back is the single-process polish's byte
+  for byte and retries were logged. Meanwhile a federation front in this
+  process (its relays at ``ROKO_FED_FAULTS=drop:0.1,delay:0.2,
+  duplicate:0.1``) and two host agents (``serve MODEL --host-agent --join
+  ... --workers 1``, each in a session of its own) start; closed-loop
+  ``/polish`` load through the front (every reply the staged stitch,
+  ``X-Roko-Host`` naming both hosts), a ``front-h1`` partition pulse and
+  a SIGKILL of h1's whole group under load (no client error, ``/healthz``
+  degraded, h1's worker gone from ``nvidia-smi --query-compute-apps``),
+  h1 started again (epoch one higher, routed to again), ``POST /job`` to
+  h0 with ``s3://`` draft, BAM and output (the FASTA the single
+  process's; ``gru_fwd`` 3 times each step of the job, from h0's worker
+  files read just before and at its end), and SIGTERM to both agents
+  (exit 0, no worker left). The host rollout and the host autoscaler are
+  held on the CPU only.
 
 ``--bwd-bf16-only`` also reads ROADMAP fault C2 against the reference's
 own numbers (``tests/torch_golden/c2_bf16_bwd.npz``): the kernel, the
@@ -433,6 +455,18 @@ SMALL_PROJECT_LEN = 100_000
 DIST_UNIT_BASES = 150_000
 DIST_CLI_REGION = 40_000
 DIST_CLI_UNIT_BASES = 50_000
+# the federation phase (--federation-only): two host agents of one worker
+# each behind a front whose relays drop, delay and duplicate at the chaos
+# gate's rates; closed-loop clients of 7- and 300-window requests; the
+# store polish under the storage gate's rates
+FED_SIZES = (7, 300)
+FED_CLIENTS = 3
+FED_LOAD_S = 3.0
+FED_KILL_LOAD_S = 3.0
+FED_LEASE_TTL_S = 2.0
+FED_FAULTS = "drop:0.1,delay:0.2,duplicate:0.1"
+FED_DELAY_S = "0.02"
+STORE_FAULTS = "timeout:0.1,http500:0.05,truncate:0.02,torn_write:0.02"
 BENCH_WIDE_B = 2048
 BENCH_STRESS_SHAPE = dict(B=512, T=90, IN=500, H=256, S=2)
 # ... and the train_gru row's first layer (the resident f32 backward)
@@ -4599,6 +4633,479 @@ def drive_distpolish_cli(torch, port, dev, card) -> dict:
             "region_size": DIST_CLI_REGION, "unit_bases": DIST_CLI_UNIT_BASES, "card": card}
 
 
+def drive_federation(torch, port, dev, card) -> dict:
+    """The multi-host federation and the object-store data plane at full
+    width (gru, 3 bidirectional layers, h=128, f32; weights from the numpy
+    seed) on the ``--distpolish-only`` project (100 kb, 40 kb regions):
+
+    1. a ``StubObjectStore`` on loopback holds the draft, the BAM and its
+       BAI; ``python -m roko_tpu_torch polish`` reads them and writes its
+       FASTA there (``s3://`` URLs through ``--store-endpoint``) under
+       ``ROKO_STORE_FAULTS`` at the storage gate's rates, seed 42; the FASTA
+       read back from the bucket must be the single-process polish's on the
+       card byte for byte, with retries above 0;
+    2. a federation front in this process, its relays through
+       ``ROKO_FED_FAULTS`` at the chaos gate's rates, and two host agents
+       (``serve MODEL --host-agent --join ... --host-id h0|h1 --workers 1``)
+       started through the CLI, each in a session of its own, sharing the
+       card;
+    3. closed-loop ``/polish`` load through the front: every reply the
+       staged stitch byte for byte, ``X-Roko-Host`` naming both hosts;
+    4. a partition pulse of ``front-h1``, then h1's whole process group
+       SIGKILLed under load: no client error, ``/healthz`` degraded, and
+       none of h1's workers left on the card (``nvidia-smi
+       --query-compute-apps``, and the pid gone);
+    5. h1 started again under the same host id: its epoch one higher, and
+       routed to again;
+    6. ``POST /job`` to h0 with ``s3://`` draft, BAM and output: the FASTA
+       read back from the bucket is the single-process polish's, and h0's
+       worker files, read just before the job and at its end, show the
+       job's windows served once and ``gru_fwd`` launched 3 times a step;
+    7. SIGTERM to both agents: a clean drain, no worker left."""
+    import http.client
+    import signal
+    import tempfile
+    import threading
+
+    from roko_tpu_torch.datapipe.store import StubObjectStore
+    from roko_tpu_torch.serve.federation import (
+        FED_HOST_HEADER,
+        FederationFront,
+        make_federation_server,
+    )
+    from roko_tpu_torch.serve.transport import transport_from_env
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_federation_")
+    region = port.RegionConfig(size=DIST_CLI_REGION, overlap=300)
+    cfg = port.RokoConfig(region=region)
+    inputs = small_project(port, os.path.join(work, "project"), region)
+    sd = port.state_dict_from_jax(jax_layout_params(np.random.default_rng(SEED + 29), cfg.model))
+    pth = os.path.join(work, "model.pth")
+    torch.save(sd, pth)
+    want_fasta = single_process_polish(torch, port, sd, cfg, inputs, dev)
+    contig, draft = inputs["contig"], inputs["draft"]
+    positions = np.concatenate([b[1] for b in inputs["batches"]])
+    examples = np.concatenate([b[2] for b in inputs["batches"]])
+    model = port.RokoModel(cfg.model)
+    model.load_state_dict(sd, strict=True)
+    model.to(dev).eval()
+    want = {n: port.run_inference(iter([([contig] * n, positions[:n], examples[:n])]),
+                                  {contig: draft}, model, device=dev, log=lambda m: None)[contig]
+            for n in FED_SIZES}
+    del model
+    bodies = {n: json.dumps({"contig": contig, "draft": draft, "n": n,
+                             "positions": base64_le(positions[:n].astype(np.int64)),
+                             "examples": base64_le(examples[:n].astype(np.uint8))}).encode()
+              for n in FED_SIZES}
+    out: dict = {"model": {"kind": cfg.model.kind, "num_layers": cfg.model.num_layers,
+                           "hidden_size": cfg.model.hidden_size},
+                 "project_len": SMALL_PROJECT_LEN, "region_size": DIST_CLI_REGION,
+                 "windows": inputs["windows"], "card": card}
+
+    # -- the bucket -----------------------------------------------------------
+    bucket = os.path.join(work, "bucket")
+    os.makedirs(os.path.join(bucket, "bkt"))
+    paths = inputs["paths"]
+    for name, src in (("draft.fasta", paths["draft_fasta"]), ("reads.bam", paths["reads_bam"]),
+                      ("reads.bam.bai", paths["reads_bam"] + ".bai")):
+        shutil.copyfile(src, os.path.join(bucket, "bkt", name))
+    stub = StubObjectStore(bucket).start()
+    py = [sys.executable, "-m", "roko_tpu_torch"]
+    home = os.path.join(work, "home")  # the store outputs' journals
+    base_env = {k: v for k, v in os.environ.items()
+                if not k.startswith(("ROKO_FED_", "ROKO_STORE_"))}
+    base_env["HOME"] = home
+
+    # -- the front, in this process ---------------------------------------------
+    front_transport = transport_from_env("front", env={
+        "ROKO_FED_FAULTS": FED_FAULTS, "ROKO_FED_DELAY_S": FED_DELAY_S,
+        "ROKO_FED_FAULTS_SEED": "1234"})
+    fed_log: list = []
+    front = FederationFront(
+        port.RokoConfig(fleet=port.FleetConfig(lease_ttl_s=FED_LEASE_TTL_S,
+                                               fed_breaker_failures=2, fed_breaker_reset_s=0.5,
+                                               failover_attempts=4)),
+        transport=front_transport, log=fed_log.append)
+    fed_server = make_federation_server(front, host="127.0.0.1", port=0)
+    threading.Thread(target=fed_server.serve_forever, daemon=True).start()
+    front.start()
+    fed_port = fed_server.server_address[1]
+    fed_base = f"http://127.0.0.1:{fed_port}"
+
+    agents: dict = {}  # tag -> (proc, announce, runtime, launches folder, log path)
+
+    def spawn_agent(hid, tag):
+        runtime = os.path.join(work, f"rt_{tag}")
+        folder = os.path.join(work, f"launches_{tag}")
+        os.makedirs(folder)
+        acfg = dataclasses.replace(
+            cfg, fleet=port.FleetConfig(runtime_dir=runtime, heartbeat_interval_s=0.5),
+            distpolish=port.DistPolishConfig(unit_bases=DIST_CLI_UNIT_BASES,
+                                             inflight_per_worker=1, park_poll_s=0.05))
+        cfg_path = os.path.join(work, f"agent_{tag}.json")
+        with open(cfg_path, "w") as f:
+            f.write(acfg.to_json())
+        announce = os.path.join(work, f"agent_{tag}.announce.json")
+        log_path = os.path.join(work, f"agent_{tag}.log")
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(
+                py + ["serve", pth, "--host-agent", "--join", f"127.0.0.1:{fed_port}",
+                      "--host-id", hid, "--lease-ttl", str(FED_LEASE_TTL_S), "--workers", "1",
+                      "--config", cfg_path, "--store-endpoint", stub.url, "--port", "0",
+                      "--announce", announce],
+                cwd=ROOT, env=dict(base_env, ROKO_KERNEL_LAUNCHES=os.path.join(folder,
+                                                                               "launches")),
+                stdout=logf, stderr=subprocess.STDOUT, start_new_session=True)
+        agents[tag] = (proc, announce, runtime, folder, log_path)
+        return time.perf_counter()
+
+    def agent_log(tag):
+        with open(agents[tag][4]) as f:
+            return f.read()[-3000:]
+
+    def agent_port(tag):
+        try:
+            with open(agents[tag][1]) as f:
+                return json.load(f)["port"]
+        except (OSError, ValueError, KeyError):
+            return None
+
+    def agent_health(tag):
+        p = agent_port(tag)
+        if p is None:
+            return {}
+        try:
+            return http_json(f"http://127.0.0.1:{p}", "/healthz", timeout=10)[1]
+        except OSError:
+            return {}
+
+    def worker_pid(tag):
+        try:
+            with open(os.path.join(agents[tag][2], "worker-0.announce.json")) as f:
+                return json.load(f)["pid"]
+        except (OSError, ValueError, KeyError):
+            return None
+
+    def alive(pid):
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return False
+        try:  # a reaped child is gone; an unreaped one shows as a zombie
+            with open(f"/proc/{pid}/stat") as f:
+                return f.read().split(")")[-1].split()[0] != "Z"
+        except OSError:
+            return False
+
+    def wait_ready(tags, t0, what):
+        while True:
+            for tag in tags:
+                if agents[tag][0].poll() is not None:
+                    fail(f"federation: agent {tag} exited {agents[tag][0].returncode}:\n"
+                         f"{agent_log(tag)}")
+            hids = {tag: tag.split("_")[0] for tag in tags}
+            leases = {tag: front.registry.get(h) for tag, h in hids.items()}
+            if all(l is not None and l.state() == "live" for l in leases.values()) and \
+                    all(agent_health(tag).get("status") == "ok" for tag in tags):
+                return time.perf_counter() - t0
+            if time.perf_counter() - t0 > FLEET_TIMEOUT_S:
+                fail(f"federation: {what} not ready within {FLEET_TIMEOUT_S} s:\n"
+                     + "\n".join(agent_log(tag) for tag in tags))
+            time.sleep(0.1)
+
+    def fed_post(n):
+        """(host, polished, attempts) of one /polish through the front,
+        riding out 503s and dropped connections as a retrying client
+        does; anything else, or 30 attempts without a reply, is an error
+        the client sees."""
+        for attempt in range(30):
+            conn = http.client.HTTPConnection("127.0.0.1", fed_port, timeout=300)
+            try:
+                conn.request("POST", "/polish", body=bodies[n],
+                             headers={"Content-Type": "application/json"})
+                r = conn.getresponse()
+                data = r.read()
+                if r.status == 200:
+                    return r.getheader(FED_HOST_HEADER), json.loads(data)["polished"], attempt + 1
+                if r.status != 503:
+                    raise RuntimeError(f"/polish answered {r.status}: {data[:300]!r}")
+            except (OSError, http.client.HTTPException):
+                pass
+            finally:
+                conn.close()
+            time.sleep(0.2)
+        raise RuntimeError("no reply through the front in 30 attempts")
+
+    def load(stop):
+        got, errors = [], []
+        lock = threading.Lock()
+
+        def one(k):
+            i = k
+            while not stop.is_set():
+                n = FED_SIZES[i % len(FED_SIZES)]
+                i += 1
+                t0 = time.perf_counter()
+                try:
+                    host, polished, attempts = fed_post(n)
+                except RuntimeError as e:
+                    with lock:
+                        errors.append(str(e)[:300])
+                    continue
+                with lock:
+                    got.append((time.perf_counter() - t0, host, attempts))
+                    if polished != want[n]:
+                        errors.append(f"a {n}-window reply from {host} differs from the "
+                                      "staged stitch")
+
+        threads = [threading.Thread(target=one, args=(k,), daemon=True)
+                   for k in range(FED_CLIENTS)]
+        for t in threads:
+            t.start()
+        return threads, got, errors, time.perf_counter()
+
+    def finish(handle, what):
+        threads, got, errors, t0 = handle
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        if errors:
+            fail(f"federation {what}: {len(errors)} client-visible error(s): {errors[:5]}")
+        lat = [g[0] for g in got]
+        hosts = [g[1] for g in got]
+        return {"requests": len(got), "req_per_s": len(got) / wall, "wall_s": wall,
+                "p50_s": float(np.percentile(lat, 50)) if lat else None,
+                "p99_s": float(np.percentile(lat, 99)) if lat else None,
+                "by_host": {h: hosts.count(h) for h in set(hosts)},
+                "retried": sum(1 for g in got if g[2] > 1)}
+
+    store_polish = None
+    try:
+        # -- 1 and 2 at once: the store polish and both agents start ----------
+        t0 = time.perf_counter()
+        pcfg = os.path.join(work, "polish.json")
+        with open(pcfg, "w") as f:
+            f.write(cfg.to_json())
+        evlog = os.path.join(work, "polish_events.jsonl")
+        store_polish = subprocess.Popen(
+            py + ["polish", "s3://bkt/draft.fasta", "s3://bkt/reads.bam", pth,
+                  "s3://bkt/polished.fasta", "--config", pcfg, "--store-endpoint", stub.url,
+                  "--store-cache", os.path.join(work, "store_cache"), "--t",
+                  str(POLISH_WORKERS), "--seed", "0", "--event-log", evlog],
+            cwd=ROOT, env=dict(base_env, ROKO_STORE_FAULTS=STORE_FAULTS,
+                               ROKO_STORE_FAULT_SEED="42", ROKO_STORE_TIMEOUT_S="10"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        t_agents = {tag: spawn_agent(tag, tag) for tag in ("h0", "h1")}
+        try:
+            text, _ = store_polish.communicate(timeout=FLEET_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"federation: the store polish did not end within {FLEET_TIMEOUT_S} s")
+        polish_s = time.perf_counter() - t0
+        if store_polish.returncode != 0:
+            fail(f"federation: the store polish exited {store_polish.returncode}:\n"
+                 f"{text[-3000:]}")
+        with open(os.path.join(bucket, "bkt", "polished.fasta"), "rb") as f:
+            got_fasta = f.read()
+        events = []
+        with open(evlog) as f:
+            for line in f:
+                try:
+                    events.append(json.loads(line))
+                except ValueError:
+                    pass
+        store_events = [e["event"] for e in events if e.get("subsystem") == "store"]
+        out["store_polish"] = {
+            "seconds": polish_s, "faults": STORE_FAULTS, "fault_seed": 42,
+            "fasta_identical_to_single_process": got_fasta == want_fasta,
+            "sha256": hashlib.sha256(got_fasta).hexdigest(),
+            "retries": store_events.count("store_retry"),
+            "events": {e: store_events.count(e) for e in set(store_events)}}
+        if got_fasta != want_fasta or not out["store_polish"]["retries"]:
+            fail(f"federation: the store polish {out['store_polish']}")
+
+        out["agents_ready_s"] = wait_ready(("h0", "h1"), min(t_agents.values()), "h0 and h1")
+        pids = {tag: worker_pid(tag) for tag in ("h0", "h1")}
+
+        # -- 3: load through the front --------------------------------------
+        stop = threading.Event()
+        handle = load(stop)
+        time.sleep(FED_LOAD_S)
+        stop.set()
+        out["load"] = finish(handle, "load")
+        if set(out["load"]["by_host"]) != {"h0", "h1"}:
+            fail(f"federation: X-Roko-Host named {out['load']['by_host']}, not both hosts")
+
+        # -- 4: a partition pulse, then h1's group SIGKILLed under load ------
+        stop = threading.Event()
+        handle = load(stop)
+        time.sleep(1.0)
+        # the pulse lasts until it has cut at least one relay (5 s at most)
+        front_transport.partition("front", "h1")
+        t_cut = time.perf_counter()
+        while not front_transport.injected["partition"] and time.perf_counter() - t_cut < 5.0:
+            time.sleep(0.05)
+        time.sleep(0.5)
+        front_transport.heal("front", "h1")
+        pulse_s = time.perf_counter() - t_cut
+        time.sleep(1.0)
+        # nvidia-smi may list every process as pid 1 (another pid
+        # namespace): h1's worker is gone from it when one context fewer
+        # stays on the card
+        apps_before = nvidia_apps()
+        os.killpg(agents["h1"][0].pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        degraded_s = None
+        while degraded_s is None:
+            status, health, _ = http_json(fed_base, "/healthz", timeout=10)
+            if isinstance(health, dict) and health.get("status") == "degraded":
+                degraded_s = time.perf_counter() - t_kill
+            elif time.perf_counter() - t_kill > FLEET_TIMEOUT_S:
+                fail(f"federation: /healthz not degraded after h1's SIGKILL: {health}")
+            else:
+                time.sleep(0.05)
+        time.sleep(max(0.0, FED_KILL_LOAD_S - (time.perf_counter() - t_kill)))
+        stop.set()
+        out["failover"] = finish(handle, "the partition pulse and h1's SIGKILL")
+        out["failover"].update(degraded_s=degraded_s, health_after_kill=health,
+                               partition_s=pulse_s,
+                               partition_injected=front_transport.injected["partition"])
+        if not front_transport.injected["partition"]:
+            fail("federation: the front-h1 partition pulse cut no relay")
+        agents["h1"][0].wait(60)
+        t_gone = time.perf_counter()
+        while alive(pids["h1"]) or pids["h1"] in nvidia_apps() or \
+                len(nvidia_apps()) != len(apps_before) - 1:
+            if time.perf_counter() - t_gone > 30:
+                fail(f"federation: h1's worker {pids['h1']} still on the card "
+                     f"({nvidia_apps()}, {apps_before} before) after its group's SIGKILL")
+            time.sleep(0.2)
+        out["failover"].update(killed_worker_pid=pids["h1"],
+                               nvidia_smi_compute_pids_before=apps_before,
+                               nvidia_smi_compute_pids=nvidia_apps(),
+                               worker_gone_s=time.perf_counter() - t_kill)
+
+        # -- 5: h1 rejoins under the same host id ----------------------------
+        old_epoch = front.registry.current_epoch("h1")
+        t_re = spawn_agent("h1", "h1_b")
+        rejoin_s = wait_ready(("h1_b",), t_re, "h1 again")
+        epoch = front.registry.current_epoch("h1")
+        served_by = []
+        while "h1" not in served_by:
+            if len(served_by) >= 20:
+                fail(f"federation: the rejoined h1 was never routed to: {served_by}")
+            host, polished, _ = fed_post(FED_SIZES[0])
+            if polished != want[FED_SIZES[0]]:
+                fail(f"federation: a reply from {host} after the rejoin differs")
+            served_by.append(host)
+        out["rejoin"] = {"seconds": rejoin_s, "epoch_before": old_epoch, "epoch": epoch,
+                         "requests_until_h1": len(served_by)}
+        if epoch != old_epoch + 1:
+            fail(f"federation: h1 rejoined at epoch {epoch}, not {old_epoch + 1}")
+
+        # -- 6: POST /job to h0 over the store -------------------------------
+        h0 = f"http://127.0.0.1:{agent_port('h0')}"
+        before = launch_reports(agents["h0"][3])
+        t_job = time.perf_counter()
+        status, body, _ = http_json(h0, "/job", {
+            "ref": "s3://bkt/draft.fasta", "bam": "s3://bkt/reads.bam",
+            "out": "s3://bkt/job.fasta", "seed": 0}, timeout=30)
+        if status != 202:
+            fail(f"federation: POST /job to h0 answered {status}: {body}\n{agent_log('h0')}")
+        while True:
+            _, snap, _ = http_json(h0, "/jobz", timeout=30)
+            if isinstance(snap, dict) and snap.get("state") in ("done", "failed"):
+                break
+            if time.perf_counter() - t_job > FLEET_TIMEOUT_S:
+                fail(f"federation: the job did not end: {snap}")
+            time.sleep(0.1)
+        job_s = time.perf_counter() - t_job
+        ran = job_launches(before, launch_reports(agents["h0"][3]))
+        with open(os.path.join(bucket, "bkt", "job.fasta"), "rb") as f:
+            job_fasta = f.read()
+        units = list(snap.get("units", {}).values())
+        out["job"] = {
+            "seconds": job_s, "state": snap.get("state"), "units": len(units),
+            "span_units": sum(1 for u in units if not u.get("whole")),
+            "fasta_identical_to_single_process": job_fasta == want_fasta,
+            "served": ran["served"], "launches": {k: v for k, v in ran["launches"].items() if v},
+            "gru_fwd_launches_want": cfg.model.num_layers * ran["served"]["batches"]}
+        if (snap.get("state") != "done" or job_fasta != want_fasta
+                or ran["served"]["windows"] != inputs["windows"]
+                or ran["launches"]["gru_fwd"] != cfg.model.num_layers * ran["served"]["batches"]
+                or set(out["job"]["launches"]) != {"gru_fwd"}):
+            fail(f"federation: the job {out['job']} for {inputs['windows']} windows")
+
+        out["federation"] = front.summary()
+
+        # -- 7: SIGTERM drains both agents ------------------------------------
+        t_term = time.perf_counter()
+        live = ("h0", "h1_b")
+        workers = {tag: worker_pid(tag) for tag in live}
+        for tag in live:
+            agents[tag][0].send_signal(signal.SIGTERM)
+        rcs = {}
+        for tag in live:
+            try:
+                rcs[tag] = agents[tag][0].wait(FLEET_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"federation: agent {tag} did not exit within {FLEET_TIMEOUT_S} s")
+        left = {tag: pid for tag, pid in workers.items() if pid and alive(pid)}
+        groups_left = []
+        for tag in live:
+            try:
+                os.killpg(agents[tag][0].pid, 0)
+                groups_left.append(tag)
+            except ProcessLookupError:
+                pass
+        out["drain"] = {"rc": rcs, "seconds": time.perf_counter() - t_term,
+                        "workers_left": left, "process_groups_left": groups_left}
+        if any(rcs.values()) or left or groups_left:
+            fail(f"federation: the drain {out['drain']}:\n" +
+                 "\n".join(agent_log(tag) for tag in live))
+        out["fed_faults_injected"] = dict(front_transport.injected)
+    finally:
+        if store_polish is not None and store_polish.poll() is None:
+            os.killpg(store_polish.pid, signal.SIGKILL)
+            store_polish.wait()
+        for proc, *_ in agents.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+                try:
+                    proc.wait(60)
+                except subprocess.TimeoutExpired:
+                    pass
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            if proc.poll() is None:
+                proc.wait()
+        front.stop()
+        fed_server.shutdown()
+        fed_server.server_close()
+        stub.shutdown()
+        stub.server_close()
+    # every worker's launch file: the last one each wrote (at its exit, or
+    # at its last answered request for the SIGKILLed one)
+    launches = {"gru_fwd": 0, "gru_fwd_bf16": 0, "lingru_fwd": 0, "lingru_fwd_bf16": 0}
+    reports = {}
+    for tag, (_, _, _, folder, _) in agents.items():
+        for pid, r in launch_reports(folder).items():
+            reports[pid] = r
+            for k, v in r["launches"].items():
+                launches[k] += v
+    total = launches.pop("gru_fwd")
+    if len(reports) != 3 or total < 3 * len(reports) or any(launches.values()):
+        fail(f"federation: the workers' kernel launches {launches} from {len(reports)} file(s)")
+    out["launches"] = {"gru_fwd": total, "job_gru_fwd": ran["launches"]["gru_fwd"],
+                       "workers_reporting": len(reports)}
+    out["seconds"] = time.perf_counter() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def base64_le(a: np.ndarray) -> str:
     """An array as the service's wire format: base64 of its raw
     little-endian bytes."""
@@ -4751,14 +5258,15 @@ def main() -> None:
     fleet_only = sys.argv[1:] == ["--fleet-only"]
     cascade_only = sys.argv[1:] == ["--cascade-only"]
     distpolish_only = sys.argv[1:] == ["--distpolish-only"]
+    federation_only = sys.argv[1:] == ["--federation-only"]
     if sys.argv[1:] and not (plane_only or mesh_only or tp_sp_only or serve_only
                              or coldstart_only or fleet_only or cascade_only
-                             or distpolish_only):
+                             or distpolish_only or federation_only):
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
              "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --bwd-bf16-only ROOT "
              "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only | --mesh-only "
              "| --tp-sp-only | --serve-only | --coldstart-only | --fleet-only | --cascade-only "
-             "| --distpolish-only]")
+             "| --distpolish-only | --federation-only]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import benchmark as bench
@@ -4860,7 +5368,8 @@ def main() -> None:
     built = kernels.build(["gru_fwd", "gru_bwd"] if plane_only or mesh_only
                           else ["gru_fwd", "gru_fwd_bf16", "lingru_fwd"] if serve_only
                           else ["gru_fwd", "lingru_fwd"] if cascade_only
-                          else ["gru_fwd"] if coldstart_only or fleet_only or distpolish_only
+                          else ["gru_fwd"] if (coldstart_only or fleet_only or distpolish_only
+                                               or federation_only)
                           else None)
     emit({"build": {"seconds": time.perf_counter() - t0, "kernels": built}})
     if coldstart_only:  # the coldstart phase alone
@@ -4871,6 +5380,9 @@ def main() -> None:
         return
     if distpolish_only:  # polish --distributed from the command line, its own fleet
         emit({"distpolish": drive_distpolish_cli(torch, port, dev, card)})
+        return
+    if federation_only:  # the federation and the store, on a 100 kb project
+        emit({"federation": drive_federation(torch, port, dev, card)})
         return
     if cascade_only:  # the cascade phase alone, on a 100 kb project
         rng = np.random.default_rng(SEED)
@@ -5100,6 +5612,9 @@ def main() -> None:
     # -- the distributed polish posted to that fleet, before its drain --
     emit({"distpolish": {**distpolish, "mode": "POST /job to the fleet phase's supervisor",
                          "unit_bases": DIST_UNIT_BASES, "card": card}})
+    # -- the multi-host federation and the object-store data plane --------
+    federation = drive_federation(torch, port, dev, card)
+    emit({"federation": federation})
     mesh_fwd = (mesh["nccl_world_1"]["launches"]["gru_fwd"]
                 + sum(r["step"]["gru_fwd"] + r["train"]["gru_fwd"] + r["infer"]["gru_fwd"]
                       for r in mesh["gloo_2_ranks"]["launches_by_rank"])
@@ -5144,7 +5659,8 @@ def main() -> None:
                               "coldstart": coldstart["launches"]["gru_fwd"],
                               "fleet": fleet["launches"]["gru_fwd"],
                               "distpolish": distpolish["launches"]["gru_fwd"],
-                              "cascade": cascade["launches"]["gru_fwd"]},
+                              "cascade": cascade["launches"]["gru_fwd"],
+                              "federation": federation["launches"]["gru_fwd"]},
                    at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",

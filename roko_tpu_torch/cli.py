@@ -70,9 +70,15 @@ a cheap tier first, only uncertain windows reach the model. ``polish
 a forked fleet of ``--workers`` serve processes in units of whole contigs
 or ``--unit-bases`` spans, ``--unit-attempts`` each, resumable with
 ``--resume``; ``polish`` takes ``--event-log``. Writing and reading the
-HDF5 needs ``h5py``. Not ported yet, each a usage error that names its
-queue item: remote paths (A10.3), and of ``serve`` the federation flags
-(A9.5b), the store flags (A10.3) and a mesh over several ranks (A9.1).
+HDF5 needs ``h5py``. ``features``, ``train``, ``inference``, ``polish`` and
+``serve`` read and write ``gs://``, ``s3://`` and ``http(s)://`` paths
+through the object-store client (``datapipe/store.py``), configured by
+``--store-cache``, ``--store-endpoint``, the config's ``store`` section and
+``ROKO_STORE_*``. ``serve --federation`` runs the multi-host federation's
+front (no model), and ``serve MODEL --host-agent --join HOST:PORT
+[--host-id ID] [--lease-ttl S]`` a host agent of it
+(``serve/federation.py``). Not ported yet: ``serve`` over several ranks
+(``--dp``/``--tp``/``--sp``), a usage error naming queue item A9.1.
 """
 
 from __future__ import annotations
@@ -133,7 +139,8 @@ def _build_config(args: argparse.Namespace) -> RokoConfig:
                  heartbeat_interval_s="heartbeat_interval", registry_dir="registry",
                  bake_s="bake_s", rollback_error_pct="rollback_error_pct",
                  rollback_p99_x="rollback_p99_x", min_workers="min_workers",
-                 max_workers="max_workers")
+                 max_workers="max_workers", join="join", host_id="host_id",
+                 lease_ttl_s="lease_ttl")
     ab = getattr(args, "ab_lane", None)
     if ab is not None:
         fleet = dataclasses.replace(fleet, ab_version=ab[0], ab_fraction=ab[1])
@@ -176,7 +183,17 @@ def _build_config(args: argparse.Namespace) -> RokoConfig:
         distpolish=over(base.distpolish, unit_bases="unit_bases",
                         unit_attempts="unit_attempts"),
         cascade=cascade,
+        store=over(base.store, cache_dir="store_cache", endpoint="store_endpoint"),
     )
+
+
+def _configure_store(cfg: RokoConfig) -> None:
+    """Install the object-store client with this run's config, so that
+    ``gs://``, ``s3://`` and ``http(s)://`` arguments resolve through it
+    (``ROKO_STORE_FAULTS`` still applies on top)."""
+    from roko_tpu_torch.datapipe.store import configure_store
+
+    configure_store(cfg.store)
 
 
 def _model_config(args: argparse.Namespace) -> ModelConfig:
@@ -215,6 +232,7 @@ def _run_features(args: argparse.Namespace, out: str, cfg: FeaturesConfig,
 
 
 def cmd_features(args: argparse.Namespace) -> int:
+    _configure_store(args.cfg)
     n = _run_features(args, args.o, _features_config(args.cfg), bam_y=args.Y)
     print(f"wrote {n} windows to {args.o}")
     return 0
@@ -241,6 +259,7 @@ def cmd_train(args: argparse.Namespace) -> int:
 
     device = resolve_device(args.device)
     cfg = args.cfg
+    _configure_store(cfg)
     _configure_event_log(cfg.guard.event_log, cfg.guard.event_log_max_mb)
     train(args.train, args.out, args.val, model_cfg=cfg.model, train_cfg=cfg.train,
           guard_cfg=cfg.guard, data_cfg=cfg.data, mesh_cfg=cfg.mesh, device=device,
@@ -296,6 +315,7 @@ def cmd_polish(args: argparse.Namespace) -> int:
     from roko_tpu_torch.parallel import distributed
 
     cfg = args.cfg
+    _configure_store(cfg)
     several = distributed.world_size() > 1
     _configure_event_log(cfg.serve.event_log, cfg.serve.event_log_max_mb,
                          worker_id=distributed.rank() if several else None)
@@ -366,6 +386,7 @@ def cmd_inference(args: argparse.Namespace) -> int:
     from roko_tpu_torch.infer import polish_to_fasta, resolve_device
 
     device = resolve_device(args.device)
+    _configure_store(args.cfg)
     model = _model_on_mesh(args.cfg, args.model)
     polish_to_fasta(args.data, model, args.out, device=device,
                     batch_size=args.cfg.train.batch_size, trace_dir=args.trace_dir, cfg=args.cfg)
@@ -423,16 +444,6 @@ def cmd_bench(args: argparse.Namespace) -> int:
         if value is not None:
             argv += [flag, str(value)]
     return bench_main(argv)
-
-
-#: flags of the reference's ``serve`` the port does not run: attribute ->
-#: (flag, ROADMAP queue item)
-UNPORTED_SERVE_FLAGS = {
-    "federation": ("--federation", "A9.5b"), "host_agent": ("--host-agent", "A9.5b"),
-    "join": ("--join", "A9.5b"), "host_id": ("--host-id", "A9.5b"),
-    "lease_ttl": ("--lease-ttl", "A9.5b"),
-    "store_cache": ("--store-cache", "A10.3"), "store_endpoint": ("--store-endpoint", "A10.3"),
-}
 
 
 def _workers_type(text: str):
@@ -556,15 +567,33 @@ def cmd_serve(args: argparse.Namespace) -> int:
     it. A failed warmup (a kernel bundle that does not match included)
     stops the server and exits non-zero. With ``--workers N`` (and no
     ``--worker-id``) this process is the fleet's supervisor instead
-    (``serve/supervisor.py``, ``roko_tpu/cli.py:1006-1035``)."""
+    (``serve/supervisor.py``, ``roko_tpu/cli.py:1006-1035``); with
+    ``--federation`` the federation's front, which loads no model, and with
+    ``--join`` (or ``--host-agent``) a supervisor that is a host agent of
+    that front (``serve/federation.py``, ``roko_tpu/cli.py:992-1026``)."""
     import os
     import sys
     import threading
     import time
 
     cfg = args.cfg
+    _configure_store(cfg)
     _configure_event_log(cfg.serve.event_log, cfg.serve.event_log_max_mb,
                          worker_id=args.worker_id)
+    if args.federation and args.worker_id is None:
+        # the lease/epoch registry and cross-host router: no model, no card
+        from roko_tpu_torch.serve.federation import run_federation_front
+
+        return run_federation_front(cfg, announce=args.announce)
+    if (args.host_agent or cfg.fleet.join) and args.worker_id is None:
+        # a full supervisor that joins the federation front as a host
+        from roko_tpu_torch.serve.federation import run_host_agent
+
+        try:
+            return run_host_agent(args.model, cfg, announce=args.announce, device=args.device)
+        except ValueError as e:
+            print(f"serve: {e}", file=sys.stderr)
+            return 1
     if cfg.fleet.workers != 0 and args.worker_id is None:
         # the fleet's supervisor: it only routes, so it loads no model and
         # never initialises CUDA; --workers auto and an oversubscribing
@@ -903,6 +932,19 @@ def build_parser() -> argparse.ArgumentParser:
                        help="shared on-disk window cache (identity pinned by its meta.json; "
                        "a distributed polish's workers share one)")
 
+    def store(p: argparse.ArgumentParser) -> None:
+        """The object-store client's flags (``datapipe/store.py``,
+        ``roko_tpu/cli.py:233-250``); retries, the hedge and the breaker
+        are the config's ``store`` section and ``ROKO_STORE_*``."""
+        p.add_argument("--store-cache", default=None, metavar="DIR",
+                       help="on-disk checksummed block cache of gs:// / s3:// / http(s):// "
+                       "reads (sha256-verified entries, identity-pinned, bounded; default: "
+                       "none); processes of one host may share it")
+        p.add_argument("--store-endpoint", default=None, metavar="URL",
+                       help="HTTP(S) gateway prefix that gs://bucket/key and s3://bucket/key "
+                       "resolve against (e.g. http://127.0.0.1:9000); without it those "
+                       "schemes refuse loudly")
+
     def extraction(p: argparse.ArgumentParser) -> None:
         p.add_argument("--t", type=int, default=1, help="feature workers")
         p.add_argument("--seed", type=int, default=0, help="row-sampling RNG seed")
@@ -944,6 +986,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--Y", default=None, help="truth-to-draft BAM or SAM (training mode)")
     extraction(p)
     config(p)
+    store(p)
     p.set_defaults(fn=cmd_features)
 
     p = sub.add_parser("train", help="training HDF5 -> checkpoints")
@@ -1004,6 +1047,7 @@ def build_parser() -> argparse.ArgumentParser:
     mesh(p)
     config(p, "the first trained epoch")
     event_log(p)
+    store(p)
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("inference", help="features HDF5 + model -> polished FASTA")
@@ -1017,6 +1061,7 @@ def build_parser() -> argparse.ArgumentParser:
     config(p, "the inference loop")
     compile_flags(p)
     cascade(p)
+    store(p)
     p.set_defaults(fn=cmd_inference)
 
     p = sub.add_parser(
@@ -1071,6 +1116,7 @@ def build_parser() -> argparse.ArgumentParser:
     compile_flags(p)
     cascade(p)
     event_log(p)
+    store(p)
     p.set_defaults(fn=cmd_polish)
 
     p = sub.add_parser("assess", help="polished FASTA vs truth FASTA -> error rates + Qscore")
@@ -1117,8 +1163,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser(
         "serve", help="persistent polishing service: warm model + batched HTTP /polish "
         "(+ /healthz, /metrics, /tracez, /profilez)")
-    p.add_argument("model", help="checkpoint directory of `train`, or a reference-layout "
-                   "torch .pth state_dict")
+    p.add_argument("model", nargs="?", default=None,
+                   help="checkpoint directory of `train`, or a reference-layout torch .pth "
+                   "state_dict (required except under --federation, which loads no model)")
     p.add_argument("--host", default=None, help="bind address (default 127.0.0.1)")
     p.add_argument("--port", type=int, default=None,
                    help="bind port (default 8000; 0 = ephemeral, see --announce)")
@@ -1198,17 +1245,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--worker-id", type=int, default=None, help=argparse.SUPPRESS)
     compile_flags(p)
     cascade(p)
-    for attr, (flag, item) in UNPORTED_SERVE_FLAGS.items():
-        text = f"not ported yet (queue item {item})"
-        if attr in ("federation", "host_agent"):
-            p.add_argument(flag, dest=attr, action="store_true", default=None, help=text)
-        else:
-            p.add_argument(flag, dest=attr, default=None, help=text)
+    p.add_argument("--federation", action="store_true",
+                   help="run the multi-host federation's FRONT END instead of a fleet: a "
+                   "lease/epoch registry of the host agents that --join it and a "
+                   "partition-tolerant router over them (loads no model)")
+    p.add_argument("--host-agent", action="store_true",
+                   help="run this fleet as a federation HOST AGENT: a full supervisor that "
+                   "also registers with the front named by --join and keeps its lease alive "
+                   "(implied by --join)")
+    p.add_argument("--join", default=None, metavar="HOST:PORT",
+                   help="the federation front a host agent registers with; the registration "
+                   "is a TTL lease, and registering again bumps this host's fencing epoch")
+    p.add_argument("--host-id", default=None,
+                   help="stable host identity at the federation registry (default "
+                   "host-<pid>; set it so that a restarted agent bumps the SAME host's epoch)")
+    p.add_argument("--lease-ttl", type=float, default=None,
+                   help="federation lease TTL seconds (default 10; the agent renews every "
+                   "ttl/3, and expiry takes the host out of rotation)")
     common(p)
     mesh(p)
     geometry(p)
     config(p)
     event_log(p)
+    store(p)
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser(
@@ -1270,10 +1329,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         if msg:
             parser.error(msg)
     if args.command == "serve":
-        for attr, (flag, item) in UNPORTED_SERVE_FLAGS.items():
-            if getattr(args, attr) is not None:
-                parser.error(f"serve {flag} is not ported yet (queue item {item} of "
-                             "ROADMAP.md)")
         for axis in ("dp", "tp", "sp"):
             if getattr(args, axis) not in (None, 1):
                 parser.error(f"serve --{axis} {getattr(args, axis)}: a session over several "
@@ -1295,6 +1350,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                 check_trainable(args.cfg.model)
         except ValueError as e:
             parser.error(str(e))
+    if args.command == "serve" and args.worker_id is None:
+        # the reference's usage errors of serve (roko_tpu/cli.py:999-1025)
+        if args.model is None and not args.federation:
+            parser.error("serve: MODEL is required (only --federation runs model-less)")
+        if not args.federation and (args.host_agent or args.cfg.fleet.join):
+            if not args.cfg.fleet.join:
+                parser.error("serve: --host-agent needs the front end as --join HOST:PORT")
+            if args.cfg.fleet.workers == 0:
+                parser.error("serve: a host agent supervises workers — pass --workers N "
+                             "(N >= 1 or -1 for auto)")
     if hasattr(args, "dp") and args.command != "serve":  # the subcommands on the mesh
         _check_mesh(parser, args)
     return args.fn(args)

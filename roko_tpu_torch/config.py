@@ -469,8 +469,9 @@ class FleetConfig:
     to a slice of the cards by ``CUDA_VISIBLE_DEVICES`` (or sharing them
     with ``devices_per_worker=0``), and routes around crashed, hung and
     breaker-tripped workers; rollouts, the A/B lane and the autoscaler ride
-    on it. The federation's fields (``join``, ``host_id``, ``lease_ttl_s``,
-    ``fed_breaker_*``) are queue item A9.5b (:data:`_NOT_PORTED`)."""
+    on it. ``join``, ``host_id``, ``lease_ttl_s`` and ``fed_breaker_*`` are
+    the multi-host federation's (``serve/federation.py``): a supervisor
+    with ``join`` set is a host agent of the front end at ``HOST:PORT``."""
 
     #: worker processes; 0 = the single-process service; -1 = auto (one
     #: per ``devices_per_worker`` visible cards)
@@ -509,6 +510,21 @@ class FleetConfig:
     autoscale_ema_beta: float = 0.5
     ab_version: Optional[str] = None
     ab_fraction: float = 0.0
+    #: this host's stable identity at the federation front's registry;
+    #: None = ``host-<agent pid>`` (set it, so that an agent restarted
+    #: after a crash bumps the SAME host's epoch)
+    host_id: Optional[str] = None
+    #: the federation front to join as ``HOST:PORT`` (``--join``); set, it
+    #: turns ``serve`` into a host agent
+    join: Optional[str] = None
+    #: registration lease TTL in seconds: the agent renews every ttl/3; an
+    #: expired lease leaves rotation until the agent registers again, which
+    #: bumps the epoch and fences the old one
+    lease_ttl_s: float = 10.0
+    #: the front's breaker per host: consecutive connection failures that
+    #: open it, and seconds until a half-open probe
+    fed_breaker_failures: int = 3
+    fed_breaker_reset_s: float = 10.0
 
     def __post_init__(self) -> None:
         if self.min_workers < 0 or self.max_workers < 0:
@@ -535,6 +551,11 @@ class FleetConfig:
             raise ValueError(
                 f"autoscale_ema_beta must lie in [0, 1); got {self.autoscale_ema_beta}"
             )
+        if self.lease_ttl_s <= 0:
+            raise ValueError(f"lease_ttl_s must be > 0; got {self.lease_ttl_s}")
+        if self.fed_breaker_failures < 1:
+            raise ValueError(
+                f"fed_breaker_failures must be >= 1; got {self.fed_breaker_failures}")
 
 
 @dataclass(frozen=True)
@@ -616,6 +637,48 @@ class CascadeConfig:
                 "cascade.tier='model' needs cascade.tier_version (a model-registry name)")
 
 
+@dataclass(frozen=True)
+class StoreConfig:
+    """The object-store data plane (``datapipe/store.py``;
+    ``roko_tpu/config.py:881-932``): ranged reads through a checksummed
+    block cache, retries, a hedged read and a breaker around every
+    request, read-verify-commit uploads. ``gs://`` and ``s3://`` URLs
+    resolve through ``endpoint`` (or ``ROKO_STORE_ENDPOINT``); faults are
+    injected from the environment only (``ROKO_STORE_FAULTS``)."""
+
+    #: on-disk block and object cache (``--store-cache``); None = none
+    cache_dir: Optional[str] = None
+    #: the block cache's eviction cap in bytes (least recently used past it)
+    cache_bytes: int = 256 * 2**20
+    #: ranged-read granularity: the unit cached and checksummed
+    block_bytes: int = 4 * 2**20
+    #: socket timeout of one request
+    timeout_s: float = 30.0
+    #: attempts a request (1 = no retries)
+    max_attempts: int = 4
+    #: seconds before a straggling read gets a hedged second request; 0 = off
+    hedge_s: float = 0.0
+    #: consecutive failures of an endpoint that trip its breaker
+    breaker_failures: int = 5
+    #: seconds an open breaker waits before a half-open probe
+    breaker_reset_s: float = 30.0
+    #: HTTP(S) gateway prefix of ``gs://`` and ``s3://`` URLs
+    endpoint: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        if self.cache_bytes < 0:
+            raise ValueError(f"store.cache_bytes must be >= 0, got {self.cache_bytes}")
+        if self.block_bytes < 1:
+            raise ValueError(f"store.block_bytes must be >= 1, got {self.block_bytes}")
+        if self.max_attempts < 1:
+            raise ValueError(f"store.max_attempts must be >= 1, got {self.max_attempts}")
+        if self.hedge_s < 0:
+            raise ValueError(f"store.hedge_s must be >= 0, got {self.hedge_s}")
+        if self.breaker_failures < 1:
+            raise ValueError(
+                f"store.breaker_failures must be >= 1, got {self.breaker_failures}")
+
+
 #: the fields of ``roko_tpu.config.RokoConfig`` the port does not run,
 #: by section: field -> (the reference's default, the ROADMAP queue item
 #: that ports it, or why it is not ported). A file that sets one to another
@@ -631,13 +694,6 @@ _NOT_PORTED: Dict[str, Dict[str, Tuple[Any, str]]] = {
         "min_compile_time_s": (0.0, "no nvcc counterpart: it skips caching fast XLA compiles, "
                                "and every nvcc build is cached"),
     },
-    "store": {k: (v, "A10.3") for k, v in (
-        ("cache_dir", None), ("cache_bytes", 256 * 2**20), ("block_bytes", 4 * 2**20),
-        ("timeout_s", 30.0), ("max_attempts", 4), ("hedge_s", 0.0), ("breaker_failures", 5),
-        ("breaker_reset_s", 30.0), ("endpoint", None))},
-    "fleet": {k: (v, "A9.5b") for k, v in (
-        ("join", None), ("host_id", None), ("lease_ttl_s", 10.0),
-        ("fed_breaker_failures", 3), ("fed_breaker_reset_s", 10.0))},
 }
 
 #: fields that load whatever they hold: ``use_pallas`` asks the reference
@@ -651,8 +707,8 @@ class RokoConfig(FeaturesConfig):
     """The sections of ``roko_tpu.config.RokoConfig`` the streaming polish
     reads: the feature sections (it is a ``FeaturesConfig``), the model,
     the batching plane, the pipeline, the failure handling, the kernel
-    build cache and bundles, the serving fleet, the distributed polish
-    and the cascade. The model's ``window_rows``/``window_cols`` must match ``window``."""
+    build cache and bundles, the serving fleet and its federation, the
+    distributed polish, the cascade and the object store. The model's ``window_rows``/``window_cols`` must match ``window``."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
@@ -666,6 +722,7 @@ class RokoConfig(FeaturesConfig):
     fleet: FleetConfig = field(default_factory=FleetConfig)
     distpolish: DistPolishConfig = field(default_factory=DistPolishConfig)
     cascade: CascadeConfig = field(default_factory=CascadeConfig)
+    store: StoreConfig = field(default_factory=StoreConfig)
 
     def to_json(self) -> str:
         """The reference's layout (``roko_tpu/config.py:935-983``): one

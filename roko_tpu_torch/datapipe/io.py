@@ -1,6 +1,5 @@
 """The input and output seams behind the data plane's reads and writes:
-the port's copy of ``roko_tpu/datapipe/io.py`` (:29-210) without its
-object-store half.
+the port's copy of ``roko_tpu/datapipe/io.py``.
 
 - :func:`open_input` resolves a path to a binary file-like object: plain
   paths and ``file://`` URLs open locally; another scheme resolves through
@@ -10,13 +9,14 @@ object-store half.
   ``abort()`` discards what it spooled);
 - :func:`open_h5` opens one corpus HDF5 through the seam (``h5py`` is
   imported inside it);
-- :func:`ensure_local` gives a real file name of a local path (the
-  distributed polish's workers read their unit's inputs through it).
+- :func:`ensure_local` gives a real file name for a path: a local one
+  passes through, a store URL downloads (cached, atomic) through the store
+  client (the native BAM reader and the distributed polish's workers read
+  through it).
 
-``gs://``, ``s3://`` and ``http(s)://`` are the reference's object-store
-schemes, served there by ``datapipe/store.py``. The port has no store
-client yet (ROADMAP queue item A10.3), so those schemes are refused
-unless a caller registered its own handler for them.
+``gs://``, ``s3://`` and ``http(s)://`` install the hardened object-store
+client (``datapipe/store.py``) on first use when no handler is registered
+for them; any other scheme refuses loudly, naming the registered ones.
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ Opener = Callable[[str, str], BinaryIO]
 _OPENERS: Dict[str, Opener] = {}
 _WRITERS: Dict[str, Opener] = {}
 
-#: the schemes ``roko_tpu``'s store client serves and the port does not yet
+#: the schemes the object-store client (``datapipe/store.py``) serves; an
+#: unregistered one installs the default client on first use
 STORE_SCHEMES = ("gs", "s3", "http", "https")
 
 
@@ -87,15 +88,19 @@ def registered_schemes() -> Dict[str, tuple]:
     return {"input": tuple(sorted(_OPENERS)), "output": tuple(sorted(_WRITERS))}
 
 
+def _autoinstall(scheme: str) -> bool:
+    """Install the default store client for its schemes on first use, so
+    a ``gs://`` or ``http://`` path works with no set-up."""
+    if scheme not in STORE_SCHEMES:
+        return False
+    from roko_tpu_torch.datapipe import store
+
+    store.install()
+    return True
+
+
 def _refuse(kind: str, registry: Dict[str, Opener], scheme: str, path: str,
             register_fn: str) -> ValueError:
-    if scheme in STORE_SCHEMES:
-        return ValueError(
-            f"{path!r}: the {scheme}:// object-store client is not ported yet "
-            "(queue item A10.3 of ROADMAP.md); register a handler with "
-            f"roko_tpu_torch.datapipe.io.{register_fn}({scheme!r}, fn) or use a "
-            "local path"
-        )
     have = ", ".join(sorted(registry)) or "<none>"
     return ValueError(
         f"no {kind} registered for scheme {scheme!r} ({path!r}); currently "
@@ -114,6 +119,8 @@ def open_input(path: str, mode: str = "rb", *, opener: Optional[Opener] = None) 
     if scheme in ("", "file"):
         return local_open(path, mode)
     handler = _OPENERS.get(scheme)
+    if handler is None and _autoinstall(scheme):
+        handler = _OPENERS.get(scheme)
     if handler is None:
         raise _refuse("input opener", _OPENERS, scheme, path, "register_opener")
     return handler(path, mode)
@@ -129,6 +136,8 @@ def open_output(path: str, mode: str = "wb", *, writer: Optional[Opener] = None)
     if scheme in ("", "file"):
         return open(strip_file_scheme(path), mode)
     handler = _WRITERS.get(scheme)
+    if handler is None and _autoinstall(scheme):
+        handler = _WRITERS.get(scheme)
     if handler is None:
         raise _refuse("output writer", _WRITERS, scheme, path, "register_writer")
     return handler(path, mode)
@@ -147,12 +156,17 @@ def abort_output(fh) -> None:
 def ensure_local(path: str) -> str:
     """A local file-system path for ``path``, for readers that need a real
     file name (the native BAM reader): a plain or ``file://`` path passes
-    through; a store URL is refused, naming queue item A10.3 (the JAX
-    package downloads it into a cache here)."""
+    through; a store URL downloads (cached, atomic, identity-checked)
+    through ``ObjectStore.localize``, a BAM with its ``.bai``."""
     scheme = path_scheme(path)
     if scheme in ("", "file"):
         return strip_file_scheme(path)
-    raise _refuse("local copy", {}, scheme, path, "register_opener")
+    from roko_tpu_torch.datapipe import store
+
+    s = store.install()
+    if path.endswith(".bam"):
+        return s.localize_bam(path)
+    return s.localize(path)
 
 
 def open_h5(path: str, *, opener: Optional[Opener] = None):

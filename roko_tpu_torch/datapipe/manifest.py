@@ -383,12 +383,15 @@ def default_manifest_path(spec: Union[str, Sequence[str]]) -> Optional[str]:
 
 
 def _manifest_exists(mpath: str) -> bool:
+    """``os.path.exists`` through the seam: a remote sidecar exists when it
+    opens (any store failure, a missing object or an endpoint that is
+    down, reads as "no sidecar"; the build path then decides loudly)."""
     if not _is_remote(mpath):
         return os.path.exists(mpath)
     try:
         open_input(mpath).close()
         return True
-    except (OSError, ValueError):
+    except (OSError, RuntimeError, ValueError):
         return False
 
 

@@ -276,19 +276,13 @@ def run_features(
     return total
 
 
-#: URL schemes of remote stores, which the port does not read yet
-REMOTE_SCHEMES = ("gs://", "s3://", "http://", "https://")
-
-
 def _ensure_bam(path: str, stack) -> str:
     """Pass BAMs through; convert SAM text to a temp sorted BAM+BAI.
-    Local paths only (``file://`` is stripped)."""
-    if path.startswith(REMOTE_SCHEMES):
-        raise ValueError(
-            f"{path}: remote stores (gs://, s3://, http(s)://) are not ported "
-            "yet; copy the file to a local path")
-    if path.startswith("file://"):
-        path = path[len("file://"):]
+    A store URL is downloaded first (cached, atomic, its ``.bai`` with
+    it): the native reader needs a real file name."""
+    from roko_tpu_torch.datapipe.io import ensure_local
+
+    path = ensure_local(path)
     with open(path, "rb") as fh:
         magic = fh.read(2)
     if magic == b"\x1f\x8b":  # BGZF (BAM) — use as-is

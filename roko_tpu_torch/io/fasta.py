@@ -1,19 +1,32 @@
-"""FASTA reader and writer for local paths, in the layout of
-``roko_tpu/io/fasta.py``: ``>name`` then the sequence in 80-column lines."""
+"""FASTA reader and writer in the layout of ``roko_tpu/io/fasta.py``:
+``>name`` then the sequence in 80-column lines. Local paths read and write
+directly; a store URL (``gs://``, ``s3://``, ``http(s)://``) reads through
+the ranged, cached ``open_input`` seam and writes through ``open_output``'s
+upload-on-close handle (``datapipe/io.py``)."""
 
 from __future__ import annotations
 
 import gzip
+import io
 from typing import Iterator, List, Sequence, Tuple
+
+
+def _open_text(path: str):
+    from roko_tpu_torch.datapipe.io import open_input, path_scheme, strip_file_scheme
+
+    if path_scheme(path) in ("", "file"):
+        local = strip_file_scheme(path)
+        return gzip.open(local, "rt") if local.endswith(".gz") else open(local, "r")
+    fh = open_input(path)
+    return gzip.open(fh, "rt") if path.endswith(".gz") else io.TextIOWrapper(fh)
 
 
 def iter_fasta(path: str) -> Iterator[Tuple[str, str]]:
     """Yield ``(name, sequence)`` per record; the name is the first
     whitespace-delimited token of the header line."""
-    opener = gzip.open if path.endswith(".gz") else open
     name = None
     chunks: List[str] = []
-    with opener(path, "rt") as fh:
+    with _open_text(path) as fh:
         for line in fh:
             line = line.strip()
             if not line:
@@ -48,6 +61,17 @@ def write_fasta_record(fh, name: str, seq: str, line_width: int = 80) -> None:
 def write_fasta(
     path: str, records: Sequence[Tuple[str, str]], line_width: int = 80
 ) -> None:
-    with open(path, "w") as fh:
+    """Write ``records``. Should the records' producer fail, a remote
+    handle aborts (nothing is uploaded) and a local file is left as far as
+    it got."""
+    from roko_tpu_torch.datapipe.io import abort_output, open_output
+
+    fh = open_output(path, "w")
+    try:
         for name, seq in records:
             write_fasta_record(fh, name, seq, line_width)
+    except BaseException:
+        abort_output(fh)
+        raise
+    else:
+        fh.close()

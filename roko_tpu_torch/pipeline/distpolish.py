@@ -45,9 +45,11 @@ refused instead of splicing two models' contigs into one FASTA.
 
 The coordinator never touches the card: only its workers load the model.
 This module imports no torch; the stitch (``infer.VoteBoard``) and the
-FASTA writer are imported where a job uses them. Remote store paths
-(``gs://``, ``s3://``, ``http(s)://``) are refused, naming queue item
-A10.3 of ROADMAP.md.
+FASTA writer are imported where a job uses them. Store URLs (``gs://``,
+``s3://``, ``http(s)://``) work for the draft, the BAM and the output: a
+store BAM ships to the workers as its URL and each worker downloads it
+through the store client's cache, and the final FASTA uploads through
+``open_output`` when the job ends whole.
 """
 
 from __future__ import annotations
@@ -235,7 +237,8 @@ def extract_unit_windows(
     from roko_tpu_torch.utils.rng import derive_region_seed
 
     # the native BAM reader and the per-process ref cache below want a
-    # real file name (a store URL is refused: queue item A10.3)
+    # real file name: store URLs download ONCE per worker process (cached,
+    # atomic), so every unit of that worker reads local bytes
     ref_path = ensure_local(ref_path)
     bam = ensure_local(bam)
     seq = _cached_refs(ref_path).get(contig)
@@ -910,24 +913,32 @@ def _run_job_core(
     supervisor's ``POST /job`` thread."""
     import contextlib
 
-    from roko_tpu_torch.datapipe.io import STORE_SCHEMES, path_scheme
+    from roko_tpu_torch.datapipe.io import open_input, path_scheme
     from roko_tpu_torch.features.pipeline import _ensure_bam
     from roko_tpu_torch.pipeline.stream import _OrderedFastaWriter
 
-    for label, path in (("ref", ref), ("bam", bam), ("out", out)):
-        if path_scheme(path) in STORE_SCHEMES:
-            raise ValueError(
-                f"distributed polish: {label} {path!r} is a remote store path, which is "
-                "not ported yet (queue item A10.3 of ROADMAP.md); use a local path")
     refs = read_fasta(ref)
     journal: Optional[PolishJournal] = None
     stack = contextlib.ExitStack()
     try:
-        # SAM text converts ONCE to a temporary sorted BAM, as every other
-        # polish path does (features/pipeline.py): workers on the shared
-        # file system read the converted file; shipping the raw .sam
-        # would fail on the workers and look like a poison contig
-        bam_ship = _ensure_bam(bam, stack)
+        if path_scheme(bam) not in ("", "file"):
+            # a store BAM ships as its URL: each worker downloads it
+            # (cached), so the bytes every unit reads come from the store,
+            # not relayed by the coordinator. It must be BGZF already: a
+            # remote SAM's conversion would land where no worker can reach
+            with open_input(bam) as fh:
+                magic = fh.read(2)
+            if magic != b"\x1f\x8b":
+                raise ValueError(
+                    f"distributed polish needs sorted BAM input; {bam!r} is not BGZF. "
+                    "Convert the SAM locally and upload the .bam (+ .bai) first.")
+            bam_ship = bam
+        else:
+            # SAM text converts ONCE to a temporary sorted BAM, as every
+            # other polish path does (features/pipeline.py): workers on the
+            # shared file system read the converted file; shipping the raw
+            # .sam would fail on the workers and look like a poison contig
+            bam_ship = _ensure_bam(bam, stack)
         if bam_ship != bam and cfg.serve.data_root is not None:
             # the conversion lands outside the data root, which every
             # worker's path check would refuse with 400
@@ -1037,10 +1048,15 @@ def run_distributed_polish(
     if cfg.cascade.enabled and not cfg.cascade.cache_dir:
         # one on-disk window cache beside the output, shared by every
         # worker: each pins the identical cache identity (same weights and
-        # config), so a job pays for each distinct window once
+        # config), so a job pays for each distinct window once. A store
+        # output's cache needs a real file system: the journal's scratch
+        # directory keyed by the output URL
+        from roko_tpu_torch.resilience.journal import _journal_dir
+
+        base = _journal_dir(out)[: -len(".resume")]
         cfg = dataclasses.replace(
-            cfg, cascade=dataclasses.replace(cfg.cascade, cache_dir=out + ".cascade_cache"))
-        log(f"distpolish: shared cascade cache at {out}.cascade_cache")
+            cfg, cascade=dataclasses.replace(cfg.cascade, cache_dir=base + ".cascade_cache"))
+        log(f"distpolish: shared cascade cache at {base}.cascade_cache")
 
     model_identity = {
         "version": BOOT_VERSION,
@@ -1103,11 +1119,12 @@ def make_job_starter(
         if path_scheme(out) in STORE_SCHEMES:
             if data_root is not None:
                 return 400, {"error": "field 'out' must lie under the configured data root"}
-            return 400, {"error": "field 'out': remote paths are not ported yet (queue item "
-                                  "A10.3 of ROADMAP.md)"}
-        if data_root is not None and not path_under_root(out, data_root):
+            # a store URL passes as it is (realpath would mangle the
+            # scheme); the writer uploads it when the job ends whole
+        elif data_root is not None and not path_under_root(out, data_root):
             return 400, {"error": "field 'out' must lie under the configured data root"}
-        out = os.path.realpath(out)
+        else:
+            out = os.path.realpath(out)
         try:
             seed = int(payload.get("seed", 0))
         except (TypeError, ValueError):

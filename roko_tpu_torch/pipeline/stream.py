@@ -96,15 +96,19 @@ class _OrderedFastaWriter:
     the order the staged path's HDF5 iteration gives, so the streamed file
     is byte-identical to ``polish_to_fasta``'s): a contig is written the
     moment it and every contig ahead of it in the order are done, and
-    held in RAM only until then. Local paths only."""
+    held in RAM only until then. A local path is written as it goes; a
+    store URL gets an upload-on-close handle, so the object appears whole
+    once the run succeeds (``datapipe/io.open_output``)."""
 
     def __init__(self, path: str, order: List[str], line_width: int = 80):
+        from roko_tpu_torch.datapipe.io import open_output
+
         self.path = path
         self._order = list(order)
         self._line_width = line_width
         self._next = 0
         self._ready: Dict[str, str] = {}
-        self._fh = open(path, "w")
+        self._fh = open_output(path, "w")
 
     def add(self, name: str, seq: str) -> None:
         self._ready[name] = seq
@@ -123,13 +127,21 @@ class _OrderedFastaWriter:
         return self
 
     def __exit__(self, exc_type, *exc) -> None:
-        self._fh.close()
         if exc_type is not None:
             # a failed run must not leave a valid-looking but truncated
             # FASTA behind: the staged path writes the file only after
-            # full success, and resume-style pipelines gate on existence
-            with contextlib.suppress(OSError):
-                os.unlink(self.path)
+            # full success, and resume-style pipelines gate on existence.
+            # A remote handle aborts (nothing is uploaded); a local file
+            # closes and is unlinked
+            abort = getattr(self._fh, "abort", None)
+            if abort is not None:
+                abort()
+            else:
+                self._fh.close()
+                with contextlib.suppress(OSError):
+                    os.unlink(self.path)
+            return
+        self._fh.close()
 
 
 class _RegionProducer:

@@ -35,9 +35,12 @@ Everything that does parse is a contig whose sequence is complete on
 disk. On success the engine deletes the whole directory — the journal
 exists only while a run is unfinished.
 
-The port takes local paths only: a remote store URL is refused, naming
-queue item A10.3 (the JAX package keeps such a journal in a local scratch
-directory and mirrors the span payloads to the store).
+For a store-scheme output (``gs://``, ``s3://``, ``http(s)://``) the
+journal needs a real, fsync-able file system: it lives in a fixed local
+scratch directory keyed by the URL, ``~/.cache/roko_tpu_torch/journal/
+<sha256[:16]>.resume`` (the JAX package keeps its own under
+``~/.cache/roko_tpu``, so the two never resume each other's journal), and
+each committed span payload is mirrored to ``<out>.resume/`` in the store.
 """
 
 from __future__ import annotations
@@ -53,8 +56,8 @@ Log = Callable[[str], None]
 
 _FORMAT = 1
 
-#: URL schemes of remote stores, which the port does not write
-REMOTE_SCHEMES = ("gs://", "s3://", "http://", "https://")
+#: the local root of the journals of store-scheme outputs
+SCRATCH_ROOT = os.path.join("~", ".cache", "roko_tpu_torch", "journal")
 
 
 class JournalMismatch(RuntimeError):
@@ -72,16 +75,27 @@ def _fsync_write(path: str, data: bytes) -> None:
     os.replace(tmp, path)
 
 
+def _journal_dir(out_path: str) -> str:
+    """Next to a local output; for a store URL a fixed directory under
+    :data:`SCRATCH_ROOT` keyed by the URL, so the same host resuming the
+    same remote output finds the same journal."""
+    from roko_tpu_torch.datapipe.io import path_scheme, strip_file_scheme
+
+    if path_scheme(out_path) in ("", "file"):
+        return strip_file_scheme(out_path) + ".resume"
+    key = hashlib.sha256(out_path.encode()).hexdigest()[:16]
+    return os.path.join(os.path.expanduser(SCRATCH_ROOT), key + ".resume")
+
+
 class PolishJournal:
     def __init__(self, out_path: str):
-        if out_path.startswith(REMOTE_SCHEMES):
-            raise ValueError(
-                f"{out_path}: remote stores (gs://, s3://, http(s)://) are not "
-                "ported yet (queue item A10.3 of ROADMAP.md); write the polished "
-                "FASTA to a local path")
-        if out_path.startswith("file://"):
-            out_path = out_path[len("file://"):]
-        self.dir = out_path + ".resume"
+        from roko_tpu_torch.datapipe.io import path_scheme
+
+        self.dir = _journal_dir(out_path)
+        #: the remote ``<out>.resume/`` prefix span payloads mirror to
+        #: (through open_output) when the output itself is remote
+        self.remote_dir = (
+            out_path + ".resume" if path_scheme(out_path) not in ("", "file") else None)
         os.makedirs(os.path.dirname(self.dir) or ".", exist_ok=True)
         self.meta_path = os.path.join(self.dir, "meta.json")
         self.manifest_path = os.path.join(self.dir, "manifest.jsonl")
@@ -210,7 +224,29 @@ class PolishJournal:
                 os.fsync(fh.fileno())
             os.replace(tmp, path)
             fields["file"] = fname
+            if self.remote_dir is not None:
+                self._mirror(uid, path, fname)
         self.unit_event(uid, "commit", durable=True, **fields)
+
+    def _mirror(self, uid: str, path: str, fname: str) -> None:
+        """Upload a committed span payload next to the remote output
+        (a verified PUT through open_output), so the run's artifacts live
+        with the output object too. The local ``.npz`` is what a resume
+        reads, so a store failure here never fails the commit."""
+        from roko_tpu_torch.datapipe.io import open_output
+        from roko_tpu_torch.datapipe.store import StoreError
+        from roko_tpu_torch.obs import events as obs_events
+
+        url = self.remote_dir + "/" + fname
+        with open(path, "rb") as src:
+            data = src.read()
+        try:
+            dst = open_output(url, "wb")
+            dst.write(data)
+            dst.close()
+        except (StoreError, OSError) as e:
+            obs_events.emit("journal", "unit_mirror_failed", unit=uid, url=url,
+                            error=f"{type(e).__name__}: {e}"[:200])
 
     def load_units(self) -> Dict[str, Dict]:
         """The unit ledger folded into each unit's latest state:

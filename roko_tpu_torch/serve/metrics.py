@@ -34,10 +34,12 @@ Series (prefixed ``roko_serve_`` unless named otherwise):
 - the mergeable histograms ``roko_request_latency_seconds`` (by size
   class, tenant and model), ``roko_queue_wait_seconds``,
   ``roko_device_time_seconds`` and ``roko_cascade_tier_seconds`` (by
-  tier).
+  tier);
+- ``roko_store_*_total`` — the object-store client's process-wide
+  counters (``datapipe/store.py``: requests, retries, hedges, breaker
+  trips, cache hits and misses, injected faults).
 
-Left out, having no counterpart in the port yet: the object-store
-client's ``roko_store_*_total`` counters (A10.3): :data:`UNPORTED_SERIES`.
+Every series of the reference's ``/metrics`` has its counterpart here.
 """
 
 from __future__ import annotations
@@ -69,14 +71,6 @@ LABELED_SERIES = (
     "roko_serve_tenant_backlog",
     "roko_serve_model_requests_total",
 )
-
-#: series of the reference's ``/metrics`` the port does not render, with
-#: the ROADMAP queue item that would bring each (a trailing ``*`` stands
-#: for any name with that prefix)
-UNPORTED_SERIES = {
-    "roko_store_*": "A10.3",
-}
-
 
 def parse_labeled_rows(text: str, names) -> Dict[str, list]:
     """``{name: [(label_body, value), ...]}`` for the LABELLED series of a
@@ -327,6 +321,11 @@ class ServeMetrics:
             for name, num in (("escalation_fraction", ce), ("cache_hit_rate", ch)):
                 lines.append(f"# TYPE {_PREFIX}cascade_{name} gauge")
                 lines.append(f"{_PREFIX}cascade_{name} " + (f"{num / cw:.4f}" if cw else "NaN"))
+        # the object-store client's counters (process-wide, not per
+        # worker): retries, hedges and breaker trips show on /metrics
+        from roko_tpu_torch.datapipe.store import store_metrics_lines
+
+        lines.extend(store_metrics_lines())
         # mergeable histograms last (no serve prefix)
         for hist in (self.hist_latency, self.hist_queue_wait, self.hist_device,
                      self.hist_cascade):

@@ -95,9 +95,6 @@ from roko_tpu_torch.serve.session import PolishSession
 #: the kernels on the card, which takes far longer than a queue drains
 WARMING_RETRY_AFTER_S = 30.0
 
-#: the ROADMAP queue item of remote stores
-_A10_3 = "A10.3"
-
 
 def _decode_array(payload: Dict[str, Any], key: str, dtype, shape: Tuple[int, ...]) -> np.ndarray:
     """Base64 raw little-endian bytes, or nested lists for small
@@ -229,10 +226,11 @@ def path_under_root(path: str, root: str) -> bool:
 def _check_data_path(label: str, path: Any, data_root: Optional[str]) -> str:
     """Validate a client-named server-local path, with ONE error message
     for every failure (bad type, outside the root, missing), so the reply
-    is no file-existence oracle. A remote URL (``gs://``, ``s3://``,
-    ``http(s)://``) is refused as one with a data root set; without one
-    it is refused too, naming queue item A10.3 (the port has no store
-    client)."""
+    is no file-existence oracle. A store URL (``gs://``, ``s3://``,
+    ``http(s)://``) passes through unless a data root is set: it is
+    fetched through the store client and discloses no local file, but an
+    operator who confined the paths has confined what this process may
+    fetch too."""
     from roko_tpu_torch.datapipe.io import STORE_SCHEMES, path_scheme
 
     err = _BadRequest(
@@ -244,10 +242,7 @@ def _check_data_path(label: str, path: Any, data_root: Optional[str]) -> str:
     if path_scheme(path) in STORE_SCHEMES:
         if data_root is not None:
             raise err
-        raise _BadRequest(
-            f"field {label!r}: remote paths are not ported yet (queue item "
-            f"{_A10_3} of ROADMAP.md)"
-        )
+        return path
     if data_root is not None and not path_under_root(path, data_root):
         raise err
     real = os.path.realpath(path)

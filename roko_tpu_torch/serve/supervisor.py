@@ -716,8 +716,8 @@ def boot_fleet(
            RokoConfig]:
     """Everything between "a config" and "a Fleet ready to start()":
     journal-driven rollout recovery, landed-version re-pinning, the
-    boot launch spec, and the A/B lane (the reference shares it with its
-    federation host agent, queue item A9.5b). Returns ``(fleet, journal, recovery,
+    boot launch spec, and the A/B lane (shared with the federation's host
+    agent, ``serve/federation.run_host_agent``). Returns ``(fleet, journal, recovery,
     boot_version, boot_model, boot_cfg)``."""
     fleet = Fleet(
         cfg,

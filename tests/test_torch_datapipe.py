@@ -355,26 +355,45 @@ def test_in_memory_dataset_shards_like_the_sharded_dataset(corpus):
 
 # -- the opener seam -------------------------------------------------------------
 
-def test_open_input_local_file_scheme_and_registry(tmp_path):
-    p = tmp_path / "blob.bin"
-    p.write_bytes(b"roko")
-    assert io.path_scheme("gs://b/k") == "gs" and io.path_scheme(str(p)) == ""
-    with io.open_input("file://" + str(p)) as f:
-        assert f.read() == b"roko"
-    with pytest.raises(ValueError, match="A10"):
-        io.open_input("gs://bucket/corpus.hdf5")
-    with pytest.raises(ValueError, match="registered schemes"):
-        io.open_input("mem://x")
-    seen = []
-    io.register_opener("mem", lambda path, mode: seen.append(path) or open(p, mode))
+def test_open_input_local_file_scheme_and_registry(tmp_path, monkeypatch):
+    from roko_tpu_torch.datapipe import store
+
+    # the process-wide registries start empty here (a CLI entry run earlier
+    # in this process installed the store client) and are restored after
+    saved = store._default_store, dict(io._OPENERS), dict(io._WRITERS)
+    io._OPENERS.clear()
+    io._WRITERS.clear()
+    monkeypatch.delenv("ROKO_STORE_ENDPOINT", raising=False)
     try:
+        p = tmp_path / "blob.bin"
+        p.write_bytes(b"roko")
+        assert io.path_scheme("gs://b/k") == "gs" and io.path_scheme(str(p)) == ""
+        with io.open_input("file://" + str(p)) as f:
+            assert f.read() == b"roko"
+        # a store scheme goes to the object-store client, installed on
+        # first use: without an endpoint a gs:// URL refuses, naming what
+        # to set
+        store._default_store = store.ObjectStore(
+            timeout_s=1.0, retry=store.RetryPolicy(max_attempts=1))
+        with pytest.raises(store.StoreError, match="ROKO_STORE_ENDPOINT"):
+            io.open_input("gs://bucket/corpus.hdf5")
+        assert io.registered_schemes()["input"] == tuple(sorted(store.STORE_SCHEMES))
+        io._OPENERS.clear()
+        with pytest.raises(ValueError, match="registered schemes"):
+            io.open_input("mem://x")
+        seen = []
+        io.register_opener("mem", lambda path, mode: seen.append(path) or open(p, mode))
         with io.open_input("mem://x") as f:
             assert f.read() == b"roko" and seen == ["mem://x"]
         assert io.registered_schemes()["input"] == ("mem",)
-    finally:
         io.register_opener("mem", None)
-    with pytest.raises(ValueError, match="cannot register"):
-        io.register_opener("file", open)
+        with pytest.raises(ValueError, match="cannot register"):
+            io.register_opener("file", open)
+    finally:
+        store._default_store = saved[0]
+        for registry, old in ((io._OPENERS, saved[1]), (io._WRITERS, saved[2])):
+            registry.clear()
+            registry.update(old)
 
 
 def test_sharded_dataset_streams_through_injected_opener(corpus):

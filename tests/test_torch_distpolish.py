@@ -596,11 +596,35 @@ def test_job_core_converts_sam_input_before_shipping(tmp_path):
     assert shipped == [converted]
     assert distributed_meta(fasta, "reads.sam", 0, _cfg(), {"version": "boot"})["bam"] == \
         "reads.sam"
-    # a remote store path is refused, naming its queue item
-    with pytest.raises(ValueError, match="A10.3"):
-        _run_job_core(FakeFleet(2), _cfg(), ref=fasta, bam="gs://b/r.bam",
+    # a store BAM ships as its URL (each worker downloads it through the
+    # store client); a store SAM, which no worker could convert, is refused
+    from roko_tpu_torch.datapipe import io as dio
+    from roko_tpu_torch.datapipe import store
+
+    bucket = tmp_path / "bucket"
+    bucket.mkdir()
+    (bucket / "r.bam").write_bytes(b"\x1f\x8bstub")
+    (bucket / "r.sam").write_text("@HD\tVN:1.6\n")
+    srv = store.StubObjectStore(str(bucket)).start()
+    saved = store._default_store, dict(dio._OPENERS), dict(dio._WRITERS)
+    store.install(store.ObjectStore(timeout_s=5.0))
+    try:
+        shipped.clear()
+        _run_job_core(FakeFleet(2), _cfg(), ref=fasta, bam=srv.url + "/r.bam",
                       out=str(tmp_path / "o2.fa"), seed=0, resume=False,
                       model_identity={}, transport=transport, log=_quiet)
+        assert shipped and set(shipped) == {srv.url + "/r.bam"}
+        with pytest.raises(ValueError, match="needs sorted BAM input"):
+            _run_job_core(FakeFleet(2), _cfg(), ref=fasta, bam=srv.url + "/r.sam",
+                          out=str(tmp_path / "o3.fa"), seed=0, resume=False,
+                          model_identity={}, transport=transport, log=_quiet)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        store._default_store = saved[0]
+        for registry, old in ((dio._OPENERS, saved[1]), (dio._WRITERS, saved[2])):
+            registry.clear()
+            registry.update(old)
 
 
 # -- the client's 503 classes (the coordinator's parse) -----------------------------
@@ -736,8 +760,11 @@ def test_post_job_unconfigured_501_validation_and_409(front, tmp_path):
     bam.write_bytes(b"\x1f\x8bstub")
     code, body = _http(port, "/job", {"ref": str(ref), "bam": str(bam)})
     assert code == 400 and "out" in body["error"]
-    code, body = _http(port, "/job", {"ref": str(ref), "bam": str(bam), "out": "s3://b/o.fa"})
-    assert code == 400 and "A10.3" in body["error"]
+    # a store output passes as it is, unless a data root confines the paths
+    rooted = make_job_starter(
+        fleet, dataclasses.replace(cfg, serve=ServeConfig(data_root=str(tmp_path))), log=_quiet)
+    code, body = rooted({"ref": str(ref), "bam": str(bam), "out": "s3://b/o.fa"})
+    assert code == 400 and "data root" in body["error"]
 
     class _Busy:
         def active(self):
@@ -751,8 +778,9 @@ def test_post_job_unconfigured_501_validation_and_409(front, tmp_path):
 
     fleet.job = _Busy()
     job = {"ref": str(ref), "bam": str(bam), "out": str(tmp_path / "o.fa")}
-    code, body = _http(port, "/job", job)
-    assert code == 409 and "already running" in body["error"]
+    for out in (job["out"], "s3://b/o.fa"):
+        code, body = _http(port, "/job", dict(job, out=out))
+        assert code == 409 and "already running" in body["error"]
     from roko_tpu_torch.serve.supervisor import make_rollout_starter
 
     code, body = make_rollout_starter(fleet, None, "ckpt", cfg, log=_quiet)({"name": "v2"})

@@ -376,6 +376,40 @@ def test_region_stream_matches_reference(project):
 
 @pytest.mark.parametrize("url", ["gs://bucket/reads.bam", "s3://b/r.bam", "https://h/r.bam"])
 def test_remote_inputs_refused(project, tmp_path, url):
-    with pytest.raises(ValueError, match="remote stores"):
-        ppipeline.run_features(project["draft_fasta"], url, str(tmp_path / "o.hdf5"), **QUIET)
-    assert not (tmp_path / "o.hdf5").exists()
+    """A store URL of the reads is no longer refused: it downloads (with
+    its ``.bai``) through the object-store client, and the features equal
+    those of the local file. The stub store serves ``gs://`` and ``s3://``
+    through its endpoint, and ``https://h`` through a transport that
+    sends that host's requests to the stub."""
+    from roko_tpu_torch.datapipe import io as dio
+    from roko_tpu_torch.datapipe import store
+
+    key = url.split("://", 1)[1].split("/", 1)[1] if url.startswith("https") else \
+        url.split("://", 1)[1]
+    bucket = tmp_path / "bucket"
+    (bucket / key).parent.mkdir(parents=True, exist_ok=True)
+    for suffix in ("", ".bai"):
+        (bucket / (key + suffix)).write_bytes(open(project["reads_bam"] + suffix, "rb").read())
+    srv = store.StubObjectStore(str(bucket)).start()
+
+    def transport(method, target, headers, body, timeout):
+        return store.http_transport(method, target.replace("https://h", srv.url), headers,
+                                    body, timeout)
+
+    saved = store._default_store, dict(dio._OPENERS), dict(dio._WRITERS)
+    store.install(store.ObjectStore(timeout_s=5.0, endpoint=srv.url, transport=transport,
+                                    cache_dir=str(tmp_path / "cache")))
+    try:
+        n = ppipeline.run_features(project["draft_fasta"], url, str(tmp_path / "o.hdf5"),
+                                   seed=3, **QUIET)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        store._default_store = saved[0]
+        for registry, old in ((dio._OPENERS, saved[1]), (dio._WRITERS, saved[2])):
+            registry.clear()
+            registry.update(old)
+    m = ppipeline.run_features(project["draft_fasta"], project["reads_bam"],
+                               str(tmp_path / "local.hdf5"), seed=3, **QUIET)
+    assert n == m > 100
+    _assert_same_file(str(tmp_path / "o.hdf5"), str(tmp_path / "local.hdf5"))

@@ -77,8 +77,9 @@ def _import_in_child(*names):
 #: client, its traces and histograms, the training data plane, the
 #: kernel build cache and bundle manifests, the fleet (its supervisor
 #: routes and never touches the card), the distributed polish's
-#: coordinator and the cascade's calibration and window cache are host
-#: code, so none of it may import torch
+#: coordinator, the cascade's calibration and window cache, the
+#: federation's front, agents and transport and the object-store client are
+#: host code, so none of it may import torch
 HOST_MODULES = [
     "roko_tpu_torch.sim", "roko_tpu_torch.utils.rng", "roko_tpu_torch.resilience.retry",
     "roko_tpu_torch.io.bgzf", "roko_tpu_torch.io.bam", "roko_tpu_torch.io.sam",
@@ -101,13 +102,14 @@ HOST_MODULES = [
     "roko_tpu_torch.serve.registry", "roko_tpu_torch.serve.fleet",
     "roko_tpu_torch.serve.rollout", "roko_tpu_torch.serve.supervisor",
     "roko_tpu_torch.pipeline.distpolish", "roko_tpu_torch.cascade.cache",
-    "roko_tpu_torch.cascade.calibration",
+    "roko_tpu_torch.cascade.calibration", "roko_tpu_torch.serve.transport",
+    "roko_tpu_torch.serve.federation", "roko_tpu_torch.datapipe.store",
 ]
 
 
 def test_every_port_module_imports_without_jax():
     names = _import_in_child()
-    assert len(names) >= 89
+    assert len(names) >= 92
     assert "roko_tpu_torch.training.engine" not in names  # moved to datapipe.engine
     assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru",
             "roko_tpu_torch.models.transformer",

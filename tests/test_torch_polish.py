@@ -127,14 +127,11 @@ def test_polish_staged_fasta_byte_identical_to_reference(project, tmp_path, kind
     (["--config", "mesh.json"], "mesh dp=4: mesh [4, 1, 1] wants 4 devices, have 1"),
     (["--config", "mesh_tp.json"], "mesh dp=-1: 1 devices not divisible by fixed axes "
      "product 2"),
-    (["--config", "store.json"], "config store.endpoint = 'http://h': not ported yet (queue "
-     "item A10.3"),
     (["--staged", "--resume"], "cannot combine with --staged"),
 ])
 def test_polish_refuses_what_is_not_ported(project, tmp_path, capsys, extra, message):
     out = tmp_path / "o.fasta"
-    unported = {"mesh.json": ("mesh", "dp", 4), "mesh_tp.json": ("mesh", "tp", 2),
-                "store.json": ("store", "endpoint", "http://h")}
+    unported = {"mesh.json": ("mesh", "dp", 4), "mesh_tp.json": ("mesh", "tp", 2)}
     if extra[-1] in unported:  # a reference-layout file, written beside the project
         section, key, value = unported[extra[-1]]
         raw = json.loads(RokoConfig().to_json())
@@ -148,6 +145,43 @@ def test_polish_refuses_what_is_not_ported(project, tmp_path, capsys, extra, mes
     assert exc.value.code == 2
     assert message in capsys.readouterr().err
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("extra,endpoint,cache", [
+    (["--config", "store.json"], "http://h", None),
+    (["--config", "store.json", "--store-endpoint", "http://127.0.0.1:9",
+      "--store-cache", "blocks"], "http://127.0.0.1:9", "blocks"),
+])
+def test_polish_store_section_and_flags_configure_the_client(project, tmp_path, extra,
+                                                             endpoint, cache):
+    """The config's ``store`` section and ``--store-endpoint`` /
+    ``--store-cache`` (flags over the file) build the store client a
+    polish reads and writes ``gs://``, ``s3://`` and ``http(s)://`` paths
+    through: installed for every store scheme."""
+    from roko_tpu_torch.datapipe import io as dio
+    from roko_tpu_torch.datapipe import store
+
+    raw = json.loads(RokoConfig().to_json())
+    raw["store"]["endpoint"] = "http://h"
+    (tmp_path / "store.json").write_text(json.dumps(raw))
+    argv = ["polish", "s3://b/d.fa", "s3://b/r.bam", "m.pth", "s3://b/o.fa",
+            *[str(tmp_path / a) if a in ("store.json", "blocks") else a for a in extra], *SMALL]
+    cfg = cli._build_config(cli.build_parser().parse_args(argv))
+    assert cfg.store.endpoint == endpoint
+    assert cfg.store.cache_dir == (None if cache is None else str(tmp_path / cache))
+    saved = store._default_store, dict(dio._OPENERS), dict(dio._WRITERS)
+    try:
+        cli._configure_store(cfg)
+        client = store.default_store()
+        assert client.endpoint == endpoint
+        assert client.resolve_url("s3://b/o.fa") == endpoint + "/b/o.fa"
+        assert (client.cache is None) == (cache is None)
+        assert set(store.STORE_SCHEMES) <= set(dio.registered_schemes()["output"])
+    finally:
+        store._default_store = saved[0]
+        for registry, old in ((dio._OPENERS, saved[1]), (dio._WRITERS, saved[2])):
+            registry.clear()
+            registry.update(old)
 
 
 def _reference_streaming_fasta(project, kind, out):

@@ -56,7 +56,6 @@ from roko_tpu_torch.models.model import RokoModel
 from roko_tpu_torch.serve import batcher as port_batcher
 from roko_tpu_torch.serve import server as port_server
 from roko_tpu_torch.serve.client import FleetDraining, PolishClient, ServerBusy
-from roko_tpu_torch.serve.metrics import UNPORTED_SERIES
 from roko_tpu_torch.serve.session import PolishSession
 from tests.test_lingru import TINY_GRU
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -412,16 +411,11 @@ def _series_names(text: str):
     return names
 
 
-def _unported(name: str) -> bool:
-    return any(name.startswith(k[:-1]) if k.endswith("*") else name == k
-               for k in UNPORTED_SERIES)
-
-
 def test_healthz_keys_and_metrics_series_equal_reference(port_session, ref_session):
     """After the same traffic (a tenant-tagged request and an untagged
     one): /healthz has the reference's keys, and /metrics the reference's
-    series, less UNPORTED_SERIES (the store client), read with the
-    reference's own parsers."""
+    series, the object-store client's ``roko_store_*`` counters among them,
+    read with the reference's own parsers."""
     rng = np.random.default_rng(6)
     positions, x = _windows(rng, 5)
     draft = "".join(rng.choice(list("ACGT"), 300))
@@ -434,9 +428,9 @@ def test_healthz_keys_and_metrics_series_equal_reference(port_session, ref_sessi
         ph, rh = pc.healthz(), rc.healthz()
         ptext, rtext = pc.metrics(), rc.metrics()
     assert set(ph) == set(rh) and set(ph["tenants"]) == set(rh["tenants"])
-    want = {n for n in _series_names(rtext) if not _unported(n)}
+    want = _series_names(rtext)
     assert _series_names(ptext) == want
-    assert {n for n in _series_names(rtext) if _unported(n)}  # the exceptions do appear there
+    assert {n for n in want if n.startswith("roko_store_")}  # the store client's counters
     unlabeled = ref_metrics.parse_metric_values(ptext, want)
     for name in ("roko_serve_requests_total", "roko_serve_windows_total",
                  "roko_serve_cpu_fallback", "roko_serve_breaker_state"):
@@ -533,9 +527,6 @@ def test_in_process_sigterm_drains_serve_forever(port_session):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--host-id", "h"], "A9.5b"), (["--federation"], "A9.5b"), (["--host-agent"], "A9.5b"),
-    (["--join", "h:1"], "A9.5b"), (["--lease-ttl", "3"], "A9.5b"),
-    (["--store-cache", "d"], "A10"), (["--store-endpoint", "http://h"], "A10"),
     (["--tp", "2"], "A9.1"), (["--cascade", "1.5"], "cascade.threshold must lie in [0, 1]"),
     (["--cascade-tier", "model"], "cascade.tier='model' needs cascade.tier_version"),
     (["--dp", "2"], "A9.1"),
@@ -545,6 +536,41 @@ def test_unported_serve_flags_are_usage_errors(argv, item, capsys, tmp_path):
         cli.main(["serve", str(tmp_path / "m.pth"), "--device", "cpu", *argv])
     assert e.value.code == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--host-id", "h7"], ["--federation"], ["--host-agent", "--join", "h:1", "--workers", "2"],
+    ["--join", "127.0.0.1:9100", "--workers", "1"], ["--lease-ttl", "3"],
+    ["--store-cache", "/c"], ["--store-endpoint", "http://127.0.0.1:9000"],
+])
+def test_federation_and_store_flags_layer_as_reference(argv):
+    """The federation's and the store's serve flags are ported: each
+    builds the reference's fleet and store sections (defaults < file <
+    flags)."""
+    from roko_tpu.cli import _build_config as ref_build
+    from roko_tpu.cli import build_parser as ref_parser
+
+    full = ["serve", "ckpt/", *argv]
+    args = cli.build_parser().parse_args(full)
+    got = json.loads(cli._build_config(args).to_json())
+    want = json.loads(ref_build(ref_parser().parse_args(full)).to_json())
+    assert got["fleet"] == want["fleet"] and got["store"] == want["store"]
+    assert args.federation == ("--federation" in argv)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["m.pth", "--host-agent"], "--host-agent needs the front end as --join HOST:PORT"),
+    (["m.pth", "--join", "h:1"], "a host agent supervises workers"),
+    (["--port", "0"], "MODEL is required (only --federation runs model-less)"),
+])
+def test_federation_usage_errors_as_reference(argv, message, capsys):
+    """The reference's usage errors of a host agent (no front to join, no
+    workers to supervise) and of a serve with no MODEL, before anything
+    starts."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(["serve", *argv, "--device", "cpu"])
+    assert e.value.code == 2
+    assert message in capsys.readouterr().err
 
 
 def test_serve_flags_layer_into_config_as_reference():

@@ -11,6 +11,7 @@ passed in: no thread, no timing race."""
 
 import dataclasses
 import json
+import os
 import random
 import threading
 import time
@@ -719,7 +720,7 @@ def test_watchdog_and_events_match_reference():
         assert events.format_line(*args, **kw) == ref_events.format_line(*args, **kw)
 
 
-def test_journal_commits_resumes_and_refuses(tmp_path):
+def test_journal_commits_resumes_and_refuses(tmp_path, monkeypatch):
     out = str(tmp_path / "o.fasta")
     meta = {"ref": "r", "seed": 1, "config": {"window": (1, 2)}}
     j = PolishJournal(out)
@@ -738,8 +739,13 @@ def test_journal_commits_resumes_and_refuses(tmp_path):
     assert j.open(meta, resume=False) == {}  # a fresh run drops stale state
     j.finalize()
     assert not (tmp_path / "o.fasta.resume").exists()
-    with pytest.raises(ValueError, match="remote stores"):
-        PolishJournal("gs://bucket/o.fasta")
+    # a store output's journal lives in the port's own local scratch root,
+    # keyed by the URL
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    remote = PolishJournal("gs://bucket/o.fasta")
+    assert remote.remote_dir == "gs://bucket/o.fasta.resume"
+    assert os.path.dirname(remote.dir) == os.path.expanduser(
+        os.path.join("~", ".cache", "roko_tpu_torch", "journal"))
 
 
 def test_config_defaults_match_reference():

@@ -309,13 +309,10 @@ def test_every_reference_field_is_ported_refused_or_ignored():
 
 
 @pytest.mark.parametrize("section,value,item", [
-    # the mesh's dp, tp and sp, the kernel bundle, the fleet, the cascade
-    # and the distributed polish are ported;
-    # the federation's fields are queue item A9.5b, and the JAX cache's
-    # size bound has no nvcc counterpart
+    # the mesh's dp, tp and sp, the kernel bundle, the fleet and its
+    # federation, the cascade, the distributed polish and the store are
+    # ported; the JAX cache's size bound has no nvcc counterpart
     ("compile", {"cache_max_mb": 7}, "no nvcc counterpart"),
-    ("store", {"cache_dir": "/s"}, "A10.3"),
-    ("fleet", {"join": "h:1"}, "A9.5b"), ("store", {"endpoint": "http://h"}, "A10"),
     ("model", {"remat_scan": True}, "A12"),
 ])
 def test_unported_config_is_refused_by_name(tmp_path, capsys, section, value, item):
@@ -334,6 +331,38 @@ def test_unported_config_is_refused_by_name(tmp_path, capsys, section, value, it
     # the same file at the defaults loads
     path.write_text(jconfig.RokoConfig().to_json())
     assert RokoConfig.from_json(path.read_text()) == RokoConfig()
+
+
+@pytest.mark.parametrize("section,value", [
+    ("store", {"cache_dir": "/s", "hedge_s": 0.5}), ("fleet", {"join": "h:1", "host_id": "h"}),
+    ("store", {"endpoint": "http://h", "max_attempts": 2}),
+])
+def test_store_and_federation_config_loads_as_reference(section, value):
+    """A file of the reference's layout that sets the store's or the
+    federation's fields loads, round-trips through JSON, and equals the
+    reference's reading of it."""
+    raw = json.loads(jconfig.RokoConfig().to_json())
+    raw[section].update(value)
+    got = RokoConfig.from_json(json.dumps(raw))
+    want = json.loads(jconfig.RokoConfig.from_json(json.dumps(raw)).to_json())
+    assert {k: v for k, v in json.loads(got.to_json()).items() if k in ("store", "fleet")} == \
+        {k: want[k] for k in ("store", "fleet")}
+    assert RokoConfig.from_json(got.to_json()) == got
+    assert all(getattr(getattr(got, section), k) == v for k, v in value.items())
+
+
+@pytest.mark.parametrize("section,value,message", [
+    ("store", {"block_bytes": 0}, "store.block_bytes must be >= 1, got 0"),
+    ("fleet", {"lease_ttl_s": 0}, "lease_ttl_s must be > 0; got 0"),
+    ("fleet", {"fed_breaker_failures": 0}, "fed_breaker_failures must be >= 1; got 0"),
+])
+def test_store_and_federation_config_validation_as_reference(section, value, message):
+    raw = json.loads(jconfig.RokoConfig().to_json())
+    raw[section].update(value)
+    with pytest.raises(ValueError, match=re.escape(message)):
+        RokoConfig.from_json(json.dumps(raw))
+    with pytest.raises(ValueError, match=re.escape(message)):
+        jconfig.RokoConfig.from_json(json.dumps(raw))
 
 
 def test_cli_config_trains_like_the_flags(tmp_path, capsys):

@@ -17,7 +17,8 @@
     python3 chip_smoke.py --cascade-only       # the cascade phase alone
     python3 chip_smoke.py --distpolish-only    # polish --distributed alone
     python3 chip_smoke.py --federation-only    # the federation phase alone
-    python3 chip_smoke.py --mesh-child SPEC    # one rank of the mesh or tp_sp phase (they start them)
+    python3 chip_smoke.py --mesh-serve-only    # the mesh_serve phase alone
+    python3 chip_smoke.py --mesh-child SPEC    # one rank of the mesh, tp_sp or mesh_serve phase
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
 nvcc per source, started together), holds each kernel against its plain
@@ -93,9 +94,10 @@ which launches no kernel, in a phase of its own):
   or a ``train_transformer`` row without windows/s; before it, the kernels at the
   shapes its suites give them that no earlier phase launches (batch 2048;
   hidden 256, the f32 streaming recurrences, at batch 512), each held
-  against its plain version; its mesh suite (``--mesh-devices 1,2,4``:
-  one global batch of 128 split over 1, 2 and 4 child processes sharing
-  the card) runs in those processes, whose launches it reports by rank;
+  against its plain version; its mesh suite (``--mesh-devices 1,2``:
+  one global batch of 128 on one session over 1 and 2 child processes
+  sharing the card) runs in those processes, whose launches it reports by
+  rank;
 - mesh: data parallelism across processes, the ranks joined by
   ``ROKO_*`` as a user's would be: (a) an NCCL group of one rank, a dp
   train step (all-reduced through NCCL) against the plain step; (b) two
@@ -106,7 +108,7 @@ which launches no kernel, in a phase of its own):
   each rank's ``gru_fwd``/``gru_bwd`` launches and windows/s beside a
   one-rank epoch; (c) their contig-split inference of 4 synthetic contigs,
   FASTA byte-identical to one rank's; (d) the bench's mesh suite
-  byte-identical across 1, 2 and 4 ranks. NCCL across cards is not run:
+  byte-identical across 1 and 2 ranks. NCCL across cards is not run:
   the machine has one card. The mesh contigs' names are not in sorted
   order: one rank writes the draft's order, two ranks the names sorted;
 - tp_sp: tensor and sequence parallelism of ``kind="transformer"`` at full
@@ -140,6 +142,19 @@ which launches no kernel, in a phase of its own):
   process exits 0 within ``drain_deadline_s``; (e) the warmup seconds and
   the subprocess's start-to-ready seconds (``--serve-only`` runs this
   phase alone);
+- mesh_serve: ONE polishing session over two gloo ranks sharing the card
+  (``serve/session.py`` on a ``parallel.mesh.Mesh``, the full-width gru
+  f32 model of seed 0, its auto ladder 64 / 256 / 1024 = 2 x 32 / 128 /
+  512): rank 0 serves the serve phase's mix through ``make_server`` under
+  the continuous and then the ragged batcher on the same warm session,
+  every reply byte-equal to this process's one-rank solo stitch (itself
+  checked against the staged stitch), ``/healthz`` reporting ``mesh_dp``
+  2 and ``devices`` 2; then the 100 kb project streams on a 2-rank session
+  to this process's one-rank FASTA byte for byte. Each rank's ``gru_fwd``
+  launches are 3 times the dispatches it ran. The line gives windows/s at
+  dp 1 (this process) and dp 2 (the ranks), which measures sharing one
+  card, not scaling, and the leader's host collectives' ms a dispatch
+  (``--mesh-serve-only``);
 - coldstart: ``benchmark.run_coldstart_suite`` at full width (gru, 3
   layers, h=128, f32; the ladder 32 / 128 / 512): time to the first
   prediction of four starts, each a child process: ``cold`` (an empty
@@ -395,7 +410,9 @@ MESH_CONTIGS = 4
 #: writes this order, several write the names sorted, as the reference does
 MESH_CONTIG_ORDER = (2, 0, 3, 1)
 MESH_CONTIG_WINDOWS = 256
-MESH_DEVICES = "1,2,4"
+# (the 4-rank group, ~30 s of process starts, was cut to keep the whole
+# script well inside its time limit; the CPU tests hold 4-rank sessions)
+MESH_DEVICES = "1,2"
 #: a child rank that outlasts this fails the phase (every wait is bounded)
 MESH_CHILD_TIMEOUT_S = 300
 # the tp_sp phase, tensor and sequence parallelism of the transformer at
@@ -432,6 +449,9 @@ SERVE_DRAIN_WINDOWS = 700
 SERVE_PROFILE_S = 1.0
 SERVE_LINGRU_REQUESTS = 12
 SERVE_START_TIMEOUT_S = 300
+# the mesh_serve phase: two gloo ranks sharing the card, its stream's batch
+MESH_SERVE_RANKS = 2
+MESH_SERVE_BATCH = 512
 # the coldstart phase's ladder (the serve default) and the fleet phase's
 # request sizes, closed-loop clients and load seconds, rollout bake, and
 # the bound on a fleet's start, a worker's rejoin and a rollout
@@ -447,8 +467,8 @@ CASCADE_THRESHOLD = 0.05
 CASCADE_SUBSETS = (37, 301)
 CASCADE_BENCH_DRAFT = 40_000
 # the on-disk cache writes and reads a file a window: its cold and warm
-# runs take the first 10 batches (5 120 windows), not all of them
-CASCADE_CACHE_BATCHES = 10
+# runs take the first 5 batches (2 560 windows), not all of them
+CASCADE_CACHE_BATCHES = 5
 SMALL_PROJECT_LEN = 100_000
 # the distributed polish: span units of one 100 kb region each; the 100 kb
 # project of --distpolish-only is cut into 40 kb regions for span units
@@ -2360,7 +2380,7 @@ def bench_launches(bench) -> dict:
 
 def drive_bench(torch, port, counts) -> dict:
     """The bench phase: ``python -m roko_tpu_torch bench --train
-    --bench-iterations BENCH_ITERS --mesh-devices 1,2,4`` in this process (``benchmark.main``,
+    --bench-iterations BENCH_ITERS --mesh-devices 1,2`` in this process (``benchmark.main``,
     which prints its JSON line; its --out file is read back), with every
     launch count set to 0 just before and read just after. Fails unless it
     returns 0 with no error in a row of a ported suite, and each kernel
@@ -2761,6 +2781,8 @@ def mesh_child(torch, spec_path: str) -> None:
         spec = json.load(f)
     if spec["mode"] in TP_SP_RUNS:
         return tp_sp_child(torch, spec)
+    if spec["mode"] == "mesh_serve":
+        return mesh_serve_child(torch, spec)
     sys.path.insert(0, ROOT)
     from roko_tpu_torch import constants as C
     from roko_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
@@ -2910,7 +2932,7 @@ def drive_mesh(torch, port, dev, counts, bench_mesh, card) -> dict:
     bitwise equal, each rank's kernel launches, windows/s beside a
     one-rank run here; (c) the two ranks' contig-split inference
     byte-identical to one rank's, its parts removed; (d) the bench's mesh
-    suite (run by the bench phase) byte-identical across 1, 2 and 4 ranks."""
+    suite (run by the bench phase) byte-identical across 1 and 2 ranks."""
     base = os.path.join(ROOT, "build", "chip_smoke_mesh")
     torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
     t0 = time.perf_counter()
@@ -3698,6 +3720,273 @@ def drive_serve(torch, port, dev, counts, card, rng) -> dict:
     }
     shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def mesh_serve_model(port, dev):
+    """The mesh_serve phase's model: full width, gru f32, seed 0's weights."""
+    cfg = port.ModelConfig()
+    model = port.RokoModel(cfg)
+    model.load_state_dict(port.state_dict_from_jax(
+        jax_layout_params(np.random.default_rng(SEED), cfg)), strict=True)
+    return cfg, model.to(dev).eval()
+
+
+def mesh_serve_load(port, session, mode: str, inputs: dict, what: str) -> dict:
+    """The serve phase's closed-loop mix through ``make_server`` on
+    ``session`` under batching ``mode``: every reply must be
+    ``inputs["want"]``'s; windows/s, the healthz grid and the steps."""
+    import threading
+
+    contig, draft = inputs["contig"], inputs["draft"]
+    positions, examples = inputs["positions"], inputs["examples"]
+    srv = port.make_server(session, port.ServeConfig(batching=mode,
+                                                     max_queue=SERVE_CLIENTS * 2), port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    cl = port.PolishClient(base, timeout=300.0)
+    try:
+        status, health, _ = http_json(base, "/healthz")
+        grid = {k: health.get(k) for k in ("status", "mesh_dp", "devices", "ladder")}
+        if status != 200 or (grid["mesh_dp"], grid["devices"]) != (session.dp,
+                                                                     session.n_devices):
+            fail(f"{what} {mode}: /healthz {status} {health}")
+        work_list = list(inputs["schedule"])
+        windows = sum(work_list)
+        bad, errors = [], []
+        lock = threading.Lock()
+
+        def one_client():
+            while True:
+                with lock:
+                    if not work_list:
+                        return
+                    n = work_list.pop()
+                try:
+                    r = cl.polish(draft, positions[:n], examples[:n], contig=contig)
+                except Exception as e:
+                    with lock:
+                        errors.append(f"{type(e).__name__}: {e}"[:200])
+                    continue
+                if r["polished"] != inputs["want"][str(n)]:
+                    with lock:
+                        bad.append(n)
+
+        steps0 = srv.metrics.counters["batches"]
+        threads = [threading.Thread(target=one_client, daemon=True)
+                   for _ in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if bad or errors:
+            fail(f"{what} {mode}: {len(bad)} replies differ from the one-rank stitch "
+                 f"(sizes {sorted(set(bad))}), {len(errors)} errors {errors[:3]}")
+        return {"requests": len(inputs["schedule"]), "windows": windows, "wall_s": wall,
+                "windows_per_s": windows / wall, "healthz": grid,
+                "steps": srv.metrics.counters["batches"] - steps0,
+                "byte_equal_to_one_rank_stitch": True}
+    finally:
+        srv.shutdown()
+        srv.batcher.stop()
+        srv.server_close()
+        thread.join(10.0)
+
+
+def collective_ms(session) -> dict:
+    """The leader's host collectives a dispatch: header and scatter, and
+    the gather (which waits for the slowest rank's rows)."""
+    n = max(session.collective_dispatches, 1)
+    return {"dispatches": session.collective_dispatches,
+            "send_ms": 1e3 * session.collective_s["send"] / n,
+            "gather_ms": 1e3 * session.collective_s["gather"] / n}
+
+
+def mesh_serve_child(torch, spec) -> None:
+    """One rank of the mesh_serve phase: ONE session over the ranks; rank 0
+    serves the mix under the continuous and the ragged batcher, then every
+    rank runs ``run_streaming_polish`` on a 2-rank session of the stream's
+    ladder. Each rank's ``gru_fwd`` launches must be 3 times the
+    dispatches it ran. Writes ``rank{r}.json`` beside SPEC."""
+    sys.path.insert(0, ROOT)
+    from roko_tpu_torch.config import ModelConfig, RokoConfig, ServeConfig, resolve_ladder
+    from roko_tpu_torch.infer import tail_rungs, use_float32_matmuls
+    from roko_tpu_torch.models import fused_gru as fg
+    from roko_tpu_torch.models import fused_lingru as fl
+    from roko_tpu_torch.models.convert import state_dict_from_jax
+    from roko_tpu_torch.models.model import RokoModel
+    from roko_tpu_torch.parallel import distributed
+    from roko_tpu_torch.parallel.mesh import make_mesh
+    from roko_tpu_torch.pipeline import run_streaming_polish
+    from roko_tpu_torch.serve.client import PolishClient
+    from roko_tpu_torch.serve.server import make_server
+    from roko_tpu_torch.serve.session import PolishSession
+
+    port = types.SimpleNamespace(ModelConfig=ModelConfig, RokoModel=RokoModel,
+                                 state_dict_from_jax=state_dict_from_jax,
+                                 make_server=make_server, ServeConfig=ServeConfig,
+                                 PolishClient=PolishClient)
+    counts = Counts(fg, fl)
+    use_float32_matmuls()
+    distributed.initialize(device="cuda", backend=spec["backend"])
+    dev = distributed.device_of_rank("cuda")
+    mesh = make_mesh()
+    rank = mesh.rank
+    what = f"mesh_serve rank {rank}"
+    folder = os.path.join(os.path.dirname(spec["dir"]), "inputs")
+    with open(os.path.join(folder, "inputs.json")) as f:
+        inputs = json.load(f)
+    arrays = np.load(os.path.join(folder, "windows.npz"))
+    inputs.update(positions=arrays["positions"], examples=arrays["examples"])
+    cfg, model = mesh_serve_model(port, dev)
+    rcfg = RokoConfig(model=cfg)
+    out = {"rank": rank, "world": distributed.world_size(), "backend": distributed.backend(),
+           "device": str(dev)}
+
+    # the serve session: its auto ladder, warmed by rank 0's rungs
+    session = PolishSession(model, rcfg, device=dev, mesh=mesh)
+    t0 = time.perf_counter()
+    session.warmup()
+    if session.leader:
+        session.stop()
+    else:
+        session.follow()
+    out["warmup_s"] = time.perf_counter() - t0
+    out["ladder"] = list(session.ladder)
+    # from here on, the served dispatches only
+    session.collective_s = {"send": 0.0, "gather": 0.0}
+    session.collective_dispatches = 0
+    counts.zero()
+    if session.leader:
+        out["serve"] = {mode: mesh_serve_load(port, session, mode, inputs, what)
+                        for mode in ("continuous", "ragged")}
+        out["serve_collectives"] = collective_ms(session)
+        session.stop()
+    else:
+        session.follow()
+    out["serve_dispatches"] = session.collective_dispatches
+    out["serve_launches"] = serve_counts(counts, f"{what} serve", "gru_fwd",
+                                         out["serve_dispatches"])
+
+    # the stream on a 2-rank session of the stream's ladder
+    stream_session = PolishSession(
+        model, rcfg, device=dev, mesh=mesh,
+        ladder=tail_rungs(resolve_ladder(rcfg.serve, mesh.dp), MESH_SERVE_BATCH, mesh.dp))
+    fasta = os.path.join(spec["dir"], "stream.fasta")
+    counts.zero()
+    t0 = time.perf_counter()
+    run_streaming_polish(inputs["project"]["draft_fasta"], inputs["project"]["reads_bam"],
+                         model, rcfg, out_path=fasta, workers=POLISH_WORKERS, seed=0,
+                         batch_size=MESH_SERVE_BATCH, device=dev, session=stream_session,
+                         mesh=mesh, log=lambda s: None)
+    if stream_session.leader:
+        stream_session.stop()
+    out["stream"] = {"seconds": time.perf_counter() - t0, "ladder": list(stream_session.ladder),
+                     "dispatches": stream_session.collective_dispatches,
+                     "launches": serve_counts(counts, f"{what} stream", "gru_fwd",
+                                              stream_session.collective_dispatches)}
+    if stream_session.leader:
+        out["stream"]["collectives"] = collective_ms(stream_session)
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+
+
+def drive_mesh_serve(torch, port, dev, counts, card) -> dict:
+    """The mesh_serve phase (see the module docstring): the one-rank
+    references in this process, then two gloo ranks sharing the card."""
+    base = os.path.join(ROOT, "build", "chip_smoke_mesh_serve")
+    folder = os.path.join(base, "inputs")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(folder)
+    t_phase = time.perf_counter()
+    cfg, model = mesh_serve_model(port, dev)
+    rcfg = port.RokoConfig(model=cfg)
+    contig = "mesh_serve"
+    mix = port.bench._parse_mix(SERVE_MIX)
+    schedule = [int(n) for n in port.bench._mix_schedule(mix, SERVE_REQUESTS)]
+    sizes = sorted({n for n, _ in mix})
+    draft, positions, examples = synthetic_contig(np.random.default_rng(SEED + 26),
+                                                  max(sizes), port.C)
+    one = port.PolishSession(model, rcfg, device=dev)
+    one.warmup()
+    want = {}
+    for n in sizes:
+        board = port.VoteBoard({contig: draft})
+        board.add([contig] * n, positions[:n], one.predict(examples[:n]))
+        want[str(n)] = board.stitch(contig)
+        staged = port.run_inference(iter([([contig] * n, positions[:n], examples[:n])]),
+                                    {contig: draft}, model, device=dev,
+                                    log=lambda s: None)[contig]
+        if staged != want[str(n)]:
+            fail(f"mesh_serve: the one-rank solo stitch of {n} windows is not the staged one")
+    inputs = {"contig": contig, "draft": draft, "schedule": schedule, "want": want,
+              "positions": positions, "examples": examples}
+    counts.zero()
+    one_serve = mesh_serve_load(port, one, "continuous", inputs, "mesh_serve dp 1")
+    one_serve["launches"] = serve_counts(counts, "mesh_serve dp 1", "gru_fwd",
+                                         one_serve["steps"])
+    project = small_project(port, os.path.join(base, "project"))
+    one_fasta = os.path.join(base, "one_rank.fasta")
+    metrics = port.ServeMetrics()
+    counts.zero()
+    t0 = time.perf_counter()
+    port.run_streaming_polish(project["paths"]["draft_fasta"], project["paths"]["reads_bam"],
+                              model, rcfg, out_path=one_fasta, workers=POLISH_WORKERS, seed=0,
+                              batch_size=MESH_SERVE_BATCH, device=dev, metrics=metrics,
+                              log=lambda s: None)
+    one_stream = {"seconds": time.perf_counter() - t0, "steps": metrics.counters["batches"]}
+    one_stream["launches"] = serve_counts(counts, "mesh_serve dp 1 stream", "gru_fwd",
+                                          one_stream["steps"])
+    np.savez(os.path.join(folder, "windows.npz"), positions=positions, examples=examples)
+    with open(os.path.join(folder, "inputs.json"), "w") as f:
+        json.dump({"contig": contig, "draft": draft, "schedule": schedule, "want": want,
+                   "project": project["paths"]}, f)
+    del one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks("mesh_serve", MESH_SERVE_RANKS, "gloo", os.path.join(base, "ranks"))
+    ranks_s = time.perf_counter() - t0
+    if {r["backend"] for r in ranks} != {"gloo"} or [r["world"] for r in ranks] != [2, 2]:
+        fail(f"mesh_serve: ranks not in one gloo group of 2: {ranks}")
+    with open(one_fasta, "rb") as f:
+        want_fasta = f.read()
+    with open(os.path.join(base, "ranks", "stream.fasta"), "rb") as f:
+        got_fasta = f.read()
+    if got_fasta != want_fasta:
+        fail(f"mesh_serve: the 2-rank stream's FASTA ({len(got_fasta)} bytes) is not the "
+             f"one-rank stream's ({len(want_fasta)} bytes)")
+    lead = ranks[0]
+    stream_windows = project["windows"]
+    return {
+        "config": "ModelConfig() (gru f32, 3 layers, hidden 128, full width), seed 0",
+        "ranks": MESH_SERVE_RANKS, "backend": "gloo, two ranks sharing one card",
+        "ladder_dp2": lead["ladder"], "mix": SERVE_MIX, "requests": len(schedule),
+        "clients": SERVE_CLIENTS,
+        "windows_per_s": {
+            "serve_continuous_dp1": one_serve["windows_per_s"],
+            "serve_continuous_dp2": lead["serve"]["continuous"]["windows_per_s"],
+            "serve_ragged_dp2": lead["serve"]["ragged"]["windows_per_s"],
+            "stream_dp1": stream_windows / one_stream["seconds"],
+            "stream_dp2": stream_windows / lead["stream"]["seconds"]},
+        "note": "dp 2 is two ranks sharing one card: it measures sharing, not scaling",
+        "host_collectives_ms_per_dispatch": {"serve": lead["serve_collectives"],
+                                             "stream": lead["stream"]["collectives"]},
+        "serve_dp1": one_serve, "serve_dp2": lead["serve"],
+        "stream": {"windows": stream_windows, "batch": MESH_SERVE_BATCH,
+                   "fasta_bytes": len(got_fasta), "byte_identical_to_one_rank": True,
+                   "dp1": one_stream, "dp2_by_rank": [r["stream"] for r in ranks]},
+        "launches_by_rank": [{"serve": r["serve_launches"],
+                              "serve_dispatches": r["serve_dispatches"],
+                              "stream": r["stream"]["launches"],
+                              "stream_dispatches": r["stream"]["dispatches"]} for r in ranks],
+        "warmup_s_by_rank": [r["warmup_s"] for r in ranks],
+        "ranks_seconds": ranks_s, "seconds": time.perf_counter() - t_phase, "card": card,
+    }
 
 
 def drive_coldstart(port, card) -> dict:
@@ -5259,14 +5548,15 @@ def main() -> None:
     cascade_only = sys.argv[1:] == ["--cascade-only"]
     distpolish_only = sys.argv[1:] == ["--distpolish-only"]
     federation_only = sys.argv[1:] == ["--federation-only"]
+    mesh_serve_only = sys.argv[1:] == ["--mesh-serve-only"]
     if sys.argv[1:] and not (plane_only or mesh_only or tp_sp_only or serve_only
                              or coldstart_only or fleet_only or cascade_only
-                             or distpolish_only or federation_only):
+                             or distpolish_only or federation_only or mesh_serve_only):
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
              "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --bwd-bf16-only ROOT "
              "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only | --mesh-only "
              "| --tp-sp-only | --serve-only | --coldstart-only | --fleet-only | --cascade-only "
-             "| --distpolish-only | --federation-only]")
+             "| --distpolish-only | --federation-only | --mesh-serve-only]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import benchmark as bench
@@ -5369,7 +5659,7 @@ def main() -> None:
                           else ["gru_fwd", "gru_fwd_bf16", "lingru_fwd"] if serve_only
                           else ["gru_fwd", "lingru_fwd"] if cascade_only
                           else ["gru_fwd"] if (coldstart_only or fleet_only or distpolish_only
-                                               or federation_only)
+                                               or federation_only or mesh_serve_only)
                           else None)
     emit({"build": {"seconds": time.perf_counter() - t0, "kernels": built}})
     if coldstart_only:  # the coldstart phase alone
@@ -5395,6 +5685,9 @@ def main() -> None:
             models.append(m.to(dev).eval())
         inputs = small_project(port, os.path.join(ROOT, "build", "chip_smoke_cascade"))
         emit({"cascade": drive_cascade(torch, port, *models, dev, counts, inputs, card)})
+        return
+    if mesh_serve_only:  # one session over two gloo ranks sharing the card
+        emit({"mesh_serve": drive_mesh_serve(torch, port, dev, counts, card)})
         return
     if serve_only:  # the serve phase alone
         emit({"serve": drive_serve(torch, port, dev, counts, card,
@@ -5602,6 +5895,12 @@ def main() -> None:
     serve = drive_serve(torch, port, dev, counts, card, np.random.default_rng(SEED + 22))
     emit({"serve": serve})
     serve_launches = {name: serve["launches"].get(name, 0) for name in counts.wrappers}
+    # -- one session over two ranks sharing the card: serve and stream ---
+    mesh_serve = drive_mesh_serve(torch, port, dev, counts, card)
+    emit({"mesh_serve": mesh_serve})
+    mesh_serve_fwd = (mesh_serve["serve_dp1"]["launches"]
+                      + mesh_serve["stream"]["dp1"]["launches"]
+                      + sum(r["serve"] + r["stream"] for r in mesh_serve["launches_by_rank"]))
     # -- cold start: four starts of a serve session, each a child process --
     coldstart = drive_coldstart(port, card)
     emit({"coldstart": coldstart})
@@ -5659,6 +5958,7 @@ def main() -> None:
                               "coldstart": coldstart["launches"]["gru_fwd"],
                               "fleet": fleet["launches"]["gru_fwd"],
                               "distpolish": distpolish["launches"]["gru_fwd"],
+                              "mesh_serve": mesh_serve_fwd,
                               "cascade": cascade["launches"]["gru_fwd"],
                               "federation": federation["launches"]["gru_fwd"]},
                    at_train_batch=fwd_train_row),

@@ -589,22 +589,26 @@ def parse_counts(text: Optional[str]) -> Tuple[int, ...]:
 def _mesh_child(spec_path: str) -> None:
     """One rank of :func:`run_mesh_suite`, in a process of its own: joins
     the count's process group (``ROKO_*`` from the parent; none for one
-    rank), predicts its rows of the fixed global batch through the port's
-    forward and argmax (``infer.predict``, host windows in, host class ids
-    out), untimed once and then ``iterations`` times between barriers, and
-    writes its time, its class ids and its kernel launches."""
+    rank) and builds ONE ``PolishSession`` over the ranks with the fixed
+    global batch as its one rung (``roko_tpu/benchmark.py:2168-2230``).
+    Rank 0 warms it and predicts the batch once outside the clock, then
+    ``iterations`` times on the clock; the other ranks follow. Between the
+    two, rank 0 stops the followers' loop, so every rank zeroes its kernel
+    launch counts before the timed dispatches. Rank 0 writes the time and
+    the class ids of the whole batch, every rank its launches."""
     import dataclasses
 
     import torch
 
     from roko_tpu_torch import constants as C
-    from roko_tpu_torch.config import ModelConfig
-    from roko_tpu_torch.infer import predict, resolve_device, use_float32_matmuls
+    from roko_tpu_torch.config import ModelConfig, RokoConfig
+    from roko_tpu_torch.infer import resolve_device
     from roko_tpu_torch.models import fused_gru as fg
     from roko_tpu_torch.models import fused_lingru as fl
     from roko_tpu_torch.models.model import RokoModel
     from roko_tpu_torch.parallel import distributed
-    from roko_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from roko_tpu_torch.parallel.mesh import make_mesh
+    from roko_tpu_torch.serve.session import PolishSession
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -612,33 +616,40 @@ def _mesh_child(spec_path: str) -> None:
     distributed.initialize(device=dev, backend=spec.get("backend"))
     dev = distributed.device_of_rank(dev)
     mesh = make_mesh()
-    use_float32_matmuls()
     over = {k: tuple(v) if isinstance(v, list) else v
             for k, v in (spec.get("model") or {}).items()}
     cfg = dataclasses.replace(ModelConfig(), **over)
-    model = RokoModel(cfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    model = RokoModel(cfg, generator=torch.Generator().manual_seed(0))
     gb = int(spec["global_batch"])
-    rng = np.random.default_rng(0)  # the same windows in every rank and count
+    session = PolishSession(model, RokoConfig(model=cfg), device=dev, mesh=mesh, ladder=(gb,))
+    session.warmup()
+    rng = np.random.default_rng(0)  # the same windows in every count
     x = rng.integers(0, C.FEATURE_VOCAB, (gb, cfg.window_rows, cfg.window_cols)).astype(np.uint8)
-    (mine,) = shard_batch(mesh, (x,))
-    preds = predict(model, mine, dev).cpu().numpy()  # the first dispatch, outside the clock
     counters = {"gru_fwd": (fg.gru_recurrence, "launches"),
                 "lingru_fwd": (fl.lingru_scan, "launches"),
                 "gru_fwd_bf16": (fg.gru_recurrence, "launches_bf16"),
                 "lingru_fwd_bf16": (fl.lingru_scan, "launches_bf16")}
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
     iters = int(spec["iterations"])
-    distributed.barrier()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        predict(model, mine, dev).cpu()
-    wall = time.perf_counter() - t0
-    distributed.barrier()
-    np.save(f"{spec['out']}.rank{mesh.rank}.npy", preds)
+    out: Dict[str, Any] = {"mesh_dp": session.dp}
+    if session.leader:
+        preds = session.predict(x)  # the proving dispatch, outside the clock
+        session.stop()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            session.predict(x)
+        out["wall_s"] = time.perf_counter() - t0
+        session.stop()
+        np.save(f"{spec['out']}.rank0.npy", preds)
+    else:
+        session.follow()  # the warmup and the proving dispatch
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        session.follow()
+    out["launches"] = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
     with open(f"{spec['out']}.rank{mesh.rank}.json", "w") as f:
-        json.dump({"wall_s": wall, "rows": len(mine),
-                   "launches": {k: getattr(fn, a) for k, (fn, a) in counters.items()}}, f)
+        json.dump(out, f)
     distributed.shutdown()
 
 
@@ -668,17 +679,20 @@ def run_mesh_suite(
 ) -> Dict[str, Any]:
     """Windows/s of the same fixed global batch split over 1, 2 and 4
     ranks (``roko_tpu/benchmark.py:2163-2300``): each count is a fresh
-    group of that many child processes, each predicting its rows. The
-    reference simulated devices on the CPU; the port's ranks are real
+    group of that many child processes running ONE polishing session over
+    them (rank 0 dispatches, the others follow; ``serve/session.py``).
+    The reference simulated devices on the CPU; the port's ranks are real
     processes, and on a machine with fewer cards than ranks they share
     the cards through gloo, which adds no silicon: the ideal efficiency
     is then 1.0, as on the reference's simulated devices.
 
-    Rows: ``devices`` (ranks), ``per_device_batch``, ``wall_s`` (the
-    slowest rank's), ``windows_per_sec``, ``preds_sha256`` of the class
-    ids of the whole global batch in rank order, ``backend`` and each
-    rank's kernel launches. ``scaling_efficiency`` is windows/s at N over
-    windows/s at the smallest count (``efficiency_vs_devices``), and
+    Rows: ``devices`` (ranks), ``mesh_dp``, ``per_device_batch``,
+    ``wall_s`` (rank 0's, its session's global dispatches, the host
+    collectives included), ``windows_per_sec``, ``preds_sha256`` of the
+    class ids of the whole global batch as rank 0 gathered them,
+    ``backend`` and each rank's kernel launches. ``scaling_efficiency``
+    is windows/s at N over windows/s at the smallest count
+    (``efficiency_vs_devices``), and
     ``byte_identical`` whether every count predicted the same bytes; when
     one does not, its row says how many (window, column) class ids differ
     from the smallest count's."""
@@ -732,10 +746,10 @@ def run_mesh_suite(
             for r in range(n):
                 with open(f"{out}.rank{r}.json") as f:
                     ranks.append(json.load(f))
-            preds[n] = np.concatenate([np.load(f"{out}.rank{r}.npy") for r in range(n)])
-            wall = max(rk["wall_s"] for rk in ranks)
+            preds[n] = np.load(f"{out}.rank0.npy")
+            wall = ranks[0]["wall_s"]
             results["rows"][str(n)] = {
-                "devices": n, "global_batch": global_batch,
+                "devices": n, "mesh_dp": ranks[0]["mesh_dp"], "global_batch": global_batch,
                 "per_device_batch": global_batch // n, "iterations": iters, "backend": what,
                 "wall_s": wall, "windows_per_sec": iters * global_batch / max(wall, 1e-9),
                 "preds_sha256": hashlib.sha256(np.ascontiguousarray(preds[n]).tobytes()

@@ -77,8 +77,14 @@ through the object-store client (``datapipe/store.py``), configured by
 ``ROKO_STORE_*``. ``serve --federation`` runs the multi-host federation's
 front (no model), and ``serve MODEL --host-agent --join HOST:PORT
 [--host-id ID] [--lease-ttl S]`` a host agent of it
-(``serve/federation.py``). Not ported yet: ``serve`` over several ranks
-(``--dp``/``--tp``/``--sp``), a usage error naming queue item A9.1.
+(``serve/federation.py``). ``serve`` and ``compile`` started as N
+processes under ``ROKO_COORDINATOR``/``ROKO_NUM_PROCESSES``/
+``ROKO_PROCESS_ID`` take ``--dp``/``--tp``/``--sp`` (``roko_tpu/cli.py:
+29-32``, :861-874, :1047-1080): ``serve`` runs ONE session over the
+ranks (``serve/session.py``), rank 0 binds, answers and dispatches every
+global rung, the other ranks follow, and ``compile`` resolves its ladder
+against dp and rank 0 writes the bundle; ``--workers``, ``--federation``,
+``--host-agent`` and ``--join`` then are usage errors.
 """
 
 from __future__ import annotations
@@ -560,12 +566,15 @@ class _LaunchReport:
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
-    """The polishing service (``roko_tpu/cli.py:966-1108``, single
-    process): load the model once, bind the socket, warm the batch ladder
-    on a thread (``/healthz`` says ``warming`` and ``/polish`` sheds with
-    503 meanwhile), print the ready line, and serve until SIGTERM drains
-    it. A failed warmup (a kernel bundle that does not match included)
-    stops the server and exits non-zero. With ``--workers N`` (and no
+    """The polishing service (``roko_tpu/cli.py:966-1108``): load the
+    model once, bind the socket, warm the batch ladder on a thread
+    (``/healthz`` says ``warming`` and ``/polish`` sheds with 503
+    meanwhile), print the ready line, and serve until SIGTERM drains it. A
+    failed warmup (a kernel bundle that does not match included) stops the
+    server and exits non-zero. Started as N processes under ``ROKO_*``,
+    the session spans the ranks: rank 0 serves and sends the stop op after
+    the last reply, the others follow (:func:`_serve_follower`); a broken
+    session exits rank 0 non-zero. With ``--workers N`` (and no
     ``--worker-id``) this process is the fleet's supervisor instead
     (``serve/supervisor.py``, ``roko_tpu/cli.py:1006-1035``); with
     ``--federation`` the federation's front, which loads no model, and with
@@ -576,10 +585,13 @@ def cmd_serve(args: argparse.Namespace) -> int:
     import threading
     import time
 
+    from roko_tpu_torch.parallel import distributed
+
     cfg = args.cfg
     _configure_store(cfg)
+    several = distributed.world_size() > 1
     _configure_event_log(cfg.serve.event_log, cfg.serve.event_log_max_mb,
-                         worker_id=args.worker_id)
+                         worker_id=distributed.rank() if several else args.worker_id)
     if args.federation and args.worker_id is None:
         # the lease/epoch registry and cross-host router: no model, no card
         from roko_tpu_torch.serve.federation import run_federation_front
@@ -609,30 +621,53 @@ def cmd_serve(args: argparse.Namespace) -> int:
             return 1
         return run_supervisor(args.model, cfg, announce=args.announce, device=args.device)
     from roko_tpu_torch.infer import resolve_device
-    from roko_tpu_torch.models.model import RokoModel
+    from roko_tpu_torch.parallel.mesh import make_mesh
     from roko_tpu_torch.serve.metrics import ServeMetrics
-    from roko_tpu_torch.serve.server import make_server, serve_forever, write_announce
+    from roko_tpu_torch.serve.server import (
+        BROKEN_EXIT_AFTER_S,
+        drain,
+        make_server,
+        serve_forever,
+        write_announce,
+    )
     from roko_tpu_torch.serve.session import PolishSession
 
-    device = resolve_device(args.device)
-    model = RokoModel(cfg.model)
-    model.load_state_dict(_load_model_params(args.model), strict=True)
+    # one session over the run's ranks (one rank without ROKO_*): rank 0
+    # serves, the others follow its dispatches
+    mesh = make_mesh(cfg.mesh)
+    device = distributed.device_of_rank(resolve_device(args.device))
+    model = _model_on_mesh(cfg, args.model, mesh)
     try:
-        session = PolishSession(model, cfg, device=device)
+        session = PolishSession(model, cfg, device=device, mesh=mesh)
     except ValueError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 1
+    if not session.leader:
+        return _serve_follower(session)
     metrics = ServeMetrics(latency_samples=cfg.serve.latency_samples)
     report = (_LaunchReport(os.environ[ENV_LAUNCHES], metrics)
               if os.environ.get(ENV_LAUNCHES) else None)
     server = make_server(session, cfg.serve, metrics=metrics, warming=True,
                          worker_id=args.worker_id,
                          on_polished=report.write if report is not None else None)
+
+    def _broken(reason: str) -> None:
+        # the group is out of step: answer /healthz "broken" a moment,
+        # then drain and exit non-zero, never dispatch on it again
+        print(f"serve: session broken ({reason}); exiting after {BROKEN_EXIT_AFTER_S:.0f}s",
+              file=sys.stderr, flush=True)
+        timer = threading.Timer(BROKEN_EXIT_AFTER_S, lambda: drain(server))
+        timer.daemon = True
+        timer.start()
+
+    session.on_broken(_broken)
     if args.announce:
         # written after the bind and before the warmup, so whoever started
         # a --port 0 server can watch it warm
         write_announce(args.announce, server.server_address[1])
-    print(f"serve: warming predict ladder {session.ladder} on {session.device} "
+    per = tuple(r // session.dp for r in session.ladder)
+    print(f"serve: mesh dp={session.dp} over {session.n_devices} device(s); warming predict "
+          f"ladder {session.ladder} = {session.dp} x per-device {per} on {session.device} "
           f"({cfg.serve.batching} batching; healthz=warming, /polish sheds until ready) ...",
           flush=True)
     warm_error: list = []
@@ -662,9 +697,47 @@ def cmd_serve(args: argparse.Namespace) -> int:
     serve_forever(server)
     if report is not None:
         report.write()
+    if session.broken is not None:
+        _exit_out_of_step(f"serve: session broken: {session.broken}")
+    # the followers' loop ends after the last reply
+    session.stop()
+    distributed.shutdown()
     if warm_error:
         raise SystemExit(f"serve: warmup failed: {warm_error[0]}")
     return 0
+
+
+def _serve_follower(session) -> int:
+    """A follower rank of ``serve``: build or load its kernels, then run
+    its rows of every dispatch rank 0 sends until rank 0's stop (exit 0).
+    A failure exits non-zero at once, so rank 0's next dispatch fails."""
+    from roko_tpu_torch.parallel import distributed
+
+    m = session.mesh
+    print(f"serve: rank {m.rank} of {session.n_devices} (dp={m.dp} tp={m.tp} sp={m.sp}) on "
+          f"{session.device} follows rank 0's dispatches", flush=True)
+    try:
+        session.warmup(log=print)
+        served = session.follow()
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        _exit_out_of_step(f"serve: rank {m.rank} failed; its group is out of step")
+    print(f"serve: rank {m.rank} followed {served} dispatch(es); stopped by rank 0", flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def _exit_out_of_step(message: str) -> None:
+    """Exit 1 now: a collective of this process may still be in flight,
+    and leaving its process group could wait on it."""
+    import os
+    import sys
+
+    print(message, file=sys.stderr, flush=True)
+    sys.stdout.flush()
+    os._exit(1)
 
 
 def cmd_compile(args: argparse.Namespace) -> int:
@@ -684,16 +757,26 @@ def cmd_compile(args: argparse.Namespace) -> int:
 
     from roko_tpu_torch.compile import BUNDLE_MANIFEST, export_bundle
     from roko_tpu_torch.config import resolve_ladder
+    from roko_tpu_torch.parallel import distributed
+    from roko_tpu_torch.parallel.mesh import make_mesh
 
     cfg = args.cfg
+    # the ladder denominates against the run's grid (the auto default is
+    # the per-rank base rungs x dp), so --b joins the global rungs a
+    # session on this grid asks for
+    mesh = make_mesh(cfg.mesh)
     try:
-        rungs = set(args.ladder or resolve_ladder(cfg.serve, 1))
+        rungs = set(args.ladder or resolve_ladder(cfg.serve, mesh.dp))
         if args.b:
             rungs.add(args.b)  # inference/polish dispatch at --b too
-        manifest = export_bundle(args.out, cfg, ladder=sorted(rungs), device=args.device)
+        manifest = export_bundle(args.out, cfg, mesh=mesh, ladder=sorted(rungs),
+                                 device=args.device)
     except ValueError as e:
         print(f"compile: {e}", file=sys.stderr)
         return 1
+    if manifest is None:  # a follower rank: rank 0 wrote the bundle
+        distributed.shutdown()
+        return 0
     ident = manifest["identity"]
     model = ident["model"]
     print(f"compile: wrote bundle {args.out} (kind {model['kind']}, compute_dtype="
@@ -1170,8 +1253,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=None,
                    help="bind port (default 8000; 0 = ephemeral, see --announce)")
     p.add_argument("--ladder", type=_ladder_type, default=None,
-                   help="comma-separated padded batch sizes the session warms "
-                   "(default 32,128,512)")
+                   help="comma-separated global padded batch sizes the session warms, "
+                   "multiples of dp (default 32,128,512 x dp)")
     p.add_argument("--max-queue", type=int, default=None,
                    help="bounded request pool (full -> 503 + Retry-After; default 64)")
     p.add_argument("--max-delay-ms", type=float, default=None,
@@ -1328,12 +1411,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         msg = unported_flag(args)
         if msg:
             parser.error(msg)
-    if args.command == "serve":
-        for axis in ("dp", "tp", "sp"):
-            if getattr(args, axis) not in (None, 1):
-                parser.error(f"serve --{axis} {getattr(args, axis)}: a session over several "
-                             "ranks is not ported yet (queue item A9.1 of ROADMAP.md); the "
-                             "service drives one card")
+    if args.command == "serve" and args.worker_id is None:
+        from roko_tpu_torch.parallel import distributed
+
+        if distributed.planned_processes() > 1:
+            for flag, on in (("--workers", args.workers not in (None, 0)),
+                             ("--federation", args.federation),
+                             ("--host-agent", args.host_agent), ("--join", args.join)):
+                if on:
+                    parser.error(f"serve {flag} runs a process tree of its own; run it from "
+                                 "one process, not under a multi-process launcher")
     if args.command == "polish":
         if args.distributed and (args.staged or args.keep_hdf5):
             parser.error("polish --distributed drives the fleet workers' own streaming stacks; "
@@ -1360,7 +1447,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             if args.cfg.fleet.workers == 0:
                 parser.error("serve: a host agent supervises workers — pass --workers N "
                              "(N >= 1 or -1 for auto)")
-    if hasattr(args, "dp") and args.command != "serve":  # the subcommands on the mesh
+    if hasattr(args, "dp"):  # the subcommands on the mesh
         _check_mesh(parser, args)
     return args.fn(args)
 
@@ -1387,15 +1474,16 @@ def _check_mesh(parser: argparse.ArgumentParser, args: argparse.Namespace) -> No
         parser.error(f"mesh tp={tp} sp={sp}: {e}")
 
 
-def _model_on_mesh(cfg: RokoConfig, model_arg: str):
-    """The model of ``cfg`` on the run's grid, its parameters (a full
+def _model_on_mesh(cfg: RokoConfig, model_arg: str, mesh=None):
+    """The model of ``cfg`` on the run's grid (``mesh``, default
+    ``cfg.mesh`` over the run's processes), its parameters (a full
     state_dict: a checkpoint directory or a reference ``.pth``) cut to
     this rank's part."""
     from roko_tpu_torch.models.model import RokoModel
     from roko_tpu_torch.parallel.mesh import make_mesh
     from roko_tpu_torch.parallel.tp import shard_state_dict
 
-    mesh = make_mesh(cfg.mesh)
+    mesh = mesh or make_mesh(cfg.mesh)
     model = RokoModel(cfg.model, mesh=mesh)
     model.load_state_dict(shard_state_dict(cfg.model, _load_model_params(model_arg), mesh),
                           strict=True)

@@ -164,36 +164,50 @@ def export_bundle(
     ladder: Optional[Sequence[int]] = None,
     device: str = "cuda",
     log: Log = print,
-) -> Dict[str, Any]:
+) -> Optional[Dict[str, Any]]:
     """Build the libraries ``cfg.model`` launches on ``device``, copy them
     into ``out_dir/lib/``, run every rung of the ladder once through a
     randomly initialised model, and write the manifest last; returns it.
-    On the CPU the bundle holds the identity and the rungs, no library."""
+    On the CPU the bundle holds the identity and the rungs, no library.
+    ``mesh`` a ``parallel.mesh.Mesh`` of several ranks runs the rungs on
+    one session over them: every rank builds, rank 0 alone writes and
+    returns the manifest, and the other ranks follow and return None."""
     import torch
 
     from roko_tpu_torch import kernels
     from roko_tpu_torch.config import resolve_ladder, validate_ladder
     from roko_tpu_torch.infer import resolve_device
     from roko_tpu_torch.models.model import RokoModel
+    from roko_tpu_torch.parallel import distributed
     from roko_tpu_torch.serve.session import PolishSession
 
-    dev = resolve_device(device)
-    rungs = resolve_ladder(cfg.serve, 1) if ladder is None else tuple(sorted(set(ladder)))
+    dev = distributed.device_of_rank(resolve_device(device))
+    grid = mesh if hasattr(mesh, "rank") else None  # a session's Mesh, not sizes
+    dp = _mesh_sizes(cfg, mesh)["dp"]
+    rungs = resolve_ladder(cfg.serve, dp) if ladder is None else tuple(sorted(set(ladder)))
     if not rungs:
         raise ValueError("bundle ladder must name at least one batch size")
-    validate_ladder(rungs, 1)
+    validate_ladder(rungs, dp)
     identity = bundle_identity(cfg, mesh, backend=dev.type)
-    os.makedirs(out_dir, exist_ok=True)
-    # a stale manifest must not describe what is about to change
-    try:
-        os.unlink(os.path.join(out_dir, BUNDLE_MANIFEST))
-    except OSError:
-        pass
+    leader = grid is None or grid.rank == 0
+    if leader:
+        os.makedirs(out_dir, exist_ok=True)
+        # a stale manifest must not describe what is about to change
+        try:
+            os.unlink(os.path.join(out_dir, BUNDLE_MANIFEST))
+        except OSError:
+            pass
     t0 = time.perf_counter()
     libraries: Dict[str, Dict[str, Any]] = {}
     if dev.type == "cuda":
         names = list(identity["kernels"])
         kernels.build(names)
+    model = RokoModel(cfg.model, generator=torch.Generator().manual_seed(0), mesh=grid)
+    session = PolishSession(model, cfg, device=dev, mesh=grid, ladder=rungs)
+    if not leader:
+        session.follow()
+        return None
+    if dev.type == "cuda":
         os.makedirs(os.path.join(out_dir, LIB_DIR), exist_ok=True)
         for name in names:
             src = kernels.library_path(name)
@@ -204,15 +218,16 @@ def export_bundle(
             libraries[name] = {"file": rel, "sha256": _sha256_file(os.path.join(out_dir, rel)),
                                "bytes": os.path.getsize(os.path.join(out_dir, rel))}
             log(f"compile: {name} -> {rel}")
-    model = RokoModel(cfg.model, generator=torch.Generator().manual_seed(0))
-    session = PolishSession(model, cfg, device=dev, ladder=rungs)
     shape = (cfg.model.window_rows, cfg.model.window_cols)
     per_rung: Dict[str, float] = {}
-    for rung in rungs:
-        t_r = time.perf_counter()
-        session.predict(_zeros(rung, shape))
-        per_rung[str(rung)] = round(time.perf_counter() - t_r, 3)
-        log(f"compile: rung {rung} ran in {per_rung[str(rung)]:.2f}s")
+    try:
+        for rung in rungs:
+            t_r = time.perf_counter()
+            session.predict(_zeros(rung, shape))
+            per_rung[str(rung)] = round(time.perf_counter() - t_r, 3)
+            log(f"compile: rung {rung} ran in {per_rung[str(rung)]:.2f}s")
+    finally:
+        session.stop()
     manifest = {
         "bundle_version": BUNDLE_VERSION,
         "identity": identity,
@@ -352,7 +367,11 @@ def verify_main(bundle_dir: str, cfg_json_path: str, device: str = "cuda") -> No
     dev = resolve_device(device)
     manifest = read_manifest(bundle_dir)
     rungs = [int(r) for r in manifest["rungs"]]
-    load_bundle(bundle_dir, cfg, rungs=rungs, require_all=True, log=lambda m: None)
+    # this one process stands in for every rank of the grid the bundle
+    # names: its libraries and rungs are what one rank loads and runs
+    grid = manifest["identity"]["mesh"]
+    load_bundle(bundle_dir, cfg, mesh=(grid["dp"], grid["tp"], grid["sp"]), rungs=rungs,
+                require_all=True, log=lambda m: None)
     session = PolishSession(RokoModel(cfg.model, generator=torch.Generator().manual_seed(0)),
                             cfg, device=dev, ladder=rungs)
     shape = (cfg.model.window_rows, cfg.model.window_cols)

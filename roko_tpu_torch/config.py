@@ -363,14 +363,14 @@ class ServeConfig:
 
 
 def resolve_ladder(serve: ServeConfig, dp: int) -> Tuple[int, ...]:
-    """The global rung ladder a session on a ``dp``-wide device set uses:
-    explicit ``serve.ladder`` rungs pass through (sorted, deduped), and
-    the auto default scales each ``serve.ladder_base`` rung by dp. ``dp``
-    is the extent of the mesh the session runs on: a process of the port
-    drives one card, so a session's dp is 1 in every process of a run
-    (``MeshConfig`` splits training steps and the contigs of an inference
-    across processes, never a session's batch; a session over several
-    cards is queue item A9.1)."""
+    """The global rung ladder a session on a ``dp``-wide grid uses:
+    explicit ``serve.ladder`` rungs pass through (sorted, deduped; their
+    validity against dp is :func:`validate_ladder`'s, where the grid is
+    known), and the auto default scales each per-rank
+    ``serve.ladder_base`` rung by dp. ``dp`` is the dp extent of the
+    session's grid of processes (``serve/session.py``): each global rung
+    sends rung/dp rows to every dp group. The session, the bundle exporter
+    and the stream's tail rungs all resolve through here."""
     if dp < 1:
         raise ValueError(f"mesh dp axis must be >= 1; got {dp}")
     if serve.ladder:

@@ -64,6 +64,13 @@ def _topology(coordinator_address: Optional[str], num_processes: Optional[int],
     return explicit, num_processes, process_id
 
 
+def planned_processes() -> int:
+    """The processes the ``ROKO_*`` environment names (1 without it),
+    read before any process group exists."""
+    topo = _topology(None, None, None)
+    return 1 if topo is None else topo[1]
+
+
 def refuse_shared_cards(cards: List[str]) -> None:
     """Raise unless every rank's ``host:card`` differs: NCCL refuses two
     ranks on one card."""

@@ -20,6 +20,13 @@ the port runs one process per card, so its mesh is the processes of the
 run, and the collectives are explicit calls on the ``torch.distributed``
 subgroups of :func:`distributed.grid_groups`.
 
+A polishing session over the grid (``serve/session.py``) moves its host
+arrays with three collectives of CPU tensors on the whole run, all from
+rank 0: :func:`dispatch_header`, :func:`scatter_rows` (each dp group its
+rows of a global rung) and :func:`gather_rows` (the class ids back, one
+rank a dp group). On the CPU they run on gloo, and so they do on cards,
+through the ``cpu:gloo`` half of the NCCL group.
+
 Beside the grid, the serving fleet's card slices (:92-290 of the
 reference's module): :func:`fleet_worker_slice`, :func:`fleet_worker_env`
 (a ``CUDA_VISIBLE_DEVICES`` overlay), :func:`visible_device_count` and
@@ -33,6 +40,7 @@ import dataclasses
 import math
 from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from roko_tpu_torch.config import MeshConfig
@@ -158,6 +166,66 @@ def group_broadcast_(t: torch.Tensor, group: Any, src: int) -> torch.Tensor:
 
         dist.broadcast(t, src=src, group=group)
     return t
+
+
+#: the ops of a session's dispatch header (``serve/session.py``): the
+#: followers' loop ends, or one padded rung, or one ragged top-rung slab
+OP_STOP, OP_PADDED, OP_RAGGED = 0, 1, 2
+
+
+def dispatch_header(mesh: Mesh, header: Optional[Tuple[int, int, int]] = None
+                    ) -> Tuple[int, int, int]:
+    """``(op, rung, valid count)`` from rank 0 to every rank of the run:
+    rank 0 passes it, the others receive it. A CPU tensor, so it rides
+    gloo (the ``cpu:gloo`` half of an NCCL group); without a group the
+    header comes back as given."""
+    if mesh.group is None:
+        return header  # type: ignore[return-value]
+    import torch.distributed as dist
+
+    t = torch.tensor(header if mesh.rank == 0 else (0, 0, 0), dtype=torch.int64)
+    dist.broadcast(t, src=0, group=mesh.group)
+    op, rung, n = (int(v) for v in t.tolist())
+    return op, rung, n
+
+
+def scatter_rows(mesh: Mesh, x: Optional[np.ndarray], rung: int,
+                 shape: Sequence[int]) -> np.ndarray:
+    """This rank's rows of rank 0's global batch ``x`` (``[rung, *shape]``
+    uint8; None on the other ranks): rows ``[d * rung / dp, (d + 1) * rung
+    / dp)`` of dp group d, the same rows for every tp and sp rank of the
+    group. One gloo scatter of CPU tensors; without a group, ``x``."""
+    if mesh.group is None:
+        return x  # type: ignore[return-value]
+    import torch.distributed as dist
+
+    per = rung // mesh.dp
+    out = torch.empty((per, *shape), dtype=torch.uint8)
+    parts = None
+    if mesh.rank == 0:
+        xt = torch.from_numpy(x)
+        block = mesh.tp * mesh.sp  # the ranks of one dp group
+        parts = [xt[r // block * per : (r // block + 1) * per] for r in range(mesh.dp * block)]
+    dist.scatter(out, parts, src=0, group=mesh.group)
+    return out.numpy()
+
+
+def gather_rows(mesh: Mesh, rows: np.ndarray) -> Optional[np.ndarray]:
+    """Every rank's class ids to rank 0, which joins those of each dp
+    group's (t=0, s=0) rank in dp order; None on the other ranks. One gloo
+    gather of CPU tensors; without a group, ``rows``."""
+    if mesh.group is None:
+        return rows
+    import torch.distributed as dist
+
+    t = torch.from_numpy(np.ascontiguousarray(rows))
+    parts = None
+    if mesh.rank == 0:
+        parts = [torch.empty_like(t) for _ in range(mesh.dp * mesh.tp * mesh.sp)]
+    dist.gather(t, parts, dst=0, group=mesh.group)
+    if parts is None:
+        return None
+    return torch.cat([parts[mesh.rank_of(d, 0, 0)] for d in range(mesh.dp)]).numpy()
 
 
 def fleet_worker_slice(worker_index: int, num_workers: int, devices_per_worker: int) -> "list[int]":

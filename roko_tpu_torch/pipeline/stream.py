@@ -52,9 +52,18 @@ before the journal's identity hash.
 ``trace_dir`` writes a device trace of the run's extraction, batching
 and inference loop (``utils/profiling.device_trace``).
 
-Left out of the port: a stream over several processes or a device mesh
-(a session over several ranks, A9.1; several processes polish staged) and
-the cascade router (A10).
+The cascade router (``cascade/``) wraps the batcher's submit when
+``cfg.cascade`` enables it.
+
+A stream over several ranks (``mesh``, ``roko_tpu/pipeline/stream.py:
+329-332``): every rank calls :func:`run_streaming_polish` with the same
+model and mesh (or a session over it). Rank 0 streams, extracting,
+batching, voting and writing, on a session whose global rungs send
+``rung/dp`` rows to each dp group; the other ranks build the same
+session and :meth:`~PolishSession.follow` until rank 0 stops it, and
+return an empty dict. ``batch_size`` must divide over dp. The command
+line's ``polish`` under several processes stays staged by contig, as
+``roko-tpu polish`` streams only in one process.
 """
 
 from __future__ import annotations
@@ -79,6 +88,7 @@ from roko_tpu_torch.infer import VoteBoard, tail_rungs
 from roko_tpu_torch.io.fasta import write_fasta_record
 from roko_tpu_torch.models.model import RokoModel
 from roko_tpu_torch.models.quant import maybe_quantize
+from roko_tpu_torch.parallel.mesh import Mesh
 from roko_tpu_torch.resilience import PolishJournal
 from roko_tpu_torch.resilience.watchdog import thread_stack
 from roko_tpu_torch.serve.metrics import ServeMetrics
@@ -282,6 +292,7 @@ def run_streaming_polish(
     region_source=None,
     resume: bool = False,
     trace_dir: Optional[str] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, str]:
     """Polish ``ref_path``+``bam_x`` to ``{contig: sequence}`` with
     feature extraction, host batching and device inference overlapped;
@@ -292,6 +303,9 @@ def run_streaming_polish(
     ``model`` runs on ``device`` in a :class:`PolishSession` whose ladder
     is the serve ladder capped at ``batch_size`` (``tail_rungs``);
     ``session`` injects a warm one instead (``model`` may then be None).
+    ``mesh`` (default the session's, else one rank) runs the session over
+    several ranks: rank 0 streams, every other rank follows and returns
+    ``{}``.
     ``region_source`` overrides the extraction fan-out with any object
     exposing ``refs``, ``region_counts`` and ``results`` (tests inject
     out-of-order and faulting sources through it). ``metrics`` (created
@@ -320,6 +334,28 @@ def run_streaming_polish(
         pcfg.max_batch_delay_ms if batch_delay_ms is None else batch_delay_ms
     ) / 1e3
     timer = timer if timer is not None else StageTimer()
+    mesh = mesh or (session.mesh if session is not None else Mesh(dp=1))
+    dp = mesh.dp
+    if batch_size % dp:
+        raise ValueError(f"batch_size {batch_size} not divisible by dp={dp}")
+
+    def make_session() -> PolishSession:
+        # no warmup: a rung runs (and on the card builds its kernels) on
+        # its first dispatch, so a short polish does not pay for rungs it
+        # never uses; cfg.compile: the build cache, and a bundle's
+        # libraries in place of nvcc (require_all=False: a rung the bundle
+        # lacks simply runs; a library it lacks is refused, never built)
+        made = PolishSession(
+            model, cfg, device=device, mesh=mesh,
+            ladder=tail_rungs(resolve_ladder(cfg.serve, dp), batch_size, dp),
+        )
+        made.load_compiled(require_all=False, log=log)
+        return made
+
+    if mesh.rank != 0:
+        # a follower: rank 0 extracts, votes and writes
+        (session or make_session()).follow()
+        return {}
 
     if resume and not out_path:
         raise ValueError(
@@ -347,17 +383,10 @@ def run_streaming_polish(
         stack.callback(lambda: journal and journal.close())
         if session is None:
             # built AFTER the journal opens, so a failure here leaves the
-            # journal behind for --resume; no warmup: a rung runs (and on
-            # the card builds its kernels) on its first dispatch, so a
-            # short polish does not pay for rungs it never uses
-            session = PolishSession(
-                model, cfg, device=device,
-                ladder=tail_rungs(resolve_ladder(cfg.serve, 1), batch_size, 1),
-            )
-            # cfg.compile: the build cache, and a bundle's libraries in
-            # place of nvcc (require_all=False: a rung the bundle lacks
-            # simply runs; a library it lacks is refused, never built)
-            session.load_compiled(require_all=False, log=log)
+            # journal behind for --resume; the followers' loop ends with
+            # the run (after the batcher's last dispatch)
+            session = make_session()
+            stack.callback(session.stop)
         if region_source is None:
             region_source = stack.enter_context(
                 open_region_stream(

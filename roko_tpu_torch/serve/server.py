@@ -28,8 +28,10 @@ Routes:
   one request and ``"cascade": {"threshold": t}`` a same-identity router
   at another threshold.
 - ``GET /healthz`` — liveness, the ladder, the batching policy, the
-  live Retry-After hint and tenant backlogs; **503** while the ladder
-  warms, while the circuit breaker is open and while the server drains.
+  session's grid (``mesh_dp``, ``devices``), the live Retry-After hint
+  and tenant backlogs; **503** while the ladder warms, while the circuit
+  breaker is open, while the server drains, and ``"broken"`` (with the
+  reason) once a session over several ranks broke.
 - ``GET /metrics`` — Prometheus text (``serve/metrics.py``).
 - ``GET /tracez`` — the request-trace ring (last N + slowest N replies
   with their span breakdowns) and a live scheduler snapshot.
@@ -94,6 +96,9 @@ from roko_tpu_torch.serve.session import PolishSession
 #: Retry-After of the warming 503: the first dispatch of each rung builds
 #: the kernels on the card, which takes far longer than a queue drains
 WARMING_RETRY_AFTER_S = 30.0
+#: a service whose session over several ranks broke answers ``/healthz``
+#: 503 "broken" this long, so a probe can read why, then drains and exits
+BROKEN_EXIT_AFTER_S = 2.0
 
 
 def _decode_array(payload: Dict[str, Any], key: str, dtype, shape: Tuple[int, ...]) -> np.ndarray:
@@ -431,6 +436,11 @@ class _Handler(JsonRequestHandler):
             code = 503
         if self.server._draining.is_set():
             body["status"] = "draining"
+            code = 503
+        broken = getattr(session, "broken", None)
+        if broken is not None:
+            body["status"] = "broken"
+            body["broken"] = broken
             code = 503
         self._reply_json(code, body)
 

@@ -1,7 +1,7 @@
 """Warm model session with a padded batch ladder (the port's counterpart
 of ``roko_tpu/serve/session.py::PolishSession``).
 
-A :class:`PolishSession` holds a :class:`RokoModel` on one device, in
+A :class:`PolishSession` holds a :class:`RokoModel` on its device, in
 ``eval()``, and dispatches every request by padding it to the smallest
 rung of a small ladder of batch sizes that fits (chunking oversized
 requests at the top rung), so the kernels run at a few known shapes
@@ -33,13 +33,38 @@ threads at once (``cfg.compile.parallel_warmup``) or one by one
 mode ``"aot"``, ``"parallel"`` or ``"serial"``, and the build cache's
 hits and misses).
 
-What the JAX package's session does and this one does not: shard over a
-device mesh (one card here; a session over several ranks is queue item
-A9.1), or fail over to the host CPU after a hang (not ported: carrying
-on on the CPU after the card failed would hide the card's failure;
-``failed_over`` is always False). The model runs in its resolved
-``cfg.compute_dtype``; a config that asks for int8 quantizes it once,
-when the session is built.
+One session over several ranks (``mesh``, ``roko_tpu/serve/session.py:
+64-123``): the port's mesh is its processes, one per card, so the
+reference's one session over every local device becomes one session over
+the ranks of a run, in a leader and follower design. Rank 0 is the
+leader: it alone admits work (HTTP, the batcher, the stream). Every
+other rank is a follower: it holds the same model (a transformer's tp
+and sp ranks their shards) and runs :meth:`follow`. Each ladder rung is
+a global batch: the leader sends a header ``(op, rung, valid count)`` to
+every rank, scatters ``rung/dp`` rows to each dp group, every rank runs
+its rows through the model on its own card, and the leader gathers the
+int32 class ids of each dp group's (t=0, s=0) rank in dp order
+(``parallel/mesh.py``: CPU tensors on gloo, one code path for the CPU,
+for ranks sharing a card and for an NCCL run). In a ragged step each
+shard masks its own rows, with valid count ``clamp(n - d*rung/dp, 0,
+rung/dp)``. The auto ladder is ``ladder_base x dp``, and :meth:`stop`
+ends the followers' loop. Only the leader's dispatch thread issues the
+collectives, one dispatch at a time under the session lock, so every
+rank sees them in one order.
+
+A failed or timed-out dispatch of a session over several ranks leaves
+its group out of step (a collective may still be in flight on the
+watchdog's thread), so the session marks itself broken instead of
+retrying: ``broken`` holds the reason, every later dispatch raises
+:class:`SessionBroken` at once, and the callbacks of
+:meth:`on_broken` run (the service drains and exits non-zero). The
+first-call budget is re-armed after a failure on one rank only.
+
+What the JAX package's session does and this one does not: fail over to
+the host CPU after a hang (not ported: carrying on on the CPU after the
+card failed would hide the card's failure; ``failed_over`` is always
+False). The model runs in its resolved ``cfg.compute_dtype``; a config
+that asks for int8 quantizes it once, when the session is built.
 """
 
 from __future__ import annotations
@@ -64,15 +89,31 @@ from roko_tpu_torch.infer import (
 )
 from roko_tpu_torch.models.model import RokoModel
 from roko_tpu_torch.models.quant import maybe_quantize
+from roko_tpu_torch.obs import events as obs_events
+from roko_tpu_torch.parallel.mesh import (
+    OP_PADDED,
+    OP_RAGGED,
+    OP_STOP,
+    Mesh,
+    dispatch_header,
+    gather_rows,
+    scatter_rows,
+)
+from roko_tpu_torch.parallel.ring import gather_columns
 from roko_tpu_torch.resilience import DeadlinePolicy, call_with_deadline
+
+
+class SessionBroken(RuntimeError):
+    """A session over several ranks whose group fell out of step: a
+    dispatch failed or outlived its deadline with its collectives
+    possibly in flight. Nothing may run on that group again."""
 
 
 class PolishSession:
     """A model on its device + the padded batch ladder; thread-safe
-    dispatch (``predict`` serialises device work with a lock)."""
-
-    #: the dp extent: the port's session drives one device
-    dp = 1
+    dispatch (``predict`` serialises device work with a lock). On a
+    ``mesh`` of several ranks, rank 0 dispatches and the others
+    :meth:`follow`."""
 
     def __init__(
         self,
@@ -80,10 +121,19 @@ class PolishSession:
         cfg: Optional[RokoConfig] = None,
         *,
         device: str | torch.device = "cuda",
+        mesh: Optional[Mesh] = None,
         ladder: Optional[Sequence[int]] = None,
     ):
         self.cfg = cfg or RokoConfig(model=model.cfg)
         self.device = resolve_device(device)
+        #: the grid this ONE session drives (one rank without a mesh)
+        self.mesh: Mesh = mesh if mesh is not None else Mesh(dp=1)
+        #: the dp extent: every global rung sends rung/dp rows to each dp group
+        self.dp: int = self.mesh.dp
+        #: the ranks (one card each) this session drives
+        self.n_devices: int = self.mesh.dp * self.mesh.tp * self.mesh.sp
+        #: rank 0 admits work and dispatches; every other rank follows
+        self.leader: bool = self.mesh.rank == 0
         rungs = (
             resolve_ladder(self.cfg.serve, self.dp)
             if ladder is None
@@ -112,6 +162,15 @@ class PolishSession:
         self.warmup_report: Optional[WarmupReport] = None
         w = model.cfg
         self._window_shape = (w.window_rows, w.window_cols)
+        #: why a session over several ranks stopped dispatching; None while
+        #: it works
+        self.broken: Optional[str] = None
+        self._on_broken: list = []
+        #: the leader's seconds in the host collectives (header and
+        #: scatter; the gather, which waits for the slowest rank), and the
+        #: dispatches this rank ran over the group
+        self.collective_s: Dict[str, float] = {"send": 0.0, "gather": 0.0}
+        self.collective_dispatches = 0
 
     # -- readiness ------------------------------------------------------------
 
@@ -133,11 +192,25 @@ class PolishSession:
         ``cpu_fallback`` of ``/healthz`` and ``/metrics`` say so)."""
         return False
 
+    def on_broken(self, fn) -> None:
+        """Call ``fn(reason)`` once, when the session breaks."""
+        self._on_broken.append(fn)
+
+    def _break(self, reason: str) -> None:
+        if self.broken is not None:
+            return
+        self.broken = reason
+        obs_events.emit("serve", "session_broken", text=f"serve: session over "
+                        f"{self.n_devices} ranks broken, no further dispatch: {reason}",
+                        stage="serve", ranks=self.n_devices)
+        for fn in self._on_broken:
+            fn(reason)
+
     def load_compiled(self, *, require_all: bool = True, log=None) -> Optional[Dict[str, Any]]:
         """Fix the kernel build cache (``cfg.compile``) and, when
         ``cfg.compile.bundle_dir`` is set, load that kernel bundle
         (``compile.load_bundle``: ``BundleMismatch`` when it does not match
-        this model and card, or lacks a rung of the ladder and
+        this model, card and grid, or lacks a rung of the ladder and
         ``require_all``). Returns the bundle's check, None without one."""
         from roko_tpu_torch.compile.bundle import load_bundle
 
@@ -145,8 +218,8 @@ class PolishSession:
         bundle = self.cfg.compile.bundle_dir
         if not bundle:
             return None
-        return load_bundle(bundle, self.cfg, rungs=self.ladder, require_all=require_all,
-                           log=log or (lambda m: None))
+        return load_bundle(bundle, self.cfg, mesh=self.mesh, rungs=self.ladder,
+                           require_all=require_all, log=log or (lambda m: None))
 
     def warmup(self, log=None, *, parallel: Optional[bool] = None,
                require_all: bool = True) -> int:
@@ -154,7 +227,8 @@ class PolishSession:
         then run one zero batch of every rung through the model (a ragged
         session runs its one top-rung step instead), on threads at once or
         one by one. Returns :meth:`ready_executables` and fills
-        ``warmup_report``."""
+        ``warmup_report``. A follower only loads or builds its kernels:
+        its rungs run when the leader sends them, in :meth:`follow`."""
         from roko_tpu_torch import kernels
 
         hits0, misses0 = cache_counters()
@@ -164,7 +238,7 @@ class PolishSession:
             # every kernel the model launches, one nvcc per source at once
             # (none with a bundle: its libraries are already installed)
             kernels.build(kernels.inference_kernels(self.model.cfg))
-        rungs = self.ladder[-1:] if self.ragged else self.ladder
+        rungs = () if not self.leader else self.ladder[-1:] if self.ragged else self.ladder
 
         def one(rung: int) -> None:
             zeros = np.zeros((rung,) + self._window_shape, np.uint8)
@@ -201,48 +275,129 @@ class PolishSession:
         return full * top + (self.rung_for(rest) if rest else 0)
 
     def _forward(self, x: np.ndarray, n: Optional[int] = None) -> np.ndarray:
-        """uint8[rung, rows, cols] -> int32[rung, cols] class ids, copied
-        back to the host; with ``n``, rows at or past ``n`` are zeroed on
-        the device first (the ragged step). Runs on the watchdog's thread:
-        the inference mode and the current device are per thread, so both
-        are set here."""
+        """uint8[b, rows, cols] -> int32[b, cols] class ids of this rank's
+        rows, copied back to the host; with ``n``, rows at or past
+        ``n`` are zeroed on the device first (the ragged step). A model
+        that computes a block of the columns (sp above 1) gathers its sp
+        group's logits first. Runs on the watchdog's thread: the inference
+        mode and the current device are per thread, so both are set here."""
         on_card = self.device.type == "cuda"
         with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
             with torch.inference_mode():
                 xt = torch.from_numpy(x).to(self.device)
                 if n is not None:
                     xt = mask_rows(xt, n)
-                preds = self.model(xt).argmax(dim=-1).to(torch.int32)
+                logits = self.model(xt)
+                if self.model.column_split:
+                    logits = gather_columns(logits, self.mesh)
+                preds = logits.argmax(dim=-1).to(torch.int32)
                 return preds.cpu().numpy()
+
+    def _shard_count(self, rung: int, n: Optional[int]) -> Optional[int]:
+        """The valid rows of this rank's shard of a ragged step of ``n``
+        rows (None for a padded rung): ``clamp(n - d*rung/dp, 0, rung/dp)``."""
+        if n is None:
+            return None
+        per = rung // self.dp
+        return min(max(n - self.mesh.d * per, 0), per)
+
+    def _rows(self, x: np.ndarray, n: Optional[int]) -> np.ndarray:
+        """This rank's rows through the model, a padded rung (``n`` None)
+        or a ragged shard."""
+        return self._forward(x) if n is None else self._forward(x, n)
+
+    def _step(self, x: np.ndarray, n: Optional[int]) -> np.ndarray:
+        """The leader's dispatch of one global batch: on one rank the
+        forward; over several, the header, the scatter, this rank's rows
+        and the gather."""
+        mesh = self.mesh
+        if not mesh.collective:
+            return self._rows(x, n)
+        rung = x.shape[0]
+        t0 = time.perf_counter()
+        dispatch_header(mesh, (OP_PADDED if n is None else OP_RAGGED, rung,
+                               -1 if n is None else n))
+        mine = scatter_rows(mesh, x, rung, self._window_shape)
+        t1 = time.perf_counter()
+        preds = self._rows(mine, self._shard_count(rung, n))
+        t2 = time.perf_counter()
+        out = gather_rows(mesh, preds)
+        self.collective_s["send"] += t1 - t0
+        self.collective_s["gather"] += time.perf_counter() - t2
+        self.collective_dispatches += 1
+        return out
 
     def _dispatch(self, x: np.ndarray, n: Optional[int] = None) -> np.ndarray:
         """One padded batch (or, with ``n``, one ragged top-rung slab)
-        through the device, under the watchdog; the ragged step has a
-        first-call budget of its own (key ``("ragged", top)``)."""
+        through every rank, under the watchdog; the ragged step has a
+        first-call budget of its own (key ``("ragged", top)``). A failure
+        breaks a session over several ranks."""
+        if self.broken is not None:
+            raise SessionBroken(self.broken)
+        if not self.leader:
+            raise RuntimeError(f"rank {self.mesh.rank} follows rank 0's dispatches "
+                               "(PolishSession.follow); only the leader predicts")
         rung = x.shape[0]
         self.dispatched_shapes.add(rung)
         key: Any = rung if n is None else ("ragged", rung)
         deadline_s, first = self._deadlines.deadline_for(key)
         try:
             out = call_with_deadline(
-                lambda: self._forward(x) if n is None else self._forward(x, n),
+                lambda: self._step(x, n),
                 deadline_s,
                 stage="serve-compile" if first else "serve-predict",
             )
-        except BaseException:
-            # a failed first dispatch re-arms the first-call budget, so a
-            # retry is not judged by the tight predict deadline
-            if first:
+        except BaseException as e:
+            if self.mesh.collective:
+                # the group may be mid-collective: never dispatch on it again
+                self._break(f"dispatch of rung {rung} failed: {type(e).__name__}: {e}")
+            elif first:
+                # a failed first dispatch re-arms the first-call budget, so
+                # a retry is not judged by the tight predict deadline
                 self._deadlines.forget(key)
             raise
         self._ready.add(key)
         return out
 
+    def follow(self) -> int:
+        """A follower's loop: receive each header of the leader, run this
+        rank's rows of the rung and send the class ids back, until the
+        stop op; returns the dispatches served. It may be entered again
+        after a stop. A failure raises (the caller exits non-zero, and the
+        leader's next dispatch fails)."""
+        if self.leader:
+            raise RuntimeError("rank 0 leads the session; the other ranks follow")
+        served = 0
+        while True:
+            op, rung, n = dispatch_header(self.mesh)
+            if op == OP_STOP:
+                return served
+            mine = scatter_rows(self.mesh, None, rung, self._window_shape)
+            self.dispatched_shapes.add(rung)
+            preds = self._rows(mine, self._shard_count(rung, n if op == OP_RAGGED else None))
+            gather_rows(self.mesh, preds)
+            self.collective_dispatches += 1
+            served += 1
+
+    def stop(self) -> None:
+        """The leader ends the followers' :meth:`follow` (the stop op,
+        after every dispatch it sent); a no-op on one rank, on a follower
+        and on a broken session."""
+        if not (self.leader and self.mesh.collective) or self.broken is not None:
+            return
+        with self._lock:
+            try:
+                call_with_deadline(lambda: dispatch_header(self.mesh, (OP_STOP, 0, 0)),
+                                   self.cfg.resilience.predict_deadline_s, stage="serve-stop")
+            except BaseException as e:
+                self._break(f"stop failed: {type(e).__name__}: {e}")
+                raise
+
     def ragged_slots(self, n: int) -> int:
         """Device slots an n-window ragged step spends compute on, the
         ragged twin of ``padded_size`` behind ``padding_efficiency``: the
-        reference's formula, n rounded up to the dp granularity (dp is 1
-        here, so n)."""
+        reference's formula, n rounded up to the dp granularity (each of
+        the dp shards masks its own rows)."""
         return -(-n // self.dp) * self.dp
 
     def predict_ragged(self, x: np.ndarray, n: int) -> np.ndarray:

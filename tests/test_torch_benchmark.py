@@ -276,15 +276,17 @@ def test_stress_row_doubles_the_hidden_size(monkeypatch):
 def test_mesh_suite_contract(monkeypatch):
     """The mesh suite on the CPU (the contract of
     ``tests/test_mesh_serve.py::test_bench_mesh_suite_contract``): a fresh
-    group of child processes for each count, windows/s rows, class ids
-    byte-identical across counts, the efficiency against the smallest
-    count, and counts that do not divide the global batch refused."""
+    group of child processes for each count, ONE session over them (dp =
+    the ranks), windows/s rows, class ids byte-identical across counts,
+    the efficiency against the smallest count, and counts that do not
+    divide the global batch refused."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the children's torch threads
     out = B.run_mesh_suite((1, 2), iterations=2, global_batch=32, device="cpu",
                            model_overrides=TINY)
     assert out["byte_identical"] is True
     assert out["rows"]["1"]["windows_per_sec"] > 0
     assert out["rows"]["2"]["per_device_batch"] == 16
+    assert (out["rows"]["1"]["mesh_dp"], out["rows"]["2"]["mesh_dp"]) == (1, 2)
     assert out["rows"]["2"]["backend"] == "cpu (2 ranks, gloo)"
     assert len(out["rows"]["2"]["launches_by_rank"]) == 2
     assert "2" in out["scaling_efficiency"] and out["efficiency_vs_devices"] == 1

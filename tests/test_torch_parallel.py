@@ -258,7 +258,7 @@ def test_evaluate_equals_one_process(ranks):
 # -- the command line ------------------------------------------------------
 
 
-@pytest.mark.parametrize("command", ["train", "inference", "polish"])
+@pytest.mark.parametrize("command", ["train", "inference", "polish", "serve"])
 @pytest.mark.parametrize("flags,message", [
     (["--tp", "2"], "mesh dp=-1: 1 devices not divisible by fixed axes product 2"),
     (["--sp", "2"], "mesh dp=-1: 1 devices not divisible by fixed axes product 2"),
@@ -270,7 +270,7 @@ def test_mesh_flags_are_usage_errors(tmp_path, capsys, command, flags, message):
     2) is a usage error (rc 2) with ``roko_tpu``'s ``mesh_shape`` wording,
     before anything is read; --dp 1 and -1 parse."""
     positional = {"train": ["t.hdf5", "ckpt"], "inference": ["i.hdf5", "ckpt", "o.fasta"],
-                  "polish": ["d.fasta", "r.bam", "ckpt", "o.fasta"]}[command]
+                  "polish": ["d.fasta", "r.bam", "ckpt", "o.fasta"], "serve": ["ckpt"]}[command]
     argv = [command, *[str(tmp_path / a) for a in positional], "--device", "cpu"]
     with pytest.raises(SystemExit) as e:
         cli.main([*argv, *flags])

@@ -527,9 +527,8 @@ def test_in_process_sigterm_drains_serve_forever(port_session):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--tp", "2"], "A9.1"), (["--cascade", "1.5"], "cascade.threshold must lie in [0, 1]"),
+    (["--cascade", "1.5"], "cascade.threshold must lie in [0, 1]"),
     (["--cascade-tier", "model"], "cascade.tier='model' needs cascade.tier_version"),
-    (["--dp", "2"], "A9.1"),
 ])
 def test_unported_serve_flags_are_usage_errors(argv, item, capsys, tmp_path):
     with pytest.raises(SystemExit) as e:

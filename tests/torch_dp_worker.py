@@ -19,6 +19,12 @@ files it names) under OUT_DIR and prints ``RANK_{r}_OK``.
 - ``resume``: ``loop.train`` for two epochs saving ``latest`` every
   step; the same run stopped on every rank inside the second epoch and
   resumed from its checkpoint; both runs' parameters.
+- ``mesh_serve``: ONE ``PolishSession`` over the ranks (rank 0 predicts,
+  the others follow): padded and ragged class ids of the spec's windows;
+  an auto-ladder session under the continuous and the ragged batcher;
+  with the spec's bundle, the refusal of a one-rank bundle; with the
+  spec's project, ``run_streaming_polish`` on the ranks. Rank 0 writes
+  ``mesh_serve.npz`` and ``mesh_serve.json``.
 """
 
 from __future__ import annotations
@@ -213,6 +219,84 @@ def mode_resume(out_dir: str) -> None:
                os.path.join(out_dir, f"rank{distributed.rank()}.pt"))
 
 
+def mode_mesh_serve(out_dir: str) -> None:
+    from roko_tpu_torch.config import RokoConfig, ServeConfig
+    from roko_tpu_torch.pipeline import run_streaming_polish
+    from roko_tpu_torch.serve.scheduler import ContinuousBatcher, RaggedBatcher
+    from roko_tpu_torch.serve.session import PolishSession
+
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    mesh = make_mesh()
+    cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                         for k, v in spec["model"].items()})
+    model = RokoModel(cfg)
+    model.load_state_dict(torch.load(spec["weights"]), strict=True)
+    data = np.load(spec["windows"])
+    x, slab = data["x"], data["slab"]
+    arrays, out = {}, {"rank": mesh.rank, "dp": mesh.dp}
+
+    session = PolishSession(model, RokoConfig(model=cfg), device="cpu", mesh=mesh,
+                            ladder=tuple(spec["ladder"]))
+    session.warmup()
+    if session.leader:
+        for n in spec["sizes"]:
+            arrays[f"padded{n}"] = session.predict(x[:n])
+        for n in spec["ragged"]:
+            arrays[f"ragged{n}"] = session.predict_ragged(slab.copy(), n)
+        out.update(ladder=list(session.ladder), n_devices=session.n_devices,
+                   dispatched=sorted(session.dispatched_shapes),
+                   collective_dispatches=session.collective_dispatches)
+        session.stop()
+    else:
+        out["followed"] = session.follow()
+
+    # the auto ladder: the per-rank base rungs x dp, under both batchers
+    auto = PolishSession(model, RokoConfig(model=cfg, serve=ServeConfig(ladder_base=(2, 4))),
+                         device="cpu", mesh=mesh)
+    auto.warmup()
+    if auto.leader:
+        out["auto_ladder"] = list(auto.ladder)
+        for cls in (ContinuousBatcher, RaggedBatcher):
+            cb = cls(auto, max_queue_age_ms=5.0)
+            try:
+                out[f"{cls.__name__}_occupancy0"] = cb.occupancy()
+                futs = [cb.submit(x[:n]) for n in spec["batcher_sizes"]]
+                for n, fut in zip(spec["batcher_sizes"], futs):
+                    arrays[f"{cls.__name__}{n}"] = fut.result(60.0)
+                # what the batcher denominates in the global top rung
+                out[f"{cls.__name__}_denomination"] = {
+                    "ladder": cb.snapshot()["ladder"], "slab": int(cb._slab.shape[0]),
+                    "retry_after_s": cb.retry_after_s, "ema_windows_per_s": cb._ema_wps}
+            finally:
+                cb.stop()
+        out["auto_dispatched"] = sorted(auto.dispatched_shapes)
+        auto.stop()
+    else:
+        auto.follow()
+
+    if spec.get("bundle"):
+        from roko_tpu_torch.compile import BundleMismatch
+        from roko_tpu_torch.config import CompileConfig
+
+        bcfg = RokoConfig(model=cfg, compile=CompileConfig(bundle_dir=spec["bundle"]))
+        try:
+            PolishSession(model, bcfg, device="cpu", mesh=mesh, ladder=(8,)).load_compiled()
+            out["bundle"] = "loaded"
+        except BundleMismatch as e:
+            out["bundle"] = str(e)
+
+    if spec.get("project"):
+        p = spec["project"]
+        run_streaming_polish(p["ref"], p["bam"], model, RokoConfig(model=cfg),
+                             out_path=os.path.join(out_dir, "stream.fasta"), seed=p["seed"],
+                             batch_size=p["batch"], device="cpu", mesh=mesh, log=lambda m: None)
+    if mesh.rank == 0:
+        np.savez(os.path.join(out_dir, "mesh_serve.npz"), **arrays)
+        with open(os.path.join(out_dir, "mesh_serve.json"), "w") as f:
+            json.dump(out, f)
+
+
 def launch(mode: str, out_dir: str, *args: str, ranks: int = 2, timeout: float = 300.0,
            module: str = "tests.torch_dp_worker"):
     """Run ``ranks`` processes of ``mode`` of the worker ``module`` on
@@ -250,7 +334,8 @@ def main() -> None:
     torch.set_num_threads(1)
     mode, out_dir, *rest = sys.argv[1:]
     distributed.initialize(device="cpu")
-    {"steps": mode_steps, "cli": mode_cli, "resume": mode_resume}[mode](out_dir, *rest)
+    {"steps": mode_steps, "cli": mode_cli, "resume": mode_resume,
+     "mesh_serve": mode_mesh_serve}[mode](out_dir, *rest)
     print(f"RANK_{distributed.rank()}_OK", flush=True)
     distributed.shutdown()
 

@@ -18,6 +18,7 @@
     python3 chip_smoke.py --distpolish-only    # polish --distributed alone
     python3 chip_smoke.py --federation-only    # the federation phase alone
     python3 chip_smoke.py --mesh-serve-only    # the mesh_serve phase alone
+    python3 chip_smoke.py --quality-only       # the quality phase alone
     python3 chip_smoke.py --mesh-child SPEC    # one rank of the mesh, tp_sp or mesh_serve phase
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
@@ -73,6 +74,21 @@ which launches no kernel, in a phase of its own):
   streamed, byte-equal to its staged stitch; ``train`` for two epochs in
   f32 and in bf16, checkpoints verified, the best polishing, windows/s
   and losses beside the gru runs'; every launch count 0 on each path;
+- quality: the end-to-end quality loop of
+  ``roko_tpu_torch/examples/synthetic_e2e.py`` on true labels, in the
+  uniform and then the homopolymer error regime: the 12 kb / 30x sim
+  project, its training windows and labels built in memory (what
+  ``features --Y`` writes to HDF5) into ``loop.train`` (full-width gru
+  f32, batch 64, lr 3e-3, 25 epochs, 10 % held out, early stopping), the
+  best checkpoint polishing the inference windows through
+  ``run_inference`` (the ``VoteBoard`` stitch of its own votes, every
+  batch's logits against the plain recurrence), and ``assess_fastas``
+  against the truth; ``gru_fwd``, ``gru_bwd`` and ``gru_fwd_bf16`` held
+  against their plain loops at the path's batch sizes; the draft's error
+  rate must be BASELINE.md's 1.2083 % / 4.2167 % to the printed digits and
+  the polish under a third of it; the uniform checkpoint also polishes in bf16 and
+  int8, printed with their error rates and Q (``--quality-only`` runs this
+  phase alone);
 - train_plane: the training data plane and run controls, gru f32 at full
   width on an in-memory corpus of 2048 windows at batch 128: run A two
   epochs saving ``latest`` every 5 steps, the same from a RokoConfig JSON
@@ -488,6 +504,19 @@ FED_FAULTS = "drop:0.1,delay:0.2,duplicate:0.1"
 FED_DELAY_S = "0.02"
 STORE_FAULTS = "timeout:0.1,http500:0.05,truncate:0.02,torn_write:0.02"
 BENCH_WIDE_B = 2048
+# the quality phase: roko_tpu_torch/examples/synthetic_e2e.py's recipe on
+# the card, in each error regime. The draft's error rate must print the
+# reference example's row of BASELINE.md to its digits (the simulator and
+# assess are exact); the polish must be under a third of it (the bar of
+# tests/test_end_to_end.py)
+QUALITY_REGIMES = ("uniform", "homopolymer")
+QUALITY_DRAFT_PCT = {"uniform": "1.2083", "homopolymer": "4.2167"}
+QUALITY_REDUCTION = 3
+#: the reference example's polished rows in BASELINE.md (JAX on a CPU),
+#: printed beside the port's only for reference: torch draws other dropout
+#: masks, so no identity is claimed
+QUALITY_JAX_ROWS = {"uniform": {"error_pct": 0.0167, "q": 37.78},
+                    "homopolymer": {"error_pct": 0.0833, "q": 30.79}}
 BENCH_STRESS_SHAPE = dict(B=512, T=90, IN=500, H=256, S=2)
 # ... and the train_gru row's first layer (the resident f32 backward)
 BENCH_TRAIN_SHAPE = dict(TRAIN_SHAPE, B=512)
@@ -1130,9 +1159,11 @@ def drive_inference(torch, port, model, plain, batches, contig, draft, dev, coun
     """Polish the synthetic contig with ``model`` through ``run_inference``,
     counted: ``fwd`` launches once per layer and batch, no other kernel
     does. Then the same batches' logits through the kernels against the
-    plain recurrence ``plain``, and the stitch against both."""
+    plain recurrence ``plain`` (None: a bf16 model, whose kernel the
+    caller holds against its plain loop at these batch sizes), and the
+    stitch against both. Returns the record and the polished contig."""
     cfg = model.cfg
-    port.predict(model, batches[0][2], dev)  # warm-up: library handles, allocator
+    port.predict(model, batches[0][2], dev)  # warm-up: library handles, allocator; int8 quantizes
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1154,11 +1185,14 @@ def drive_inference(torch, port, model, plain, batches, contig, draft, dev, coun
         for names, pos, x in batches:
             xt = torch.from_numpy(x).to(dev)
             lk = model(xt)
-            lp = model(xt, plain)
             if lk.shape != (len(x), cfg.window_cols, cfg.num_classes):
                 fail(f"logits shape {tuple(lk.shape)}")
             if not bool(torch.isfinite(lk).all()):
                 fail(f"non-finite logits on the {cfg.kind} inference path")
+            kernel_board.add(names, pos, lk.argmax(-1).cpu().numpy())
+            if plain is None:
+                continue
+            lp = model(xt, plain)
             logit_err = max(logit_err, (lk - lp).abs().max().item())
             if not torch.allclose(lk, lp, atol=ATOL, rtol=RTOL):
                 fail(f"{cfg.kind} logits of kernel and plain recurrence differ: "
@@ -1168,20 +1202,19 @@ def drive_inference(torch, port, model, plain, batches, contig, draft, dev, coun
             differ = lk.argmax(-1) != lp.argmax(-1)
             near_ties += int(close.sum())
             mismatches += int((differ & ~close).sum())
-            kernel_board.add(names, pos, lk.argmax(-1).cpu().numpy())
             plain_board.add(names, pos, lp.argmax(-1).cpu().numpy())
     if mismatches:
         fail(f"{cfg.kind}: {mismatches} argmax differences away from near-ties")
     if kernel_board.stitch(contig) != polished[contig]:
         fail(f"{cfg.kind}: run_inference's stitch differs from the kernel logits' stitch")
-    plain_same = plain_board.stitch(contig) == polished[contig]
-    if not plain_same and near_ties == 0:
+    plain_same = None if plain is None else plain_board.stitch(contig) == polished[contig]
+    if plain_same is False and near_ties == 0:
         fail(f"{cfg.kind}: the plain recurrence's stitch differs with no near-ties")
     if not polished[contig] or set(polished[contig]) - set("ACGT"):
         fail(f"{cfg.kind}: the polished contig is empty or holds letters other than ACGT")
 
     n_windows = sum(len(b[0]) for b in batches)
-    return {
+    record = {
         "config": f"ModelConfig(kind={cfg.kind!r}) ({cfg.num_layers} layers, hidden "
                   f"{cfg.hidden_size}, full width)",
         "batches": len(batches), "batch_size": len(batches[0][0]), "windows": n_windows,
@@ -1189,9 +1222,11 @@ def drive_inference(torch, port, model, plain, batches, contig, draft, dev, coun
         "seconds": seconds, "windows_per_s": n_windows / seconds,
         "bases_per_s": n_windows * port.C.WINDOW_STRIDE / seconds,
         f"{fwd}_launches": launches[fwd], "peak_device_bytes": peak_bytes,
-        "logits_max_abs_err_vs_plain": logit_err, "near_ties": near_ties,
-        "plain_stitch_identical": plain_same, "log": logs,
+        **({"logits_max_abs_err_vs_plain": logit_err, "near_ties": near_ties,
+            "plain_stitch_identical": plain_same} if plain is not None else {}),
+        "log": logs,
     }
+    return record, polished[contig]
 
 
 def drive_polish(torch, port, model, dev, counts, card):
@@ -1259,8 +1294,8 @@ def drive_polish(torch, port, model, dev, counts, card):
     batches = [([contig] * len(positions[i : i + PATH_BATCH_SIZE]),
                 positions[i : i + PATH_BATCH_SIZE], examples[i : i + PATH_BATCH_SIZE])
                for i in range(0, n_windows, PATH_BATCH_SIZE)]
-    path = drive_inference(torch, port, model, port.gru_recurrence_plain, batches, contig, draft,
-                           dev, counts, "gru_fwd")
+    path, _ = drive_inference(torch, port, model, port.gru_recurrence_plain, batches, contig,
+                              draft, dev, counts, "gru_fwd")
     for _ in range(3):  # a trace now and then holds no device events: trace again
         traced = device_breakdown(torch, lambda: port.run_inference(
             iter(batches), {contig: draft}, model, device=dev, log=lambda s: None))
@@ -2072,18 +2107,31 @@ def drive_precision(torch, port, gru_model, lin_model, batches, contig, draft, d
     return record, rows, by_path
 
 
+def train_loss_falls(history) -> bool:
+    """The last epoch's train loss under the first's."""
+    return history[-1]["train_loss"] < history[0]["train_loss"]
+
+
+def val_loss_falls(history) -> bool:
+    """Some epoch's val loss under the first's (patience may stop a run
+    epochs after its best)."""
+    return min(h["val_loss"] for h in history) < history[0]["val_loss"]
+
+
 def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, fwd, bwd,
-                out_name):
-    """``loop.train`` of ``cfg`` on the in-memory corpus, counted (``bwd``
-    once per layer and step, ``fwd`` once per layer and step or eval
-    batch; with both None, no kernel at all), its checkpoints verified
-    under ``build/out_name``, and the best one polishing the synthetic
-    contig through ``fwd``. Returns the record, the result and the train
-    config."""
+                out_name, tcfg=None, falls=train_loss_falls):
+    """``loop.train`` of ``cfg`` on the in-memory corpus with ``tcfg`` (by
+    default TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_VAL_FRACTION held out),
+    counted (``bwd`` once per layer and step, ``fwd`` once per layer and
+    step or eval batch; with both None, no kernel at all), every epoch run
+    unless patience stopped it, the losses finite and ``falls(history)``,
+    its checkpoints verified under ``build/out_name``, and the best one
+    polishing ``batches[:TRAINED_POLISH_BATCHES]`` through ``fwd``.
+    Returns the record, the result and the train config."""
     out_dir = os.path.join(ROOT, "build", out_name)
     shutil.rmtree(out_dir, ignore_errors=True)
-    tcfg = port.TrainConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, seed=SEED,
-                            val_fraction=TRAIN_VAL_FRACTION)
+    tcfg = tcfg or port.TrainConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, seed=SEED,
+                                    val_fraction=TRAIN_VAL_FRACTION)
     train_logs = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2092,19 +2140,23 @@ def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, f
     result = port.loop.train(corpus, out_dir, model_cfg=cfg, train_cfg=tcfg, device=dev,
                              resume=False, log=train_logs.append)
     train_seconds = time.perf_counter() - t0
-    n_val = round(TRAIN_VAL_FRACTION * TRAIN_WINDOWS)
-    eval_batches = -(-n_val // TRAIN_BATCH)
+    history = result.history
+    n_val = port.holdout_size(tcfg.val_fraction, len(corpus))
+    eval_batches = -(-n_val // tcfg.batch_size)
     launches = counts.expect(
         f"{cfg.kind} training ({cfg.num_layers} layers, {result.step} steps, "
-        f"{TRAIN_EPOCHS} x {eval_batches} eval batches)",
-        {fwd: cfg.num_layers * (result.step + TRAIN_EPOCHS * eval_batches),
+        f"{len(history)} x {eval_batches} eval batches)",
+        {fwd: cfg.num_layers * (result.step + len(history) * eval_batches),
          bwd: cfg.num_layers * result.step} if fwd else {})
     train_peak = torch.cuda.max_memory_allocated()
-    if len(result.history) != TRAIN_EPOCHS:
-        fail(f"{cfg.kind} train ran {len(result.history)} epochs, expected {TRAIN_EPOCHS}")
-    losses = [h["train_loss"] for h in result.history]
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        fail(f"{cfg.kind} train losses not finite and falling: {losses}")
+    stopped = any(s.startswith("early stop") for s in train_logs)
+    if len(history) != tcfg.epochs and not (stopped and len(history) < tcfg.epochs):
+        fail(f"{cfg.kind} train ran {len(history)} epochs, expected {tcfg.epochs} or an "
+             "early stop")
+    losses = [h[k] for h in history for k in ("train_loss", "val_loss")]
+    if not all(math.isfinite(v) for v in losses) or not falls(history):
+        fail(f"{cfg.kind} train losses not finite, or not falling by {falls.__name__}: "
+             f"{[{k: h[k] for k in ('train_loss', 'val_loss')} for h in history]}")
     manifests = {}
     for ckpt in sorted(os.listdir(out_dir)):
         status, detail = port.verify_manifest(os.path.join(out_dir, ckpt))
@@ -2113,7 +2165,8 @@ def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, f
             fail(f"checkpoint {ckpt} fails verification: {detail}")
     if "latest" not in manifests or len(manifests) < 2:
         fail(f"expected latest and numbered checkpoints, found {sorted(manifests)}")
-    train_secs = sum(h["seconds"] for h in result.history)
+    train_secs = sum(h["seconds"] for h in history)
+    best_step = port.CheckpointManager(out_dir).best_step()
 
     # the best checkpoint polishes the synthetic contig; a model trained on
     # random labels may vote GAP everywhere, so the polish may be empty,
@@ -2137,11 +2190,12 @@ def drive_train(torch, port, cfg, corpus, batches, contig, draft, dev, counts, f
                   f"({cfg.num_layers} layers, hidden {cfg.hidden_size}, dropout {cfg.dropout}"
                   + (f", d_model {cfg.d_model}, {cfg.num_heads} heads, mlp_ratio "
                      f"{cfg.mlp_ratio}" if cfg.kind == "transformer" else "") + ", full width)",
-        "windows": TRAIN_WINDOWS, "val_fraction": TRAIN_VAL_FRACTION, "batch": TRAIN_BATCH,
-        "epochs": TRAIN_EPOCHS, "steps": result.step, "seconds": train_seconds,
+        "windows": len(corpus), "val_fraction": tcfg.val_fraction, "batch": tcfg.batch_size,
+        "epochs": len(history), "steps": result.step, "best_step": best_step,
+        "seconds": train_seconds,
         "train_loop_seconds": train_secs, "steps_per_s": result.step / train_secs,
-        "windows_per_s": result.step * TRAIN_BATCH / train_secs,
-        "history": result.history, "guard": result.guard_counters,
+        "windows_per_s": result.step * tcfg.batch_size / train_secs,
+        "history": history, "guard": result.guard_counters,
         **({f"{fwd}_launches": launches[fwd], f"{bwd}_launches": launches[bwd]} if fwd
            else {"kernel_launches": sum(launches.values())}),
         "eval_batches_per_epoch": eval_batches, "peak_device_bytes": train_peak,
@@ -2179,6 +2233,132 @@ def bf16_beside(f32_train: dict) -> dict:
                                       "steps", "guard")} | {
         "train_loss": [h["train_loss"] for h in f32_train["history"]],
         "val_acc": [h["val_acc"] for h in f32_train["history"]]}
+
+
+def assess_row(res) -> dict:
+    """An ``assess_fastas`` result as the quality line prints it: error %,
+    Q (None when error-free) and the error counts by kind."""
+    q = res.qscore
+    return {"error_pct": 100.0 * res.error_rate, "q": None if math.isinf(q) else q,
+            "mis": sum(c.sub for c in res.contigs), "del": sum(c.dele for c in res.contigs),
+            "ins": sum(c.ins for c in res.contigs), "truth_len": res.truth_len}
+
+
+def drive_quality(torch, port, dev, counts, card) -> dict:
+    """The quality phase: ``roko_tpu_torch/examples/synthetic_e2e.py``'s
+    recipe on the card through its in-memory route, in each error regime:
+    the 12 kb / 30x project, its training windows and labels through
+    ``drive_train`` (full-width gru f32, batch 64, lr 3e-3, 25 epochs or an
+    early stop, 10 % held out), the best checkpoint polishing the inference
+    windows through ``drive_inference`` (the logits of every batch against
+    the plain recurrence), and ``assess_fastas`` against the truth. Fails
+    unless the draft's error rate is BASELINE.md's to the printed digits,
+    the polish is under a third of it, the losses are finite and the val
+    loss falls, the checkpoints verify and the launches are ``gru_bwd``
+    layers x steps, ``gru_fwd`` layers x (steps + epochs x eval batches)
+    and layers x batches a polish. The kernels are held against their
+    plain loops at the path's own batch sizes: ``gru_fwd`` and ``gru_bwd``
+    at the padded train batch, ``gru_fwd_bf16`` at each batch size of the
+    bf16 polish. The uniform checkpoint also polishes in bf16 and int8
+    (printed, not gated)."""
+    e2e, fg = port.e2e, port.fg
+    t_phase = time.perf_counter()
+    cfg = port.ModelConfig()
+    tcfg = e2e.train_config()
+    layers = cfg.num_layers
+    # every train and eval batch is padded to the recipe's batch
+    rng = np.random.default_rng(SEED + 30)
+    train_shape = dict(TRAIN_SHAPE, B=tcfg.batch_size)
+    kernel_check = {"gru_fwd": [check_kernel(torch, fg, train_shape, dev, rng, timed=False)],
+                    "gru_bwd": [check_bwd_kernel(torch, fg, train_shape, dev, rng, timed=False)]}
+    record = {"config": f"ModelConfig(kind={cfg.kind!r}) ({layers} layers, hidden "
+                        f"{cfg.hidden_size}, embed {cfg.embed_dim}, read MLP {cfg.read_mlp}, "
+                        f"dropout {cfg.dropout}, full width)",
+              "recipe": {"genome_len": e2e.GENOME_LEN, "coverage": e2e.COVERAGE,
+                         "batch": tcfg.batch_size, "lr": tcfg.lr, "epochs": tcfg.epochs,
+                         "patience": tcfg.patience, "val_fraction": tcfg.val_fraction,
+                         "features_seeds": [e2e.TRAIN_FEATURES_SEED, e2e.INFER_FEATURES_SEED],
+                         "homopolymer": e2e.HOMOPOLYMER},
+              "kernel_check": kernel_check, "regimes": {}, "card": card}
+    totals = {"gru_fwd": 0, "gru_bwd": 0, "gru_fwd_bf16": 0}
+
+    def polish(model, plain, kernel, batches, contig, draft, paths) -> dict:
+        path, polished = drive_inference(torch, port, model, plain, batches, contig, draft, dev,
+                                         counts, kernel)
+        totals[kernel] += path[f"{kernel}_launches"]
+        _, res = e2e.assess_polish(paths, {contig: polished})
+        return {**assess_row(res), **{k: v for k, v in path.items() if k in (
+            "seconds", "windows_per_s", f"{kernel}_launches", "polished_len",
+            "logits_max_abs_err_vs_plain", "near_ties", "plain_stitch_identical")}}
+
+    for regime in QUALITY_REGIMES:
+        work = os.path.join("chip_smoke_quality", regime)
+        shutil.rmtree(os.path.join(ROOT, "build", work), ignore_errors=True)
+        t0 = time.perf_counter()
+        paths = e2e.build_project(os.path.join(ROOT, "build", work), regime)
+        X, Y = e2e.training_arrays(paths)
+        batches = e2e.inference_batches(paths)
+        data_seconds = time.perf_counter() - t0
+        contig = paths["contig"]
+        draft = port.read_fasta(paths["draft_fasta"])[0][1]
+        draft_res, _ = e2e.assess_polish(paths, {contig: draft})
+        draft_row = assess_row(draft_res)
+        if f"{draft_row['error_pct']:.4f}" != QUALITY_DRAFT_PCT[regime]:
+            fail(f"quality {regime}: the draft's error rate {draft_row['error_pct']:.4f} % is "
+                 f"not BASELINE.md's {QUALITY_DRAFT_PCT[regime]} %")
+
+        out_name = os.path.join(work, "ckpt")
+        train, result, _ = drive_train(torch, port, cfg, port.InMemoryDataset(X, Y), batches,
+                                       contig, draft, dev, counts, "gru_fwd", "gru_bwd",
+                                       out_name, tcfg=tcfg, falls=val_loss_falls)
+        totals["gru_fwd"] += train["gru_fwd_launches"]
+        totals["gru_bwd"] += train["gru_bwd_launches"]
+        best = port.RokoModel(cfg)
+        best.load_state_dict(port.load_params(os.path.join(ROOT, "build", out_name)),
+                             strict=True)
+        best.to(dev).eval()
+        polished = polish(best, fg.gru_recurrence_plain, "gru_fwd", batches, contig, draft,
+                          paths)
+        if not polished["error_pct"] < draft_row["error_pct"] / QUALITY_REDUCTION:
+            fail(f"quality {regime}: the polished error rate {polished['error_pct']:.4f} % is not "
+                 f"under the draft's {draft_row['error_pct']:.4f} % / {QUALITY_REDUCTION}")
+        n_val = port.holdout_size(tcfg.val_fraction, len(X))
+        history = result.history
+        row = {
+            "draft": draft_row, "polished": polished,
+            "reduction": draft_row["error_pct"] / max(polished["error_pct"], 1e-12),
+            "jax_reference_row": {**QUALITY_JAX_ROWS[regime],
+                                  "from": "BASELINE.md, examples/synthetic_e2e.py, JAX on a "
+                                          "CPU; other dropout masks, no identity claimed"},
+            "windows": {"train": len(X) - n_val, "val": n_val,
+                        "inference": sum(len(b[0]) for b in batches)},
+            "epochs_run": train["epochs"], "best_step": train["best_step"],
+            "best_epoch": int(np.searchsorted(np.cumsum([h["steps"] for h in history]),
+                                              train["best_step"])),
+            "steps": train["steps"], "eval_batches_per_epoch": train["eval_batches_per_epoch"],
+            "train_seconds": train["seconds"], "train_loop_seconds": train["train_loop_seconds"],
+            "train_windows_per_s": train["windows_per_s"], "data_seconds": data_seconds,
+            "launches": {"train": {k: train[f"{k}_launches"] for k in ("gru_fwd", "gru_bwd")},
+                         "polish": {"gru_fwd": polished["gru_fwd_launches"]}},
+            "history": [{k: h[k] for k in ("train_loss", "val_acc", "val_loss", "seconds")}
+                        for h in history],
+            **{k: train[k] for k in ("guard", "checkpoints", "trained_polish_len", "log")},
+        }
+        if regime == "uniform":  # what the precision modes cost in output quality
+            kernel_check["gru_fwd_bf16"] = [
+                check_bf16_kernel(torch, fg, port.fl, "gru", B, dev, rng, timed=False)
+                for B in sorted({len(b[0]) for b in batches})]
+            for label, changes, kernel, plain in (
+                    ("bfloat16", {"compute_dtype": "bfloat16"}, "gru_fwd_bf16", None),
+                    ("int8", {"quantize": "int8"}, "gru_fwd", fg.gru_recurrence_plain)):
+                m = port.RokoModel(dataclasses.replace(cfg, **changes))
+                m.load_state_dict(best.state_dict(), strict=True)
+                row[label] = polish(m.to(dev).eval(), plain, kernel, batches, contig, draft, paths)
+                row["launches"]["polish_" + label] = {kernel: row[label][f"{kernel}_launches"]}
+        record["regimes"][regime] = row
+    record["launches"] = totals
+    record["seconds"] = time.perf_counter() - t_phase
+    return record
 
 
 def drive_transformer(torch, port, batches, contig, draft, dev, counts, polish, corpus,
@@ -5549,14 +5729,16 @@ def main() -> None:
     distpolish_only = sys.argv[1:] == ["--distpolish-only"]
     federation_only = sys.argv[1:] == ["--federation-only"]
     mesh_serve_only = sys.argv[1:] == ["--mesh-serve-only"]
+    quality_only = sys.argv[1:] == ["--quality-only"]
     if sys.argv[1:] and not (plane_only or mesh_only or tp_sp_only or serve_only
                              or coldstart_only or fleet_only or cascade_only
-                             or distpolish_only or federation_only or mesh_serve_only):
+                             or distpolish_only or federation_only or mesh_serve_only
+                             or quality_only):
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
              "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --bwd-bf16-only ROOT "
              "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only | --mesh-only "
              "| --tp-sp-only | --serve-only | --coldstart-only | --fleet-only | --cascade-only "
-             "| --distpolish-only | --federation-only | --mesh-serve-only]")
+             "| --distpolish-only | --federation-only | --mesh-serve-only | --quality-only]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import benchmark as bench
@@ -5582,9 +5764,10 @@ def main() -> None:
             TrainConfig,
             resolve_ladder,
         )
-        from roko_tpu_torch.datapipe.dataset import epoch_rng
+        from roko_tpu_torch.datapipe.dataset import epoch_rng, holdout_size
         from roko_tpu_torch.datapipe.engine import iter_span_batches
         from roko_tpu_torch.eval.assess import assess_fastas
+        from roko_tpu_torch.examples import synthetic_e2e
         from roko_tpu_torch.features import backend
         from roko_tpu_torch.features.extract import extract_windows
         from roko_tpu_torch.features.pipeline import open_region_stream
@@ -5614,7 +5797,11 @@ def main() -> None:
         from roko_tpu_torch.serve.session import PolishSession
         from roko_tpu_torch.sim import build_synthetic_project
         from roko_tpu_torch.training import loop
-        from roko_tpu_torch.training.checkpoint import load_params, verify_manifest
+        from roko_tpu_torch.training.checkpoint import (
+            CheckpointManager,
+            load_params,
+            verify_manifest,
+        )
         from roko_tpu_torch.training.data import InMemoryDataset
         from roko_tpu_torch.utils.profiling import StageTimer
         from roko_tpu_torch.utils.rng import derive_region_seed
@@ -5642,6 +5829,7 @@ def main() -> None:
         Calibration=Calibration, CascadeRouter=CascadeRouter, build_router=build_router,
         escalate_mask=escalate_mask,
         export_bundle=export_bundle, register_model=register_model, RegionConfig=RegionConfig,
+        e2e=synthetic_e2e, holdout_size=holdout_size, CheckpointManager=CheckpointManager,
     )
     counts = Counts(fg, fl)
 
@@ -5658,6 +5846,7 @@ def main() -> None:
     built = kernels.build(["gru_fwd", "gru_bwd"] if plane_only or mesh_only
                           else ["gru_fwd", "gru_fwd_bf16", "lingru_fwd"] if serve_only
                           else ["gru_fwd", "lingru_fwd"] if cascade_only
+                          else ["gru_fwd", "gru_bwd", "gru_fwd_bf16"] if quality_only
                           else ["gru_fwd"] if (coldstart_only or fleet_only or distpolish_only
                                                or federation_only or mesh_serve_only)
                           else None)
@@ -5685,6 +5874,9 @@ def main() -> None:
             models.append(m.to(dev).eval())
         inputs = small_project(port, os.path.join(ROOT, "build", "chip_smoke_cascade"))
         emit({"cascade": drive_cascade(torch, port, *models, dev, counts, inputs, card)})
+        return
+    if quality_only:  # the end-to-end quality loop alone
+        emit({"quality": drive_quality(torch, port, dev, counts, card)})
         return
     if mesh_serve_only:  # one session over two gloo ranks sharing the card
         emit({"mesh_serve": drive_mesh_serve(torch, port, dev, counts, card)})
@@ -5776,8 +5968,8 @@ def main() -> None:
          examples[i : i + PATH_BATCH_SIZE])
         for i in range(0, n_windows, PATH_BATCH_SIZE)
     ]
-    path = drive_inference(torch, port, model, fg.gru_recurrence_plain, batches, contig,
-                           draft, dev, counts, "gru_fwd")
+    path, _ = drive_inference(torch, port, model, fg.gru_recurrence_plain, batches, contig,
+                              draft, dev, counts, "gru_fwd")
     launches = path["gru_fwd_launches"]
     emit({"path": {**path, "card": card}})
     # where the device time of the main path goes (a second, traced run)
@@ -5797,8 +5989,8 @@ def main() -> None:
     lin_model.load_state_dict(state_dict_from_jax(jax_layout_params(lin_rng, lin_cfg)),
                               strict=True)
     lin_model.to(dev).eval()
-    lin_path = drive_inference(torch, port, lin_model, fl.lingru_scan_plain, batches, contig,
-                               draft, dev, counts, "lingru_fwd")
+    lin_path, _ = drive_inference(torch, port, lin_model, fl.lingru_scan_plain, batches,
+                                  contig, draft, dev, counts, "lingru_fwd")
     emit({"lingru_path": {**lin_path, "card": card}})
     # the default polish with the lingru model: streamed through the session
     # and batcher, byte-equal to its staged stitch
@@ -5867,6 +6059,10 @@ def main() -> None:
     ran_staged("the lingru bf16 train steps", lin_breakdown_bf16,
                ("lingru_fwd_bf16", "lingru_bwd_bf16"))
     emit({"lingru_train_breakdown_bf16": {**lin_breakdown_bf16, "card": card}})
+
+    # -- the end-to-end quality loop: the example's recipe on true labels -----
+    quality = drive_quality(torch, port, dev, counts, card)
+    emit({"quality": quality})
 
     # -- kind="transformer": inference, stream polish, training; no kernels ---
     transformer = drive_transformer(
@@ -5960,13 +6156,15 @@ def main() -> None:
                               "distpolish": distpolish["launches"]["gru_fwd"],
                               "mesh_serve": mesh_serve_fwd,
                               "cascade": cascade["launches"]["gru_fwd"],
-                              "federation": federation["launches"]["gru_fwd"]},
+                              "federation": federation["launches"]["gru_fwd"],
+                              "quality": quality["launches"]["gru_fwd"]},
                    at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",
                    bwd_row, {"inference": 0, "train": train_bwd,
                              "train_plane": plane["launches"]["gru_bwd"],
-                             "bench": bench_launched["gru_bwd"], "mesh": mesh_bwd}),
+                             "bench": bench_launched["gru_bwd"], "mesh": mesh_bwd,
+                             "quality": quality["launches"]["gru_bwd"]}),
         kernel_row("lingru_fwd", "roko_tpu_torch/csrc/lingru_fwd.cu",
                    "roko_tpu/models/pallas_lingru.py:90", None, lin_fwd_row,
                    {"inference": lin_path["lingru_fwd_launches"],
@@ -5984,7 +6182,8 @@ def main() -> None:
                    bf16_rows["gru_fwd_bf16"][-1],
                    {**precision_launches["gru_fwd_bf16"],
                     "train": train_bf16["gru_fwd_bf16_launches"],
-                    "bench": bench_launched["gru_fwd_bf16"]},
+                    "bench": bench_launched["gru_fwd_bf16"],
+                    "quality": quality["launches"]["gru_fwd_bf16"]},
                    at_batch_128=bf16_rows["gru_fwd_bf16"][1]),
         kernel_row("lingru_fwd_bf16", "roko_tpu_torch/csrc/lingru_fwd_bf16.cu",
                    "roko_tpu/models/pallas_lingru.py:90", None, bf16_rows["lingru_fwd_bf16"][-1],

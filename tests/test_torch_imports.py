@@ -109,7 +109,7 @@ HOST_MODULES = [
 
 def test_every_port_module_imports_without_jax():
     names = _import_in_child()
-    assert len(names) >= 92
+    assert len(names) >= 95
     assert "roko_tpu_torch.training.engine" not in names  # moved to datapipe.engine
     assert {"roko_tpu_torch.models.fused_lingru", "roko_tpu_torch.models.lingru",
             "roko_tpu_torch.models.transformer",
@@ -122,7 +122,9 @@ def test_every_port_module_imports_without_jax():
             "roko_tpu_torch.parallel.mesh", "roko_tpu_torch.parallel.tp",
             "roko_tpu_torch.parallel.ring", "roko_tpu_torch.serve.server",
             "roko_tpu_torch.serve.client", "roko_tpu_torch.cascade",
-            "roko_tpu_torch.cascade.router", *HOST_MODULES} <= set(names)
+            "roko_tpu_torch.cascade.router", "roko_tpu_torch.examples",
+            "roko_tpu_torch.examples.synthetic_e2e",
+            "roko_tpu_torch.examples.multispecies_protocol", *HOST_MODULES} <= set(names)
 
 
 def test_host_modules_import_without_torch():

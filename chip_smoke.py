@@ -19,6 +19,8 @@
     python3 chip_smoke.py --federation-only    # the federation phase alone
     python3 chip_smoke.py --mesh-serve-only    # the mesh_serve phase alone
     python3 chip_smoke.py --quality-only       # the quality phase alone
+    python3 chip_smoke.py --fleet-mesh-only    # the fleet_mesh phase alone
+    python3 chip_smoke.py --fleet-mix-only     # the fleet_mix phase alone
     python3 chip_smoke.py --mesh-child SPEC    # one rank of the mesh, tp_sp or mesh_serve phase
 
 Builds every CUDA kernel of the port from ``roko_tpu_torch/csrc`` (one
@@ -247,6 +249,17 @@ which launches no kernel, in a phase of its own):
   files read just before and at its end), and SIGTERM to both agents
   (exit 0, no worker left). The host rollout and the host autoscaler are
   held on the CPU only.
+- fleet_mesh (``--fleet-mesh-only``; :func:`drive_fleet_mesh`): ``serve
+  --workers 1 --dp 2`` on shared cards, the supervisor starting its one
+  worker as two gloo ranks of one session on the card; replies byte-equal
+  to the staged stitch and a one-rank session's, each rank's ``gru_fwd``
+  3 times its dispatches, the follower SIGKILLed and the worker restarted
+  whole (the card's contexts counted), the rejoin seconds, the drain;
+- fleet_mix (``--fleet-mix-only``; :func:`drive_fleet_mix`): the bench's
+  mixed-size fleet phase on the serve phase's mix with 2 workers, 3
+  clients x 25 requests, under the deadline and continuous batchers:
+  req/s, p50 and p99 by size class, padding efficiency, 0 client errors.
+  Ranks or workers sharing one card measure sharing, not scaling.
 
 ``--bwd-bf16-only`` also reads ROADMAP fault C2 against the reference's
 own numbers (``tests/torch_golden/c2_bf16_bwd.npz``): the kernel, the
@@ -477,6 +490,12 @@ FLEET_CLIENTS = 3
 FLEET_LOAD_S = 4.0
 FLEET_BAKE_S = 2
 FLEET_TIMEOUT_S = 300
+# the fleet_mesh phase (--fleet-mesh-only): one worker whose session is
+# this many gloo ranks sharing the card (shared cards, mesh dp 2)
+FLEET_MESH_RANKS = 2
+# the fleet_mix phase (--fleet-mix-only): the bench's mixed-size fleet
+# phase with this many workers on the serve phase's mix
+FLEET_MIX_WORKERS = 2
 # the cascade phase: the working threshold, the odd subset sizes held
 # against the full batch, the bench's draft, the project of --cascade-only
 CASCADE_THRESHOLD = 0.05
@@ -3978,8 +3997,9 @@ def mesh_serve_load(port, session, mode: str, inputs: dict, what: str) -> dict:
 def collective_ms(session) -> dict:
     """The leader's host collectives a dispatch: header and scatter, and
     the gather (which waits for the slowest rank's rows)."""
-    n = max(session.collective_dispatches, 1)
-    return {"dispatches": session.collective_dispatches,
+    dispatches = session.dispatches if session.mesh.collective else 0
+    n = max(dispatches, 1)
+    return {"dispatches": dispatches,
             "send_ms": 1e3 * session.collective_s["send"] / n,
             "gather_ms": 1e3 * session.collective_s["gather"] / n}
 
@@ -4037,7 +4057,7 @@ def mesh_serve_child(torch, spec) -> None:
     out["ladder"] = list(session.ladder)
     # from here on, the served dispatches only
     session.collective_s = {"send": 0.0, "gather": 0.0}
-    session.collective_dispatches = 0
+    session.dispatches = 0
     counts.zero()
     if session.leader:
         out["serve"] = {mode: mesh_serve_load(port, session, mode, inputs, what)
@@ -4046,7 +4066,7 @@ def mesh_serve_child(torch, spec) -> None:
         session.stop()
     else:
         session.follow()
-    out["serve_dispatches"] = session.collective_dispatches
+    out["serve_dispatches"] = session.dispatches
     out["serve_launches"] = serve_counts(counts, f"{what} serve", "gru_fwd",
                                          out["serve_dispatches"])
 
@@ -4064,9 +4084,9 @@ def mesh_serve_child(torch, spec) -> None:
     if stream_session.leader:
         stream_session.stop()
     out["stream"] = {"seconds": time.perf_counter() - t0, "ladder": list(stream_session.ladder),
-                     "dispatches": stream_session.collective_dispatches,
+                     "dispatches": stream_session.dispatches,
                      "launches": serve_counts(counts, f"{what} stream", "gru_fwd",
-                                              stream_session.collective_dispatches)}
+                                              stream_session.dispatches)}
     if stream_session.leader:
         out["stream"]["collectives"] = collective_ms(stream_session)
     with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
@@ -4373,17 +4393,6 @@ def drive_fleet(torch, port, dev, card, job_inputs=None) -> dict:
                 pass
         return pids
 
-    def alive(pid):
-        try:
-            os.kill(pid, 0)
-        except ProcessLookupError:
-            return False
-        try:  # a reaped child is gone; an unreaped one shows as a zombie
-            with open(f"/proc/{pid}/stat") as f:
-                return f.read().split(")")[-1].split()[0] != "Z"
-        except OSError:
-            return False
-
     all_pids: set = set()
     try:
         while True:
@@ -4574,7 +4583,7 @@ def drive_fleet(torch, port, dev, card, job_inputs=None) -> dict:
             rc = sup.wait(FLEET_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             fail(f"fleet: the supervisor did not exit within {FLEET_TIMEOUT_S} s of SIGTERM")
-        left = sorted(p for p in all_pids if alive(p))
+        left = sorted(p for p in all_pids if pid_alive(p))
         try:
             os.killpg(sup.pid, 0)
             group_left = True
@@ -4605,7 +4614,7 @@ def drive_fleet(torch, port, dev, card, job_inputs=None) -> dict:
         if sup.poll() is None:
             sup.wait()
         for pid in all_pids:
-            if alive(pid):
+            if pid_alive(pid):
                 os.kill(pid, signal.SIGKILL)
         logf.close()
     # every worker's launch file: the last one each wrote (at its exit, or
@@ -4623,6 +4632,341 @@ def drive_fleet(torch, port, dev, card, job_inputs=None) -> dict:
     out["launches"] = {"gru_fwd": total - job, "workers_reporting": len(reports)}
     shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def pid_alive(pid: int) -> bool:
+    """True while process ``pid`` runs (a zombie does not)."""
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def wait_contexts(n: int, what: str, timeout: float = 30.0) -> float:
+    """Seconds until the card holds ``n`` contexts (``nvidia-smi``'s
+    compute apps: its pids may all read 1 from another pid namespace, so
+    the contexts are counted, not matched)."""
+    t0 = time.perf_counter()
+    while len(nvidia_apps()) != n:
+        if time.perf_counter() - t0 > timeout:
+            fail(f"{what}: {len(nvidia_apps())} contexts on the card, expected {n}")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def rank_checks(what: str, reports: dict, layers: int) -> list:
+    """Each serve process's launch file: ``gru_fwd`` ``layers`` times the
+    dispatches it ran its rows of, no other kernel."""
+    rows = []
+    for pid, r in sorted(reports.items()):
+        got = r["launches"]
+        if got["gru_fwd"] != layers * r["dispatches"] or \
+                any(v for k, v in got.items() if k != "gru_fwd"):
+            fail(f"{what}: process {pid} (rank {r.get('rank')}) launched {got} over "
+                 f"{r['dispatches']} dispatches")
+        rows.append({"pid": pid, "worker": r.get("worker"), "rank": r.get("rank"),
+                     "backend": r.get("backend"),
+                     "gru_fwd": got["gru_fwd"], "dispatches": r["dispatches"],
+                     "requests": r["served"]["requests"]})
+    return rows
+
+
+def drive_fleet_mesh(torch, port, dev, card) -> dict:
+    """A fleet worker's session over its card slice at full width (gru, 3
+    bidirectional layers, h=128, f32, weights from a numpy seed through
+    the weights bridge): ``serve --workers 1 --dp 2`` as a subprocess on
+    shared cards, so the supervisor starts the worker as two ranks on the
+    one card, which choose gloo themselves (``distributed.choose_backend``;
+    each rank's launch file says so). Every reply equals the staged
+    stitch and a one-rank session's server in this process (a one-rank
+    worker's code); each rank's ``gru_fwd`` is 3 times its dispatches;
+    ``gru_fwd`` is held against the plain loop at each rank's rungs. The
+    follower is SIGKILLed: the worker restarts both ranks once (one
+    death), the card's context count comes back to what it was (no rank
+    of the old incarnation left), and the replies are equal again. SIGTERM
+    drains the supervisor to exit 0 with no rank and no context left. Two
+    ranks on one card measure sharing, not scaling."""
+    import signal
+    import tempfile
+    import threading
+
+    t_phase = time.perf_counter()
+    C = port.C
+    cfg = port.ModelConfig()
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_mesh_")
+    contig = "fleet_mesh"
+    draft, positions, examples = synthetic_contig(np.random.default_rng(SEED + 27),
+                                                  max(FLEET_SIZES), C)
+    sd = port.state_dict_from_jax(jax_layout_params(np.random.default_rng(SEED + 28), cfg))
+    ckpt = os.path.join(work, "model.pth")
+    torch.save(sd, ckpt)
+    model = port.RokoModel(cfg)
+    model.load_state_dict(sd, strict=True)
+    model.to(dev).eval()
+    want = {n: port.run_inference(iter([([contig] * n, positions[:n], examples[:n])]),
+                                  {contig: draft}, model, device=dev, log=lambda m: None)[contig]
+            for n in FLEET_SIZES}
+    # a one-rank worker's code: the session and server a worker runs
+    rcfg = port.RokoConfig(model=cfg)
+    session = port.PolishSession(model, rcfg, device=dev)
+    session.warmup()
+    srv = port.make_server(session, rcfg.serve, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = port.PolishClient(f"http://127.0.0.1:{srv.server_address[1]}", timeout=300.0)
+        one_rank = {n: client.polish(draft, positions[:n], examples[:n], contig=contig,
+                                     retries=8)["polished"] for n in FLEET_SIZES}
+    finally:
+        srv.shutdown()
+        srv.batcher.stop()
+        srv.server_close()
+        thread.join(10)
+    if one_rank != want:
+        fail("fleet_mesh: a one-rank session's replies differ from the staged stitch")
+    del session, srv
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    per_rank = [r // FLEET_MESH_RANKS
+                for r in port.resolve_ladder(rcfg.serve, FLEET_MESH_RANKS)]
+    rungs = [check_kernel(torch, port.fg, dict(MAIN_SHAPE, B=b), dev,
+                          np.random.default_rng(SEED + 29), timed=False) for b in per_rank]
+
+    runtime = os.path.join(work, "runtime")
+    cfg_path = os.path.join(work, "fleet.json")
+    with open(cfg_path, "w") as f:
+        f.write(dataclasses.replace(rcfg, fleet=dataclasses.replace(
+            rcfg.fleet, runtime_dir=runtime)).to_json())
+    announce = os.path.join(work, "front.json")
+    log_path = os.path.join(work, "supervisor.log")
+    env = dict(os.environ, ROKO_KERNEL_LAUNCHES=os.path.join(work, "launches"))
+    logf = open(log_path, "w")
+    apps_before = len(nvidia_apps())
+    t_start = time.perf_counter()
+    sup = subprocess.Popen([sys.executable, "-m", "roko_tpu_torch", "serve", ckpt,
+                            "--workers", "1", "--devices-per-worker", "0",
+                            "--dp", str(FLEET_MESH_RANKS), "--config", cfg_path,
+                            "--port", "0", "--announce", announce,
+                            "--heartbeat-interval", "0.5"],
+                           cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT,
+                           start_new_session=True)
+    out: dict = {"model": {"kind": cfg.kind, "num_layers": cfg.num_layers,
+                           "hidden_size": cfg.hidden_size}, "ranks": FLEET_MESH_RANKS,
+                 "note": "two ranks on one card measure sharing, not scaling", "card": card}
+    seen: set = set()
+
+    def log_tail():
+        logf.flush()
+        with open(log_path) as fh:
+            sup_log = fh.read()[-3000:]
+        try:
+            with open(os.path.join(runtime, "worker-0.log")) as fh:
+                return sup_log + "\n--- worker 0 ---\n" + fh.read()[-4000:]
+        except OSError:
+            return sup_log
+
+    def worker0():
+        try:
+            status, health, _ = http_json(base, "/healthz", timeout=10)
+        except OSError:
+            return None, {}
+        w = health.get("workers", {}).get("0", {}) if isinstance(health, dict) else {}
+        return status, w
+
+    def incarnation(what):
+        """{rank: pid} of the worker's ranks not seen before, from the
+        launch files they write at their warmup's end."""
+        t0 = time.perf_counter()
+        while True:
+            got = {r["rank"]: pid for pid, r in launch_reports(work).items()
+                   if pid not in seen and r.get("worker") == 0}
+            if len(got) == FLEET_MESH_RANKS:
+                seen.update(got.values())
+                return got
+            if time.perf_counter() - t0 > FLEET_TIMEOUT_S:
+                fail(f"fleet_mesh: {what}: rank files {got}\n{log_tail()}")
+            time.sleep(0.1)
+
+    def replies(what):
+        client = port.PolishClient(base, timeout=300.0)
+        times = {}
+        for n in FLEET_SIZES:
+            t0 = time.perf_counter()
+            r = client.polish(draft, positions[:n], examples[:n], contig=contig, retries=8)
+            times[n] = time.perf_counter() - t0
+            if r["polished"] != want[n] or r["windows"] != n:
+                fail(f"fleet_mesh: the {n}-window reply {what} differs from the staged stitch")
+        return times
+
+    try:
+        base = None
+        while True:
+            if sup.poll() is not None:
+                fail(f"fleet_mesh: the supervisor exited {sup.returncode}:\n{log_tail()}")
+            if time.perf_counter() - t_start > FLEET_TIMEOUT_S:
+                fail(f"fleet_mesh: not ready within {FLEET_TIMEOUT_S} s:\n{log_tail()}")
+            if base is None and os.path.exists(announce):
+                base = f"http://127.0.0.1:{json.load(open(announce))['port']}"
+            if base is not None:
+                status, w = worker0()
+                if status == 200 and w.get("state") == "ready":
+                    break
+            time.sleep(0.1)
+        out["ready_s"] = time.perf_counter() - t_start
+        if w.get("ranks") != FLEET_MESH_RANKS:
+            fail(f"fleet_mesh: worker 0 runs {w.get('ranks')} rank(s)")
+        first = incarnation("the first incarnation")
+        apps_ready = len(nvidia_apps())
+        if apps_ready != apps_before + FLEET_MESH_RANKS:
+            fail(f"fleet_mesh: {apps_ready} contexts with the worker up, {apps_before} before")
+        out["reply_s"] = replies("from 2 ranks")
+
+        # -- the follower's SIGKILL: the worker restarts whole ------------
+        os.kill(first[1], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        while True:
+            status, w = worker0()
+            if status == 200 and w.get("state") == "ready" and w.get("restarts", 0) >= 1:
+                break
+            if time.perf_counter() - t_kill > FLEET_TIMEOUT_S:
+                fail(f"fleet_mesh: worker 0 did not come back after its follower's SIGKILL: "
+                     f"{w}\n{log_tail()}")
+            time.sleep(0.1)
+        out["rejoin_s"] = time.perf_counter() - t_kill
+        print(f"fleet_mesh: worker 0 back in rotation {out['rejoin_s']:.2f} s after its "
+              "follower's SIGKILL", flush=True)
+        _, metrics_text, _ = http_json(base, "/metrics", timeout=10)
+        restarts = re.findall(r"^roko_fleet_restarts_total (\S+)$", metrics_text, re.M)
+        left = sorted(pid for pid in first.values() if pid_alive(pid))
+        if w.get("restarts") != 1 or restarts != ["1"] or left:
+            fail(f"fleet_mesh: after one follower's SIGKILL the worker restarted "
+                 f"{w.get('restarts')} time(s), the fleet counts {restarts}, ranks left {left}")
+        again = incarnation("the restarted incarnation")
+        out["contexts_settle_s"] = wait_contexts(apps_ready, "fleet_mesh after the restart")
+        out["reply_again_s"] = replies("after the restart")
+
+        # -- drain ------------------------------------------------------------
+        t_term = time.perf_counter()
+        sup.send_signal(signal.SIGTERM)
+        try:
+            rc = sup.wait(FLEET_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"fleet_mesh: the supervisor did not exit within {FLEET_TIMEOUT_S} s")
+        left = sorted(p for p in seen if pid_alive(p))
+        if rc != 0 or left:
+            fail(f"fleet_mesh: SIGTERM drain exited {rc}, ranks left {left}:\n{log_tail()}")
+        out["drain"] = {"rc": rc, "seconds": time.perf_counter() - t_term,
+                        "contexts_settle_s": wait_contexts(apps_before, "fleet_mesh drained"),
+                        "ranks_seen": sorted(seen), "ranks_left": left}
+    finally:
+        if sup.poll() is None:
+            sup.send_signal(signal.SIGTERM)
+            try:
+                sup.wait(60)
+            except subprocess.TimeoutExpired:
+                pass
+        try:
+            os.killpg(sup.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        if sup.poll() is None:
+            sup.wait()
+        for pid in seen:
+            if pid_alive(pid):
+                os.kill(pid, signal.SIGKILL)
+        logf.close()
+    reports = launch_reports(work)
+    by_rank = rank_checks("fleet_mesh", reports, cfg.num_layers)
+    final = [r for r in by_rank if r["pid"] in again.values()]
+    if len({r["dispatches"] for r in final}) != 1 or not final[0]["dispatches"]:
+        fail(f"fleet_mesh: the restarted ranks' exit files disagree: {final}")
+    if {r["backend"] for r in by_rank} != {"gloo"}:
+        fail(f"fleet_mesh: two ranks on one card chose {by_rank}; NCCL refuses them")
+    out.update(
+        backend="gloo, each rank's own choice on the one shared card",
+        contexts={"before": apps_before, "worker_up": apps_ready},
+        killed_follower_pid=first[1], first_ranks=first, restarted_ranks=again,
+        launches_by_rank=by_rank, launches={"gru_fwd": sum(r["gru_fwd"] for r in by_rank)},
+        gru_fwd_by_rung=[{"B": r["shape"]["B"], "max_abs_err": r["max_abs_err"],
+                          "bitwise_repeatable": r["bitwise_repeatable"]} for r in rungs],
+        seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def drive_fleet_mix(torch, port, dev, card) -> dict:
+    """The bench's mixed-size fleet phase (``benchmark.
+    run_fleet_mixed_phase``) alone at full width (gru, 3 bidirectional
+    layers, h=128, f32, weights from a numpy seed through the weights
+    bridge): the serve phase's mix ``4:90,256:10``, 3 clients x 25
+    requests, 2 one-rank workers sharing the card, under the deadline and
+    then the continuous batcher, each mode its req/s, p50 and p99 by size
+    class, padding efficiency and client errors (0 in both, the classes
+    the mix's, each answered as often as the schedule asks). ``gru_fwd``
+    is held against the plain loop at the ladder's rungs (8, 256), and
+    each worker's exit file counts 3 launches a dispatch."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    bench = port.bench
+    cfg = port.ModelConfig()
+    sd = port.state_dict_from_jax(jax_layout_params(np.random.default_rng(SEED + 30), cfg))
+    mix = bench._parse_mix(SERVE_MIX)
+    ladder = sorted({bench.FLEET_REQUEST_WINDOWS, max(s for s, _ in mix)})
+    rungs = [check_kernel(torch, port.fg, dict(MAIN_SHAPE, B=b), dev,
+                          np.random.default_rng(SEED + 31), timed=False) for b in ladder]
+    schedule = bench._mix_schedule(mix, FLEET_CLIENTS * bench.FLEET_ITERS)
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_mix_")
+    # the bench's workers run `python -m roko_tpu_torch` from this
+    # process's directory, and report their launches beside the phase
+    old, cwd = os.environ.get("ROKO_KERNEL_LAUNCHES"), os.getcwd()
+    os.environ["ROKO_KERNEL_LAUNCHES"] = os.path.join(work, "launches")
+    os.chdir(ROOT)
+    try:
+        res = bench.run_fleet_mixed_phase(
+            SERVE_MIX, FLEET_MIX_WORKERS, iterations=bench.FLEET_ITERS, clients=FLEET_CLIENTS,
+            device="cuda", startup_budget_s=FLEET_TIMEOUT_S, state_dict=sd)
+    finally:
+        os.chdir(cwd)
+        if old is None:
+            os.environ.pop("ROKO_KERNEL_LAUNCHES", None)
+        else:
+            os.environ["ROKO_KERNEL_LAUNCHES"] = old
+    want_classes = {str(s): schedule.count(s) for s in set(schedule)}
+    if set(res["modes"]) != {"deadline", "continuous"} or res["requests"] != len(schedule):
+        fail(f"fleet_mix: {res}")
+    for mode, row in res["modes"].items():
+        got_classes = {s: c["requests"] for s, c in row["size_classes"].items()}
+        if row["client_errors"] or got_classes != want_classes or \
+                not 0.0 < row.get("padding_efficiency", 0.0) <= 1.0:
+            fail(f"fleet_mix {mode}: {row}; the schedule's classes {want_classes}")
+        print(f"fleet_mix {mode}: {row['req_per_s']} req/s over {row['wall_s']} s, "
+              + ", ".join(f"{s} windows ({c['requests']} requests) p50 {c['p50_s']} s "
+                          f"p99 {c['p99_s']} s" for s, c in row["size_classes"].items())
+              + f", padding_efficiency {row['padding_efficiency']}, client_errors "
+              f"{row['client_errors']}", flush=True)
+    reports = launch_reports(work)
+    by_worker = rank_checks("fleet_mix", reports, cfg.num_layers)
+    if len(by_worker) != 2 * FLEET_MIX_WORKERS:
+        fail(f"fleet_mix: {len(by_worker)} worker launch files, expected "
+             f"{2 * FLEET_MIX_WORKERS}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {**res, "model": {"kind": cfg.kind, "num_layers": cfg.num_layers,
+                             "hidden_size": cfg.hidden_size},
+            "clients": FLEET_CLIENTS, "iterations": bench.FLEET_ITERS, "ladder": ladder,
+            "schedule_classes": want_classes, "launches_by_worker": by_worker,
+            "launches": {"gru_fwd": sum(r["gru_fwd"] for r in by_worker)},
+            "gru_fwd_by_rung": [{"B": r["shape"]["B"], "max_abs_err": r["max_abs_err"],
+                                 "bitwise_repeatable": r["bitwise_repeatable"]} for r in rungs],
+            "note": "two workers share one card: sharing, not scaling; a smoke, not a "
+                    "measured tail: each class's p99 of fewer than 100 requests is near "
+                    "its largest sample, and req/s covers one wall_s window",
+            "seconds": time.perf_counter() - t_phase, "card": card}
 
 
 def small_project(port, work: str, region=None) -> dict:
@@ -5256,17 +5600,6 @@ def drive_federation(torch, port, dev, card) -> dict:
         except (OSError, ValueError, KeyError):
             return None
 
-    def alive(pid):
-        try:
-            os.kill(pid, 0)
-        except ProcessLookupError:
-            return False
-        try:  # a reaped child is gone; an unreaped one shows as a zombie
-            with open(f"/proc/{pid}/stat") as f:
-                return f.read().split(")")[-1].split()[0] != "Z"
-        except OSError:
-            return False
-
     def wait_ready(tags, t0, what):
         while True:
             for tag in tags:
@@ -5444,7 +5777,7 @@ def drive_federation(torch, port, dev, card) -> dict:
             fail("federation: the front-h1 partition pulse cut no relay")
         agents["h1"][0].wait(60)
         t_gone = time.perf_counter()
-        while alive(pids["h1"]) or pids["h1"] in nvidia_apps() or \
+        while pid_alive(pids["h1"]) or pids["h1"] in nvidia_apps() or \
                 len(nvidia_apps()) != len(apps_before) - 1:
             if time.perf_counter() - t_gone > 30:
                 fail(f"federation: h1's worker {pids['h1']} still on the card "
@@ -5520,7 +5853,7 @@ def drive_federation(torch, port, dev, card) -> dict:
                 rcs[tag] = agents[tag][0].wait(FLEET_TIMEOUT_S)
             except subprocess.TimeoutExpired:
                 fail(f"federation: agent {tag} did not exit within {FLEET_TIMEOUT_S} s")
-        left = {tag: pid for tag, pid in workers.items() if pid and alive(pid)}
+        left = {tag: pid for tag, pid in workers.items() if pid and pid_alive(pid)}
         groups_left = []
         for tag in live:
             try:
@@ -5730,15 +6063,18 @@ def main() -> None:
     federation_only = sys.argv[1:] == ["--federation-only"]
     mesh_serve_only = sys.argv[1:] == ["--mesh-serve-only"]
     quality_only = sys.argv[1:] == ["--quality-only"]
+    fleet_mesh_only = sys.argv[1:] == ["--fleet-mesh-only"]
+    fleet_mix_only = sys.argv[1:] == ["--fleet-mix-only"]
     if sys.argv[1:] and not (plane_only or mesh_only or tp_sp_only or serve_only
                              or coldstart_only or fleet_only or cascade_only
                              or distpolish_only or federation_only or mesh_serve_only
-                             or quality_only):
+                             or quality_only or fleet_mesh_only or fleet_mix_only):
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
              "[--bwd-only ROOT | --fwd-only ROOT | --fwd-bf16-only ROOT | --bwd-bf16-only ROOT "
              "| --lingru-only ROOT | --lingru-bf16-only ROOT | --train-plane-only | --mesh-only "
              "| --tp-sp-only | --serve-only | --coldstart-only | --fleet-only | --cascade-only "
-             "| --distpolish-only | --federation-only | --mesh-serve-only | --quality-only]")
+             "| --distpolish-only | --federation-only | --mesh-serve-only | --quality-only "
+             "| --fleet-mesh-only | --fleet-mix-only]")
     sys.path.insert(0, ROOT)
     try:
         from roko_tpu_torch import benchmark as bench
@@ -5848,7 +6184,8 @@ def main() -> None:
                           else ["gru_fwd", "lingru_fwd"] if cascade_only
                           else ["gru_fwd", "gru_bwd", "gru_fwd_bf16"] if quality_only
                           else ["gru_fwd"] if (coldstart_only or fleet_only or distpolish_only
-                                               or federation_only or mesh_serve_only)
+                                               or federation_only or mesh_serve_only
+                                               or fleet_mesh_only or fleet_mix_only)
                           else None)
     emit({"build": {"seconds": time.perf_counter() - t0, "kernels": built}})
     if coldstart_only:  # the coldstart phase alone
@@ -5856,6 +6193,12 @@ def main() -> None:
         return
     if fleet_only:  # the fleet phase alone
         emit({"fleet": drive_fleet(torch, port, dev, card)})
+        return
+    if fleet_mesh_only:  # one fleet worker of two ranks sharing the card
+        emit({"fleet_mesh": drive_fleet_mesh(torch, port, dev, card)})
+        return
+    if fleet_mix_only:  # the bench's mixed-size fleet phase alone
+        emit({"fleet_mix": drive_fleet_mix(torch, port, dev, card)})
         return
     if distpolish_only:  # polish --distributed from the command line, its own fleet
         emit({"distpolish": drive_distpolish_cli(torch, port, dev, card)})
@@ -6110,6 +6453,11 @@ def main() -> None:
     # -- the multi-host federation and the object-store data plane --------
     federation = drive_federation(torch, port, dev, card)
     emit({"federation": federation})
+    # -- a fleet worker's session over two ranks, and the fleet's mixed sizes
+    fleet_mesh = drive_fleet_mesh(torch, port, dev, card)
+    emit({"fleet_mesh": fleet_mesh})
+    fleet_mix = drive_fleet_mix(torch, port, dev, card)
+    emit({"fleet_mix": fleet_mix})
     mesh_fwd = (mesh["nccl_world_1"]["launches"]["gru_fwd"]
                 + sum(r["step"]["gru_fwd"] + r["train"]["gru_fwd"] + r["infer"]["gru_fwd"]
                       for r in mesh["gloo_2_ranks"]["launches_by_rank"])
@@ -6157,7 +6505,9 @@ def main() -> None:
                               "mesh_serve": mesh_serve_fwd,
                               "cascade": cascade["launches"]["gru_fwd"],
                               "federation": federation["launches"]["gru_fwd"],
-                              "quality": quality["launches"]["gru_fwd"]},
+                              "quality": quality["launches"]["gru_fwd"],
+                              "fleet_mesh": fleet_mesh["launches"]["gru_fwd"],
+                              "fleet_mix": fleet_mix["launches"]["gru_fwd"]},
                    at_train_batch=fwd_train_row),
         kernel_row("gru_bwd", "roko_tpu_torch/csrc/gru_bwd.cu",
                    "roko_tpu/models/pallas_gru.py:200", "roko_tpu/models/pallas_gru.py:305",

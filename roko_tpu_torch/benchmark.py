@@ -12,8 +12,9 @@ the coldstart suite (:2069, time to first prediction of four start modes,
 each a child process: cold build directory, cold with the rungs at once,
 warm build cache, kernel bundle; ``compile/``) and with
 ``--fleet-workers`` the fleet suite (:2809, a supervised fleet of serve
-processes under closed-loop load, and a worker SIGKILLed under it;
-``serve/fleet.py``). Driver contract, as the reference's:
+processes under closed-loop load, and a worker SIGKILLed under it, and
+with ``--serve-mix`` too its mixed-size phase, :3047, both batchers on
+one seeded schedule; ``serve/fleet.py``). Driver contract, as the reference's:
 ONE JSON line ``{"metric", "value", "unit", "vs_baseline", "detail"}``,
 ``value`` the polished bases per second of the card (windows/s x
 WINDOW_STRIDE = 30) and ``vs_baseline`` the windows/s over those of the
@@ -925,6 +926,98 @@ FLEET_CLIENTS = 3
 FLEET_REQUEST_WINDOWS = 8
 
 
+class _FleetBench:
+    """What the fleet suite's phases share, inside one temporary
+    directory: the config (one rung of :data:`FLEET_REQUEST_WINDOWS`, fast
+    heartbeats), the seeded checkpoint, one request of that size, the
+    seeded stream its payloads come from (the reference's draws, in its
+    order), and supervised fleets of real ``serve`` worker processes, one
+    rank each (on a card they share it, ``devices_per_worker`` 0).
+    ``state_dict`` replaces the seeded weights."""
+
+    def __init__(self, td: str, device: str, model_overrides: Optional[Dict],
+                 startup_budget_s: float, state_dict: Optional[Dict] = None):
+        import dataclasses
+
+        import torch
+
+        from roko_tpu_torch import constants as C
+
+        cfg, model = _child_model({"model": model_overrides or {}})
+        self.cfg = dataclasses.replace(
+            cfg,
+            serve=dataclasses.replace(cfg.serve, ladder=(FLEET_REQUEST_WINDOWS,),
+                                      max_delay_ms=5.0),
+            fleet=dataclasses.replace(cfg.fleet, heartbeat_interval_s=0.25,
+                                      heartbeat_timeout_s=5.0, stable_after_s=1.0,
+                                      restart_base_delay_s=0.1,
+                                      spawn_deadline_s=startup_budget_s))
+        self.td, self.device, self.startup_budget_s = td, device, startup_budget_s
+        self.rng = rng = np.random.default_rng(0)
+        self.rows, self.cols = self.cfg.model.window_rows, self.cfg.model.window_cols
+        self.stride = self.cfg.window.stride
+        n_win = FLEET_REQUEST_WINDOWS
+        self.x = rng.integers(0, C.FEATURE_VOCAB, (n_win, self.rows, self.cols)).astype(np.uint8)
+        self.positions = self.positions_of(n_win)
+        self.draft = "".join(rng.choice(list("ACGT"), (n_win - 1) * self.stride + self.cols + 10))
+        self.ckpt = os.path.join(td, "model.pth")
+        torch.save(model.state_dict() if state_dict is None else state_dict, self.ckpt)
+        self.cfg_path = self.write_worker_cfg(self.cfg, "worker-config.json")
+
+    def positions_of(self, n: int) -> np.ndarray:
+        positions = np.zeros((n, self.cols, 2), np.int64)
+        for i in range(n):
+            positions[i, :, 0] = np.arange(i * self.stride, i * self.stride + self.cols)
+        return positions
+
+    def write_worker_cfg(self, cfg, name: str) -> str:
+        """The workers' config file (``fleet.workers`` 0: no recursion)."""
+        import dataclasses
+
+        path = os.path.join(self.td, name)
+        with open(path, "w") as f:
+            f.write(dataclasses.replace(
+                cfg, fleet=dataclasses.replace(cfg.fleet, workers=0)).to_json())
+        return path
+
+    def start(self, n: int, run_cfg=None, worker_cfg_path: Optional[str] = None, tag: str = ""):
+        """A fleet of ``n`` ready workers and its front end:
+        ``(fleet, server, thread, ready seconds)``."""
+        import dataclasses
+        import threading
+
+        from roko_tpu_torch.serve.fleet import Fleet
+        from roko_tpu_torch.serve.supervisor import make_front_server, worker_command
+
+        fcfg = dataclasses.replace(run_cfg or self.cfg,
+                                   fleet=dataclasses.replace(self.cfg.fleet, workers=n))
+        fleet = Fleet(fcfg, worker_command(self.ckpt, worker_cfg_path or self.cfg_path,
+                                           self.device),
+                      runtime_dir=os.path.join(self.td, f"fleet-{tag}{n}"), log=lambda m: None)
+        fleet.start()
+        # the front end binds only once the workers are ready
+        deadline = time.monotonic() + self.startup_budget_s
+        t0 = time.perf_counter()
+        while fleet.ready_count() < n:
+            if time.monotonic() > deadline:
+                fleet.stop(rolling=False)
+                raise RuntimeError(
+                    f"fleet of {n} not ready within {self.startup_budget_s:.0f}s")
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        server = make_front_server(fleet, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        return fleet, server, thread, ready_s
+
+    @staticmethod
+    def stop(fleet, server, thread) -> None:
+        server.shutdown()
+        server.server_close()
+        thread.join(10.0)
+        fleet.stop(rolling=False)
+
+
 def run_fleet_suite(
     worker_counts=(1, 2),
     iterations: int = FLEET_ITERS,
@@ -932,6 +1025,7 @@ def run_fleet_suite(
     device: str = "cuda",
     model_overrides: Optional[Dict] = None,
     startup_budget_s: float = 600.0,
+    mix: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Saturation and fault tolerance of the serving fleet
     (``roko_tpu/benchmark.py:2809``): fixed-work closed-loop load
@@ -941,73 +1035,24 @@ def run_fleet_suite(
     efficiency; then the same load with one worker SIGKILLed a quarter of
     the way in, where ``client_errors`` must stay 0 (failover) and the
     worker must rejoin. On a card the workers share it
-    (``devices_per_worker`` 0). The reference's mixed-size phase under an
-    explicit ``--serve-mix`` is not ported (the serve suite carries the
-    mixed schedule)."""
-    import dataclasses
+    (``devices_per_worker`` 0). ``mix`` (an explicit ``--serve-mix``
+    spec, checked before any fleet starts) adds the mixed-size phase at
+    the top worker count (:func:`run_fleet_mixed_phase`):
+    ``results["mixed"]``."""
     import tempfile
     import threading
 
-    import torch
-
-    from roko_tpu_torch import constants as C
     from roko_tpu_torch.serve.client import PolishClient
-    from roko_tpu_torch.serve.fleet import Fleet
-    from roko_tpu_torch.serve.supervisor import make_front_server, worker_command
 
-    cfg, model = _child_model({"model": model_overrides or {}})
-    cfg = dataclasses.replace(
-        cfg,
-        serve=dataclasses.replace(cfg.serve, ladder=(FLEET_REQUEST_WINDOWS,), max_delay_ms=5.0),
-        fleet=dataclasses.replace(cfg.fleet, heartbeat_interval_s=0.25, heartbeat_timeout_s=5.0,
-                                  stable_after_s=1.0, restart_base_delay_s=0.1,
-                                  spawn_deadline_s=startup_budget_s))
+    # a typo'd --serve-mix fails here, not after minutes of measurement
+    if mix:
+        _parse_mix(mix)
     results: Dict[str, Any] = {"iterations": iterations, "clients": clients,
                                "windows_per_request": FLEET_REQUEST_WINDOWS, "device": device,
                                "workers": {}}
-    rng = np.random.default_rng(0)
-    rows, cols = cfg.model.window_rows, cfg.model.window_cols
-    stride = cfg.window.stride
-    n_win = FLEET_REQUEST_WINDOWS
-    x = rng.integers(0, C.FEATURE_VOCAB, (n_win, rows, cols)).astype(np.uint8)
-    positions = np.zeros((n_win, cols, 2), np.int64)
-    for i in range(n_win):
-        positions[i, :, 0] = np.arange(i * stride, i * stride + cols)
-    draft = "".join(rng.choice(list("ACGT"), (n_win - 1) * stride + cols + 10))
 
     with tempfile.TemporaryDirectory() as td:
-        ckpt = os.path.join(td, "model.pth")
-        torch.save(model.state_dict(), ckpt)
-        cfg_path = os.path.join(td, "worker-config.json")
-        with open(cfg_path, "w") as f:
-            f.write(dataclasses.replace(
-                cfg, fleet=dataclasses.replace(cfg.fleet, workers=0)).to_json())
-
-        def start_fleet(n: int):
-            fleet = Fleet(dataclasses.replace(cfg, fleet=dataclasses.replace(cfg.fleet,
-                                                                             workers=n)),
-                          worker_command(ckpt, cfg_path, device),
-                          runtime_dir=os.path.join(td, f"fleet-{n}"), log=lambda m: None)
-            fleet.start()
-            # the front end binds only once the workers are ready
-            deadline = time.monotonic() + startup_budget_s
-            t0 = time.perf_counter()
-            while fleet.ready_count() < n:
-                if time.monotonic() > deadline:
-                    fleet.stop(rolling=False)
-                    raise RuntimeError(f"fleet of {n} not ready within {startup_budget_s:.0f}s")
-                time.sleep(0.2)
-            ready_s = time.perf_counter() - t0
-            server = make_front_server(fleet, port=0)
-            thread = threading.Thread(target=server.serve_forever, daemon=True)
-            thread.start()
-            return fleet, server, thread, ready_s
-
-        def stop_fleet(fleet, server, thread):
-            server.shutdown()
-            server.server_close()
-            thread.join(10.0)
-            fleet.stop(rolling=False)
+        fb = _FleetBench(td, device, model_overrides, startup_budget_s)
 
         def drive(port: int, per_client: int, mid_action=None):
             """Closed-loop fixed work; ``mid_action(done)`` fires after
@@ -1021,7 +1066,7 @@ def run_fleet_suite(
                 for _ in range(per_client):
                     t0 = time.perf_counter()
                     try:
-                        client.polish(draft, positions, x, retries=8)
+                        client.polish(fb.draft, fb.positions, fb.x, retries=8)
                     except Exception as e:
                         with lock:
                             errors.append(_error(e)[:200])
@@ -1042,7 +1087,7 @@ def run_fleet_suite(
             return time.perf_counter() - t0, lat, errors
 
         for n in worker_counts:
-            fleet, server, thread, ready_s = start_fleet(n)
+            fleet, server, thread, ready_s = fb.start(n)
             try:
                 port = server.server_address[1]
                 drive(port, 1)  # untimed: first-dispatch costs off the clock
@@ -1058,7 +1103,7 @@ def run_fleet_suite(
                     row["errors"] = errors[:5]
                 results["workers"][str(n)] = row
             finally:
-                stop_fleet(fleet, server, thread)
+                fb.stop(fleet, server, thread)
         r1 = results["workers"].get("1", {}).get("req_per_s")
         r2 = results["workers"].get("2", {}).get("req_per_s")
         if r1 and r2:
@@ -1068,7 +1113,7 @@ def run_fleet_suite(
         # failover must keep client_errors at 0
         n_kill = max(worker_counts)
         if n_kill >= 2:
-            fleet, server, thread, _ = start_fleet(n_kill)
+            fleet, server, thread, _ = fb.start(n_kill)
             try:
                 port = server.server_address[1]
                 drive(port, 1)
@@ -1101,8 +1146,139 @@ def run_fleet_suite(
                     kill_row["errors"] = errors[:5]
                 results["forced_kill"] = kill_row
             finally:
-                stop_fleet(fleet, server, thread)
+                fb.stop(fleet, server, thread)
+
+        if mix:
+            results["mixed"] = run_fleet_mixed_phase(
+                mix, max(worker_counts), iterations=iterations, clients=clients, bench=fb)
     return results
+
+
+def run_fleet_mixed_phase(
+    mix: str,
+    workers: int = 2,
+    iterations: int = FLEET_ITERS,
+    clients: int = FLEET_CLIENTS,
+    device: str = "cuda",
+    model_overrides: Optional[Dict] = None,
+    startup_budget_s: float = 600.0,
+    bench: Optional[_FleetBench] = None,
+    state_dict: Optional[Dict] = None,
+) -> Dict[str, Any]:
+    """The fleet suite's mixed-size phase (``roko_tpu/benchmark.py:
+    3047-3199``): one seeded schedule of ``clients x iterations`` request
+    sizes (:func:`_mix_schedule`) driven closed-loop through a fleet of
+    ``workers`` real one-rank workers on the ladder
+    ``sorted({FLEET_REQUEST_WINDOWS, largest size})``, once under the
+    ``deadline`` batcher and once under ``continuous``: after one untimed
+    request of each class, each mode's :func:`_mixed_latency_row` (req/s,
+    p50 and p99 by size class) with ``client_errors``, and the
+    ``padding_efficiency`` of the timed pass, the deltas of the workers'
+    ``roko_serve_fill_windows_total`` over ``roko_serve_fill_padded_total``
+    as the front's ``/metrics`` passes them through by worker, summed over
+    the workers. Called by :func:`run_fleet_suite` with its ``bench``
+    (the payloads continue its seeded stream), or alone (``state_dict``:
+    the weights, default the seeded ones)."""
+    import dataclasses
+    import tempfile
+    import threading
+    import urllib.request
+
+    from roko_tpu_torch import constants as C
+    from roko_tpu_torch.serve.client import PolishClient
+
+    mix_parsed = _parse_mix(mix)
+    if bench is None:
+        with tempfile.TemporaryDirectory() as td:
+            return run_fleet_mixed_phase(
+                mix, workers, iterations, clients,
+                bench=_FleetBench(td, device, model_overrides, startup_budget_s, state_dict))
+    fb, rng = bench, bench.rng
+    large = max(s for s, _ in mix_parsed)
+    mixed_ladder = tuple(sorted({FLEET_REQUEST_WINDOWS, large}))
+    schedule = _mix_schedule(mix_parsed, clients * iterations)
+    payloads = {}
+    for size, _ in mix_parsed:
+        mpos = fb.positions_of(size)
+        mx = rng.integers(0, C.FEATURE_VOCAB, (size, fb.rows, fb.cols)).astype(np.uint8)
+        payloads[size] = (mpos, mx)
+    mixed_draft = "".join(rng.choice(list("ACGT"), (large - 1) * fb.stride + fb.cols + 10))
+    out: Dict[str, Any] = {"mix": mix, "workers": workers, "requests": len(schedule),
+                           "modes": {}}
+
+    def drive_mixed(port: int, sched):
+        work = list(sched)
+        lat: Dict[int, list] = {s: [] for s, _ in mix_parsed}
+        errors: list = []
+        lock = threading.Lock()
+
+        def one_client():
+            client = PolishClient(f"http://127.0.0.1:{port}", timeout=300.0)
+            while True:
+                with lock:
+                    if not work:
+                        return
+                    size = work.pop()
+                mpos, mx = payloads[size]
+                t0 = time.perf_counter()
+                try:
+                    client.polish(mixed_draft, mpos, mx, retries=8)
+                except Exception as e:
+                    with lock:
+                        errors.append(_error(e)[:200])
+                else:
+                    with lock:
+                        lat[size].append(time.perf_counter() - t0)
+
+        threads = [threading.Thread(target=one_client, daemon=True) for _ in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return time.perf_counter() - t0, lat, errors
+
+    def scrape_fill(port: int) -> Dict[str, list]:
+        """{worker: [windows, padded]} from the front's per-worker
+        passthrough of the fill counters."""
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+            text = r.read().decode()
+        fill: Dict[str, list] = {}
+        for line in text.splitlines():
+            for i, name in enumerate(("roko_serve_fill_windows_total{",
+                                      "roko_serve_fill_padded_total{")):
+                if line.startswith(name):
+                    wid = line.split('worker="')[1].split('"')[0]
+                    fill.setdefault(wid, [0, 0])[i] = int(float(line.rsplit(" ", 1)[1]))
+        return fill
+
+    for mode in ("deadline", "continuous"):
+        mode_cfg = dataclasses.replace(
+            fb.cfg, serve=dataclasses.replace(fb.cfg.serve, ladder=mixed_ladder, batching=mode))
+        fleet, server, thread, _ = fb.start(
+            workers, run_cfg=mode_cfg,
+            worker_cfg_path=fb.write_worker_cfg(mode_cfg, f"worker-{mode}.json"),
+            tag=f"mix-{mode}-")
+        try:
+            port = server.server_address[1]
+            drive_mixed(port, [s for s, _ in mix_parsed])  # untimed calibration, one a class
+            fill0 = scrape_fill(port)
+            wall, lat, errors = drive_mixed(port, schedule)
+            row = _mixed_latency_row(wall, len(schedule), lat)
+            row["client_errors"] = len(errors)
+            if errors:
+                row["errors"] = errors[:5]
+            # the timed pass's own padding: the lifetime ratio would fold
+            # in the calibration's heavily padded dispatches
+            fill1 = scrape_fill(port)
+            windows = sum(w - fill0.get(wid, [0, 0])[0] for wid, (w, _) in fill1.items())
+            padded = sum(p - fill0.get(wid, [0, 0])[1] for wid, (_, p) in fill1.items())
+            if padded > 0:
+                row["padding_efficiency"] = round(windows / padded, 4)
+            out["modes"][mode] = row
+        finally:
+            fb.stop(fleet, server, thread)
+    return out
 
 
 #: mixed-size serve suite (``roko_tpu/benchmark.py:2330-2339``): windows a
@@ -1658,7 +1834,9 @@ def _measure(args, model_overrides: Optional[Dict] = None) -> Dict[str, Any]:
     serve_mix = getattr(args, "serve_mix", None)
     if serve_mix == "default":
         serve_mix = SERVE_MIX_DEFAULT_TPU if dev.type == "cuda" else SERVE_MIX_DEFAULT_CPU
-    if serve_mix and serve_mix not in ("0", "off"):
+    if serve_mix in ("0", "off", ""):
+        serve_mix = None
+    if serve_mix:
         _stamp(f"serve suite (mixed sizes {serve_mix}, three batching modes)")
         try:
             detail["serve"] = run_serve_suite(
@@ -1676,11 +1854,16 @@ def _measure(args, model_overrides: Optional[Dict] = None) -> Dict[str, Any]:
             detail["coldstart"] = {"error": _error(e)}
     fleet_workers = parse_counts(getattr(args, "fleet_workers", None))
     if fleet_workers:
-        _stamp(f"fleet suite (workers {fleet_workers})")
+        # an explicit --serve-mix also runs the fleet suite's mixed-size
+        # phase (roko_tpu/benchmark.py:1183-1200); without one the suite
+        # keeps its flat single-size cost
+        _stamp(f"fleet suite (workers {fleet_workers}"
+               + (f", mixed sizes {serve_mix})" if serve_mix else ")"))
         try:
             detail["fleet"] = run_fleet_suite(fleet_workers,
                                               iterations=bench_iters or FLEET_ITERS,
-                                              device=dev.type, model_overrides=model_overrides)
+                                              device=dev.type, model_overrides=model_overrides,
+                                              mix=serve_mix)
         except Exception as e:  # report, never swallow
             detail["fleet"] = {"error": _error(e)}
     cascade_draft = getattr(args, "cascade_draft", None)
@@ -1860,7 +2043,9 @@ def add_serve_mix_flag(p: argparse.ArgumentParser) -> None:
                    metavar="SIZE:PCT,...",
                    help="serve suite: windows a request and its percent of the requests, e.g. "
                    f"2:50,8:50; bare: {SERVE_MIX_DEFAULT_TPU} on a card, "
-                   f"{SERVE_MIX_DEFAULT_CPU} on the CPU; 0, off or absent: off")
+                   f"{SERVE_MIX_DEFAULT_CPU} on the CPU; 0, off or absent: off. With "
+                   "--fleet-workers the fleet suite runs the same mix through its workers "
+                   "under both the deadline and continuous batchers")
 
 
 def add_cascade_flag(p: argparse.ArgumentParser) -> None:

@@ -49,8 +49,12 @@ once, binds the socket, warms the batch ladder on a thread while
 ``--announce FILE`` writes the bound port. ``train`` and ``serve`` take
 ``--event-log``. ``serve --workers N`` (``auto``: one per visible card)
 runs the fleet's supervisor instead (``serve/supervisor.py``,
-``roko_tpu/cli.py:1006-1035``): N worker ``serve`` processes on their
-``--devices-per-worker`` card slices (0: sharing the cards), failover
+``roko_tpu/cli.py:1006-1035``): N workers on their
+``--devices-per-worker`` card slices (0: sharing the cards), each one
+session over k ``serve`` ranks that the supervisor starts under
+``ROKO_*``, one rank a card of its slice (shared cards: the config's
+``dp x tp x sp`` grid when it names every axis, else the visible cards;
+k = 1 is a plain process), restarted all k together; failover
 routing, restarts, ``--registry``, the rollout gate's ``--bake-s``,
 ``--rollback-error-pct`` and ``--rollback-p99-x``, the autoscaler's
 ``--min-workers``/``--max-workers`` and the ``--ab-lane``; ``rollout
@@ -245,16 +249,17 @@ def cmd_features(args: argparse.Namespace) -> int:
 
 
 def _configure_event_log(path: Optional[str], max_mb: float,
-                         worker_id: Optional[int] = None) -> None:
+                         worker_id: Optional[int] = None, rank: int = 0) -> None:
     """Install the process-wide JSONL event sink (``obs/events.py``); a
-    fleet worker writes ``PATH.w<id>``, so N processes never share one
-    file's rotation."""
+    fleet worker writes ``PATH.w<id>`` (its follower rank r
+    ``PATH.w<id>.r<r>``), so N processes never share one file's
+    rotation."""
     if not path:
         return
     from roko_tpu_torch.obs.events import configure_event_log
 
     if worker_id is not None:
-        path = f"{path}.w{worker_id}"
+        path = f"{path}.w{worker_id}" + (f".r{rank}" if rank else "")
     configure_event_log(path, max_mb)
     print(f"obs: event log -> {path}")
 
@@ -528,17 +533,22 @@ ENV_LAUNCHES = "ROKO_KERNEL_LAUNCHES"
 class _LaunchReport:
     """The file ``<prefix>.<pid>.json`` of a serve process under
     :data:`ENV_LAUNCHES`: the kernel wrappers' launch counts, those at the
-    end of the warmup, and the requests, windows and batches served. It is
-    rewritten (atomically) at the warmup's end, after each answered
-    ``/polish`` request before its reply goes out, and at exit, so a
-    SIGKILLed worker's file still holds every request it answered."""
+    end of the warmup, the process's rank and fleet worker id, the
+    dispatches its session ran its rows of (the warmup's too), and (rank
+    0) the requests, windows and batches served. Rank 0 rewrites it
+    (atomically) at the warmup's end, after each answered ``/polish`` request before its reply
+    goes out, and at exit, so a SIGKILLed worker's file still holds every
+    request it answered; a follower rank at its warmup's end and at exit.
+    In a file written at exit a rank's ``gru_fwd`` launches are its
+    layers times its ``dispatches``."""
 
-    def __init__(self, prefix: str, metrics):
+    def __init__(self, prefix: str, metrics=None, session=None):
         import os
         import threading
 
         self.path = f"{prefix}.{os.getpid()}.json"
         self.metrics = metrics
+        self.session = session
         self.warmup: dict = {}
         self._lock = threading.Lock()
 
@@ -553,12 +563,18 @@ class _LaunchReport:
         import os
 
         from roko_tpu_torch.kernels import forward_launches
+        from roko_tpu_torch.parallel import distributed
 
         with self._lock:
+            worker = os.environ.get("ROKO_WORKER_ID")
             report = {"pid": os.getpid(),
                       "model_version": os.environ.get("ROKO_MODEL_VERSION"),
+                      "worker": None if worker is None else int(worker),
+                      "rank": self.session.mesh.rank if self.session else 0,
+                      "dispatches": self.session.dispatches if self.session else None,
+                      "backend": distributed.backend(),
                       "launches": forward_launches(), "warmup_launches": self.warmup,
-                      "served": {k: self.metrics.counters[k]
+                      "served": {k: self.metrics.counters[k] if self.metrics else 0
                                  for k in ("requests", "windows", "batches")}}
             with open(self.path + ".tmp", "w") as f:
                 json.dump(report, f)
@@ -590,8 +606,14 @@ def cmd_serve(args: argparse.Namespace) -> int:
     cfg = args.cfg
     _configure_store(cfg)
     several = distributed.world_size() > 1
-    _configure_event_log(cfg.serve.event_log, cfg.serve.event_log_max_mb,
-                         worker_id=distributed.rank() if several else args.worker_id)
+    if args.worker_id is not None:
+        _configure_event_log(cfg.serve.event_log, cfg.serve.event_log_max_mb,
+                             worker_id=args.worker_id, rank=distributed.rank())
+        # a fleet worker's ranks end with the supervisor that started them
+        _exit_with_parent()
+    else:
+        _configure_event_log(cfg.serve.event_log, cfg.serve.event_log_max_mb,
+                             worker_id=distributed.rank() if several else None)
     if args.federation and args.worker_id is None:
         # the lease/epoch registry and cross-host router: no model, no card
         from roko_tpu_torch.serve.federation import run_federation_front
@@ -611,11 +633,14 @@ def cmd_serve(args: argparse.Namespace) -> int:
         # never initialises CUDA; --workers auto and an oversubscribing
         # slice are settled before anything spawns
         from roko_tpu_torch.parallel.mesh import resolve_fleet_topology
-        from roko_tpu_torch.serve.supervisor import run_supervisor
+        from roko_tpu_torch.serve.supervisor import run_supervisor, worker_ranks
 
         try:
             cfg = dataclasses.replace(
                 cfg, fleet=resolve_fleet_topology(cfg.fleet, backend=args.device))
+            # each worker's k ranks must fit the grid, the model and the
+            # ladder before anything spawns
+            worker_ranks(cfg, args.device)
         except ValueError as e:
             print(f"serve: {e}", file=sys.stderr)
             return 1
@@ -642,11 +667,13 @@ def cmd_serve(args: argparse.Namespace) -> int:
     except ValueError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 1
-    if not session.leader:
-        return _serve_follower(session)
-    metrics = ServeMetrics(latency_samples=cfg.serve.latency_samples)
-    report = (_LaunchReport(os.environ[ENV_LAUNCHES], metrics)
+    report = (_LaunchReport(os.environ[ENV_LAUNCHES], session=session)
               if os.environ.get(ENV_LAUNCHES) else None)
+    if not session.leader:
+        return _serve_follower(session, report)
+    metrics = ServeMetrics(latency_samples=cfg.serve.latency_samples)
+    if report is not None:
+        report.metrics = metrics
     server = make_server(session, cfg.serve, metrics=metrics, warming=True,
                          worker_id=args.worker_id,
                          on_polished=report.write if report is not None else None)
@@ -707,10 +734,12 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
-def _serve_follower(session) -> int:
+def _serve_follower(session, report=None) -> int:
     """A follower rank of ``serve``: build or load its kernels, then run
     its rows of every dispatch rank 0 sends until rank 0's stop (exit 0).
-    A failure exits non-zero at once, so rank 0's next dispatch fails."""
+    A failure exits non-zero at once, so rank 0's next dispatch fails.
+    ``report`` (a :class:`_LaunchReport`) is written after the warmup and
+    at the stop."""
     from roko_tpu_torch.parallel import distributed
 
     m = session.mesh
@@ -718,15 +747,43 @@ def _serve_follower(session) -> int:
           f"{session.device} follows rank 0's dispatches", flush=True)
     try:
         session.warmup(log=print)
+        if report is not None:
+            report.warm()
         served = session.follow()
     except BaseException:
         import traceback
 
         traceback.print_exc()
         _exit_out_of_step(f"serve: rank {m.rank} failed; its group is out of step")
+    if report is not None:
+        report.write()
     print(f"serve: rank {m.rank} followed {served} dispatch(es); stopped by rank 0", flush=True)
     distributed.shutdown()
     return 0
+
+
+#: seconds between a fleet worker rank's looks at its parent
+PARENT_POLL_S = 0.5
+
+
+def _exit_with_parent() -> None:
+    """End this process (exit 1) once the process that started it is
+    gone: a fleet worker rank whose supervisor was killed outright leaves
+    nothing behind. A thread looks at the parent's pid every
+    :data:`PARENT_POLL_S`; an orphan is adopted by another process."""
+    import os
+    import threading
+    import time
+
+    parent = os.getppid()
+
+    def watch() -> None:
+        while os.getppid() == parent:
+            time.sleep(PARENT_POLL_S)
+        _exit_out_of_step(f"serve: the fleet's supervisor (pid {parent}) is gone; "
+                          "this worker rank exits")
+
+    threading.Thread(target=watch, name="roko-serve-parent", daemon=True).start()
 
 
 def _exit_out_of_step(message: str) -> None:
@@ -1183,8 +1240,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --distributed: fleet worker processes ('auto' = visible cards / "
                    "--devices-per-worker; default 2)")
     p.add_argument("--devices-per-worker", type=int, default=None,
-                   help="with --distributed: cards each worker sees (default 0: the workers "
-                   "share the cards)")
+                   help="with --distributed: cards each worker sees, one rank of the "
+                   "worker's session a card (default 0: the workers share the cards, each "
+                   "a session over the --dp/--tp/--sp grid, or over every visible card)")
     p.add_argument("--unit-bases", type=int, default=None,
                    help="with --distributed: split contigs longer than this into "
                    "region-aligned span units, stitched by the coordinator (default 1000000; "
@@ -1301,8 +1359,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "requests over (default 0: one process; 'auto': one per visible card "
                    "over --devices-per-worker)")
     p.add_argument("--devices-per-worker", type=int, default=None,
-                   help="fleet mode: cards each worker sees through CUDA_VISIBLE_DEVICES "
-                   "(default 0: the workers share the cards)")
+                   help="fleet mode: cards each worker sees through CUDA_VISIBLE_DEVICES; a "
+                   "worker of k cards is one session over k serve ranks the supervisor starts "
+                   "and restarts together (default 0: the workers share the cards, each a "
+                   "session over the --dp/--tp/--sp grid, or over every visible card)")
     p.add_argument("--heartbeat-interval", type=float, default=None,
                    help="fleet mode: seconds between the supervisor's /healthz probes of "
                    "each worker (default 2)")
@@ -1447,9 +1507,22 @@ def main(argv: Optional[List[str]] = None) -> int:
             if args.cfg.fleet.workers == 0:
                 parser.error("serve: a host agent supervises workers — pass --workers N "
                              "(N >= 1 or -1 for auto)")
-    if hasattr(args, "dp"):  # the subcommands on the mesh
+    if hasattr(args, "dp") and not _launches_workers(args):  # the subcommands on the mesh
         _check_mesh(parser, args)
     return args.fn(args)
+
+
+def _launches_workers(args: argparse.Namespace) -> bool:
+    """True for a process that starts workers and joins no grid itself:
+    the fleet's supervisor, a host agent, the federation's front and the
+    distributed polish's coordinator. Its ``--dp/--tp/--sp`` are its
+    workers' grid (``serve/supervisor.py`` checks it before they spawn)."""
+    if args.command == "polish":
+        return bool(args.distributed)
+    if args.command != "serve" or args.worker_id is not None:
+        return False
+    fc = args.cfg.fleet
+    return bool(fc.workers != 0 or fc.join or args.federation or args.host_agent)
 
 
 def _check_mesh(parser: argparse.ArgumentParser, args: argparse.Namespace) -> None:
@@ -1467,7 +1540,8 @@ def _check_mesh(parser: argparse.ArgumentParser, args: argparse.Namespace) -> No
     except ValueError as e:
         parser.error(f"mesh dp={mesh.dp}: {e}; the port runs one process per card: "
                      "start N processes with ROKO_COORDINATOR, ROKO_NUM_PROCESSES=N and "
-                     "ROKO_PROCESS_ID for a dp x tp x sp grid of N")
+                     "ROKO_PROCESS_ID for a dp x tp x sp grid of N (serve --workers starts "
+                     "a worker's ranks so itself)")
     try:
         check_divisible(args.cfg.model, tp, sp)
     except ValueError as e:

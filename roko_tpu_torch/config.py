@@ -465,9 +465,11 @@ class CompileConfig:
 @dataclass(frozen=True)
 class FleetConfig:
     """The single-host serving fleet (``roko_tpu/config.py:473-640``): a
-    supervising front end starts ``workers`` serve processes, each pinned
-    to a slice of the cards by ``CUDA_VISIBLE_DEVICES`` (or sharing them
-    with ``devices_per_worker=0``), and routes around crashed, hung and
+    supervising front end starts ``workers`` workers, each pinned to a
+    slice of the cards by ``CUDA_VISIBLE_DEVICES`` (or sharing them with
+    ``devices_per_worker=0``) and each one session over one serve process
+    a card of its slice (``parallel.mesh.fleet_worker_ranks``), and routes
+    around crashed, hung and
     breaker-tripped workers; rollouts, the A/B lane and the autoscaler ride
     on it. ``join``, ``host_id``, ``lease_ttl_s`` and ``fed_breaker_*`` are
     the multi-host federation's (``serve/federation.py``): a supervisor
@@ -476,7 +478,8 @@ class FleetConfig:
     #: worker processes; 0 = the single-process service; -1 = auto (one
     #: per ``devices_per_worker`` visible cards)
     workers: int = 0
-    #: cards each worker sees; 0 = every worker shares every card
+    #: cards each worker sees, one rank of its session a card; 0 = every
+    #: worker shares every card (its ranks: the mesh's grid, or one a card)
     devices_per_worker: int = 0
     heartbeat_interval_s: float = 2.0
     heartbeat_timeout_s: float = 5.0

@@ -16,7 +16,9 @@ Beside the build, the checks every kernel wrapper makes before a launch.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -159,11 +161,26 @@ def inference_kernels(model_cfg, backend: str = "cuda") -> tuple:
     return (base + "_bf16",) if dtype == "bfloat16" else (base,)
 
 
+@contextlib.contextmanager
+def _build_locks(names: Iterable[str]):
+    """Hold an exclusive file lock beside each named library (in name
+    order, so two processes never wait on each other crosswise): the
+    ranks of one session, started at once, build a missing library once,
+    and the others wait and then load it."""
+    with contextlib.ExitStack() as stack:
+        for name in sorted(names):
+            f = stack.enter_context(open(library_path(name).with_suffix(".lock"), "w"))
+            fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile every named kernel (default: all) whose library is missing,
-    one nvcc per source, all started together. Returns
-    ``{name: {"seconds": wall time, "ptxas": nvcc's resource report}}`` for
-    the kernels it compiled. Raises with nvcc's stderr when one fails."""
+    one nvcc per source, all started together, under a file lock a library
+    (:func:`_build_locks`): of processes building at once, one runs nvcc
+    and the rest load what it published. Returns ``{name: {"seconds": wall
+    time, "ptxas": nvcc's resource report}}`` for the kernels it compiled.
+    Raises with nvcc's stderr when one fails."""
     names = list(KERNELS if names is None else names)
     refused = [n for n in names if _bundle_dir is not None and n not in _bundle_paths]
     if refused:
@@ -173,13 +190,27 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             "this model's kind and dtype with `python -m roko_tpu_torch compile`)")
     names = [n for n in names if n not in _bundle_paths]
     todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        _count(names, todo)
+        return {}
+    build_dir().mkdir(parents=True, exist_ok=True)
+    with _build_locks(todo):
+        # another process may have published them while this one waited
+        todo = [n for n in todo if not library_path(n).exists()]
+        _count(names, todo)
+        return _compile(todo) if todo else {}
+
+
+def _count(names, todo) -> None:
+    """One build-cache hit or miss a kernel, the first time a process asks."""
     for n in names:
         if n not in _counted:
             _counted.add(n)
             cache.record(hit=n not in todo)
-    if not todo:
-        return {}
-    build_dir().mkdir(parents=True, exist_ok=True)
+
+
+def _compile(todo) -> Dict[str, dict]:
+    """nvcc for each of ``todo``, all at once, each published atomically."""
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()

@@ -10,11 +10,12 @@ its address, world size and rank from here.
 On a card the backend is NCCL, with gloo beside it for the CPU tensors
 of the corpus check (``datapipe.manifest.crosscheck_fingerprint``); on
 the CPU it is gloo. Rank ``r`` drives card ``r % torch.cuda.device_count()``.
-NCCL refuses two ranks on one card, so :func:`initialize` refuses that
-layout itself, naming gloo: several ranks can share one card through
+NCCL refuses two ranks on one card, so ranks that share a card run on
 gloo, whose collectives take CUDA tensors for ``all_reduce``,
 ``broadcast`` and ``barrier``, all that data-parallel training needs on
-the device. The backend changes only when the caller asks for it.
+the device: :func:`initialize` has the ranks swap their ``host:card``
+and chooses (:func:`choose_backend`). A caller that asks for NCCL on
+shared cards is refused, naming gloo.
 
 A dp x tp x sp grid (``parallel/mesh.py``) reduces over subgroups of the
 run: :func:`grid_groups` makes them, every rank every group in one order,
@@ -79,9 +80,21 @@ def refuse_shared_cards(cards: List[str]) -> None:
         if card in seen:
             raise ValueError(
                 f"ranks {seen[card]} and {r} share card {card}, and NCCL refuses two ranks "
-                "on one card: start one rank per card, or ask for backend='gloo', whose "
-                "collectives take CUDA tensors (all_reduce, broadcast, barrier)")
+                "on one card: start one rank per card, or leave the backend unset or ask "
+                "for 'gloo', whose collectives take CUDA tensors (all_reduce, broadcast, "
+                "barrier)")
         seen[card] = r
+
+
+def choose_backend(cards: List[str], backend: Optional[str] = None) -> str:
+    """The backend of ranks on CUDA cards, each rank's ``host:card`` in
+    ``cards``: ``backend`` when the caller names one, else NCCL when every
+    rank has a card of its own and gloo when some share one. NCCL on
+    shared cards is refused (:func:`refuse_shared_cards`)."""
+    if backend == "nccl" or (backend is None and len(set(cards)) == len(cards)):
+        refuse_shared_cards(cards)
+        return "nccl"
+    return "gloo"
 
 
 def initialize(
@@ -95,10 +108,11 @@ def initialize(
     """Join the run's process group when the arguments or the ``ROKO_*``
     environment name several processes; True when the group has more
     than one rank. One process (nothing named) returns False without
-    touching ``torch.distributed``. ``backend`` defaults to NCCL for a
-    CUDA ``device`` and gloo for the CPU. Idempotent: a second call keeps
-    the group the first one made. A rank that does not arrive within
-    :data:`TIMEOUT_S` fails the run."""
+    touching ``torch.distributed``. ``backend`` defaults, for a CUDA
+    ``device``, to what :func:`choose_backend` makes of the ranks' cards
+    (NCCL, or gloo where ranks share a card), and to gloo on the CPU.
+    Idempotent: a second call keeps the group the first one made. A rank
+    that does not arrive within :data:`TIMEOUT_S` fails the run."""
     global _backend
     topo = _topology(coordinator_address, num_processes, process_id)
     if topo is None:
@@ -109,8 +123,7 @@ def initialize(
         return dist.get_world_size() > 1
     address, n, rank = topo
     dev = torch.device(device)
-    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
-    if backend not in ("nccl", "gloo"):
+    if backend not in (None, "nccl", "gloo"):
         raise ValueError(f"unknown backend {backend!r}; expected nccl or gloo")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -123,9 +136,11 @@ def initialize(
     host, port = address.rsplit(":", 1)
     timeout = datetime.timedelta(seconds=TIMEOUT_S)
     store = dist.TCPStore(host, int(port), n, is_master=rank == 0, timeout=timeout)
-    if backend == "nccl":
+    if dev.type == "cuda" and backend != "gloo":
         store.set(f"roko/card/{rank}", f"{socket.gethostname()}:{card_of_rank(rank)}")
-        refuse_shared_cards([store.get(f"roko/card/{r}").decode() for r in range(n)])
+        backend = choose_backend([store.get(f"roko/card/{r}").decode() for r in range(n)],
+                                 backend)
+    backend = backend or "gloo"
     # NCCL takes the CUDA tensors and gloo the CPU ones (the corpus check)
     spec = "cpu:gloo,cuda:nccl" if backend == "nccl" else "gloo"
     dist.init_process_group(spec, store=store, world_size=n, rank=rank, timeout=timeout)

@@ -31,12 +31,17 @@ Beside the grid, the serving fleet's card slices (:92-290 of the
 reference's module): :func:`fleet_worker_slice`, :func:`fleet_worker_env`
 (a ``CUDA_VISIBLE_DEVICES`` overlay), :func:`visible_device_count` and
 :func:`resolve_fleet_topology`, which the supervisor calls without
-initialising CUDA.
+initialising CUDA. A reference worker's ``dp=-1`` mesh absorbs every
+device of its slice (:122-175); a port worker does the same with one
+process a card: :func:`fleet_worker_ranks` is its k, and
+:func:`fleet_worker_rank_envs` the k environment overlays the supervisor
+starts its ranks with, one session over them (``serve/session.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional, Sequence, Tuple
 
@@ -251,11 +256,50 @@ def fleet_worker_env(worker_index: int, num_workers: int, devices_per_worker: in
     return {"CUDA_VISIBLE_DEVICES": ",".join(str(i) for i in ids)}
 
 
-def visible_device_count(backend: str = "cuda") -> Optional[int]:
+def fleet_worker_ranks(devices_per_worker: int, mesh: MeshConfig, backend: str = "cuda",
+                       n_visible: Optional[int] = None) -> int:
+    """k, the ranks (processes) of one fleet worker's session: its slice's
+    cards when ``devices_per_worker`` is above 0; with shared cards (0),
+    the config's grid ``dp x tp x sp`` when it names every axis, else the
+    visible cards (``n_visible``, default :func:`visible_device_count`),
+    which is 1 on the CPU. The grid must fill k (:func:`mesh_shape`'s
+    message otherwise). No CUDA API and no device file in this process."""
+    if devices_per_worker > 0:
+        k = devices_per_worker
+    elif min(mesh.dp, mesh.tp, mesh.sp) >= 1:
+        k = mesh.dp * mesh.tp * mesh.sp
+    else:
+        k = max(1, n_visible if n_visible is not None else visible_device_count(backend))
+    mesh_shape(mesh, k)
+    return k
+
+
+def fleet_worker_rank_envs(worker_index: int, num_workers: int, devices_per_worker: int,
+                           mesh: MeshConfig, coordinator: str, backend: str = "cuda",
+                           n_visible: Optional[int] = None) -> "list[dict[str, str]]":
+    """The environment overlays of the k ranks of fleet worker ``i`` of
+    ``n`` (k from :func:`fleet_worker_ranks`): each is
+    :func:`fleet_worker_env`'s slice, and, when k is above 1,
+    ``ROKO_COORDINATOR`` (``coordinator``, rank 0's ``host:port``),
+    ``ROKO_NUM_PROCESSES=k`` and ``ROKO_PROCESS_ID=r``. The ranks choose
+    their backend themselves (``distributed.initialize``: gloo when they
+    share a card). One rank gets the slice alone, a plain process as
+    before. No CUDA API in this process."""
+    k = fleet_worker_ranks(devices_per_worker, mesh, backend, n_visible)
+    base = fleet_worker_env(worker_index, num_workers, devices_per_worker, backend=backend)
+    if k == 1:
+        return [base]
+    common = {**base, distributed.ENV_COORDINATOR: coordinator,
+              distributed.ENV_NUM_PROCESSES: str(k)}
+    return [{**common, distributed.ENV_PROCESS_ID: str(r)} for r in range(k)]
+
+
+def visible_device_count(backend: str = "cuda") -> int:
     """The cards this process (or a child with its environment) sees:
-    ``CUDA_VISIBLE_DEVICES`` when set, else ``torch.cuda.device_count()``,
-    which creates no context on a card but does open the card's device
-    files (``/dev/nvidia*``) in this process; 1 on the CPU (the host)."""
+    ``CUDA_VISIBLE_DEVICES`` when set, else ``torch.cuda.device_count()``
+    as a child process gives it (:func:`_child_device_count`), the count
+    the ranks themselves use, while this process opens no device file of
+    the card; 1 on the CPU (the host)."""
     import os
 
     if backend == "cpu":
@@ -263,7 +307,23 @@ def visible_device_count(backend: str = "cuda") -> Optional[int]:
     ids = os.environ.get("CUDA_VISIBLE_DEVICES")
     if ids is not None:
         return len([t for t in ids.split(",") if t.strip()])
-    return torch.cuda.device_count()
+    return _child_device_count()
+
+
+@functools.lru_cache(maxsize=None)
+def _child_device_count() -> int:
+    """``torch.cuda.device_count()`` in a child process with this
+    environment; 0 when the child cannot tell. Counted once a process."""
+    import subprocess
+    import sys
+
+    try:
+        child = subprocess.run([sys.executable, "-c",
+                                "import torch; print(torch.cuda.device_count())"],
+                               capture_output=True, text=True, timeout=300)
+        return int(child.stdout.strip() or 0)
+    except (OSError, ValueError, subprocess.TimeoutExpired):
+        return 0
 
 
 def resolve_fleet_topology(fleet_cfg, backend: str = "cuda"):
@@ -275,22 +335,22 @@ def resolve_fleet_topology(fleet_cfg, backend: str = "cuda"):
     - explicit ``workers`` with ``devices_per_worker > 0`` on the card:
       a worker count x slice above the visible cards is refused. With
       ``devices_per_worker == 0`` the workers share the cards, and on the
-      CPU there is nothing to oversubscribe: then nothing is counted, so a
-      supervisor or a distributed polish's coordinator opens no device
-      file of the card."""
+      CPU there is nothing to oversubscribe: then nothing is counted.
+      Counting opens no device file of the card in this process
+      (:func:`visible_device_count`)."""
     fc = fleet_cfg
     if fc.workers != -1 and (backend == "cpu" or fc.devices_per_worker <= 0):
         return fc
     n = visible_device_count(backend)
     if fc.workers == -1:
         per = fc.devices_per_worker if fc.devices_per_worker > 0 else 1
-        workers = (n or 0) // per
+        workers = n // per
         if workers < 1:
             raise ValueError(
                 f"--workers auto: {n} visible card(s) cannot host even one worker of {per} "
                 "card(s) (--devices-per-worker); pass --workers explicitly")
         fc = dataclasses.replace(fc, workers=workers, devices_per_worker=per)
-    if backend != "cpu" and fc.workers > 0 and fc.devices_per_worker > 0 and n is not None:
+    if backend != "cpu" and fc.workers > 0 and fc.devices_per_worker > 0:
         need = fc.workers * fc.devices_per_worker
         if need > n:
             raise ValueError(

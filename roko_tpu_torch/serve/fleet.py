@@ -1,21 +1,31 @@
 """Worker fleet: process supervision and failover routing for the
 multi-worker serving tier (the port's copy of ``roko_tpu/serve/fleet.py``).
 
-One :class:`Fleet` owns N worker processes, each a full single-process
-``python -m roko_tpu_torch serve`` stack (warm PolishSession, batcher,
-HTTP) pinned to a slice of the cards by ``CUDA_VISIBLE_DEVICES``
+One :class:`Fleet` owns N workers, each a full ``python -m
+roko_tpu_torch serve`` stack (warm PolishSession, batcher, HTTP) pinned
+to a slice of the cards by ``CUDA_VISIBLE_DEVICES``
 (``parallel.mesh.fleet_worker_env``), or sharing them, and loading one
-kernel bundle. The fleet's job is to make worker failure a
-latency event, never a correctness or availability event:
+kernel bundle. A worker whose slice holds k cards is k processes, the
+ranks of one session under ``ROKO_*`` (``parallel.mesh.
+fleet_worker_rank_envs``, a fresh coordinator port each start): rank 0
+binds the worker's port and announces it once every rank has joined, the
+others follow its dispatches. The worker lives and dies as one: any
+rank's exit is the worker's death, the rest of its ranks are killed
+(followers of a dead leader would block in a receive for ever, a leader
+without a follower fails its next dispatch), and the restart starts all
+k. The fleet's job is to make worker failure a latency event, never a
+correctness or availability event:
 
 - **liveness** — every worker is heartbeat-probed on ``/healthz``
   (``FleetConfig.heartbeat_interval_s``); any answer — 200 ready, 503
   warming/draining/breaker-open — proves the process alive, but only a
   200 keeps it in rotation. ``heartbeat_misses`` consecutive
   *unanswered* probes declare it hung.
-- **supervision** — a crashed worker (``waitpid`` via ``Popen.poll``)
-  or a hung one (SIGTERM, then SIGKILL after ``term_grace_s``) is
-  restarted under the shared :class:`~roko_tpu_torch.resilience.RetryPolicy`
+- **supervision** — a crashed worker (``waitpid`` via ``Popen.poll`` of
+  every rank, each tick, so a follower that dies while the worker is
+  idle is seen at once, not at the next dispatch) or a hung one
+  (SIGTERM, then SIGKILL after ``term_grace_s``) is restarted under the
+  shared :class:`~roko_tpu_torch.resilience.RetryPolicy`
   exponential-backoff shape, guarded by a per-worker restart-storm
   :class:`~roko_tpu_torch.resilience.CircuitBreaker`: ``storm_threshold``
   restarts without a ``stable_after_s`` healthy stretch mark the worker
@@ -44,11 +54,13 @@ the card its workers use.
 
 from __future__ import annotations
 
+import collections
 import http.client
 import json
 import os
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -135,11 +147,38 @@ _GROUP_LEADER = (
 )
 
 
+_ports_lock = threading.Lock()
+#: coordinator ports this process handed out lately: none is handed twice
+#: while it may still be bound
+_recent_ports: "collections.deque[int]" = collections.deque(maxlen=256)
+
+
+def free_coordinator(host: str = "127.0.0.1") -> str:
+    """``host:port`` of a free loopback port for a worker's session
+    coordinator (rank 0's store binds it), never one handed out lately by
+    this process: two workers starting at once, or a restart while the
+    last incarnation's port lingers, never race for one port. A port taken
+    by another program in between hangs that start only until the spawn
+    deadline kills it, and the restart draws a fresh one."""
+    with _ports_lock:
+        for _ in range(64):
+            with socket.socket() as sock:
+                sock.bind((host, 0))
+                port = sock.getsockname()[1]
+            if port not in _recent_ports:
+                _recent_ports.append(port)
+                return f"{host}:{port}"
+    raise OSError("no free loopback port for a worker's session coordinator")
+
+
 class WorkerLaunchSpec:
     """Everything that determines WHICH program a spawned worker runs:
     the argv builder (model path + per-version worker config, so the
-    kernel bundle rides inside), the env overlay (device pinning), and the
-    version label it serves under. Initial spawn, crash restart, and
+    kernel bundle rides inside; ``command(worker_id, announce_path)``, the
+    path None for a follower rank, which binds nothing), the env overlay
+    (device pinning), ``ranks(worker_id)`` (one overlay a rank of the
+    worker's session, rank 0 first; default one rank with ``env``), and
+    the version label it serves under. Initial spawn, crash restart, and
     rollout all resolve a worker's launch through ONE spec
     (``Fleet._spawn``), so the three paths cannot drift on which
     bundle/params a worker gets.
@@ -153,13 +192,26 @@ class WorkerLaunchSpec:
         command: Callable[[int, str], List[str]],
         *,
         env: Optional[Callable[[int], Dict[str, str]]] = None,
+        ranks: Optional[Callable[[int], List[Dict[str, str]]]] = None,
         version: str = BOOT_VERSION,
         meta: Optional[Dict[str, object]] = None,
     ):
         self.command = command
         self.env = env or (lambda wid: {})
+        self.ranks = ranks or (lambda wid: [self.env(wid)])
         self.version = version
         self.meta: Dict[str, object] = dict(meta or {})
+
+
+def _wait_all(procs: Sequence[subprocess.Popen], seconds: float) -> None:
+    """Wait until every process in ``procs`` has exited or ``seconds``
+    have passed."""
+    deadline = time.monotonic() + seconds
+    for p in procs:
+        try:
+            p.wait(max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            return
 
 
 def _tail(path: str, n: int = 2000) -> str:
@@ -173,8 +225,9 @@ def _tail(path: str, n: int = 2000) -> str:
 
 
 class WorkerHandle:
-    """One supervised worker process: its Popen, announced port,
-    lifecycle state, heartbeat bookkeeping, and restart-storm breaker."""
+    """One supervised worker: the Popen of each of its ranks (rank 0
+    first), rank 0's announced port, lifecycle state, heartbeat
+    bookkeeping, and restart-storm breaker."""
 
     def __init__(self, wid: int, runtime_dir: str, cfg: FleetConfig):
         self.id = wid
@@ -183,7 +236,8 @@ class WorkerHandle:
             runtime_dir, f"worker-{wid}.announce.json"
         )
         self.log_path = os.path.join(runtime_dir, f"worker-{wid}.log")
-        self.proc: Optional[subprocess.Popen] = None
+        #: this incarnation's processes, rank 0 (the one that binds) first
+        self.procs: List[subprocess.Popen] = []
         self.port: Optional[int] = None
         self.state = DEAD
         self.spawned_at = 0.0
@@ -231,8 +285,22 @@ class WorkerHandle:
             reset_s=self._cfg.storm_reset_s,
         )
 
+    @property
+    def proc(self) -> Optional[subprocess.Popen]:
+        """Rank 0's process: the one that binds, drains and announces."""
+        return self.procs[0] if self.procs else None
+
     def alive(self) -> bool:
-        return self.proc is not None and self.proc.poll() is None
+        """Every rank runs: a worker missing one is dead."""
+        return bool(self.procs) and all(p.poll() is None for p in self.procs)
+
+    def exited(self) -> Optional[Tuple[int, int]]:
+        """``(rank, exit code)`` of the first rank that has exited, or None."""
+        for r, p in enumerate(self.procs):
+            rc = p.poll()
+            if rc is not None:
+                return r, rc
+        return None
 
 
 class Fleet:
@@ -418,6 +486,8 @@ class Fleet:
         self._thread.start()
 
     def _spawn(self, w: WorkerHandle, now: float) -> None:
+        # no rank of an earlier incarnation may outlive it
+        self._kill_ranks(w)
         try:
             os.unlink(w.announce_path)
         except OSError:
@@ -430,29 +500,39 @@ class Fleet:
         if spec.version != w.version:
             w.reset_regime()  # storm history belongs to the old bundle
         w.version = spec.version
-        env = dict(os.environ)
-        env.update(spec.env(w.id))
-        env["ROKO_WORKER_ID"] = str(w.id)
-        # the worker's model-lane identity: labels its latency
-        # histograms and arms the X-Roko-Model pin guard server-side
-        env["ROKO_MODEL_VERSION"] = spec.version
+        overlays = spec.ranks(w.id)
         # append: across restarts one log per worker slot keeps the
-        # whole crash history in a single CI-dumpable file
+        # whole crash history (every rank's) in a single CI-dumpable file
         logf = open(w.log_path, "ab", buffering=0)
+        procs: List[subprocess.Popen] = []
         try:
             logf.write(
                 f"\n--- spawn worker {w.id} (restart {w.restarts}, "
-                f"version {spec.version}) ---\n".encode()
+                f"version {spec.version}, {len(overlays)} rank(s)) ---\n".encode()
             )
-            w.proc = subprocess.Popen(
-                spec.command(w.id, w.announce_path),
-                stdout=logf,
-                stderr=subprocess.STDOUT,
-                env=env,
-                **({} if self._leader is None else {"process_group": self._leader.pid}),
-            )
+            for rank, overlay in enumerate(overlays):
+                env = dict(os.environ)
+                env.update(overlay)
+                env["ROKO_WORKER_ID"] = str(w.id)
+                # the worker's model-lane identity: labels its latency
+                # histograms and arms the X-Roko-Model pin guard server-side
+                env["ROKO_MODEL_VERSION"] = spec.version
+                procs.append(subprocess.Popen(
+                    spec.command(w.id, w.announce_path if rank == 0 else None),
+                    stdout=logf,
+                    stderr=subprocess.STDOUT,
+                    env=env,
+                    **({} if self._leader is None else {"process_group": self._leader.pid}),
+                ))
+        except BaseException:
+            # a worker runs with all k ranks or not at all
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
         finally:
-            logf.close()  # the child keeps its own copy of the fd
+            logf.close()  # the children keep their own copy of the fd
+        w.procs = procs
         w.state = STARTING
         w.spawned_at = now
         w.port = None
@@ -621,8 +701,8 @@ class Fleet:
                 )
             if not rolling:
                 for w in self.workers:
-                    if w.alive():
-                        w.proc.terminate()
+                    if w.proc is not None and w.proc.poll() is None:
+                        w.proc.terminate()  # rank 0 drains and stops its followers
             for w in self.workers:
                 self._terminate(w, grace)
                 w.state = STOPPED
@@ -639,21 +719,34 @@ class Fleet:
             self._drain_done.set()
 
     def _terminate(self, w: WorkerHandle, grace_s: float) -> None:
-        """SIGTERM (the worker drains its in-flight requests), escalate
-        to SIGKILL after ``grace_s``."""
-        if not w.alive():
+        """SIGTERM rank 0 (it drains its in-flight requests, then sends
+        its followers the stop op), escalate to SIGKILL after ``grace_s``;
+        followers still running ``term_grace_s`` after rank 0's clean exit,
+        or at once when rank 0 did not exit cleanly, are killed."""
+        leader = w.proc
+        if leader is None or all(p.poll() is not None for p in w.procs):
             return
-        w.proc.terminate()
-        try:
-            w.proc.wait(grace_s)
-        except subprocess.TimeoutExpired:
-            self._log(
-                f"roko fleet: worker {w.id} ignored SIGTERM for "
-                f"{grace_s:.0f}s; escalating to SIGKILL"
-            )
-            w.proc.kill()
+        if leader.poll() is None:
+            leader.terminate()
             try:
-                w.proc.wait(self.fleet_cfg.term_grace_s)
+                leader.wait(grace_s)
+            except subprocess.TimeoutExpired:
+                self._log(
+                    f"roko fleet: worker {w.id} ignored SIGTERM for "
+                    f"{grace_s:.0f}s; escalating to SIGKILL"
+                )
+        if leader.poll() == 0:  # drained: its followers got the stop op
+            _wait_all(w.procs[1:], self.fleet_cfg.term_grace_s)
+        self._kill_ranks(w)
+
+    def _kill_ranks(self, w: WorkerHandle) -> None:
+        """SIGKILL every rank of ``w`` still running, and reap them all."""
+        for p in w.procs:
+            if p.poll() is None:
+                p.kill()
+        for p in w.procs:
+            try:
+                p.wait(self.fleet_cfg.term_grace_s)
             except subprocess.TimeoutExpired:  # pragma: no cover
                 pass
 
@@ -704,9 +797,17 @@ class Fleet:
                     f"probe in {cfg.storm_reset_s:.0f}s"
                 )
             return
-        rc = w.proc.poll() if w.proc is not None else None
-        if rc is not None:
-            self._note_death(w, now, f"exited rc={rc}")
+        dead = w.exited()
+        if dead is not None:
+            rank, rc = dead
+            if len(w.procs) > 1:
+                # the worker's session is out of step: one death, all k
+                # ranks restart together
+                self._kill_ranks(w)
+                self._note_death(w, now, f"rank {rank} of {len(w.procs)} exited rc={rc} "
+                                 "(its other ranks killed)")
+            else:
+                self._note_death(w, now, f"exited rc={rc}")
             return
         if w.state == STARTING:
             port = self._read_announce(w)
@@ -1071,6 +1172,7 @@ class Fleet:
                 "port": w.port,
                 "restarts": w.restarts,
                 "version": w.version,
+                "ranks": len(w.procs),
             }
             for w in workers
         }

@@ -130,7 +130,7 @@ class PolishSession:
         self.mesh: Mesh = mesh if mesh is not None else Mesh(dp=1)
         #: the dp extent: every global rung sends rung/dp rows to each dp group
         self.dp: int = self.mesh.dp
-        #: the ranks (one card each) this session drives
+        #: the ranks this session drives (one card each, or sharing one)
         self.n_devices: int = self.mesh.dp * self.mesh.tp * self.mesh.sp
         #: rank 0 admits work and dispatches; every other rank follows
         self.leader: bool = self.mesh.rank == 0
@@ -167,10 +167,12 @@ class PolishSession:
         self.broken: Optional[str] = None
         self._on_broken: list = []
         #: the leader's seconds in the host collectives (header and
-        #: scatter; the gather, which waits for the slowest rank), and the
-        #: dispatches this rank ran over the group
+        #: scatter; the gather, which waits for the slowest rank)
         self.collective_s: Dict[str, float] = {"send": 0.0, "gather": 0.0}
-        self.collective_dispatches = 0
+        #: the global batches this rank ran its rows of (the warmup's too),
+        #: over the group when the session has several ranks: its
+        #: recurrent kind's kernel launches are its layers times this
+        self.dispatches = 0
 
     # -- readiness ------------------------------------------------------------
 
@@ -324,7 +326,6 @@ class PolishSession:
         out = gather_rows(mesh, preds)
         self.collective_s["send"] += t1 - t0
         self.collective_s["gather"] += time.perf_counter() - t2
-        self.collective_dispatches += 1
         return out
 
     def _dispatch(self, x: np.ndarray, n: Optional[int] = None) -> np.ndarray:
@@ -357,6 +358,7 @@ class PolishSession:
                 self._deadlines.forget(key)
             raise
         self._ready.add(key)
+        self.dispatches += 1
         return out
 
     def follow(self) -> int:
@@ -376,7 +378,7 @@ class PolishSession:
             self.dispatched_shapes.add(rung)
             preds = self._rows(mine, self._shard_count(rung, n if op == OP_RAGGED else None))
             gather_rows(self.mesh, preds)
-            self.collective_dispatches += 1
+            self.dispatches += 1
             served += 1
 
     def stop(self) -> None:

@@ -3,10 +3,14 @@ copy of ``roko_tpu/serve/supervisor.py``).
 
 ``python -m roko_tpu_torch serve CKPT --workers N`` runs THIS process
 instead of a PolishSession: it starts N ``python -m roko_tpu_torch
-serve`` worker processes (each a full warm single-process stack, pinned
-to its cards by ``CUDA_VISIBLE_DEVICES`` or sharing them, loading one
-kernel bundle) via :class:`~roko_tpu_torch.serve.fleet.Fleet`, and puts a
-thin HTTP surface over the fleet:
+serve`` workers (each a full warm stack, pinned to its cards by
+``CUDA_VISIBLE_DEVICES`` or sharing them, loading one kernel bundle) via
+:class:`~roko_tpu_torch.serve.fleet.Fleet`, and puts a thin HTTP surface
+over the fleet. It is the workers' launcher too: a worker whose slice
+holds k cards (``--devices-per-worker k``; with shared cards, the
+config's ``dp x tp x sp`` grid) is k processes under ``ROKO_*``, one
+session over them (``parallel.mesh.fleet_worker_rank_envs``). The HTTP
+surface:
 
 - ``POST /polish`` — admission control (bounded in-flight, 503 +
   ``Retry-After`` past it) then failover routing: the body is relayed
@@ -66,6 +70,7 @@ from roko_tpu_torch.serve.fleet import (
     BOOT_VERSION,
     Fleet,
     WorkerLaunchSpec,
+    free_coordinator,
     write_announce,
 )
 from roko_tpu_torch.serve.httpbase import (
@@ -343,24 +348,45 @@ def make_model_verifier(
 
 def worker_command(
     model_path: str, config_path: str, device: str = "cuda"
-) -> Callable[[int, str], List[str]]:
+) -> Callable[[int, Optional[str]], List[str]]:
     """argv builder for real ``python -m roko_tpu_torch serve`` workers:
     ephemeral loopback port, port announced through ``announce_path``,
     config via the shared JSON, the supervisor's ``--device`` (a worker
     that cannot see the card fails its start; it never moves to the CPU).
-    ``--worker-id`` keeps the child out of supervisor mode."""
+    ``--worker-id`` keeps the child out of supervisor mode. A follower
+    rank (``announce_path`` None) gets the same command without
+    ``--announce``: it binds nothing and follows rank 0's dispatches."""
 
-    def build(worker_id: int, announce_path: str) -> List[str]:
+    def build(worker_id: int, announce_path: Optional[str]) -> List[str]:
         return [
             sys.executable, "-m", "roko_tpu_torch", "serve", model_path,
             "--config", config_path,
             "--host", "127.0.0.1", "--port", "0",
             "--worker-id", str(worker_id),
-            "--announce", announce_path,
+            *(["--announce", announce_path] if announce_path is not None else []),
             "--device", device,
         ]
 
     return build
+
+
+def worker_ranks(cfg: RokoConfig, device: str = "cuda") -> int:
+    """k, the ranks of each worker's session
+    (``parallel.mesh.fleet_worker_ranks``), checked before anything
+    spawns: the config's grid must fill k (``mesh_shape``'s message), the
+    transformer must split over its tp and sp (``check_divisible``'s) and
+    an explicit ladder must shard over its dp (``validate_ladder``'s); a
+    ``ValueError`` names what does not fit."""
+    from roko_tpu_torch.config import validate_ladder
+    from roko_tpu_torch.parallel.mesh import fleet_worker_ranks, mesh_shape
+    from roko_tpu_torch.parallel.tp import check_divisible
+
+    k = fleet_worker_ranks(cfg.fleet.devices_per_worker, cfg.mesh, device)
+    dp, tp, sp = mesh_shape(cfg.mesh, k)
+    check_divisible(cfg.model, tp, sp)
+    if cfg.serve.ladder:
+        validate_ladder(cfg.serve.ladder, dp)
+    return k
 
 
 def worker_launch_spec(
@@ -399,14 +425,21 @@ def worker_launch_spec(
     # worker's fresh id must map to a valid slice, and a fixed-size
     # fleet (max_workers unset) keeps the old denominator (shared cards,
     # devices_per_worker=0, and the CPU give an empty overlay either way)
-    from roko_tpu_torch.parallel.mesh import fleet_worker_env
+    from roko_tpu_torch.parallel.mesh import fleet_worker_rank_envs
 
     n_slices = max(fc.workers, fc.max_workers or 0)
+    k = worker_ranks(cfg, device)
+    spec_meta["ranks"] = k
+
+    def ranks(wid: int) -> List[Dict[str, str]]:
+        # a fresh coordinator port for every start of the worker's session
+        return fleet_worker_rank_envs(
+            wid, n_slices, fc.devices_per_worker, cfg.mesh,
+            free_coordinator() if k > 1 else "", backend=device)
+
     return WorkerLaunchSpec(
         worker_command(model_path, config_path, device),
-        env=lambda wid: fleet_worker_env(
-            wid, n_slices, fc.devices_per_worker, backend=device
-        ),
+        ranks=ranks,
         version=version,
         meta=spec_meta,
     )

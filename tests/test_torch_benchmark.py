@@ -466,3 +466,103 @@ def test_cascade_draft_flag_runs_the_suite(monkeypatch):
     assert seen == [(5000, "cpu")]
     monkeypatch.setattr(B, "run_cascade_suite", lambda n, **kw: {"error": "boom"})
     assert B.main(["--device", "cpu", "--cascade-draft", "100"]) == 1
+
+
+# -- the fleet suite's mixed-size phase ----------------------------------------
+
+
+@pytest.mark.parametrize("spec", ["4:90,256:10", "2:50,8:50", "4:90,64:10", "1:33,5:33,9:34",
+                                  "16:100", "3:0,7:100", "8:60.5,2:39.5"])
+def test_parse_mix_is_the_references(spec):
+    assert B._parse_mix(spec) == RB._parse_mix(spec)
+
+
+@pytest.mark.parametrize("spec", ["4:90,256", "a:50,b:50", "0:100", "4:-5,8:105", "2:50",
+                                  "", "4:90;256:10"])
+def test_parse_mix_refuses_as_the_reference(spec):
+    with pytest.raises(ValueError) as want:
+        RB._parse_mix(spec)
+    with pytest.raises(ValueError) as got:
+        B._parse_mix(spec)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("total", [1, 8, 48, 75])
+@pytest.mark.parametrize("spec", ["4:90,256:10", "2:50,8:50", "1:33,5:33,9:34", "3:0,7:100"])
+def test_mix_schedule_is_the_references(spec, total, seed):
+    """One seed, one schedule: the size classes and their order."""
+    mix = B._parse_mix(spec)
+    got = B._mix_schedule(mix, total, seed=seed)
+    assert got == RB._mix_schedule(RB._parse_mix(spec), total, seed=seed)
+    assert set(got) == {s for s, p in mix if p}
+
+
+def test_mixed_latency_row_is_the_references():
+    rng = np.random.default_rng(3)
+    lat = {4: list(rng.random(9)), 256: list(rng.random(2)), 64: []}
+    assert B._mixed_latency_row(1.25, 12, lat) == RB._mixed_latency_row(1.25, 12, lat)
+    assert B._mixed_latency_row(0.0, 0, {4: []}) == RB._mixed_latency_row(0.0, 0, {4: []})
+
+
+def test_fleet_suite_refuses_a_bad_mix_before_any_fleet(monkeypatch):
+    """A typo'd mix fails at once, before the suite's fleets start."""
+
+    def no_fleet(*a, **k):
+        raise AssertionError("a fleet started")
+
+    monkeypatch.setattr(B, "_FleetBench", no_fleet)
+    with pytest.raises(ValueError, match="sum to 50"):
+        B.run_fleet_suite((1, 2), device="cpu", mix="2:50")
+    with pytest.raises(ValueError, match="bad --serve-mix"):
+        B.run_fleet_mixed_phase("2:x", device="cpu")
+
+
+def test_serve_mix_reaches_the_fleet_suite(monkeypatch):
+    """An explicit ``--serve-mix`` (bare: the device's default mix) is the
+    fleet suite's ``mix``; without one, or with ``off``, the suite runs
+    without its mixed phase."""
+    seen = []
+    monkeypatch.setattr(B, "run_fleet_suite",
+                        lambda counts, **kw: seen.append((counts, kw["mix"])) or {})
+    monkeypatch.setattr(B, "run_serve_suite", lambda mix, **kw: {"modes": {}})
+    monkeypatch.setattr(B, "bench_torch_reference", lambda: 1.0)
+    monkeypatch.setattr(B, "run_inference_suite",
+                        lambda *a, **k: {"windows_per_sec": 1.0, "iterations": 1})
+    assert B.main(["--device", "cpu", "--fleet-workers", "1,2", "--serve-mix", "2:50,8:50"]) == 0
+    assert cli.main(["bench", "--device", "cpu", "--fleet-workers", "2", "--serve-mix"]) == 0
+    assert B.main(["--device", "cpu", "--fleet-workers", "1", "--serve-mix", "off"]) == 0
+    assert B.main(["--device", "cpu", "--fleet-workers", "1"]) == 0
+    assert seen == [((1, 2), "2:50,8:50"), ((2,), B.SERVE_MIX_DEFAULT_CPU), ((1,), None),
+                    ((1,), None)]
+
+
+#: the keys of ``roko_tpu.benchmark.run_fleet_suite``'s ``results["mixed"]``
+#: (:3066-3070, :3163-3197): the phase, and each mode's
+#: ``_mixed_latency_row`` with ``client_errors`` and ``padding_efficiency``
+REF_MIXED_KEYS = {"mix", "workers", "requests", "modes"}
+REF_MIXED_MODE_KEYS = set(RB._mixed_latency_row(1.0, 1, {2: [0.5]})) | {
+    "client_errors", "padding_efficiency"}
+
+
+def test_fleet_suite_mixed_phase_rows_are_the_references():
+    """``run_fleet_suite((1,), mix="2:50,8:50")`` on a tiny model over a
+    real ``serve --device cpu`` worker: ``results["mixed"]`` with the
+    reference's keys for both batchers, every scheduled request answered
+    without a client error, both size classes timed, the padding
+    efficiency of the timed pass within (0, 1]."""
+    got = B.run_fleet_suite((1,), iterations=2, device="cpu", model_overrides=TINY,
+                            mix="2:50,8:50")
+    assert set(got["workers"]) == {"1"} and got["workers"]["1"]["client_errors"] == 0
+    mixed = got["mixed"]
+    assert set(mixed) == REF_MIXED_KEYS and set(mixed["modes"]) == {"deadline", "continuous"}
+    schedule = RB._mix_schedule(RB._parse_mix("2:50,8:50"), B.FLEET_CLIENTS * 2)
+    assert (mixed["mix"], mixed["workers"], mixed["requests"]) == ("2:50,8:50", 1,
+                                                                   len(schedule))
+    for mode, row in mixed["modes"].items():
+        assert set(row) == REF_MIXED_MODE_KEYS, mode
+        assert row["client_errors"] == 0 and row["requests_scheduled"] == len(schedule)
+        assert {int(s): c["requests"] for s, c in row["size_classes"].items()} == \
+            {s: schedule.count(s) for s in set(schedule)}
+        assert 0.0 < row["padding_efficiency"] <= 1.0
+    assert B.ported_errors({"detail": {"fleet": got}}) == []

@@ -168,7 +168,7 @@ def test_session_over_ranks_equals_reference_and_one_rank(work, ranks, one_rank,
     assert set(info["dispatched"]) <= set(info["ladder"]) == set(LADDER)
     assert ref.dispatched_shapes <= set(LADDER)
     # every global rung reached every rank
-    assert info["collective_dispatches"] >= len(SIZES) + len(RAGGED)
+    assert info["dispatches"] >= len(SIZES) + len(RAGGED)
 
 
 @pytest.mark.parametrize("dp", [2, 4])

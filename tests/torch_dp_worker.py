@@ -246,7 +246,7 @@ def mode_mesh_serve(out_dir: str) -> None:
             arrays[f"ragged{n}"] = session.predict_ragged(slab.copy(), n)
         out.update(ladder=list(session.ladder), n_devices=session.n_devices,
                    dispatched=sorted(session.dispatched_shapes),
-                   collective_dispatches=session.collective_dispatches)
+                   dispatches=session.dispatches)
         session.stop()
     else:
         out["followed"] = session.follow()
